@@ -4,7 +4,6 @@
 #pragma once
 
 #include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -17,13 +16,12 @@ constexpr float kNegInf = -3.4028234663852886e38f;
 constexpr unsigned kFullMask = 0xffffffffu;
 
 // dtype codes shared with the Python wrappers.
-enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
+enum DType : int { kF32 = 0, kBF16 = 1 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -32,10 +30,6 @@ __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
-}
-template <>
-__device__ __forceinline__ __half from_float<__half>(float x) {
-  return __float2half(x);
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -68,23 +62,15 @@ __device__ __forceinline__ float dot_row(const float* q, const T* row) {
   return acc;
 }
 
-// Calls fn.template operator()<T, D>() for the runtime (dtype, head dim);
-// returns -1 for a pair no kernel was instantiated for.
+// Calls fn.template operator()<T, D>() for the runtime (dtype, head dim):
+// fp32 and bf16 at head dim 64, the pairs a ported configuration runs.
+// Returns -1 for any other pair.
 template <typename Fn>
 int dispatch(int dtype, int head_dim, Fn fn) {
-  auto by_dim = [&](auto tag) -> int {
-    using T = decltype(tag);
-    switch (head_dim) {
-      case 32: return fn.template operator()<T, 32>();
-      case 64: return fn.template operator()<T, 64>();
-      case 128: return fn.template operator()<T, 128>();
-      default: return -1;
-    }
-  };
+  if (head_dim != 64) return -1;
   switch (dtype) {
-    case kF32: return by_dim(float{});
-    case kBF16: return by_dim(__nv_bfloat16{});
-    case kF16: return by_dim(__half{});
+    case kF32: return fn.template operator()<float, 64>();
+    case kBF16: return fn.template operator()<__nv_bfloat16, 64>();
     default: return -1;
   }
 }

@@ -39,6 +39,7 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kTile = 32;  // keys per warp step: one per lane
+constexpr int kMaxDevices = 64;
 
 struct DecodeArgs {
   const void* q;       // [B, 1, H, D]
@@ -157,9 +158,18 @@ struct LaunchDecode {
   template <typename T, int D>
   int operator()() const {
     const int bytes = kWarps * kTile * D * sizeof(T);
-    static const cudaError_t configured = cudaFuncSetAttribute(
-        decode_kernel<T, D, kPaged>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (configured != cudaSuccess) return static_cast<int>(configured);
+    // The shared-memory limit is an attribute of the kernel on each
+    // device: raise it once per device this instantiation runs on.
+    static bool configured[kMaxDevices] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev >= kMaxDevices || !configured[dev]) {
+      err = cudaFuncSetAttribute(decode_kernel<T, D, kPaged>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      if (dev < kMaxDevices) configured[dev] = true;
+    }
     decode_kernel<T, D, kPaged><<<dim3(a.heads, batch), kThreads, bytes, stream>>>(a);
     return static_cast<int>(cudaGetLastError());
   }

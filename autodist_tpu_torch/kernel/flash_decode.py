@@ -30,8 +30,8 @@ import torch
 
 from autodist_tpu_torch.kernel import NEG_INF, build
 
-SUPPORTED_HEAD_DIMS = (32, 64, 128)
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+SUPPORTED_HEAD_DIMS = (64,)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 # --------------------------------------------------------------------------- #
@@ -108,7 +108,7 @@ def on_cuda(*tensors) -> bool:
 
 
 def check_kernel_args(dtype, data, indices):
-    """What the CUDA kernels take: one element type (fp32, bf16 or fp16)
+    """What the CUDA kernels take: one element type (fp32 or bf16)
     for the data tensors and for ``dtype``, int32 indices, contiguous
     tensors, 16-byte aligned data, a supported head dim."""
     dt = data[0][1].dtype

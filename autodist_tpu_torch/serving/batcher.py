@@ -157,8 +157,7 @@ class ContinuousBatcher:
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("empty prompt")
-        cap = getattr(self.engine, "max_prompt_tokens",
-                      self.engine.prefill_len)
+        cap = self.engine.max_prompt_tokens
         if len(prompt) > cap:
             raise ValueError(
                 f"prompt of {len(prompt)} tokens exceeds the engine's "
@@ -280,8 +279,7 @@ class ContinuousBatcher:
         if not free or not self._queue:
             return
         B = self.engine.num_slots
-        S = getattr(self.engine, "max_prompt_tokens",
-                    self.engine.prefill_len)
+        S = self.engine.max_prompt_tokens
         prompts = np.zeros((B, S), np.int32)
         p_lens = np.ones((B,), np.int32)
         admit = np.zeros((B,), bool)
@@ -302,7 +300,7 @@ class ContinuousBatcher:
             req = self._queue.popleft()
             hits = self.engine.reserve_slot(i, len(req.prompt),
                                             req.max_new_tokens,
-                                            prompt=req.prompt) or 0
+                                            prompt=req.prompt)
             if hits:
                 telemetry.counter("serve/prefix_hit_blocks").inc(hits)
             prompts[i, :len(req.prompt)] = req.prompt
@@ -333,7 +331,7 @@ class ContinuousBatcher:
             telemetry.gauge("serve/queue_depth").set(len(self._queue))
             raise
         t_first = time.perf_counter()
-        chunk = getattr(self.engine, "prefill_chunk", None)
+        chunk = self.engine.prefill_chunk
         for i, req, hits in taken:
             slot = _Slot(req=req, tokens=[int(toks[i])], admitted_s=now,
                          first_tok_s=t_first, inter_token_ms=[],
@@ -394,7 +392,7 @@ class ContinuousBatcher:
         telemetry.get().record_event(
             "serve", request=req.rid,
             prompt_tokens=len(req.prompt), tokens=len(comp.tokens),
-            kv_layout=getattr(self.engine, "kv_layout", "dense"),
+            kv_layout=self.engine.kv_layout,
             finish=comp.finish_reason,
             ttft_ms=comp.ttft_s * 1e3,
             queue_wait_ms=comp.queue_wait_s * 1e3,
@@ -442,15 +440,9 @@ class ContinuousBatcher:
                 if a and s is not None and s.req.trace_id]
         with telemetry.span("serve/decode", tokens=int(active.sum()) * K,
                             **({"trace_ids": tids} if tids else {})):
-            if hasattr(self.engine, "decode_window"):
-                w = self.engine.decode_window(active)
-                toks, counts = w.tokens, w.counts
-                proposed, accepted = w.spec_proposed, w.spec_accepted
-            else:
-                # Minimal engines (test doubles) expose only decode().
-                toks = self.engine.decode(active)
-                counts = np.where(active, K, 0)
-                proposed = accepted = np.zeros_like(counts)
+            w = self.engine.decode_window(active)
+        toks, counts = w.tokens, w.counts
+        proposed, accepted = w.spec_proposed, w.spec_accepted
         dt = time.perf_counter() - t0
         per_tok_ms = dt / max(int(np.max(counts)), 1) * 1e3
         for i, slot in enumerate(self._slots):

@@ -23,7 +23,7 @@ edges where JAX clamps rather than raises:
   table row's last column (the jnp gather clamps) — the slot's own
   tail block, which the engine tail-fills;
 * a row whose write is masked off (``write_mask``, ``admit``, the
-  ``lo < p_lens`` block rule, ``write_from``) leaves its target bit for
+  ``lo < p_lens`` block rule) leaves its target bit for
   bit, and where two rows of one call hit one target the later wins,
   as in the JAX writers' sequential loop.
 
@@ -270,11 +270,11 @@ def paged_write_token(cache_arr, layer: int, kv, positions, block_table,
 
 
 def _write_block_rows(cache_arr, layer, kv, admit, block_table, block_len,
-                      first_pos, p_lens, write_from):
+                      first_pos, p_lens):
     """Rows ``first_pos + p`` of ``kv [B, S, heads, d]`` through the
     table, block-granular: a logical block is written whole when the
-    slot is admitted, its first position lies below ``p_lens`` and it is
-    not below ``write_from``; otherwise it is left untouched."""
+    slot is admitted and its first position lies below ``p_lens``;
+    otherwise it is left untouched."""
     B, S = kv.shape[:2]
     mb = block_table.shape[1]
     r = torch.arange(S, device=kv.device)
@@ -282,29 +282,25 @@ def _write_block_rows(cache_arr, layer, kv, admit, block_table, block_len,
     lo = first_pos + (r // block_len) * block_len       # its first position
     blk = block_table[:, j.clamp(0, mb - 1)].long()    # [B, S]
     take = admit.bool()[:, None] & (lo[None, :] < p_lens.long()[:, None])
-    if write_from is not None:
-        take = take & (j[None, :] >= write_from.long()[:, None])
     return _write_rows(cache_arr, layer, blk.reshape(-1),
                        (r % block_len).repeat(B),
                        kv.reshape(B * S, *kv.shape[2:]), take.reshape(-1))
 
 
 def paged_write_prompt(cache_arr, layer: int, kv, admit, block_table,
-                       block_len: int, p_lens, write_from=None):
+                       block_len: int, p_lens):
     """The paged :func:`write_prompt`: an admitted slot's prompt bucket
     ``kv [B, S, heads, d]`` lands block by block through the table.  A
     logical block holding no real prompt row (``j * block_len >=
     p_lens[i]``) is left untouched; the final partial prompt block is
     written whole, its tail taking the bucket's padding projections
-    (unreachable behind the length mask).  ``write_from`` skips logical
-    blocks ``j < write_from[i]``."""
+    (unreachable behind the length mask)."""
     return _write_block_rows(cache_arr, layer, kv, admit, block_table,
-                             block_len, 0, p_lens, write_from)
+                             block_len, 0, p_lens)
 
 
 def paged_write_chunk(cache_arr, layer: int, kv, admit, block_table,
-                      block_len: int, chunk_start: int, p_lens,
-                      write_from=None):
+                      block_len: int, chunk_start: int, p_lens):
     """The chunked :func:`paged_write_prompt`: one prompt chunk ``kv [B,
     C, heads, d]`` (``C % block_len == 0``) at positions ``chunk_start +
     r``, under the same block rules."""
@@ -312,8 +308,7 @@ def paged_write_chunk(cache_arr, layer: int, kv, admit, block_table,
         raise ValueError(f"chunk of {kv.shape[1]} rows is not a multiple "
                          f"of block_len={block_len}")
     return _write_block_rows(cache_arr, layer, kv, admit, block_table,
-                             block_len, int(chunk_start), p_lens,
-                             write_from)
+                             block_len, int(chunk_start), p_lens)
 
 
 def gather_blocks(pool, block_table):

@@ -28,14 +28,12 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype,d", [(torch.float32, 32),
-                                     (torch.float32, 64),
-                                     (torch.bfloat16, 64),
-                                     (torch.float16, 128)])
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64),
+                                     (torch.bfloat16, 64)])
 def test_cuda_kernels_match_plain(cuda, dtype, d):
     """Each kernel against its plain version: fp32 at atol = rtol = 1e-5
-    (the same fp32 arithmetic in another summation order), bf16/fp16 at
-    1e-2 (the same rounded inputs; the output differs by about one ulp).
+    (the same fp32 arithmetic in another summation order), bf16 at 1e-2
+    (the same rounded inputs; the output differs by about one ulp).
     Lengths 0, 17 and the lane's end; a chunk starting on and past the
     table's extent; tail-filled table rows."""
     tol = 1e-5 if dtype == torch.float32 else 1e-2
@@ -73,8 +71,8 @@ def test_cuda_kernels_match_plain(cuda, dtype, d):
                                    atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("bad", ["dtype", "output_dtype", "contiguous",
-                                 "head_dim", "index_dtype"])
+@pytest.mark.parametrize("bad", ["dtype", "fp16", "output_dtype",
+                                 "contiguous", "head_dim", "index_dtype"])
 def test_cuda_wrapper_raises_on_what_the_kernel_does_not_take(cuda, bad):
     """Refused before any launch: the counter does not move and nothing
     falls back to the plain version."""
@@ -82,9 +80,10 @@ def test_cuda_wrapper_raises_on_what_the_kernel_does_not_take(cuda, bad):
     k = torch.zeros(2, 2, 8, 64, device=cuda)
     lengths = torch.zeros(2, dtype=torch.int32, device=cuda)
     kw = {}
-    if bad == "dtype":
-        q = q.double()
-        k = k.double()
+    if bad in ("dtype", "fp16"):
+        q = q.to(torch.float64 if bad == "dtype" else torch.float16)
+        k = k.to(q.dtype)
+        kw["dtype"] = q.dtype
     elif bad == "output_dtype":
         kw["dtype"] = torch.bfloat16
     elif bad == "contiguous":
@@ -106,7 +105,7 @@ def test_cuda_engine_streams_equal_the_cpu_engine(cuda, layout):
     (the kernels) and on the CPU (their plain versions): equal tokens and
     finish reasons, including a request that runs into ``max_len``."""
     cfg = port.TransformerConfig(
-        vocab_size=97, hidden_size=64, num_layers=2, num_heads=2, mlp_dim=128,
+        vocab_size=97, hidden_size=128, num_layers=2, num_heads=2, mlp_dim=256,
         max_len=48, dtype=torch.float32, dropout_rate=0.0,
         attention_dropout_rate=0.0)
     params = port.init_pipeline_lm_params(cfg, torch.Generator().manual_seed(0),

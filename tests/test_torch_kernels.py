@@ -216,26 +216,29 @@ def test_paged_write_token_matches_jax(case):
           cache, 1, kv, np.asarray(pos, np.int32), table, 4)
 
 
-@pytest.mark.parametrize("write_from", [None, [1, 0, 0]])
-def test_paged_write_prompt_matches_jax(write_from):
-    """Block-granular prompt writes: a bucket of 10 over blocks of 4
-    (partial last block), a slot whose prompt ends inside a block (that
-    block written whole, the next untouched), a non-admitted slot whose
-    table row points into another slot's blocks, and ``write_from``."""
+@pytest.mark.parametrize("case", ["bucket", "shared_target"])
+def test_paged_write_prompt_matches_jax(case):
+    """Block-granular prompt writes.  ``bucket``: a bucket of 10 over
+    blocks of 4 (partial last block), a slot whose prompt ends inside a
+    block (that block written whole, the next untouched), a non-admitted
+    slot whose table row points into another slot's blocks.
+    ``shared_target``: two admitted slots whose rows route into the same
+    pool blocks (the later slot wins, as in the JAX loop) and an
+    admitted slot with an empty prompt (writes nothing)."""
     from autodist_tpu.serving import kv_cache as jkv
 
     r = np.random.RandomState(6)
     cache = r.randn(2, 9, 2, 4, 3).astype(np.float32)
     kv = r.randn(3, 10, 2, 3).astype(np.float32)
-    table = np.asarray([[0, 1, 2, 3], [4, 5, 5, 5], [1, 2, 0, 0]], np.int32)
-    args = (0, kv, np.asarray([True, True, False]), table, 4,
-            np.asarray([10, 5, 7], np.int32))
-    wf = None if write_from is None else np.asarray(write_from, np.int32)
-    _both(lambda c, *a: jkv.paged_write_prompt(
-        c, *a, write_from=None if wf is None else jnp.asarray(wf)),
-          lambda c, *a: tkv.paged_write_prompt(
-        c, *a, write_from=None if wf is None else torch.as_tensor(wf)),
-          cache, *args)
+    if case == "bucket":
+        table = [[0, 1, 2, 3], [4, 5, 5, 5], [1, 2, 0, 0]]
+        admit, p_lens = [True, True, False], [10, 5, 7]
+    else:
+        table = [[0, 1, 2, 3], [6, 1, 2, 2], [7, 7, 7, 7]]
+        admit, p_lens = [True, True, True], [10, 9, 0]
+    _both(jkv.paged_write_prompt, tkv.paged_write_prompt, cache, 0, kv,
+          np.asarray(admit), np.asarray(table, np.int32), 4,
+          np.asarray(p_lens, np.int32))
 
 
 @pytest.mark.parametrize("chunk_start", [0, 4, 8])
