@@ -9,14 +9,26 @@ CUDA kernel in ``kernel/csrc/``, built with ``nvcc`` at first use.
 
 Ported so far: the serving path of the pipelined LM (dense and paged KV
 cache, chunked prefill, continuous batching) with the flash-decode and
-paged flash-prefill kernels.  ROADMAP.md lists what comes next.
+paged flash-prefill kernels, and the data-parallel training path
+(``AutoDist(spec, AllReduce(...)).build(make_mlm_trainable(...))``,
+``runner.run_steps``) with the flash-attention forward and backward
+kernels.  ROADMAP.md lists what comes next.
 """
+from autodist_tpu_torch import optim
+from autodist_tpu_torch.autodist import AutoDist
+from autodist_tpu_torch.capture import Trainable, VarInfo
 from autodist_tpu_torch.interop import from_jax_params, to_jax_params
 from autodist_tpu_torch.models.pipeline_lm import init_pipeline_lm_params
 from autodist_tpu_torch.models.transformer import TransformerConfig
+from autodist_tpu_torch.resource import ResourceSpec
+from autodist_tpu_torch.runner import DistributedRunner, stack_steps
 from autodist_tpu_torch.serving import (ContinuousBatcher, ServingEngine,
                                         serve)
+from autodist_tpu_torch.strategy.builders import AllReduce
+from autodist_tpu_torch.strategy.ir import Strategy
 
-__all__ = ["serve", "ServingEngine", "ContinuousBatcher",
+__all__ = ["AutoDist", "Trainable", "VarInfo", "ResourceSpec",
+           "DistributedRunner", "stack_steps", "Strategy", "AllReduce",
+           "optim", "serve", "ServingEngine", "ContinuousBatcher",
            "TransformerConfig", "init_pipeline_lm_params",
            "from_jax_params", "to_jax_params"]

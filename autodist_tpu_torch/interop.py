@@ -1,11 +1,19 @@
-"""Convert the pipelined LM's parameters between the two packages.
+"""Convert parameter trees between the two packages.
 
-The JAX package's logical tree (``make_pipeline_lm_trainable(...).params``
-or a ``checkpoint/export`` artifact's ``params/``, as numpy arrays) and
-the port's tree share names, nesting and layouts leaf for leaf (see
-:mod:`autodist_tpu_torch.models.pipeline_lm`), so the conversion moves
-bytes and nothing else: :func:`to_jax_params` of :func:`from_jax_params`
-gives back the same arrays bit for bit.
+Two models so far, each with its own leaf list:
+
+* the pipelined LM's logical tree (``make_pipeline_lm_trainable(...)
+  .params`` or a ``checkpoint/export`` artifact's ``params/``; see
+  :mod:`autodist_tpu_torch.models.pipeline_lm`);
+* BERT's flax tree (``make_mlm_trainable(...).params``, named as
+  ``capture.path_to_name`` names it, e.g.
+  ``encoder/layer_0/attention/qkv/kernel`` ``[H, 3, heads, head_dim]``;
+  see :mod:`autodist_tpu_torch.models.bert`).
+
+The JAX tree (numpy or JAX arrays) and the port's tree share names,
+nesting and layouts leaf for leaf, so the conversion moves bytes and
+nothing else: :func:`to_jax_params` of :func:`from_jax_params` gives
+back the same arrays bit for bit.
 """
 from __future__ import annotations
 
@@ -13,6 +21,7 @@ import numpy as np
 import torch
 
 from autodist_tpu_torch.device import resolve_device
+from autodist_tpu_torch.kernel.common import flatten_with_names, unflatten
 
 # Every leaf of the pipelined LM's logical tree, by "/"-joined path.
 PIPELINE_LM_LEAVES = (
@@ -27,35 +36,31 @@ PIPELINE_LM_LEAVES = (
 )
 
 
-def _flatten(tree, prefix=""):
-    out = {}
-    for k, v in tree.items():
-        name = f"{prefix}{k}"
-        if isinstance(v, dict):
-            out.update(_flatten(v, name + "/"))
-        else:
-            out[name] = v
-    return out
-
-
-def _unflatten(flat):
-    tree: dict = {}
-    for name, v in flat.items():
-        node = tree
-        *path, leaf = name.split("/")
-        for p in path:
-            node = node.setdefault(p, {})
-        node[leaf] = v
-    return tree
+def bert_leaves(num_layers: int) -> tuple:
+    """Every leaf of BERT's flax tree at ``num_layers`` layers."""
+    dense = ("kernel", "bias")
+    norm = ("scale", "bias")
+    layer = ([f"attention/{m}/{p}" for m in ("qkv", "out") for p in dense]
+             + [f"ln_attention/{p}" for p in norm]
+             + [f"mlp/{m}/{p}" for m in ("wi", "wo") for p in dense]
+             + [f"ln_mlp/{p}" for p in norm])
+    return (("token_embed/embedding", "pos_embed", "segment_embed/embedding",
+             "ln_embed/scale", "ln_embed/bias", "mlm_dense/kernel",
+             "mlm_dense/bias", "mlm_ln/scale", "mlm_ln/bias", "mlm_bias")
+            + tuple(f"encoder/layer_{i}/{leaf}" for i in range(num_layers)
+                    for leaf in layer))
 
 
 def _check_leaves(flat):
-    missing = sorted(set(PIPELINE_LM_LEAVES) - set(flat))
-    extra = sorted(set(flat) - set(PIPELINE_LM_LEAVES))
-    if missing or extra:
-        raise ValueError(
-            f"not a pipelined-LM parameter tree: missing {missing}, "
-            f"unexpected {extra}")
+    """The flat tree must be one model's tree exactly."""
+    names = set(flat)
+    layers = {n.split("/")[1] for n in names if n.startswith("encoder/")}
+    want = set(bert_leaves(len(layers)) if layers else PIPELINE_LM_LEAVES)
+    if names == want:
+        return
+    raise ValueError(
+        f"not a pipelined-LM or BERT parameter tree: missing "
+        f"{sorted(want - names)}, unexpected {sorted(names - want)}")
 
 
 def _to_torch(a) -> torch.Tensor:
@@ -79,14 +84,14 @@ def from_jax_params(tree, device=None):
     arrays) as the port's tree of tensors on ``device`` (``None`` means
     the card), dtypes and layouts unchanged."""
     dev = resolve_device(device)
-    flat = _flatten(tree)
+    flat = dict(flatten_with_names(tree))
     _check_leaves(flat)
-    return _unflatten({k: _to_torch(v).to(dev) for k, v in flat.items()})
+    return unflatten({k: _to_torch(v).to(dev) for k, v in flat.items()})
 
 
 def to_jax_params(params):
     """The port's tree as the JAX package's logical tree of numpy
     arrays (``jax.tree.map(jnp.asarray, ...)`` takes it from there)."""
-    flat = _flatten(params)
+    flat = dict(flatten_with_names(params))
     _check_leaves(flat)
-    return _unflatten({k: _to_numpy(v) for k, v in flat.items()})
+    return unflatten({k: _to_numpy(v) for k, v in flat.items()})

@@ -1,0 +1,176 @@
+"""Strategy lowering: Strategy IR -> one data-parallel train step.
+
+Counterpart of ``autodist_tpu/kernel/lowering.py`` for its
+``collective`` lowering at the replicated update space — what an
+``AllReduce`` strategy lowers to.  Where the JAX package traces one
+``shard_map`` program, the port runs the same step eagerly in each
+process of the job:
+
+1. the loss and its gradients on this replica's shard of the batch,
+   with the dropout seed folded with the replica index;
+2. the AllReduce synchronizer, bucket by bucket (``g{group}:{compressor}``,
+   as :func:`make_plan` groups variables): the gradients of a bucket are
+   flattened into one fp32 vector, summed over the replicas with one
+   ``torch.distributed.all_reduce`` and divided by their number (JAX's
+   ``pmean``), and split back.  With one replica the all-reduce is the
+   identity and is skipped, flatten and all (the JAX package's ``n ==
+   1`` bypass);
+3. the optimizer update on every replica alike;
+4. metrics averaged across replicas (floats; integer counts summed,
+   flags OR-ed).
+
+The step updates nothing in place: it returns a new state.  Other
+update spaces (``U_FLAT``, ``U_AXIS``), compressors, gradient
+accumulation and the other lowerings raise ``NotImplementedError``
+naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable
+
+import torch
+import torch.distributed as dist
+
+from autodist_tpu_torch import optim
+from autodist_tpu_torch.device import resolve_device
+from autodist_tpu_torch.kernel import common
+from autodist_tpu_torch.strategy.ir import AllReduceSynchronizer
+
+@dataclasses.dataclass
+class VarPlan:
+    """Resolved per-variable lowering decision: every variable is
+    replicated and its gradient joins one all-reduce bucket."""
+
+    name: str
+    shape: tuple
+    dtype: Any
+    bucket: str                   # all-reduce bucket key
+
+
+@dataclasses.dataclass
+class Plan:
+    """The compiled strategy: per-variable plans and the buckets."""
+
+    var_plans: dict
+    num_replicas: int
+    buckets: dict                 # bucket key -> ordered variable names
+
+
+def make_plan(trainable, strategy, mesh) -> Plan:
+    """Resolve a Strategy against a mesh."""
+    n = mesh.num_replicas
+    gc = strategy.graph_config
+    if gc.replicas not in (0, n):
+        raise ValueError(f"strategy built for {gc.replicas} replicas; the "
+                         f"mesh has {n}")
+    if gc.lowering != "collective":
+        raise NotImplementedError(
+            f"the {gc.lowering!r} lowering is not ported yet (ROADMAP "
+            f"Queue 1, slices 3 and 5)")
+    if gc.accum_steps != 1:
+        raise NotImplementedError(
+            "gradient accumulation is not ported yet (ROADMAP Queue 1, "
+            "item 8: GradAccumulation)")
+    node_index = {nc.var_name: nc for nc in strategy.node_configs}
+    var_plans, buckets = {}, {}
+    for info in trainable.var_infos():
+        node = node_index.get(info.name)
+        sync = node.synchronizer if node else AllReduceSynchronizer()
+        if sync.compressor not in ("", "none"):
+            raise NotImplementedError(
+                f"{info.name}: gradient compressor {sync.compressor!r} is "
+                f"not ported yet (ROADMAP Queue 1, slice 2 leftovers: "
+                f"compressors)")
+        key = f"g{sync.group}:{sync.compressor}"
+        var_plans[info.name] = VarPlan(info.name, info.shape, info.dtype,
+                                       bucket=key)
+        buckets.setdefault(key, []).append(info.name)
+    return Plan(var_plans=var_plans, num_replicas=n, buckets=buckets)
+
+
+def _reduce_metrics(metrics: dict, mesh) -> dict:
+    """Scalar float metrics averaged across replicas, in one all-reduce.
+    (The JAX package also sums integer counts and ORs flags; no ported
+    loss returns those, so they are refused.)"""
+    metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
+    for k, v in metrics.items():
+        if not v.is_floating_point():
+            raise TypeError(f"metric {k!r} is {v.dtype}: only float "
+                            f"metrics are reduced across replicas")
+    if mesh.num_replicas == 1 or not metrics:
+        return metrics
+    stacked = torch.stack([v.float() for v in metrics.values()])
+    dist.all_reduce(stacked, group=mesh.group)
+    stacked = stacked / mesh.num_replicas
+    return {k: stacked[i].to(v.dtype)
+            for i, (k, v) in enumerate(metrics.items())}
+
+
+@dataclasses.dataclass
+class Lowered:
+    """The lowered step and the state layout."""
+
+    plan: Plan
+    mesh: Any
+    device: torch.device
+    init_fn: Callable     # (params, extra) -> state
+    step_fn: Callable     # (state, batch, rng) -> (state, metrics)
+
+    def init_state(self, trainable):
+        return self.init_fn(trainable.params, trainable.extra)
+
+
+def lower(trainable, strategy, mesh, device=None) -> Lowered:
+    """Build the data-parallel step for (trainable, strategy, mesh) on
+    ``device`` (``None``: the card)."""
+    plan = make_plan(trainable, strategy, mesh)
+    n, dev, opt = plan.num_replicas, resolve_device(device), trainable.optimizer
+    names = list(plan.var_plans)
+
+    def init_fn(params, extra):
+        flat = dict(common.flatten_with_names(params))
+        stored = {nm: flat[nm].detach().to(dev).clone() for nm in names}
+        return {"step": torch.zeros((), dtype=torch.int32, device=dev),
+                "params": stored, "opt_state": opt.init(stored),
+                "extra": extra}
+
+    def all_reduce_buckets(grads: dict) -> dict:
+        if n == 1:
+            return grads
+        synced = {}
+        for bucket in plan.buckets.values():
+            flat = torch.cat([grads[nm].reshape(-1).float() for nm in bucket])
+            dist.all_reduce(flat, group=mesh.group)
+            flat = flat / n
+            offset = 0
+            for nm in bucket:
+                vp = plan.var_plans[nm]
+                size = math.prod(vp.shape)
+                synced[nm] = flat[offset:offset + size].view(vp.shape).to(
+                    grads[nm].dtype)
+                offset += size
+        return synced
+
+    def step_fn(state, batch, rng):
+        params = state["params"]
+        leaves = {nm: p.detach().requires_grad_(True)
+                  for nm, p in params.items()}
+        local_rng = None if rng is None else int(rng) * n + mesh.rank
+        with torch.enable_grad():
+            loss, new_extra, metrics = trainable.loss(
+                common.unflatten(leaves), state["extra"], batch, local_rng)
+            grads = torch.autograd.grad(loss, list(leaves.values()),
+                                        allow_unused=True)
+        grads = {nm: torch.zeros_like(params[nm]) if g is None else g
+                 for nm, g in zip(names, grads)}
+        updates, opt_state = opt.update(all_reduce_buckets(grads),
+                                        state["opt_state"], params)
+        new_state = {"step": state["step"] + 1,
+                     "params": optim.apply_updates(params, updates),
+                     "opt_state": opt_state, "extra": new_extra}
+        return new_state, _reduce_metrics(metrics, mesh)
+
+    return Lowered(plan=plan, mesh=mesh, device=dev, init_fn=init_fn,
+                   step_fn=step_fn)

@@ -19,18 +19,18 @@ layers), so one tree converts between the packages leaf by leaf
   ln_final_bias}``.
 
 Only the tensor-parallel-1 branch is ported; the training-side
-``PipelineTrainable`` belongs to the training slice.
+``PipelineTrainable`` belongs to the pipeline slice (ROADMAP Queue 1,
+slice 3).
 """
 from __future__ import annotations
-
-import math
 
 import torch
 import torch.nn.functional as F
 
 from autodist_tpu_torch.device import resolve_device
 from autodist_tpu_torch.models.transformer import (TransformerConfig,
-                                                   dot_product_attention)
+                                                   dot_product_attention,
+                                                   lecun_normal)
 from autodist_tpu_torch.parallel.tensor import (column_parallel,
                                                 row_parallel,
                                                 vocab_parallel_embedding)
@@ -114,15 +114,6 @@ def sequential_logits(cfg: TransformerConfig, params, tokens):
     return x @ shared["embedding"].float().T
 
 
-def _lecun_normal(shape, fan_in, generator):
-    """flax's default ``lecun_normal``: a normal truncated at two
-    standard deviations, rescaled so the variance is ``1 / fan_in``."""
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    t = torch.empty(shape, dtype=torch.float32, device=generator.device)
-    return torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
-                                       generator=generator)
-
-
 def init_pipeline_lm_params(cfg: TransformerConfig, generator, device=None):
     """Random fp32 parameters with the tree and shapes of the JAX
     package's ``make_pipeline_lm_trainable(cfg, ...).params`` (one stage
@@ -153,18 +144,18 @@ def init_pipeline_lm_params(cfg: TransformerConfig, generator, device=None):
     tree = {
         "stages": {
             "attention": {
-                "qkv": {"kernel": _lecun_normal((L, H, 3, heads, hd), H,
+                "qkv": {"kernel": lecun_normal((L, H, 3, heads, hd), H,
                                                 generator),
                         "bias": zeros(L, 3, heads, hd)},
-                "out": {"kernel": _lecun_normal((L, heads, hd, H),
+                "out": {"kernel": lecun_normal((L, heads, hd, H),
                                                 heads * hd, generator),
                         "bias": zeros(L, H)},
             },
             "ln_attention": {"scale": ones(L, H), "bias": zeros(L, H)},
             "mlp": {
-                "wi": {"kernel": _lecun_normal((L, H, M), H, generator),
+                "wi": {"kernel": lecun_normal((L, H, M), H, generator),
                        "bias": zeros(L, M)},
-                "wo": {"kernel": _lecun_normal((L, M, H), M, generator),
+                "wo": {"kernel": lecun_normal((L, M, H), M, generator),
                        "bias": zeros(L, H)},
             },
             "ln_mlp": {"scale": ones(L, H), "bias": zeros(L, H)},

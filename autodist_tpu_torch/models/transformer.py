@@ -1,10 +1,25 @@
-"""The transformer configuration and its plain attention.
+"""Transformer encoder blocks — the shared modeling stack.
 
 Counterpart of ``autodist_tpu/models/transformer.py``: the same
 :class:`TransformerConfig` fields and defaults (``dtype`` is a torch
-dtype), and the einsum attention the single-shot prefill runs.  The
-flax modules (``EncoderLayer``, ``TransformerLM``) belong to the
-training slice and are not ported yet.
+dtype), the einsum attention, and the encoder as ``nn.Module``s under
+the flax modules' names and parameter layouts, so that a flax parameter
+tree converts leaf for leaf (:mod:`autodist_tpu_torch.interop`):
+
+* ``attention/qkv`` is a ``DenseGeneral`` with kernel ``[H, 3, heads,
+  head_dim]`` and bias ``[3, heads, head_dim]``; ``attention/out`` has
+  kernel ``[heads, head_dim, H]``;
+* ``Dense`` kernels are ``[in, out]`` (not ``nn.Linear``'s ``[out,
+  in]``);
+* ``LayerNorm`` has ``scale``/``bias``, eps ``1e-6`` and flax's
+  statistics (fp32 mean of squares minus squared mean, clamped at 0).
+
+Parameters are fp32 and every module computes in ``cfg.dtype``, as flax
+does with ``dtype=cfg.dtype``.  The MLP's GELU is the tanh form of
+``flax.linen.gelu``.  Dropout draws from an explicit ``torch.Generator``
+(``None`` turns it off); its bits differ from ``jax.random``'s, so
+parity runs at rate 0.  ``TransformerLM`` and remat are among ROADMAP
+Queue 1's slice 2 leftovers.
 """
 from __future__ import annotations
 
@@ -13,6 +28,8 @@ import math
 from typing import Any, Callable, Optional
 
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 from autodist_tpu_torch.kernel import NEG_INF
 
@@ -39,22 +56,177 @@ class TransformerConfig:
         return self.hidden_size // self.num_heads
 
 
+# --------------------------------------------------------------------------- #
+# flax's default initializers, drawn from a torch.Generator
+# --------------------------------------------------------------------------- #
+def lecun_normal(shape, fan_in, generator):
+    """flax's default kernel init ``lecun_normal``: a normal truncated at
+    two standard deviations, rescaled so the variance is ``1 /
+    fan_in``."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    t = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    return torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
+                                       generator=generator)
+
+
+def normal(shape, std, generator):
+    t = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    return t.normal_(0.0, std, generator=generator)
+
+
+def dropout(x, rate: float, generator):
+    """flax ``nn.Dropout``: keep with probability ``1 - rate`` and scale
+    kept values by ``1 / (1 - rate)``; the identity at rate 0 or with no
+    generator (deterministic)."""
+    if rate == 0.0 or generator is None:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    keep = torch.empty(x.shape, device=x.device).bernoulli_(
+        keep_prob, generator=generator).bool()
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
 def dot_product_attention(q, k, v, mask, *, dropout_rate=0.0,
                           dropout_rng=None, dtype=torch.bfloat16):
     """Plain einsum attention (softmax in fp32 for stability).
 
     ``q``/``k``/``v``: ``[..., L, heads, head_dim]``; ``mask``
     broadcastable to ``[..., heads, Lq, Lk]`` (True = visible).  Masked
-    scores take the finite float32 minimum, as in the JAX package.
+    scores take the finite float32 minimum, as in the JAX package;
+    ``dropout_rng`` is a ``torch.Generator`` (or ``None``).
     """
-    if dropout_rate > 0.0 and dropout_rng is not None:
-        raise NotImplementedError(
-            "attention dropout belongs to the training path (ROADMAP "
-            "Queue 1, slice 2), not ported yet")
     depth = q.shape[-1]
     scores = torch.einsum("...qhd,...khd->...hqk", q, k) / math.sqrt(depth)
     scores = scores.float()
     if mask is not None:
         scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(dtype)
+    probs = dropout(probs, dropout_rate, dropout_rng)
     return torch.einsum("...hqk,...khd->...qhd", probs, v.to(dtype))
+
+
+# --------------------------------------------------------------------------- #
+# flax layers
+# --------------------------------------------------------------------------- #
+class DenseGeneral(nn.Module):
+    """flax ``Dense``/``DenseGeneral`` over the last ``len(in_shape)``
+    axes: kernel ``in_shape + out_shape`` (lecun-normal over the
+    flattened ``[prod(in), prod(out)]`` view), zero bias ``out_shape``;
+    inputs, kernel and bias are cast to ``dtype`` before the product."""
+
+    def __init__(self, in_shape, out_shape, dtype, generator):
+        super().__init__()
+        in_shape, out_shape = tuple(in_shape), tuple(out_shape)
+        self.dtype, self.n_in = dtype, len(in_shape)
+        self.kernel = nn.Parameter(lecun_normal(
+            in_shape + out_shape, math.prod(in_shape), generator))
+        self.bias = nn.Parameter(torch.zeros(out_shape,
+                                             device=generator.device))
+
+    def forward(self, x):
+        y = torch.tensordot(x.to(self.dtype), self.kernel.to(self.dtype),
+                            dims=self.n_in)
+        return y + self.bias.to(self.dtype)
+
+
+class LayerNorm(nn.Module):
+    """flax ``LayerNorm``: fp32 statistics with the fast variance
+    ``max(0, E[x^2] - E[x]^2)``, ``(x - mean) * (rsqrt(var + eps) *
+    scale) + bias``, cast to ``dtype``."""
+
+    def __init__(self, features: int, dtype, generator, eps: float = 1e-6):
+        super().__init__()
+        self.dtype, self.eps = dtype, eps
+        self.scale = nn.Parameter(torch.ones(features,
+                                             device=generator.device))
+        self.bias = nn.Parameter(torch.zeros(features,
+                                             device=generator.device))
+
+    def forward(self, x):
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean,
+                          min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return ((xf - mean) * mul + self.bias).to(self.dtype)
+
+
+class SelfAttention(nn.Module):
+    def __init__(self, cfg: TransformerConfig, generator):
+        super().__init__()
+        self.cfg = cfg
+        self.qkv = DenseGeneral((cfg.hidden_size,),
+                                (3, cfg.num_heads, cfg.head_dim), cfg.dtype,
+                                generator)
+        self.out = DenseGeneral((cfg.num_heads, cfg.head_dim),
+                                (cfg.hidden_size,), cfg.dtype, generator)
+
+    def forward(self, x, mask, generator=None):
+        cfg = self.cfg
+        q, k, v = self.qkv(x).unbind(-3)
+        dropout_rng = (None if cfg.attention_dropout_rate == 0
+                       else generator)
+        if cfg.attention_fn is not None:
+            out = cfg.attention_fn(q, k, v, mask, dropout_rng)
+        else:
+            out = dot_product_attention(
+                q, k, v, mask, dropout_rate=cfg.attention_dropout_rate,
+                dropout_rng=dropout_rng, dtype=cfg.dtype)
+        return self.out(out)
+
+
+class MlpBlock(nn.Module):
+    def __init__(self, cfg: TransformerConfig, generator):
+        super().__init__()
+        self.cfg = cfg
+        self.wi = DenseGeneral((cfg.hidden_size,), (cfg.mlp_dim,), cfg.dtype,
+                               generator)
+        self.wo = DenseGeneral((cfg.mlp_dim,), (cfg.hidden_size,), cfg.dtype,
+                               generator)
+
+    def forward(self, x, generator=None):
+        h = F.gelu(self.wi(x), approximate="tanh")
+        h = dropout(h, self.cfg.dropout_rate, generator)
+        return self.wo(h)
+
+
+class EncoderLayer(nn.Module):
+    """Post-norm encoder layer: attention, dropout, residual norm, MLP,
+    dropout, residual norm."""
+
+    def __init__(self, cfg: TransformerConfig, generator):
+        super().__init__()
+        self.cfg = cfg
+        self.attention = SelfAttention(cfg, generator)
+        self.ln_attention = LayerNorm(cfg.hidden_size, cfg.dtype, generator)
+        self.mlp = MlpBlock(cfg, generator)
+        self.ln_mlp = LayerNorm(cfg.hidden_size, cfg.dtype, generator)
+
+    def forward(self, x, mask, generator=None):
+        rate = self.cfg.dropout_rate
+        a = dropout(self.attention(x, mask, generator), rate, generator)
+        x = self.ln_attention(x + a)
+        m = dropout(self.mlp(x, generator), rate, generator)
+        return self.ln_mlp(x + m)
+
+
+class Encoder(nn.Module):
+    """``layer_0`` ... ``layer_{num_layers-1}``.  Remat (``cfg.remat``)
+    is not ported yet (ROADMAP Queue 1, slice 2 leftovers)."""
+
+    def __init__(self, cfg: TransformerConfig, generator):
+        super().__init__()
+        if cfg.remat:
+            raise NotImplementedError(
+                "cfg.remat (per-layer activation checkpointing) is not "
+                "ported yet (ROADMAP Queue 1, slice 2 leftovers)")
+        self.num_layers = cfg.num_layers
+        for i in range(cfg.num_layers):
+            self.add_module(f"layer_{i}", EncoderLayer(cfg, generator))
+
+    def forward(self, x, mask, generator=None):
+        for i in range(self.num_layers):
+            x = getattr(self, f"layer_{i}")(x, mask, generator)
+        return x

@@ -120,9 +120,8 @@ class ServingEngine:
         self.cfg = cfg
         self.kernel = normalize_kernel(kernel)
         if cfg.attention_fn is not None:
-            _not_ported("serving a cfg.attention_fn (the flash-attention "
-                        "forward K1 comes with the training path)",
-                        "ROADMAP Queue 1, slice 2: the training path")
+            _not_ported("serving a cfg.attention_fn (K1 in the prefill)",
+                        "ROADMAP Queue 1, slice 4: the rest of serving")
         if cfg.dropout_rate or cfg.attention_dropout_rate:
             raise ValueError(
                 "serving requires dropout_rate == "
@@ -221,9 +220,9 @@ class ServingEngine:
 
     @classmethod
     def from_runner(cls, runner, cfg, *, strategy=None, **kw):
-        _not_ported("ServingEngine.from_runner (it needs the training "
-                    "runner)", "ROADMAP Queue 1, slice 2: the training "
-                    "path")
+        _not_ported("ServingEngine.from_runner (it needs the pipelined "
+                    "LM's training runner)", "ROADMAP Queue 1, slice 4: "
+                    "the rest of serving")
 
     @classmethod
     def from_artifact(cls, path: str, cfg, **kw):

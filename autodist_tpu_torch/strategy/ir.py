@@ -1,14 +1,26 @@
-"""The Strategy IR normalizers the serving engine reads.
+"""The Strategy IR: the serializable distribution strategy.
 
-A copy of ``normalize_kernel``, ``normalize_kv_layout``,
-``normalize_prefill_chunk``, ``normalize_prefix_caching`` and
-``normalize_speculative`` from ``autodist_tpu/strategy/ir.py``, with the
-same canonical forms and the same errors, so that an engine kwarg or a
-strategy's ``parallel`` record means the same thing to both packages.
-The rest of the IR (the ``Strategy`` object, precision policies, JSON
-serialization) is not ported yet.
+Counterpart of ``autodist_tpu/strategy/ir.py``.  Ported:
+
+* the serving engine's normalizers (``normalize_kernel``,
+  ``normalize_kv_layout``, ``normalize_prefill_chunk``,
+  ``normalize_prefix_caching``, ``normalize_speculative``), with the
+  same canonical forms and the same errors;
+* the data-parallel core of the IR: :class:`AllReduceSynchronizer`,
+  :class:`NodeConfig`, :class:`GraphConfig` and :class:`Strategy`, whose
+  JSON is the JAX package's byte for byte (same keys, same order, same
+  ``indent=1``), so a strategy either package writes reads back in the
+  other.
+
+``PSSynchronizer``, partitioners and per-collective precision policies
+raise ``NotImplementedError`` naming the slice that brings them.
 """
 from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+import time
 
 from autodist_tpu_torch.kernel import KERNEL_CHOICES
 
@@ -99,3 +111,127 @@ def normalize_speculative(value):
             f"speculative must be None or a positive int (draft tokens "
             f"per verify step); got {value!r}")
     return int(value)
+
+
+# --------------------------------------------------------------------------- #
+# Synchronizer, node, graph and strategy records
+# --------------------------------------------------------------------------- #
+def _not_ported(what: str, where: str):
+    raise NotImplementedError(f"{what} is not ported yet ({where})")
+
+
+@dataclasses.dataclass
+class AllReduceSynchronizer:
+    """Dense gradient all-reduce over the data axis; ``group`` is the
+    bucket id of the flatten-concat merge."""
+
+    kind: str = "allreduce"
+    compressor: str = "none"
+    group: int = 0
+
+    def to_dict(self):
+        return dataclasses.asdict(self)
+
+
+def synchronizer_from_dict(d: dict):
+    d = dict(d)
+    kind = d.get("kind", "allreduce")
+    if kind == "ps":
+        _not_ported("the PS synchronizer (PS, ZeRO, PartitionedPS)",
+                    "ROADMAP Queue 1, item 8")
+    if kind != "allreduce":
+        raise ValueError(f"unknown synchronizer kind {kind!r}")
+    return AllReduceSynchronizer(**d)
+
+
+@dataclasses.dataclass
+class NodeConfig:
+    """Per-variable distribution choice.  Its JSON keeps the JAX
+    package's ``"partitioner": null`` (no variable is partitioned)."""
+
+    var_name: str
+    synchronizer: AllReduceSynchronizer = dataclasses.field(
+        default_factory=AllReduceSynchronizer)
+    is_sparse: bool = False
+
+    def to_dict(self):
+        return {
+            "var_name": self.var_name,
+            "synchronizer": self.synchronizer.to_dict(),
+            "partitioner": None,
+            "is_sparse": self.is_sparse,
+        }
+
+    @classmethod
+    def from_dict(cls, d):
+        if d.get("partitioner"):
+            _not_ported("variable partitioning (PartitionedAR, "
+                        "PartitionedPS, Parallax)",
+                        "ROADMAP Queue 1, item 8")
+        return cls(var_name=d["var_name"],
+                   synchronizer=synchronizer_from_dict(d["synchronizer"]),
+                   is_sparse=d.get("is_sparse", False))
+
+
+@dataclasses.dataclass
+class GraphConfig:
+    """Graph-level config: ``replicas`` is the data-parallel degree,
+    ``mesh_axes`` the mesh the strategy assumes."""
+
+    replicas: int = 1
+    mesh_axes: dict = dataclasses.field(default_factory=dict)
+    lowering: str = "collective"
+    accum_steps: int = 1
+    parallel: dict = dataclasses.field(default_factory=dict)
+    precision: dict = dataclasses.field(default_factory=dict)
+    kernel: dict = dataclasses.field(default_factory=dict)
+
+    def to_dict(self):
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d):
+        if d.get("precision") not in (None, "", "fp32", {}):
+            _not_ported("per-collective precision policies",
+                        "ROADMAP Queue 1, slice 3")
+        return cls(replicas=d.get("replicas", 1),
+                   mesh_axes=dict(d.get("mesh_axes", {})),
+                   lowering=d.get("lowering", "collective"),
+                   accum_steps=d.get("accum_steps", 1),
+                   parallel=dict(d.get("parallel", {})),
+                   precision={},
+                   kernel=normalize_kernel(d.get("kernel")))
+
+
+@dataclasses.dataclass
+class Strategy:
+    """The full serializable strategy: ID'd, JSON-serializable."""
+
+    node_configs: list = dataclasses.field(default_factory=list)
+    graph_config: GraphConfig = dataclasses.field(default_factory=GraphConfig)
+    id: str = ""
+
+    def __post_init__(self):
+        if not self.id:
+            self.id = self._gen_id()
+
+    def _gen_id(self) -> str:
+        h = hashlib.md5(json.dumps(
+            [n.to_dict() for n in self.node_configs], sort_keys=True
+        ).encode()).hexdigest()[:12]
+        return f"{time.strftime('%Y%m%dT%H%M%S')}-{h}"
+
+    def to_json(self) -> str:
+        return json.dumps({
+            "id": self.id,
+            "node_configs": [n.to_dict() for n in self.node_configs],
+            "graph_config": self.graph_config.to_dict(),
+        }, indent=1)
+
+    @classmethod
+    def from_json(cls, s: str) -> "Strategy":
+        d = json.loads(s)
+        return cls(id=d["id"],
+                   node_configs=[NodeConfig.from_dict(n)
+                                 for n in d["node_configs"]],
+                   graph_config=GraphConfig.from_dict(d["graph_config"]))

@@ -4,14 +4,17 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``autodist_tpu_torch/kernel/csrc``
-(at first use, into a git-ignored directory) and drives the serving
-path of the pipelined LM at the serve bench's width (vocab 32768,
-hidden 1024, 16 heads of 64, mlp 4096, 8 layers, max_len 1024):
+(at first use, into a git-ignored directory) and drives the port's two
+paths: serving the pipelined LM at the serve bench's width (vocab 32768,
+hidden 1024, 16 heads of 64, mlp 4096, 8 layers, max_len 1024), and
+training BERT-base masked-LM through ``AutoDist`` + ``AllReduce``:
 
-1. each kernel against its plain PyTorch version at the serving shapes,
-   fp32 (atol = rtol = 1e-5) and bf16 (atol = rtol = 1e-2), timed with
-   CUDA events beside the plain version, one PyTorch library call and
-   the card's bound;
+1. each kernel against its plain PyTorch version, fp32 (atol = rtol =
+   1e-5) and bf16 (atol = rtol = 1e-2), timed with CUDA events beside
+   the plain version, one PyTorch library call and the card's bound:
+   K5-K7 at the serving shapes; K1, K2a and K2b at BERT-base's q/k/v
+   ``[16, 512, 12, 64]`` and at ragged lengths 100 and 17, causal and
+   not;
 2. fp32 parity: 4 requests through ``ContinuousBatcher`` on the dense
    and on the paged + chunked engine, each stream equal token for token
    to a greedy full recompute by ``sequential_logits`` (a divergence
@@ -19,7 +22,17 @@ hidden 1024, 16 heads of 64, mlp 4096, 8 layers, max_len 1024):
    1e-4);
 3. bf16 serving of the bench mix on both engines, with the kernels'
    launch counters held to the attention calls the engines made;
-4. one ``{"kernels": [...]}`` line, the card's name and power limit, and
+4. fp32 training parity: a 2-layer BERT at full width, 3 AdamW steps
+   with the flash attention and with the einsum attention on the same
+   weights and batches, every loss within 1e-4 relative;
+5. the bench's BERT-base training window in bf16 (``bench.py`` ``_bench``
+   on one card: batch 16, seq 512, 76 masked, adamw(1e-4, weight decay
+   0.01, bf16 first moments), ``AllReduce(chunk_size=256)``): a warm
+   30-step ``run_steps`` window, then a timed one with K1, K2a and K2b
+   held to 12 x 30 launches each, examples/s, step time, MFU, the
+   profiler's busy share and launches per step, peak memory, and the
+   einsum attention's examples/s beside it;
+6. one ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
 Any failed check raises and the script exits non-zero; without a CUDA
@@ -28,6 +41,7 @@ device it exits 2 and prints no result.  Imports torch, numpy and
 """
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import subprocess
@@ -40,8 +54,11 @@ import torch
 import autodist_tpu_torch as port
 from autodist_tpu_torch.kernel import flash_decode as fd
 from autodist_tpu_torch.kernel import flash_prefill as fp
+from autodist_tpu_torch.models import bert
 from autodist_tpu_torch.models.pipeline_lm import sequential_logits
 from autodist_tpu_torch.serving import FINISH_REASONS, kv_cache
+
+fa = importlib.import_module("autodist_tpu_torch.ops.flash_attention")
 
 # Published H100 SXM rates (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -65,7 +82,25 @@ KERNELS = {
         wrapper=fp.flash_prefill_attention_paged,
         source="autodist_tpu_torch/kernel/csrc/flash_prefill.cu",
         replaces="autodist_tpu/kernel/pallas/flash_prefill.py:48"),
+    "flash_attention_fwd": dict(
+        wrapper=fa.flash_attention_fwd,
+        source="autodist_tpu_torch/kernel/csrc/flash_attention.cu",
+        replaces="autodist_tpu/ops/flash_attention.py:145"),
+    "flash_attention_bwd_dq": dict(
+        wrapper=fa.flash_attention_bwd_dq,
+        source="autodist_tpu_torch/kernel/csrc/flash_attention.cu",
+        replaces="autodist_tpu/ops/flash_attention.py:246"),
+    "flash_attention_bwd_dkv": dict(
+        wrapper=fa.flash_attention_bwd_dkv,
+        source="autodist_tpu_torch/kernel/csrc/flash_attention.cu",
+        replaces="autodist_tpu/ops/flash_attention.py:288"),
 }
+SERVING_KERNELS = ("flash_decode", "flash_decode_paged", "flash_prefill_paged")
+TRAINING_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                    "flash_attention_bwd_dkv")
+
+# BERT-base (bench.py _bench on an accelerator).
+BERT_BATCH, BERT_SEQ, BERT_MASKED, BERT_STEPS = 16, 512, 76, 30
 
 
 def check(cond, msg):
@@ -252,6 +287,118 @@ def phase_kernels():
     return record
 
 
+def attention_bytes_flops(name, B, L, H, D, esize, causal):
+    """Bytes each input is read and each output written once, and the
+    flops of the products (halved when causal), for K1, K2a and K2b."""
+    qkv = 3 * B * L * H * D * esize
+    rows = B * L * H * 4                       # one fp32 statistic per row
+    tri = 0.5 if causal else 1.0
+    if name == "flash_attention_fwd":           # q, k, v -> out, lse
+        return qkv + B * L * H * D * esize + rows, 4 * B * H * L * L * D * tri
+    grads = B * L * H * D * 4 * (1 if name == "flash_attention_bwd_dq" else 2)
+    return (qkv + B * L * H * D * esize + 2 * rows + grads,
+            (6 if name == "flash_attention_bwd_dq" else 8)
+            * B * H * L * L * D * tri)
+
+
+def attention_library(name, q, k, v, g, causal):
+    """``scaled_dot_product_attention`` computing the same function:
+    its forward for K1, its autograd backward for K2a and K2b (the
+    forward is run once outside the timed call)."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    if name == "flash_attention_fwd":
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=causal)
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    gt = g.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), gt,
+                                       retain_graph=True)
+
+
+def phase_attention_kernels(record):
+    """K1, K2a and K2b against their plain versions at BERT-base shapes
+    and at ragged lengths, causal and not, both dtypes; timed at
+    BERT-base.  q, k and v are slices of one [B, L, 3, H, D] projection,
+    as the model hands them over."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOLERANCE[dtype]
+        esize = torch.empty((), dtype=dtype).element_size()
+        for B, L in ((BERT_BATCH, BERT_SEQ), (4, 100), (4, 17)):
+            for causal in (False, True):
+                H, D = 12, 64
+                qkv = torch.randn((B, L, 3, H, D), generator=gen,
+                                  device="cuda").to(dtype)
+                q, k, v = qkv.unbind(2)
+                g = torch.randn((B, L, H, D), generator=gen,
+                                device="cuda").to(dtype)
+                out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+                delta = (g.float() * out.float()).sum(-1)
+                scale = 1.0 / math.sqrt(D)
+                kw = dict(causal=causal, scale=scale)
+                calls = {
+                    "flash_attention_fwd": (
+                        lambda: fa.flash_attention_fwd(q, k, v, **kw),
+                        lambda: fa.flash_attention_fwd_plain(q, k, v, **kw)),
+                    "flash_attention_bwd_dq": (
+                        lambda: fa.flash_attention_bwd_dq(
+                            q, k, v, g, lse, delta, **kw),
+                        lambda: fa.flash_attention_bwd_dq_plain(
+                            q, k, v, g, lse, delta, **kw)),
+                    "flash_attention_bwd_dkv": (
+                        lambda: fa.flash_attention_bwd_dkv(
+                            q, k, v, g, lse, delta, **kw),
+                        lambda: fa.flash_attention_bwd_dkv_plain(
+                            q, k, v, g, lse, delta, **kw)),
+                }
+                for name, (kernel, plain) in calls.items():
+                    got, ref = kernel(), plain()
+                    torch.cuda.synchronize()
+                    got = got if isinstance(got, tuple) else (got,)
+                    ref = ref if isinstance(ref, tuple) else (ref,)
+                    max_err = 0.0
+                    for a, b in zip(got, ref):
+                        err = (a.float() - b.float()).abs()
+                        max_err = max(max_err, float(err.max()))
+                        check(bool(torch.isfinite(a).all()),
+                              f"{name}: non-finite")
+                        check(bool((err <= tol + tol * b.float().abs()).all()),
+                              f"{name} {dtype} L={L} causal={causal}: max "
+                              f"|kernel - plain| = {max_err} exceeds atol = "
+                              f"rtol = {tol}")
+                    line = (f"phase 1 {name} {str(dtype)[6:]} [{B},{L},{H},"
+                            f"{D}] causal={causal}: max_abs_err "
+                            f"{max_err:.3e} (tol {tol})")
+                    if L == BERT_SEQ:
+                        nbytes, flops = attention_bytes_flops(
+                            name, B, L, H, D, esize, causal)
+                        t_bytes = nbytes / HBM_BYTES_PER_S
+                        t_ops = flops / PEAK_FLOPS[dtype]
+                        rec = {
+                            "max_abs_err": max_err,
+                            "ms": time_ms(kernel),
+                            "plain_ms": time_ms(plain),
+                            "library_ms": time_ms(attention_library(
+                                name, q, k, v, g, causal)),
+                            "bound_ms": max(t_bytes, t_ops) * 1e3,
+                            "bound_by": ("bytes" if t_bytes >= t_ops
+                                         else "operations"),
+                        }
+                        line += (f", kernel {rec['ms']:.4f} ms, plain "
+                                 f"{rec['plain_ms']:.4f} ms, library "
+                                 f"{rec['library_ms']:.4f} ms, bound "
+                                 f"{rec['bound_ms']:.4f} ms "
+                                 f"({rec['bound_by']})")
+                        if not causal:          # the training path's case
+                            record[(name, dtype)] = rec
+                    print(line, flush=True)
+                del qkv, q, k, v, g, out, lse, delta, calls
+        torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------------------- #
 # phase 2: fp32 parity against the greedy full recompute
 # --------------------------------------------------------------------- #
@@ -390,12 +537,12 @@ def phase_serve():
         free, used, total = engine.block_accounting()
         check(used == 0 and free == total, f"blocks leaked: {free, used}")
         per_window = LAYERS * engine.decode_steps
-        want = ({"flash_decode": per_window * calls["windows"],
-                 "flash_decode_paged": 0, "flash_prefill_paged": 0}
-                if layout == "dense" else
-                {"flash_decode": 0,
-                 "flash_decode_paged": per_window * calls["windows"],
-                 "flash_prefill_paged": LAYERS * calls["chunks"]})
+        want = dict.fromkeys(KERNELS, 0)
+        if layout == "dense":
+            want["flash_decode"] = per_window * calls["windows"]
+        else:
+            want["flash_decode_paged"] = per_window * calls["windows"]
+            want["flash_prefill_paged"] = LAYERS * calls["chunks"]
         check(got == want, f"{layout}: launches {got}, attention calls "
               f"{want}")
         check(all(n > 0 for n in want.values() if n != 0)
@@ -419,6 +566,146 @@ def phase_serve():
     return counts
 
 
+# --------------------------------------------------------------------- #
+# phases 4 and 5: BERT masked-LM training through AutoDist + AllReduce
+# --------------------------------------------------------------------- #
+def bert_window(cfg, steps, seed0=0):
+    """``steps`` distinct synthetic MLM batches without ``input_mask``
+    (unpadded, as the bench feeds them), stacked ``[steps, ...]``."""
+    batches = []
+    for i in range(steps):
+        b = bert.synthetic_mlm_batch(seed0 + i, BERT_BATCH, BERT_SEQ,
+                                     BERT_MASKED, cfg.vocab_size)
+        b.pop("input_mask")
+        batches.append(b)
+    return port.stack_steps(batches)
+
+
+def bert_runner(cfg, optimizer):
+    trainable = bert.make_mlm_trainable(
+        cfg, optimizer, torch.Generator(device="cuda").manual_seed(0),
+        with_input_mask=False)
+    return port.AutoDist({}, port.AllReduce(chunk_size=256)).build(trainable)
+
+
+def phase_training_parity():
+    """fp32: flash and einsum attention train a 2-layer full-width BERT
+    alike over 3 AdamW steps (same generator seed, so the same weights;
+    same batches)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    losses = {}
+    for name, fn in (("flash", fa.make_attention_fn(False)),
+                     ("einsum", None)):
+        cfg = port.TransformerConfig(
+            num_layers=2, dtype=torch.float32, dropout_rate=0.0,
+            attention_dropout_rate=0.0, attention_fn=fn)
+        runner = bert_runner(cfg, port.optim.adamw(1e-4, weight_decay=0.01))
+        losses[name] = runner.run_steps(bert_window(cfg, 3, seed0=100))[
+            "loss"].tolist()
+        runner.close()
+        torch.cuda.empty_cache()
+    for i, (a, b) in enumerate(zip(losses["flash"], losses["einsum"])):
+        check(math.isfinite(a) and abs(a - b) <= 1e-4 * abs(b),
+              f"step {i}: flash loss {a} vs einsum loss {b} differ by more "
+              f"than 1e-4 relative")
+    print(f"phase 4 fp32 2-layer BERT, 3 AdamW steps: flash losses "
+          f"{losses['flash']}, einsum losses {losses['einsum']}", flush=True)
+
+
+def profile_steps(runner, window, k=3):
+    """Device busy time and kernel launches of ``k`` steps under
+    ``torch.profiler``; ``None`` where it records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    part = {key: t[:k] for key, t in window.items()}
+    runner.run_steps(part)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        runner.run_steps(part)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not busy_ms:
+        return None
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return (busy_ms / k, sum(e.count for e in kernels) / k,
+            "; ".join(f"{e.key[:60]} x{e.count} "
+                      f"{e.self_device_time_total / 1e3:.3f} ms" for e in top))
+
+
+def timed_window(runner, window):
+    """A warm window, then a timed one (host clock around a window that
+    ends in a host read of the last loss).  Returns (seconds, metrics)."""
+    fence = lambda m: float(m["loss"][-1])              # noqa: E731
+    fence(runner.run_steps(window))
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics = runner.run_steps(window)
+    fence(metrics)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, metrics
+
+
+def phase_train():
+    """bf16 BERT-base: the bench's training window through the flash
+    kernels, then through the einsum attention."""
+    cfg = bert.bert_base(dropout_rate=0.0, attention_dropout_rate=0.0,
+                         attention_fn=fa.make_attention_fn(False))
+    flops = bert.mlm_model_flops_per_example(cfg, BERT_SEQ, BERT_MASKED)
+    peak = port.ResourceSpec({}).chip.peak_bf16_tflops * 1e12
+    opt = port.optim.adamw(1e-4, weight_decay=0.01, mu_dtype=torch.bfloat16)
+    runner = bert_runner(cfg, opt)
+    window = runner.place_steps(bert_window(cfg, BERT_STEPS))
+    dt, metrics = timed_window(runner, window)
+    got = launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = metrics["loss"].float()
+    check(bool(torch.isfinite(losses).all()), f"non-finite loss: {losses}")
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(dict.fromkeys(TRAINING_KERNELS,
+                              cfg.num_layers * BERT_STEPS))
+    check(got == want, f"training launches {got}, expected {want}")
+    rate = BERT_STEPS * BERT_BATCH / dt
+    print(f"phase 5 flash bf16: {BERT_STEPS} steps in {dt:.3f} s = "
+          f"{rate:.2f} examples/s, step {dt / BERT_STEPS * 1e3:.2f} ms, MFU "
+          f"{rate * flops / peak:.4f}, peak memory "
+          f"{peak_gb:.2f} GB, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"launches {got}", flush=True)
+    prof = profile_steps(runner, window)
+    if prof is None:
+        print("phase 5 step profile: device time not measured", flush=True)
+    else:
+        busy, n_launch, top = prof
+        step_ms = dt / BERT_STEPS * 1e3
+        print(f"phase 5 step profile: device busy {busy:.2f} ms of "
+              f"{step_ms:.2f} ms ({busy / step_ms:.1%}), {n_launch:.0f} "
+              f"kernel launches per step; top: {top}", flush=True)
+    runner.close()
+    del runner, window
+    torch.cuda.empty_cache()
+
+    cfg = bert.bert_base(dropout_rate=0.0, attention_dropout_rate=0.0)
+    runner = bert_runner(cfg, opt)
+    window = runner.place_steps(bert_window(cfg, BERT_STEPS))
+    dt_e, metrics = timed_window(runner, window)
+    check(bool(torch.isfinite(metrics["loss"]).all()), "non-finite loss")
+    rate_e = BERT_STEPS * BERT_BATCH / dt_e
+    print(f"phase 5 einsum bf16: {rate_e:.2f} examples/s, step "
+          f"{dt_e / BERT_STEPS * 1e3:.2f} ms, MFU "
+          f"{rate_e * flops / peak:.4f} (flash: "
+          f"{rate:.2f} examples/s)", flush=True)
+    runner.close()
+    del runner, window
+    torch.cuda.empty_cache()
+    return {name: got[name] for name in TRAINING_KERNELS}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -427,11 +714,16 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     record = phase_kernels()
+    phase_attention_kernels(record)
     print(f"phase 1 done at {time.perf_counter() - t0:.1f} s", flush=True)
     phase_parity()
     print(f"phase 2 done at {time.perf_counter() - t0:.1f} s", flush=True)
     counts = phase_serve()
     print(f"phase 3 done at {time.perf_counter() - t0:.1f} s", flush=True)
+    phase_training_parity()
+    print(f"phase 4 done at {time.perf_counter() - t0:.1f} s", flush=True)
+    counts.update(phase_train())
+    print(f"phase 5 done at {time.perf_counter() - t0:.1f} s", flush=True)
     kernels = []
     for name, k in KERNELS.items():
         rec = record[(name, torch.bfloat16)]

@@ -9,6 +9,8 @@ machine that has only PyTorch:
 (``--noconftest`` keeps out the JAX mesh set-up of ``tests/conftest.py``.)
 The first CUDA call builds the kernels with ``nvcc``.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +18,12 @@ import torch
 import autodist_tpu_torch as port
 from autodist_tpu_torch.kernel import flash_decode as fd
 from autodist_tpu_torch.kernel import flash_prefill as fp
+from autodist_tpu_torch.kernel.common import flatten_with_names
+from autodist_tpu_torch.models import bert
+
+fa = importlib.import_module("autodist_tpu_torch.ops.flash_attention")
+ATTENTION = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+             fa.flash_attention_bwd_dkv)
 
 pytestmark = pytest.mark.gpu
 
@@ -131,3 +139,95 @@ def test_cuda_engine_streams_equal_the_cpu_engine(cuda, layout):
             + fd.flash_decode_attention_paged.launches) > before
     assert got == run("cpu")
     assert got[-1][1] == "max_len"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,causal", [(100, False), (17, True), (128, True),
+                                      (64, False)])
+def test_cuda_flash_attention_kernels_match_plain(cuda, dtype, L, causal):
+    """K1, K2a and K2b against their plain versions on q/k/v sliced from
+    one [B, L, 3, H, D] projection: fp32 at atol = rtol = 1e-5, bf16 at
+    1e-2; lengths on and off the kernels' 32/64-row tiles."""
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    g = torch.Generator(device=cuda).manual_seed(L)
+    qkv = torch.randn((3, L, 3, 4, 64), generator=g, device=cuda).to(dtype)
+    q, k, v = qkv.unbind(2)
+    go = torch.randn((3, L, 4, 64), generator=g, device=cuda).to(dtype)
+    before = [w.launches for w in ATTENTION]
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    delta = (go.float() * out.float()).sum(-1)
+    dq = fa.flash_attention_bwd_dq(q, k, v, go, lse, delta, causal=causal)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, go, lse, delta,
+                                        causal=causal)
+    torch.cuda.synchronize()
+    assert [w.launches for w in ATTENTION] == [n + 1 for n in before]
+    kw = dict(causal=causal, scale=0.125)
+    want = (fa.flash_attention_fwd_plain(q, k, v, **kw)
+            + (fa.flash_attention_bwd_dq_plain(q, k, v, go, lse, delta, **kw),)
+            + fa.flash_attention_bwd_dkv_plain(q, k, v, go, lse, delta, **kw))
+    for got, ref in zip((out, lse, dq, dk, dv), want):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        torch.testing.assert_close(got.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.parametrize("bad", ["fp16", "head_dim", "strides", "unaligned",
+                                 "g_layout"])
+def test_cuda_flash_attention_raises_on_what_the_kernels_do_not_take(cuda,
+                                                                     bad):
+    """Refused before any launch: no counter moves and nothing falls
+    back to the plain version."""
+    q = k = v = torch.zeros(2, 8, 2, 64, device=cuda)
+    g = torch.zeros(2, 8, 2, 64, device=cuda)
+    if bad == "fp16":
+        q = k = v = g = q.half()
+    elif bad == "head_dim":
+        q = k = v = g = torch.zeros(2, 8, 2, 32, device=cuda)
+    elif bad == "strides":
+        k = torch.zeros(2, 2, 8, 64, device=cuda).transpose(1, 2)
+    elif bad == "unaligned":
+        q = k = v = torch.zeros(2, 8, 2, 65, device=cuda)[..., 1:]
+    else:
+        g = torch.zeros(2, 2, 8, 64, device=cuda).transpose(1, 2)
+    lse = delta = torch.zeros(2, 8, 2, device=cuda)
+    before = [w.launches for w in ATTENTION]
+    with pytest.raises((TypeError, ValueError)):
+        if bad == "g_layout":
+            fa.flash_attention_bwd_dq(q, k, v, g, lse, delta)
+        else:
+            fa.flash_attention_fwd(q, k, v)
+    assert [w.launches for w in ATTENTION] == before
+
+
+def test_cuda_training_step_goes_through_the_kernels(cuda):
+    """One AutoDist + AllReduce step of a small fp32 BERT with the flash
+    attention on the card: each of K1, K2a, K2b launches once per layer,
+    and loss and parameters equal the same step on the CPU (where the
+    wrappers run their plain versions)."""
+    cfg = port.TransformerConfig(
+        vocab_size=97, hidden_size=128, num_layers=2, num_heads=2,
+        mlp_dim=256, max_len=32, dtype=torch.float32, dropout_rate=0.0,
+        attention_dropout_rate=0.0, attention_fn=fa.make_attention_fn(False))
+    batch = bert.synthetic_mlm_batch(0, 4, 32, 4, 97)
+    batch.pop("input_mask")
+
+    def step(device):
+        trainable = bert.make_mlm_trainable(
+            cfg, port.optim.sgd(0.5), torch.Generator().manual_seed(0),
+            with_input_mask=False, device=device)
+        runner = port.AutoDist({}, port.AllReduce(), device=device).build(
+            trainable)
+        loss = runner.step(batch)["loss"]
+        return loss.cpu(), {n: p.cpu() for n, p in
+                            flatten_with_names(runner.get_params())}
+
+    before = [w.launches for w in ATTENTION]
+    loss, params = step(cuda)
+    torch.cuda.synchronize()
+    assert [w.launches for w in ATTENTION] == [n + cfg.num_layers
+                                               for n in before]
+    cpu_loss, cpu_params = step("cpu")
+    torch.testing.assert_close(loss, cpu_loss, atol=1e-5, rtol=1e-5)
+    for name, p in params.items():
+        torch.testing.assert_close(p, cpu_params[name], atol=1e-5, rtol=1e-5,
+                                   msg=name)

@@ -13,6 +13,7 @@ JAX kernel modules are imported inside the tests, as the JAX package's
 own tests do, so that the TPU-import collection guard stays quiet.
 """
 import ast
+import importlib
 import os
 import shutil
 
@@ -25,6 +26,8 @@ from autodist_tpu_torch.kernel import build
 from autodist_tpu_torch.kernel import flash_decode as fd
 from autodist_tpu_torch.kernel import flash_prefill as fp
 from autodist_tpu_torch.serving import kv_cache as tkv
+
+fa = importlib.import_module("autodist_tpu_torch.ops.flash_attention")
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -279,13 +282,15 @@ def test_blocks_for_and_allocator_match_jax():
 # the build: CUDA sources, flags, content hash
 # --------------------------------------------------------------------------- #
 def test_build_targets_sm90a_and_hashes_sources():
-    assert [s.name for s in build.sources()] == ["flash_decode.cu",
+    assert [s.name for s in build.sources()] == ["flash_attention.cu",
+                                                 "flash_decode.cu",
                                                  "flash_prefill.cu"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert build.source_hash() == build.source_hash()
     for src in build.sources():
         head = src.read_text().split("#include")[0]
-        assert "Replaces: autodist_tpu/kernel/pallas/" in head
+        assert ("Replaces: autodist_tpu/kernel/pallas/" in head
+                or "Replaces: autodist_tpu/ops/flash_attention.py" in head)
         assert "Bound on this card" in head
     if shutil.which("nvcc") is None and not os.path.exists(
             "/usr/local/cuda/bin/nvcc") and not os.environ.get("CUDA_HOME"):
@@ -296,6 +301,6 @@ def test_build_targets_sm90a_and_hashes_sources():
 def test_wrappers_have_no_fallback_path():
     """A wrapper's only route to the plain version is a CPU tensor: no
     ``try`` in the kernel modules could swallow a failed launch."""
-    for mod in (fd, fp):
+    for mod in (fd, fp, fa):
         tree = ast.parse(open(mod.__file__).read())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
