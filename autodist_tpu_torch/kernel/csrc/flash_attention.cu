@@ -24,7 +24,7 @@
 // tensor cores nearly as much; in fp32 (67 TFLOP/s without tensor
 // cores) operations bound it.  Two designs, one per dtype:
 //
-// * fp32 (the *_kernel<D> below): the fp32 CUDA cores, plain FMAs, so
+// * fp32 (the *_kernel below): the fp32 CUDA cores, plain FMAs, so
 //   the CPU goldens' full fp32 precision holds (no TF32).  Tiles are
 //   staged as fp32 (q, k, g transposed so that one 16-byte read gives 4
 //   rows), and each of the 128 threads of a block owns a 4 x 4 block of
@@ -44,6 +44,7 @@
 namespace adt {
 namespace {
 
+constexpr int kD = 64;         // head dim (BERT-base: 768 / 12)
 constexpr int kThreads = 128;  // 16 row groups (ty) x 8 column groups (tx)
 constexpr int kBQ = 64;        // K1, K2a: query rows per block
 constexpr int kBK = 32;        // K1, K2a: keys per tile
@@ -74,11 +75,11 @@ struct AttnArgs {
 // fp32, transposed: dst[d * ROWS + r].  Rows at or past len read as 0.
 // Consecutive threads take consecutive rows, so the transposed stores
 // fall on distinct banks.
-template <typename T, int D, int ROWS>
+template <typename T, int ROWS>
 __device__ __forceinline__ void stage_t(float* dst, const T* base, long long sl, int row0,
                                         int len) {
   constexpr int kVec = 16 / sizeof(T);
-  for (int c = threadIdx.x; c < ROWS * (D / kVec); c += kThreads) {
+  for (int c = threadIdx.x; c < ROWS * (kD / kVec); c += kThreads) {
     const int r = c % ROWS, d0 = (c / ROWS) * kVec;
     uint4 raw = make_uint4(0, 0, 0, 0);
     if (row0 + r < len)
@@ -89,12 +90,12 @@ __device__ __forceinline__ void stage_t(float* dst, const T* base, long long sl,
   }
 }
 
-// The same rows row-major: dst[r * D + d].
-template <typename T, int D, int ROWS>
+// The same rows row-major: dst[r * kD + d].
+template <typename T, int ROWS>
 __device__ __forceinline__ void stage_r(float* dst, const T* base, long long sl, int row0,
                                         int len) {
   constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunks = D / kVec;
+  constexpr int kChunks = kD / kVec;
   for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
     const int r = c / kChunks, d0 = (c % kChunks) * kVec;
     uint4 raw = make_uint4(0, 0, 0, 0);
@@ -102,7 +103,7 @@ __device__ __forceinline__ void stage_r(float* dst, const T* base, long long sl,
       raw = __ldg(reinterpret_cast<const uint4*>(base + (long long)(row0 + r) * sl + d0));
     const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-    for (int i = 0; i < kVec; ++i) dst[r * D + d0 + i] = to_float(e[i]);
+    for (int i = 0; i < kVec; ++i) dst[r * kD + d0 + i] = to_float(e[i]);
   }
 }
 
@@ -175,13 +176,11 @@ __device__ __forceinline__ void store_row8(T* dst, const float (&x)[8], float di
 // ---------------------------------------------------------------------
 // K1: one block per (batch * head, 64 query rows), key tiles of 32.
 // ---------------------------------------------------------------------
-template <int D>
 __global__ void __launch_bounds__(kThreads) fwd_kernel(AttnArgs a) {
   using T = float;
-  static_assert(D == 64, "the thread layout covers 64 head dims");
-  __shared__ __align__(16) float sQt[D * kBQ];
-  __shared__ __align__(16) float sKt[D * kBK];
-  __shared__ __align__(16) float sV[kBK * D];
+  __shared__ __align__(16) float sQt[kD * kBQ];
+  __shared__ __align__(16) float sKt[kD * kBK];
+  __shared__ __align__(16) float sV[kBK * kD];
   __shared__ __align__(16) float sP[kBK * kLdP];  // p transposed: [key][row]
 
   const int b = blockIdx.y / a.heads, h = blockIdx.y % a.heads;
@@ -191,7 +190,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(AttnArgs a) {
   const T* q = static_cast<const T*>(a.q) + off;
   const T* k = static_cast<const T*>(a.k) + off;
   const T* v = static_cast<const T*>(a.v) + off;
-  stage_t<T, D, kBQ>(sQt, q, a.sl, q0, a.len);
+  stage_t<T, kBQ>(sQt, q, a.sl, q0, a.len);
 
   // Key tiles past the block's last row are skipped when causal.
   const int n_keys = a.causal ? min(a.len, q0 + kBQ) : a.len;
@@ -206,13 +205,13 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(AttnArgs a) {
 
   for (int k0 = 0; k0 < n_keys; k0 += kBK) {
     __syncthreads();  // the previous tile has been read
-    stage_t<T, D, kBK>(sKt, k, a.sl, k0, a.len);
-    stage_r<T, D, kBK>(sV, v, a.sl, k0, a.len);
+    stage_t<T, kBK>(sKt, k, a.sl, k0, a.len);
+    stage_r<T, kBK>(sV, v, a.sl, k0, a.len);
     __syncthreads();
 
     float s[4][4] = {};
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) outer4(s, ld4(sQt + d * kBQ + 4 * ty), ld4(sKt + d * kBK + 4 * tx));
+    for (int d = 0; d < kD; ++d) outer4(s, ld4(sQt + d * kBQ + 4 * ty), ld4(sKt + d * kBK + 4 * tx));
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -249,8 +248,8 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(AttnArgs a) {
 
 #pragma unroll 4
     for (int c = 0; c < kBK; ++c)
-      outer48(acc, ld4(sP + c * kLdP + 4 * ty), ld4(sV + c * D + 4 * tx),
-              ld4(sV + c * D + 32 + 4 * tx));
+      outer48(acc, ld4(sP + c * kLdP + 4 * ty), ld4(sV + c * kD + 4 * tx),
+              ld4(sV + c * kD + 32 + 4 * tx));
   }
 
   T* out = static_cast<T*>(a.out);
@@ -259,7 +258,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(AttnArgs a) {
     const int row = q0 + 4 * ty + i;
     if (row >= a.len) continue;
     const long long r = (long long)b * a.len + row;
-    store_row8<T>(out + (r * a.heads + h) * D, acc[i], l[i]);
+    store_row8<T>(out + (r * a.heads + h) * kD, acc[i], l[i]);
     if (tx == 0) a.lse[r * a.heads + h] = m[i] + logf(l[i]);
   }
 }
@@ -268,19 +267,17 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(AttnArgs a) {
 // K2a: one block per (batch * head, 64 query rows), key tiles of 32;
 // dq = sum over keys of ds * k, recomputing p = exp(s - lse).
 // ---------------------------------------------------------------------
-constexpr int kDqSmemFloats = 2 * 64 * kBQ + 3 * 64 * kBK + kBK * kLdP;
+constexpr int kDqSmemFloats = 2 * kD * kBQ + 3 * kD * kBK + kBK * kLdP;
 
-template <int D>
 __global__ void __launch_bounds__(kThreads) dq_kernel(AttnArgs a) {
   using T = float;
-  static_assert(D == 64, "the thread layout covers 64 head dims");
   extern __shared__ __align__(16) float smem[];
-  float* sQt = smem;               // [D][kBQ]
-  float* sGt = sQt + D * kBQ;      // [D][kBQ]
-  float* sKt = sGt + D * kBQ;      // [D][kBK]
-  float* sVt = sKt + D * kBK;      // [D][kBK]
-  float* sK = sVt + D * kBK;       // [kBK][D]
-  float* sDS = sK + kBK * D;       // ds transposed: [key][row]
+  float* sQt = smem;            // [kD][kBQ]
+  float* sGt = sQt + kD * kBQ;  // [kD][kBQ]
+  float* sKt = sGt + kD * kBQ;  // [kD][kBK]
+  float* sVt = sKt + kD * kBK;  // [kD][kBK]
+  float* sK = sVt + kD * kBK;   // [kBK][kD]
+  float* sDS = sK + kBK * kD;   // ds transposed: [key][row]
 
   const int b = blockIdx.y / a.heads, h = blockIdx.y % a.heads;
   const int q0 = blockIdx.x * kBQ;
@@ -289,9 +286,9 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(AttnArgs a) {
   const T* q = static_cast<const T*>(a.q) + off;
   const T* k = static_cast<const T*>(a.k) + off;
   const T* v = static_cast<const T*>(a.v) + off;
-  const T* g = static_cast<const T*>(a.g) + ((long long)b * a.len * a.heads + h) * D;
-  stage_t<T, D, kBQ>(sQt, q, a.sl, q0, a.len);
-  stage_t<T, D, kBQ>(sGt, g, (long long)a.heads * D, q0, a.len);
+  const T* g = static_cast<const T*>(a.g) + ((long long)b * a.len * a.heads + h) * kD;
+  stage_t<T, kBQ>(sQt, q, a.sl, q0, a.len);
+  stage_t<T, kBQ>(sGt, g, (long long)a.heads * kD, q0, a.len);
 
   float lse[4], delta[4], dq[4][8];
 #pragma unroll
@@ -307,14 +304,14 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(AttnArgs a) {
   const int n_keys = a.causal ? min(a.len, q0 + kBQ) : a.len;
   for (int k0 = 0; k0 < n_keys; k0 += kBK) {
     __syncthreads();
-    stage_t<T, D, kBK>(sKt, k, a.sl, k0, a.len);
-    stage_t<T, D, kBK>(sVt, v, a.sl, k0, a.len);
-    stage_r<T, D, kBK>(sK, k, a.sl, k0, a.len);
+    stage_t<T, kBK>(sKt, k, a.sl, k0, a.len);
+    stage_t<T, kBK>(sVt, v, a.sl, k0, a.len);
+    stage_r<T, kBK>(sK, k, a.sl, k0, a.len);
     __syncthreads();
 
     float s[4][4] = {}, dp[4][4] = {};
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < kD; ++d) {
       const float4 kk = ld4(sKt + d * kBK + 4 * tx);
       const float4 vv = ld4(sVt + d * kBK + 4 * tx);
       outer4(s, ld4(sQt + d * kBQ + 4 * ty), kk);
@@ -339,15 +336,15 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(AttnArgs a) {
 
 #pragma unroll 4
     for (int c = 0; c < kBK; ++c)
-      outer48(dq, ld4(sDS + c * kLdP + 4 * ty), ld4(sK + c * D + 4 * tx),
-              ld4(sK + c * D + 32 + 4 * tx));
+      outer48(dq, ld4(sDS + c * kLdP + 4 * ty), ld4(sK + c * kD + 4 * tx),
+              ld4(sK + c * kD + 32 + 4 * tx));
   }
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * ty + i;
     if (row >= a.len) continue;
-    store_row8<float>(a.dq + (((long long)b * a.len + row) * a.heads + h) * D, dq[i], 1.f);
+    store_row8<float>(a.dq + (((long long)b * a.len + row) * a.heads + h) * kD, dq[i], 1.f);
   }
 }
 
@@ -355,20 +352,18 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(AttnArgs a) {
 // K2b: one block per (batch * head, 64 keys), query tiles of 32 from
 // the diagonal on when causal; dv = sum p * g and dk = sum ds * q.
 // ---------------------------------------------------------------------
-constexpr int kDkvSmemFloats = 2 * 64 * kBKV + 4 * 64 * kBQ2 + 2 * kBQ2 * kLdP2 + 2 * kBQ2;
+constexpr int kDkvSmemFloats = 2 * kD * kBKV + 4 * kD * kBQ2 + 2 * kBQ2 * kLdP2 + 2 * kBQ2;
 
-template <int D>
 __global__ void __launch_bounds__(kThreads) dkv_kernel(AttnArgs a) {
   using T = float;
-  static_assert(D == 64, "the thread layout covers 64 head dims");
   extern __shared__ __align__(16) float smem[];
-  float* sKt = smem;                 // [D][kBKV], resident
-  float* sVt = sKt + D * kBKV;       // [D][kBKV], resident
-  float* sQt = sVt + D * kBKV;       // [D][kBQ2]
-  float* sGt = sQt + D * kBQ2;       // [D][kBQ2]
-  float* sQ = sGt + D * kBQ2;        // [kBQ2][D]
-  float* sG = sQ + kBQ2 * D;         // [kBQ2][D]
-  float* sP = sG + kBQ2 * D;         // p: [row][key]
+  float* sKt = smem;                 // [kD][kBKV], resident
+  float* sVt = sKt + kD * kBKV;      // [kD][kBKV], resident
+  float* sQt = sVt + kD * kBKV;      // [kD][kBQ2]
+  float* sGt = sQt + kD * kBQ2;      // [kD][kBQ2]
+  float* sQ = sGt + kD * kBQ2;       // [kBQ2][kD]
+  float* sG = sQ + kBQ2 * kD;        // [kBQ2][kD]
+  float* sP = sG + kBQ2 * kD;        // p: [row][key]
   float* sDS = sP + kBQ2 * kLdP2;    // ds: [row][key]
   float* sLse = sDS + kBQ2 * kLdP2;  // [kBQ2]
   float* sDelta = sLse + kBQ2;       // [kBQ2]
@@ -377,13 +372,13 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(AttnArgs a) {
   const int kb0 = blockIdx.x * kBKV;
   const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;  // keys 4ty.., rows 4tx..
   const long long off = (long long)b * a.sb + (long long)h * a.sh;
-  const long long sg = (long long)a.heads * D;
+  const long long sg = (long long)a.heads * kD;
   const T* q = static_cast<const T*>(a.q) + off;
   const T* k = static_cast<const T*>(a.k) + off;
   const T* v = static_cast<const T*>(a.v) + off;
-  const T* g = static_cast<const T*>(a.g) + ((long long)b * a.len * a.heads + h) * D;
-  stage_t<T, D, kBKV>(sKt, k, a.sl, kb0, a.len);
-  stage_t<T, D, kBKV>(sVt, v, a.sl, kb0, a.len);
+  const T* g = static_cast<const T*>(a.g) + ((long long)b * a.len * a.heads + h) * kD;
+  stage_t<T, kBKV>(sKt, k, a.sl, kb0, a.len);
+  stage_t<T, kBKV>(sVt, v, a.sl, kb0, a.len);
 
   float dk[4][8], dv[4][8];
 #pragma unroll
@@ -395,10 +390,10 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(AttnArgs a) {
   const int qstart = a.causal ? (kb0 / kBQ2) * kBQ2 : 0;
   for (int q0 = qstart; q0 < a.len; q0 += kBQ2) {
     __syncthreads();
-    stage_t<T, D, kBQ2>(sQt, q, a.sl, q0, a.len);
-    stage_t<T, D, kBQ2>(sGt, g, sg, q0, a.len);
-    stage_r<T, D, kBQ2>(sQ, q, a.sl, q0, a.len);
-    stage_r<T, D, kBQ2>(sG, g, sg, q0, a.len);
+    stage_t<T, kBQ2>(sQt, q, a.sl, q0, a.len);
+    stage_t<T, kBQ2>(sGt, g, sg, q0, a.len);
+    stage_r<T, kBQ2>(sQ, q, a.sl, q0, a.len);
+    stage_r<T, kBQ2>(sG, g, sg, q0, a.len);
     if (threadIdx.x < kBQ2) {
       const int row = q0 + threadIdx.x;
       const long long r = ((long long)b * a.len + row) * a.heads + h;
@@ -409,7 +404,7 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(AttnArgs a) {
 
     float s[4][4] = {}, dp[4][4] = {};  // [key i][row j]
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < kD; ++d) {
       const float4 qq = ld4(sQt + d * kBQ2 + 4 * tx);
       const float4 gg = ld4(sGt + d * kBQ2 + 4 * tx);
       outer4(s, ld4(sKt + d * kBKV + 4 * ty), qq);
@@ -437,10 +432,10 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(AttnArgs a) {
 
 #pragma unroll 4
     for (int r = 0; r < kBQ2; ++r) {
-      outer48(dv, ld4(sP + r * kLdP2 + 4 * ty), ld4(sG + r * D + 4 * tx),
-              ld4(sG + r * D + 32 + 4 * tx));
-      outer48(dk, ld4(sDS + r * kLdP2 + 4 * ty), ld4(sQ + r * D + 4 * tx),
-              ld4(sQ + r * D + 32 + 4 * tx));
+      outer48(dv, ld4(sP + r * kLdP2 + 4 * ty), ld4(sG + r * kD + 4 * tx),
+              ld4(sG + r * kD + 32 + 4 * tx));
+      outer48(dk, ld4(sDS + r * kLdP2 + 4 * ty), ld4(sQ + r * kD + 4 * tx),
+              ld4(sQ + r * kD + 32 + 4 * tx));
     }
   }
 
@@ -448,7 +443,7 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(AttnArgs a) {
   for (int i = 0; i < 4; ++i) {
     const int key = kb0 + 4 * ty + i;
     if (key >= a.len) continue;
-    const long long o = (((long long)b * a.len + key) * a.heads + h) * D;
+    const long long o = (((long long)b * a.len + key) * a.heads + h) * kD;
     store_row8<float>(a.dk + o, dk[i], 1.f);
     store_row8<float>(a.dv + o, dv[i], 1.f);
   }
@@ -845,11 +840,11 @@ struct LaunchAttention {
     } else if constexpr (kTc) {
       return launch(dkv_tc_kernel, kT, kDkvTcBytes, configured);
     } else if constexpr (kWhich == kFwd) {
-      return launch(fwd_kernel<D>, kBQ, 0, configured);
+      return launch(fwd_kernel, kBQ, 0, configured);
     } else if constexpr (kWhich == kDq) {
-      return launch(dq_kernel<D>, kBQ, kDqSmemFloats * 4, configured);
+      return launch(dq_kernel, kBQ, kDqSmemFloats * 4, configured);
     } else {
-      return launch(dkv_kernel<D>, kBKV, kDkvSmemFloats * 4, configured);
+      return launch(dkv_kernel, kBKV, kDkvSmemFloats * 4, configured);
     }
   }
 };

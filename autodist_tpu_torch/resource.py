@@ -5,11 +5,11 @@ path: one process per GPU in a ``torch.distributed`` job.  The spec
 ``{}`` (or ``None``) means every process of the job is one replica on
 the ``data`` axis: ``data`` is the process group's world size, or 1
 without a process group.  ``{"mesh": {"data": n}}`` states the same
-and must match the world size; ``topology.generation`` picks a
-:class:`ChipSpec` (``"auto"``: the H100 table when the card is an H100,
-else the CPU table).  Other mesh axes, multi-slice topologies and
-``multihost`` blocks belong to later slices (ROADMAP Queue 1, slice 3
-and items 8-9) and raise ``NotImplementedError``.
+and must match the world size.  :attr:`ResourceSpec.chip` is the
+card's :class:`ChipSpec`; only the H100 has one.  Other mesh axes,
+other ``topology`` keys and ``multihost`` blocks belong to later slices
+(ROADMAP Queue 1, slice 3 and items 8-9) and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,19 +28,14 @@ class ChipSpec:
 
     name: str
     peak_bf16_tflops: float      # dense, per card
+    peak_fp32_tflops: float      # the CUDA cores, no TF32
     hbm_gb: float
     hbm_gbps: float              # device-memory bandwidth
-    link_gbps: float             # per-card interconnect bandwidth, each way
 
 
-# H100 SXM: NVIDIA's data sheet (dense rates, 700 W); NVLink 4 gives
-# 900 GB/s per card, 450 each way.  "cpu" is a placeholder for dev runs.
-CHIP_SPECS = {
-    "h100": ChipSpec("h100", peak_bf16_tflops=989.0, hbm_gb=80,
-                     hbm_gbps=3350, link_gbps=450),
-    "cpu": ChipSpec("cpu", peak_bf16_tflops=1.0, hbm_gb=8, hbm_gbps=50,
-                    link_gbps=10),
-}
+# H100 SXM: NVIDIA's data sheet (dense rates, 700 W).
+H100 = ChipSpec("h100", peak_bf16_tflops=989.0, peak_fp32_tflops=67.0,
+                hbm_gb=80, hbm_gbps=3350)
 
 
 @dataclasses.dataclass
@@ -74,7 +69,10 @@ class ResourceSpec:
                 f"resource spec keys {sorted(unknown)} are not ported yet "
                 f"(ROADMAP Queue 1, item 9: runtime and multi-host)")
         topo = dict(spec.get("topology") or {})
-        self.generation: str = topo.get("generation", "auto")
+        if set(topo) - {"num_devices"}:
+            raise NotImplementedError(
+                f"topology keys {sorted(set(topo) - {'num_devices'})} are "
+                f"not ported yet (ROADMAP Queue 1, slice 3)")
         self._requested_devices = topo.get("num_devices")
         self.mesh_shape: dict = dict(spec.get("mesh") or {})
         for ax in self.mesh_shape:
@@ -88,11 +86,13 @@ class ResourceSpec:
 
     @property
     def chip(self) -> ChipSpec:
-        gen = self.generation
-        if gen == "auto":
-            gen = ("h100" if torch.cuda.is_available()
-                   and "H100" in torch.cuda.get_device_name(0) else "cpu")
-        return CHIP_SPECS[gen]
+        """The card's constants; raises on any card but an H100."""
+        name = (torch.cuda.get_device_name(0) if torch.cuda.is_available()
+                else "no CUDA device")
+        if "H100" not in name:
+            raise NotImplementedError(f"no ChipSpec for {name!r}; only the "
+                                      f"H100 has one")
+        return H100
 
     def num_devices(self) -> int:
         """The job's world size (one process per GPU); a declared

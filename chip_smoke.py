@@ -56,13 +56,15 @@ from autodist_tpu_torch.kernel import flash_decode as fd
 from autodist_tpu_torch.kernel import flash_prefill as fp
 from autodist_tpu_torch.models import bert
 from autodist_tpu_torch.models.pipeline_lm import sequential_logits
+from autodist_tpu_torch.resource import H100
 from autodist_tpu_torch.serving import FINISH_REASONS, kv_cache
 
 fa = importlib.import_module("autodist_tpu_torch.ops.flash_attention")
 
 # Published H100 SXM rates (NVIDIA data sheet, dense, at 700 W).
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+HBM_BYTES_PER_S = H100.hbm_gbps * 1e9
+PEAK_FLOPS = {torch.bfloat16: H100.peak_bf16_tflops * 1e12,
+              torch.float32: H100.peak_fp32_tflops * 1e12}
 
 VOCAB, HIDDEN, LAYERS, HEADS, MLP, MAX_LEN = 32768, 1024, 8, 16, 4096, 1024
 HEAD_DIM = HIDDEN // HEADS
@@ -658,7 +660,8 @@ def phase_train():
     cfg = bert.bert_base(dropout_rate=0.0, attention_dropout_rate=0.0,
                          attention_fn=fa.make_attention_fn(False))
     flops = bert.mlm_model_flops_per_example(cfg, BERT_SEQ, BERT_MASKED)
-    peak = port.ResourceSpec({}).chip.peak_bf16_tflops * 1e12
+    chip = port.ResourceSpec({}).chip
+    peak = chip.peak_bf16_tflops * 1e12
     opt = port.optim.adamw(1e-4, weight_decay=0.01, mu_dtype=torch.bfloat16)
     runner = bert_runner(cfg, opt)
     window = runner.place_steps(bert_window(cfg, BERT_STEPS))
@@ -675,8 +678,8 @@ def phase_train():
     print(f"phase 5 flash bf16: {BERT_STEPS} steps in {dt:.3f} s = "
           f"{rate:.2f} examples/s, step {dt / BERT_STEPS * 1e3:.2f} ms, MFU "
           f"{rate * flops / peak:.4f}, peak memory "
-          f"{peak_gb:.2f} GB, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
-          f"launches {got}", flush=True)
+          f"{peak_gb:.2f} GB of {chip.hbm_gb:g}, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, launches {got}", flush=True)
     prof = profile_steps(runner, window)
     if prof is None:
         print("phase 5 step profile: device time not measured", flush=True)

@@ -3,7 +3,8 @@
 On the CPU each wrapper runs its plain PyTorch version; these tests
 hold it to the JAX package's Pallas kernels in interpreter mode, on the
 same numpy inputs, at fp32 with atol = rtol = 1e-5 (both sides compute
-in fp32; only the blocking and summation order differ).  The CUDA
+in fp32; only the blocking and summation order differ), and on bf16
+inputs where the bf16 casts of p and ds decide the result.  The CUDA
 kernels are held to the plain versions on the card, in
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 
@@ -66,6 +67,83 @@ def test_gradients_match_jax_grad(L, causal):
      * torch.as_tensor(g)).sum().backward()
     for got, ref in zip((tq.grad, tk.grad, tv.grad), want):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+def _bf16(*xs):
+    """The same numpy arrays rounded to bf16 on both sides."""
+    import jax.numpy as jnp
+    return ([jnp.asarray(x, jnp.bfloat16) for x in xs],
+            [torch.as_tensor(x).bfloat16() for x in xs])
+
+
+def _assert_bf16_matches(got, want):
+    """bf16 results of the same computation: within 1e-5 except where a
+    different summation order flips the rounding of one p or ds, which
+    shifts one row of the result, at most 1 in 100 elements, and then
+    within the bf16 tolerance (atol = rtol = 1e-2).  A bf16 cast of p or
+    ds missing on either side moves about a third of them."""
+    got = got.detach().float().numpy()
+    want = np.asarray(want).astype(np.float32)
+    off = np.abs(got - want) > 1e-5 + 1e-5 * np.abs(want)
+    assert off.mean() <= 1e-2, f"{off.sum()} of {off.size} elements differ"
+    np.testing.assert_allclose(got, want, atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_forward_and_gradients_match_pallas(causal):
+    """bf16 inputs through K1 and, by autograd, K2a and K2b's plain
+    versions against the Pallas kernels and ``jax.grad``.  At L = 32
+    Pallas takes one key block, so both sides round the same p and ds
+    to bf16 before the products."""
+    import jax
+    import jax.numpy as jnp
+    from autodist_tpu.ops.flash_attention import (flash_attention,
+                                                  flash_attention_with_lse)
+
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _bf16(*_inputs(32, seed=4))
+    want_out, want_lse = flash_attention_with_lse(jq, jk, jv, causal=causal)
+    want = jax.grad(lambda *a: jnp.sum(
+        flash_attention(*a, causal=causal).astype(jnp.float32)
+        * jg.astype(jnp.float32)), argnums=(0, 1, 2))(jq, jk, jv)
+    for t in (tq, tk, tv):
+        t.requires_grad_()
+    out, lse = fa.flash_attention_with_lse(tq, tk, tv, causal=causal)
+    (out.float() * tg.float()).sum().backward()
+    assert out.dtype == tq.grad.dtype == torch.bfloat16
+    np.testing.assert_allclose(lse.detach().numpy(), np.asarray(want_lse),
+                               **TOL)
+    for got, ref in zip((out, tq.grad, tk.grad, tv.grad),
+                        (want_out,) + tuple(want)):
+        _assert_bf16_matches(got, ref)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_backward_fp32_gradients_match_pallas(causal):
+    """K2a and K2b's plain versions on bf16 inputs return fp32 dq, dk
+    and dv equal to the Pallas backward's before its cast back, at the
+    fp32 tolerance, given the Pallas forward's ``out`` and ``lse``."""
+    import jax.numpy as jnp
+    jfa = importlib.import_module("autodist_tpu.ops.flash_attention")
+
+    B, L, H, D = 2, 32, 2, 64
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _bf16(*_inputs(L, seed=5))
+    bhld = lambda x: jnp.moveaxis(x, 2, 1).reshape(B * H, L, D)  # noqa: E731
+    scale = 1.0 / np.sqrt(D)
+    args = [bhld(x) for x in (jq, jk, jv)]
+    out, lse = jfa._flash_fwd_2d(*args, scale, causal, L, L, True, L)
+    want = jfa._flash_bwd(*args, out, lse, bhld(jg), scale, causal, L, L,
+                          True, L)
+    out = torch.tensor(np.asarray(out.astype(jnp.float32))).bfloat16()
+    out = out.reshape(B, H, L, D).transpose(1, 2)
+    lse = torch.tensor(np.asarray(lse)).reshape(B, H, L).transpose(1, 2)
+    delta = (tg.float() * out.float()).sum(-1)
+    kw = dict(lse=lse.contiguous(), delta=delta, causal=causal)
+    dq = fa.flash_attention_bwd_dq(tq, tk, tv, tg, **kw)
+    dk, dv = fa.flash_attention_bwd_dkv(tq, tk, tv, tg, **kw)
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == torch.float32
+        ref = np.asarray(ref).reshape(B, H, L, D).transpose(0, 2, 1, 3)
+        np.testing.assert_allclose(got.numpy(), ref, **TOL)
 
 
 def test_lse_cotangent_folds_into_delta():

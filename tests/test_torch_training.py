@@ -34,6 +34,7 @@ from autodist_tpu.resource import ResourceSpec as JaxResourceSpec
 from autodist_tpu_torch.kernel.common import flatten_with_names, unflatten
 from autodist_tpu_torch.models import bert as tbert
 from autodist_tpu_torch.ops.flash_attention import make_attention_fn
+from autodist_tpu_torch.resource import H100
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -319,8 +320,8 @@ def test_two_gloo_ranks_on_half_batches_match_one_rank(tmp_path):
 
 @pytest.mark.parametrize("what", ["compressor", "compressor_json",
                                   "builder", "ps_json", "partitioner_json",
-                                  "mesh_axis", "multihost", "remat",
-                                  "default_builder"])
+                                  "mesh_axis", "topology_key", "multihost",
+                                  "remat", "default_builder"])
 def test_out_of_slice_options_raise(what, jtrainable, jparams):
     """What this slice does not port raises ``NotImplementedError``
     naming its ROADMAP item."""
@@ -342,6 +343,8 @@ def test_out_of_slice_options_raise(what, jtrainable, jparams):
                 '"2,1"}', 1))
         elif what == "mesh_axis":
             port.ResourceSpec({"mesh": {"data": 1, "model": 2}})
+        elif what == "topology_key":
+            port.ResourceSpec({"topology": {"generation": "v5e"}})
         elif what == "multihost":
             port.ResourceSpec({"multihost": {"num_processes": 2}})
         elif what == "remat":
@@ -354,6 +357,17 @@ def test_out_of_slice_options_raise(what, jtrainable, jparams):
                 _port_trainable(port.optim.sgd(0.1), jparams), strategy)
         else:
             port.AutoDist({})
+
+
+def test_chip_spec_is_the_h100s_alone():
+    """``ResourceSpec.chip`` gives the H100's rates on an H100 and
+    raises on any other device, the CPU included."""
+    spec = port.ResourceSpec({})
+    if torch.cuda.is_available() and "H100" in torch.cuda.get_device_name(0):
+        assert spec.chip is H100 and spec.chip.peak_bf16_tflops == 989.0
+    else:
+        with pytest.raises(NotImplementedError, match="only the H100"):
+            spec.chip
 
 
 def test_entry_points_default_to_the_card():
