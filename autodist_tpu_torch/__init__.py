@@ -9,26 +9,32 @@ CUDA kernel in ``kernel/csrc/``, built with ``nvcc`` at first use.
 
 Ported so far: the serving path of the pipelined LM (dense and paged KV
 cache, chunked prefill, continuous batching) with the flash-decode and
-paged flash-prefill kernels, and the data-parallel training path
+paged flash-prefill kernels; the data-parallel training path
 (``AutoDist(spec, AllReduce(...)).build(make_mlm_trainable(...))``,
 ``runner.run_steps``) with the flash-attention forward and backward
-kernels.  ROADMAP.md lists what comes next.
+kernels; and Megatron tensor-parallel training of the pipelined LM at
+one pipe device (``AutoDist({"mesh": {"data": d, "pipe": 1, "model":
+t}}, Pipeline(tensor_parallel=t, ...)).build(make_pipeline_lm_trainable
+(...))``) with the quantized-ring and collective-matmul hop kernels.
+ROADMAP.md lists what comes next.
 """
 from autodist_tpu_torch import optim
 from autodist_tpu_torch.autodist import AutoDist
-from autodist_tpu_torch.capture import Trainable, VarInfo
+from autodist_tpu_torch.capture import PipelineTrainable, Trainable, VarInfo
 from autodist_tpu_torch.interop import from_jax_params, to_jax_params
-from autodist_tpu_torch.models.pipeline_lm import init_pipeline_lm_params
+from autodist_tpu_torch.models.pipeline_lm import (init_pipeline_lm_params,
+                                                   make_pipeline_lm_trainable)
 from autodist_tpu_torch.models.transformer import TransformerConfig
 from autodist_tpu_torch.resource import ResourceSpec
 from autodist_tpu_torch.runner import DistributedRunner, stack_steps
 from autodist_tpu_torch.serving import (ContinuousBatcher, ServingEngine,
                                         serve)
-from autodist_tpu_torch.strategy.builders import AllReduce
+from autodist_tpu_torch.strategy.builders import AllReduce, Pipeline
 from autodist_tpu_torch.strategy.ir import Strategy
 
-__all__ = ["AutoDist", "Trainable", "VarInfo", "ResourceSpec",
-           "DistributedRunner", "stack_steps", "Strategy", "AllReduce",
-           "optim", "serve", "ServingEngine", "ContinuousBatcher",
-           "TransformerConfig", "init_pipeline_lm_params",
+__all__ = ["AutoDist", "Trainable", "PipelineTrainable", "VarInfo",
+           "ResourceSpec", "DistributedRunner", "stack_steps", "Strategy",
+           "AllReduce", "Pipeline", "optim", "serve", "ServingEngine",
+           "ContinuousBatcher", "TransformerConfig",
+           "init_pipeline_lm_params", "make_pipeline_lm_trainable",
            "from_jax_params", "to_jax_params"]

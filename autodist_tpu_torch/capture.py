@@ -9,8 +9,9 @@ under the names the JAX package gives (``/``-joined, sorted keys).
 
 The loss contract is the JAX package's: ``loss(params, extra, batch,
 rng) -> (loss, new_extra, metrics)``, with ``rng`` an integer seed for
-the step's dropout (``None`` for none) in place of a JAX key.  The
-``fetch`` plane and ``PipelineTrainable`` belong to later slices.
+the step's dropout (``None`` for none) in place of a JAX key.
+:class:`PipelineTrainable` declares a model in stage form for the
+``Pipeline`` strategy.  The ``fetch`` plane belongs to a later slice.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ import re
 from typing import Any, Callable, Sequence
 
 from autodist_tpu_torch.kernel.common import flatten_with_names
+
+_STAGE_ITEM = "ROADMAP Queue 1, slice 3 leftovers, item 6"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,3 +59,70 @@ class Trainable:
             infos.append(VarInfo(name=name, shape=tuple(leaf.shape),
                                  dtype=leaf.dtype, is_sparse=sparse))
         return infos
+
+
+class PipelineTrainable(Trainable):
+    """A trainable declared in pipeline-stage form (counterpart of the
+    JAX package's ``PipelineTrainable``):
+
+    * ``stage_fn(chunk_params, x) -> x``: one stage; every stage shares
+      it, each with its slice of ``stacked_params`` (a tree whose leaves
+      carry a leading ``num_stages`` dim);
+    * ``loss_head(outputs, batch) -> (loss, metrics)`` (or ``(outputs,
+      batch, shared)`` with ``shared_params``);
+    * ``prologue(shared, batch) -> x`` (optional): the first stage's
+      input, from the replicated ``shared_params`` (an LM's embedding).
+
+    The inherited ``loss`` is the sequential execution (stage 0 to S - 1
+    on one device), the reference the ``Pipeline`` lowering is held to.
+    Per-stage auxiliary losses (``stage_aux``) and per-(stage, row)
+    random draws (``stage_rng``) are not ported yet (ROADMAP Queue 1,
+    slice 3 leftovers, item 6).
+    """
+
+    def __init__(self, stage_fn, stacked_params, loss_head, optimizer, *,
+                 num_stages: int, batch_key: str = "x",
+                 stage_aux: bool = False, shared_params=None,
+                 prologue=None, stage_rng: bool = False, **kw):
+        if stage_aux or stage_rng:
+            raise NotImplementedError(
+                f"PipelineTrainable(stage_aux=, stage_rng=) is not ported "
+                f"yet ({_STAGE_ITEM})")
+        sizes = {leaf.shape[0] if leaf.dim() else None
+                 for _, leaf in flatten_with_names(stacked_params)}
+        if sizes != {num_stages}:
+            raise ValueError(
+                f"stacked_params leading dims {sorted(sizes, key=str)} != "
+                f"num_stages {num_stages}")
+        if prologue is not None and shared_params is None:
+            raise ValueError("a prologue needs shared_params to act on")
+        self.stage_fn = stage_fn
+        self.loss_head = loss_head
+        self.num_stages = num_stages
+        self.batch_key = batch_key
+        self.shared_params = shared_params
+        self.prologue = prologue
+        self.has_shared = shared_params is not None
+        has_shared = self.has_shared
+
+        def sequential_loss(params, extra, batch, rng):
+            stages = params["stages"] if has_shared else params
+            shared = params.get("shared") if has_shared else None
+            x = prologue(shared, batch) if prologue is not None \
+                else batch[batch_key]
+            for i in range(num_stages):
+                x = stage_fn(stage_slice(stages, i), x)
+            loss, metrics = (loss_head(x, batch, shared) if has_shared
+                             else loss_head(x, batch))
+            return loss, extra, dict(metrics, loss=loss)
+
+        params = ({"stages": stacked_params, "shared": shared_params}
+                  if has_shared else stacked_params)
+        super().__init__(sequential_loss, params, optimizer, **kw)
+
+
+def stage_slice(stages, i: int):
+    """The ``i``-th slice of every stacked stage leaf (a view)."""
+    if isinstance(stages, dict):
+        return {k: stage_slice(v, i) for k, v in stages.items()}
+    return stages[i]

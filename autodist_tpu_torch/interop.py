@@ -14,12 +14,19 @@ The JAX tree (numpy or JAX arrays) and the port's tree share names,
 nesting and layouts leaf for leaf, so the conversion moves bytes and
 nothing else: :func:`to_jax_params` of :func:`from_jax_params` gives
 back the same arrays bit for bit.
+
+A ``Pipeline(tensor_parallel=t)`` strategy shards stage variables over
+the model axis; :func:`model_dims` reads which dim of each variable its
+partitioner spec shards, and :func:`shard_params` cuts a rank's slices
+from a full tree (the slice ``NamedSharding`` gives model index ``i``);
+the pipeline lowering gathers them back over the model axis.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from autodist_tpu_torch import const
 from autodist_tpu_torch.device import resolve_device
 from autodist_tpu_torch.kernel.common import flatten_with_names, unflatten
 
@@ -95,3 +102,33 @@ def to_jax_params(params):
     flat = dict(flatten_with_names(params))
     _check_leaves(flat)
     return unflatten({k: _to_numpy(v) for k, v in flat.items()})
+
+
+def model_dims(strategy) -> dict:
+    """``{variable name: dim}``: the dim each variable's partitioner
+    spec shards over the model axis (variables it does not shard are
+    absent).  A spec that shards several dims over it raises."""
+    dims = {}
+    for nc in strategy.node_configs:
+        spec = nc.partitioner.spec if nc.partitioner else None
+        found = [d for d, ax in enumerate(spec or ()) if ax == const.MODEL_AXIS]
+        if len(found) > 1:
+            raise ValueError(f"{nc.var_name}: spec {spec} shards several "
+                             f"dims over the model axis")
+        if found:
+            dims[nc.var_name] = found[0]
+    return dims
+
+
+def shard_params(params, dims: dict, index: int, size: int):
+    """The model shard ``index`` of ``size`` of a full tree: each
+    variable in ``dims`` cut into ``size`` equal slices along its dim."""
+    flat = dict(flatten_with_names(params))
+    for name, d in dims.items():
+        n = flat[name].shape[d]
+        if n % size:
+            raise ValueError(f"{name}: dim {d} of {n} does not divide by "
+                             f"{size} model shards")
+        flat[name] = flat[name].narrow(d, index * (n // size), n // size)
+    return unflatten(flat)
+

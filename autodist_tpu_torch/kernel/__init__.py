@@ -5,7 +5,15 @@ Each kernel replaces one Pallas TPU kernel of the JAX package:
 * :mod:`~autodist_tpu_torch.kernel.flash_decode` — dense and paged
   flash decode (``autodist_tpu/kernel/pallas/flash_decode.py``);
 * :mod:`~autodist_tpu_torch.kernel.flash_prefill` — paged flash
-  prefill (``autodist_tpu/kernel/pallas/flash_prefill.py``).
+  prefill (``autodist_tpu/kernel/pallas/flash_prefill.py``);
+* :mod:`~autodist_tpu_torch.kernel.quant_ring` — the quantized ring
+  all-reduce's fused hop (``autodist_tpu/kernel/pallas/quant_ring.py``);
+* :mod:`~autodist_tpu_torch.kernel.collective_matmul` — the
+  collective-matmul ring's fused step
+  (``autodist_tpu/kernel/pallas/collective_matmul.py``).
+
+The flash-attention kernels of ``autodist_tpu/ops/flash_attention.py``
+live in :mod:`autodist_tpu_torch.ops.flash_attention`.
 
 The CUDA sources live in ``csrc/`` and are compiled by
 :mod:`~autodist_tpu_torch.kernel.build` the first time a CUDA tensor

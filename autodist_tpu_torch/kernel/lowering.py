@@ -21,19 +21,21 @@ process of the job:
 
 The step updates nothing in place: it returns a new state.  Other
 update spaces (``U_FLAT``, ``U_AXIS``), compressors, gradient
-accumulation and the other lowerings raise ``NotImplementedError``
-naming their ROADMAP item.
+accumulation and the lowerings other than ``pipeline``
+(:mod:`autodist_tpu_torch.parallel.pipeline`, to which :func:`lower`
+hands a ``Pipeline`` strategy) raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 import torch.distributed as dist
 
-from autodist_tpu_torch import optim
+from autodist_tpu_torch import const, optim
 from autodist_tpu_torch.device import resolve_device
 from autodist_tpu_torch.kernel import common
 from autodist_tpu_torch.strategy.ir import AllReduceSynchronizer
@@ -68,7 +70,16 @@ def make_plan(trainable, strategy, mesh) -> Plan:
     if gc.lowering != "collective":
         raise NotImplementedError(
             f"the {gc.lowering!r} lowering is not ported yet (ROADMAP "
-            f"Queue 1, slices 3 and 5)")
+            f"Queue 1, slice 5 and item 8)")
+    if any(size > 1 for ax, size in mesh.shape.items()
+           if ax != const.DATA_AXIS):
+        raise ValueError(f"the collective lowering runs on a data-only "
+                         f"mesh; this one is {mesh.shape}")
+    if gc.precision:
+        raise NotImplementedError(
+            "a collective precision policy on the data-parallel gradient "
+            "sync (its compressors) is not ported yet (ROADMAP Queue 1, "
+            "slice 2 leftovers, item 3)")
     if gc.accum_steps != 1:
         raise NotImplementedError(
             "gradient accumulation is not ported yet (ROADMAP Queue 1, "
@@ -77,6 +88,11 @@ def make_plan(trainable, strategy, mesh) -> Plan:
     var_plans, buckets = {}, {}
     for info in trainable.var_infos():
         node = node_index.get(info.name)
+        if node is not None and node.partitioner is not None:
+            raise NotImplementedError(
+                f"{info.name}: a partitioned variable in the collective "
+                f"lowering (PartitionedAR, PartitionedPS, Parallax) is not "
+                f"ported yet (ROADMAP Queue 1, item 8)")
         sync = node.synchronizer if node else AllReduceSynchronizer()
         if sync.compressor not in ("", "none"):
             raise NotImplementedError(
@@ -90,7 +106,7 @@ def make_plan(trainable, strategy, mesh) -> Plan:
     return Plan(var_plans=var_plans, num_replicas=n, buckets=buckets)
 
 
-def _reduce_metrics(metrics: dict, mesh) -> dict:
+def reduce_metrics(metrics: dict, mesh) -> dict:
     """Scalar float metrics averaged across replicas, in one all-reduce.
     (The JAX package also sums integer counts and ORs flags; no ported
     loss returns those, so they are refused.)"""
@@ -101,30 +117,41 @@ def _reduce_metrics(metrics: dict, mesh) -> dict:
                             f"metrics are reduced across replicas")
     if mesh.num_replicas == 1 or not metrics:
         return metrics
-    stacked = torch.stack([v.float() for v in metrics.values()])
-    dist.all_reduce(stacked, group=mesh.group)
-    stacked = stacked / mesh.num_replicas
+    stacked = mesh.axis(const.DATA_AXIS).pmean(
+        torch.stack([v.float() for v in metrics.values()]))
     return {k: stacked[i].to(v.dtype)
             for i, (k, v) in enumerate(metrics.items())}
 
 
 @dataclasses.dataclass
 class Lowered:
-    """The lowered step and the state layout."""
+    """The lowered step and the state layout.  ``full_params_fn`` maps
+    the stored ``{name: tensor}`` params to the full logical ones (a
+    collective where variables are sharded; the identity otherwise)."""
 
-    plan: Plan
+    plan: Any
     mesh: Any
     device: torch.device
     init_fn: Callable     # (params, extra) -> state
     step_fn: Callable     # (state, batch, rng) -> (state, metrics)
+    full_params_fn: Optional[Callable] = None
 
     def init_state(self, trainable):
         return self.init_fn(trainable.params, trainable.extra)
 
+    def full_params(self, params: dict) -> dict:
+        return self.full_params_fn(params) if self.full_params_fn \
+            else params
+
 
 def lower(trainable, strategy, mesh, device=None) -> Lowered:
-    """Build the data-parallel step for (trainable, strategy, mesh) on
-    ``device`` (``None``: the card)."""
+    """Build the train step for (trainable, strategy, mesh) on ``device``
+    (``None``: the card): the data-parallel step here, or the pipeline
+    lowering for a ``Pipeline`` strategy."""
+    if strategy.graph_config.lowering == "pipeline":
+        from autodist_tpu_torch.parallel.pipeline import lower_pipeline
+
+        return lower_pipeline(trainable, strategy, mesh, device)
     plan = make_plan(trainable, strategy, mesh)
     n, dev, opt = plan.num_replicas, resolve_device(device), trainable.optimizer
     names = list(plan.var_plans)
@@ -157,7 +184,7 @@ def lower(trainable, strategy, mesh, device=None) -> Lowered:
         params = state["params"]
         leaves = {nm: p.detach().requires_grad_(True)
                   for nm, p in params.items()}
-        local_rng = None if rng is None else int(rng) * n + mesh.rank
+        local_rng = None if rng is None else int(rng) * n + mesh.replica
         with torch.enable_grad():
             loss, new_extra, metrics = trainable.loss(
                 common.unflatten(leaves), state["extra"], batch, local_rng)
@@ -170,7 +197,7 @@ def lower(trainable, strategy, mesh, device=None) -> Lowered:
         new_state = {"step": state["step"] + 1,
                      "params": optim.apply_updates(params, updates),
                      "opt_state": opt_state, "extra": new_extra}
-        return new_state, _reduce_metrics(metrics, mesh)
+        return new_state, reduce_metrics(metrics, mesh)
 
     return Lowered(plan=plan, mesh=mesh, device=dev, init_fn=init_fn,
                    step_fn=step_fn)

@@ -18,16 +18,23 @@ layers), so one tree converts between the packages leaf by leaf
 * ``shared/{embedding [V, H], pos_embed [max_len, H], ln_final_scale,
   ln_final_bias}``.
 
-Only the tensor-parallel-1 branch is ported; the training-side
-``PipelineTrainable`` belongs to the pipeline slice (ROADMAP Queue 1,
-slice 3).
+:func:`make_pipeline_lm_trainable` declares the model as a
+:class:`~autodist_tpu_torch.capture.PipelineTrainable` (one encoder
+layer per stage) for the ``Pipeline`` strategy, whose lowering passes
+``model_axis`` (and ``comm_overlap``) to the stages under
+``tensor_parallel > 1``: the layer then runs on its Megatron shards with
+the boundaries of :mod:`autodist_tpu_torch.parallel.tensor`.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
 
+from autodist_tpu_torch.capture import PipelineTrainable, stage_slice
 from autodist_tpu_torch.device import resolve_device
+from autodist_tpu_torch.models.losses import cross_entropy_from_logits
 from autodist_tpu_torch.models.transformer import (TransformerConfig,
                                                    dot_product_attention,
                                                    lecun_normal)
@@ -56,20 +63,20 @@ def _flax_layer_norm(x, p, dtype, eps=1e-6):
     return (y * p["scale"] + p["bias"]).to(dtype)
 
 
-def layer_params(stages, layer: int):
-    """The ``layer``-th slice of every stacked stage leaf."""
-    if isinstance(stages, dict):
-        return {k: layer_params(v, layer) for k, v in stages.items()}
-    return stages[layer]
-
-
 def _tp_encoder_layer(cfg: TransformerConfig, chunk, x, mask,
-                      return_kv=False, attend=None):
-    """One encoder layer at tensor parallel 1 — the JAX package's
-    ``_tp_encoder_layer`` with ``model_axis=None``: qkv projection,
-    attention, out projection, post-norm, tanh-GELU MLP, post-norm.
-    ``return_kv=True`` also returns the layer's k/v projections
-    ``[B, L, heads, head_dim]`` (the serving prefill's cache fill).
+                      model_axis=None, comm_overlap=None, return_kv=False,
+                      attend=None):
+    """One encoder layer, the JAX package's ``_tp_encoder_layer``: qkv
+    projection, attention, out projection, post-norm, tanh-GELU MLP,
+    post-norm.  With ``model_axis`` (an :class:`~autodist_tpu_torch
+    .parallel.axis.Axis`), ``chunk`` holds the Megatron shards: qkv and
+    ``wi`` are column-parallel (local heads and mlp features), attention
+    runs on the local heads, and the out projection and ``wo`` are
+    row-parallel, their partial products summed over the model group
+    before the replicated bias, residual and norm; ``comm_overlap``
+    selects the decomposed boundaries.  ``return_kv=True`` also returns
+    the layer's k/v projections ``[B, L, heads, head_dim]`` (the serving
+    prefill's cache fill).
 
     ``attend(q, k, v) -> out`` replaces the attention step (``mask`` is
     then unused): the serving engine's decode and chunk steps write the
@@ -78,8 +85,9 @@ def _tp_encoder_layer(cfg: TransformerConfig, chunk, x, mask,
     dtype = cfg.dtype
     att = chunk["attention"]
     x = x.to(dtype)
+    tp = dict(model_axis=model_axis, comm_overlap=comm_overlap)
     qkv = column_parallel(x, att["qkv"]["kernel"].to(dtype),
-                          att["qkv"]["bias"].to(dtype))
+                          att["qkv"]["bias"].to(dtype), **tp)
     q, k, v = qkv.unbind(-3)
     if attend is not None:
         out = attend(q, k, v)
@@ -88,13 +96,13 @@ def _tp_encoder_layer(cfg: TransformerConfig, chunk, x, mask,
     else:
         out = dot_product_attention(q, k, v, mask, dtype=dtype)
     a = row_parallel(out, att["out"]["kernel"].to(dtype),
-                     att["out"]["bias"].to(dtype), axes=2)
+                     att["out"]["bias"].to(dtype), axes=2, **tp)
     x = _flax_layer_norm(x + a, chunk["ln_attention"], dtype)
     h = column_parallel(x, chunk["mlp"]["wi"]["kernel"].to(dtype),
-                        chunk["mlp"]["wi"]["bias"].to(dtype))
+                        chunk["mlp"]["wi"]["bias"].to(dtype), **tp)
     h = F.gelu(h, approximate="tanh")
     m = row_parallel(h, chunk["mlp"]["wo"]["kernel"].to(dtype),
-                     chunk["mlp"]["wo"]["bias"].to(dtype))
+                     chunk["mlp"]["wo"]["bias"].to(dtype), **tp)
     y = _flax_layer_norm(x + m, chunk["ln_mlp"], dtype)
     return (y, k, v) if return_kv else y
 
@@ -106,10 +114,9 @@ def sequential_logits(cfg: TransformerConfig, params, tokens):
     L = tokens.shape[1]
     x = vocab_parallel_embedding(tokens, shared["embedding"]) \
         + shared["pos_embed"][None, :L]
-    mask = torch.tril(torch.ones((L, L), dtype=torch.bool,
-                                 device=tokens.device))[None, None]
+    mask = _pipeline_lm_mask(L, tokens.device)
     for i in range(cfg.num_layers):
-        x = _tp_encoder_layer(cfg, layer_params(stages, i), x, mask)
+        x = _tp_encoder_layer(cfg, stage_slice(stages, i), x, mask)
     x = _layer_norm(x, shared["ln_final_scale"], shared["ln_final_bias"])
     return x @ shared["embedding"].float().T
 
@@ -175,3 +182,75 @@ def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def _pipeline_lm_mask(L: int, device):
+    return torch.tril(torch.ones((L, L), dtype=torch.bool,
+                                 device=device))[None, None]
+
+
+def make_pipeline_lm_trainable(cfg: TransformerConfig, optimizer, generator,
+                               *, num_stages: int = None, device=None, **kw):
+    """The pipelined causal LM as a :class:`~autodist_tpu_torch.capture
+    .PipelineTrainable` (counterpart of the JAX package's
+    ``make_pipeline_lm_trainable``): one encoder layer per stage,
+    ``num_stages`` defaulting to ``cfg.num_layers``; the embedding, the
+    position table and the final norm are the replicated shared
+    parameters.  Parameters are drawn from ``generator`` by
+    :func:`init_pipeline_lm_params` and placed on ``device`` (``None``:
+    the card); to hold the model to the JAX package, set ``.params`` to
+    :func:`~autodist_tpu_torch.interop.from_jax_params` of the JAX
+    trainable's tree.  Batches are ``{"x": [B, L] tokens, "y": [B, L]
+    next tokens}``.
+
+    The model has no dropout here: with ``tensor_parallel > 1`` the JAX
+    package refuses it too, and at one shard its per-(stage, row) draws
+    are not ported (ROADMAP Queue 1, slice 3 leftovers, item 6)."""
+    num_stages = num_stages or cfg.num_layers
+    if cfg.dropout_rate or cfg.attention_dropout_rate:
+        raise NotImplementedError(
+            "dropout in the pipelined LM is not ported yet: tensor_parallel "
+            "> 1 requires dropout_rate == attention_dropout_rate == 0 (as "
+            "in the JAX package), and the per-(stage, row) draws at one "
+            "shard are ROADMAP Queue 1, slice 3 leftovers, item 6")
+    params = init_pipeline_lm_params(
+        dataclasses.replace(cfg, num_layers=num_stages), generator,
+        device=device)
+
+    def prologue(shared, batch, model_axis=None, comm_overlap=None):
+        """Token + position embedding (the replicated lookup; a
+        vocab-sharded table raises in ``vocab_parallel_embedding``)."""
+        tokens = batch["x"]
+        L = tokens.shape[1]
+        x = vocab_parallel_embedding(
+            tokens, shared["embedding"], model_axis=model_axis,
+            comm_overlap=comm_overlap).to(cfg.dtype)
+        return x + shared["pos_embed"][None, :L].to(cfg.dtype)
+
+    def stage_fn(chunk, x, model_axis=None, comm_overlap=None):
+        """One encoder layer, causal; with ``model_axis`` on the local
+        Megatron shards."""
+        mask = _pipeline_lm_mask(x.shape[1], x.device)
+        return _tp_encoder_layer(cfg, chunk, x, mask, model_axis=model_axis,
+                                 comm_overlap=comm_overlap)
+
+    def loss_head(outputs, batch, shared, model_axis=None,
+                  comm_overlap=None):
+        """Tied-unembedding softmax cross-entropy on full ``[B, L, V]``
+        fp32 logits (the vocab-parallel epilogue is not ported)."""
+        if model_axis is not None:
+            raise NotImplementedError(
+                "the vocab-parallel loss head is not ported yet (ROADMAP "
+                "Queue 1, slice 3 leftovers, item 2)")
+        x = _layer_norm(outputs, shared["ln_final_scale"],
+                        shared["ln_final_bias"])
+        targets = batch["y"].long()
+        logits = x @ shared["embedding"].float().T
+        loss = cross_entropy_from_logits(logits, targets).mean()
+        acc = (logits.argmax(-1) == targets).float().mean()
+        return loss, {"accuracy": acc}
+
+    return PipelineTrainable(stage_fn, params["stages"], loss_head,
+                             optimizer, num_stages=num_stages,
+                             shared_params=params["shared"],
+                             prologue=prologue, **kw)

@@ -1,0 +1,118 @@
+"""One mesh axis as a ``torch.distributed`` group: the collectives of
+stage code.
+
+The JAX package names a mesh axis inside ``shard_map`` and calls
+``lax.axis_index``, ``axis_size``, ``ppermute``, ``psum``,
+``psum_scatter``, ``all_gather`` and ``pmax`` on it.  The port builds
+one :class:`Axis` per mesh axis (:meth:`autodist_tpu_torch.resource
+.ResourceSpec.make_mesh`): the process group of the ranks that differ
+only along that axis, its size, and this rank's index in it.  Ranks map
+to mesh coordinates in the JAX package's order (row-major over the
+declared axes, as ``np.array(devices).reshape(shape)`` lays them out),
+so model shard ``i`` is the slice ``NamedSharding`` gives device ``i``
+and a ring sends ``i -> i + 1``.
+
+A group of one rank makes every collective the identity.  With a gloo
+group and CUDA tensors, each transfer is staged through host memory:
+the tensor is copied to the host, the gloo collective runs there, and
+the result is copied back.  That is how several ranks share one card
+(NCCL refuses two ranks on one device); it is chosen by the group's
+backend, never by catching a failure.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+import torch.distributed as dist
+
+
+@dataclasses.dataclass
+class Axis:
+    """A mesh axis: ``size`` ranks, this rank at ``index``, ``ranks``
+    the global ranks in axis order, ``group`` their process group
+    (``None`` for a one-rank axis)."""
+
+    name: str
+    size: int = 1
+    index: int = 0
+    ranks: tuple = (0,)
+    group: Any = None
+
+    # ---------------- transport ----------------------------------------- #
+    def _staged(self, x) -> bool:
+        """Whether this group's transfers go through host memory: a gloo
+        group given CUDA tensors."""
+        return x.is_cuda and dist.get_backend(self.group) == "gloo"
+
+    def _on_wire(self, x, *, copy: bool = False):
+        """``x`` where the collective reads it: a host copy when staged,
+        else ``x`` itself (a fresh copy with ``copy=True``, for
+        collectives that write their input)."""
+        if self._staged(x):
+            return x.cpu()
+        return x.clone(memory_format=torch.contiguous_format) if copy \
+            else x.contiguous()
+
+    # ---------------- collectives --------------------------------------- #
+    def psum(self, x):
+        """Sum over the axis (a new tensor)."""
+        if self.size == 1:
+            return x
+        buf = self._on_wire(x, copy=True)
+        dist.all_reduce(buf, group=self.group)
+        return buf.to(x.device)
+
+    def pmax(self, x):
+        """Max over the axis.  bf16 and fp16 travel as fp32 (exact for
+        a max)."""
+        if self.size == 1:
+            return x
+        buf = self._on_wire(x.float(), copy=True)
+        dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=self.group)
+        return buf.to(device=x.device, dtype=x.dtype)
+
+    def pmean(self, x):
+        """Sum over the axis divided by its size."""
+        return self.psum(x) / self.size if self.size > 1 else x
+
+    def all_gather(self, x, dim: int = 0):
+        """The axis's ``x`` concatenated along ``dim`` in axis order
+        (``lax.all_gather(..., tiled=True)``)."""
+        if self.size == 1:
+            return x
+        src = self._on_wire(x)
+        bufs = [torch.empty_like(src) for _ in range(self.size)]
+        dist.all_gather(bufs, src, group=self.group)
+        return torch.cat(bufs, dim=dim).to(x.device)
+
+    def psum_scatter(self, flat):
+        """Reduce-scatter of a flat payload whose length divides the
+        axis size: this rank's chunk of the sum
+        (``lax.psum_scatter(..., tiled=True)``).  Taken from a full
+        all-reduce, which every backend has (gloo has no
+        reduce-scatter); the chunk's values are the same."""
+        if self.size == 1:
+            return flat
+        chunk = flat.shape[0] // self.size
+        if chunk * self.size != flat.shape[0]:
+            raise ValueError(f"psum_scatter: length {flat.shape[0]} does not "
+                             f"divide by the axis size {self.size}")
+        summed = self.psum(flat)
+        return summed[self.index * chunk:(self.index + 1) * chunk].clone()
+
+    def ppermute(self, x):
+        """Send ``x`` to the next rank of the ring (``i -> i + 1``) and
+        return what the previous one sent."""
+        if self.size == 1:
+            return x
+        src = self._on_wire(x)
+        dst = torch.empty_like(src)
+        nxt = self.ranks[(self.index + 1) % self.size]
+        prv = self.ranks[(self.index - 1) % self.size]
+        ops = [dist.P2POp(dist.isend, src, nxt, group=self.group),
+               dist.P2POp(dist.irecv, dst, prv, group=self.group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return dst.to(x.device)

@@ -1,25 +1,36 @@
 """Resource model: the spec of the GPUs a job runs on, and its mesh.
 
-Counterpart of ``autodist_tpu/resource.py``, cut to the data-parallel
-path: one process per GPU in a ``torch.distributed`` job.  The spec
-``{}`` (or ``None``) means every process of the job is one replica on
-the ``data`` axis: ``data`` is the process group's world size, or 1
-without a process group.  ``{"mesh": {"data": n}}`` states the same
-and must match the world size.  :attr:`ResourceSpec.chip` is the
-card's :class:`ChipSpec`; only the H100 has one.  Other mesh axes,
-other ``topology`` keys and ``multihost`` blocks belong to later slices
-(ROADMAP Queue 1, slice 3 and items 8-9) and raise
+Counterpart of ``autodist_tpu/resource.py``: one process per rank of a
+``torch.distributed`` job.  The spec ``{}`` (or ``None``) means every
+process of the job is one replica on the ``data`` axis: ``data`` is the
+process group's world size, or 1 without a process group.  ``{"mesh":
+{"data": d, "pipe": 1, "model": t}}`` lays the job out as a mesh whose
+sizes multiply to the world size; ranks map to mesh coordinates
+row-major over the declared axes, as the JAX package reshapes its device
+list (declare ``model`` last to put each model group on adjacent
+ranks).  :meth:`ResourceSpec.make_mesh` builds one
+process group per axis line (:class:`~autodist_tpu_torch.parallel.axis
+.Axis`).
+
+:attr:`ResourceSpec.chip` is the card's :class:`ChipSpec`; only the H100
+has one.  A pipe axis above 1 (the cross-process pipe schedule), the
+``seq``, ``expert`` and ``dcn`` axes, other ``topology`` keys and
+``multihost`` blocks belong to later items and raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import math
 from typing import Any, Mapping, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from autodist_tpu_torch import const
+from autodist_tpu_torch.parallel.axis import Axis
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,18 +49,42 @@ H100 = ChipSpec("h100", peak_bf16_tflops=989.0, peak_fp32_tflops=67.0,
                 hbm_gb=80, hbm_gbps=3350)
 
 
+# Mesh axes the port lays out, and where the others come.
+_PORTED_AXES = (const.DATA_AXIS, const.PIPE_AXIS, const.MODEL_AXIS)
+_AXIS_ITEMS = {
+    const.SEQ_AXIS: "ROADMAP Queue 1, slice 5: MoE and sequence parallelism",
+    const.EXPERT_AXIS: "ROADMAP Queue 1, slice 5: MoE and sequence "
+                       "parallelism",
+    const.DCN_AXIS: "ROADMAP Queue 1, item 9: runtime and multi-host",
+}
+
+
 @dataclasses.dataclass
 class Mesh:
-    """The resolved mesh: axis sizes, the replica group and this
-    process's place in it."""
+    """The resolved mesh: axis sizes and one
+    :class:`~autodist_tpu_torch.parallel.axis.Axis` per axis of more
+    than one rank."""
 
     shape: dict
-    group: Any = None            # torch.distributed group (None: one rank)
-    rank: int = 0
+    axes: dict = dataclasses.field(default_factory=dict)
+
+    def axis(self, name: str) -> Axis:
+        """The named axis (a one-rank axis where the mesh has none)."""
+        return self.axes.get(name) or Axis(name)
 
     @property
     def num_replicas(self) -> int:
-        return self.shape[const.DATA_AXIS]
+        return self.shape.get(const.DATA_AXIS, 1)
+
+    @property
+    def replica(self) -> int:
+        """This process's index on the data axis."""
+        return self.axis(const.DATA_AXIS).index
+
+    @property
+    def group(self) -> Any:
+        """The data axis's process group (``None`` at one replica)."""
+        return self.axis(const.DATA_AXIS).group
 
 
 def _world() -> tuple:
@@ -75,14 +110,18 @@ class ResourceSpec:
                 f"not ported yet (ROADMAP Queue 1, slice 3)")
         self._requested_devices = topo.get("num_devices")
         self.mesh_shape: dict = dict(spec.get("mesh") or {})
-        for ax in self.mesh_shape:
+        for ax, size in self.mesh_shape.items():
             if ax not in const.ALL_AXES:
                 raise ValueError(f"unknown mesh axis {ax!r}; valid axes: "
                                  f"{const.ALL_AXES}")
-            if ax != const.DATA_AXIS:
+            if ax not in _PORTED_AXES:
                 raise NotImplementedError(
-                    f"mesh axis {ax!r} is not ported yet (ROADMAP Queue 1, "
-                    f"slice 3: tensor and pipeline parallel)")
+                    f"mesh axis {ax!r} is not ported yet ({_AXIS_ITEMS[ax]})")
+            if ax == const.PIPE_AXIS and size != 1:
+                raise NotImplementedError(
+                    f"a pipe axis of {size} (the cross-process pipe "
+                    f"schedule) is not ported yet (ROADMAP Queue 1, slice 3 "
+                    f"leftovers, item 1); the pipe axis must be 1")
 
     @property
     def chip(self) -> ChipSpec:
@@ -105,14 +144,40 @@ class ResourceSpec:
         return world
 
     def resolved_mesh_shape(self) -> dict:
+        """The mesh shape; ``{}`` means one data axis over the world.
+        The sizes must multiply to the world."""
         n = self.num_devices()
         shape = dict(self.mesh_shape) or {const.DATA_AXIS: n}
-        if shape[const.DATA_AXIS] != n:
+        if math.prod(shape.values()) != n:
             raise ValueError(f"mesh shape {shape} does not match {n} "
                              f"devices")
         return shape
 
     def make_mesh(self) -> Mesh:
+        """The mesh and its axis groups.  Every process of the job must
+        call it (``torch.distributed.new_group`` is collective), in the
+        same order as the others."""
         world, rank = _world()
-        group = dist.group.WORLD if world > 1 else None
-        return Mesh(shape=self.resolved_mesh_shape(), group=group, rank=rank)
+        shape = self.resolved_mesh_shape()
+        names, sizes = list(shape), list(shape.values())
+        coords = np.unravel_index(rank, sizes) if sizes else ()
+        axes = {}
+        for i, name in enumerate(names):
+            if sizes[i] == 1:
+                continue
+            others = [range(s) if j != i else (0,)
+                      for j, s in enumerate(sizes)]
+            for line in itertools.product(*others):
+                ranks = []
+                for k in range(sizes[i]):
+                    at = list(line)
+                    at[i] = k
+                    ranks.append(int(np.ravel_multi_index(at, sizes)))
+                group = (dist.group.WORLD if sizes[i] == world
+                         else dist.new_group(ranks))
+                if rank in ranks:
+                    axes[name] = Axis(name, size=sizes[i],
+                                      index=int(coords[i]),
+                                      ranks=tuple(ranks), group=group)
+        return Mesh(shape=shape, axes=axes)
+

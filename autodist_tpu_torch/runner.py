@@ -53,7 +53,7 @@ class DistributedRunner:
         """One leaf on this replica: its shard along ``batch_axis`` (a
         leaf without that axis goes whole), on the runner's device."""
         t = torch.as_tensor(x)
-        n, rank = self.mesh.num_replicas, self.mesh.rank
+        n, rank = self.mesh.num_replicas, self.mesh.replica
         if t.dim() > batch_axis and n > 1:
             size = t.shape[batch_axis]
             if size % n:
@@ -110,9 +110,12 @@ class DistributedRunner:
         return int(self.state["step"])
 
     def get_params(self):
-        """The parameter tree (copies, at the stored shapes)."""
+        """The full logical parameter tree (copies).  Where the strategy
+        shards variables over the model axis this gathers them, a
+        collective: every rank of the model group calls it."""
+        full = self.lowered.full_params(self.state["params"])
         return common.unflatten({nm: p.detach().clone()
-                                 for nm, p in self.state["params"].items()})
+                                 for nm, p in full.items()})
 
     def close(self):
         """Release the state (safe to call more than once)."""

@@ -39,6 +39,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from autodist_tpu_torch.capture import stage_slice
 from autodist_tpu_torch.device import resolve_device
 from autodist_tpu_torch.kernel.flash_decode import (
     flash_decode_attention, flash_decode_attention_paged)
@@ -46,7 +47,7 @@ from autodist_tpu_torch.kernel.flash_prefill import \
     flash_prefill_attention_paged
 from autodist_tpu_torch.models.pipeline_lm import (_layer_norm,
                                                    _tp_encoder_layer,
-                                                   layer_params, tree_map)
+                                                   tree_map)
 from autodist_tpu_torch.parallel.tensor import (vocab_parallel_embedding,
                                                 vocab_parallel_greedy_token)
 from autodist_tpu_torch.serving import kv_cache
@@ -194,7 +195,7 @@ class ServingEngine:
         self.params = tree_map(lambda t: torch.as_tensor(t).to(dev), params)
         self._shared = self.params["shared"]
         self._layers = [
-            _matmul_weights(layer_params(self.params["stages"], i), dtype)
+            _matmul_weights(stage_slice(self.params["stages"], i), dtype)
             for i in range(cfg.num_layers)]
 
         self._tok = torch.zeros(self.num_slots, dtype=torch.int32,

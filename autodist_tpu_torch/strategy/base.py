@@ -18,7 +18,7 @@ class StrategyBuilder(abc.ABC):
     @staticmethod
     def num_replicas(resource_spec) -> int:
         """Data-parallel replica count: the data axis."""
-        return resource_spec.resolved_mesh_shape()[const.DATA_AXIS]
+        return resource_spec.resolved_mesh_shape().get(const.DATA_AXIS, 1)
 
     def _graph_config(self, resource_spec) -> GraphConfig:
         shape = resource_spec.resolved_mesh_shape()

@@ -1,16 +1,19 @@
-"""The strategy builder catalog; only ``AllReduce`` is ported so far.
+"""The strategy builder catalog: ``AllReduce`` and ``Pipeline`` so far.
 
 Counterpart of ``autodist_tpu/strategy/builders.py``.  ``AllReduce``
 emits the same node configs as the JAX builder (variable ``i`` in
 bucket ``i // chunk_size``), so the two packages' strategies for the
-same model serialize alike.  Gradient compressors and the other builders
-raise ``NotImplementedError`` naming their ROADMAP item.
+same model serialize alike; ``Pipeline`` lives in
+:mod:`~autodist_tpu_torch.strategy.parallel_builders`.  Gradient
+compressors and the other builders raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
 from autodist_tpu_torch.strategy.base import StrategyBuilder
 from autodist_tpu_torch.strategy.ir import (AllReduceSynchronizer, NodeConfig,
                                             Strategy)
+from autodist_tpu_torch.strategy.parallel_builders import Pipeline
 
 # Builders of the JAX package and where the port brings them.
 NOT_PORTED = {
@@ -19,7 +22,6 @@ NOT_PORTED = {
                     "UnevenPartitionedPS", "PartitionedAR",
                     "RandomAxisPartitionAR", "Parallax", "GradAccumulation",
                     "ZeRO", "Sharded", "TensorParallel", "FSDPSharded")},
-    "Pipeline": "ROADMAP Queue 1, slice 3: tensor and pipeline parallel",
     "SequenceParallel": "ROADMAP Queue 1, slice 5: MoE and sequence "
                         "parallelism",
     "ExpertParallel": "ROADMAP Queue 1, slice 5: MoE and sequence "
@@ -53,7 +55,7 @@ class AllReduce(StrategyBuilder):
                         graph_config=self._graph_config(resource_spec))
 
 
-BUILDERS = {"AllReduce": AllReduce}
+BUILDERS = {"AllReduce": AllReduce, "Pipeline": Pipeline}
 
 
 def create(name: str, **kw) -> StrategyBuilder:

@@ -6,14 +6,17 @@ Counterpart of ``autodist_tpu/strategy/ir.py``.  Ported:
   ``normalize_kv_layout``, ``normalize_prefill_chunk``,
   ``normalize_prefix_caching``, ``normalize_speculative``), with the
   same canonical forms and the same errors;
-* the data-parallel core of the IR: :class:`AllReduceSynchronizer`,
-  :class:`NodeConfig`, :class:`GraphConfig` and :class:`Strategy`, whose
-  JSON is the JAX package's byte for byte (same keys, same order, same
-  ``indent=1``), so a strategy either package writes reads back in the
-  other.
+* the core of the IR: :class:`AllReduceSynchronizer`,
+  :class:`PartitionerConfig` (the mesh-axis ``spec`` form the
+  ``Pipeline`` builder writes), :class:`NodeConfig`, :class:`GraphConfig`
+  with the per-collective precision policy (:func:`normalize_precision`)
+  and the kernel slot, and :class:`Strategy`, whose JSON is the JAX
+  package's byte for byte (same keys, same order, same ``indent=1``), so
+  a strategy either package writes reads back in the other.
 
-``PSSynchronizer``, partitioners and per-collective precision policies
-raise ``NotImplementedError`` naming the slice that brings them.
+``PSSynchronizer`` and the ``partition_str`` partitioners of the
+data-parallel zoo raise ``NotImplementedError`` naming the item that
+brings them.
 """
 from __future__ import annotations
 
@@ -21,8 +24,12 @@ import dataclasses
 import hashlib
 import json
 import time
+from typing import Optional
 
+from autodist_tpu_torch import const
 from autodist_tpu_torch.kernel import KERNEL_CHOICES
+from autodist_tpu_torch.kernel.quantize import (PRECISIONS,
+                                                UnknownPrecisionError)
 
 
 class UnknownKernelError(ValueError):
@@ -113,10 +120,54 @@ def normalize_speculative(value):
     return int(value)
 
 
+# The collective boundary classes a precision policy names, in the JAX
+# package's order: dp gradient sync, tensor-parallel activation sums,
+# vocab-epilogue statistics, ZeRO-3 gathers, MoE all-to-alls.
+PRECISION_BOUNDARIES = ("grad", "tp_psum", "vocab_stats", "zero3_gather",
+                        "moe_a2a")
+
+
+def normalize_precision(policy) -> dict:
+    """Canonicalize a per-collective precision request.
+
+    ``None``/``{}``/``"fp32"`` -> ``{}``; a bare string applies one
+    precision to every boundary class; a dict maps boundary ->
+    precision.  Explicit ``"fp32"`` entries are dropped so the canonical
+    form is minimal.  Unknown boundaries or values raise
+    :class:`~autodist_tpu_torch.kernel.quantize.UnknownPrecisionError`.
+    """
+    if policy in (None, "", "fp32"):
+        return {}
+    if isinstance(policy, str):
+        if policy not in PRECISIONS:
+            raise UnknownPrecisionError(
+                f"unknown collective precision {policy!r}; expected one "
+                f"of {list(PRECISIONS)}")
+        return {b: policy for b in PRECISION_BOUNDARIES}
+    if not isinstance(policy, dict):
+        raise UnknownPrecisionError(
+            f"collective precision must be a string or a per-boundary "
+            f"dict, got {type(policy).__name__}")
+    out = {}
+    for boundary, value in policy.items():
+        if boundary not in PRECISION_BOUNDARIES:
+            raise UnknownPrecisionError(
+                f"unknown collective boundary {boundary!r}; expected one "
+                f"of {list(PRECISION_BOUNDARIES)}")
+        if value not in PRECISIONS:
+            raise UnknownPrecisionError(
+                f"{boundary}: unknown precision {value!r}; expected one "
+                f"of {list(PRECISIONS)}")
+        if value != "fp32":
+            out[boundary] = value
+    return out
+
+
 # --------------------------------------------------------------------------- #
-# Synchronizer, node, graph and strategy records
+# Synchronizer, partitioner, node, graph and strategy records
 # --------------------------------------------------------------------------- #
-def _not_ported(what: str, where: str):
+def not_ported(what: str, where: str):
+    """Raise the ``NotImplementedError`` of what a later item brings."""
     raise NotImplementedError(f"{what} is not ported yet ({where})")
 
 
@@ -137,7 +188,7 @@ def synchronizer_from_dict(d: dict):
     d = dict(d)
     kind = d.get("kind", "allreduce")
     if kind == "ps":
-        _not_ported("the PS synchronizer (PS, ZeRO, PartitionedPS)",
+        not_ported("the PS synchronizer (PS, ZeRO, PartitionedPS)",
                     "ROADMAP Queue 1, item 8")
     if kind != "allreduce":
         raise ValueError(f"unknown synchronizer kind {kind!r}")
@@ -145,38 +196,72 @@ def synchronizer_from_dict(d: dict):
 
 
 @dataclasses.dataclass
+class PartitionerConfig:
+    """How one variable is split over the mesh.  The port reads the
+    ``spec`` form: one mesh axis name (or ``None``) per dimension, e.g.
+    ``["pipe", None, "model"]``; ``comm_overlap`` and ``precision``
+    record the variable's model-axis boundary for the cost model, as in
+    the JAX package.  The ``partition_str`` form (``"1,4,1"``, the
+    data-parallel zoo's single-axis split) is not ported yet."""
+
+    partition_str: str = ""
+    mesh_axis: str = const.DATA_AXIS
+    spec: Optional[list] = None
+    comm_overlap: Optional[str] = None
+    precision: Optional[str] = None
+
+    def to_dict(self):
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d):
+        if d.get("partition_str"):
+            not_ported("variable partitioning by partition_str "
+                        "(PartitionedAR, PartitionedPS, Parallax)",
+                        "ROADMAP Queue 1, item 8")
+        prec = d.get("precision")
+        if prec is not None and prec not in PRECISIONS:
+            raise UnknownPrecisionError(
+                f"partitioner precision {prec!r}: expected one of "
+                f"{list(PRECISIONS)} (or null)")
+        return cls(**d)
+
+
+@dataclasses.dataclass
 class NodeConfig:
-    """Per-variable distribution choice.  Its JSON keeps the JAX
-    package's ``"partitioner": null`` (no variable is partitioned)."""
+    """Per-variable distribution choice."""
 
     var_name: str
     synchronizer: AllReduceSynchronizer = dataclasses.field(
         default_factory=AllReduceSynchronizer)
+    partitioner: Optional[PartitionerConfig] = None
     is_sparse: bool = False
 
     def to_dict(self):
         return {
             "var_name": self.var_name,
             "synchronizer": self.synchronizer.to_dict(),
-            "partitioner": None,
+            "partitioner": (self.partitioner.to_dict() if self.partitioner
+                            else None),
             "is_sparse": self.is_sparse,
         }
 
     @classmethod
     def from_dict(cls, d):
-        if d.get("partitioner"):
-            _not_ported("variable partitioning (PartitionedAR, "
-                        "PartitionedPS, Parallax)",
-                        "ROADMAP Queue 1, item 8")
         return cls(var_name=d["var_name"],
                    synchronizer=synchronizer_from_dict(d["synchronizer"]),
+                   partitioner=(PartitionerConfig.from_dict(d["partitioner"])
+                                if d.get("partitioner") else None),
                    is_sparse=d.get("is_sparse", False))
 
 
 @dataclasses.dataclass
 class GraphConfig:
     """Graph-level config: ``replicas`` is the data-parallel degree,
-    ``mesh_axes`` the mesh the strategy assumes."""
+    ``mesh_axes`` the mesh the strategy assumes, ``lowering`` the path
+    (``"collective"`` or ``"pipeline"``), ``parallel`` the lowering's
+    knobs, ``precision`` the per-collective wire precision policy and
+    ``kernel`` the kernel election."""
 
     replicas: int = 1
     mesh_axes: dict = dataclasses.field(default_factory=dict)
@@ -191,15 +276,12 @@ class GraphConfig:
 
     @classmethod
     def from_dict(cls, d):
-        if d.get("precision") not in (None, "", "fp32", {}):
-            _not_ported("per-collective precision policies",
-                        "ROADMAP Queue 1, slice 3")
         return cls(replicas=d.get("replicas", 1),
                    mesh_axes=dict(d.get("mesh_axes", {})),
                    lowering=d.get("lowering", "collective"),
                    accum_steps=d.get("accum_steps", 1),
                    parallel=dict(d.get("parallel", {})),
-                   precision={},
+                   precision=normalize_precision(d.get("precision")),
                    kernel=normalize_kernel(d.get("kernel")))
 
 

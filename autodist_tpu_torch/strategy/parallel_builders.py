@@ -1,0 +1,219 @@
+"""The ``Pipeline`` strategy builder, with Megatron tensor parallelism
+inside each stage.
+
+Counterpart of ``autodist_tpu/strategy/parallel_builders.py``
+``Pipeline`` and :data:`PIPELINE_TP_RULES`.  The builder emits the JAX
+builder's node configs (every stage variable partitioned ``["pipe",
+...]`` with the model-axis dims its tp rule names, shared variables
+replicated) and graph config (``lowering="pipeline"``, the schedule
+knobs, the precision policy and the kernel election), so the two
+packages' strategies for the same model serialize alike, and it runs the
+same build-time checks with the same errors.
+
+The lowering ported so far runs a pipe axis of 1 (ROADMAP Queue 1,
+slice 3).  What it does not run raises ``NotImplementedError`` here,
+after the JAX builder's own checks: ZeRO stages, gradient compressors
+and the ``grad`` precision slot, remat, ``vocab_parallel``,
+``comm_overlap="rsag"`` and a narrowed ``tp_psum`` under overlap.
+"""
+from __future__ import annotations
+
+import inspect
+import re
+from typing import Sequence
+
+from autodist_tpu_torch import const
+from autodist_tpu_torch.parallel.tensor import normalize_comm_overlap
+from autodist_tpu_torch.strategy.base import StrategyBuilder
+from autodist_tpu_torch.strategy.ir import (AllReduceSynchronizer, NodeConfig,
+                                            PartitionerConfig, Strategy,
+                                            normalize_kernel,
+                                            normalize_precision, not_ported)
+
+# Megatron rules for the stage variables, matched against the name with
+# its per-stage shape (the stacked leaf minus its leading stage dim):
+# the JAX package's TRANSFORMER_TP_RULES without the embedding rule, and
+# the column-parallel biases, which shard with their kernels.
+PIPELINE_TP_RULES = (
+    (r"(^|/)qkv/kernel$", [None, None, const.MODEL_AXIS, None]),
+    (r"(^|/)out/kernel$", [const.MODEL_AXIS, None, None]),
+    (r"(^|/)wi/kernel$", [None, const.MODEL_AXIS]),
+    (r"(^|/)wo/kernel$", [const.MODEL_AXIS, None]),
+    (r"(^|/)qkv/bias$", [None, const.MODEL_AXIS, None]),
+    (r"(^|/)wi/bias$", [const.MODEL_AXIS]),
+)
+
+_LEFTOVERS = "ROADMAP Queue 1, slice 3 leftovers"
+
+
+class Pipeline(StrategyBuilder):
+    """Microbatched pipeline parallelism over the ``pipe`` mesh axis,
+    with ``tensor_parallel=t`` Megatron shards over the ``model`` axis
+    inside each stage (stage variables matching ``tp_rules``).
+
+    ``comm_overlap="matmul"`` (or ``True``) runs the row-parallel
+    boundaries as the collective-matmul ring; ``collective_precision``
+    narrows the boundaries (``{"tp_psum": "int8"}``); ``kernel`` elects
+    the fused kernels: ``quant_ring`` needs the int8 ``tp_psum`` and the
+    blocking form, ``collective_matmul`` needs ``comm_overlap="matmul"``.
+    """
+
+    def __init__(self, num_microbatches: int = 1, virtual_stages: int = 1,
+                 *, zero_stage: int = None, zero1: bool = None,
+                 compressor: str = "none", zero_min_bytes=None,
+                 remat: bool = False, tensor_parallel: int = 1,
+                 tp_rules: Sequence[tuple] = None, comm_overlap=None,
+                 vocab_parallel: bool = False, vocab_rules=None,
+                 collective_precision=None, kernel=None):
+        if num_microbatches < 1:
+            raise ValueError("num_microbatches must be >= 1")
+        if virtual_stages < 1:
+            raise ValueError("virtual_stages must be >= 1")
+        if tensor_parallel < 1:
+            raise ValueError("tensor_parallel must be >= 1")
+        self.num_microbatches = num_microbatches
+        self.virtual_stages = virtual_stages
+        self.remat = remat
+        self.tensor_parallel = tensor_parallel
+        self.tp_rules = [(re.compile(pat), list(spec))
+                         for pat, spec in (tp_rules if tp_rules is not None
+                                           else PIPELINE_TP_RULES)]
+        self.vocab_parallel = bool(vocab_parallel)
+        self.comm_overlap = normalize_comm_overlap(comm_overlap)
+        self.precision = normalize_precision(collective_precision)
+        if self.precision.get("grad") and (compressor or "none") != "none":
+            raise ValueError(
+                "collective_precision's 'grad' slot elects an error-"
+                "feedback compressor; pass either it or compressor=, "
+                "not both")
+        self.kernel = normalize_kernel(kernel)
+        if "quant_ring" in self.kernel:
+            if tensor_parallel <= 1 \
+                    or self.precision.get("tp_psum") != "int8":
+                raise ValueError(
+                    "kernel 'quant_ring' fuses q/dq into the int8 "
+                    "tp_psum ring: it needs tensor_parallel > 1 and "
+                    "collective_precision's tp_psum slot at 'int8'")
+            if self.comm_overlap is not None:
+                raise ValueError(
+                    "kernel 'quant_ring' replaces the monolithic "
+                    "tp_psum; comm_overlap routes the boundary through "
+                    "the decomposed forms instead — pick one")
+        if "collective_matmul" in self.kernel and (
+                tensor_parallel <= 1 or self.comm_overlap != "matmul"):
+            raise ValueError(
+                "kernel 'collective_matmul' fuses the chunked ppermute "
+                "ring: it needs tensor_parallel > 1 and "
+                "comm_overlap='matmul'")
+        self.zero_stage = 0
+        # What the port's pipeline lowering does not run yet.
+        if zero_stage or zero1 or zero_min_bytes is not None:
+            not_ported("ZeRO in the pipeline lowering",
+                       f"{_LEFTOVERS}, item 4")
+        if remat:
+            not_ported("Pipeline(remat=True)", f"{_LEFTOVERS}, item 4")
+        if (compressor or "none") != "none" or self.precision.get("grad"):
+            not_ported("gradient compressors (and the 'grad' precision "
+                       "slot)", "ROADMAP Queue 1, slice 2 leftovers, item 3")
+        if self.vocab_parallel or vocab_rules is not None:
+            not_ported("vocab_parallel", f"{_LEFTOVERS}, item 2")
+        if self.comm_overlap == "rsag":
+            not_ported("comm_overlap='rsag'", f"{_LEFTOVERS}, item 3")
+        if self.comm_overlap and self.precision.get("tp_psum"):
+            not_ported("a narrowed tp_psum precision under comm_overlap",
+                       f"{_LEFTOVERS}, item 3")
+
+    def _tp_spec_for(self, name: str, stage_shape: tuple, tp: int):
+        """Per-stage model-axis spec of a stage variable, or None: the
+        first name-matching rule of the right rank wins, and its sharded
+        dims must divide by ``tp``."""
+        for pat, spec in self.tp_rules:
+            if not pat.search(name) or len(spec) != len(stage_shape):
+                continue
+            for dim, axis in zip(stage_shape, spec):
+                if axis == const.MODEL_AXIS and dim % tp:
+                    raise ValueError(
+                        f"{name}: per-stage dim {dim} does not divide by "
+                        f"tensor_parallel={tp} (rule spec {spec})")
+            return list(spec)
+        return None
+
+    def build(self, trainable, resource_spec):
+        shape = resource_spec.resolved_mesh_shape()
+        if const.PIPE_AXIS not in shape:
+            raise ValueError(
+                f"Pipeline needs a {const.PIPE_AXIS!r} mesh axis; spec "
+                f"resolves to {shape} — declare e.g. "
+                "mesh: {data: ..., pipe: ...}")
+        num_stages = getattr(trainable, "num_stages", None)
+        if num_stages is None:
+            raise ValueError(
+                "Pipeline lowers stage-structured trainables; declare one "
+                "with PipelineTrainable(stage_fn, stacked_params, "
+                "loss_head, optimizer, num_stages=S)")
+        if num_stages != shape[const.PIPE_AXIS] * self.virtual_stages:
+            raise ValueError(
+                f"trainable declares {num_stages} stages; mesh pipe axis "
+                f"has {shape[const.PIPE_AXIS]} devices x "
+                f"{self.virtual_stages} virtual stages")
+        tp = self.tensor_parallel
+        if tp > 1 and shape.get(const.MODEL_AXIS, 1) != tp:
+            raise ValueError(
+                f"Pipeline(tensor_parallel={tp}) needs a "
+                f"{const.MODEL_AXIS!r} mesh axis of that size; spec "
+                f"resolves to {shape} — declare e.g. "
+                "mesh: {data: ..., pipe: ..., model: ...}")
+        if tp > 1 and self.comm_overlap:
+            try:
+                sig = inspect.signature(
+                    getattr(trainable, "stage_fn", None)).parameters
+            except (TypeError, ValueError):  # partials, builtins: trust it
+                sig = {"comm_overlap": None}
+            if "comm_overlap" not in sig:
+                raise ValueError(
+                    f"comm_overlap={self.comm_overlap!r} needs an "
+                    "overlap-aware stage_fn: it must accept comm_overlap= "
+                    "and route it to its row/column-parallel boundaries "
+                    "(autodist_tpu_torch.parallel.tensor primitives)")
+        has_shared = getattr(trainable, "has_shared", False)
+        nodes, tp_matched = [], []
+        for info in trainable.var_infos():
+            node = NodeConfig(var_name=info.name,
+                              synchronizer=AllReduceSynchronizer(),
+                              is_sparse=info.is_sparse)
+            # Stage variables shard on the pipe axis (their leading
+            # stage dim), plus the model axis on the dims their tp rule
+            # names; shared variables replicate.
+            if not has_shared or info.name.startswith("stages/"):
+                tail = [None] * (max(len(info.shape), 1) - 1)
+                overlap = tp_prec = None
+                if tp > 1:
+                    tp_tail = self._tp_spec_for(info.name,
+                                                tuple(info.shape[1:]), tp)
+                    if tp_tail is not None:
+                        tail = tp_tail
+                        tp_matched.append(info.name)
+                        overlap = self.comm_overlap
+                        tp_prec = self.precision.get("tp_psum")
+                node.partitioner = PartitionerConfig(
+                    mesh_axis=const.PIPE_AXIS,
+                    spec=[const.PIPE_AXIS] + tail,
+                    comm_overlap=overlap, precision=tp_prec)
+            nodes.append(node)
+        if tp > 1 and not tp_matched:
+            raise ValueError(
+                f"Pipeline(tensor_parallel={tp}): no stage variable "
+                "matched the tp rules; name the projections "
+                "qkv/out/wi/wo (PIPELINE_TP_RULES) or pass tp_rules=...")
+        cfg = self._graph_config(resource_spec)
+        cfg.lowering = "pipeline"
+        cfg.parallel = {"num_microbatches": self.num_microbatches,
+                        "virtual_stages": self.virtual_stages,
+                        "remat": self.remat,
+                        "tensor_parallel": tp,
+                        "comm_overlap": self.comm_overlap,
+                        "vocab_parallel": self.vocab_parallel,
+                        "zero_stage": self.zero_stage}
+        cfg.precision = dict(self.precision)
+        cfg.kernel = dict(self.kernel)
+        return Strategy(node_configs=nodes, graph_config=cfg)

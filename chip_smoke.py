@@ -4,17 +4,22 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``autodist_tpu_torch/kernel/csrc``
-(at first use, into a git-ignored directory) and drives the port's two
+(at first use, into a git-ignored directory) and drives the port's three
 paths: serving the pipelined LM at the serve bench's width (vocab 32768,
-hidden 1024, 16 heads of 64, mlp 4096, 8 layers, max_len 1024), and
-training BERT-base masked-LM through ``AutoDist`` + ``AllReduce``:
+hidden 1024, 16 heads of 64, mlp 4096, 8 layers, max_len 1024),
+training BERT-base masked-LM through ``AutoDist`` + ``AllReduce``, and
+Megatron tensor-parallel training of the pipelined LM through
+``Pipeline(tensor_parallel=2)`` at one pipe device:
 
 1. each kernel against its plain PyTorch version, fp32 (atol = rtol =
    1e-5) and bf16 (atol = rtol = 1e-2), timed with CUDA events beside
    the plain version, one PyTorch library call and the card's bound:
    K5-K7 at the serving shapes; K1, K2a and K2b at BERT-base's q/k/v
    ``[16, 512, 12, 64]`` and at ragged lengths 100 and 17, causal and
-   not;
+   not; K3 bit for bit (levels and scale) at the ring's chunk of 2^21
+   elements and at 1, 1000 and 2^20 + 3, and on an all-zero chunk; K4 in
+   bf16 at the two row-parallel shapes of phase 7 and in fp32 at a ragged
+   100 x 72 x 40;
 2. fp32 parity: 4 requests through ``ContinuousBatcher`` on the dense
    and on the paged + chunked engine, each stream equal token for token
    to a greedy full recompute by ``sequential_logits`` (a divergence
@@ -32,30 +37,60 @@ training BERT-base masked-LM through ``AutoDist`` + ``AllReduce``:
    held to 12 x 30 launches each, examples/s, step time, MFU, the
    profiler's busy share and launches per step, peak memory, and the
    einsum attention's examples/s beside it;
-6. one ``{"kernels": [...]}`` line, the card's name and power limit, and
+6. fp32 tensor-parallel parity: the pipelined LM at full width cut to 2
+   layers, seq 128, 3 Adam steps: composed fp32 on T = 2 ranks against
+   one process at T = 1 (1e-4 relative), the fused collective matmul
+   against the composed one (1e-5), the quantized ring against the
+   composed int8 program (2e-2);
+7. the slice's window in bf16 (``bench.py quant`` on an accelerator: 4
+   layers, max_len 512, batch 16, ``num_microbatches=2``,
+   ``virtual_stages=4``, ``adam(1e-3)``) for the composed fp32, composed
+   int8, ``quant_ring`` and ``collective_matmul`` programs: tokens/s,
+   step ms, peak memory per rank, the profiler's busy share, and the K3
+   and K4 launches held to 64 and 32 per step;
+8. one ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
-Any failed check raises and the script exits non-zero; without a CUDA
-device it exits 2 and prints no result.  Imports torch, numpy and
-``autodist_tpu_torch`` only.
+Phases 6 and 7 run T = 2 processes (``torch.multiprocessing`` spawn) on
+card 0, joined in a gloo group: NCCL refuses two ranks on one device, so
+each hop's transfer is staged through host memory while the kernels,
+the model and the optimizer stay on the card.  Their numbers are
+labelled so, and say nothing about multi-GPU speed.  Where the machine
+has at least T cards, phase 7 runs again over NCCL, one rank per card,
+and prints that apart.
+
+Any failed check raises, in any rank, and the script exits non-zero;
+without a CUDA device it exits 2 and prints no result.  ``--phases 7``
+(a comma-separated list) runs only those phases and prints no kernels
+line: the four-card run of phase 7 over NCCL.  Imports torch,
+numpy and ``autodist_tpu_torch`` only.
 """
 from __future__ import annotations
 
+import argparse
 import importlib
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 import autodist_tpu_torch as port
+from autodist_tpu_torch.kernel import collective_matmul as cm
 from autodist_tpu_torch.kernel import flash_decode as fd
 from autodist_tpu_torch.kernel import flash_prefill as fp
+from autodist_tpu_torch.kernel import quant_ring as qr
 from autodist_tpu_torch.models import bert
-from autodist_tpu_torch.models.pipeline_lm import sequential_logits
+from autodist_tpu_torch.models.pipeline_lm import (make_pipeline_lm_trainable,
+                                                   sequential_logits)
+from autodist_tpu_torch.strategy.parallel_builders import Pipeline
 from autodist_tpu_torch.resource import H100
 from autodist_tpu_torch.serving import FINISH_REASONS, kv_cache
 
@@ -97,12 +132,47 @@ KERNELS = {
         source="autodist_tpu_torch/kernel/csrc/flash_attention.cu",
         replaces="autodist_tpu/ops/flash_attention.py:288"),
 }
+KERNELS.update({
+    "quant_ring_hop": dict(
+        wrapper=qr.fused_hop,
+        source="autodist_tpu_torch/kernel/csrc/quant_ring.cu",
+        replaces="autodist_tpu/kernel/pallas/quant_ring.py:48"),
+    "collective_matmul_hop": dict(
+        wrapper=cm.fused_matmul_add,
+        source="autodist_tpu_torch/kernel/csrc/collective_matmul.cu",
+        replaces="autodist_tpu/kernel/pallas/collective_matmul.py:35"),
+})
 SERVING_KERNELS = ("flash_decode", "flash_decode_paged", "flash_prefill_paged")
 TRAINING_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                     "flash_attention_bwd_dkv")
+TP_KERNELS = ("quant_ring_hop", "collective_matmul_hop")
 
 # BERT-base (bench.py _bench on an accelerator).
 BERT_BATCH, BERT_SEQ, BERT_MASKED, BERT_STEPS = 16, 512, 76, 30
+
+# The tensor-parallel window (bench.py quant on an accelerator, pipe 1).
+TP, TP_LAYERS, TP_SEQ, TP_BATCH, TP_MICRO, TP_STEPS = 2, 4, 512, 16, 2, 5
+# K3's chunk on that path: one [8, 512, 1024] boundary over 2 ranks.
+RING_CHUNK = TP_BATCH // TP_MICRO * TP_SEQ * HIDDEN // TP
+# K4's shapes there: [M, K] @ [K, C] per hop, M = 8 x 512 rows, C = the
+# 1024 features over 2 ranks; K = 512 (out projection), 2048 (mlp wo).
+MATMUL_SHAPES = ((4096, 512, 512), (4096, 2048, 512))
+TP_PROGRAMS = {
+    "fp32": {},
+    "int8": dict(collective_precision={"tp_psum": "int8"}),
+    "quant_ring": dict(collective_precision={"tp_psum": "int8"},
+                       kernel=("quant_ring",)),
+    "matmul": dict(comm_overlap="matmul"),
+    "collective_matmul": dict(comm_overlap="matmul",
+                              kernel=("collective_matmul",)),
+}
+# Per step of phase 7: K3 opens and hops once per ring at T = 2, four
+# rings per layer and microbatch (two forward sums, two backward);
+# K4 runs T times per row-parallel boundary, two per layer and
+# microbatch, forward only.
+TP_WANT = {"quant_ring": {"quant_ring_hop": 2 * 4 * TP_LAYERS * TP_MICRO},
+           "collective_matmul": {
+               "collective_matmul_hop": TP * 2 * TP_LAYERS * TP_MICRO}}
 
 
 def check(cond, msg):
@@ -245,13 +315,12 @@ def time_ms(fn, reps=30):
     return sum(e0.elapsed_time(e1) for e0, e1 in events) / reps
 
 
-def phase_kernels():
-    """Kernel vs plain at both dtypes; returns the per-kernel record."""
+def phase_kernels(record):
+    """Kernel vs plain at both dtypes, into the per-kernel record."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     rng = np.random.RandomState(0)
-    record = {}
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOLERANCE[dtype]
         for name, args, kw, nbytes, flops in kernel_cases(dtype, gen, rng):
@@ -286,7 +355,6 @@ def phase_kernels():
                   f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f}"
                   f" ms ({rec['bound_by']})", flush=True)
             record[(name, dtype)] = rec
-    return record
 
 
 def attention_bytes_flops(name, B, L, H, D, esize, causal):
@@ -399,6 +467,93 @@ def phase_attention_kernels(record):
                     print(line, flush=True)
                 del qkv, q, k, v, g, out, lse, delta, calls
         torch.cuda.empty_cache()
+
+
+def phase_tp_kernels(record):
+    """K3 bit for bit against its plain version (levels and scale), K4
+    within tolerance; both timed at the shapes of phase 7."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for C in (RING_CHUNK, 1, 1000, 2 ** 20 + 3):
+        local = torch.randn(C, generator=gen, device="cuda") * 3
+        q_in = torch.randint(-127, 128, (C,), generator=gen, device="cuda",
+                             dtype=torch.int8)
+        zero_q, zero_s = torch.zeros_like(q_in), torch.zeros(1, device="cuda")
+        cases = {"open": (zero_q, zero_s, local),
+                 "hop": (q_in, torch.full((1,), 0.0173, device="cuda"),
+                         local)}
+        if C == RING_CHUNK:
+            cases["zero"] = (zero_q, zero_s, torch.zeros_like(local))
+        for case, args in cases.items():
+            q, s = qr.fused_hop(*args)
+            q_ref, s_ref = qr.fused_hop_plain(*args)
+            torch.cuda.synchronize()
+            diff = int((q != q_ref).sum())
+            check(diff == 0 and torch.equal(s.view(torch.int32),
+                                            s_ref.view(torch.int32)),
+                  f"quant_ring_hop C={C} {case}: {diff} levels differ, "
+                  f"scale {float(s)} vs {float(s_ref)}")
+            line = (f"phase 1 quant_ring_hop C={C} {case}: bit-exact (levels "
+                    f"and scale)")
+            if C == RING_CHUNK and case == "hop":
+                # Read q_in and local, write q_out: 6 bytes an element;
+                # a multiply, an add, a divide and a compare each.
+                t_bytes = (6 * C + 8) / HBM_BYTES_PER_S
+                t_ops = 4 * C / PEAK_FLOPS[torch.float32]
+                rec = {"max_abs_err": 0.0,
+                       "ms": time_ms(lambda: qr.fused_hop(*args)),
+                       "plain_ms": time_ms(lambda: qr.fused_hop_plain(*args)),
+                       "library_ms": None,
+                       "bound_ms": max(t_bytes, t_ops) * 1e3,
+                       "bound_by": "bytes" if t_bytes >= t_ops
+                       else "operations"}
+                record[("quant_ring_hop", torch.float32)] = rec
+                line += (f", kernel {rec['ms']:.4f} ms, plain "
+                         f"{rec['plain_ms']:.4f} ms, library none, bound "
+                         f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+            print(line, flush=True)
+    cases = [(torch.bfloat16, M, K, C) for M, K, C in MATMUL_SHAPES] + [
+        (torch.float32, 100, 72, 40)] + [
+        (torch.float32, M, K, C) for M, K, C in MATMUL_SHAPES]
+    for dtype, M, K, C in cases:
+        tol = TOLERANCE[dtype]
+        esize = torch.empty((), dtype=dtype).element_size()
+        carry = torch.randn(M, C, generator=gen, device="cuda").to(dtype)
+        x = torch.randn(M, K, generator=gen, device="cuda").to(dtype)
+        # k: this rank's chunk of the row-parallel kernel, a column slice
+        # of the [K, 2C] shard as the ring reads it.
+        wide = (torch.randn(K, TP * C, generator=gen, device="cuda")
+                / math.sqrt(K)).to(dtype)
+        k = wide[:, C:]
+        got = cm.fused_matmul_add(carry, x, k)
+        ref = cm.fused_matmul_add_plain(carry, x, k)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs()
+        max_err = float(err.max())
+        check(bool(torch.isfinite(got).all()), "collective_matmul: non-finite")
+        check(bool((err <= tol + tol * ref.float().abs()).all()),
+              f"collective_matmul_hop {dtype} {M}x{K}x{C}: max |kernel - "
+              f"plain| = {max_err} exceeds atol = rtol = {tol}")
+        line = (f"phase 1 collective_matmul_hop {str(dtype)[6:]} "
+                f"[{M},{K}]@[{K},{C}]: max_abs_err {max_err:.3e} (tol {tol})")
+        if M == 4096:
+            t_bytes = (M * K + K * C + 2 * M * C) * esize / HBM_BYTES_PER_S
+            t_ops = 2 * M * K * C / PEAK_FLOPS[dtype]
+            rec = {"max_abs_err": max_err,
+                   "ms": time_ms(lambda: cm.fused_matmul_add(carry, x, k)),
+                   "plain_ms": time_ms(
+                       lambda: cm.fused_matmul_add_plain(carry, x, k)),
+                   "library_ms": time_ms(lambda: torch.addmm(carry, x, k)),
+                   "bound_ms": max(t_bytes, t_ops) * 1e3,
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            if K == 2048:                # mlp wo, the larger of the two
+                record[("collective_matmul_hop", dtype)] = rec
+            line += (f", kernel {rec['ms']:.4f} ms, plain "
+                     f"{rec['plain_ms']:.4f} ms, library (addmm) "
+                     f"{rec['library_ms']:.4f} ms, bound "
+                     f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+        print(line, flush=True)
+    del carry, x, wide, k, got, ref
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------- #
@@ -709,37 +864,222 @@ def phase_train():
     return {name: got[name] for name in TRAINING_KERNELS}
 
 
-def main() -> int:
+# --------------------------------------------------------------------- #
+# phases 6 and 7: tensor-parallel training of the pipelined LM
+# --------------------------------------------------------------------- #
+def tp_runner(job, program, tp):
+    """AutoDist + Pipeline(tensor_parallel=tp) on the pipelined LM at
+    full width, depth ``job["layers"]``; weights from seed 0 on the card
+    (every rank draws the same tree and keeps its shard)."""
+    cfg = port.TransformerConfig(
+        vocab_size=VOCAB, hidden_size=HIDDEN, num_layers=job["layers"],
+        num_heads=HEADS, mlp_dim=MLP, max_len=job["seq"], dtype=job["dtype"],
+        dropout_rate=0.0, attention_dropout_rate=0.0)
+    trainable = make_pipeline_lm_trainable(
+        cfg, port.optim.adam(1e-3), torch.Generator(device="cuda").manual_seed(0))
+    mesh = {"data": 1, "pipe": 1, "model": tp} if tp > 1 else {
+        "data": 1, "pipe": 1}
+    builder = Pipeline(num_microbatches=TP_MICRO,
+                       virtual_stages=job["layers"], tensor_parallel=tp,
+                       **TP_PROGRAMS[program])
+    return port.AutoDist({"mesh": mesh}, builder).build(trainable)
+
+
+def tp_window(job, steps, seed0=0):
+    """``steps`` next-token batches ``{"x", "y"}`` from a numpy seed,
+    stacked ``[steps, B, L]``."""
+    batches = []
+    for i in range(steps):
+        r = np.random.RandomState(seed0 + i)
+        batches.append({k: r.randint(0, VOCAB, (job["batch"], job["seq"]))
+                        .astype(np.int32) for k in ("x", "y")})
+    return port.stack_steps(batches)
+
+
+def tp_parity(job):
+    """Phase 6 in one rank: 3 steps of each program; the losses."""
+    out = {}
+    for program in job["programs"]:
+        runner = tp_runner(job, program, TP)
+        out[program] = runner.run_steps(tp_window(job, 3, seed0=100))[
+            "loss"].tolist()
+        runner.close()
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_window_programs(job):
+    """Phase 7 in one rank: per program a warm window, a timed one with
+    the launch counters, then a profiled one."""
+    out = {}
+    for program in job["programs"]:
+        runner = tp_runner(job, program, TP)
+        window = runner.place_steps(tp_window(job, TP_STEPS))
+        dt, metrics = timed_window(runner, window)
+        got = {name: launches()[name] for name in TP_KERNELS}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses = metrics["loss"].float()
+        check(bool(torch.isfinite(losses).all()),
+              f"{program}: non-finite loss {losses}")
+        want = dict.fromkeys(TP_KERNELS, 0)
+        want.update({k: n * TP_STEPS
+                     for k, n in TP_WANT.get(program, {}).items()})
+        check(got == want, f"{program}: launches {got}, expected {want}")
+        prof = profile_steps(runner, window, k=2)
+        out[program] = {"seconds": dt, "launches": got, "peak_gb": peak_gb,
+                        "loss": [float(losses[0]), float(losses[-1])],
+                        "profile": prof}
+        runner.close()
+        del runner, window
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_worker(rank, backend, store, job, out_dir):
+    """One rank of a tensor-parallel phase; writes its result as JSON."""
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=TP)
+    try:
+        run = tp_parity if job["kind"] == "parity" else tp_window_programs
+        result = run(job)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_tp(job, backend="gloo"):
+    """Run ``job`` in TP spawned ranks; every rank's result.  A failure in
+    any rank stops the others and raises here."""
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(tp_worker, args=(backend, os.path.join(tmp, "store"), job,
+                                  tmp), nprocs=TP, join=True)
+        results = []
+        for rank in range(TP):
+            with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+                results.append(json.load(f))
+    return results
+
+
+def phase_tp_parity():
+    """fp32 on the card: T = 2 composed against one process at T = 1,
+    and each kernel program against its composed sibling."""
+    job = {"kind": "parity", "layers": 2, "seq": 128, "batch": 8,
+           "dtype": torch.float32, "programs": list(TP_PROGRAMS)}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runner = tp_runner(job, "fp32", 1)
+    one = runner.run_steps(tp_window(job, 3, seed0=100))["loss"].tolist()
+    runner.close()
+    torch.cuda.empty_cache()
+    ranks = spawn_tp(job)
+    got = ranks[0]
+    for rank in ranks[1:]:
+        for program, losses in rank.items():
+            check(all(abs(a - b) <= 1e-5 * abs(b)
+                      for a, b in zip(losses, got[program])),
+                  f"{program}: the ranks' losses differ: {ranks}")
+    pairs = (("fp32", one, 1e-4, "T = 1"),
+             ("collective_matmul", got["matmul"], 1e-5, "composed matmul"),
+             ("quant_ring", got["int8"], 2e-2, "composed int8"))
+    for program, ref, tol, what in pairs:
+        for i, (a, b) in enumerate(zip(got[program], ref)):
+            check(math.isfinite(a) and abs(a - b) <= tol * abs(b),
+                  f"step {i}: {program} loss {a} vs {what} {b} differ by "
+                  f"more than {tol} relative")
+    print(f"phase 6 fp32 2-layer pipelined LM, seq 128, batch 8, 3 Adam "
+          f"steps, T = 2 ranks on one card over gloo: T = 1 losses {one}; "
+          + "; ".join(f"{p} {got[p]}" for p in TP_PROGRAMS), flush=True)
+
+
+def phase_tp_window():
+    """bf16 window of the four programs: T ranks on card 0 over gloo,
+    and over NCCL one rank per card where the machine has T cards."""
+    job = {"kind": "window", "layers": TP_LAYERS, "seq": TP_SEQ,
+           "batch": TP_BATCH, "dtype": torch.bfloat16,
+           "programs": ["fp32", "int8", "quant_ring", "collective_matmul"]}
+    counts = {}
+    runs = [("gloo", f"{TP} ranks on one card, gloo, transfers through "
+                     f"host")]
+    if torch.cuda.device_count() >= TP:
+        runs.append(("nccl", f"{TP} ranks on {TP} cards, NCCL"))
+    tokens = TP_STEPS * TP_BATCH * TP_SEQ
+    for backend, label in runs:
+        ranks = spawn_tp(job, backend)
+        for program in job["programs"]:
+            r0 = ranks[0][program]
+            dt = max(r[program]["seconds"] for r in ranks)
+            peaks = ", ".join(f"{r[program]['peak_gb']:.2f}" for r in ranks)
+            per_step = {k: n / TP_STEPS for k, n in r0["launches"].items()}
+            line = (f"phase 7 {program} bf16 [{label}]: {TP_STEPS} steps in "
+                    f"{dt:.3f} s = {tokens / dt:.1f} tokens/s, step "
+                    f"{dt / TP_STEPS * 1e3:.2f} ms, peak memory per rank "
+                    f"{peaks} GB, loss {r0['loss'][0]:.4f} -> "
+                    f"{r0['loss'][1]:.4f}, launches per step {per_step}")
+            if r0["profile"] is None:
+                line += "; rank 0 profile: device time not measured"
+            else:
+                busy, n_launch, top = r0["profile"]
+                step_ms = dt / TP_STEPS * 1e3
+                line += (f"; rank 0 profile: device busy {busy:.2f} ms of "
+                         f"{step_ms:.2f} ms ({busy / step_ms:.1%}), "
+                         f"{n_launch:.0f} kernel launches per step; top: {top}")
+            print(line, flush=True)
+            if backend == "gloo":
+                for name, n in r0["launches"].items():
+                    counts[name] = counts.get(name, 0) + n
+    return counts
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--phases", default="1,2,3,4,5,6,7",
+        help="comma-separated phases to run (default: all); the kernels "
+             "line needs them all")
+    phases = {int(p) for p in parser.parse_args(argv).phases.split(",")}
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
-          f"{torch.cuda.get_device_name(0)}", flush=True)
-    record = phase_kernels()
-    phase_attention_kernels(record)
-    print(f"phase 1 done at {time.perf_counter() - t0:.1f} s", flush=True)
-    phase_parity()
-    print(f"phase 2 done at {time.perf_counter() - t0:.1f} s", flush=True)
-    counts = phase_serve()
-    print(f"phase 3 done at {time.perf_counter() - t0:.1f} s", flush=True)
-    phase_training_parity()
-    print(f"phase 4 done at {time.perf_counter() - t0:.1f} s", flush=True)
-    counts.update(phase_train())
-    print(f"phase 5 done at {time.perf_counter() - t0:.1f} s", flush=True)
-    kernels = []
-    for name, k in KERNELS.items():
-        rec = record[(name, torch.bfloat16)]
-        kernels.append({
-            "name": name, "route": "cuda", "source": k["source"],
-            "replaces": k["replaces"], "launches": counts[name],
-            "max_abs_err": rec["max_abs_err"],
-            "max_abs_err_fp32": record[(name, torch.float32)]["max_abs_err"],
-            "ms": rec["ms"], "kernel_ms": rec["ms"],
-            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-            "dtype": "bfloat16"})
-    print(json.dumps({"kernels": kernels}))
+          f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} "
+          f"card(s)", flush=True)
+    record, counts = {}, {}
+    steps = [(1, lambda: (phase_kernels(record), phase_attention_kernels(
+                 record), phase_tp_kernels(record))),
+             (2, phase_parity),
+             (3, lambda: counts.update(phase_serve())),
+             (4, phase_training_parity),
+             (5, lambda: counts.update(phase_train())),
+             (6, phase_tp_parity),
+             (7, lambda: counts.update(phase_tp_window()))]
+    for phase, run in steps:
+        if phase in phases:
+            run()
+            print(f"phase {phase} done at {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+    if phases >= {phase for phase, _ in steps}:
+        kernels = []
+        for name, k in KERNELS.items():
+            # K3 works on int8 levels and fp32 sums: its one record is
+            # fp32.
+            dtype = (torch.bfloat16 if (name, torch.bfloat16) in record
+                     else torch.float32)
+            rec = record[(name, dtype)]
+            kernels.append({
+                "name": name, "route": "cuda", "source": k["source"],
+                "replaces": k["replaces"], "launches": counts[name],
+                "max_abs_err": rec["max_abs_err"],
+                "max_abs_err_fp32": record[(name, torch.float32)][
+                    "max_abs_err"],
+                "ms": rec["ms"], "kernel_ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+                "dtype": str(dtype)[6:]})
+        print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -16,8 +16,10 @@ import pytest
 import torch
 
 import autodist_tpu_torch as port
+from autodist_tpu_torch.kernel import collective_matmul as cm
 from autodist_tpu_torch.kernel import flash_decode as fd
 from autodist_tpu_torch.kernel import flash_prefill as fp
+from autodist_tpu_torch.kernel import quant_ring as qr
 from autodist_tpu_torch.kernel.common import flatten_with_names
 from autodist_tpu_torch.models import bert
 
@@ -231,3 +233,59 @@ def test_cuda_training_step_goes_through_the_kernels(cuda):
     for name, p in params.items():
         torch.testing.assert_close(p, cpu_params[name], atol=1e-5, rtol=1e-5,
                                    msg=name)
+
+
+# --------------------------------------------------------------------------- #
+# K3 and K4: the tensor-parallel hop kernels
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("C", [1, 1000, 2 ** 20 + 3, 8 * 512 * 1024 // 2])
+def test_cuda_quant_ring_hop_is_bit_exact(cuda, C):
+    """K3 against its plain version, every level and the scale equal:
+    the opening quantize (scale_in 0), a hop with an incoming chunk, and
+    an all-zero chunk (levels 0, scale 1e-20).  2^20 elements is the main
+    path's chunk ([8, 512, 1024] over 2 ranks)."""
+    g = torch.Generator(device=cuda).manual_seed(C)
+    local = torch.randn(C, generator=g, device=cuda) * 3
+    q_in = torch.randint(-127, 128, (C,), generator=g, device=cuda,
+                         dtype=torch.int8)
+    cases = [(torch.zeros_like(q_in), torch.zeros(1, device=cuda), local),
+             (q_in, torch.full((1,), 0.0173, device=cuda), local),
+             (torch.zeros_like(q_in), torch.zeros(1, device=cuda),
+              torch.zeros_like(local))]
+    for args in cases:
+        before = qr.fused_hop.launches
+        q, s = qr.fused_hop(*args)
+        torch.cuda.synchronize()
+        assert qr.fused_hop.launches == before + 1
+        q_ref, s_ref = qr.fused_hop_plain(*args)
+        assert q.dtype == torch.int8 and q.shape == q_in.shape
+        assert torch.equal(q, q_ref)
+        assert torch.equal(s.view(torch.int32), s_ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype,M,K,C,ldk", [
+    (torch.bfloat16, 4096, 512, 512, 1024),    # out projection, a chunk
+    (torch.bfloat16, 4096, 2048, 512, 1024),   # mlp wo, a chunk
+    (torch.float32, 100, 72, 40, 40),          # ragged in M, K and C
+    (torch.float32, 100, 72, 40, 80),
+    (torch.bfloat16, 100, 72, 40, 80),         # ragged, asynchronous copies
+    (torch.bfloat16, 100, 70, 38, 76),         # rows not 16-byte aligned
+])
+def test_cuda_matmul_acc_matches_plain(cuda, dtype, M, K, C, ldk):
+    """K4 against its plain version: bf16 at 1e-2 (one rounding of the
+    fp32 sum, in another order), fp32 at 1e-5; ``k`` a column slice of a
+    wider matrix where ``ldk > C``."""
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    g = torch.Generator(device=cuda).manual_seed(M + K)
+    carry = torch.randn(M, C, generator=g, device=cuda).to(dtype)
+    x = torch.randn(M, K, generator=g, device=cuda).to(dtype)
+    wide = (torch.randn(K, ldk, generator=g, device=cuda) / K ** 0.5).to(dtype)
+    k = wide[:, ldk - C:]
+    before = cm.fused_matmul_add.launches
+    got = cm.fused_matmul_add(carry, x, k)
+    torch.cuda.synchronize()
+    assert cm.fused_matmul_add.launches == before + 1
+    assert got.dtype == dtype and got.shape == (M, C)
+    torch.testing.assert_close(got.float(),
+                               cm.fused_matmul_add_plain(carry, x, k).float(),
+                               atol=tol, rtol=tol)

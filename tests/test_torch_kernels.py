@@ -23,8 +23,10 @@ import pytest
 import torch
 
 from autodist_tpu_torch.kernel import build
+from autodist_tpu_torch.kernel import collective_matmul as cm
 from autodist_tpu_torch.kernel import flash_decode as fd
 from autodist_tpu_torch.kernel import flash_prefill as fp
+from autodist_tpu_torch.kernel import quant_ring as qr
 from autodist_tpu_torch.serving import kv_cache as tkv
 
 fa = importlib.import_module("autodist_tpu_torch.ops.flash_attention")
@@ -282,9 +284,11 @@ def test_blocks_for_and_allocator_match_jax():
 # the build: CUDA sources, flags, content hash
 # --------------------------------------------------------------------------- #
 def test_build_targets_sm90a_and_hashes_sources():
-    assert [s.name for s in build.sources()] == ["flash_attention.cu",
+    assert [s.name for s in build.sources()] == ["collective_matmul.cu",
+                                                 "flash_attention.cu",
                                                  "flash_decode.cu",
-                                                 "flash_prefill.cu"]
+                                                 "flash_prefill.cu",
+                                                 "quant_ring.cu"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert build.source_hash() == build.source_hash()
     for src in build.sources():
@@ -301,6 +305,6 @@ def test_build_targets_sm90a_and_hashes_sources():
 def test_wrappers_have_no_fallback_path():
     """A wrapper's only route to the plain version is a CPU tensor: no
     ``try`` in the kernel modules could swallow a failed launch."""
-    for mod in (fd, fp, fa):
+    for mod in (fd, fp, fa, qr, cm):
         tree = ast.parse(open(mod.__file__).read())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))

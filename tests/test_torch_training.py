@@ -342,7 +342,7 @@ def test_out_of_slice_options_raise(what, jtrainable, jparams):
                 '"partitioner": null', '"partitioner": {"partition_str": '
                 '"2,1"}', 1))
         elif what == "mesh_axis":
-            port.ResourceSpec({"mesh": {"data": 1, "model": 2}})
+            port.ResourceSpec({"mesh": {"data": 1, "seq": 2}})
         elif what == "topology_key":
             port.ResourceSpec({"topology": {"generation": "v5e"}})
         elif what == "multihost":
