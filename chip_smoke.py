@@ -630,14 +630,56 @@ def phase_parity():
 # --------------------------------------------------------------------- #
 # phase 3: bf16 serving of the bench mix
 # --------------------------------------------------------------------- #
+PROFILED = "chip_smoke.profiled_window"
+
+
+def device_profile(run, k=1):
+    """Run ``run()`` once under ``torch.profiler`` and return, divided by
+    ``k``: the profiled window's wall ms, its device-busy ms, and its
+    device launches (kernels, copies, memsets); then the device-to-host
+    copies and the top six by device time.  Busy time is the union of
+    the launches' intervals over every stream, inside the window, so
+    streams that overlap count once and annotation ranges (``nccl:*``,
+    which repeat their kernels' time) not at all: it never exceeds the
+    wall.  ``None`` where the profiler records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(PROFILED):
+            run()
+            torch.cuda.synchronize()
+    events = prof.events()
+    span = next(e.time_range for e in events
+                if e.name == PROFILED and e.device_type == DeviceType.CPU)
+    acts = [e for e in events
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    busy_us, covered = 0.0, span.start
+    for lo, hi in sorted((e.time_range.start, e.time_range.end)
+                         for e in acts):
+        lo, hi = max(lo, covered), min(hi, span.end)
+        if hi > lo:
+            busy_us += hi - lo
+            covered = hi
+    if not busy_us:
+        return None
+    by_name = {}
+    for e in acts:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    d2h = sum(n for name, (n, _) in by_name.items()
+              if name.startswith("Memcpy DtoH"))
+    return (span.elapsed_us() / 1e3 / k, busy_us / 1e3 / k, len(acts) / k,
+            d2h / k, "; ".join(f"{name[:60]} x{n} {us / 1e3:.3f} ms"
+                               for name, (n, us) in top))
+
+
 def profile_window(engine, n_active):
     """Where one decode window's time goes: its host wall time (timed
-    without the profiler), the device time of the kernels
-    ``torch.profiler`` records in a second window, and the top kernels.
+    without the profiler), then ``device_profile`` of a second window.
     Prints "not measured" where the profiler records no device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     active = np.zeros(engine.num_slots, bool)
     active[:n_active] = True
     engine.decode_window(active)
@@ -645,23 +687,15 @@ def profile_window(engine, n_active):
     t0 = time.perf_counter()
     engine.decode_window(active)
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        engine.decode_window(active)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    if not busy_ms:
+    prof = device_profile(lambda: engine.decode_window(active))
+    if prof is None:
         print("phase 3 window profile: device time not measured")
         return
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    syncs = sum(e.count for e in kernels if e.key.startswith("Memcpy DtoH"))
-    print(f"phase 3 window profile: wall {wall_ms:.2f} ms, device busy "
-          f"{busy_ms:.2f} ms ({busy_ms / wall_ms:.1%}), "
-          f"{sum(e.count for e in kernels)} kernel launches, {syncs} "
-          f"device-to-host copies; top: " + "; ".join(
-              f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
-              for e in top), flush=True)
+    prof_ms, busy_ms, n_launch, d2h, top = prof
+    print(f"phase 3 window profile: wall {wall_ms:.2f} ms; profiled window "
+          f"{prof_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+          f"({busy_ms / prof_ms:.1%}), {n_launch:.0f} kernel launches, "
+          f"{d2h:.0f} device-to-host copies; top: {top}", flush=True)
 
 
 def phase_serve():
@@ -771,27 +805,11 @@ def phase_training_parity():
 
 
 def profile_steps(runner, window, k=3):
-    """Device busy time and kernel launches of ``k`` steps under
-    ``torch.profiler``; ``None`` where it records no device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """``device_profile`` of ``k`` warm steps, per step."""
     part = {key: t[:k] for key, t in window.items()}
     runner.run_steps(part)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        runner.run_steps(part)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    if not busy_ms:
-        return None
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    return (busy_ms / k, sum(e.count for e in kernels) / k,
-            "; ".join(f"{e.key[:60]} x{e.count} "
-                      f"{e.self_device_time_total / 1e3:.3f} ms" for e in top))
+    return device_profile(lambda: runner.run_steps(part), k)
 
 
 def timed_window(runner, window):
@@ -839,11 +857,11 @@ def phase_train():
     if prof is None:
         print("phase 5 step profile: device time not measured", flush=True)
     else:
-        busy, n_launch, top = prof
-        step_ms = dt / BERT_STEPS * 1e3
-        print(f"phase 5 step profile: device busy {busy:.2f} ms of "
-              f"{step_ms:.2f} ms ({busy / step_ms:.1%}), {n_launch:.0f} "
-              f"kernel launches per step; top: {top}", flush=True)
+        prof_ms, busy, n_launch, _, top = prof
+        print(f"phase 5 step profile: device busy {busy:.2f} ms of the "
+              f"profiled step's {prof_ms:.2f} ms ({busy / prof_ms:.1%}), "
+              f"{n_launch:.0f} kernel launches per step; top: {top}",
+              flush=True)
     runner.close()
     del runner, window
     torch.cuda.empty_cache()
@@ -1021,11 +1039,11 @@ def phase_tp_window():
             if r0["profile"] is None:
                 line += "; rank 0 profile: device time not measured"
             else:
-                busy, n_launch, top = r0["profile"]
-                step_ms = dt / TP_STEPS * 1e3
+                prof_ms, busy, n_launch, _, top = r0["profile"]
                 line += (f"; rank 0 profile: device busy {busy:.2f} ms of "
-                         f"{step_ms:.2f} ms ({busy / step_ms:.1%}), "
-                         f"{n_launch:.0f} kernel launches per step; top: {top}")
+                         f"the profiled step's {prof_ms:.2f} ms "
+                         f"({busy / prof_ms:.1%}), {n_launch:.0f} kernel "
+                         f"launches per step; top: {top}")
             print(line, flush=True)
             if backend == "gloo":
                 for name, n in r0["launches"].items():

@@ -12,7 +12,6 @@ Attention is the einsum path here; the flash path's parity is
 """
 import copy
 import os
-import socket
 import subprocess
 import sys
 import textwrap
@@ -292,9 +291,9 @@ _GLOO_WORKER = textwrap.dedent("""
 
 
 def _run_gloo(world, tmp_path):
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        addr = f"tcp://127.0.0.1:{s.getsockname()[1]}"
+    # A file store: a free TCP port found here could be taken by another
+    # process before rank 0 binds it.
+    addr = f"file://{tmp_path / f'store{world}'}"
     out = str(tmp_path / f"world{world}.pt")
     env = dict(os.environ, PYTHONPATH=REPO)
     procs = [subprocess.Popen([sys.executable, "-c", _GLOO_WORKER, str(rank),
