@@ -15,13 +15,18 @@ paged flash-prefill kernels; the data-parallel training path
 kernels; and Megatron tensor-parallel training of the pipelined LM at
 one pipe device (``AutoDist({"mesh": {"data": d, "pipe": 1, "model":
 t}}, Pipeline(tensor_parallel=t, ...)).build(make_pipeline_lm_trainable
-(...))``) with the quantized-ring and collective-matmul hop kernels.
-ROADMAP.md lists what comes next.
+(...))``) with the quantized-ring and collective-matmul hop kernels;
+and expert-parallel training of the MoE LM (``AutoDist({"mesh":
+{"data": d, "expert": e}}, ExpertParallel(...)).build(
+make_moe_lm_trainable(...))``) with the quantized all-to-all ring's hop
+kernel.  ROADMAP.md lists what comes next.
 """
 from autodist_tpu_torch import optim
 from autodist_tpu_torch.autodist import AutoDist
 from autodist_tpu_torch.capture import PipelineTrainable, Trainable, VarInfo
 from autodist_tpu_torch.interop import from_jax_params, to_jax_params
+from autodist_tpu_torch.models.moe_transformer import (MoeConfig,
+                                                       make_moe_lm_trainable)
 from autodist_tpu_torch.models.pipeline_lm import (init_pipeline_lm_params,
                                                    make_pipeline_lm_trainable)
 from autodist_tpu_torch.models.transformer import TransformerConfig
@@ -29,12 +34,14 @@ from autodist_tpu_torch.resource import ResourceSpec
 from autodist_tpu_torch.runner import DistributedRunner, stack_steps
 from autodist_tpu_torch.serving import (ContinuousBatcher, ServingEngine,
                                         serve)
-from autodist_tpu_torch.strategy.builders import AllReduce, Pipeline
+from autodist_tpu_torch.strategy.builders import (AllReduce, ExpertParallel,
+                                                  Pipeline)
 from autodist_tpu_torch.strategy.ir import Strategy
 
 __all__ = ["AutoDist", "Trainable", "PipelineTrainable", "VarInfo",
            "ResourceSpec", "DistributedRunner", "stack_steps", "Strategy",
-           "AllReduce", "Pipeline", "optim", "serve", "ServingEngine",
-           "ContinuousBatcher", "TransformerConfig",
+           "AllReduce", "Pipeline", "ExpertParallel", "optim", "serve",
+           "ServingEngine", "ContinuousBatcher", "TransformerConfig",
            "init_pipeline_lm_params", "make_pipeline_lm_trainable",
-           "from_jax_params", "to_jax_params"]
+           "MoeConfig", "make_moe_lm_trainable", "from_jax_params",
+           "to_jax_params"]

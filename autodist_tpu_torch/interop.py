@@ -1,6 +1,6 @@
 """Convert parameter trees between the two packages.
 
-Two models so far, each with its own leaf list:
+Three models so far, each with its own leaf list:
 
 * the pipelined LM's logical tree (``make_pipeline_lm_trainable(...)
   .params`` or a ``checkpoint/export`` artifact's ``params/``; see
@@ -8,7 +8,10 @@ Two models so far, each with its own leaf list:
 * BERT's flax tree (``make_mlm_trainable(...).params``, named as
   ``capture.path_to_name`` names it, e.g.
   ``encoder/layer_0/attention/qkv/kernel`` ``[H, 3, heads, head_dim]``;
-  see :mod:`autodist_tpu_torch.models.bert`).
+  see :mod:`autodist_tpu_torch.models.bert`);
+* the MoE LM's flax tree (``make_moe_lm_trainable(...).params``, e.g.
+  ``layer_0_moe/expert_wi`` ``[E, H, F]``; see
+  :mod:`autodist_tpu_torch.models.moe_transformer`).
 
 The JAX tree (numpy or JAX arrays) and the port's tree share names,
 nesting and layouts leaf for leaf, so the conversion moves bytes and
@@ -19,7 +22,10 @@ A ``Pipeline(tensor_parallel=t)`` strategy shards stage variables over
 the model axis; :func:`model_dims` reads which dim of each variable its
 partitioner spec shards, and :func:`shard_params` cuts a rank's slices
 from a full tree (the slice ``NamedSharding`` gives model index ``i``);
-the pipeline lowering gathers them back over the model axis.
+the pipeline lowering gathers them back over the model axis.  An
+``ExpertParallel`` strategy shards the expert tables on their leading
+dim: :func:`expert_dims` names them for :func:`shard_params`, and the
+expert lowering gathers them back over the expert axis.
 """
 from __future__ import annotations
 
@@ -58,15 +64,31 @@ def bert_leaves(num_layers: int) -> tuple:
                     for leaf in layer))
 
 
+def moe_lm_leaves(num_layers: int) -> tuple:
+    """Every leaf of the MoE LM's flax tree at ``num_layers`` layers."""
+    layer = ([f"attention/{m}/{p}" for m in ("qkv", "out")
+              for p in ("kernel", "bias")]
+             + [f"{ln}/{p}" for ln in ("ln_attention", "ln_moe")
+                for p in ("scale", "bias")]
+             + [f"moe/expert_{w}" for w in ("gate", "wi", "wo")])
+    return (("token_embed/embedding", "pos_embed", "ln_final/scale",
+             "ln_final/bias")
+            + tuple(f"layer_{i}_{leaf}" for i in range(num_layers)
+                    for leaf in layer))
+
+
 def _check_leaves(flat):
     """The flat tree must be one model's tree exactly."""
     names = set(flat)
     layers = {n.split("/")[1] for n in names if n.startswith("encoder/")}
-    want = set(bert_leaves(len(layers)) if layers else PIPELINE_LM_LEAVES)
+    moe_layers = {n.split("_")[1] for n in names if n.startswith("layer_")}
+    want = set(bert_leaves(len(layers)) if layers
+               else moe_lm_leaves(len(moe_layers)) if moe_layers
+               else PIPELINE_LM_LEAVES)
     if names == want:
         return
     raise ValueError(
-        f"not a pipelined-LM or BERT parameter tree: missing "
+        f"not a pipelined-LM, BERT or MoE-LM parameter tree: missing "
         f"{sorted(want - names)}, unexpected {sorted(names - want)}")
 
 
@@ -120,15 +142,24 @@ def model_dims(strategy) -> dict:
     return dims
 
 
+def expert_dims(strategy) -> dict:
+    """``{variable name: 0}`` for each variable an ``ExpertParallel``
+    strategy stores sharded on its leading (expert) dim."""
+    return {nc.var_name: 0 for nc in strategy.node_configs
+            if nc.partitioner is not None and nc.partitioner.spec
+            and const.EXPERT_AXIS in nc.partitioner.spec}
+
+
 def shard_params(params, dims: dict, index: int, size: int):
-    """The model shard ``index`` of ``size`` of a full tree: each
-    variable in ``dims`` cut into ``size`` equal slices along its dim."""
+    """Shard ``index`` of ``size`` of a full tree: each variable in
+    ``dims`` cut into ``size`` equal slices along its dim (a model
+    shard, or a rank's local experts)."""
     flat = dict(flatten_with_names(params))
     for name, d in dims.items():
         n = flat[name].shape[d]
         if n % size:
             raise ValueError(f"{name}: dim {d} of {n} does not divide by "
-                             f"{size} model shards")
+                             f"{size} shards")
         flat[name] = flat[name].narrow(d, index * (n // size), n // size)
     return unflatten(flat)
 

@@ -20,9 +20,10 @@
 //
 // The arithmetic is the plain version's, rounding for rounding: the
 // product and the sum are separately rounded (__fmul_rn, __fadd_rn: no
-// contraction into an FMA), the divisions are IEEE (__fdiv_rn), and
-// rintf rounds half to even.  max|acc| is order-free, so the result
-// equals the plain version bit for bit, levels and scale.
+// contraction into an FMA); the abs-max, the scale and the levels are
+// quantize_common.cuh's, shared with K8 (__fdiv_rn, rintf).  max|acc| is
+// order-free, so the result equals the plain version bit for bit, levels
+// and scale.
 //
 // Bound on this card: bytes.  A hop must read q_in (1 byte) and local
 // (4 bytes) and write q_out (1 byte) per element: 6 bytes, about 3.8 us
@@ -30,15 +31,12 @@
 // again; at the main path's C (10.5 MB of inputs) they are still in the
 // 50 MB L2.  scale_in is read on the device and scale_out written
 // there: the ring never waits on the host between hops.
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "quantize_common.cuh"
 
 namespace adt {
 namespace {
 
-constexpr int kThreads = 256;
-constexpr float kScaleFloor = 1e-20f;
+using quant::kThreads;
 
 __device__ __forceinline__ float hop_acc(const int8_t* q_in, float s_in,
                                          const float* local, long long i) {
@@ -52,17 +50,9 @@ __global__ void __launch_bounds__(kThreads)
   unsigned m = 0;
   for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x; i < n;
        i += (long long)gridDim.x * kThreads) {
-    m = max(m, __float_as_uint(fabsf(hop_acc(q_in, s_in, local, i))));
+    m = max(m, quant::abs_bits(hop_acc(q_in, s_in, local, i)));
   }
-  m = __reduce_max_sync(0xffffffffu, m);
-  __shared__ unsigned warp_max[kThreads / 32];
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    m = threadIdx.x < kThreads / 32 ? warp_max[threadIdx.x] : 0u;
-    m = __reduce_max_sync(0xffffffffu, m);
-    if (threadIdx.x == 0) atomicMax(amax, m);
-  }
+  quant::block_fold_max(m, amax);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -70,14 +60,11 @@ __global__ void __launch_bounds__(kThreads)
                     const float* __restrict__ local, const unsigned* __restrict__ amax,
                     int8_t* __restrict__ q_out, float* __restrict__ scale_out, long long n) {
   const float s_in = *scale_in;
-  const float raw = __fdiv_rn(__uint_as_float(*amax), 127.0f);
-  // max(raw, floor) that keeps a NaN, as jnp.maximum does.
-  const float scale = (raw >= kScaleFloor || raw != raw) ? raw : kScaleFloor;
+  const float scale = quant::scale_of(*amax);
   if (blockIdx.x == 0 && threadIdx.x == 0) *scale_out = scale;
   for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x; i < n;
        i += (long long)gridDim.x * kThreads) {
-    const float v = rintf(__fdiv_rn(hop_acc(q_in, s_in, local, i), scale));
-    q_out[i] = static_cast<int8_t>(fminf(fmaxf(v, -127.0f), 127.0f));
+    q_out[i] = quant::level(hop_acc(q_in, s_in, local, i), scale);
   }
 }
 
@@ -94,12 +81,7 @@ extern "C" int adt_quant_ring_hop(const void* q_in, const void* scale_in, const 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(amax, 0, sizeof(unsigned), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int sms = 132;
-  int dev = 0;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long want = (n + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(want < 8LL * sms ? (want > 0 ? want : 1) : 8LL * sms);
+  const int blocks = quant::grid_blocks(n);
   amax_kernel<<<blocks, kThreads, 0, s>>>(static_cast<const int8_t*>(q_in),
                                           static_cast<const float*>(scale_in),
                                           static_cast<const float*>(local),

@@ -21,10 +21,11 @@ process of the job:
 
 The step updates nothing in place: it returns a new state.  Other
 update spaces (``U_FLAT``, ``U_AXIS``), compressors, gradient
-accumulation and the lowerings other than ``pipeline``
-(:mod:`autodist_tpu_torch.parallel.pipeline`, to which :func:`lower`
-hands a ``Pipeline`` strategy) raise ``NotImplementedError`` naming
-their ROADMAP item.
+accumulation and the lowerings other than ``pipeline`` and ``expert``
+(:mod:`autodist_tpu_torch.parallel.pipeline` and
+:mod:`autodist_tpu_torch.parallel.moe`, to which :func:`lower` hands a
+``Pipeline`` and an ``ExpertParallel`` strategy) raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -106,19 +107,20 @@ def make_plan(trainable, strategy, mesh) -> Plan:
     return Plan(var_plans=var_plans, num_replicas=n, buckets=buckets)
 
 
-def reduce_metrics(metrics: dict, mesh) -> dict:
-    """Scalar float metrics averaged across replicas, in one all-reduce.
-    (The JAX package also sums integer counts and ORs flags; no ported
-    loss returns those, so they are refused.)"""
+def reduce_metrics(metrics: dict, mesh, axis=None) -> dict:
+    """Scalar float metrics averaged across replicas (``axis``, by
+    default the data axis), in one all-reduce.  (The JAX package also
+    sums integer counts and ORs flags; no ported loss returns those, so
+    they are refused.)"""
     metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
     for k, v in metrics.items():
         if not v.is_floating_point():
             raise TypeError(f"metric {k!r} is {v.dtype}: only float "
                             f"metrics are reduced across replicas")
-    if mesh.num_replicas == 1 or not metrics:
+    axis = mesh.axis(const.DATA_AXIS) if axis is None else axis
+    if axis.size == 1 or not metrics:
         return metrics
-    stacked = mesh.axis(const.DATA_AXIS).pmean(
-        torch.stack([v.float() for v in metrics.values()]))
+    stacked = axis.pmean(torch.stack([v.float() for v in metrics.values()]))
     return {k: stacked[i].to(v.dtype)
             for i, (k, v) in enumerate(metrics.items())}
 
@@ -127,7 +129,10 @@ def reduce_metrics(metrics: dict, mesh) -> dict:
 class Lowered:
     """The lowered step and the state layout.  ``full_params_fn`` maps
     the stored ``{name: tensor}`` params to the full logical ones (a
-    collective where variables are sharded; the identity otherwise)."""
+    collective where variables are sharded; the identity otherwise);
+    ``batch_axis`` is the :class:`~autodist_tpu_torch.parallel.axis
+    .Axis` whose ranks each take a shard of the batch (``None``: the
+    data axis)."""
 
     plan: Any
     mesh: Any
@@ -135,6 +140,11 @@ class Lowered:
     init_fn: Callable     # (params, extra) -> state
     step_fn: Callable     # (state, batch, rng) -> (state, metrics)
     full_params_fn: Optional[Callable] = None
+    batch_axis: Any = None
+
+    def __post_init__(self):
+        if self.batch_axis is None:
+            self.batch_axis = self.mesh.axis(const.DATA_AXIS)
 
     def init_state(self, trainable):
         return self.init_fn(trainable.params, trainable.extra)
@@ -146,12 +156,17 @@ class Lowered:
 
 def lower(trainable, strategy, mesh, device=None) -> Lowered:
     """Build the train step for (trainable, strategy, mesh) on ``device``
-    (``None``: the card): the data-parallel step here, or the pipeline
-    lowering for a ``Pipeline`` strategy."""
+    (``None``: the card): the data-parallel step here, the pipeline
+    lowering for a ``Pipeline`` strategy, the expert lowering for an
+    ``ExpertParallel`` one."""
     if strategy.graph_config.lowering == "pipeline":
         from autodist_tpu_torch.parallel.pipeline import lower_pipeline
 
         return lower_pipeline(trainable, strategy, mesh, device)
+    if strategy.graph_config.lowering == "expert":
+        from autodist_tpu_torch.parallel.moe import lower_expert_ir
+
+        return lower_expert_ir(trainable, strategy, mesh, device)
     plan = make_plan(trainable, strategy, mesh)
     n, dev, opt = plan.num_replicas, resolve_device(device), trainable.optimizer
     names = list(plan.var_plans)

@@ -3,7 +3,7 @@ stage code.
 
 The JAX package names a mesh axis inside ``shard_map`` and calls
 ``lax.axis_index``, ``axis_size``, ``ppermute``, ``psum``,
-``psum_scatter``, ``all_gather`` and ``pmax`` on it.  The port builds
+``psum_scatter``, ``all_gather``, ``all_to_all`` and ``pmax`` on it.  The port builds
 one :class:`Axis` per mesh axis (:meth:`autodist_tpu_torch.resource
 .ResourceSpec.make_mesh`): the process group of the ranks that differ
 only along that axis, its size, and this rank's index in it.  Ranks map
@@ -51,7 +51,7 @@ class Axis:
         else ``x`` itself (a fresh copy with ``copy=True``, for
         collectives that write their input)."""
         if self._staged(x):
-            return x.cpu()
+            return x.to("cpu", memory_format=torch.contiguous_format)
         return x.clone(memory_format=torch.contiguous_format) if copy \
             else x.contiguous()
 
@@ -76,6 +76,22 @@ class Axis:
     def pmean(self, x):
         """Sum over the axis divided by its size."""
         return self.psum(x) / self.size if self.size > 1 else x
+
+    def pmean_all(self, tensors: dict) -> dict:
+        """Every tensor of ``{name: tensor}`` averaged over the axis in
+        one flat fp32 all-reduce, each cast back to its dtype."""
+        if self.size == 1 or not tensors:
+            return tensors
+        names = list(tensors)
+        flat = self.pmean(torch.cat([tensors[n].reshape(-1).float()
+                                     for n in names]))
+        out, offset = {}, 0
+        for n in names:
+            size = tensors[n].numel()
+            out[n] = flat[offset:offset + size].view(tensors[n].shape).to(
+                tensors[n].dtype)
+            offset += size
+        return out
 
     def all_gather(self, x, dim: int = 0):
         """The axis's ``x`` concatenated along ``dim`` in axis order
@@ -102,17 +118,37 @@ class Axis:
         summed = self.psum(flat)
         return summed[self.index * chunk:(self.index + 1) * chunk].clone()
 
-    def ppermute(self, x):
-        """Send ``x`` to the next rank of the ring (``i -> i + 1``) and
-        return what the previous one sent."""
+    def ppermute(self, x, shift: int = 1):
+        """Send ``x`` ``shift`` ranks along the ring (``i -> i + shift``)
+        and return what rank ``i - shift`` sent."""
         if self.size == 1:
             return x
         src = self._on_wire(x)
         dst = torch.empty_like(src)
-        nxt = self.ranks[(self.index + 1) % self.size]
-        prv = self.ranks[(self.index - 1) % self.size]
+        nxt = self.ranks[(self.index + shift) % self.size]
+        prv = self.ranks[(self.index - shift) % self.size]
         ops = [dist.P2POp(dist.isend, src, nxt, group=self.group),
                dist.P2POp(dist.irecv, dst, prv, group=self.group)]
         for req in dist.batch_isend_irecv(ops):
             req.wait()
         return dst.to(x.device)
+
+    def all_to_all(self, x, split_axis: int, concat_axis: int):
+        """Tiled all-to-all (``lax.all_to_all(..., tiled=True)``): ``x``
+        splits into ``size`` equal chunks along ``split_axis``, chunk
+        ``j`` goes to rank ``j``, and the chunks that arrive concatenate
+        along ``concat_axis`` in source order.  One
+        ``all_to_all_single`` on the split-axis-major layout."""
+        if self.size == 1:
+            return x
+        n = self.size
+        if x.shape[split_axis] % n:
+            raise ValueError(
+                f"all_to_all split dim {x.shape[split_axis]} (axis "
+                f"{split_axis}) must divide the {n}-way {self.name!r} axis")
+        src = self._on_wire(x.movedim(split_axis, 0))
+        dst = torch.empty_like(src)
+        dist.all_to_all_single(dst, src, group=self.group)
+        parts = dst.to(x.device).view((n, src.shape[0] // n) + src.shape[1:])
+        return torch.cat([p.movedim(0, split_axis) for p in parts],
+                         dim=concat_axis)

@@ -32,7 +32,6 @@ same errors; what this slice does not run raises ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import torch
 
@@ -210,22 +209,6 @@ def lower_pipeline(trainable, strategy, mesh, device=None) -> Lowered:
         return (trainable.loss_head(outputs, batch, shared) if has_shared
                 else trainable.loss_head(outputs, batch))
 
-    def data_mean(grads: dict) -> dict:
-        """Every gradient averaged over the data axis in one fp32
-        all-reduce (the JAX package's per-variable ``pmean``)."""
-        if data.size == 1:
-            return grads
-        names = list(grads)
-        flat = data.pmean(torch.cat([grads[n].reshape(-1).float()
-                                     for n in names]))
-        out, offset = {}, 0
-        for n in names:
-            size = math.prod(grads[n].shape)
-            out[n] = flat[offset:offset + size].view(grads[n].shape).to(
-                grads[n].dtype)
-            offset += size
-        return out
-
     def step_fn(state, batch, rng):
         del rng                      # no stage draws (PipelineTrainable)
         params = state["params"]
@@ -238,7 +221,7 @@ def lower_pipeline(trainable, strategy, mesh, device=None) -> Lowered:
                                         allow_unused=True)
         grads = {nm: torch.zeros_like(params[nm]) if g is None else g
                  for nm, g in zip(leaves, grads)}
-        updates, opt_state = opt.update(data_mean(grads),
+        updates, opt_state = opt.update(data.pmean_all(grads),
                                         state["opt_state"], params)
         new_state = {"step": state["step"] + 1,
                      "params": optim.apply_updates(params, updates),

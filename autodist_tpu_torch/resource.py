@@ -4,19 +4,19 @@ Counterpart of ``autodist_tpu/resource.py``: one process per rank of a
 ``torch.distributed`` job.  The spec ``{}`` (or ``None``) means every
 process of the job is one replica on the ``data`` axis: ``data`` is the
 process group's world size, or 1 without a process group.  ``{"mesh":
-{"data": d, "pipe": 1, "model": t}}`` lays the job out as a mesh whose
-sizes multiply to the world size; ranks map to mesh coordinates
-row-major over the declared axes, as the JAX package reshapes its device
-list (declare ``model`` last to put each model group on adjacent
-ranks).  :meth:`ResourceSpec.make_mesh` builds one
-process group per axis line (:class:`~autodist_tpu_torch.parallel.axis
-.Axis`).
+{"data": d, "pipe": 1, "model": t}}`` (or ``{"data": d, "expert": e}``)
+lays the job out as a mesh whose sizes multiply to the world size; ranks
+map to mesh coordinates row-major over the declared axes, as the JAX
+package reshapes its device list (declare ``model`` or ``expert`` last
+to put each such group on adjacent ranks).
+:meth:`ResourceSpec.make_mesh` builds one process group per axis line
+(:class:`~autodist_tpu_torch.parallel.axis.Axis`), and
+:meth:`Mesh.joint_axis` one over several axes (``data x expert``).
 
 :attr:`ResourceSpec.chip` is the card's :class:`ChipSpec`; only the H100
 has one.  A pipe axis above 1 (the cross-process pipe schedule), the
-``seq``, ``expert`` and ``dcn`` axes, other ``topology`` keys and
-``multihost`` blocks belong to later items and raise
-``NotImplementedError``.
+``seq`` and ``dcn`` axes, other ``topology`` keys and ``multihost``
+blocks belong to later items and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -50,11 +50,10 @@ H100 = ChipSpec("h100", peak_bf16_tflops=989.0, peak_fp32_tflops=67.0,
 
 
 # Mesh axes the port lays out, and where the others come.
-_PORTED_AXES = (const.DATA_AXIS, const.PIPE_AXIS, const.MODEL_AXIS)
+_PORTED_AXES = (const.DATA_AXIS, const.PIPE_AXIS, const.MODEL_AXIS,
+                const.EXPERT_AXIS)
 _AXIS_ITEMS = {
-    const.SEQ_AXIS: "ROADMAP Queue 1, slice 5: MoE and sequence parallelism",
-    const.EXPERT_AXIS: "ROADMAP Queue 1, slice 5: MoE and sequence "
-                       "parallelism",
+    const.SEQ_AXIS: "ROADMAP Queue 1, slice 5: sequence parallelism",
     const.DCN_AXIS: "ROADMAP Queue 1, item 9: runtime and multi-host",
 }
 
@@ -67,10 +66,44 @@ class Mesh:
 
     shape: dict
     axes: dict = dataclasses.field(default_factory=dict)
+    rank: int = 0
 
     def axis(self, name: str) -> Axis:
         """The named axis (a one-rank axis where the mesh has none)."""
         return self.axes.get(name) or Axis(name)
+
+    def joint_axis(self, names) -> Axis:
+        """One axis over several mesh axes (``lax.axis_index`` of a
+        tuple): its index is this rank's coordinates on ``names``
+        row-major, its group the ranks that differ only on them.  Every
+        process of the job must call it, in the same order (a new group
+        is collective).  The group's collectives are reductions; its
+        rank order is the global one."""
+        names = tuple(n for n in names if self.shape.get(n, 1) > 1)
+        if len(names) <= 1:
+            return self.axis(names[0]) if names else Axis("+".join(names))
+        order, sizes = list(self.shape), list(self.shape.values())
+        dims = [order.index(n) for n in names]
+        sub = [sizes[d] for d in dims]
+        size, world = math.prod(sub), math.prod(sizes)
+        coords = np.unravel_index(self.rank, sizes)
+        index = int(np.ravel_multi_index([coords[d] for d in dims], sub))
+        mine = None
+        others = [range(s) if d not in dims else (0,)
+                  for d, s in enumerate(sizes)]
+        for line in itertools.product(*others):
+            ranks = []
+            for j in range(size):
+                at = list(line)
+                for d, c in zip(dims, np.unravel_index(j, sub)):
+                    at[d] = int(c)
+                ranks.append(int(np.ravel_multi_index(at, sizes)))
+            group = (dist.group.WORLD if size == world
+                     else dist.new_group(ranks))
+            if self.rank in ranks:
+                mine = Axis("+".join(names), size=size, index=index,
+                            ranks=tuple(ranks), group=group)
+        return mine
 
     @property
     def num_replicas(self) -> int:
@@ -179,5 +212,5 @@ class ResourceSpec:
                     axes[name] = Axis(name, size=sizes[i],
                                       index=int(coords[i]),
                                       ranks=tuple(ranks), group=group)
-        return Mesh(shape=shape, axes=axes)
+        return Mesh(shape=shape, axes=axes, rank=rank)
 

@@ -51,9 +51,11 @@ class DistributedRunner:
     # ---------------- feed ---------------------------------------------- #
     def _place(self, x, batch_axis: int):
         """One leaf on this replica: its shard along ``batch_axis`` (a
-        leaf without that axis goes whole), on the runner's device."""
+        leaf without that axis goes whole), on the runner's device.  The
+        lowering says which mesh axes shard the batch (the data axis,
+        or ``data x expert`` for ``ExpertParallel``)."""
         t = torch.as_tensor(x)
-        n, rank = self.mesh.num_replicas, self.mesh.replica
+        n, rank = self.lowered.batch_axis.size, self.lowered.batch_axis.index
         if t.dim() > batch_axis and n > 1:
             size = t.shape[batch_axis]
             if size % n:
@@ -111,8 +113,8 @@ class DistributedRunner:
 
     def get_params(self):
         """The full logical parameter tree (copies).  Where the strategy
-        shards variables over the model axis this gathers them, a
-        collective: every rank of the model group calls it."""
+        shards variables over the model or the expert axis this gathers
+        them, a collective: every rank of that axis calls it."""
         full = self.lowered.full_params(self.state["params"])
         return common.unflatten({nm: p.detach().clone()
                                  for nm, p in full.items()})

@@ -1,10 +1,11 @@
-"""The strategy builder catalog: ``AllReduce`` and ``Pipeline`` so far.
+"""The strategy builder catalog: ``AllReduce``, ``Pipeline`` and
+``ExpertParallel`` so far.
 
 Counterpart of ``autodist_tpu/strategy/builders.py``.  ``AllReduce``
 emits the same node configs as the JAX builder (variable ``i`` in
 bucket ``i // chunk_size``), so the two packages' strategies for the
-same model serialize alike; ``Pipeline`` lives in
-:mod:`~autodist_tpu_torch.strategy.parallel_builders`.  Gradient
+same model serialize alike; ``Pipeline`` and ``ExpertParallel`` live
+in :mod:`~autodist_tpu_torch.strategy.parallel_builders`.  Gradient
 compressors and the other builders raise ``NotImplementedError`` naming
 their ROADMAP item.
 """
@@ -13,7 +14,8 @@ from __future__ import annotations
 from autodist_tpu_torch.strategy.base import StrategyBuilder
 from autodist_tpu_torch.strategy.ir import (AllReduceSynchronizer, NodeConfig,
                                             Strategy)
-from autodist_tpu_torch.strategy.parallel_builders import Pipeline
+from autodist_tpu_torch.strategy.parallel_builders import (ExpertParallel,
+                                                           Pipeline)
 
 # Builders of the JAX package and where the port brings them.
 NOT_PORTED = {
@@ -22,10 +24,7 @@ NOT_PORTED = {
                     "UnevenPartitionedPS", "PartitionedAR",
                     "RandomAxisPartitionAR", "Parallax", "GradAccumulation",
                     "ZeRO", "Sharded", "TensorParallel", "FSDPSharded")},
-    "SequenceParallel": "ROADMAP Queue 1, slice 5: MoE and sequence "
-                        "parallelism",
-    "ExpertParallel": "ROADMAP Queue 1, slice 5: MoE and sequence "
-                      "parallelism",
+    "SequenceParallel": "ROADMAP Queue 1, slice 5: sequence parallelism",
     "AutoStrategy": "ROADMAP Queue 1, item 10: simulator and plan lint",
 }
 
@@ -55,7 +54,8 @@ class AllReduce(StrategyBuilder):
                         graph_config=self._graph_config(resource_spec))
 
 
-BUILDERS = {"AllReduce": AllReduce, "Pipeline": Pipeline}
+BUILDERS = {"AllReduce": AllReduce, "Pipeline": Pipeline,
+            "ExpertParallel": ExpertParallel}
 
 
 def create(name: str, **kw) -> StrategyBuilder:

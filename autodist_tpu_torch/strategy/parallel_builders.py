@@ -1,8 +1,8 @@
 """The ``Pipeline`` strategy builder, with Megatron tensor parallelism
-inside each stage.
+inside each stage, and the ``ExpertParallel`` builder.
 
 Counterpart of ``autodist_tpu/strategy/parallel_builders.py``
-``Pipeline`` and :data:`PIPELINE_TP_RULES`.  The builder emits the JAX
+``Pipeline``, :data:`PIPELINE_TP_RULES` and ``ExpertParallel``.  The builder emits the JAX
 builder's node configs (every stage variable partitioned ``["pipe",
 ...]`` with the model-axis dims its tp rule names, shared variables
 replicated) and graph config (``lowering="pipeline"``, the schedule
@@ -19,6 +19,7 @@ and the ``grad`` precision slot, remat, ``vocab_parallel``,
 from __future__ import annotations
 
 import inspect
+import logging
 import re
 from typing import Sequence
 
@@ -214,6 +215,162 @@ class Pipeline(StrategyBuilder):
                         "comm_overlap": self.comm_overlap,
                         "vocab_parallel": self.vocab_parallel,
                         "zero_stage": self.zero_stage}
+        cfg.precision = dict(self.precision)
+        cfg.kernel = dict(self.kernel)
+        return Strategy(node_configs=nodes, graph_config=cfg)
+
+
+_EXPERT_NAME_RE = re.compile(r"(expert|moe)", re.IGNORECASE)
+_MOE_LEFTOVERS = "ROADMAP Queue 1, slice 5 leftovers"
+
+
+def _resolve_zero_stage(zero_stage, zero1) -> int:
+    """The JAX builders' ZeRO request: ``zero_stage`` in {0, 1, 2, 3}, or
+    the deprecated ``zero1`` alias."""
+    if zero1 is not None and zero_stage is not None:
+        raise ValueError(
+            "pass either zero_stage= or the deprecated zero1= alias, "
+            "not both")
+    if zero1 is not None:
+        return 1 if zero1 else 0
+    if zero_stage is None:
+        return 0
+    if zero_stage not in (0, 1, 2, 3):
+        raise ValueError(
+            f"zero_stage must be 0 (off), 1, 2 or 3; got {zero_stage!r}")
+    return int(zero_stage)
+
+
+class ExpertParallel(StrategyBuilder):
+    """Expert parallelism (MoE) over the ``expert`` mesh axis.
+
+    Variables with a leading expert dimension, named in
+    ``expert_params`` (path-suffix match) or auto-detected (the name
+    contains ``expert``/``moe``, rank >= 3, the leading dim divides the
+    expert axis; a rank-2 gate is never auto-sharded), are stored
+    sharded across experts; everything else replicates, the expert axis
+    doubling as a batch axis.  The model routes its tokens through
+    :func:`autodist_tpu_torch.parallel.moe.expert_parallel_ffn`.
+    ``collective_precision={"moe_a2a": ...}`` narrows the dispatch and
+    combine wire; ``kernel=("a2a_ring",)`` takes the fused int8 ring and
+    needs the int8 ``moe_a2a`` slot.
+
+    The JAX builder's checks run first, with its errors.  ZeRO
+    (``zero_stage``, ``zero1``, ``zero_min_bytes``), gradient
+    compressors and the ``grad`` slot, and ``expert_over_dcn`` raise
+    ``NotImplementedError`` after them.
+    """
+
+    def __init__(self, expert_params: Sequence[str] = (),
+                 detect: bool = True, *, zero_stage: int = None,
+                 zero1: bool = None, compressor: str = "none",
+                 zero_min_bytes=None, collective_precision=None,
+                 num_experts: int = None, capacity_factor: float = 2.0,
+                 expert_over_dcn: bool = False, kernel=None):
+        self.expert_params = tuple(expert_params)
+        self.detect = detect
+        self.zero_stage = _resolve_zero_stage(zero_stage, zero1)
+        self.precision = normalize_precision(collective_precision)
+        if self.precision.get("grad") and (compressor or "none") != "none":
+            raise ValueError(
+                "collective_precision's 'grad' slot elects an error-"
+                "feedback compressor; pass either it or compressor=, "
+                "not both")
+        self.num_experts = num_experts
+        self.capacity_factor = float(capacity_factor)
+        if self.capacity_factor <= 0:
+            raise ValueError(
+                f"capacity_factor must be > 0, got {capacity_factor}")
+        self.expert_over_dcn = bool(expert_over_dcn)
+        self.kernel = normalize_kernel(kernel)
+        for k in self.kernel:
+            if k in ("quant_ring", "collective_matmul"):
+                raise ValueError(
+                    f"kernel {k!r} fuses a tensor-parallel ring; the "
+                    "expert lowering has no tp_psum/matmul boundary — "
+                    "use the Pipeline builder")
+        if "a2a_ring" in self.kernel:
+            if self.precision.get("moe_a2a") != "int8":
+                raise ValueError(
+                    "kernel 'a2a_ring' fuses q/dq into the s8 "
+                    "dispatch/combine ring: it needs "
+                    "collective_precision's moe_a2a slot at 'int8'")
+            if self.expert_over_dcn:
+                raise ValueError(
+                    "kernel 'a2a_ring' is an ICI ring; it cannot span "
+                    "slices — drop expert_over_dcn or the kernel")
+        comp = compressor or "none"
+        if self.zero_stage and comp != "none" and zero_min_bytes is None:
+            raise ValueError(
+                f"zero_stage={self.zero_stage} and compressor are mutually "
+                "exclusive per variable: PS (ZeRO) sync reduces at full "
+                "precision; compression is an AllReduce knob (zero_min_bytes "
+                "composes them: large vars ZeRO-staged, small vars "
+                "compressed)")
+        # What the port's expert lowering does not run yet.
+        if self.zero_stage or zero_min_bytes is not None:
+            not_ported("ZeRO in the expert lowering (zero_stage, zero1, "
+                       "zero_min_bytes)", f"{_MOE_LEFTOVERS}, item 1")
+        if comp != "none" or self.precision.get("grad"):
+            not_ported("gradient compressors in the expert lowering (and "
+                       "the 'grad' precision slot)",
+                       f"{_MOE_LEFTOVERS}, item 2")
+        if self.expert_over_dcn:
+            not_ported("expert_over_dcn (an expert axis across hosts)",
+                       f"{_MOE_LEFTOVERS}, item 3")
+
+    def build(self, trainable, resource_spec):
+        shape = resource_spec.resolved_mesh_shape()
+        if const.EXPERT_AXIS not in shape:
+            raise ValueError(
+                f"ExpertParallel needs an {const.EXPERT_AXIS!r} mesh axis; "
+                f"spec resolves to {shape} — declare e.g. "
+                "mesh: {expert: ...}")
+        E = shape[const.EXPERT_AXIS]
+        if self.num_experts is not None and self.num_experts % E:
+            raise ValueError(
+                f"num_experts={self.num_experts} must divide the "
+                f"{E}-way expert axis (each device holds E/axis experts)")
+        nodes, matched = [], set()
+        for i in trainable.var_infos():
+            named = bool(self.detect and _EXPERT_NAME_RE.search(i.name))
+            explicit = any(i.name == p or i.name.endswith("/" + p)
+                           for p in self.expert_params)
+            auto = named and len(i.shape) >= 3 and i.shape[0] % E == 0
+            if (not explicit and not auto and named and len(i.shape) == 2
+                    and i.shape[0] % E == 0):
+                logging.getLogger(__name__).info(
+                    "%s: rank-2 tensor in an expert-named scope is NOT "
+                    "auto-sharded (could be a gate); pass "
+                    "expert_params=(%r,) if it is a per-expert table",
+                    i.name, i.name.rsplit("/", 1)[-1])
+            node = NodeConfig(var_name=i.name,
+                              synchronizer=AllReduceSynchronizer(),
+                              is_sparse=i.is_sparse)
+            if explicit or auto:
+                matched.add(i.name)
+                node.partitioner = PartitionerConfig(
+                    mesh_axis=const.EXPERT_AXIS,
+                    spec=[const.EXPERT_AXIS] + [None] * (len(i.shape) - 1))
+            nodes.append(node)
+        for p in self.expert_params:
+            if not any(n == p or n.endswith("/" + p) for n in matched):
+                raise ValueError(
+                    f"expert_params entry {p!r} matched no variable "
+                    f"(have {[i.name for i in trainable.var_infos()]})")
+        if not matched:
+            raise ValueError(
+                "ExpertParallel found no expert variables: pass "
+                "expert_params=... or name them with 'expert'/'moe'")
+        cfg = self._graph_config(resource_spec)
+        cfg.lowering = "expert"
+        cfg.parallel = {
+            "num_experts": (self.num_experts if self.num_experts
+                            is not None else E),
+            "capacity_factor": self.capacity_factor,
+            "expert_over_dcn": self.expert_over_dcn,
+            "zero_stage": self.zero_stage,
+        }
         cfg.precision = dict(self.precision)
         cfg.kernel = dict(self.kernel)
         return Strategy(node_configs=nodes, graph_config=cfg)

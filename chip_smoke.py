@@ -4,12 +4,13 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``autodist_tpu_torch/kernel/csrc``
-(at first use, into a git-ignored directory) and drives the port's three
+(at first use, into a git-ignored directory) and drives the port's four
 paths: serving the pipelined LM at the serve bench's width (vocab 32768,
 hidden 1024, 16 heads of 64, mlp 4096, 8 layers, max_len 1024),
-training BERT-base masked-LM through ``AutoDist`` + ``AllReduce``, and
+training BERT-base masked-LM through ``AutoDist`` + ``AllReduce``,
 Megatron tensor-parallel training of the pipelined LM through
-``Pipeline(tensor_parallel=2)`` at one pipe device:
+``Pipeline(tensor_parallel=2)`` at one pipe device, and expert-parallel
+training of the MoE LM through ``ExpertParallel`` on an expert axis of 2:
 
 1. each kernel against its plain PyTorch version, fp32 (atol = rtol =
    1e-5) and bf16 (atol = rtol = 1e-2), timed with CUDA events beside
@@ -19,7 +20,10 @@ Megatron tensor-parallel training of the pipelined LM through
    not; K3 bit for bit (levels and scale) at the ring's chunk of 2^21
    elements and at 1, 1000 and 2^20 + 3, and on an all-zero chunk; K4 in
    bf16 at the two row-parallel shapes of phase 7 and in fp32 at a ragged
-   100 x 72 x 40;
+   100 x 72 x 40; K8 bit for bit (arrived, levels and scale) at the MoE
+   window's chunks of 2^21 and 2^20 elements and at 1, 1000 and 2^20 + 3,
+   in the warm-up (scale_in 0), a hop, the last hop (all-zero nxt) and
+   with a NaN in nxt;
 2. fp32 parity: 4 requests through ``ContinuousBatcher`` on the dense
    and on the paged + chunked engine, each stream equal token for token
    to a greedy full recompute by ``sequential_logits`` (a divergence
@@ -48,22 +52,37 @@ Megatron tensor-parallel training of the pipelined LM through
    int8, ``quant_ring`` and ``collective_matmul`` programs: tokens/s,
    step ms, peak memory per rank, the profiler's busy share, and the K3
    and K4 launches held to 64 and 32 per step;
-8. one ``{"kernels": [...]}`` line, the card's name and power limit, and
+8. fp32 MoE parity: the MoE LM at full width (vocab 32768, hidden 1024,
+   16 heads, expert hidden 4096, 8 experts) cut to 1 layer, seq 128,
+   batch 8, capacity factor 4.0 (no token is dropped, so sharded and
+   dense routing agree), 3 Adam steps: the composed fp32, composed int8
+   and ``a2a_ring`` programs on an expert axis of 2 against the dense
+   one-process model through ``AllReduce``, every nll within 5e-3
+   (``adam(1e-4)``);
+9. the MoE window in bf16 (``bench.py moe`` on an accelerator: 2
+   layers, max_len 512, capacity factor 2.0, 2 rows per rank,
+   ``adam(1e-3)``, nothing cut) for the composed int8 and ``a2a_ring``
+   programs: a warm step, then 20 timed steps; tokens/s, step ms, peak
+   memory per rank, the profiler's busy share, and K8 held to 16
+   launches a step (2 layers x dispatch and combine x forward and
+   backward x 2 hops);
+10. one ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
-Phases 6 and 7 run T = 2 processes (``torch.multiprocessing`` spawn) on
-card 0, joined in a gloo group: NCCL refuses two ranks on one device, so
-each hop's transfer is staged through host memory while the kernels,
-the model and the optimizer stay on the card.  Their numbers are
-labelled so, and say nothing about multi-GPU speed.  Where the machine
-has at least T cards, phase 7 runs again over NCCL, one rank per card,
-and prints that apart.
+Phases 6 to 9 run 2 processes (``torch.multiprocessing`` spawn) on card
+0, joined in a gloo group: NCCL refuses two ranks on one device, so each
+transfer is staged through host memory while the kernels, the model and
+the optimizer stay on the card.  Their numbers are labelled so, and say
+nothing about multi-GPU speed.  Where the machine has at least 2 cards,
+phases 7 and 9 run again over NCCL, one rank per card, and print that
+apart.  Every rank joins and leaves the job through
+``autodist_tpu_torch.testing`` (a barrier before the groups go).
 
 Any failed check raises, in any rank, and the script exits non-zero;
-without a CUDA device it exits 2 and prints no result.  ``--phases 7``
+without a CUDA device it exits 2 and prints no result.  ``--phases 7,9``
 (a comma-separated list) runs only those phases and prints no kernels
-line: the four-card run of phase 7 over NCCL.  Imports torch,
-numpy and ``autodist_tpu_torch`` only.
+line.  Each phase prints its seconds.  Imports torch, numpy and
+``autodist_tpu_torch`` only.
 """
 from __future__ import annotations
 
@@ -79,15 +98,16 @@ import time
 
 import numpy as np
 import torch
-import torch.distributed as dist
 import torch.multiprocessing as mp
 
 import autodist_tpu_torch as port
+from autodist_tpu_torch import testing
+from autodist_tpu_torch.kernel import a2a_ring as ar
 from autodist_tpu_torch.kernel import collective_matmul as cm
 from autodist_tpu_torch.kernel import flash_decode as fd
 from autodist_tpu_torch.kernel import flash_prefill as fp
 from autodist_tpu_torch.kernel import quant_ring as qr
-from autodist_tpu_torch.models import bert
+from autodist_tpu_torch.models import bert, moe_transformer
 from autodist_tpu_torch.models.pipeline_lm import (make_pipeline_lm_trainable,
                                                    sequential_logits)
 from autodist_tpu_torch.strategy.parallel_builders import Pipeline
@@ -141,11 +161,16 @@ KERNELS.update({
         wrapper=cm.fused_matmul_add,
         source="autodist_tpu_torch/kernel/csrc/collective_matmul.cu",
         replaces="autodist_tpu/kernel/pallas/collective_matmul.py:35"),
+    "a2a_ring_hop": dict(
+        wrapper=ar.fused_hop,
+        source="autodist_tpu_torch/kernel/csrc/a2a_ring.cu",
+        replaces="autodist_tpu/kernel/pallas/a2a_ring.py:52"),
 })
 SERVING_KERNELS = ("flash_decode", "flash_decode_paged", "flash_prefill_paged")
 TRAINING_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                     "flash_attention_bwd_dkv")
 TP_KERNELS = ("quant_ring_hop", "collective_matmul_hop")
+MOE_KERNELS = ("a2a_ring_hop",)
 
 # BERT-base (bench.py _bench on an accelerator).
 BERT_BATCH, BERT_SEQ, BERT_MASKED, BERT_STEPS = 16, 512, 76, 30
@@ -166,6 +191,24 @@ TP_PROGRAMS = {
     "collective_matmul": dict(comm_overlap="matmul",
                               kernel=("collective_matmul",)),
 }
+# The MoE window (bench.py moe on an accelerator) on an expert axis of 2.
+EXPERT, MOE_LAYERS, MOE_SEQ, MOE_ROWS, MOE_STEPS = 2, 2, 512, 2, 20
+MOE_EXPERTS, MOE_HIDDEN = 8, 4096
+# K8's chunk there: each rank's [8, 512, 1024] dispatch and [4, 1024,
+# 1024] combine payloads split in two, [4, 512, 1024]; 512 is the
+# capacity ceil(2 x 1024 tokens x 2.0 / 8 experts).
+MOE_CAPACITY = 2 * MOE_ROWS * MOE_SEQ * 2 // MOE_EXPERTS
+A2A_CHUNK = MOE_EXPERTS // EXPERT * MOE_CAPACITY * HIDDEN
+MOE_PROGRAMS = {
+    "fp32": {},
+    "int8": dict(collective_precision={"moe_a2a": "int8"}),
+    "a2a_ring": dict(collective_precision={"moe_a2a": "int8"},
+                     kernel=("a2a_ring",)),
+}
+# Per step of phase 9: a warm-up hop and one hop per peer for every
+# dispatch and combine, forward and backward, in every layer.
+MOE_WANT = {"a2a_ring": {"a2a_ring_hop": EXPERT * 2 * 2 * MOE_LAYERS}}
+
 # Per step of phase 7: K3 opens and hops once per ring at T = 2, four
 # rings per layer and microbatch (two forward sums, two backward);
 # K4 runs T times per row-parallel boundary, two per layer and
@@ -556,6 +599,55 @@ def phase_tp_kernels(record):
     torch.cuda.empty_cache()
 
 
+def phase_a2a_kernels(record):
+    """K8 bit for bit against its plain version (arrived, levels and
+    scale), timed at the MoE window's chunk."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for L in (A2A_CHUNK, A2A_CHUNK // 2, 1, 1000, 2 ** 20 + 3):
+        nxt = torch.randn(L, generator=gen, device="cuda") * 3
+        q_in = torch.randint(-127, 128, (L,), generator=gen, device="cuda",
+                             dtype=torch.int8)
+        s_in = torch.full((1,), 0.0173, device="cuda")
+        nan = nxt.clone()
+        nan[L // 2] = float("nan")
+        cases = {"warm_up": (torch.zeros_like(q_in),
+                             torch.zeros(1, device="cuda"), nxt),
+                 "hop": (q_in, s_in, nxt),
+                 "last": (q_in, s_in, torch.zeros_like(nxt)),
+                 "nan": (q_in, s_in, nan)}
+        for case, args in cases.items():
+            got, want = ar.fused_hop(*args), ar.fused_hop_plain(*args)
+            torch.cuda.synchronize()
+            diff = [int((a.reshape(-1).view(torch.uint8)
+                         != b.reshape(-1).view(torch.uint8)).sum())
+                    for a, b in zip(got, want)]
+            check(diff == [0, 0, 0],
+                  f"a2a_ring_hop L={L} {case}: bytes differ in (arrived, "
+                  f"levels, scale): {diff}; scale {float(got[2])} vs "
+                  f"{float(want[2])}")
+            line = (f"phase 1 a2a_ring_hop L={L} {case}: bit-exact (arrived, "
+                    f"levels and scale)")
+            if L == A2A_CHUNK and case == "hop":
+                # Read q_in and nxt, write arrived and q_out: 10 bytes an
+                # element; a multiply, a divide, a round and a compare.
+                t_bytes = (10 * L + 8) / HBM_BYTES_PER_S
+                t_ops = 4 * L / PEAK_FLOPS[torch.float32]
+                rec = {"max_abs_err": 0.0,
+                       "ms": time_ms(lambda: ar.fused_hop(*args)),
+                       "plain_ms": time_ms(lambda: ar.fused_hop_plain(*args)),
+                       "library_ms": None,
+                       "bound_ms": max(t_bytes, t_ops) * 1e3,
+                       "bound_by": "bytes" if t_bytes >= t_ops
+                       else "operations"}
+                record[("a2a_ring_hop", torch.float32)] = rec
+                line += (f", kernel {rec['ms']:.4f} ms, plain "
+                         f"{rec['plain_ms']:.4f} ms, library none, bound "
+                         f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+            print(line, flush=True)
+    del nxt, q_in, nan, cases, got, want
+    torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------------------- #
 # phase 2: fp32 parity against the greedy full recompute
 # --------------------------------------------------------------------- #
@@ -805,8 +897,10 @@ def phase_training_parity():
 
 
 def profile_steps(runner, window, k=3):
-    """``device_profile`` of ``k`` warm steps, per step."""
-    part = {key: t[:k] for key, t in window.items()}
+    """``device_profile`` of ``k`` warm steps, per step.  ``window`` is
+    placed (``runner.place_steps``); its slice keeps the type, so the
+    runner does not split it again."""
+    part = type(window)({key: t[:k] for key, t in window.items()})
     runner.run_steps(part)
     torch.cuda.synchronize()
     return device_profile(lambda: runner.run_steps(part), k)
@@ -953,30 +1047,30 @@ def tp_window_programs(job):
     return out
 
 
-def tp_worker(rank, backend, store, job, out_dir):
-    """One rank of a tensor-parallel phase; writes its result as JSON."""
+def rank_worker(rank, backend, store, job, out_dir):
+    """One rank of a two-rank phase; writes its result as JSON.  It
+    joins and leaves the job through ``autodist_tpu_torch.testing``; a
+    failure raises here and ``mp.spawn`` stops the other rank."""
     torch.cuda.set_device(rank if backend == "nccl" else 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dist.init_process_group(backend, init_method=f"file://{store}",
-                            rank=rank, world_size=TP)
-    try:
-        run = tp_parity if job["kind"] == "parity" else tp_window_programs
-        result = run(job)
-        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-            json.dump(result, f)
-    finally:
-        dist.destroy_process_group()
+    testing.init_rank(rank, 2, store, backend)
+    run = {"parity": tp_parity, "window": tp_window_programs,
+           "moe_parity": moe_parity, "moe_window": moe_window_programs}
+    result = run[job["kind"]](job)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    testing.end_rank()
 
 
-def spawn_tp(job, backend="gloo"):
-    """Run ``job`` in TP spawned ranks; every rank's result.  A failure in
-    any rank stops the others and raises here."""
+def spawn_ranks(job, backend="gloo"):
+    """Run ``job`` in two spawned ranks; every rank's result.  A failure
+    in any rank stops the others and raises here."""
     with tempfile.TemporaryDirectory() as tmp:
-        mp.spawn(tp_worker, args=(backend, os.path.join(tmp, "store"), job,
-                                  tmp), nprocs=TP, join=True)
+        mp.spawn(rank_worker, args=(backend, os.path.join(tmp, "store"),
+                                    job, tmp), nprocs=2, join=True)
         results = []
-        for rank in range(TP):
+        for rank in range(2):
             with open(os.path.join(tmp, f"rank{rank}.json")) as f:
                 results.append(json.load(f))
     return results
@@ -992,7 +1086,7 @@ def phase_tp_parity():
     one = runner.run_steps(tp_window(job, 3, seed0=100))["loss"].tolist()
     runner.close()
     torch.cuda.empty_cache()
-    ranks = spawn_tp(job)
+    ranks = spawn_ranks(job)
     got = ranks[0]
     for rank in ranks[1:]:
         for program, losses in rank.items():
@@ -1025,7 +1119,7 @@ def phase_tp_window():
         runs.append(("nccl", f"{TP} ranks on {TP} cards, NCCL"))
     tokens = TP_STEPS * TP_BATCH * TP_SEQ
     for backend, label in runs:
-        ranks = spawn_tp(job, backend)
+        ranks = spawn_ranks(job, backend)
         for program in job["programs"]:
             r0 = ranks[0][program]
             dt = max(r[program]["seconds"] for r in ranks)
@@ -1051,10 +1145,171 @@ def phase_tp_window():
     return counts
 
 
+# --------------------------------------------------------------------- #
+# phases 8 and 9: expert-parallel training of the MoE LM
+# --------------------------------------------------------------------- #
+def moe_cfg(job):
+    return moe_transformer.MoeConfig(
+        vocab_size=VOCAB, hidden_size=HIDDEN, num_layers=job["layers"],
+        num_heads=HEADS, expert_hidden=MOE_HIDDEN, num_experts=MOE_EXPERTS,
+        capacity_factor=job["capacity"], max_len=job["seq"],
+        dtype=job["dtype"])
+
+
+def moe_runner(job, program, expert_sharded=True):
+    """AutoDist + ExpertParallel on the MoE LM (weights from seed 0 on
+    the card, the same in every rank), or with ``expert_sharded=False``
+    the dense model through ``AllReduce`` on one process."""
+    cfg = moe_cfg(job)
+    trainable = port.make_moe_lm_trainable(
+        cfg, port.optim.adam(job["lr"]),
+        torch.Generator(device="cuda").manual_seed(0),
+        batch_size=job["batch"], seq_len=job["seq"],
+        expert_sharded=expert_sharded)
+    if not expert_sharded:
+        return port.AutoDist({}, port.AllReduce()).build(trainable)
+    return port.AutoDist({"mesh": {"expert": EXPERT}}, port.ExpertParallel(
+        num_experts=MOE_EXPERTS, capacity_factor=job["capacity"],
+        **MOE_PROGRAMS[program])).build(trainable)
+
+
+def moe_window(job, steps, seed0=0):
+    """``steps`` next-token batches ``{"x", "y" = x shifted}`` from a
+    numpy seed, stacked ``[steps, B, L]``."""
+    batches = []
+    for i in range(steps):
+        x = np.random.RandomState(seed0 + i).randint(
+            0, VOCAB, (job["batch"], job["seq"])).astype(np.int32)
+        batches.append({"x": x, "y": np.roll(x, -1, axis=1)})
+    return port.stack_steps(batches)
+
+
+def moe_parity(job):
+    """Phase 8 in one rank: 3 steps of each program; the nlls and
+    losses."""
+    out = {}
+    for program in job["programs"]:
+        runner = moe_runner(job, program)
+        m = runner.run_steps(moe_window(job, 3, seed0=200))
+        out[program] = {k: m[k].tolist() for k in ("nll", "loss")}
+        runner.close()
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_window_programs(job):
+    """Phase 9 in one rank: per program a warm step, a timed window with
+    the launch counters, then a profiled one."""
+    out = {}
+    for program in job["programs"]:
+        runner = moe_runner(job, program)
+        window = runner.place_steps(moe_window(job, MOE_STEPS))
+        float(runner.step(type(window)({k: t[0] for k, t in
+                                        window.items()}))["loss"])
+        torch.cuda.synchronize()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics = runner.run_steps(window)
+        float(metrics["loss"][-1])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses = metrics["loss"].float()
+        check(bool(torch.isfinite(losses).all()),
+              f"{program}: non-finite loss {losses}")
+        want = dict.fromkeys(KERNELS, 0)
+        want.update({k: n * MOE_STEPS
+                     for k, n in MOE_WANT.get(program, {}).items()})
+        check(got == want, f"{program}: launches {got}, expected {want}")
+        prof = profile_steps(runner, window, k=2)
+        out[program] = {"seconds": dt, "launches": got, "peak_gb": peak_gb,
+                        "loss": [float(losses[0]), float(losses[-1])],
+                        "profile": prof}
+        runner.close()
+        del runner, window
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe_parity():
+    """fp32 on the card: each program on an expert axis of 2 against the
+    dense one-process model, nll within the JAX golden's 5e-3."""
+    # adam(1e-4): the sharded model averages the aux loss per shard, a
+    # slightly different objective, and at 1e-3 the two trajectories of
+    # this full-width model part by 4.2e-3 in nll by step 3 (H100).
+    job = {"kind": "moe_parity", "layers": 1, "seq": 128, "batch": 8,
+           "capacity": 4.0, "dtype": torch.float32, "lr": 1e-4,
+           "programs": list(MOE_PROGRAMS)}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runner = moe_runner(job, None, expert_sharded=False)
+    dense = runner.run_steps(moe_window(job, 3, seed0=200))["nll"].tolist()
+    runner.close()
+    torch.cuda.empty_cache()
+    ranks = spawn_ranks(job)
+    got = ranks[0]
+    for program in job["programs"]:
+        check(all(abs(a - b) <= 1e-6 * abs(b) for k in ("nll", "loss")
+                  for a, b in zip(ranks[1][program][k], got[program][k])),
+              f"{program}: the ranks' metrics differ: {ranks}")
+        r = got[program]
+        check(all(math.isfinite(x) for x in r["loss"] + r["nll"]),
+              f"{program}: non-finite loss {r}")
+        for i, (a, b) in enumerate(zip(r["nll"], dense)):
+            check(abs(a - b) <= 5e-3, f"step {i}: {program} nll {a} vs "
+                  f"dense {b} differ by more than 5e-3")
+    print(f"phase 8 fp32 1-layer MoE LM, seq 128, batch 8, capacity 4.0, "
+          f"3 Adam steps, expert axis 2 on one card over gloo: dense nll "
+          f"{dense}; " + "; ".join(f"{p} {got[p]['nll']}"
+                                   for p in job["programs"]), flush=True)
+
+
+def phase_moe_window():
+    """bf16 window of the composed int8 and a2a_ring programs: 2 ranks on
+    card 0 over gloo, and over NCCL one rank per card where the machine
+    has 2 cards."""
+    job = {"kind": "moe_window", "layers": MOE_LAYERS, "seq": MOE_SEQ,
+           "batch": MOE_ROWS * EXPERT, "capacity": 2.0, "lr": 1e-3,
+           "dtype": torch.bfloat16, "programs": ["int8", "a2a_ring"]}
+    counts = {}
+    runs = [("gloo", f"{EXPERT} ranks on one card, gloo, transfers through "
+                     f"host")]
+    if torch.cuda.device_count() >= EXPERT:
+        runs.append(("nccl", f"{EXPERT} ranks on {EXPERT} cards, NCCL"))
+    tokens = MOE_STEPS * job["batch"] * MOE_SEQ
+    for backend, label in runs:
+        ranks = spawn_ranks(job, backend)
+        for program in job["programs"]:
+            r0 = ranks[0][program]
+            dt = max(r[program]["seconds"] for r in ranks)
+            peaks = ", ".join(f"{r[program]['peak_gb']:.2f}" for r in ranks)
+            per_step = {k: n / MOE_STEPS for k, n in r0["launches"].items()
+                        if n}
+            line = (f"phase 9 {program} bf16 [{label}]: {MOE_STEPS} steps "
+                    f"in {dt:.3f} s = {tokens / dt:.1f} tokens/s, step "
+                    f"{dt / MOE_STEPS * 1e3:.2f} ms, peak memory per rank "
+                    f"{peaks} GB, loss {r0['loss'][0]:.4f} -> "
+                    f"{r0['loss'][1]:.4f}, launches per step {per_step}")
+            if r0["profile"] is None:
+                line += "; rank 0 profile: device time not measured"
+            else:
+                prof_ms, busy, n_launch, _, top = r0["profile"]
+                line += (f"; rank 0 profile: device busy {busy:.2f} ms of "
+                         f"the profiled step's {prof_ms:.2f} ms "
+                         f"({busy / prof_ms:.1%}), {n_launch:.0f} kernel "
+                         f"launches per step; top: {top}")
+            print(line, flush=True)
+            if backend == "gloo":
+                for name in MOE_KERNELS:
+                    counts[name] = counts.get(name, 0) + r0["launches"][name]
+    return counts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
-        "--phases", default="1,2,3,4,5,6,7",
+        "--phases", default="1,2,3,4,5,6,7,8,9",
         help="comma-separated phases to run (default: all); the kernels "
              "line needs them all")
     phases = {int(p) for p in parser.parse_args(argv).phases.split(",")}
@@ -1067,23 +1322,27 @@ def main(argv=None) -> int:
           f"card(s)", flush=True)
     record, counts = {}, {}
     steps = [(1, lambda: (phase_kernels(record), phase_attention_kernels(
-                 record), phase_tp_kernels(record))),
+                 record), phase_tp_kernels(record),
+                 phase_a2a_kernels(record))),
              (2, phase_parity),
              (3, lambda: counts.update(phase_serve())),
              (4, phase_training_parity),
              (5, lambda: counts.update(phase_train())),
              (6, phase_tp_parity),
-             (7, lambda: counts.update(phase_tp_window()))]
+             (7, lambda: counts.update(phase_tp_window())),
+             (8, phase_moe_parity),
+             (9, lambda: counts.update(phase_moe_window()))]
     for phase, run in steps:
         if phase in phases:
+            t1 = time.perf_counter()
             run()
-            print(f"phase {phase} done at {time.perf_counter() - t0:.1f} s",
-                  flush=True)
+            print(f"phase {phase} took {time.perf_counter() - t1:.1f} s, "
+                  f"done at {time.perf_counter() - t0:.1f} s", flush=True)
     if phases >= {phase for phase, _ in steps}:
         kernels = []
         for name, k in KERNELS.items():
-            # K3 works on int8 levels and fp32 sums: its one record is
-            # fp32.
+            # K3 and K8 work on int8 levels and fp32 values: their one
+            # record is fp32.
             dtype = (torch.bfloat16 if (name, torch.bfloat16) in record
                      else torch.float32)
             rec = record[(name, dtype)]

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import autodist_tpu_torch as port
+from autodist_tpu_torch.kernel import a2a_ring as ar
 from autodist_tpu_torch.kernel import collective_matmul as cm
 from autodist_tpu_torch.kernel import flash_decode as fd
 from autodist_tpu_torch.kernel import flash_prefill as fp
@@ -289,3 +290,47 @@ def test_cuda_matmul_acc_matches_plain(cuda, dtype, M, K, C, ldk):
     torch.testing.assert_close(got.float(),
                                cm.fused_matmul_add_plain(carry, x, k).float(),
                                atol=tol, rtol=tol)
+
+
+# --------------------------------------------------------------------------- #
+# K8: the quantized all-to-all ring's hop
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("L", [1, 1000, 2 ** 20, 2 ** 20 + 3, 2 ** 21])
+def test_cuda_a2a_ring_hop_is_bit_exact(cuda, L):
+    """K8 against its plain version, bit for bit (arrived, levels and
+    scale): the warm-up (scale_in 0, zero levels), a hop, the last hop
+    (all-zero nxt: levels 0, scale 1e-20) and a NaN in nxt (a NaN scale,
+    levels 0).  2^21 and 2^20 are the main path's chunks at expert axis
+    2 and 4."""
+    g = torch.Generator(device=cuda).manual_seed(L)
+    nxt = torch.randn(L, generator=g, device=cuda) * 3
+    q_in = torch.randint(-127, 128, (L,), generator=g, device=cuda,
+                         dtype=torch.int8)
+    nan = nxt.clone()
+    nan[L // 2] = float("nan")
+    cases = [(torch.zeros_like(q_in), torch.zeros(1, device=cuda), nxt),
+             (q_in, torch.full((1,), 0.0173, device=cuda), nxt),
+             (q_in, torch.full((1,), 0.0173, device=cuda),
+              torch.zeros_like(nxt)),
+             (q_in, torch.full((1,), 0.0173, device=cuda), nan)]
+    for args in cases:
+        before = ar.fused_hop.launches
+        got = ar.fused_hop(*args)
+        torch.cuda.synchronize()
+        assert ar.fused_hop.launches == before + 1
+        want = ar.fused_hop_plain(*args)
+        assert got[0].dtype == torch.float32 and got[1].dtype == torch.int8
+        for a, b in zip(got, want):
+            assert torch.equal(a.reshape(-1).view(torch.uint8),
+                               b.reshape(-1).view(torch.uint8))
+
+
+def test_cuda_a2a_ring_hop_raises_on_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros(8, dtype=torch.int8, device=cuda)
+    s = torch.zeros(1, device=cuda)
+    with pytest.raises(TypeError, match="nxt must be"):
+        ar.fused_hop(q, s, torch.zeros(8, dtype=torch.float16, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        ar.fused_hop(q, s, torch.zeros(16, device=cuda)[::2])
+    with pytest.raises(ValueError, match="several devices"):
+        ar.fused_hop(q, s, torch.zeros(8))

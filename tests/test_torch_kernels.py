@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from autodist_tpu_torch.kernel import a2a_ring as ar
 from autodist_tpu_torch.kernel import build
 from autodist_tpu_torch.kernel import collective_matmul as cm
 from autodist_tpu_torch.kernel import flash_decode as fd
@@ -284,7 +285,8 @@ def test_blocks_for_and_allocator_match_jax():
 # the build: CUDA sources, flags, content hash
 # --------------------------------------------------------------------------- #
 def test_build_targets_sm90a_and_hashes_sources():
-    assert [s.name for s in build.sources()] == ["collective_matmul.cu",
+    assert [s.name for s in build.sources()] == ["a2a_ring.cu",
+                                                 "collective_matmul.cu",
                                                  "flash_attention.cu",
                                                  "flash_decode.cu",
                                                  "flash_prefill.cu",
@@ -305,6 +307,6 @@ def test_build_targets_sm90a_and_hashes_sources():
 def test_wrappers_have_no_fallback_path():
     """A wrapper's only route to the plain version is a CPU tensor: no
     ``try`` in the kernel modules could swallow a failed launch."""
-    for mod in (fd, fp, fa, qr, cm):
+    for mod in (fd, fp, fa, qr, cm, ar):
         tree = ast.parse(open(mod.__file__).read())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))

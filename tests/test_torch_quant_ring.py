@@ -10,9 +10,6 @@ package's host mirror of the ring bit for bit and to its ``shard_map``
 programs on CPU devices.  The multi-rank results are computed once per
 module.
 """
-import os
-import subprocess
-import sys
 import textwrap
 
 import jax
@@ -22,11 +19,10 @@ import pytest
 import torch
 from jax.sharding import Mesh, PartitionSpec as P
 
+from autodist_tpu_torch import testing
 from autodist_tpu_torch.kernel import collective_matmul as cm
 from autodist_tpu_torch.kernel import quant_ring as qr
 from autodist_tpu_torch.kernel import quantize as qz
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RING_SIZES = (37, 64, 8, 4099)          # 37 and 4099 do not divide 2 or 4
 # (x shape, kernel shape, axes, x model dim, kernel model dim): the JAX
 # goldens' cases, the last the attention out projection with 7 % 2 != 0.
@@ -161,17 +157,16 @@ def test_wrappers_refuse_mismatched_shapes():
 _WORKER = textwrap.dedent("""
     import sys
     import torch
-    import torch.distributed as dist
     import autodist_tpu_torch as port
+    from autodist_tpu_torch import testing
     from autodist_tpu_torch.kernel import collective_matmul as cm
     from autodist_tpu_torch.kernel import quant_ring as qr
     from autodist_tpu_torch.kernel import quantize as qz
     from autodist_tpu_torch.parallel import tensor as tp
-    rank, world, addr, inp, out = (int(sys.argv[1]), int(sys.argv[2]),
-                                   sys.argv[3], sys.argv[4], sys.argv[5])
+    rank, world, store, inp, out = (int(sys.argv[1]), int(sys.argv[2]),
+                                    sys.argv[3], sys.argv[4], sys.argv[5])
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=addr, rank=rank,
-                            world_size=world)
+    testing.init_rank(rank, world, store)
     axis = port.ResourceSpec({"mesh": {"model": world}}).make_mesh().axis(
         "model")
     assert (axis.size, axis.index) == (world, rank)
@@ -203,24 +198,16 @@ _WORKER = textwrap.dedent("""
                 outs.append((y.detach(), gx, gk))
             res["matmul"].append(outs)
     torch.save(res, f"{out}.{rank}")
-    dist.destroy_process_group()
+    testing.end_rank()
 """)
 
 
 def _run_gloo(world, inputs, tmp):
-    # A file store of its own: no port to race for with other jobs.
-    addr = f"file://{tmp / f'store{world}'}"
-    inp, out = str(tmp / f"in{world}.pt"), str(tmp / f"out{world}")
+    tmp = tmp / f"world{world}"
+    tmp.mkdir()
+    inp, out = str(tmp / "in.pt"), str(tmp / "out")
     torch.save(inputs, inp)
-    env = dict(os.environ, PYTHONPATH=REPO)
-    procs = [subprocess.Popen([sys.executable, "-c", _WORKER, str(r),
-                               str(world), addr, inp, out], cwd=REPO,
-                              env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for r in range(world)]
-    for p in procs:
-        log = p.communicate(timeout=240)[0]
-        assert p.returncode == 0, log
+    testing.launch(_WORKER, world, (inp, out), tmp=tmp, timeout=240)()
     return [torch.load(f"{out}.{r}") for r in range(world)]
 
 

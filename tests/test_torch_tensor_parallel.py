@@ -22,9 +22,6 @@ the port's hop (``quant_ring_fma``, the plain hop replaced in the
 workers only) matches the JAX program to 1e-5: the gap is that flip.
 """
 import json
-import os
-import subprocess
-import sys
 import textwrap
 
 import jax
@@ -35,12 +32,11 @@ import pytest
 import torch
 
 import autodist_tpu_torch as port
-from autodist_tpu_torch import interop
+from autodist_tpu_torch import interop, testing
 from autodist_tpu_torch.kernel.common import flatten_with_names
 from autodist_tpu_torch.models import pipeline_lm as tlm
 from autodist_tpu_torch.strategy.parallel_builders import Pipeline
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZES = dict(vocab_size=32, hidden_size=16, num_layers=2, num_heads=2,
              mlp_dim=32, max_len=8, dropout_rate=0.0,
              attention_dropout_rate=0.0)
@@ -130,19 +126,17 @@ def _port_trainable(jparams, device="cpu"):
 # gloo ranks
 # --------------------------------------------------------------------------- #
 _WORKER = textwrap.dedent("""
-    import json, sys
-    import numpy as np
+    import sys
     import torch
-    import torch.distributed as dist
     import autodist_tpu_torch as port
+    from autodist_tpu_torch import testing
     from autodist_tpu_torch.kernel import quant_ring as qr
     from autodist_tpu_torch.models import pipeline_lm
     from autodist_tpu_torch.strategy.parallel_builders import Pipeline
-    rank, world, addr, inp, out = (int(sys.argv[1]), int(sys.argv[2]),
-                                   sys.argv[3], sys.argv[4], sys.argv[5])
+    rank, world, store, inp, out = (int(sys.argv[1]), int(sys.argv[2]),
+                                    sys.argv[3], sys.argv[4], sys.argv[5])
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=addr, rank=rank,
-                            world_size=world)
+    testing.init_rank(rank, world, store)
     job = torch.load(inp, weights_only=False)
     plain_hop = qr.fused_hop_plain
 
@@ -167,28 +161,23 @@ _WORKER = textwrap.dedent("""
                      "strategy": runner.strategy.to_json()}
     if rank == 0:
         torch.save(res, out)
-    dist.destroy_process_group()
+    testing.end_rank()
 """)
 
 
 def _start_gloo(world, mesh, programs, params, tmp):
-    # A file store of its own: no port to race for with other jobs.
-    addr = f"file://{tmp / f'store{world}'}"
-    inp, out = str(tmp / f"job{world}.pt"), str(tmp / f"res{world}.pt")
+    """Start the job's ranks; returns a function that joins them and
+    loads rank 0's results (raising with a failed rank's whole log)."""
+    tmp = tmp / f"job{world}"
+    tmp.mkdir()
+    inp, out = str(tmp / "job.pt"), str(tmp / "res.pt")
     torch.save({"programs": programs, "sizes": SIZES, "mesh": mesh,
                 "pipe": PIPE, "kw": PROGRAMS, "params": params,
                 "batches": [_batch(i) for i in range(STEPS)]}, inp)
-    env = dict(os.environ, PYTHONPATH=REPO)
-    procs = [subprocess.Popen([sys.executable, "-c", _WORKER, str(r),
-                               str(world), addr, inp, out], cwd=REPO,
-                              env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for r in range(world)]
+    join = testing.launch(_WORKER, world, (inp, out), tmp=tmp, timeout=300)
 
     def result():
-        for p in procs:
-            log = p.communicate(timeout=300)[0]
-            assert p.returncode == 0, log
+        join()
         return torch.load(out, weights_only=False)
 
     return result
@@ -199,31 +188,52 @@ MESH4 = {"data": 2, "pipe": 1, "model": 2}
 
 
 @pytest.fixture(scope="module")
-def runs(jparams, tmp_path_factory):
-    """The port's programs on gloo ranks and the JAX package's, keyed
-    ``(world, program)``."""
+def started(jparams, tmp_path_factory):
+    """Both gloo jobs, started side by side before the JAX goldens are
+    computed; each is joined by its own fixture."""
     tmp = tmp_path_factory.mktemp("tp")
     params = port.from_jax_params(jparams, device="cpu")
-    two = _start_gloo(2, MESH2, list(PROGRAMS) + ["quant_ring_fma"],
-                      params, tmp)
-    four = _start_gloo(4, MESH4, ["quant_ring"], params, tmp)
-    jax_runs = {(2, p): _jax_run(MESH2, p) for p in PROGRAMS}
-    jax_runs[(4, "quant_ring")] = _jax_run(MESH4, "quant_ring")
-    port_runs = {(2, p): r for p, r in two().items()}
-    port_runs.update({(4, p): r for p, r in four().items()})
-    return port_runs, jax_runs
+    return {2: _start_gloo(2, MESH2, list(PROGRAMS) + ["quant_ring_fma"],
+                           params, tmp),
+            4: _start_gloo(4, MESH4, ["quant_ring"], params, tmp)}
+
+
+@pytest.fixture(scope="module")
+def jax_runs(started):
+    """The JAX package's programs, keyed ``(world, program)``."""
+    runs = {(2, p): _jax_run(MESH2, p) for p in PROGRAMS}
+    runs[(4, "quant_ring")] = _jax_run(MESH4, "quant_ring")
+    return runs
+
+
+@pytest.fixture(scope="module")
+def port2(started, jax_runs):
+    """The 2-rank job's programs."""
+    return started[2]()
+
+
+@pytest.fixture(scope="module")
+def port4(started, jax_runs):
+    """The 4-rank job's program."""
+    return started[4]()
+
+
+@pytest.fixture
+def runs(port2, jax_runs):
+    """The port's 2-rank programs keyed ``(2, program)`` and the JAX
+    package's."""
+    return {(2, p): r for p, r in port2.items()}, jax_runs
 
 
 CASES = [(2, p) for p in PROGRAMS] + [(4, "quant_ring")]
 
 
 @pytest.mark.parametrize("world,program", CASES)
-def test_training_matches_jax(runs, world, program):
+def test_training_matches_jax(request, jax_runs, world, program):
     """Each program's losses and final full params (gathered over the
     model axis) against the JAX package's same program."""
-    port_runs, jax_runs = runs
-    got, (jlosses, jfinal, _) = port_runs[(world, program)], jax_runs[
-        (world, program)]
+    got = request.getfixturevalue(f"port{world}")[program]
+    jlosses, jfinal, _ = jax_runs[(world, program)]
     int8 = "int8" in str(PROGRAMS[program])
     np.testing.assert_allclose(got["losses"], jlosses,
                                **(dict(atol=0, rtol=INT8_RTOL) if int8

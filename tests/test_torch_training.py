@@ -11,9 +11,6 @@ Attention is the einsum path here; the flash path's parity is
 ``tests/test_torch_flash_attention.py``.
 """
 import copy
-import os
-import subprocess
-import sys
 import textwrap
 
 import jax
@@ -24,6 +21,7 @@ import pytest
 import torch
 
 import autodist_tpu_torch as port
+from autodist_tpu_torch import testing
 from autodist_tpu import AllReduce as JaxAllReduce
 from autodist_tpu import AutoDist as JaxAutoDist
 from autodist_tpu.capture import path_to_name
@@ -35,7 +33,6 @@ from autodist_tpu_torch.models import bert as tbert
 from autodist_tpu_torch.ops.flash_attention import make_attention_fn
 from autodist_tpu_torch.resource import H100
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(atol=1e-5, rtol=1e-5)
 SIZES = dict(vocab_size=97, hidden_size=128, num_layers=2, num_heads=2,
              mlp_dim=256, max_len=32, dropout_rate=0.0,
@@ -263,14 +260,13 @@ def test_run_steps_equals_step_calls(jparams):
 _GLOO_WORKER = textwrap.dedent("""
     import sys
     import torch
-    import torch.distributed as dist
     import autodist_tpu_torch as port
+    from autodist_tpu_torch import testing
     from autodist_tpu_torch.models import bert
-    rank, world, addr, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+    rank, world, store, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
     torch.set_num_threads(1)
     if world > 1:
-        dist.init_process_group("gloo", init_method=addr, rank=rank,
-                                world_size=world)
+        testing.init_rank(rank, world, store)
     cfg = port.TransformerConfig(vocab_size=97, hidden_size=128, num_layers=2,
                                  num_heads=2, mlp_dim=256, max_len=32,
                                  dropout_rate=0.0, attention_dropout_rate=0.0,
@@ -285,24 +281,14 @@ _GLOO_WORKER = textwrap.dedent("""
     if rank == 0:
         torch.save({"losses": torch.stack(losses),
                     "params": runner.get_params()}, out)
-    if world > 1:
-        dist.destroy_process_group()
+    testing.end_rank()
 """)
 
 
 def _run_gloo(world, tmp_path):
-    # A file store: a free TCP port found here could be taken by another
-    # process before rank 0 binds it.
-    addr = f"file://{tmp_path / f'store{world}'}"
-    out = str(tmp_path / f"world{world}.pt")
-    env = dict(os.environ, PYTHONPATH=REPO)
-    procs = [subprocess.Popen([sys.executable, "-c", _GLOO_WORKER, str(rank),
-                               str(world), addr, out], cwd=REPO, env=env,
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True) for rank in range(world)]
-    for p in procs:
-        log = p.communicate(timeout=180)[0]
-        assert p.returncode == 0, log
+    tmp = tmp_path / f"world{world}"
+    out = str(tmp / "out.pt")
+    testing.launch(_GLOO_WORKER, world, (out,), tmp=tmp, timeout=180)()
     return torch.load(out)
 
 
