@@ -14,7 +14,11 @@ not divide ``tp`` are zero-padded and sliced off.
 pass with fp32 accumulation and one rounding to the carry's type.  On
 CUDA tensors it launches the kernel of ``csrc/collective_matmul.cu`` and
 counts the launch in its ``launches`` attribute; on CPU tensors it runs
-:func:`fused_matmul_add_plain`.  The composed ring (``fused=False``)
+:func:`fused_matmul_add_plain`.  The bf16 kernel reads ``x`` and ``k``
+through TMA tensor maps, which need 16-byte aligned rows; an operand
+without them is first copied into a zero-padded aligned buffer
+(:func:`tma_operands`), counted in ``fused_matmul_add.staged``.  The
+main path's operands never need it.  The composed ring (``fused=False``)
 instead adds a separately rounded ``tensordot`` to the carry, as the
 JAX package's composed ring does.
 
@@ -43,6 +47,39 @@ def fused_matmul_add_plain(carry, x2d, kc2d):
     fp32, one cast back."""
     acc = torch.matmul(x2d.float(), kc2d.float())
     return (carry.float() + acc).to(carry.dtype)
+
+
+def tma_ready(t) -> bool:
+    """True when TMA can read the 2-D operand ``t`` where it lies: a
+    16-byte aligned start, a row pitch of a 16-byte multiple and unit
+    column stride."""
+    return (t.data_ptr() % 16 == 0 and t.stride(1) == 1
+            and t.stride(0) * t.element_size() % 16 == 0)
+
+
+def tma_operands(x2d, kc2d):
+    """``(x, k, staged)``: the operands as the bf16 kernel reads them.
+    ``x [M, K]`` and ``k [K, C]`` are returned as they are when TMA can
+    read them and K is a multiple of 8 (x's pitch); otherwise as
+    zero-padded copies ``x [M, Kp]`` and ``k [Kp, C]`` (row pitch
+    rounded up to 8 elements), Kp = K rounded up to 8 (at least 8).  The
+    padding is zeros in K, so ``x @ k`` is unchanged; ``staged`` says
+    whether anything was copied."""
+    K = x2d.shape[1]
+    Kp = max(8, -(-K // 8) * 8)
+    pad_k = Kp != K
+    if not pad_k and tma_ready(x2d):
+        x_out = x2d
+    else:
+        x_out = x2d.new_zeros((x2d.shape[0], Kp))
+        x_out[:, :K] = x2d
+    if not pad_k and tma_ready(kc2d):
+        k_out = kc2d
+    else:
+        C = kc2d.shape[1]
+        k_out = kc2d.new_zeros((Kp, -(-C // 8) * 8))[:, :C]
+        k_out[:K] = kc2d
+    return x_out, k_out, x_out is not x2d or k_out is not kc2d
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -77,6 +114,10 @@ def fused_matmul_add(carry, x2d, kc2d):
         raise ValueError("carry and x must be contiguous")
     if kc2d.stride(1) != 1 and C > 1:
         raise ValueError("k must have unit column stride")
+    if dt == torch.bfloat16:
+        x2d, kc2d, staged = tma_operands(x2d, kc2d)
+        fused_matmul_add.staged += staged
+        K = x2d.shape[1]
     out = torch.empty_like(carry)
     with torch.cuda.device(carry.device):
         rc = _c_kernel()(carry.data_ptr(), x2d.data_ptr(), kc2d.data_ptr(),
@@ -88,6 +129,7 @@ def fused_matmul_add(carry, x2d, kc2d):
 
 
 fused_matmul_add.launches = 0
+fused_matmul_add.staged = 0
 
 
 def _ring_forward(x, kernel, axis, axes: int, fused: bool):

@@ -4,26 +4,28 @@
 // Replaces: autodist_tpu/kernel/pallas/collective_matmul.py,
 // _matmul_acc_kernel.  The Pallas kernel holds the whole [M, K] x [K, C]
 // problem in VMEM and lets the MXU stream it; here each block owns a
-// tile of the output, loops over K in steps staged through shared
-// memory, and adds the carry in its epilogue, so the partial product
-// never goes to device memory and back (the composed ring's separate
-// add).
+// tile of the output, streams K through shared memory, and adds the
+// carry in its epilogue, so the partial product never goes to device
+// memory and back (the composed ring's separate add).
 //
 // x is [M, K] and carry/out [M, C], contiguous; k is [K, C] with row
 // stride ldk, so the ring's chunk of a wider kernel (a column slice) is
-// read where it lies.  M, K and C that are not tile multiples are masked
-// in the loads (zeros) and the stores, not padded by copies.  Rows that
-// do not start 16-byte aligned take an element-wise load instead of the
-// asynchronous copies.
+// read where it lies.
 //
 // Two designs, one per type:
-// * bf16 on the tensor cores: a 128 x 128 tile per block of 8 warps,
-//   each warp 64 x 32 of it as 4 x 2 WMMA 16x16x16 fragments with fp32
-//   accumulators; the k loop keeps the next 32-deep tile of x and k in
-//   flight (cp.async into the second of two shared-memory stages, 37 KB)
-//   while the warps multiply the current one; the epilogue takes each
-//   fragment through shared memory, adds f32(carry) and rounds to bf16
-//   once;
+// * bf16 on Hopper's tensor cores (hopper.cuh): a 128 x 128 output tile
+//   per block of two consumer warpgroups (64 rows each, one wgmma
+//   m64n128k16 per 16-deep step, fp32 accumulators in registers) and
+//   one producer warp that keeps a ring of kStages 64-deep k-tiles in
+//   flight with TMA, each stage guarded by a full and an empty mbarrier.
+//   x's tile is K-major; k's is read in place MN-major (the transpose
+//   bit), as boxes of 64 columns x 64 k-rows.  TMA zero-fills rows and
+//   columns past M, K and C, so the ragged edge needs no masked loads.
+//   The epilogue reads carry and writes out straight from the
+//   accumulator registers, as bf16 pairs (single elements when C is
+//   odd), adds in fp32 and rounds once.  TMA needs 16-byte aligned rows:
+//   the wrapper stages an operand that is not so (a zero-padded copy) and
+//   counts it, so this entry point only sees operands it can describe;
 // * fp32 on the CUDA cores in plain FMAs (no TF32, so the CPU goldens'
 //   full fp32 precision holds): 256 threads, each a 4 x 4 block of the
 //   tile, the x tile staged transposed so one 16-byte read gives 4 rows.
@@ -32,152 +34,138 @@
 // 512 or 2048, C = 512) a call does 2 M K C flops against (M K + K C +
 // 2 M C) * 2 bytes: 256 to 410 flops per byte, at or above the H100's
 // ridge of about 295, so operations bound it (2.2 to 8.7 us at 989
-// TFLOP/s).  WMMA (mma.sync) reaches a fraction of that; wgmma with a
-// TMA ring and warp specialization is later work.
+// TFLOP/s), the carry and out bytes weighing most at K = 512.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 
 #include "attention_common.cuh"
+#include "hopper.cuh"
 
 namespace adt {
 namespace {
 
-// ------------------------------------------------------------------ //
-// bf16: WMMA, with the next k-tile in flight
-// ------------------------------------------------------------------ //
-constexpr int kTcBM = 128;
-constexpr int kTcBN = 128;
-constexpr int kBK = 32;
-constexpr int kTcThreads = 256;  // 8 warps: 2 along M x 4 along N, 64 x 32 each
-constexpr int kLdA = kBK + 8;    // bf16 pitches: multiples of 8 elements
-constexpr int kLdB = kTcBN + 8;
-constexpr int kStageA = kTcBM * kLdA;  // elements per stage
-constexpr int kStageB = kBK * kLdB;
-constexpr int kTcSmem = 2 * (kStageA + kStageB) * 2;  // two stages, bytes
+using bf16 = __nv_bfloat16;
+using namespace hopper;
 
-// 16 bytes global -> shared without staging through registers; the
-// bytes past src_bytes (0 to 16) are written as zeros.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
+// ------------------------------------------------------------------ //
+// bf16: wgmma fed by a TMA ring
+// ------------------------------------------------------------------ //
+constexpr int kTcBM = 128;     // two consumer warpgroups of 64 rows
+constexpr int kTcBK = 64;      // one 128-byte swizzle row of bf16
+constexpr int kStages = 4;
+constexpr int kConsumerWarps = 8;
+constexpr int kTcThreads = 32 * kConsumerWarps + 32;  // + the producer warp
+constexpr int kBoxBytes = 64 * 64 * 2;                // one 64 x 64 bf16 box
 
-// One [128 x 32] tile of x and one [32 x 128] tile of k into a stage,
-// two 8-element vectors of each per thread.  kVec: rows start 16-byte
-// aligned (the wrapper's check), so each vector is one cp.async with
-// the ragged tail zero-filled; otherwise element by element.
-template <bool kVec>
-__device__ __forceinline__ void load_stage(__nv_bfloat16* As, __nv_bfloat16* Bs,
-                                           const __nv_bfloat16* __restrict__ x,
-                                           const __nv_bfloat16* __restrict__ k, int M, int K,
-                                           int C, long long ldk, int m0, int n0, int k0) {
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+template <int BN>
+struct TcTile {
+  static constexpr int kA = kTcBM * kTcBK * 2;  // x: 128 rows x 64
+  static constexpr int kB = kTcBK * BN * 2;    // k: BN / 64 boxes of 64 x 64
+  static constexpr int kStage = kA + kB;
+  static constexpr int kSmem = kStages * kStage + 2 * kStages * 8 + 1024;
+};
+
+template <int BN>
+__device__ __forceinline__ void mma_ktile(float (&acc)[BN / 2], const unsigned char* a,
+                                          const unsigned char* b) {
 #pragma unroll
-  for (int t = 0; t < 2; ++t) {
-    const int idx = threadIdx.x + t * kTcThreads;
-    {  // x: 128 rows x 4 vectors
-      const int r = idx >> 2, c = (idx & 3) * 8;
-      const int gr = m0 + r, gc = k0 + c;
-      __nv_bfloat16* dst = As + r * kLdA + c;
-      if (kVec) {
-        const int n = gr < M ? max(0, min(8, K - gc)) : 0;
-        cp_async16(dst, n ? x + (long long)gr * K + gc : x, 2 * n);
-      } else {
-        for (int e = 0; e < 8; ++e)
-          dst[e] = (gr < M && gc + e < K) ? x[(long long)gr * K + gc + e] : zero;
-      }
-    }
-    {  // k: 32 rows x 16 vectors
-      const int r = idx >> 4, c = (idx & 15) * 8;
-      const int gk = k0 + r, gc = n0 + c;
-      __nv_bfloat16* dst = Bs + r * kLdB + c;
-      if (kVec) {
-        const int n = gk < K ? max(0, min(8, C - gc)) : 0;
-        cp_async16(dst, n ? k + (long long)gk * ldk + gc : k, 2 * n);
-      } else {
-        for (int e = 0; e < 8; ++e)
-          dst[e] = (gk < K && gc + e < C) ? k[(long long)gk * ldk + gc + e] : zero;
-      }
-    }
+  for (int kk = 0; kk < kTcBK / 16; ++kk) {
+    const uint64_t da = desc_sw128(a + 32 * kk, 16, 1024);
+    const uint64_t db = desc_sw128(b + 2048 * kk, kBoxBytes, 1024);
+    if constexpr (BN == 128)
+      wgmma_m64n128k16_ss<1>(acc, da, db, 1);
+    else
+      wgmma_m64n64k16_ss<1>(acc, da, db, 1);
   }
 }
 
-template <bool kVec>
+// kPairs: C is even and carry/out 4-byte aligned, so the epilogue moves
+// bf16 pairs.
+template <int BN, bool kPairs>
 __global__ void __launch_bounds__(kTcThreads)
-    matmul_acc_tc_kernel(const __nv_bfloat16* __restrict__ carry,
-                         const __nv_bfloat16* __restrict__ x,
-                         const __nv_bfloat16* __restrict__ k, __nv_bfloat16* __restrict__ out,
-                         int M, int K, int C, long long ldk) {
-  using namespace nvcuda;
-  __shared__ __align__(128) unsigned char smem[kTcSmem];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Bs = As + 2 * kStageA;
+    matmul_acc_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                         const __grid_constant__ CUtensorMap tk, const bf16* __restrict__ carry,
+                         bf16* __restrict__ out, int M, int K, int C) {
+  using Tile = TcTile<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * Tile::kStage);
+  uint64_t* empty = full + kStages;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int m0 = blockIdx.y * kTcBM, n0 = blockIdx.x * kTcBN;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const int tiles = (K + kBK - 1) / kBK;
-  load_stage<kVec>(As, Bs, x, k, M, K, C, ldk, m0, n0, 0);
-  cp_async_commit();
-  for (int t = 0; t < tiles; ++t) {
-    const int cur = t & 1;
-    if (t + 1 < tiles)  // the other stage was last read in step t - 1
-      load_stage<kVec>(As + (cur ^ 1) * kStageA, Bs + (cur ^ 1) * kStageB, x, k, M, K, C,
-                       ldk, m0, n0, (t + 1) * kBK);
-    cp_async_commit();
-    cp_async_wait_prev();  // every group but the newest: tile t is in
-    __syncthreads();
-    const __nv_bfloat16* A = As + cur * kStageA;
-    const __nv_bfloat16* B = Bs + cur * kStageB;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(a[i], A + (wm * 64 + i * 16) * kLdA + kk, kLdA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], B + kk * kLdB + wn * 32 + j * 16, kLdB);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+  const int m0 = blockIdx.y * kTcBM, n0 = blockIdx.x * BN;
+  const int tiles = (K + kTcBK - 1) / kTcBK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
     }
-    __syncthreads();
+    fence_barrier_init();
   }
-  // Epilogue, one 16 x 16 fragment at a time through this warp's 1 KB of
-  // the (now idle) stage memory: add f32(carry), round once to bf16.
-  float* scratch = reinterpret_cast<float*>(smem) + warp * 256;
+  __syncthreads();
+
+  if (warp == kConsumerWarps) {  // the producer
+    if (lane == 0) {
+      for (int t = 0; t < tiles; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages) mbar_wait(&empty[s], (t / kStages - 1) & 1);
+        unsigned char* a = smem + s * Tile::kStage;
+        mbar_arrive_expect_tx(&full[s], Tile::kStage);
+        tma_load_2d(a, &tx, &full[s], t * kTcBK, m0);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(scratch, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int gr = m0 + wm * 64 + i * 16 + (e >> 4);
-        const int gc = n0 + wn * 32 + j * 16 + (e & 15);
-        if (gr < M && gc < C) {
-          const long long o = (long long)gr * C + gc;
-          out[o] = __float2bfloat16(__fadd_rn(__bfloat162float(carry[o]), scratch[e]));
-        }
+        for (int j = 0; j < BN / 64; ++j)
+          tma_load_2d(a + Tile::kA + j * kBoxBytes, &tk, &full[s], n0 + 64 * j, t * kTcBK);
       }
+    }
+    return;
+  }
+
+  // A consumer warpgroup: rows m0 + 64 wg ...
+  const int wg = warp >> 2;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  for (int t = 0; t < tiles; ++t) {
+    const int s = t % kStages;
+    mbar_wait(&full[s], (t / kStages) & 1);
+    const unsigned char* a = smem + s * Tile::kStage;
+    fence_regs(acc);
+    wgmma_fence();
+    mma_ktile<BN>(acc, a + wg * 64 * 128, a + Tile::kA);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous k-tile's products are done
+    fence_regs(acc);
+    if (t > 0) {
       __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(t - 1) % kStages]);
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // Epilogue from the accumulators: f32(carry) + acc, one rounding.
+  const int row0 = m0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * (lane & 3);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row >= M) continue;
+      const long long o = (long long)row * C + col;
+      const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (kPairs) {
+        if (col < C) {
+          const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(carry + o));
+          *reinterpret_cast<__nv_bfloat162*>(out + o) =
+              __floats2bfloat162_rn(__fadd_rn(c.x, v0), __fadd_rn(c.y, v1));
+        }
+      } else {
+        if (col < C) out[o] = __float2bfloat16(__fadd_rn(__bfloat162float(carry[o]), v0));
+        if (col + 1 < C)
+          out[o + 1] = __float2bfloat16(__fadd_rn(__bfloat162float(carry[o + 1]), v1));
+      }
     }
   }
 }
@@ -239,36 +227,67 @@ __global__ void __launch_bounds__(kThreads32)
   }
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+bool aligned4(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 3) == 0; }
+
+// The output tile's width: 128 (one wave of 128 blocks at the main
+// path's [4096, *] @ [*, 512], one block an SM) or 64 (256 blocks, two
+// an SM).  `python -m autodist_tpu_torch.kernel.timing` builds both and
+// times them; the default is the faster (PERF.md).
+#ifndef ADT_K4_TILE_N
+#define ADT_K4_TILE_N 128
+#endif
+constexpr int kTcBN = ADT_K4_TILE_N;
+static_assert(kTcBN == 128 || kTcBN == 64, "K4 tiles are 128 or 64 wide");
+
+template <bool kPairs>
+int launch_tc(const CUtensorMap& tx, const CUtensorMap& tk, const bf16* carry, bf16* out, int M,
+              int K, int C, cudaStream_t s) {
+  static bool configured[kMaxDevices] = {};
+  auto kernel = matmul_acc_wgmma_kernel<kTcBN, kPairs>;
+  const int bytes = TcTile<kTcBN>::kSmem;
+  const int rc = allow_smem(kernel, bytes, configured);
+  if (rc) return rc;
+  const dim3 grid((C + kTcBN - 1) / kTcBN, (M + kTcBM - 1) / kTcBM);
+  kernel<<<grid, kTcThreads, bytes, s>>>(tx, tk, carry, out, M, K, C);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 }  // namespace adt
 
 // out [M, C] = carry [M, C] + x [M, K] @ k [K, C] (row stride ldk), all
 // of one type (dtype code 0 fp32, 1 bf16).  Returns -1 for another type,
-// else a cudaError_t (0 on success).
+// -2 when a bf16 operand cannot be described as a tensor map (x and k
+// must start 16-byte aligned, with K and ldk multiples of 8), else a
+// cudaError_t (0 on success).
 extern "C" int adt_matmul_acc(const void* carry, const void* x, const void* k, void* out,
                               int M, int K, int C, long long ldk, int dtype, void* stream) {
   using namespace adt;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M == 0 || C == 0) return 0;
   if (dtype == kBF16) {
-    const dim3 grid((C + kTcBN - 1) / kTcBN, (M + kTcBM - 1) / kTcBM);
-    const auto* c16 = static_cast<const __nv_bfloat16*>(carry);
-    const auto* x16 = static_cast<const __nv_bfloat16*>(x);
-    const auto* k16 = static_cast<const __nv_bfloat16*>(k);
-    auto* o16 = static_cast<__nv_bfloat16*>(out);
-    if (aligned16(x) && K % 8 == 0 && aligned16(k) && ldk % 8 == 0)
-      matmul_acc_tc_kernel<true><<<grid, kTcThreads, 0, s>>>(c16, x16, k16, o16, M, K, C, ldk);
-    else
-      matmul_acc_tc_kernel<false><<<grid, kTcThreads, 0, s>>>(c16, x16, k16, o16, M, K, C, ldk);
-  } else if (dtype == kF32) {
+    CUtensorMap tx, tk;
+    const cuuint64_t x_dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(M)};
+    const cuuint64_t x_strides[1] = {static_cast<cuuint64_t>(K) * 2};
+    const cuuint32_t x_box[2] = {kTcBK, kTcBM};
+    const cuuint64_t k_dims[2] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(K)};
+    const cuuint64_t k_strides[1] = {static_cast<cuuint64_t>(ldk) * 2};
+    const cuuint32_t k_box[2] = {64, kTcBK};
+    if (!hopper::encode_bf16(&tx, x, x_dims, x_strides, x_box) ||
+        !hopper::encode_bf16(&tk, k, k_dims, k_strides, k_box))
+      return hopper::kEncodeFailed;
+    const auto* c16 = static_cast<const bf16*>(carry);
+    auto* o16 = static_cast<bf16*>(out);
+    if (C % 2 == 0 && aligned4(carry) && aligned4(out))
+      return launch_tc<true>(tx, tk, c16, o16, M, K, C, s);
+    return launch_tc<false>(tx, tk, c16, o16, M, K, C, s);
+  }
+  if (dtype == kF32) {
     const dim3 grid((C + kBN - 1) / kBN, (M + kBM - 1) / kBM);
     matmul_acc_f32_kernel<<<grid, kThreads32, 0, s>>>(
         static_cast<const float*>(carry), static_cast<const float*>(x),
         static_cast<const float*>(k), static_cast<float*>(out), M, K, C, ldk);
-  } else {
-    return -1;
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  return -1;
 }

@@ -30,16 +30,18 @@
 //   rows), and each of the 128 threads of a block owns a 4 x 4 block of
 //   the score tile and a 4 x 8 block of the output, so a pair of 16-byte
 //   shared reads feeds 16 FMAs;
-// * bf16 (the *_tc_kernel below): the same blocks with the products on
-//   the tensor cores (WMMA, fp32 accumulation) and the softmax work on
-//   the CUDA cores, see the section's comment.
+// * bf16: K1 (fwd_wgmma_kernel) on Hopper's wgmma, fed by a TMA ring
+//   and keeping S, P and O in registers, see its section; K2a and K2b
+//   (the *_tc_kernel below) on the same blocks as fp32 with the products
+//   as WMMA (fp32 accumulation) and the softmax work on the CUDA cores.
 //
-// wgmma with a TMA ring and warp specialization is later work.
+// wgmma with a TMA ring for K2a and K2b is later work.
 #include <mma.h>
 
 #include <type_traits>
 
 #include "attention_common.cuh"
+#include "hopper.cuh"
 
 namespace adt {
 namespace {
@@ -52,7 +54,6 @@ constexpr int kBKV = 64;       // K2b: keys per block
 constexpr int kBQ2 = 32;       // K2b: query rows per tile
 constexpr int kLdP = kBQ + 4;  // row pitch of a staged [keys][rows] tile
 constexpr int kLdP2 = kBKV + 4;
-constexpr int kMaxDevices = 64;
 
 struct AttnArgs {
   const void* q;  // [B, L, H, D], strides (sb, sl, sh) shared by q, k, v
@@ -450,10 +451,10 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(AttnArgs a) {
 }
 
 // ---------------------------------------------------------------------
-// bf16 on the tensor cores.  The same blocks as the kernels above (64
-// query rows, or 64 keys for K2b), walking 64-wide tiles of the other
-// axis: each block stages bf16 tiles as they lie in memory, each warp
-// runs the products of its 16 rows (K1, K2a) or 16 keys (K2b) as
+// bf16 backward on the tensor cores.  The same blocks as the kernels
+// above (64 query rows for K2a, 64 keys for K2b), walking 64-wide tiles
+// of the other axis: each block stages bf16 tiles as they lie in
+// memory, each warp runs the products of its 16 rows or keys as
 // 16x16x16 WMMA with fp32 accumulation, and the products' fp32 tiles
 // pass through shared memory to the threads that own those rows, which
 // do the softmax work on the CUDA cores as above and write p and ds
@@ -540,93 +541,232 @@ __device__ __forceinline__ void store_row8_h(bf16* row, const float (&x)[8]) {
 // The tile column of the thread's e-th value in load_row8's order.
 __device__ __forceinline__ int col8(int e) { return 4 * (threadIdx.x & 7) + (e < 4 ? e : 28 + e); }
 
-constexpr int kFwdTcBytes = 4 * kTileH * 2 + kTileF * 4;
+// ---------------------------------------------------------------------
+// K1 in bf16 on Hopper (hopper.cuh): wgmma fed by a TMA ring.  A block
+// owns 128 query rows of one (batch, head): two consumer warpgroups of
+// 64 rows and a producer warp.  The producer loads the Q tile once and
+// then 128-key tiles of K and V into a ring of kFwdStages stages (a
+// full mbarrier for K, one for V, an empty one per stage), as 64-row
+// boxes of 4-D tensor maps over [B, L, H, D] with the caller's strides,
+// so q/k/v sliced from one projection are read in place and rows at or
+// past len arrive as zeros.  Each consumer warpgroup computes
+//   S = Q Kᵀ   wgmma m64n128k16 x 4 from shared memory (K is K-major),
+// then the online softmax on S's accumulator registers: a row's 128
+// scores lie in the 4 threads of a quad, so its max takes two shuffles;
+// the running sum stays per thread and is summed over the quad once at
+// the end.  p is rounded to bf16 pairs in registers, which are the A
+// fragments of
+//   O += P V   wgmma m64n64k16 x 8 with A from registers (V MN-major),
+// and O (32 fp32 a thread) is rescaled in registers.  Neither S, P nor
+// O touches shared memory.  Scores are kept in log2 units, t = s scale
+// log2(e), and exponentiated by ex2.approx (fast_exp2: the same function
+// as expf up to rounding, within phase 1's tolerance); masked scores
+// take the finite kNegInf; lse = m ln 2 + log l; out = acc / l by IEEE
+// division.  The two warpgroups share each K and V tile and run in step;
+// letting them take turns (named barriers) with each issuing S_t beside
+// P_{t-1} V_{t-1}, as FlashAttention-3 does, was slower on the H100 in
+// a trial (PERF.md).
+// ---------------------------------------------------------------------
+constexpr int kFwdRows = 128;  // query rows per block
+constexpr int kFwdKeys = 128;  // keys per tile
+constexpr int kFwdStages = 2;
+constexpr int kFwdConsumerWarps = 8;
+constexpr int kFwdThreads = 32 * kFwdConsumerWarps + 32;  // + the producer warp
+constexpr int kTileBytes = 128 * 64 * 2;                  // 128 rows of D = 64
+constexpr int kBox = 64;                                  // rows per TMA box
+constexpr int kFwdBytes = (1 + 2 * kFwdStages) * kTileBytes + 8 * (1 + 3 * kFwdStages) + 1024;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-// K1 on the tensor cores.  Warp w owns rows 16w..16w+15, the rows its
-// threads (ty = 4w..4w+3) hold the statistics of.
-__global__ void __launch_bounds__(kThreads) fwd_tc_kernel(AttnArgs a) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + kTileH;
-  bf16* sV = sK + kTileH;
-  bf16* sP = sV + kTileH;
-  float* sS = reinterpret_cast<float*>(sP + kTileH);  // scores, then p·v
+// 2^x by the MUFU unit alone: relative error about 2^-22, results below
+// 2^-126 flushed to 0 (exp2f adds a range fix-up around it).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+struct FwdArgs {
+  bf16* out;
+  float* lse;
+  int len, heads, causal;
+  float scale_log2;  // scale * log2(e)
+};
+
+// Masks (when kMask) and scales one row's 32 scores d[4 j + 2 h + e] of
+// this thread, returns their max.
+template <bool kMask>
+__device__ __forceinline__ float scale_row(float (&s)[64], int h, float c, int row, int col0,
+                                           int len, int causal) {
+  float mx = kNegInf;
+#pragma unroll
+  for (int j = 0; j < kFwdKeys / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float& x = s[4 * j + 2 * h + e];
+      x *= c;
+      if (kMask) {
+        const int col = col0 + 8 * j + e;
+        if (col >= len || (causal && col > row)) x = kNegInf;
+      }
+      mx = fmaxf(mx, x);
+    }
+  }
+  return mx;
+}
+
+template <bool kMask>
+__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&o)[32], float (&m)[2],
+                                             float (&l)[2], const int (&row)[2], int col0,
+                                             const FwdArgs& a) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = scale_row<kMask>(s, h, a.scale_log2, row[h], col0, a.len, a.causal);
+    mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, 2));
+    // Key 0 is visible to every row, so m is finite from the first tile
+    // on and a masked score weighs exp2(kNegInf - m) = 0.
+    const float m_new = fmaxf(m[h], mx);
+    const float alpha = fast_exp2(m[h] - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kFwdKeys / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * j + 2 * h + e];
+        x = fast_exp2(x - m_new);
+        sum += x;
+      }
+    }
+    l[h] = l[h] * alpha + sum;
+    m[h] = m_new;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      o[4 * j + 2 * h] *= alpha;
+      o[4 * j + 2 * h + 1] *= alpha;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kFwdThreads)
+    fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, FwdArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hopper::align1024(smem_raw);
+  unsigned char* sQ = smem;
+  unsigned char* sK = sQ + kTileBytes;                 // [stage]
+  unsigned char* sV = sK + kFwdStages * kTileBytes;    // [stage]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + kFwdStages * kTileBytes);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kFwdStages;
+  uint64_t* empty = v_full + kFwdStages;
 
   const int b = blockIdx.y / a.heads, h = blockIdx.y % a.heads;
-  const int q0 = blockIdx.x * kT, warp = threadIdx.x >> 5;
-  const int ty = threadIdx.x >> 3;
-  const long long off = (long long)b * a.sb + (long long)h * a.sh;
-  const bf16* q = static_cast<const bf16*>(a.q) + off;
-  const bf16* k = static_cast<const bf16*>(a.k) + off;
-  const bf16* v = static_cast<const bf16*>(a.v) + off;
-  stage_h(sQ, q, a.sl, q0, a.len);
+  const int q0 = blockIdx.x * kFwdRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // Key tiles past the block's last row are skipped when causal.
+  const int n_keys = a.causal ? min(a.len, q0 + kFwdRows) : a.len;
+  const int tiles = (n_keys + kFwdKeys - 1) / kFwdKeys;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < kFwdStages; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&empty[s], kFwdConsumerWarps);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
 
-  const int n_keys = a.causal ? min(a.len, q0 + kT) : a.len;
-  float m[4], l[4], acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc[i][e] = 0.f;
+  if (warp == kFwdConsumerWarps) {  // the producer
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(q_full, kTileBytes);
+      for (int r = 0; r < kFwdRows; r += kBox)
+        hopper::tma_load_4d(sQ + r * 128, &tq, q_full, 0, q0 + r, h, b);
+      for (int t = 0; t < tiles; ++t) {
+        const int s = t % kFwdStages, k0 = t * kFwdKeys;
+        if (t >= kFwdStages) hopper::mbar_wait(&empty[s], (t / kFwdStages - 1) & 1);
+        hopper::mbar_arrive_expect_tx(&k_full[s], kTileBytes);
+        for (int r = 0; r < kFwdKeys; r += kBox)
+          hopper::tma_load_4d(sK + s * kTileBytes + r * 128, &tk, &k_full[s], 0, k0 + r, h, b);
+        hopper::mbar_arrive_expect_tx(&v_full[s], kTileBytes);
+        for (int r = 0; r < kFwdKeys; r += kBox)
+          hopper::tma_load_4d(sV + s * kTileBytes + r * 128, &tv, &v_full[s], 0, k0 + r, h, b);
+      }
+    }
+    return;
   }
 
-  for (int k0 = 0; k0 < n_keys; k0 += kT) {
-    __syncthreads();
-    stage_h(sK, k, a.sl, k0, a.len);
-    stage_h(sV, v, a.sl, k0, a.len);
-    __syncthreads();
-    FragC c[4];
-    zero(c);
-    mma_16x64<FragBCol>(c, sQ + 16 * warp * kLdH, sK);
-    store_16x64(sS + 16 * warp * kLdF, c);
-    __syncwarp();
+  // A consumer warpgroup: rows q0 + 64 wg ...; this thread's two rows.
+  const int wg = warp >> 2;
+  const int r0 = q0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);
+  const int row[2] = {r0, r0 + 8};
+  const int min_row = q0 + wg * 64;
+  const unsigned char* q = sQ + wg * 64 * 128;
+  float o[32], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 4 * ty + i, row = q0 + r;
-      float s[8], mx = kNegInf;
-      load_row8(sS + r * kLdF, s);
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  hopper::mbar_wait(q_full, 0);
+
+  for (int t = 0; t < tiles; ++t) {
+    const int s = t % kFwdStages, k0 = t * kFwdKeys;
+    const uint32_t parity = (t / kFwdStages) & 1;
+    const unsigned char* kt = sK + s * kTileBytes;
+    const unsigned char* vt = sV + s * kTileBytes;
+    float sc[64];
+    hopper::mbar_wait(&k_full[s], parity);
+    hopper::wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int col = k0 + col8(e);
-        s[e] = (col >= a.len || (a.causal && col > row)) ? kNegInf : s[e] * a.scale;
-        mx = fmaxf(mx, s[e]);
-      }
-      const float m_new = fmaxf(m[i], group_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma_m64n128k16_ss<0>(sc, hopper::desc_sw128(q + 32 * kk, 16, 1024),
+                                     hopper::desc_sw128(kt + 32 * kk, 16, 1024), kk > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+
+    const int col0 = k0 + 2 * (lane & 3);
+    if (k0 + kFwdKeys > a.len || (a.causal && k0 + kFwdKeys - 1 > min_row))
+      softmax_tile<true>(sc, o, m, l, row, col0, a);
+    else
+      softmax_tile<false>(sc, o, m, l, row, col0, a);
+
+    uint32_t p[32];  // p as bf16 pairs: the A fragments, 4 per 16 keys
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        s[e] = expf(s[e] - m_new);
-        rs += s[e];
-        acc[i][e] *= alpha;
-      }
-      l[i] = l[i] * alpha + group_sum(rs);
-      m[i] = m_new;
-      store_row8_h(sP + r * kLdH, s);
+    for (int i = 0; i < 32; ++i) {
+      const __nv_bfloat162 pair = __floats2bfloat162_rn(sc[2 * i], sc[2 * i + 1]);
+      p[i] = *reinterpret_cast<const uint32_t*>(&pair);
     }
-    __syncwarp();
-    zero(c);
-    mma_16x64<FragBRow>(c, sP + 16 * warp * kLdH, sV);
-    store_16x64(sS + 16 * warp * kLdF, c);
-    __syncwarp();
+    hopper::mbar_wait(&v_full[s], parity);
+    hopper::fence_regs(o);
+    hopper::fence_regs(p);
+    hopper::wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float pv[8];
-      load_row8(sS + (4 * ty + i) * kLdF, pv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[i][e] += pv[e];
+    for (int kk = 0; kk < kFwdKeys / 16; ++kk) {
+      const uint32_t frag[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
+      hopper::wgmma_m64n64k16_rs<1>(o, frag, hopper::desc_sw128(vt + 2048 * kk, 1024, 1024), 1);
     }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
   }
 
-  bf16* out = static_cast<bf16*>(a.out);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    if (row >= a.len) continue;
-    const long long r = (long long)b * a.len + row;
-    store_row8<bf16>(out + (r * a.heads + h) * 64, acc[i], l[i]);
-    if ((threadIdx.x & 7) == 0) a.lse[r * a.heads + h] = m[i] + logf(l[i]);
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(kFullMask, l[hh], 1);
+    l[hh] += __shfl_xor_sync(kFullMask, l[hh], 2);
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (row[hh] >= a.len) continue;
+    const long long r = ((long long)b * a.len + row[hh]) * a.heads + h;
+    bf16* dst = a.out + r * 64 + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j + 2 * hh] / l[hh], o[4 * j + 2 * hh + 1] / l[hh]);
+    if ((lane & 3) == 0) a.lse[r] = m[hh] * kLn2 + logf(l[hh]);
   }
 }
 
@@ -798,18 +938,29 @@ __global__ void __launch_bounds__(kThreads) dkv_tc_kernel(AttnArgs a) {
 
 enum Which { kFwd, kDq, kDkv };
 
-// Raises a kernel's dynamic shared-memory limit once per device.
-template <typename K>
-int allow_smem(K kernel, int bytes, bool (&configured)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= kMaxDevices || !configured[dev]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev < kMaxDevices) configured[dev] = true;
-  }
-  return 0;
+// K1 in bf16: a tensor map per operand over [B, L, H, 64] with the
+// shared strides, boxes of 64 rows; the grid of 128-row blocks.
+int launch_fwd_wgmma(const AttnArgs& a, cudaStream_t stream) {
+  static bool configured[hopper::kMaxDevices] = {};
+  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(a.len),
+                              static_cast<cuuint64_t>(a.heads),
+                              static_cast<cuuint64_t>(a.batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(a.sl) * 2,
+                                 static_cast<cuuint64_t>(a.sh) * 2,
+                                 static_cast<cuuint64_t>(a.sb) * 2};
+  const cuuint32_t box[4] = {64, kBox, 1, 1};
+  CUtensorMap tq, tk, tv;
+  if (!hopper::encode_bf16(&tq, a.q, dims, strides, box) ||
+      !hopper::encode_bf16(&tk, a.k, dims, strides, box) ||
+      !hopper::encode_bf16(&tv, a.v, dims, strides, box))
+    return hopper::kEncodeFailed;
+  const int rc = hopper::allow_smem(fwd_wgmma_kernel, kFwdBytes, configured);
+  if (rc) return rc;
+  const FwdArgs f{static_cast<bf16*>(a.out), a.lse, a.len, a.heads, a.causal,
+                  a.scale * kLog2e};
+  fwd_wgmma_kernel<<<dim3((a.len + kFwdRows - 1) / kFwdRows, a.batch * a.heads), kFwdThreads,
+                     kFwdBytes, stream>>>(tq, tk, tv, f);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Launches K1, K2a or K2b: the tensor-core kernels for bf16, the FMA
@@ -820,9 +971,9 @@ struct LaunchAttention {
   cudaStream_t stream;
 
   template <typename K>
-  int launch(K kernel, int tile, int bytes, bool (&configured)[kMaxDevices]) const {
+  int launch(K kernel, int tile, int bytes, bool (&configured)[hopper::kMaxDevices]) const {
     if (bytes > 48 * 1024) {
-      const int rc = allow_smem(kernel, bytes, configured);
+      const int rc = hopper::allow_smem(kernel, bytes, configured);
       if (rc) return rc;
     }
     kernel<<<dim3((a.len + tile - 1) / tile, a.batch * a.heads), kThreads, bytes, stream>>>(a);
@@ -831,10 +982,10 @@ struct LaunchAttention {
 
   template <typename T, int D>
   int operator()() const {
-    static bool configured[kMaxDevices] = {};
+    static bool configured[hopper::kMaxDevices] = {};
     constexpr bool kTc = std::is_same_v<T, bf16>;
     if constexpr (kTc && kWhich == kFwd) {
-      return launch(fwd_tc_kernel, kT, kFwdTcBytes, configured);
+      return launch_fwd_wgmma(a, stream);
     } else if constexpr (kTc && kWhich == kDq) {
       return launch(dq_tc_kernel, kT, kDqTcBytes, configured);
     } else if constexpr (kTc) {

@@ -139,6 +139,9 @@ def check_kernel_args(dtype, data, indices):
 def raise_on_error(rc: int, name: str):
     if rc == -1:
         raise ValueError(f"{name}: no kernel for this dtype / head_dim")
+    if rc == -2:
+        raise ValueError(f"{name}: cuTensorMapEncodeTiled refused a TMA "
+                         f"tensor map of an operand (alignment or strides)")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
                            f"{rc}")

@@ -14,13 +14,15 @@ training of the MoE LM through ``ExpertParallel`` on an expert axis of 2:
 
 1. each kernel against its plain PyTorch version, fp32 (atol = rtol =
    1e-5) and bf16 (atol = rtol = 1e-2), timed with CUDA events beside
-   the plain version, one PyTorch library call and the card's bound:
+   the plain version, one PyTorch library call and the card's bound,
+   each time with its achieved TFLOP/s:
    K5-K7 at the serving shapes; K1, K2a and K2b at BERT-base's q/k/v
    ``[16, 512, 12, 64]`` and at ragged lengths 100 and 17, causal and
    not; K3 bit for bit (levels and scale) at the ring's chunk of 2^21
-   elements and at 1, 1000 and 2^20 + 3, and on an all-zero chunk; K4 in
-   bf16 at the two row-parallel shapes of phase 7 and in fp32 at a ragged
-   100 x 72 x 40; K8 bit for bit (arrived, levels and scale) at the MoE
+   elements and at 1, 1000 and 2^20 + 3, and on an all-zero chunk; K4 at
+   the two row-parallel shapes of phase 7, at a ragged 100 x 72 x 40 and
+   (bf16) at 100 x 70 x 38, whose unaligned rows the wrapper stages for
+   TMA (counted); K8 bit for bit (arrived, levels and scale) at the MoE
    window's chunks of 2^21 and 2^20 elements and at 1, 1000 and 2^20 + 3,
    in the warm-up (scale_in 0), a hop, the last hop (all-zero nxt) and
    with a NaN in nxt;
@@ -50,8 +52,8 @@ training of the MoE LM through ``ExpertParallel`` on an expert axis of 2:
    layers, max_len 512, batch 16, ``num_microbatches=2``,
    ``virtual_stages=4``, ``adam(1e-3)``) for the composed fp32, composed
    int8, ``quant_ring`` and ``collective_matmul`` programs: tokens/s,
-   step ms, peak memory per rank, the profiler's busy share, and the K3
-   and K4 launches held to 64 and 32 per step;
+   step ms, peak memory per rank, the profiler's busy share, the K3 and
+   K4 launches held to 64 and 32 per step, and no K4 operand staged;
 8. fp32 MoE parity: the MoE LM at full width (vocab 32768, hidden 1024,
    16 heads, expert hidden 4096, 8 experts) cut to 1 layer, seq 128,
    batch 8, capacity factor 4.0 (no token is dropped, so sharded and
@@ -107,6 +109,7 @@ from autodist_tpu_torch.kernel import collective_matmul as cm
 from autodist_tpu_torch.kernel import flash_decode as fd
 from autodist_tpu_torch.kernel import flash_prefill as fp
 from autodist_tpu_torch.kernel import quant_ring as qr
+from autodist_tpu_torch.kernel.timing import time_ms
 from autodist_tpu_torch.models import bert, moe_transformer
 from autodist_tpu_torch.models.pipeline_lm import (make_pipeline_lm_trainable,
                                                    sequential_logits)
@@ -335,27 +338,20 @@ def library_call(name, args, block_len=None):
     return out.transpose(1, 2)
 
 
-def time_ms(fn, reps=30):
-    """Mean device time of ``fn`` over ``reps`` calls, CUDA events
-    around the call only.  The 50 MB L2 is flushed before each call by
-    reading 64 MB (the serving loop reaches each layer's cache cold; a
-    read leaves no dirty lines to write back inside the timed call).  A
-    spin kernel holds the card while the host enqueues every call, so
-    the events time the device and not the host's launch overhead."""
-    flush = torch.ones(64 << 20, dtype=torch.uint8, device="cuda")
-    for _ in range(3):
-        fn()
-    events = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    torch.cuda.synchronize()
-    torch.cuda._sleep(300_000_000)            # ~0.2 s at H100 clocks
-    for e0, e1 in events:
-        flush.sum()
-        e0.record()
-        fn()
-        e1.record()
-    torch.cuda.synchronize()
-    return sum(e0.elapsed_time(e1) for e0, e1 in events) / reps
+def tflop_rate(flops, ms):
+    """Achieved TFLOP/s of ``flops`` in ``ms``."""
+    return flops / ms / 1e9
+
+
+def timings(rec, flops):
+    """The kernel's, the plain version's and the library call's times,
+    each with its achieved TFLOP/s, and the bound."""
+    def at(ms):
+        return f"{ms:.4f} ms ({tflop_rate(flops, ms):.1f} TFLOP/s)"
+
+    lib = "none" if rec["library_ms"] is None else at(rec["library_ms"])
+    return (f"kernel {at(rec['ms'])}, plain {at(rec['plain_ms'])}, library "
+            f"{lib}, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
 
 
 def phase_kernels(record):
@@ -393,10 +389,8 @@ def phase_kernels(record):
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             }
             print(f"phase 1 {name} {str(dtype)[6:]}: max_abs_err "
-                  f"{max_err:.3e} (tol {tol}), kernel {rec['ms']:.4f} ms, "
-                  f"plain {rec['plain_ms']:.4f} ms, library "
-                  f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f}"
-                  f" ms ({rec['bound_by']})", flush=True)
+                  f"{max_err:.3e} (tol {tol}), {timings(rec, flops)}",
+                  flush=True)
             record[(name, dtype)] = rec
 
 
@@ -500,11 +494,7 @@ def phase_attention_kernels(record):
                             "bound_by": ("bytes" if t_bytes >= t_ops
                                          else "operations"),
                         }
-                        line += (f", kernel {rec['ms']:.4f} ms, plain "
-                                 f"{rec['plain_ms']:.4f} ms, library "
-                                 f"{rec['library_ms']:.4f} ms, bound "
-                                 f"{rec['bound_ms']:.4f} ms "
-                                 f"({rec['bound_by']})")
+                        line += ", " + timings(rec, flops)
                         if not causal:          # the training path's case
                             record[(name, dtype)] = rec
                     print(line, flush=True)
@@ -550,11 +540,12 @@ def phase_tp_kernels(record):
                        "bound_by": "bytes" if t_bytes >= t_ops
                        else "operations"}
                 record[("quant_ring_hop", torch.float32)] = rec
-                line += (f", kernel {rec['ms']:.4f} ms, plain "
-                         f"{rec['plain_ms']:.4f} ms, library none, bound "
-                         f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+                line += ", " + timings(rec, 4 * C)
             print(line, flush=True)
+    # bf16 at the main path's shapes, at a ragged one and at one whose
+    # rows are not 16-byte aligned (the wrapper stages it for TMA).
     cases = [(torch.bfloat16, M, K, C) for M, K, C in MATMUL_SHAPES] + [
+        (torch.bfloat16, 100, 72, 40), (torch.bfloat16, 100, 70, 38),
         (torch.float32, 100, 72, 40)] + [
         (torch.float32, M, K, C) for M, K, C in MATMUL_SHAPES]
     for dtype, M, K, C in cases:
@@ -567,9 +558,13 @@ def phase_tp_kernels(record):
         wide = (torch.randn(K, TP * C, generator=gen, device="cuda")
                 / math.sqrt(K)).to(dtype)
         k = wide[:, C:]
+        staged = cm.fused_matmul_add.staged
         got = cm.fused_matmul_add(carry, x, k)
         ref = cm.fused_matmul_add_plain(carry, x, k)
         torch.cuda.synchronize()
+        staged = cm.fused_matmul_add.staged - staged
+        check(staged == (dtype == torch.bfloat16 and K % 8 != 0),
+              f"collective_matmul_hop {dtype} {M}x{K}x{C}: staged {staged}")
         err = (got.float() - ref.float()).abs()
         max_err = float(err.max())
         check(bool(torch.isfinite(got).all()), "collective_matmul: non-finite")
@@ -588,12 +583,13 @@ def phase_tp_kernels(record):
                    "library_ms": time_ms(lambda: torch.addmm(carry, x, k)),
                    "bound_ms": max(t_bytes, t_ops) * 1e3,
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-            if K == 2048:                # mlp wo, the larger of the two
-                record[("collective_matmul_hop", dtype)] = rec
-            line += (f", kernel {rec['ms']:.4f} ms, plain "
-                     f"{rec['plain_ms']:.4f} ms, library (addmm) "
-                     f"{rec['library_ms']:.4f} ms, bound "
-                     f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+            # mlp wo (K = 2048) is the kernel's record, the out
+            # projection (K = 512) rides beside it.
+            record[("collective_matmul_hop", dtype) if K == 2048 else
+                   ("collective_matmul_hop", dtype, K)] = rec
+            line += ", " + timings(rec, 2 * M * K * C) + " (library: addmm)"
+        else:
+            line += f", staged {staged}"
         print(line, flush=True)
     del carry, x, wide, k, got, ref
     torch.cuda.empty_cache()
@@ -640,9 +636,7 @@ def phase_a2a_kernels(record):
                        "bound_by": "bytes" if t_bytes >= t_ops
                        else "operations"}
                 record[("a2a_ring_hop", torch.float32)] = rec
-                line += (f", kernel {rec['ms']:.4f} ms, plain "
-                         f"{rec['plain_ms']:.4f} ms, library none, bound "
-                         f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+                line += ", " + timings(rec, 4 * L)
             print(line, flush=True)
     del nxt, q_in, nan, cases, got, want
     torch.cuda.empty_cache()
@@ -1027,8 +1021,12 @@ def tp_window_programs(job):
     for program in job["programs"]:
         runner = tp_runner(job, program, TP)
         window = runner.place_steps(tp_window(job, TP_STEPS))
+        cm.fused_matmul_add.staged = 0
         dt, metrics = timed_window(runner, window)
         got = {name: launches()[name] for name in TP_KERNELS}
+        check(cm.fused_matmul_add.staged == 0,
+              f"{program}: K4 staged {cm.fused_matmul_add.staged} operands "
+              f"(the main path's are TMA-ready)")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         losses = metrics["loss"].float()
         check(bool(torch.isfinite(losses).all()),
@@ -1356,6 +1354,8 @@ def main(argv=None) -> int:
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
                 "dtype": str(dtype)[6:]})
+            if (name, dtype, 512) in record:     # K4's out projection
+                kernels[-1]["k512"] = record[(name, dtype, 512)]
         print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -269,13 +269,15 @@ def test_cuda_quant_ring_hop_is_bit_exact(cuda, C):
     (torch.bfloat16, 4096, 2048, 512, 1024),   # mlp wo, a chunk
     (torch.float32, 100, 72, 40, 40),          # ragged in M, K and C
     (torch.float32, 100, 72, 40, 80),
-    (torch.bfloat16, 100, 72, 40, 80),         # ragged, asynchronous copies
+    (torch.bfloat16, 100, 72, 40, 80),         # ragged in M, K and C
     (torch.bfloat16, 100, 70, 38, 76),         # rows not 16-byte aligned
-])
+] + [(torch.bfloat16, M, K, C, 2 * C)          # the wgmma tiles' edges
+     for K in (16, 64, 72) for M in (1, 127, 129) for C in (8, 136)])
 def test_cuda_matmul_acc_matches_plain(cuda, dtype, M, K, C, ldk):
     """K4 against its plain version: bf16 at 1e-2 (one rounding of the
     fp32 sum, in another order), fp32 at 1e-5; ``k`` a column slice of a
-    wider matrix where ``ldk > C``."""
+    wider matrix where ``ldk > C``.  Only the operands TMA cannot read
+    in place (rows not 16-byte aligned) are staged, once a call."""
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     g = torch.Generator(device=cuda).manual_seed(M + K)
     carry = torch.randn(M, C, generator=g, device=cuda).to(dtype)
@@ -283,13 +285,71 @@ def test_cuda_matmul_acc_matches_plain(cuda, dtype, M, K, C, ldk):
     wide = (torch.randn(K, ldk, generator=g, device=cuda) / K ** 0.5).to(dtype)
     k = wide[:, ldk - C:]
     before = cm.fused_matmul_add.launches
+    staged = cm.fused_matmul_add.staged
     got = cm.fused_matmul_add(carry, x, k)
     torch.cuda.synchronize()
     assert cm.fused_matmul_add.launches == before + 1
+    unaligned = dtype == torch.bfloat16 and (K, ldk) == (70, 76)
+    assert cm.fused_matmul_add.staged == staged + unaligned
     assert got.dtype == dtype and got.shape == (M, C)
     torch.testing.assert_close(got.float(),
                                cm.fused_matmul_add_plain(carry, x, k).float(),
                                atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("pattern", ["identity", "one_k_row", "one_k_column"])
+def test_cuda_matmul_acc_patterned(cuda, pattern):
+    """K4 in bf16 on ``k`` patterns whose products are exact, so that a
+    wrong operand layout (a shared-memory descriptor field, the
+    transpose bit) shows as misplaced values: ``k = I`` gives ``out =
+    carry + x``; one non-zero row of ``k`` or one column of ones give a
+    rank-one product."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    M = K = C = 192
+    carry = torch.randn(M, C, generator=g, device=cuda).bfloat16()
+    x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
+    wide = torch.zeros(K, 2 * C, device=cuda, dtype=torch.bfloat16)
+    k = wide[:, C:]
+    if pattern == "identity":
+        k.copy_(torch.eye(K, device=cuda))
+    elif pattern == "one_k_row":
+        k[37] = torch.randn(C, generator=g, device=cuda)
+    else:
+        k[:, 5] = 1
+    got = cm.fused_matmul_add(carry, x, k)
+    want = cm.fused_matmul_add_plain(carry, x, k)
+    torch.cuda.synchronize()
+    if pattern != "one_k_column":      # one product per element: exact
+        assert torch.equal(got, want)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2,
+                               rtol=1e-2)
+
+
+@pytest.mark.parametrize("layout", ["projection", "separate"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("L", [1, 127, 128, 129, 255, 512])
+def test_cuda_flash_attention_fwd_bf16_tile_edges(cuda, L, causal, layout):
+    """K1 in bf16 (the wgmma kernel: 128 query rows a block, 128-key
+    tiles) against its plain version at lengths on and around its tiles,
+    on q/k/v sliced from one [B, L, 3, H, D] projection and on three
+    contiguous tensors; atol = rtol = 1e-2."""
+    g = torch.Generator(device=cuda).manual_seed(L)
+    if layout == "projection":
+        q, k, v = torch.randn((2, L, 3, 3, 64), generator=g,
+                              device=cuda).bfloat16().unbind(2)
+    else:
+        q, k, v = (torch.randn((2, L, 3, 64), generator=g,
+                               device=cuda).bfloat16() for _ in range(3))
+    before = fa.flash_attention_fwd.launches
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == before + 1
+    ref_out, ref_lse = fa.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                                    scale=0.125)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=1e-2,
+                               rtol=1e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-2, rtol=1e-2)
 
 
 # --------------------------------------------------------------------------- #
