@@ -7,8 +7,7 @@ The library lives in ``kernel/_build/`` (git-ignored) under a name that
 carries a hash of the sources and flags, so editing a source rebuilds
 and an unchanged tree reuses the last build.  A failed build raises
 with the compiler's output; nothing is downloaded and no other library
-is needed.  ``defines`` (``NAME=value`` strings, passed as ``-D``) build
-a variant beside the default, for measuring.
+is needed.
 """
 from __future__ import annotations
 
@@ -32,9 +31,9 @@ def sources() -> list:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
-def source_hash(flags=NVCC_FLAGS) -> str:
+def source_hash() -> str:
     """Hash of every source's name and content and of the flags."""
-    h = hashlib.sha256(" ".join(flags).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources() + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -67,27 +66,26 @@ def _run_all(cmds) -> None:
                 f"kernel build failed (rc={rc}): {' '.join(cmd)}\n{out}")
 
 
-def build(defines=()) -> Path:
+def build() -> Path:
     """Compile and link the sources unless this exact build exists;
     returns the library's path."""
-    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
-    lib = BUILD_DIR / f"libautodist_kernels_{source_hash(flags)}.so"
+    lib = BUILD_DIR / f"libautodist_kernels_{source_hash()}.so"
     if lib.is_file():
         return lib
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [Path(tmp) / (src.stem + ".o") for src in sources()]
-        _run_all([[nvcc, *flags, "-c", str(src), "-o", str(obj)]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
                   for src, obj in zip(sources(), objs)])
         staged = Path(tmp) / lib.name
-        _run_all([[nvcc, *flags, "-shared", "-o", str(staged),
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(staged),
                    *map(str, objs)]])
         os.replace(staged, lib)          # atomic: readers never see half
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def load_library(defines=()) -> ctypes.CDLL:
+def load_library() -> ctypes.CDLL:
     """The kernels' shared library, built on first call."""
-    return ctypes.CDLL(str(build(tuple(defines))))
+    return ctypes.CDLL(str(build()))

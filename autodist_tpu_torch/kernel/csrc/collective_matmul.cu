@@ -53,48 +53,42 @@ using namespace hopper;
 // bf16: wgmma fed by a TMA ring
 // ------------------------------------------------------------------ //
 constexpr int kTcBM = 128;     // two consumer warpgroups of 64 rows
+// 128 columns: one wave of 128 blocks at the main path's
+// [4096, *] @ [*, 512], one block an SM; 64-wide tiles (two waves) were
+// slower at K = 2048 (PERF.md).
+constexpr int kTcBN = 128;
 constexpr int kTcBK = 64;      // one 128-byte swizzle row of bf16
 constexpr int kStages = 4;
 constexpr int kConsumerWarps = 8;
 constexpr int kTcThreads = 32 * kConsumerWarps + 32;  // + the producer warp
 constexpr int kBoxBytes = 64 * 64 * 2;                // one 64 x 64 bf16 box
 
-template <int BN>
-struct TcTile {
-  static constexpr int kA = kTcBM * kTcBK * 2;  // x: 128 rows x 64
-  static constexpr int kB = kTcBK * BN * 2;    // k: BN / 64 boxes of 64 x 64
-  static constexpr int kStage = kA + kB;
-  static constexpr int kSmem = kStages * kStage + 2 * kStages * 8 + 1024;
-};
+constexpr int kA = kTcBM * kTcBK * 2;   // x: 128 rows x 64
+constexpr int kB = kTcBK * kTcBN * 2;   // k: two boxes of 64 x 64
+constexpr int kStage = kA + kB;
+constexpr int kTcSmem = kStages * kStage + 2 * kStages * 8 + 1024;
 
-template <int BN>
-__device__ __forceinline__ void mma_ktile(float (&acc)[BN / 2], const unsigned char* a,
+__device__ __forceinline__ void mma_ktile(float (&acc)[kTcBN / 2], const unsigned char* a,
                                           const unsigned char* b) {
 #pragma unroll
-  for (int kk = 0; kk < kTcBK / 16; ++kk) {
-    const uint64_t da = desc_sw128(a + 32 * kk, 16, 1024);
-    const uint64_t db = desc_sw128(b + 2048 * kk, kBoxBytes, 1024);
-    if constexpr (BN == 128)
-      wgmma_m64n128k16_ss<1>(acc, da, db, 1);
-    else
-      wgmma_m64n64k16_ss<1>(acc, da, db, 1);
-  }
+  for (int kk = 0; kk < kTcBK / 16; ++kk)
+    wgmma_m64n128k16_ss<1>(acc, desc_sw128(a + 32 * kk, 16, 1024),
+                           desc_sw128(b + 2048 * kk, kBoxBytes, 1024), 1);
 }
 
 // kPairs: C is even and carry/out 4-byte aligned, so the epilogue moves
 // bf16 pairs.
-template <int BN, bool kPairs>
+template <bool kPairs>
 __global__ void __launch_bounds__(kTcThreads)
     matmul_acc_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
                          const __grid_constant__ CUtensorMap tk, const bf16* __restrict__ carry,
                          bf16* __restrict__ out, int M, int K, int C) {
-  using Tile = TcTile<BN>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * Tile::kStage);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStage);
   uint64_t* empty = full + kStages;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int m0 = blockIdx.y * kTcBM, n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * kTcBM, n0 = blockIdx.x * kTcBN;
   const int tiles = (K + kTcBK - 1) / kTcBK;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -110,12 +104,12 @@ __global__ void __launch_bounds__(kTcThreads)
       for (int t = 0; t < tiles; ++t) {
         const int s = t % kStages;
         if (t >= kStages) mbar_wait(&empty[s], (t / kStages - 1) & 1);
-        unsigned char* a = smem + s * Tile::kStage;
-        mbar_arrive_expect_tx(&full[s], Tile::kStage);
+        unsigned char* a = smem + s * kStage;
+        mbar_arrive_expect_tx(&full[s], kStage);
         tma_load_2d(a, &tx, &full[s], t * kTcBK, m0);
 #pragma unroll
-        for (int j = 0; j < BN / 64; ++j)
-          tma_load_2d(a + Tile::kA + j * kBoxBytes, &tk, &full[s], n0 + 64 * j, t * kTcBK);
+        for (int j = 0; j < kTcBN / 64; ++j)
+          tma_load_2d(a + kA + j * kBoxBytes, &tk, &full[s], n0 + 64 * j, t * kTcBK);
       }
     }
     return;
@@ -123,16 +117,16 @@ __global__ void __launch_bounds__(kTcThreads)
 
   // A consumer warpgroup: rows m0 + 64 wg ...
   const int wg = warp >> 2;
-  float acc[BN / 2];
+  float acc[kTcBN / 2];
 #pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kTcBN / 2; ++i) acc[i] = 0.f;
   for (int t = 0; t < tiles; ++t) {
     const int s = t % kStages;
     mbar_wait(&full[s], (t / kStages) & 1);
-    const unsigned char* a = smem + s * Tile::kStage;
+    const unsigned char* a = smem + s * kStage;
     fence_regs(acc);
     wgmma_fence();
-    mma_ktile<BN>(acc, a + wg * 64 * 128, a + Tile::kA);
+    mma_ktile(acc, a + wg * 64 * 128, a + kA);
     wgmma_commit();
     wgmma_wait<1>();  // the previous k-tile's products are done
     fence_regs(acc);
@@ -147,7 +141,7 @@ __global__ void __launch_bounds__(kTcThreads)
   // Epilogue from the accumulators: f32(carry) + acc, one rounding.
   const int row0 = m0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
+  for (int j = 0; j < kTcBN / 8; ++j) {
     const int col = n0 + 8 * j + 2 * (lane & 3);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -229,26 +223,15 @@ __global__ void __launch_bounds__(kThreads32)
 
 bool aligned4(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 3) == 0; }
 
-// The output tile's width: 128 (one wave of 128 blocks at the main
-// path's [4096, *] @ [*, 512], one block an SM) or 64 (256 blocks, two
-// an SM).  `python -m autodist_tpu_torch.kernel.timing` builds both and
-// times them; the default is the faster (PERF.md).
-#ifndef ADT_K4_TILE_N
-#define ADT_K4_TILE_N 128
-#endif
-constexpr int kTcBN = ADT_K4_TILE_N;
-static_assert(kTcBN == 128 || kTcBN == 64, "K4 tiles are 128 or 64 wide");
-
 template <bool kPairs>
 int launch_tc(const CUtensorMap& tx, const CUtensorMap& tk, const bf16* carry, bf16* out, int M,
               int K, int C, cudaStream_t s) {
   static bool configured[kMaxDevices] = {};
-  auto kernel = matmul_acc_wgmma_kernel<kTcBN, kPairs>;
-  const int bytes = TcTile<kTcBN>::kSmem;
-  const int rc = allow_smem(kernel, bytes, configured);
+  auto kernel = matmul_acc_wgmma_kernel<kPairs>;
+  const int rc = allow_smem(kernel, kTcSmem, configured);
   if (rc) return rc;
   const dim3 grid((C + kTcBN - 1) / kTcBN, (M + kTcBM - 1) / kTcBM);
-  kernel<<<grid, kTcThreads, bytes, s>>>(tx, tk, carry, out, M, K, C);
+  kernel<<<grid, kTcThreads, kTcSmem, s>>>(tx, tk, carry, out, M, K, C);
   return static_cast<int>(cudaGetLastError());
 }
 

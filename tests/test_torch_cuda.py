@@ -271,13 +271,15 @@ def test_cuda_quant_ring_hop_is_bit_exact(cuda, C):
     (torch.float32, 100, 72, 40, 80),
     (torch.bfloat16, 100, 72, 40, 80),         # ragged in M, K and C
     (torch.bfloat16, 100, 70, 38, 76),         # rows not 16-byte aligned
+    (torch.bfloat16, 100, 72, 37, 80),         # odd C: one-element epilogue
 ] + [(torch.bfloat16, M, K, C, 2 * C)          # the wgmma tiles' edges
      for K in (16, 64, 72) for M in (1, 127, 129) for C in (8, 136)])
 def test_cuda_matmul_acc_matches_plain(cuda, dtype, M, K, C, ldk):
     """K4 against its plain version: bf16 at 1e-2 (one rounding of the
     fp32 sum, in another order), fp32 at 1e-5; ``k`` a column slice of a
     wider matrix where ``ldk > C``.  Only the operands TMA cannot read
-    in place (rows not 16-byte aligned) are staged, once a call."""
+    in place (rows not 16-byte aligned) are staged, once a call: at an
+    odd C, the slice of ``k`` starts off a 16-byte boundary."""
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     g = torch.Generator(device=cuda).manual_seed(M + K)
     carry = torch.randn(M, C, generator=g, device=cuda).to(dtype)
@@ -289,7 +291,7 @@ def test_cuda_matmul_acc_matches_plain(cuda, dtype, M, K, C, ldk):
     got = cm.fused_matmul_add(carry, x, k)
     torch.cuda.synchronize()
     assert cm.fused_matmul_add.launches == before + 1
-    unaligned = dtype == torch.bfloat16 and (K, ldk) == (70, 76)
+    unaligned = dtype == torch.bfloat16 and ((K, ldk) == (70, 76) or C % 2)
     assert cm.fused_matmul_add.staged == staged + unaligned
     assert got.dtype == dtype and got.shape == (M, C)
     torch.testing.assert_close(got.float(),
