@@ -30,14 +30,10 @@
 //   rows), and each of the 128 threads of a block owns a 4 x 4 block of
 //   the score tile and a 4 x 8 block of the output, so a pair of 16-byte
 //   shared reads feeds 16 FMAs;
-// * bf16: K1 (fwd_wgmma_kernel) on Hopper's wgmma, fed by a TMA ring
-//   and keeping S, P and O in registers, see its section; K2a and K2b
-//   (the *_tc_kernel below) on the same blocks as fp32 with the products
-//   as WMMA (fp32 accumulation) and the softmax work on the CUDA cores.
-//
-// wgmma with a TMA ring for K2a and K2b is later work.
-#include <mma.h>
-
+// * bf16: Hopper's wgmma fed by TMA rings (hopper.cuh), with every
+//   score, probability and accumulator tile in registers: K1
+//   (fwd_wgmma_kernel), K2a (dq_wgmma_kernel) and K2b (dkv_wgmma_kernel),
+//   see their sections.
 #include <type_traits>
 
 #include "attention_common.cuh"
@@ -48,10 +44,10 @@ namespace {
 
 constexpr int kD = 64;         // head dim (BERT-base: 768 / 12)
 constexpr int kThreads = 128;  // 16 row groups (ty) x 8 column groups (tx)
-constexpr int kBQ = 64;        // K1, K2a: query rows per block
-constexpr int kBK = 32;        // K1, K2a: keys per tile
-constexpr int kBKV = 64;       // K2b: keys per block
-constexpr int kBQ2 = 32;       // K2b: query rows per tile
+constexpr int kBQ = 64;        // fp32 K1, K2a: query rows per block
+constexpr int kBK = 32;        // fp32 K1, K2a: keys per tile
+constexpr int kBKV = 64;       // fp32 K2b: keys per block
+constexpr int kBQ2 = 32;       // fp32 K2b: query rows per tile
 constexpr int kLdP = kBQ + 4;  // row pitch of a staged [keys][rows] tile
 constexpr int kLdP2 = kBKV + 4;
 
@@ -450,96 +446,7 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(AttnArgs a) {
   }
 }
 
-// ---------------------------------------------------------------------
-// bf16 backward on the tensor cores.  The same blocks as the kernels
-// above (64 query rows for K2a, 64 keys for K2b), walking 64-wide tiles
-// of the other axis: each block stages bf16 tiles as they lie in
-// memory, each warp runs the products of its 16 rows or keys as
-// 16x16x16 WMMA with fp32 accumulation, and the products' fp32 tiles
-// pass through shared memory to the threads that own those rows, which
-// do the softmax work on the CUDA cores as above and write p and ds
-// back as bf16 (the Pallas kernels' casts) for the next product.  Row
-// pitches of 72 bf16 (144 bytes) and 68 fp32 keep WMMA's row loads on
-// distinct banks.
-// ---------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
-namespace wm = nvcuda::wmma;
-using FragA = wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major>;
-using FragBRow = wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major>;
-using FragBCol = wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::col_major>;
-using FragC = wm::fragment<wm::accumulator, 16, 16, 16, float>;
-
-constexpr int kT = 64;                 // rows and keys per tile
-constexpr int kLdH = kT + 8;           // bf16 row pitch
-constexpr int kLdF = kT + 4;           // fp32 row pitch
-constexpr int kTileH = kT * kLdH;      // bf16 elements per staged tile
-constexpr int kTileF = kT * kLdF;      // fp32 elements per staged tile
-
-// Rows [row0, row0 + 64) of a bf16 [*, L, H, 64] tensor as they lie,
-// into dst[r * kLdH + d]; rows at or past len read as 0.
-__device__ __forceinline__ void stage_h(bf16* dst, const bf16* base, long long sl, int row0,
-                                        int len) {
-  for (int c = threadIdx.x; c < kT * 8; c += kThreads) {
-    const int r = c >> 3, d0 = (c & 7) * 8;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (row0 + r < len)
-      raw = __ldg(reinterpret_cast<const uint4*>(base + (long long)(row0 + r) * sl + d0));
-    *reinterpret_cast<uint4*>(dst + r * kLdH + d0) = raw;
-  }
-}
-
-// c[n] += A[16 x 64] B for the 64 columns of B, with A's 16 rows at a
-// (row-major, pitch kLdH) and B either [k][n] row-major (FragBRow) or
-// the transpose of a [n][k] row-major tile (FragBCol).
-template <typename FragB>
-__device__ __forceinline__ void mma_16x64(FragC (&c)[4], const bf16* a, const bf16* b) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    FragA fa;
-    wm::load_matrix_sync(fa, a + 16 * kk, kLdH);
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      FragB fb;
-      if constexpr (std::is_same_v<FragB, FragBRow>)
-        wm::load_matrix_sync(fb, b + 16 * kk * kLdH + 16 * n, kLdH);
-      else
-        wm::load_matrix_sync(fb, b + 16 * n * kLdH + 16 * kk, kLdH);
-      wm::mma_sync(c[n], fa, fb, c[n]);
-    }
-  }
-}
-
-__device__ __forceinline__ void zero(FragC (&c)[4]) {
-#pragma unroll
-  for (int n = 0; n < 4; ++n) wm::fill_fragment(c[n], 0.f);
-}
-
-// The warp's 16 x 64 product into its 16 rows of an fp32 tile.
-__device__ __forceinline__ void store_16x64(float* dst, const FragC (&c)[4]) {
-#pragma unroll
-  for (int n = 0; n < 4; ++n) wm::store_matrix_sync(dst + 16 * n, c[n], kLdF, wm::mem_row_major);
-}
-
-// The thread's 8 columns (4tx.. and 32+4tx..) of one fp32 tile row.
-__device__ __forceinline__ void load_row8(const float* row, float (&x)[8]) {
-  const int tx = threadIdx.x & 7;
-  const float4 lo = ld4(row + 4 * tx), hi = ld4(row + 32 + 4 * tx);
-  x[0] = lo.x, x[1] = lo.y, x[2] = lo.z, x[3] = lo.w;
-  x[4] = hi.x, x[5] = hi.y, x[6] = hi.z, x[7] = hi.w;
-}
-
-// The same 8 columns of one bf16 tile row, rounded to bf16.
-__device__ __forceinline__ void store_row8_h(bf16* row, const float (&x)[8]) {
-  const int tx = threadIdx.x & 7;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    row[4 * tx + e] = __float2bfloat16(x[e]);
-    row[32 + 4 * tx + e] = __float2bfloat16(x[4 + e]);
-  }
-}
-
-// The tile column of the thread's e-th value in load_row8's order.
-__device__ __forceinline__ int col8(int e) { return 4 * (threadIdx.x & 7) + (e < 4 ? e : 28 + e); }
 
 // ---------------------------------------------------------------------
 // K1 in bf16 on Hopper (hopper.cuh): wgmma fed by a TMA ring.  A block
@@ -770,189 +677,427 @@ __global__ void __launch_bounds__(kFwdThreads)
   }
 }
 
-// Writes the warp's 16 rows of an fp32 tile to rows [row0, ...) of an
-// fp32 [B, L, H, 64] tensor at dst (offset to its (batch, head)).
-__device__ __forceinline__ void write_rows(float* dst, const float* tile, int row0, int len,
-                                           long long stride) {
-  const int ty = threadIdx.x >> 3;
+// ---------------------------------------------------------------------
+// K2a and K2b in bf16 on Hopper, the same machinery as K1: a block of
+// two consumer warpgroups (64 rows or keys each) and a producer warp
+// that keeps a ring of kBwdStages stages full with TMA loads of 64-row
+// boxes (4-D tensor maps over [B, L, H, D]: q/k/v with the caller's
+// strides, g contiguous; rows at or past len arrive as zeros), a full
+// and an empty mbarrier per stage.  Every product is a wgmma m64n64k16
+// with fp32 accumulators in registers; the softmax work runs on those
+// registers, and p and ds are rounded to bf16 pairs there, which are
+// the A fragments of the register (RS) form of the next product.
+// Neither S, dP, P nor dS touches shared memory.  Scores are in log2
+// units, p = exp2(s scale log2(e) - lse log2(e)) by ex2.approx as in
+// K1, ds = p (dp - delta) scale, with masked scores at kNegInf; rows
+// and keys at or past len and the causal triangle are masked
+// explicitly, not left to the zero fill.
+//
+// K2a (dq): 128 query rows a block.  Q and g once, 64-key tiles of K
+// and V through the ring; per tile S = Q Kᵀ and dP = g Vᵀ (both operands
+// K-major), dS in registers, dQ += dS K (K read MN-major with the
+// transpose bit, as K1 reads V).  Each thread keeps its two rows' lse
+// and delta in registers.
+// K2b (dk, dv): 128 keys a block, K and V resident.  64-row tiles of Q
+// and g, with their lse (pre-multiplied by log2(e)) and delta, through
+// the ring; per tile the transposed products Sᵀ = K Qᵀ and dPᵀ = V gᵀ,
+// Pᵀ and dSᵀ in registers (lse and delta vary along the columns), then
+// dV += Pᵀ g and dK += dSᵀ Q with g and Q read MN-major: the same
+// swizzled Q tile is read K-major for Sᵀ and MN-major for dK.  The
+// producer's 32 lanes load lse and delta (4 H bytes apart, no TMA box)
+// into the stage and arrive on its full barrier beside the TMA bytes.
+//
+// Two kernels as in the JAX package, no atomics: dq, dk and dv are
+// summed in one fixed order, so every run gives the same bits.  The
+// epilogue stages each warpgroup's fp32 accumulators through the freed
+// ring (rows padded to 72 floats) and writes whole 256-byte rows in
+// coalesced 16-byte stores.
+// ---------------------------------------------------------------------
+constexpr int kBwdStages = 3;
+constexpr int kBwdConsumerWarps = 8;
+constexpr int kBwdThreads = 32 * kBwdConsumerWarps + 32;  // + the producer warp
+constexpr int kBwdBlock = 128;                            // rows (K2a) or keys (K2b)
+constexpr int kBoxBytes = kBox * 128;                     // one 64-row box of D = 64
+constexpr int kStatArrivals = 1 + 32;  // K2b's full: the TMA bytes and each producer lane
+constexpr int kEpiPitch = 72;          // fp32 row pitch of the epilogue's staging
+constexpr int kEpiBytes = 64 * kEpiPitch * 4;
+// The ring: two resident tiles of two boxes (K2a: Q and g; K2b: K and
+// V), then per stage two boxes (K2a: K and V; K2b: Q and g); K2b adds
+// per stage 64 lse and 64 delta.
+constexpr int kBwdRing = 4 * kBoxBytes + 2 * kBwdStages * kBoxBytes;
+constexpr int kDqBytes = kBwdRing + 8 * (1 + 2 * kBwdStages) + 1024;
+constexpr int kDkvBytes = kBwdRing + kBwdStages * 2 * 64 * 4 + 8 * (1 + 2 * kBwdStages) + 1024;
+static_assert(4 * kEpiBytes <= kBwdRing, "the epilogue stages its tiles in the freed ring");
+
+struct BwdArgs {
+  const float* lse;    // [B, L, H]
+  const float* delta;  // [B, L, H]
+  float* d0;           // dq (K2a) or dk (K2b), [B, L, H, D] fp32
+  float* d1;           // dv (K2b)
+  int len, heads, causal;
+  float scale;
+  float scale_log2;  // scale * log2(e)
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 pair = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&pair);
+}
+
+// Writes a warpgroup's 64 x 64 fp32 accumulator to rows row0.. of an
+// fp32 [*, L, H, 64] tensor at dst (row stride `stride` floats; rows at
+// or past len left out) through `stage`: the accumulator layout goes in
+// as 8-byte pairs, and each row goes out as 16 coalesced 16-byte stores.
+__device__ __forceinline__ void store_tile(float* stage, const float (&acc)[32], float* dst,
+                                           int row0, int len, long long stride, int wg) {
+  const int t = threadIdx.x & 127, lane = threadIdx.x & 31;
+  const int r = 16 * (t >> 5) + (lane >> 2);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i;
-    if (row0 + r >= len) continue;
-    float x[8];
-    load_row8(tile + r * kLdF, x);
-    store_row8<float>(dst + (long long)(row0 + r) * stride, x, 1.f);
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<float2*>(stage + (r + 8 * hh) * kEpiPitch + 8 * j + 2 * (lane & 3)) =
+          make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+  hopper::bar_sync(2 + wg, 128);
+#pragma unroll
+  for (int c = t; c < 64 * 16; c += 128) {
+    const int row = c >> 4, col = 4 * (c & 15);
+    if (row0 + row < len)
+      *reinterpret_cast<float4*>(dst + (long long)(row0 + row) * stride + col) =
+          *reinterpret_cast<const float4*>(stage + row * kEpiPitch + col);
   }
 }
 
-constexpr int kDqTcBytes = 5 * kTileH * 2 + 2 * kTileF * 4;
-
-// K2a on the tensor cores: s = q kᵀ and dp = g vᵀ per 64-key tile, ds
-// by the row's owners, dq += ds k held in WMMA accumulators.
-__global__ void __launch_bounds__(kThreads) dq_tc_kernel(AttnArgs a) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sG = sQ + kTileH;
-  bf16* sK = sG + kTileH;
-  bf16* sV = sK + kTileH;
-  bf16* sDS = sV + kTileH;
-  float* sS = reinterpret_cast<float*>(sDS + kTileH);
-  float* sDP = sS + kTileF;
-
-  const int b = blockIdx.y / a.heads, h = blockIdx.y % a.heads;
-  const int q0 = blockIdx.x * kT, warp = threadIdx.x >> 5;
-  const int ty = threadIdx.x >> 3;
-  const long long off = (long long)b * a.sb + (long long)h * a.sh;
-  const long long head = ((long long)b * a.len * a.heads + h) * 64;
-  const long long sg = (long long)a.heads * 64;
-  const bf16* q = static_cast<const bf16*>(a.q) + off;
-  const bf16* k = static_cast<const bf16*>(a.k) + off;
-  const bf16* v = static_cast<const bf16*>(a.v) + off;
-  stage_h(sQ, q, a.sl, q0, a.len);
-  stage_h(sG, static_cast<const bf16*>(a.g) + head, sg, q0, a.len);
-
-  float lse[4], delta[4];
+// K2a's dS for one 64-key tile on the accumulators of S and dP (this
+// thread's rows row[0..1], keys col0 + 8 j + e), packed to A fragments.
+template <bool kMask>
+__device__ __forceinline__ void dq_tile_ds(const float (&s)[32], const float (&dp)[32],
+                                           uint32_t (&ds)[16], const float (&lse2)[2],
+                                           const float (&delta)[2], const int (&row)[2],
+                                           int col0, const BwdArgs& a) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    const long long r = ((long long)b * a.len + row) * a.heads + h;
-    lse[i] = row < a.len ? a.lse[r] : 0.f;
-    delta[i] = row < a.len ? a.delta[r] : 0.f;
-  }
-  FragC dq[4];
-  zero(dq);
-
-  const int n_keys = a.causal ? min(a.len, q0 + kT) : a.len;
-  for (int k0 = 0; k0 < n_keys; k0 += kT) {
-    __syncthreads();
-    stage_h(sK, k, a.sl, k0, a.len);
-    stage_h(sV, v, a.sl, k0, a.len);
-    __syncthreads();
-    FragC c[4];
-    zero(c);
-    mma_16x64<FragBCol>(c, sQ + 16 * warp * kLdH, sK);
-    store_16x64(sS + 16 * warp * kLdF, c);
-    zero(c);
-    mma_16x64<FragBCol>(c, sG + 16 * warp * kLdH, sV);
-    store_16x64(sDP + 16 * warp * kLdF, c);
-    __syncwarp();
+  for (int j = 0; j < 8; ++j) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 4 * ty + i, row = q0 + r;
-      float s[8], dp[8];
-      load_row8(sS + r * kLdF, s);
-      load_row8(sDP + r * kLdF, dp);
+    for (int hh = 0; hh < 2; ++hh) {
+      float v[2];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int col = k0 + col8(e);
-        const float x = (col >= a.len || (a.causal && col > row)) ? kNegInf : s[e] * a.scale;
-        s[e] = expf(x - lse[i]) * (dp[e] - delta[i]) * a.scale;
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * hh + e;
+        float x = fmaf(s[i], a.scale_log2, -lse2[hh]);
+        if (kMask && masked(row[hh], col0 + 8 * j + e, a.len, a.causal)) x = kNegInf;
+        v[e] = fast_exp2(x) * (dp[i] - delta[hh]) * a.scale;
       }
-      store_row8_h(sDS + r * kLdH, s);
+      ds[2 * j + hh] = pack_bf16(v[0], v[1]);
     }
-    __syncwarp();
-    mma_16x64<FragBRow>(dq, sDS + 16 * warp * kLdH, sK);
   }
-  store_16x64(sS + 16 * warp * kLdF, dq);
-  __syncwarp();
-  write_rows(a.dq + head, sS, q0, a.len, sg);
 }
 
-constexpr int kDkvTcBytes = 6 * kTileH * 2 + 2 * kTileF * 4 + 2 * kT * 4;
-
-// K2b on the tensor cores.  Warp w owns keys kb0 + 16w..16w+15: sᵀ = k
-// qᵀ and dpᵀ = v gᵀ per 64-row tile, pᵀ and dsᵀ by the keys' owners,
-// dv += pᵀ g and dk += dsᵀ q held in WMMA accumulators.
-__global__ void __launch_bounds__(kThreads) dkv_tc_kernel(AttnArgs a) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + kTileH;
-  bf16* sQ = sV + kTileH;
-  bf16* sG = sQ + kTileH;
-  bf16* sP = sG + kTileH;   // pᵀ: [key][row]
-  bf16* sDS = sP + kTileH;  // dsᵀ: [key][row]
-  float* sS = reinterpret_cast<float*>(sDS + kTileH);
-  float* sDP = sS + kTileF;
-  float* sLse = sDP + kTileF;
-  float* sDelta = sLse + kT;
+__global__ void __launch_bounds__(kBwdThreads)
+    dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tg,
+                    BwdArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hopper::align1024(smem_raw);
+  unsigned char* sQ = smem;
+  unsigned char* sG = sQ + 2 * kBoxBytes;
+  unsigned char* sK = sG + 2 * kBoxBytes;            // [stage]
+  unsigned char* sV = sK + kBwdStages * kBoxBytes;   // [stage]
+  uint64_t* qg_full = reinterpret_cast<uint64_t*>(smem + kBwdRing);
+  uint64_t* full = qg_full + 1;
+  uint64_t* empty = full + kBwdStages;
 
   const int b = blockIdx.y / a.heads, h = blockIdx.y % a.heads;
-  const int kb0 = blockIdx.x * kT, warp = threadIdx.x >> 5;
-  const int ty = threadIdx.x >> 3;
-  const long long off = (long long)b * a.sb + (long long)h * a.sh;
-  const long long head = ((long long)b * a.len * a.heads + h) * 64;
-  const long long sg = (long long)a.heads * 64;
-  const bf16* q = static_cast<const bf16*>(a.q) + off;
-  const bf16* g = static_cast<const bf16*>(a.g) + head;
-  stage_h(sK, static_cast<const bf16*>(a.k) + off, a.sl, kb0, a.len);
-  stage_h(sV, static_cast<const bf16*>(a.v) + off, a.sl, kb0, a.len);
-  FragC dk[4], dv[4];
-  zero(dk);
-  zero(dv);
-
-  for (int q0 = a.causal ? kb0 : 0; q0 < a.len; q0 += kT) {
-    __syncthreads();
-    stage_h(sQ, q, a.sl, q0, a.len);
-    stage_h(sG, g, sg, q0, a.len);
-    if (threadIdx.x < kT) {
-      const int row = q0 + threadIdx.x;
-      const long long r = ((long long)b * a.len + row) * a.heads + h;
-      sLse[threadIdx.x] = row < a.len ? a.lse[r] : 0.f;
-      sDelta[threadIdx.x] = row < a.len ? a.delta[r] : 0.f;
+  const int q0 = blockIdx.x * kBwdBlock;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // Key tiles past the block's last row are skipped when causal.
+  const int n_keys = a.causal ? min(a.len, q0 + kBwdBlock) : a.len;
+  const int tiles = (n_keys + kBox - 1) / kBox;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(qg_full, 1);
+    for (int s = 0; s < kBwdStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kBwdConsumerWarps);
     }
-    __syncthreads();
-    FragC c[4];
-    zero(c);
-    mma_16x64<FragBCol>(c, sK + 16 * warp * kLdH, sQ);
-    store_16x64(sS + 16 * warp * kLdF, c);
-    zero(c);
-    mma_16x64<FragBCol>(c, sV + 16 * warp * kLdH, sG);
-    store_16x64(sDP + 16 * warp * kLdF, c);
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 4 * ty + i;
-      float s[8], dp[8];
-      load_row8(sS + r * kLdF, s);
-      load_row8(sDP + r * kLdF, dp);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int j = col8(e), row = q0 + j;
-        const float x = masked(row, kb0 + r, a.len, a.causal) ? kNegInf : s[e] * a.scale;
-        s[e] = expf(x - sLse[j]);
-        dp[e] = s[e] * (dp[e] - sDelta[j]) * a.scale;
-      }
-      store_row8_h(sP + r * kLdH, s);
-      store_row8_h(sDS + r * kLdH, dp);
-    }
-    __syncwarp();
-    mma_16x64<FragBRow>(dv, sP + 16 * warp * kLdH, sG);
-    mma_16x64<FragBRow>(dk, sDS + 16 * warp * kLdH, sQ);
+    hopper::fence_barrier_init();
   }
-  store_16x64(sS + 16 * warp * kLdF, dk);
-  store_16x64(sDP + 16 * warp * kLdF, dv);
-  __syncwarp();
-  write_rows(a.dk + head, sS, kb0, a.len, sg);
-  write_rows(a.dv + head, sDP, kb0, a.len, sg);
+  __syncthreads();
+
+  if (warp == kBwdConsumerWarps) {  // the producer
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(qg_full, 4 * kBoxBytes);
+      for (int r = 0; r < kBwdBlock; r += kBox) {
+        hopper::tma_load_4d(sQ + r * 128, &tq, qg_full, 0, q0 + r, h, b);
+        hopper::tma_load_4d(sG + r * 128, &tg, qg_full, 0, q0 + r, h, b);
+      }
+      for (int t = 0; t < tiles; ++t) {
+        const int s = t % kBwdStages;
+        if (t >= kBwdStages) hopper::mbar_wait(&empty[s], (t / kBwdStages - 1) & 1);
+        hopper::mbar_arrive_expect_tx(&full[s], 2 * kBoxBytes);
+        hopper::tma_load_4d(sK + s * kBoxBytes, &tk, &full[s], 0, t * kBox, h, b);
+        hopper::tma_load_4d(sV + s * kBoxBytes, &tv, &full[s], 0, t * kBox, h, b);
+      }
+    }
+    return;
+  }
+
+  // A consumer warpgroup: rows q0 + 64 wg ...; this thread's two rows.
+  const int wg = warp >> 2;
+  const int min_row = q0 + wg * 64;
+  const int r0 = min_row + (warp & 3) * 16 + (lane >> 2);
+  const int row[2] = {r0, r0 + 8};
+  float lse2[2], delta[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const long long r = ((long long)b * a.len + row[hh]) * a.heads + h;
+    lse2[hh] = row[hh] < a.len ? a.lse[r] * kLog2e : 0.f;
+    delta[hh] = row[hh] < a.len ? a.delta[r] : 0.f;
+  }
+  const unsigned char* q = sQ + wg * kBoxBytes;
+  const unsigned char* g = sG + wg * kBoxBytes;
+  float dq[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+  const bool edge_rows = min_row + 64 > a.len;
+  hopper::mbar_wait(qg_full, 0);
+
+  for (int t = 0; t < tiles; ++t) {
+    const int s = t % kBwdStages, k0 = t * kBox;
+    hopper::mbar_wait(&full[s], (t / kBwdStages) & 1);
+    // A key tile wholly past this warpgroup's rows (causal) adds nothing.
+    if (!(a.causal && k0 > min_row + 63)) {
+      const unsigned char* kt = sK + s * kBoxBytes;
+      const unsigned char* vt = sV + s * kBoxBytes;
+      float sc[32], dp[32];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_m64n64k16_ss(sc, hopper::desc_sw128(q + 32 * kk, 16, 1024),
+                                   hopper::desc_sw128(kt + 32 * kk, 16, 1024), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_m64n64k16_ss(dp, hopper::desc_sw128(g + 32 * kk, 16, 1024),
+                                   hopper::desc_sw128(vt + 32 * kk, 16, 1024), kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
+
+      uint32_t ds[16];
+      const int col0 = k0 + 2 * (lane & 3);
+      if (edge_rows || k0 + kBox > a.len || (a.causal && k0 + kBox - 1 > min_row))
+        dq_tile_ds<true>(sc, dp, ds, lse2, delta, row, col0, a);
+      else
+        dq_tile_ds<false>(sc, dp, ds, lse2, delta, row, col0, a);
+      hopper::fence_regs(dq);
+      hopper::fence_regs(ds);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t frag[4] = {ds[4 * kk], ds[4 * kk + 1], ds[4 * kk + 2], ds[4 * kk + 3]};
+        hopper::wgmma_m64n64k16_rs<1>(dq, frag, hopper::desc_sw128(kt + 2048 * kk, 1024, 1024),
+                                      1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dq);
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+  }
+
+  hopper::bar_sync(1, 32 * kBwdConsumerWarps);  // every wgmma has read the ring
+  const long long head = ((long long)b * a.len * a.heads + h) * 64;
+  store_tile(reinterpret_cast<float*>(smem) + wg * (kEpiBytes / 4), dq, a.d0 + head, min_row,
+             a.len, (long long)a.heads * 64, wg);
+}
+
+// K2b's Pᵀ and dSᵀ for one 64-row tile on the accumulators of Sᵀ and
+// dPᵀ (this thread's keys key[0..1], rows q0 + c + 8 j + e with lse2
+// and delta from the stage), packed to A fragments.
+template <bool kMask>
+__device__ __forceinline__ void dkv_tile_p_ds(const float (&st)[32], const float (&dpt)[32],
+                                              uint32_t (&p)[16], uint32_t (&ds)[16],
+                                              const float* lse2, const float* delta,
+                                              const int (&key)[2], int q0, int c,
+                                              const BwdArgs& a) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(lse2 + 8 * j + c);
+    const float2 dl = *reinterpret_cast<const float2*>(delta + 8 * j + c);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float pv[2], dsv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * hh + e;
+        float x = fmaf(st[i], a.scale_log2, -(e ? l2.y : l2.x));
+        if (kMask && masked(q0 + c + 8 * j + e, key[hh], a.len, a.causal)) x = kNegInf;
+        pv[e] = fast_exp2(x);
+        dsv[e] = pv[e] * (dpt[i] - (e ? dl.y : dl.x)) * a.scale;
+      }
+      p[2 * j + hh] = pack_bf16(pv[0], pv[1]);
+      ds[2 * j + hh] = pack_bf16(dsv[0], dsv[1]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kBwdThreads)
+    dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tg,
+                     BwdArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hopper::align1024(smem_raw);
+  unsigned char* sK = smem;
+  unsigned char* sV = sK + 2 * kBoxBytes;
+  unsigned char* sQ = sV + 2 * kBoxBytes;            // [stage]
+  unsigned char* sG = sQ + kBwdStages * kBoxBytes;   // [stage]
+  float* sLse = reinterpret_cast<float*>(smem + kBwdRing);  // [stage][64], log2 units
+  float* sDelta = sLse + kBwdStages * 64;                   // [stage][64]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sDelta + kBwdStages * 64);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kBwdStages;
+
+  const int b = blockIdx.y / a.heads, h = blockIdx.y % a.heads;
+  const int kb0 = blockIdx.x * kBwdBlock;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // Query tiles wholly above the block's keys are skipped when causal.
+  const int qstart = a.causal ? kb0 : 0;
+  const int tiles = (a.len - qstart + kBox - 1) / kBox;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < kBwdStages; ++s) {
+      hopper::mbar_init(&full[s], kStatArrivals);
+      hopper::mbar_init(&empty[s], kBwdConsumerWarps);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kBwdConsumerWarps) {  // the producer
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(kv_full, 4 * kBoxBytes);
+      for (int r = 0; r < kBwdBlock; r += kBox) {
+        hopper::tma_load_4d(sK + r * 128, &tk, kv_full, 0, kb0 + r, h, b);
+        hopper::tma_load_4d(sV + r * 128, &tv, kv_full, 0, kb0 + r, h, b);
+      }
+    }
+    for (int t = 0; t < tiles; ++t) {
+      const int s = t % kBwdStages, q0 = qstart + t * kBox;
+      if (t >= kBwdStages) hopper::mbar_wait(&empty[s], (t / kBwdStages - 1) & 1);
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(&full[s], 2 * kBoxBytes);
+        hopper::tma_load_4d(sQ + s * kBoxBytes, &tq, &full[s], 0, q0, h, b);
+        hopper::tma_load_4d(sG + s * kBoxBytes, &tg, &full[s], 0, q0, h, b);
+      }
+      for (int i = lane; i < kBox; i += 32) {
+        const int row = q0 + i;
+        const long long r = ((long long)b * a.len + row) * a.heads + h;
+        sLse[s * kBox + i] = row < a.len ? a.lse[r] * kLog2e : 0.f;
+        sDelta[s * kBox + i] = row < a.len ? a.delta[r] : 0.f;
+      }
+      hopper::mbar_arrive(&full[s]);  // after this lane's stores
+    }
+    return;
+  }
+
+  // A consumer warpgroup: keys kb0 + 64 wg ...; this thread's two keys.
+  const int wg = warp >> 2;
+  const int min_key = kb0 + wg * 64;
+  const int k_0 = min_key + (warp & 3) * 16 + (lane >> 2);
+  const int key[2] = {k_0, k_0 + 8};
+  const unsigned char* kt = sK + wg * kBoxBytes;
+  const unsigned char* vt = sV + wg * kBoxBytes;
+  float dk[32], dv[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+  const bool edge_keys = min_key + 64 > a.len;
+  hopper::mbar_wait(kv_full, 0);
+
+  for (int t = 0; t < tiles; ++t) {
+    const int s = t % kBwdStages, q0 = qstart + t * kBox;
+    hopper::mbar_wait(&full[s], (t / kBwdStages) & 1);
+    // A row tile wholly above this warpgroup's keys (causal) adds nothing.
+    if (!(a.causal && q0 + kBox - 1 < min_key)) {
+      const unsigned char* q = sQ + s * kBoxBytes;
+      const unsigned char* g = sG + s * kBoxBytes;
+      float st[32], dpt[32];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_m64n64k16_ss(st, hopper::desc_sw128(kt + 32 * kk, 16, 1024),
+                                   hopper::desc_sw128(q + 32 * kk, 16, 1024), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_m64n64k16_ss(dpt, hopper::desc_sw128(vt + 32 * kk, 16, 1024),
+                                   hopper::desc_sw128(g + 32 * kk, 16, 1024), kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(st);
+      hopper::fence_regs(dpt);
+
+      uint32_t p[16], ds[16];
+      const int c = 2 * (lane & 3);
+      const float* lse2 = sLse + s * kBox;
+      const float* delta = sDelta + s * kBox;
+      if (edge_keys || q0 + kBox > a.len || (a.causal && min_key + 63 > q0))
+        dkv_tile_p_ds<true>(st, dpt, p, ds, lse2, delta, key, q0, c, a);
+      else
+        dkv_tile_p_ds<false>(st, dpt, p, ds, lse2, delta, key, q0, c, a);
+      hopper::fence_regs(dk);
+      hopper::fence_regs(dv);
+      hopper::fence_regs(p);
+      hopper::fence_regs(ds);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t frag[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
+        hopper::wgmma_m64n64k16_rs<1>(dv, frag, hopper::desc_sw128(g + 2048 * kk, 1024, 1024),
+                                      1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t frag[4] = {ds[4 * kk], ds[4 * kk + 1], ds[4 * kk + 2], ds[4 * kk + 3]};
+        hopper::wgmma_m64n64k16_rs<1>(dk, frag, hopper::desc_sw128(q + 2048 * kk, 1024, 1024),
+                                      1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dk);
+      hopper::fence_regs(dv);
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+  }
+
+  hopper::bar_sync(1, 32 * kBwdConsumerWarps);  // every wgmma has read the ring
+  const long long head = ((long long)b * a.len * a.heads + h) * 64;
+  float* stage = reinterpret_cast<float*>(smem) + wg * (kEpiBytes / 2);
+  store_tile(stage, dk, a.d0 + head, min_key, a.len, (long long)a.heads * 64, wg);
+  store_tile(stage + kEpiBytes / 4, dv, a.d1 + head, min_key, a.len, (long long)a.heads * 64, wg);
 }
 
 enum Which { kFwd, kDq, kDkv };
 
-// K1 in bf16: a tensor map per operand over [B, L, H, 64] with the
-// shared strides, boxes of 64 rows; the grid of 128-row blocks.
-int launch_fwd_wgmma(const AttnArgs& a, cudaStream_t stream) {
-  static bool configured[hopper::kMaxDevices] = {};
+// A bf16 tensor map over a [B, L, H, 64] operand with (batch, length,
+// head) strides sb, sl, sh in elements: boxes of 64 rows of one head.
+bool encode_rows(CUtensorMap* map, const void* base, const AttnArgs& a, long long sb,
+                 long long sl, long long sh) {
   const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(a.len),
                               static_cast<cuuint64_t>(a.heads),
                               static_cast<cuuint64_t>(a.batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(a.sl) * 2,
-                                 static_cast<cuuint64_t>(a.sh) * 2,
-                                 static_cast<cuuint64_t>(a.sb) * 2};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sl) * 2,
+                                 static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
   const cuuint32_t box[4] = {64, kBox, 1, 1};
+  return hopper::encode_bf16(map, base, dims, strides, box);
+}
+
+// K1 in bf16: a tensor map per operand; the grid of 128-row blocks.
+int launch_fwd_wgmma(const AttnArgs& a, cudaStream_t stream) {
+  static bool configured[hopper::kMaxDevices] = {};
   CUtensorMap tq, tk, tv;
-  if (!hopper::encode_bf16(&tq, a.q, dims, strides, box) ||
-      !hopper::encode_bf16(&tk, a.k, dims, strides, box) ||
-      !hopper::encode_bf16(&tv, a.v, dims, strides, box))
+  if (!encode_rows(&tq, a.q, a, a.sb, a.sl, a.sh) || !encode_rows(&tk, a.k, a, a.sb, a.sl, a.sh) ||
+      !encode_rows(&tv, a.v, a, a.sb, a.sl, a.sh))
     return hopper::kEncodeFailed;
   const int rc = hopper::allow_smem(fwd_wgmma_kernel, kFwdBytes, configured);
   if (rc) return rc;
@@ -963,8 +1108,28 @@ int launch_fwd_wgmma(const AttnArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches K1, K2a or K2b: the tensor-core kernels for bf16, the FMA
-// kernels for fp32.
+// K2a or K2b in bf16: tensor maps over q, k, v (shared strides) and the
+// contiguous g; the grid of 128-row (K2a) or 128-key (K2b) blocks.
+template <typename K>
+int launch_bwd_wgmma(K kernel, int bytes, const AttnArgs& a, cudaStream_t stream,
+                     bool (&configured)[hopper::kMaxDevices]) {
+  const long long sl_g = (long long)a.heads * 64;
+  CUtensorMap tq, tk, tv, tg;
+  if (!encode_rows(&tq, a.q, a, a.sb, a.sl, a.sh) || !encode_rows(&tk, a.k, a, a.sb, a.sl, a.sh) ||
+      !encode_rows(&tv, a.v, a, a.sb, a.sl, a.sh) ||
+      !encode_rows(&tg, a.g, a, sl_g * a.len, sl_g, 64))
+    return hopper::kEncodeFailed;
+  const int rc = hopper::allow_smem(kernel, bytes, configured);
+  if (rc) return rc;
+  const BwdArgs f{a.lse,   a.delta,  a.dq != nullptr ? a.dq : a.dk, a.dv, a.len, a.heads,
+                  a.causal, a.scale, a.scale * kLog2e};
+  kernel<<<dim3((a.len + kBwdBlock - 1) / kBwdBlock, a.batch * a.heads), kBwdThreads, bytes,
+           stream>>>(tq, tk, tv, tg, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches K1, K2a or K2b: the wgmma kernels for bf16, the FMA kernels
+// for fp32.
 template <Which kWhich>
 struct LaunchAttention {
   AttnArgs a;
@@ -987,9 +1152,9 @@ struct LaunchAttention {
     if constexpr (kTc && kWhich == kFwd) {
       return launch_fwd_wgmma(a, stream);
     } else if constexpr (kTc && kWhich == kDq) {
-      return launch(dq_tc_kernel, kT, kDqTcBytes, configured);
+      return launch_bwd_wgmma(dq_wgmma_kernel, kDqBytes, a, stream, configured);
     } else if constexpr (kTc) {
-      return launch(dkv_tc_kernel, kT, kDkvTcBytes, configured);
+      return launch_bwd_wgmma(dkv_wgmma_kernel, kDkvBytes, a, stream, configured);
     } else if constexpr (kWhich == kFwd) {
       return launch(fwd_kernel, kBQ, 0, configured);
     } else if constexpr (kWhich == kDq) {

@@ -1,7 +1,7 @@
-// Hopper (sm_90a) building blocks shared by the bf16 kernels K1
-// (flash_attention.cu) and K4 (collective_matmul.cu): TMA tensor maps
-// and bulk tensor loads, mbarrier rings, and wgmma on 128-byte-swizzled
-// shared-memory tiles.
+// Hopper (sm_90a) building blocks shared by the bf16 kernels K1, K2a
+// and K2b (flash_attention.cu) and K4 (collective_matmul.cu): TMA tensor
+// maps and bulk tensor loads, mbarrier rings, named barriers, and wgmma
+// on 128-byte-swizzled shared-memory tiles.
 //
 // Tensor maps are encoded on the host by cuTensorMapEncodeTiled, found
 // through the runtime's cudaGetDriverEntryPoint (so the library links no
@@ -170,6 +170,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (global_ns() - t0 > kWaitLimitNs) __trap();
 }
 
+// Barrier `id` (1..15; 0 is __syncthreads) over `count` threads, a
+// multiple of 32: syncs a subset of the block's warps.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // TMA: the box at coordinates (c0, c1[, c2, c3]) (innermost first) of
 // map into shared memory at dst, completing `bytes` on bar.
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
@@ -261,6 +267,28 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a, 
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB));
+}
+
+// d[32] (+)= A[64 x 16] B[16 x 64], both from shared memory, both
+// K-major.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
 // d[32] (+)= A[64 x 16] B[16 x 64], A from registers (a[4], bf16 pairs),

@@ -93,6 +93,7 @@ import importlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -105,6 +106,7 @@ import torch.multiprocessing as mp
 import autodist_tpu_torch as port
 from autodist_tpu_torch import testing
 from autodist_tpu_torch.kernel import a2a_ring as ar
+from autodist_tpu_torch.kernel import build
 from autodist_tpu_torch.kernel import collective_matmul as cm
 from autodist_tpu_torch.kernel import flash_decode as fd
 from autodist_tpu_torch.kernel import flash_prefill as fp
@@ -171,6 +173,8 @@ KERNELS.update({
 SERVING_KERNELS = ("flash_decode", "flash_decode_paged", "flash_prefill_paged")
 TRAINING_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                     "flash_attention_bwd_dkv")
+# K2a and K2b share one library call, SDPA's backward (the K2 pair).
+PAIR = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 TP_KERNELS = ("quant_ring_hop", "collective_matmul_hop")
 MOE_KERNELS = ("a2a_ring_hop",)
 
@@ -432,8 +436,10 @@ def attention_bytes_flops(name, B, L, H, D, esize, causal):
 
 def attention_library(name, q, k, v, g, causal):
     """``scaled_dot_product_attention`` computing the same function:
-    its forward for K1, its autograd backward for K2a and K2b (the
-    forward is run once outside the timed call)."""
+    its forward for K1; for K2a and K2b, which no PyTorch call computes
+    apart, its autograd backward (dq, dk and dv together, with its own
+    delta pass; the forward is run once outside the timed call), the
+    yardstick of the pair."""
     import torch.nn.functional as F
 
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
@@ -447,11 +453,84 @@ def attention_library(name, q, k, v, g, causal):
                                        retain_graph=True)
 
 
+def backward_pair(q, k, v, g, causal, dtype, library_ms):
+    """The K2 pair: the port's whole backward as training runs it,
+    ``torch.autograd.grad`` through ``flash_attention`` (delta, K2a, K2b
+    and the casts of dq, dk, dv to the input dtype; the forward runs
+    once outside the timed call), against SDPA's autograd backward, with
+    the bound of K2a's and K2b's bytes and flops together; and the part
+    outside the two kernels (delta and the casts), timed and counted
+    alone."""
+    B, L, H, D = q.shape
+    x = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*x, causal=causal)
+    whole = lambda: torch.autograd.grad(out, x, g,      # noqa: E731
+                                        retain_graph=True)
+    o = out.detach()
+    grads = [torch.empty(q.shape, dtype=torch.float32, device=q.device)
+             for _ in range(3)]
+
+    def outside():
+        return ((g.float() * o.float()).sum(-1),
+                *(t.to(dtype) for t in grads))
+
+    esize = torch.empty((), dtype=dtype).element_size()
+    nbytes, flops = map(sum, zip(*(
+        attention_bytes_flops(name, B, L, H, D, esize, causal)
+        for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"))))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    rec = {"ms": time_ms(whole), "library_ms": library_ms,
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "outside_ms": time_ms(outside)}
+    for key, fn in (("launches", whole), ("outside_launches", outside)):
+        prof = device_profile(fn)
+        rec[key] = None if prof is None else round(prof[2])
+    return rec, flops
+
+
+# The bf16 attention kernels in kernel/csrc/flash_attention.cu.
+WGMMA_KERNELS = {"flash_attention_fwd": "fwd_wgmma_kernel",
+                 "flash_attention_bwd_dq": "dq_wgmma_kernel",
+                 "flash_attention_bwd_dkv": "dkv_wgmma_kernel"}
+
+
+def ptxas_registers():
+    """Registers and spill-store bytes a thread of each bf16 attention
+    kernel takes, from ``nvcc -Xptxas -v`` on its source with the
+    build's flags."""
+    src = build.CSRC_DIR / "flash_attention.cu"
+    with tempfile.TemporaryDirectory() as tmp:
+        out = subprocess.run(
+            [build.find_nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+             str(src), "-o", os.path.join(tmp, "fa.o")],
+            capture_output=True, text=True, check=True)
+    found, name = {}, None
+    for line in (out.stdout + out.stderr).splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if entry:
+            name = next((n for n, k in WGMMA_KERNELS.items()
+                         if f"{len(k)}{k}E" in entry.group(1)), None)
+        elif name and spill:
+            found.setdefault(name, {})["spill_bytes"] = int(spill.group(1))
+        elif name and regs:
+            found.setdefault(name, {})["registers"] = int(regs.group(1))
+    check(set(found) == set(WGMMA_KERNELS),
+          f"ptxas reported {sorted(found)}, expected {sorted(WGMMA_KERNELS)}")
+    print("phase 1 ptxas flash_attention.cu: " + "; ".join(
+        f"{WGMMA_KERNELS[n]} {r['registers']} registers, {r['spill_bytes']} "
+        f"bytes spill stores" for n, r in found.items()), flush=True)
+    return found
+
+
 def phase_attention_kernels(record):
     """K1, K2a and K2b against their plain versions at BERT-base shapes
     and at ragged lengths, causal and not, both dtypes; timed at
     BERT-base.  q, k and v are slices of one [B, L, 3, H, D] projection,
     as the model hands them over."""
+    record["ptxas"] = ptxas_registers()
     gen = torch.Generator(device="cuda").manual_seed(1)
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOLERANCE[dtype]
@@ -483,6 +562,9 @@ def phase_attention_kernels(record):
                         lambda: fa.flash_attention_bwd_dkv_plain(
                             q, k, v, g, lse, delta, **kw)),
                 }
+                if L == BERT_SEQ:
+                    pair_library = time_ms(attention_library(
+                        "flash_attention_bwd_dq", q, k, v, g, causal))
                 for name, (kernel, plain) in calls.items():
                     got, ref = kernel(), plain()
                     torch.cuda.synchronize()
@@ -510,8 +592,10 @@ def phase_attention_kernels(record):
                             "max_abs_err": max_err,
                             "ms": time_ms(kernel),
                             "plain_ms": time_ms(plain),
-                            "library_ms": time_ms(attention_library(
-                                name, q, k, v, g, causal)),
+                            "library_ms": (
+                                pair_library if name in PAIR else
+                                time_ms(attention_library(
+                                    name, q, k, v, g, causal))),
                             "bound_ms": max(t_bytes, t_ops) * 1e3,
                             "bound_by": ("bytes" if t_bytes >= t_ops
                                          else "operations"),
@@ -520,6 +604,21 @@ def phase_attention_kernels(record):
                         if not causal:          # the training path's case
                             record[(name, dtype)] = rec
                     print(line, flush=True)
+                if L == BERT_SEQ:
+                    rec, flops = backward_pair(q, k, v, g, causal, dtype,
+                                               pair_library)
+                    print(f"phase 1 K2 pair {str(dtype)[6:]} [{B},{L},{H},"
+                          f"{D}] causal={causal}: the port's backward "
+                          f"{rec['ms']:.4f} ms in {rec['launches']} "
+                          f"launches ({tflop_rate(flops, rec['ms']):.1f} "
+                          f"TFLOP/s), of which delta and casts "
+                          f"{rec['outside_ms']:.4f} ms in "
+                          f"{rec['outside_launches']} launches; SDPA "
+                          f"backward {rec['library_ms']:.4f} ms; bound "
+                          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})",
+                          flush=True)
+                    if not causal:
+                        record[("K2 pair", dtype)] = rec
                 del qkv, q, k, v, g, out, lse, delta, calls
         torch.cuda.empty_cache()
 
@@ -743,15 +842,46 @@ def phase_parity():
 PROFILED = "chip_smoke.profiled_window"
 
 
+def profile_summary(intervals, span, k=1):
+    """Per-step summary of a profiled window of ``k`` steps.
+
+    ``intervals``: ``(name, start_us, end_us)`` of every device launch
+    (kernels, copies, memsets); ``span``: the window's ``(start_us,
+    end_us)``.  Each interval is clipped to the window, and one that lies
+    wholly outside it is left out.  Returns, every field divided by
+    ``k``: the window's wall ms, its device-busy ms (the union of the
+    intervals, so launches that overlap on several streams count once),
+    the launches, the device-to-host copies, and the six names with the
+    most device time as ``"name xN t ms"``; ``None`` when no device time
+    lies in the window."""
+    start, end = span
+    clipped = [(name, max(lo, start), min(hi, end))
+               for name, lo, hi in intervals if lo <= end and hi >= start]
+    busy_us, covered = 0.0, start
+    for _, lo, hi in sorted(clipped, key=lambda c: c[1:]):
+        lo = max(lo, covered)
+        if hi > lo:
+            busy_us += hi - lo
+            covered = hi
+    if not busy_us:
+        return None
+    by_name = {}
+    for name, lo, hi in clipped:
+        n, us = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, us + hi - lo)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    d2h = sum(n for name, (n, _) in by_name.items()
+              if name.startswith("Memcpy DtoH"))
+    return ((end - start) / 1e3 / k, busy_us / 1e3 / k, len(clipped) / k,
+            d2h / k, "; ".join(f"{name[:60]} x{n / k:g} {us / 1e3 / k:.3f} ms"
+                               for name, (n, us) in top))
+
+
 def device_profile(run, k=1):
-    """Run ``run()`` once under ``torch.profiler`` and return, divided by
-    ``k``: the profiled window's wall ms, its device-busy ms, and its
-    device launches (kernels, copies, memsets); then the device-to-host
-    copies and the top six by device time.  Busy time is the union of
-    the launches' intervals over every stream, inside the window, so
-    streams that overlap count once and annotation ranges (``nccl:*``,
-    which repeat their kernels' time) not at all: it never exceeds the
-    wall.  ``None`` where the profiler records no device time."""
+    """Run ``run()`` (``k`` steps) once under ``torch.profiler`` and
+    return ``profile_summary`` of its device launches, per step.
+    Annotation ranges (``nccl:*``, which repeat their kernels' time) are
+    left out, so busy time never exceeds the wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -763,27 +893,10 @@ def device_profile(run, k=1):
     events = prof.events()
     span = next(e.time_range for e in events
                 if e.name == PROFILED and e.device_type == DeviceType.CPU)
-    acts = [e for e in events
-            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    busy_us, covered = 0.0, span.start
-    for lo, hi in sorted((e.time_range.start, e.time_range.end)
-                         for e in acts):
-        lo, hi = max(lo, covered), min(hi, span.end)
-        if hi > lo:
-            busy_us += hi - lo
-            covered = hi
-    if not busy_us:
-        return None
-    by_name = {}
-    for e in acts:
-        n, us = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
-    d2h = sum(n for name, (n, _) in by_name.items()
-              if name.startswith("Memcpy DtoH"))
-    return (span.elapsed_us() / 1e3 / k, busy_us / 1e3 / k, len(acts) / k,
-            d2h / k, "; ".join(f"{name[:60]} x{n} {us / 1e3:.3f} ms"
-                               for name, (n, us) in top))
+    return profile_summary(
+        [(e.name, e.time_range.start, e.time_range.end) for e in events
+         if e.device_type == DeviceType.CUDA and not e.is_user_annotation],
+        (span.start, span.end), k)
 
 
 def profile_window(engine, n_active):
@@ -972,8 +1085,8 @@ def phase_train():
         prof_ms, busy, n_launch, _, top = prof
         print(f"phase 5 step profile: device busy {busy:.2f} ms of the "
               f"profiled step's {prof_ms:.2f} ms ({busy / prof_ms:.1%}), "
-              f"{n_launch:.0f} kernel launches per step; top: {top}",
-              flush=True)
+              f"{n_launch:.0f} kernel launches per step; top per step: "
+              f"{top}", flush=True)
     runner.close()
     del runner, window
     torch.cuda.empty_cache()
@@ -1159,7 +1272,7 @@ def phase_tp_window():
                 line += (f"; rank 0 profile: device busy {busy:.2f} ms of "
                          f"the profiled step's {prof_ms:.2f} ms "
                          f"({busy / prof_ms:.1%}), {n_launch:.0f} kernel "
-                         f"launches per step; top: {top}")
+                         f"launches per step; top per step: {top}")
             print(line, flush=True)
             if backend == "gloo":
                 for name, n in r0["launches"].items():
@@ -1320,7 +1433,7 @@ def phase_moe_window():
                 line += (f"; rank 0 profile: device busy {busy:.2f} ms of "
                          f"the profiled step's {prof_ms:.2f} ms "
                          f"({busy / prof_ms:.1%}), {n_launch:.0f} kernel "
-                         f"launches per step; top: {top}")
+                         f"launches per step; top per step: {top}")
             print(line, flush=True)
             if backend == "gloo":
                 for name in MOE_KERNELS:
@@ -1380,6 +1493,12 @@ def main(argv=None) -> int:
                 "dtype": str(dtype)[6:]})
             if (name, dtype, 512) in record:     # K4's out projection
                 kernels[-1]["k512"] = record[(name, dtype, 512)]
+            kernels[-1].update(record["ptxas"].get(name, {}))
+            if name in PAIR:
+                kernels[-1]["library"] = (
+                    "SDPA's autograd backward (dq, dk, dv), shared by "
+                    "K2a and K2b: compare the pair")
+                kernels[-1]["pair"] = record[("K2 pair", dtype)]
         print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

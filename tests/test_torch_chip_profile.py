@@ -1,0 +1,66 @@
+"""``chip_smoke.profile_summary``: the per-step summary of a profiled
+window, held on the CPU with hand-made device intervals.
+
+``chip_smoke.py`` prints it for phases 3, 5, 7 and 9 on the card; every
+field there must be per step (or per window), the top list included.
+"""
+import os
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+import chip_smoke  # noqa: E402
+
+
+def test_overlapping_intervals_count_once():
+    """Two streams busy at once count once in the busy time; each launch
+    keeps its own time in the per-name totals."""
+    got = chip_smoke.profile_summary(
+        [("gemm", 0.0, 400.0), ("nccl_kernel", 100.0, 300.0),
+         ("gemm", 500.0, 600.0)], (0.0, 1000.0))
+    wall_ms, busy_ms, n_launch, d2h, top = got
+    assert (wall_ms, busy_ms, n_launch, d2h) == (1.0, 0.5, 3, 0)
+    assert top == "gemm x2 0.500 ms; nccl_kernel x1 0.200 ms"
+
+
+def test_intervals_are_clipped_to_the_window():
+    """A launch that straddles an edge counts only its part inside the
+    window, in the busy time and in its name's total; one wholly outside
+    counts nowhere."""
+    got = chip_smoke.profile_summary(
+        [("before", -300.0, -100.0), ("edge", -100.0, 200.0),
+         ("Memcpy DtoH (Device -> Pageable)", 900.0, 1200.0),
+         ("after", 1100.0, 1500.0)], (0.0, 1000.0))
+    wall_ms, busy_ms, n_launch, d2h, top = got
+    assert (wall_ms, busy_ms, n_launch, d2h) == (1.0, 0.3, 2, 1)
+    assert top == ("edge x1 0.200 ms; "
+                   "Memcpy DtoH (Device -> Pageable) x1 0.100 ms")
+
+
+def test_every_field_is_divided_by_k():
+    """A window of k = 3 identical steps gives one step's numbers in
+    every field: wall, busy, launches, copies and the top list."""
+    step = [("dkv_kernel", 0.0, 300.0), ("dq_kernel", 300.0, 500.0),
+            ("Memcpy DtoH (Device -> Pageable)", 600.0, 650.0)]
+    window = [(name, lo + 1000.0 * i, hi + 1000.0 * i)
+              for i in range(3) for name, lo, hi in step]
+    one = chip_smoke.profile_summary(step, (0.0, 1000.0))
+    three = chip_smoke.profile_summary(window, (0.0, 3000.0), k=3)
+    assert one[:4] == pytest.approx(three[:4])
+    assert three[:4] == pytest.approx((1.0, 0.55, 3, 1))
+    assert three[4] == one[4] == (
+        "dkv_kernel x1 0.300 ms; dq_kernel x1 0.200 ms; "
+        "Memcpy DtoH (Device -> Pageable) x1 0.050 ms")
+
+
+def test_top_list_keeps_six_names_and_no_device_time_gives_none():
+    many = [(f"k{i}", 10.0 * i, 10.0 * i + i + 1) for i in range(8)]
+    top = chip_smoke.profile_summary(many, (0.0, 100.0))[4]
+    assert [t.split()[0] for t in top.split("; ")] == [
+        "k7", "k6", "k5", "k4", "k3", "k2"]
+    assert chip_smoke.profile_summary([], (0.0, 100.0)) is None
+    assert chip_smoke.profile_summary([("k", 200.0, 300.0)],
+                                      (0.0, 100.0)) is None

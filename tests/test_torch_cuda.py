@@ -354,6 +354,111 @@ def test_cuda_flash_attention_fwd_bf16_tile_edges(cuda, L, causal, layout):
     torch.testing.assert_close(lse, ref_lse, atol=1e-2, rtol=1e-2)
 
 
+def _bwd_bf16(q, k, v, go, causal, scale=0.125):
+    """K2a and K2b in bf16 with lse and delta from the plain forward,
+    and the plain versions of both on the same inputs."""
+    before = [fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches]
+    out, lse = fa.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                            scale=scale)
+    delta = (go.float() * out.float()).sum(-1)
+    kw = dict(causal=causal, scale=scale)
+    got = ((fa.flash_attention_bwd_dq(q, k, v, go, lse, delta, **kw),)
+           + fa.flash_attention_bwd_dkv(q, k, v, go, lse, delta, **kw))
+    torch.cuda.synchronize()
+    assert [fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches] == [n + 1 for n in before]
+    want = ((fa.flash_attention_bwd_dq_plain(q, k, v, go, lse, delta, **kw),)
+            + fa.flash_attention_bwd_dkv_plain(q, k, v, go, lse, delta, **kw))
+    return got, want
+
+
+@pytest.mark.parametrize("layout", ["projection", "separate"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("L", [1, 63, 65, 127, 128, 129, 255, 512])
+def test_cuda_flash_attention_bwd_bf16_tile_edges(cuda, L, causal, layout):
+    """K2a and K2b in bf16 (the wgmma kernels: 128 rows or keys a block,
+    64-row tiles through the ring) against their plain versions at
+    lengths on and around their tiles, on q/k/v sliced from one
+    [B, L, 3, H, D] projection and on three contiguous tensors; fp32 dq,
+    dk and dv at atol = rtol = 1e-2."""
+    g = torch.Generator(device=cuda).manual_seed(L)
+    if layout == "projection":
+        q, k, v = torch.randn((2, L, 3, 3, 64), generator=g,
+                              device=cuda).bfloat16().unbind(2)
+    else:
+        q, k, v = (torch.randn((2, L, 3, 64), generator=g,
+                               device=cuda).bfloat16() for _ in range(3))
+    go = torch.randn((2, L, 3, 64), generator=g, device=cuda).bfloat16()
+    got, want = _bwd_bf16(q, k, v, go, causal)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and a.shape == q.shape
+        torch.testing.assert_close(a, b, atol=1e-2, rtol=1e-2)
+
+
+def test_cuda_flash_attention_bwd_bf16_patterned(cuda):
+    """K2a and K2b in bf16 on one-hot rows, so that a wrong shared-memory
+    descriptor (K-major for Q, g, K and V in the score products,
+    MN-major for g, Q and K in the gradient products) or a wrong head or
+    row coordinate moves a known element: q, k and v rows are one-hot
+    (three permutations of the 64 dims), g is one 1 at (row 150, head 1,
+    dim 37).  Then only row 150 of head 1 of dq, only dim 37 of dv and
+    only q[150]'s dim of dk can be non-zero, exactly; the values are
+    held to the plain versions at 1e-2.  A scale of 4 makes the
+    probabilities peaked."""
+    L, i0, d0 = 192, 150, 37
+    rows = torch.arange(L, device=cuda)
+
+    def one_hot(dims):
+        x = torch.zeros(1, L, 2, 64, device=cuda)
+        x[0, rows, :, dims] = 1
+        return x.bfloat16()
+
+    q = one_hot((3 * rows + 2) % 64)
+    k = one_hot((5 * rows + 3) % 64)
+    v = one_hot((7 * rows + 1) % 64)
+    go = torch.zeros(1, L, 2, 64, device=cuda, dtype=torch.bfloat16)
+    go[0, i0, 1, d0] = 1
+    (dq, dk, dv), want = _bwd_bf16(q, k, v, go, False, scale=4.0)
+    for a, b in zip((dq, dk, dv), want):
+        assert torch.equal(a != 0, b != 0)
+        torch.testing.assert_close(a, b, atol=1e-2, rtol=1e-2)
+    assert dq[0, i0, 1].abs().sum() > 0
+    assert dq.abs().sum() == dq[0, i0, 1].abs().sum()
+    assert torch.equal((dv != 0).nonzero()[:, 2:].unique(dim=0),
+                       torch.tensor([[1, d0]], device=cuda))
+    assert torch.equal((dk != 0).nonzero()[:, 2:].unique(dim=0),
+                       torch.tensor([[1, (3 * i0 + 2) % 64]], device=cuda))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_cuda_flash_attention_with_lse_grads_match_the_cpu(cuda, causal):
+    """``flash_attention_with_lse`` in bf16 with cotangents on both
+    ``out`` and ``lse`` (the ring-merge path: the ``lse`` cotangent
+    folds into delta as ``delta - g_lse``) through K1, K2a and K2b on
+    the card, against the same inputs on the CPU, where the wrappers run
+    their plain versions; atol = rtol = 1e-2."""
+    rng = np.random.RandomState(3)
+    q, k, v, go = (torch.from_numpy(rng.randn(2, 100, 3, 64)).float()
+                   for _ in range(4))
+    g_lse = torch.from_numpy(rng.randn(2, 100, 3)).float()
+
+    def grads(device):
+        x = [t.to(device, torch.bfloat16).requires_grad_()
+             for t in (q, k, v)]
+        out, lse = fa.flash_attention_with_lse(*x, causal=causal)
+        loss = ((out.float() * go.to(device)).sum()
+                + (lse * g_lse.to(device)).sum())
+        return [t.float().cpu() for t in torch.autograd.grad(loss, x)]
+
+    before = [w.launches for w in ATTENTION]
+    got = grads(cuda)
+    torch.cuda.synchronize()
+    assert [w.launches for w in ATTENTION] == [n + 1 for n in before]
+    for a, b in zip(got, grads("cpu")):
+        torch.testing.assert_close(a, b, atol=1e-2, rtol=1e-2)
+
+
 # --------------------------------------------------------------------------- #
 # K8: the quantized all-to-all ring's hop
 # --------------------------------------------------------------------------- #
