@@ -714,20 +714,33 @@ __global__ void __launch_bounds__(kFwdThreads)
 // coalesced 16-byte stores.
 // ---------------------------------------------------------------------
 constexpr int kBwdStages = 3;
-constexpr int kBwdConsumerWarps = 8;
-constexpr int kBwdThreads = 32 * kBwdConsumerWarps + 32;  // + the producer warp
-constexpr int kBwdBlock = 128;                            // rows (K2a) or keys (K2b)
-constexpr int kBoxBytes = kBox * 128;                     // one 64-row box of D = 64
+constexpr int kBoxBytes = kBox * 128;  // one 64-row box of D = 64
 constexpr int kStatArrivals = 1 + 32;  // K2b's full: the TMA bytes and each producer lane
 constexpr int kEpiPitch = 72;          // fp32 row pitch of the epilogue's staging
 constexpr int kEpiBytes = 64 * kEpiPitch * 4;
-// The ring: two resident tiles of two boxes (K2a: Q and g; K2b: K and
-// V), then per stage two boxes (K2a: K and V; K2b: Q and g); K2b adds
-// per stage 64 lse and 64 delta.
-constexpr int kBwdRing = 4 * kBoxBytes + 2 * kBwdStages * kBoxBytes;
-constexpr int kDqBytes = kBwdRing + 8 * (1 + 2 * kBwdStages) + 1024;
-constexpr int kDkvBytes = kBwdRing + kBwdStages * 2 * 64 * 4 + 8 * (1 + 2 * kBwdStages) + 1024;
-static_assert(4 * kEpiBytes <= kBwdRing, "the epilogue stages its tiles in the freed ring");
+// Consumer warpgroups a block (each 64 rows for K2a, 64 keys for K2b).
+constexpr int kDqGroups = 1;
+constexpr int kDkvGroups = 1;
+
+// A block of kGroups consumer warpgroups and a producer warp.  Its ring:
+// two resident tiles of kGroups boxes (K2a: Q and g; K2b: K and V),
+// then per stage two boxes (K2a: K and V; K2b: Q and g); K2b adds per
+// stage 64 lse and 64 delta.  The epilogue stages 1 (K2a) or 2 (K2b)
+// fp32 tiles per warpgroup in the freed ring.
+template <int kGroups>
+struct BwdShape {
+  static constexpr int kBlock = 64 * kGroups;  // rows (K2a) or keys (K2b)
+  static constexpr int kConsumerWarps = 4 * kGroups;
+  static constexpr int kThreads = 32 * kConsumerWarps + 32;
+  static constexpr int kResident = kGroups * kBoxBytes;  // one resident tile
+  static constexpr int kRing = 2 * kResident + 2 * kBwdStages * kBoxBytes;
+  static constexpr int kBarriers = 8 * (1 + 2 * kBwdStages);
+  static_assert(2 * kGroups * kEpiBytes <= kRing, "the epilogue fits the freed ring");
+};
+using DqShape = BwdShape<kDqGroups>;
+using DkvShape = BwdShape<kDkvGroups>;
+constexpr int kDqBytes = DqShape::kRing + DqShape::kBarriers + 1024;
+constexpr int kDkvBytes = DkvShape::kRing + kBwdStages * 2 * 64 * 4 + DkvShape::kBarriers + 1024;
 
 struct BwdArgs {
   const float* lse;    // [B, L, H]
@@ -792,40 +805,40 @@ __device__ __forceinline__ void dq_tile_ds(const float (&s)[32], const float (&d
   }
 }
 
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(DqShape::kThreads)
     dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tg,
                     BwdArgs a) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hopper::align1024(smem_raw);
   unsigned char* sQ = smem;
-  unsigned char* sG = sQ + 2 * kBoxBytes;
-  unsigned char* sK = sG + 2 * kBoxBytes;            // [stage]
+  unsigned char* sG = sQ + DqShape::kResident;
+  unsigned char* sK = sG + DqShape::kResident;       // [stage]
   unsigned char* sV = sK + kBwdStages * kBoxBytes;   // [stage]
-  uint64_t* qg_full = reinterpret_cast<uint64_t*>(smem + kBwdRing);
+  uint64_t* qg_full = reinterpret_cast<uint64_t*>(smem + DqShape::kRing);
   uint64_t* full = qg_full + 1;
   uint64_t* empty = full + kBwdStages;
 
   const int b = blockIdx.y / a.heads, h = blockIdx.y % a.heads;
-  const int q0 = blockIdx.x * kBwdBlock;
+  const int q0 = blockIdx.x * DqShape::kBlock;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // Key tiles past the block's last row are skipped when causal.
-  const int n_keys = a.causal ? min(a.len, q0 + kBwdBlock) : a.len;
+  const int n_keys = a.causal ? min(a.len, q0 + DqShape::kBlock) : a.len;
   const int tiles = (n_keys + kBox - 1) / kBox;
   if (threadIdx.x == 0) {
     hopper::mbar_init(qg_full, 1);
     for (int s = 0; s < kBwdStages; ++s) {
       hopper::mbar_init(&full[s], 1);
-      hopper::mbar_init(&empty[s], kBwdConsumerWarps);
+      hopper::mbar_init(&empty[s], DqShape::kConsumerWarps);
     }
     hopper::fence_barrier_init();
   }
   __syncthreads();
 
-  if (warp == kBwdConsumerWarps) {  // the producer
+  if (warp == DqShape::kConsumerWarps) {  // the producer
     if (lane == 0) {
-      hopper::mbar_arrive_expect_tx(qg_full, 4 * kBoxBytes);
-      for (int r = 0; r < kBwdBlock; r += kBox) {
+      hopper::mbar_arrive_expect_tx(qg_full, 2 * DqShape::kResident);
+      for (int r = 0; r < DqShape::kBlock; r += kBox) {
         hopper::tma_load_4d(sQ + r * 128, &tq, qg_full, 0, q0 + r, h, b);
         hopper::tma_load_4d(sG + r * 128, &tg, qg_full, 0, q0 + r, h, b);
       }
@@ -905,7 +918,7 @@ __global__ void __launch_bounds__(kBwdThreads)
     if (lane == 0) hopper::mbar_arrive(&empty[s]);
   }
 
-  hopper::bar_sync(1, 32 * kBwdConsumerWarps);  // every wgmma has read the ring
+  hopper::bar_sync(1, 32 * DqShape::kConsumerWarps);  // every wgmma has read the ring
   const long long head = ((long long)b * a.len * a.heads + h) * 64;
   store_tile(reinterpret_cast<float*>(smem) + wg * (kEpiBytes / 4), dq, a.d0 + head, min_row,
              a.len, (long long)a.heads * 64, wg);
@@ -941,24 +954,24 @@ __device__ __forceinline__ void dkv_tile_p_ds(const float (&st)[32], const float
   }
 }
 
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(DkvShape::kThreads)
     dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tg,
                      BwdArgs a) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hopper::align1024(smem_raw);
   unsigned char* sK = smem;
-  unsigned char* sV = sK + 2 * kBoxBytes;
-  unsigned char* sQ = sV + 2 * kBoxBytes;            // [stage]
+  unsigned char* sV = sK + DkvShape::kResident;
+  unsigned char* sQ = sV + DkvShape::kResident;      // [stage]
   unsigned char* sG = sQ + kBwdStages * kBoxBytes;   // [stage]
-  float* sLse = reinterpret_cast<float*>(smem + kBwdRing);  // [stage][64], log2 units
+  float* sLse = reinterpret_cast<float*>(smem + DkvShape::kRing);  // [stage][64], log2 units
   float* sDelta = sLse + kBwdStages * 64;                   // [stage][64]
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(sDelta + kBwdStages * 64);
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + kBwdStages;
 
   const int b = blockIdx.y / a.heads, h = blockIdx.y % a.heads;
-  const int kb0 = blockIdx.x * kBwdBlock;
+  const int kb0 = blockIdx.x * DkvShape::kBlock;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // Query tiles wholly above the block's keys are skipped when causal.
   const int qstart = a.causal ? kb0 : 0;
@@ -967,16 +980,16 @@ __global__ void __launch_bounds__(kBwdThreads)
     hopper::mbar_init(kv_full, 1);
     for (int s = 0; s < kBwdStages; ++s) {
       hopper::mbar_init(&full[s], kStatArrivals);
-      hopper::mbar_init(&empty[s], kBwdConsumerWarps);
+      hopper::mbar_init(&empty[s], DkvShape::kConsumerWarps);
     }
     hopper::fence_barrier_init();
   }
   __syncthreads();
 
-  if (warp == kBwdConsumerWarps) {  // the producer
+  if (warp == DkvShape::kConsumerWarps) {  // the producer
     if (lane == 0) {
-      hopper::mbar_arrive_expect_tx(kv_full, 4 * kBoxBytes);
-      for (int r = 0; r < kBwdBlock; r += kBox) {
+      hopper::mbar_arrive_expect_tx(kv_full, 2 * DkvShape::kResident);
+      for (int r = 0; r < DkvShape::kBlock; r += kBox) {
         hopper::tma_load_4d(sK + r * 128, &tk, kv_full, 0, kb0 + r, h, b);
         hopper::tma_load_4d(sV + r * 128, &tv, kv_full, 0, kb0 + r, h, b);
       }
@@ -1069,7 +1082,7 @@ __global__ void __launch_bounds__(kBwdThreads)
     if (lane == 0) hopper::mbar_arrive(&empty[s]);
   }
 
-  hopper::bar_sync(1, 32 * kBwdConsumerWarps);  // every wgmma has read the ring
+  hopper::bar_sync(1, 32 * DkvShape::kConsumerWarps);  // every wgmma has read the ring
   const long long head = ((long long)b * a.len * a.heads + h) * 64;
   float* stage = reinterpret_cast<float*>(smem) + wg * (kEpiBytes / 2);
   store_tile(stage, dk, a.d0 + head, min_key, a.len, (long long)a.heads * 64, wg);
@@ -1110,7 +1123,7 @@ int launch_fwd_wgmma(const AttnArgs& a, cudaStream_t stream) {
 
 // K2a or K2b in bf16: tensor maps over q, k, v (shared strides) and the
 // contiguous g; the grid of 128-row (K2a) or 128-key (K2b) blocks.
-template <typename K>
+template <typename Shape, typename K>
 int launch_bwd_wgmma(K kernel, int bytes, const AttnArgs& a, cudaStream_t stream,
                      bool (&configured)[hopper::kMaxDevices]) {
   const long long sl_g = (long long)a.heads * 64;
@@ -1123,8 +1136,8 @@ int launch_bwd_wgmma(K kernel, int bytes, const AttnArgs& a, cudaStream_t stream
   if (rc) return rc;
   const BwdArgs f{a.lse,   a.delta,  a.dq != nullptr ? a.dq : a.dk, a.dv, a.len, a.heads,
                   a.causal, a.scale, a.scale * kLog2e};
-  kernel<<<dim3((a.len + kBwdBlock - 1) / kBwdBlock, a.batch * a.heads), kBwdThreads, bytes,
-           stream>>>(tq, tk, tv, tg, f);
+  kernel<<<dim3((a.len + Shape::kBlock - 1) / Shape::kBlock, a.batch * a.heads), Shape::kThreads,
+           bytes, stream>>>(tq, tk, tv, tg, f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1152,9 +1165,9 @@ struct LaunchAttention {
     if constexpr (kTc && kWhich == kFwd) {
       return launch_fwd_wgmma(a, stream);
     } else if constexpr (kTc && kWhich == kDq) {
-      return launch_bwd_wgmma(dq_wgmma_kernel, kDqBytes, a, stream, configured);
+      return launch_bwd_wgmma<DqShape>(dq_wgmma_kernel, kDqBytes, a, stream, configured);
     } else if constexpr (kTc) {
-      return launch_bwd_wgmma(dkv_wgmma_kernel, kDkvBytes, a, stream, configured);
+      return launch_bwd_wgmma<DkvShape>(dkv_wgmma_kernel, kDkvBytes, a, stream, configured);
     } else if constexpr (kWhich == kFwd) {
       return launch(fwd_kernel, kBQ, 0, configured);
     } else if constexpr (kWhich == kDq) {
