@@ -805,7 +805,7 @@ __device__ __forceinline__ void dq_tile_ds(const float (&s)[32], const float (&d
   }
 }
 
-__global__ void __launch_bounds__(DqShape::kThreads)
+__global__ void __launch_bounds__(DqShape::kThreads, 3)
     dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tg,
                     BwdArgs a) {
