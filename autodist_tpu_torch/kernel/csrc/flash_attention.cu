@@ -679,68 +679,58 @@ __global__ void __launch_bounds__(kFwdThreads)
 
 // ---------------------------------------------------------------------
 // K2a and K2b in bf16 on Hopper, the same machinery as K1: a block of
-// two consumer warpgroups (64 rows or keys each) and a producer warp
-// that keeps a ring of kBwdStages stages full with TMA loads of 64-row
-// boxes (4-D tensor maps over [B, L, H, D]: q/k/v with the caller's
-// strides, g contiguous; rows at or past len arrive as zeros), a full
-// and an empty mbarrier per stage.  Every product is a wgmma m64n64k16
-// with fp32 accumulators in registers; the softmax work runs on those
-// registers, and p and ds are rounded to bf16 pairs there, which are
-// the A fragments of the register (RS) form of the next product.
-// Neither S, dP, P nor dS touches shared memory.  Scores are in log2
-// units, p = exp2(s scale log2(e) - lse log2(e)) by ex2.approx as in
-// K1, ds = p (dp - delta) scale, with masked scores at kNegInf; rows
-// and keys at or past len and the causal triangle are masked
+// one consumer warpgroup (64 rows for K2a, 64 keys for K2b) and a
+// producer warp that keeps a ring of kBwdStages stages full with TMA
+// loads of 64-row boxes (4-D tensor maps over [B, L, H, D]: q/k/v with
+// the caller's strides, g contiguous; rows at or past len arrive as
+// zeros), a full and an empty mbarrier per stage.  Every product is a
+// wgmma m64n64k16 with fp32 accumulators in registers; the softmax work
+// runs on those registers, and p and ds are rounded to bf16 pairs there,
+// which are the A fragments of the register (RS) form of the next
+// product.  Neither S, dP, P nor dS touches shared memory.  Scores are
+// in log2 units, p = exp2(s scale log2(e) - lse log2(e)) by ex2.approx
+// as in K1, ds = p (dp - delta) scale, with masked scores at kNegInf;
+// rows and keys at or past len and the causal triangle are masked
 // explicitly, not left to the zero fill.
 //
-// K2a (dq): 128 query rows a block.  Q and g once, 64-key tiles of K
-// and V through the ring; per tile S = Q Kᵀ and dP = g Vᵀ (both operands
-// K-major), dS in registers, dQ += dS K (K read MN-major with the
-// transpose bit, as K1 reads V).  Each thread keeps its two rows' lse
-// and delta in registers.
-// K2b (dk, dv): 128 keys a block, K and V resident.  64-row tiles of Q
-// and g, with their lse (pre-multiplied by log2(e)) and delta, through
-// the ring; per tile the transposed products Sᵀ = K Qᵀ and dPᵀ = V gᵀ,
-// Pᵀ and dSᵀ in registers (lse and delta vary along the columns), then
-// dV += Pᵀ g and dK += dSᵀ Q with g and Q read MN-major: the same
-// swizzled Q tile is read K-major for Sᵀ and MN-major for dK.  The
-// producer's 32 lanes load lse and delta (4 H bytes apart, no TMA box)
-// into the stage and arrive on its full barrier beside the TMA bytes.
+// K2a (dq): Q and g once, 64-key tiles of K and V through the ring; per
+// tile S = Q Kᵀ and dP = g Vᵀ (both operands K-major), dS in registers,
+// dQ += dS K (K read MN-major with the transpose bit, as K1 reads V).
+// Each thread keeps its two rows' lse and delta in registers.
+// K2b (dk, dv): K and V resident; 64-row tiles of Q and g, with their
+// lse (times log2(e)) and delta, through the ring; per tile the
+// transposed products Sᵀ = K Qᵀ and dPᵀ = V gᵀ, Pᵀ and dSᵀ in registers
+// (lse and delta vary along the columns), then dV += Pᵀ g and dK += dSᵀ
+// Q with g and Q read MN-major: the same swizzled Q tile is read K-major
+// for Sᵀ and MN-major for dK.  The producer's 32 lanes load lse and
+// delta (4 H bytes apart, no TMA box) into the stage and arrive on its
+// full barrier beside the TMA bytes.
 //
-// Two kernels as in the JAX package, no atomics: dq, dk and dv are
-// summed in one fixed order, so every run gives the same bits.  The
-// epilogue stages each warpgroup's fp32 accumulators through the freed
-// ring (rows padded to 72 floats) and writes whole 256-byte rows in
-// coalesced 16-byte stores.
+// One warpgroup a block, so that several blocks share an SM (K2a three,
+// at most 128 registers a thread; K2b two): they wait on their own
+// rings and drift apart, one's exponentials and epilogue running under
+// another's products.  Blocks of two warpgroups in step (128 rows or
+// keys, one block an SM) were 9 % (K2a 19 %) slower on the H100
+// (PERF.md).  Two kernels as in the JAX package, no atomics: dq, dk and
+// dv are summed in one fixed order, so every run gives the same bits.
+// The epilogue stages the fp32 accumulators through the freed ring (rows
+// padded to 72 floats) and writes whole 256-byte rows in coalesced
+// 16-byte stores.
 // ---------------------------------------------------------------------
 constexpr int kBwdStages = 3;
+constexpr int kBwdThreads = 128 + 32;  // a consumer warpgroup and the producer warp
 constexpr int kBoxBytes = kBox * 128;  // one 64-row box of D = 64
 constexpr int kStatArrivals = 1 + 32;  // K2b's full: the TMA bytes and each producer lane
 constexpr int kEpiPitch = 72;          // fp32 row pitch of the epilogue's staging
 constexpr int kEpiBytes = 64 * kEpiPitch * 4;
-// Consumer warpgroups a block (each 64 rows for K2a, 64 keys for K2b).
-constexpr int kDqGroups = 1;
-constexpr int kDkvGroups = 1;
-
-// A block of kGroups consumer warpgroups and a producer warp.  Its ring:
-// two resident tiles of kGroups boxes (K2a: Q and g; K2b: K and V),
-// then per stage two boxes (K2a: K and V; K2b: Q and g); K2b adds per
-// stage 64 lse and 64 delta.  The epilogue stages 1 (K2a) or 2 (K2b)
-// fp32 tiles per warpgroup in the freed ring.
-template <int kGroups>
-struct BwdShape {
-  static constexpr int kBlock = 64 * kGroups;  // rows (K2a) or keys (K2b)
-  static constexpr int kConsumerWarps = 4 * kGroups;
-  static constexpr int kThreads = 32 * kConsumerWarps + 32;
-  static constexpr int kResident = kGroups * kBoxBytes;  // one resident tile
-  static constexpr int kRing = 2 * kResident + 2 * kBwdStages * kBoxBytes;
-  static constexpr int kBarriers = 8 * (1 + 2 * kBwdStages);
-  static_assert(2 * kGroups * kEpiBytes <= kRing, "the epilogue fits the freed ring");
-};
-using DqShape = BwdShape<kDqGroups>;
-using DkvShape = BwdShape<kDkvGroups>;
-constexpr int kDqBytes = DqShape::kRing + DqShape::kBarriers + 1024;
-constexpr int kDkvBytes = DkvShape::kRing + kBwdStages * 2 * 64 * 4 + DkvShape::kBarriers + 1024;
+// The ring: two resident boxes (K2a: Q and g; K2b: K and V), then per
+// stage two (K2a: K and V; K2b: Q and g); K2b adds per stage 64 lse and
+// 64 delta.  The epilogue stages one (K2a) or two (K2b) fp32 tiles in it.
+constexpr int kBwdRing = 2 * kBoxBytes + 2 * kBwdStages * kBoxBytes;
+constexpr int kBwdBarriers = 8 * (1 + 2 * kBwdStages);
+constexpr int kDqBytes = kBwdRing + kBwdBarriers + 1024;
+constexpr int kDkvBytes = kBwdRing + kBwdStages * 2 * 64 * 4 + kBwdBarriers + 1024;
+static_assert(2 * kEpiBytes <= kBwdRing, "the epilogue stages its tiles in the freed ring");
 
 struct BwdArgs {
   const float* lse;    // [B, L, H]
@@ -757,13 +747,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&pair);
 }
 
-// Writes a warpgroup's 64 x 64 fp32 accumulator to rows row0.. of an
+// Writes the warpgroup's 64 x 64 fp32 accumulator to rows row0.. of an
 // fp32 [*, L, H, 64] tensor at dst (row stride `stride` floats; rows at
 // or past len left out) through `stage`: the accumulator layout goes in
 // as 8-byte pairs, and each row goes out as 16 coalesced 16-byte stores.
 __device__ __forceinline__ void store_tile(float* stage, const float (&acc)[32], float* dst,
-                                           int row0, int len, long long stride, int wg) {
-  const int t = threadIdx.x & 127, lane = threadIdx.x & 31;
+                                           int row0, int len, long long stride) {
+  const int t = threadIdx.x, lane = t & 31;
   const int r = 16 * (t >> 5) + (lane >> 2);
 #pragma unroll
   for (int j = 0; j < 8; ++j)
@@ -771,7 +761,7 @@ __device__ __forceinline__ void store_tile(float* stage, const float (&acc)[32],
     for (int hh = 0; hh < 2; ++hh)
       *reinterpret_cast<float2*>(stage + (r + 8 * hh) * kEpiPitch + 8 * j + 2 * (lane & 3)) =
           make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
-  hopper::bar_sync(2 + wg, 128);
+  hopper::bar_sync(1, 128);
 #pragma unroll
   for (int c = t; c < 64 * 16; c += 128) {
     const int row = c >> 4, col = 4 * (c & 15);
@@ -805,43 +795,41 @@ __device__ __forceinline__ void dq_tile_ds(const float (&s)[32], const float (&d
   }
 }
 
-__global__ void __launch_bounds__(DqShape::kThreads, 3)
+__global__ void __launch_bounds__(kBwdThreads, 3)
     dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tg,
                     BwdArgs a) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hopper::align1024(smem_raw);
   unsigned char* sQ = smem;
-  unsigned char* sG = sQ + DqShape::kResident;
-  unsigned char* sK = sG + DqShape::kResident;       // [stage]
+  unsigned char* sG = sQ + kBoxBytes;
+  unsigned char* sK = sG + kBoxBytes;                // [stage]
   unsigned char* sV = sK + kBwdStages * kBoxBytes;   // [stage]
-  uint64_t* qg_full = reinterpret_cast<uint64_t*>(smem + DqShape::kRing);
+  uint64_t* qg_full = reinterpret_cast<uint64_t*>(smem + kBwdRing);
   uint64_t* full = qg_full + 1;
   uint64_t* empty = full + kBwdStages;
 
   const int b = blockIdx.y / a.heads, h = blockIdx.y % a.heads;
-  const int q0 = blockIdx.x * DqShape::kBlock;
+  const int q0 = blockIdx.x * kBox;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // Key tiles past the block's last row are skipped when causal.
-  const int n_keys = a.causal ? min(a.len, q0 + DqShape::kBlock) : a.len;
+  const int n_keys = a.causal ? min(a.len, q0 + kBox) : a.len;
   const int tiles = (n_keys + kBox - 1) / kBox;
   if (threadIdx.x == 0) {
     hopper::mbar_init(qg_full, 1);
     for (int s = 0; s < kBwdStages; ++s) {
       hopper::mbar_init(&full[s], 1);
-      hopper::mbar_init(&empty[s], DqShape::kConsumerWarps);
+      hopper::mbar_init(&empty[s], 4);
     }
     hopper::fence_barrier_init();
   }
   __syncthreads();
 
-  if (warp == DqShape::kConsumerWarps) {  // the producer
+  if (warp == 4) {  // the producer
     if (lane == 0) {
-      hopper::mbar_arrive_expect_tx(qg_full, 2 * DqShape::kResident);
-      for (int r = 0; r < DqShape::kBlock; r += kBox) {
-        hopper::tma_load_4d(sQ + r * 128, &tq, qg_full, 0, q0 + r, h, b);
-        hopper::tma_load_4d(sG + r * 128, &tg, qg_full, 0, q0 + r, h, b);
-      }
+      hopper::mbar_arrive_expect_tx(qg_full, 2 * kBoxBytes);
+      hopper::tma_load_4d(sQ, &tq, qg_full, 0, q0, h, b);
+      hopper::tma_load_4d(sG, &tg, qg_full, 0, q0, h, b);
       for (int t = 0; t < tiles; ++t) {
         const int s = t % kBwdStages;
         if (t >= kBwdStages) hopper::mbar_wait(&empty[s], (t / kBwdStages - 1) & 1);
@@ -853,10 +841,8 @@ __global__ void __launch_bounds__(DqShape::kThreads, 3)
     return;
   }
 
-  // A consumer warpgroup: rows q0 + 64 wg ...; this thread's two rows.
-  const int wg = warp >> 2;
-  const int min_row = q0 + wg * 64;
-  const int r0 = min_row + (warp & 3) * 16 + (lane >> 2);
+  // The consumer warpgroup: this thread's two rows.
+  const int r0 = q0 + warp * 16 + (lane >> 2);
   const int row[2] = {r0, r0 + 8};
   float lse2[2], delta[2];
 #pragma unroll
@@ -865,63 +851,55 @@ __global__ void __launch_bounds__(DqShape::kThreads, 3)
     lse2[hh] = row[hh] < a.len ? a.lse[r] * kLog2e : 0.f;
     delta[hh] = row[hh] < a.len ? a.delta[r] : 0.f;
   }
-  const unsigned char* q = sQ + wg * kBoxBytes;
-  const unsigned char* g = sG + wg * kBoxBytes;
   float dq[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) dq[i] = 0.f;
-  const bool edge_rows = min_row + 64 > a.len;
   hopper::mbar_wait(qg_full, 0);
 
   for (int t = 0; t < tiles; ++t) {
     const int s = t % kBwdStages, k0 = t * kBox;
+    const unsigned char* kt = sK + s * kBoxBytes;
+    const unsigned char* vt = sV + s * kBoxBytes;
     hopper::mbar_wait(&full[s], (t / kBwdStages) & 1);
-    // A key tile wholly past this warpgroup's rows (causal) adds nothing.
-    if (!(a.causal && k0 > min_row + 63)) {
-      const unsigned char* kt = sK + s * kBoxBytes;
-      const unsigned char* vt = sV + s * kBoxBytes;
-      float sc[32], dp[32];
-      hopper::wgmma_fence();
+    float sc[32], dp[32];
+    hopper::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        hopper::wgmma_m64n64k16_ss(sc, hopper::desc_sw128(q + 32 * kk, 16, 1024),
-                                   hopper::desc_sw128(kt + 32 * kk, 16, 1024), kk > 0);
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma_m64n64k16_ss(sc, hopper::desc_sw128(sQ + 32 * kk, 16, 1024),
+                                 hopper::desc_sw128(kt + 32 * kk, 16, 1024), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        hopper::wgmma_m64n64k16_ss(dp, hopper::desc_sw128(g + 32 * kk, 16, 1024),
-                                   hopper::desc_sw128(vt + 32 * kk, 16, 1024), kk > 0);
-      hopper::wgmma_commit();
-      hopper::wgmma_wait<0>();
-      hopper::fence_regs(sc);
-      hopper::fence_regs(dp);
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma_m64n64k16_ss(dp, hopper::desc_sw128(sG + 32 * kk, 16, 1024),
+                                 hopper::desc_sw128(vt + 32 * kk, 16, 1024), kk > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    hopper::fence_regs(dp);
 
-      uint32_t ds[16];
-      const int col0 = k0 + 2 * (lane & 3);
-      if (edge_rows || k0 + kBox > a.len || (a.causal && k0 + kBox - 1 > min_row))
-        dq_tile_ds<true>(sc, dp, ds, lse2, delta, row, col0, a);
-      else
-        dq_tile_ds<false>(sc, dp, ds, lse2, delta, row, col0, a);
-      hopper::fence_regs(dq);
-      hopper::fence_regs(ds);
-      hopper::wgmma_fence();
+    uint32_t ds[16];
+    const int col0 = k0 + 2 * (lane & 3);
+    if (q0 + kBox > a.len || k0 + kBox > a.len || (a.causal && k0 + kBox - 1 > q0))
+      dq_tile_ds<true>(sc, dp, ds, lse2, delta, row, col0, a);
+    else
+      dq_tile_ds<false>(sc, dp, ds, lse2, delta, row, col0, a);
+    hopper::fence_regs(dq);
+    hopper::fence_regs(ds);
+    hopper::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint32_t frag[4] = {ds[4 * kk], ds[4 * kk + 1], ds[4 * kk + 2], ds[4 * kk + 3]};
-        hopper::wgmma_m64n64k16_rs<1>(dq, frag, hopper::desc_sw128(kt + 2048 * kk, 1024, 1024),
-                                      1);
-      }
-      hopper::wgmma_commit();
-      hopper::wgmma_wait<0>();
-      hopper::fence_regs(dq);
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t frag[4] = {ds[4 * kk], ds[4 * kk + 1], ds[4 * kk + 2], ds[4 * kk + 3]};
+      hopper::wgmma_m64n64k16_rs<1>(dq, frag, hopper::desc_sw128(kt + 2048 * kk, 1024, 1024), 1);
     }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dq);
     __syncwarp();
     if (lane == 0) hopper::mbar_arrive(&empty[s]);
   }
 
-  hopper::bar_sync(1, 32 * DqShape::kConsumerWarps);  // every wgmma has read the ring
+  hopper::bar_sync(1, 128);  // every wgmma has read the ring
   const long long head = ((long long)b * a.len * a.heads + h) * 64;
-  store_tile(reinterpret_cast<float*>(smem) + wg * (kEpiBytes / 4), dq, a.d0 + head, min_row,
-             a.len, (long long)a.heads * 64, wg);
+  store_tile(reinterpret_cast<float*>(smem), dq, a.d0 + head, q0, a.len, (long long)a.heads * 64);
 }
 
 // K2b's Pᵀ and dSᵀ for one 64-row tile on the accumulators of Sᵀ and
@@ -954,24 +932,24 @@ __device__ __forceinline__ void dkv_tile_p_ds(const float (&st)[32], const float
   }
 }
 
-__global__ void __launch_bounds__(DkvShape::kThreads)
+__global__ void __launch_bounds__(kBwdThreads, 2)
     dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tg,
                      BwdArgs a) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hopper::align1024(smem_raw);
   unsigned char* sK = smem;
-  unsigned char* sV = sK + DkvShape::kResident;
-  unsigned char* sQ = sV + DkvShape::kResident;      // [stage]
+  unsigned char* sV = sK + kBoxBytes;
+  unsigned char* sQ = sV + kBoxBytes;                // [stage]
   unsigned char* sG = sQ + kBwdStages * kBoxBytes;   // [stage]
-  float* sLse = reinterpret_cast<float*>(smem + DkvShape::kRing);  // [stage][64], log2 units
+  float* sLse = reinterpret_cast<float*>(smem + kBwdRing);  // [stage][64], log2 units
   float* sDelta = sLse + kBwdStages * 64;                   // [stage][64]
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(sDelta + kBwdStages * 64);
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + kBwdStages;
 
   const int b = blockIdx.y / a.heads, h = blockIdx.y % a.heads;
-  const int kb0 = blockIdx.x * DkvShape::kBlock;
+  const int kb0 = blockIdx.x * kBox;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // Query tiles wholly above the block's keys are skipped when causal.
   const int qstart = a.causal ? kb0 : 0;
@@ -980,19 +958,17 @@ __global__ void __launch_bounds__(DkvShape::kThreads)
     hopper::mbar_init(kv_full, 1);
     for (int s = 0; s < kBwdStages; ++s) {
       hopper::mbar_init(&full[s], kStatArrivals);
-      hopper::mbar_init(&empty[s], DkvShape::kConsumerWarps);
+      hopper::mbar_init(&empty[s], 4);
     }
     hopper::fence_barrier_init();
   }
   __syncthreads();
 
-  if (warp == DkvShape::kConsumerWarps) {  // the producer
+  if (warp == 4) {  // the producer
     if (lane == 0) {
-      hopper::mbar_arrive_expect_tx(kv_full, 2 * DkvShape::kResident);
-      for (int r = 0; r < DkvShape::kBlock; r += kBox) {
-        hopper::tma_load_4d(sK + r * 128, &tk, kv_full, 0, kb0 + r, h, b);
-        hopper::tma_load_4d(sV + r * 128, &tv, kv_full, 0, kb0 + r, h, b);
-      }
+      hopper::mbar_arrive_expect_tx(kv_full, 2 * kBoxBytes);
+      hopper::tma_load_4d(sK, &tk, kv_full, 0, kb0, h, b);
+      hopper::tma_load_4d(sV, &tv, kv_full, 0, kb0, h, b);
     }
     for (int t = 0; t < tiles; ++t) {
       const int s = t % kBwdStages, q0 = qstart + t * kBox;
@@ -1013,80 +989,70 @@ __global__ void __launch_bounds__(DkvShape::kThreads)
     return;
   }
 
-  // A consumer warpgroup: keys kb0 + 64 wg ...; this thread's two keys.
-  const int wg = warp >> 2;
-  const int min_key = kb0 + wg * 64;
-  const int k_0 = min_key + (warp & 3) * 16 + (lane >> 2);
+  // The consumer warpgroup: this thread's two keys.
+  const int k_0 = kb0 + warp * 16 + (lane >> 2);
   const int key[2] = {k_0, k_0 + 8};
-  const unsigned char* kt = sK + wg * kBoxBytes;
-  const unsigned char* vt = sV + wg * kBoxBytes;
   float dk[32], dv[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
-  const bool edge_keys = min_key + 64 > a.len;
   hopper::mbar_wait(kv_full, 0);
 
   for (int t = 0; t < tiles; ++t) {
     const int s = t % kBwdStages, q0 = qstart + t * kBox;
+    const unsigned char* q = sQ + s * kBoxBytes;
+    const unsigned char* g = sG + s * kBoxBytes;
     hopper::mbar_wait(&full[s], (t / kBwdStages) & 1);
-    // A row tile wholly above this warpgroup's keys (causal) adds nothing.
-    if (!(a.causal && q0 + kBox - 1 < min_key)) {
-      const unsigned char* q = sQ + s * kBoxBytes;
-      const unsigned char* g = sG + s * kBoxBytes;
-      float st[32], dpt[32];
-      hopper::wgmma_fence();
+    float st[32], dpt[32];
+    hopper::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        hopper::wgmma_m64n64k16_ss(st, hopper::desc_sw128(kt + 32 * kk, 16, 1024),
-                                   hopper::desc_sw128(q + 32 * kk, 16, 1024), kk > 0);
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma_m64n64k16_ss(st, hopper::desc_sw128(sK + 32 * kk, 16, 1024),
+                                 hopper::desc_sw128(q + 32 * kk, 16, 1024), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        hopper::wgmma_m64n64k16_ss(dpt, hopper::desc_sw128(vt + 32 * kk, 16, 1024),
-                                   hopper::desc_sw128(g + 32 * kk, 16, 1024), kk > 0);
-      hopper::wgmma_commit();
-      hopper::wgmma_wait<0>();
-      hopper::fence_regs(st);
-      hopper::fence_regs(dpt);
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma_m64n64k16_ss(dpt, hopper::desc_sw128(sV + 32 * kk, 16, 1024),
+                                 hopper::desc_sw128(g + 32 * kk, 16, 1024), kk > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(st);
+    hopper::fence_regs(dpt);
 
-      uint32_t p[16], ds[16];
-      const int c = 2 * (lane & 3);
-      const float* lse2 = sLse + s * kBox;
-      const float* delta = sDelta + s * kBox;
-      if (edge_keys || q0 + kBox > a.len || (a.causal && min_key + 63 > q0))
-        dkv_tile_p_ds<true>(st, dpt, p, ds, lse2, delta, key, q0, c, a);
-      else
-        dkv_tile_p_ds<false>(st, dpt, p, ds, lse2, delta, key, q0, c, a);
-      hopper::fence_regs(dk);
-      hopper::fence_regs(dv);
-      hopper::fence_regs(p);
-      hopper::fence_regs(ds);
-      hopper::wgmma_fence();
+    uint32_t p[16], ds[16];
+    const int c = 2 * (lane & 3);
+    const float* lse2 = sLse + s * kBox;
+    const float* delta = sDelta + s * kBox;
+    if (kb0 + kBox > a.len || q0 + kBox > a.len || (a.causal && kb0 + kBox - 1 > q0))
+      dkv_tile_p_ds<true>(st, dpt, p, ds, lse2, delta, key, q0, c, a);
+    else
+      dkv_tile_p_ds<false>(st, dpt, p, ds, lse2, delta, key, q0, c, a);
+    hopper::fence_regs(dk);
+    hopper::fence_regs(dv);
+    hopper::fence_regs(p);
+    hopper::fence_regs(ds);
+    hopper::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint32_t frag[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
-        hopper::wgmma_m64n64k16_rs<1>(dv, frag, hopper::desc_sw128(g + 2048 * kk, 1024, 1024),
-                                      1);
-      }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint32_t frag[4] = {ds[4 * kk], ds[4 * kk + 1], ds[4 * kk + 2], ds[4 * kk + 3]};
-        hopper::wgmma_m64n64k16_rs<1>(dk, frag, hopper::desc_sw128(q + 2048 * kk, 1024, 1024),
-                                      1);
-      }
-      hopper::wgmma_commit();
-      hopper::wgmma_wait<0>();
-      hopper::fence_regs(dk);
-      hopper::fence_regs(dv);
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t frag[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
+      hopper::wgmma_m64n64k16_rs<1>(dv, frag, hopper::desc_sw128(g + 2048 * kk, 1024, 1024), 1);
     }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t frag[4] = {ds[4 * kk], ds[4 * kk + 1], ds[4 * kk + 2], ds[4 * kk + 3]};
+      hopper::wgmma_m64n64k16_rs<1>(dk, frag, hopper::desc_sw128(q + 2048 * kk, 1024, 1024), 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dk);
+    hopper::fence_regs(dv);
     __syncwarp();
     if (lane == 0) hopper::mbar_arrive(&empty[s]);
   }
 
-  hopper::bar_sync(1, 32 * DkvShape::kConsumerWarps);  // every wgmma has read the ring
+  hopper::bar_sync(1, 128);  // every wgmma has read the ring
   const long long head = ((long long)b * a.len * a.heads + h) * 64;
-  float* stage = reinterpret_cast<float*>(smem) + wg * (kEpiBytes / 2);
-  store_tile(stage, dk, a.d0 + head, min_key, a.len, (long long)a.heads * 64, wg);
-  store_tile(stage + kEpiBytes / 4, dv, a.d1 + head, min_key, a.len, (long long)a.heads * 64, wg);
+  float* stage = reinterpret_cast<float*>(smem);
+  store_tile(stage, dk, a.d0 + head, kb0, a.len, (long long)a.heads * 64);
+  store_tile(stage + kEpiBytes / 4, dv, a.d1 + head, kb0, a.len, (long long)a.heads * 64);
 }
 
 enum Which { kFwd, kDq, kDkv };
@@ -1122,8 +1088,8 @@ int launch_fwd_wgmma(const AttnArgs& a, cudaStream_t stream) {
 }
 
 // K2a or K2b in bf16: tensor maps over q, k, v (shared strides) and the
-// contiguous g; the grid of 128-row (K2a) or 128-key (K2b) blocks.
-template <typename Shape, typename K>
+// contiguous g; the grid of 64-row (K2a) or 64-key (K2b) blocks.
+template <typename K>
 int launch_bwd_wgmma(K kernel, int bytes, const AttnArgs& a, cudaStream_t stream,
                      bool (&configured)[hopper::kMaxDevices]) {
   const long long sl_g = (long long)a.heads * 64;
@@ -1136,8 +1102,8 @@ int launch_bwd_wgmma(K kernel, int bytes, const AttnArgs& a, cudaStream_t stream
   if (rc) return rc;
   const BwdArgs f{a.lse,   a.delta,  a.dq != nullptr ? a.dq : a.dk, a.dv, a.len, a.heads,
                   a.causal, a.scale, a.scale * kLog2e};
-  kernel<<<dim3((a.len + Shape::kBlock - 1) / Shape::kBlock, a.batch * a.heads), Shape::kThreads,
-           bytes, stream>>>(tq, tk, tv, tg, f);
+  kernel<<<dim3((a.len + kBox - 1) / kBox, a.batch * a.heads), kBwdThreads, bytes, stream>>>(
+      tq, tk, tv, tg, f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1165,9 +1131,9 @@ struct LaunchAttention {
     if constexpr (kTc && kWhich == kFwd) {
       return launch_fwd_wgmma(a, stream);
     } else if constexpr (kTc && kWhich == kDq) {
-      return launch_bwd_wgmma<DqShape>(dq_wgmma_kernel, kDqBytes, a, stream, configured);
+      return launch_bwd_wgmma(dq_wgmma_kernel, kDqBytes, a, stream, configured);
     } else if constexpr (kTc) {
-      return launch_bwd_wgmma<DkvShape>(dkv_wgmma_kernel, kDkvBytes, a, stream, configured);
+      return launch_bwd_wgmma(dkv_wgmma_kernel, kDkvBytes, a, stream, configured);
     } else if constexpr (kWhich == kFwd) {
       return launch(fwd_kernel, kBQ, 0, configured);
     } else if constexpr (kWhich == kDq) {
