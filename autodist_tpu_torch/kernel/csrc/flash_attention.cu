@@ -771,22 +771,28 @@ __device__ __forceinline__ void store_tile(float* stage, const float (&acc)[32],
   }
 }
 
-// K2a's p = exp(s scale - lse) for one 64-key tile, in place on the
-// accumulators of S (this thread's rows row[0..1], keys col0 + 8 j + e).
+// K2a's dS for one 64-key tile on the accumulators of S and dP (this
+// thread's rows row[0..1], keys col0 + 8 j + e), packed to A fragments.
 template <bool kMask>
-__device__ __forceinline__ void dq_tile_p(float (&s)[32], const float (&lse2)[2],
-                                          const int (&row)[2], int col0, const BwdArgs& a) {
+__device__ __forceinline__ void dq_tile_ds(const float (&s)[32], const float (&dp)[32],
+                                           uint32_t (&ds)[16], const float (&lse2)[2],
+                                           const float (&delta)[2], const int (&row)[2],
+                                           int col0, const BwdArgs& a) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < 8; ++j) {
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh)
+    for (int hh = 0; hh < 2; ++hh) {
+      float v[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        float& x = s[4 * j + 2 * hh + e];
-        x = fmaf(x, a.scale_log2, -lse2[hh]);
+        const int i = 4 * j + 2 * hh + e;
+        float x = fmaf(s[i], a.scale_log2, -lse2[hh]);
         if (kMask && masked(row[hh], col0 + 8 * j + e, a.len, a.causal)) x = kNegInf;
-        x = fast_exp2(x);
+        v[e] = fast_exp2(x) * (dp[i] - delta[hh]) * a.scale;
       }
+      ds[2 * j + hh] = pack_bf16(v[0], v[1]);
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kBwdThreads, 3)
@@ -861,30 +867,21 @@ __global__ void __launch_bounds__(kBwdThreads, 3)
     for (int kk = 0; kk < 4; ++kk)
       hopper::wgmma_m64n64k16_ss(sc, hopper::desc_sw128(sQ + 32 * kk, 16, 1024),
                                  hopper::desc_sw128(kt + 32 * kk, 16, 1024), kk > 0);
-    hopper::wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
       hopper::wgmma_m64n64k16_ss(dp, hopper::desc_sw128(sG + 32 * kk, 16, 1024),
                                  hopper::desc_sw128(vt + 32 * kk, 16, 1024), kk > 0);
     hopper::wgmma_commit();
-    hopper::wgmma_wait<1>();  // S is done; p is computed while dP runs
+    hopper::wgmma_wait<0>();
     hopper::fence_regs(sc);
+    hopper::fence_regs(dp);
+
+    uint32_t ds[16];
     const int col0 = k0 + 2 * (lane & 3);
     if (q0 + kBox > a.len || k0 + kBox > a.len || (a.causal && k0 + kBox - 1 > q0))
-      dq_tile_p<true>(sc, lse2, row, col0, a);
+      dq_tile_ds<true>(sc, dp, ds, lse2, delta, row, col0, a);
     else
-      dq_tile_p<false>(sc, lse2, row, col0, a);
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(dp);
-    uint32_t ds[16];  // ds = p (dp - delta) scale as A fragments
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int i = 4 * j + 2 * hh;
-        ds[2 * j + hh] = pack_bf16(sc[i] * (dp[i] - delta[hh]) * a.scale,
-                                   sc[i + 1] * (dp[i + 1] - delta[hh]) * a.scale);
-      }
+      dq_tile_ds<false>(sc, dp, ds, lse2, delta, row, col0, a);
     hopper::fence_regs(dq);
     hopper::fence_regs(ds);
     hopper::wgmma_fence();
@@ -896,7 +893,6 @@ __global__ void __launch_bounds__(kBwdThreads, 3)
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(dq);
-    hopper::fence_regs(ds);  // the register operand stays put until its product is done
     __syncwarp();
     if (lane == 0) hopper::mbar_arrive(&empty[s]);
   }
@@ -906,26 +902,32 @@ __global__ void __launch_bounds__(kBwdThreads, 3)
   store_tile(reinterpret_cast<float*>(smem), dq, a.d0 + head, q0, a.len, (long long)a.heads * 64);
 }
 
-// K2b's pᵀ = exp(s scale - lse) for one 64-row tile, in place on the
-// accumulators of Sᵀ (this thread's keys key[0..1], rows q0 + c + 8 j +
-// e with lse2 from the stage), and packed to A fragments.
+// K2b's Pᵀ and dSᵀ for one 64-row tile on the accumulators of Sᵀ and
+// dPᵀ (this thread's keys key[0..1], rows q0 + c + 8 j + e with lse2
+// and delta from the stage), packed to A fragments.
 template <bool kMask>
-__device__ __forceinline__ void dkv_tile_p(float (&st)[32], uint32_t (&p)[16],
-                                           const float* lse2, const int (&key)[2], int q0,
-                                           int c, const BwdArgs& a) {
+__device__ __forceinline__ void dkv_tile_p_ds(const float (&st)[32], const float (&dpt)[32],
+                                              uint32_t (&p)[16], uint32_t (&ds)[16],
+                                              const float* lse2, const float* delta,
+                                              const int (&key)[2], int q0, int c,
+                                              const BwdArgs& a) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const float2 l2 = *reinterpret_cast<const float2*>(lse2 + 8 * j + c);
+    const float2 dl = *reinterpret_cast<const float2*>(delta + 8 * j + c);
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
+      float pv[2], dsv[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        float& x = st[4 * j + 2 * hh + e];
-        x = fmaf(x, a.scale_log2, -(e ? l2.y : l2.x));
+        const int i = 4 * j + 2 * hh + e;
+        float x = fmaf(st[i], a.scale_log2, -(e ? l2.y : l2.x));
         if (kMask && masked(q0 + c + 8 * j + e, key[hh], a.len, a.causal)) x = kNegInf;
-        x = fast_exp2(x);
+        pv[e] = fast_exp2(x);
+        dsv[e] = pv[e] * (dpt[i] - (e ? dl.y : dl.x)) * a.scale;
       }
-      p[2 * j + hh] = pack_bf16(st[4 * j + 2 * hh], st[4 * j + 2 * hh + 1]);
+      p[2 * j + hh] = pack_bf16(pv[0], pv[1]);
+      ds[2 * j + hh] = pack_bf16(dsv[0], dsv[1]);
     }
   }
 }
@@ -1006,46 +1008,33 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
     for (int kk = 0; kk < 4; ++kk)
       hopper::wgmma_m64n64k16_ss(st, hopper::desc_sw128(sK + 32 * kk, 16, 1024),
                                  hopper::desc_sw128(q + 32 * kk, 16, 1024), kk > 0);
-    hopper::wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
       hopper::wgmma_m64n64k16_ss(dpt, hopper::desc_sw128(sV + 32 * kk, 16, 1024),
                                  hopper::desc_sw128(g + 32 * kk, 16, 1024), kk > 0);
     hopper::wgmma_commit();
-    hopper::wgmma_wait<1>();  // Sᵀ is done; pᵀ is computed while dPᵀ runs
+    hopper::wgmma_wait<0>();
     hopper::fence_regs(st);
+    hopper::fence_regs(dpt);
+
     uint32_t p[16], ds[16];
     const int c = 2 * (lane & 3);
     const float* lse2 = sLse + s * kBox;
     const float* delta = sDelta + s * kBox;
     if (kb0 + kBox > a.len || q0 + kBox > a.len || (a.causal && kb0 + kBox - 1 > q0))
-      dkv_tile_p<true>(st, p, lse2, key, q0, c, a);
+      dkv_tile_p_ds<true>(st, dpt, p, ds, lse2, delta, key, q0, c, a);
     else
-      dkv_tile_p<false>(st, p, lse2, key, q0, c, a);
+      dkv_tile_p_ds<false>(st, dpt, p, ds, lse2, delta, key, q0, c, a);
+    hopper::fence_regs(dk);
     hopper::fence_regs(dv);
     hopper::fence_regs(p);
+    hopper::fence_regs(ds);
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const uint32_t frag[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
       hopper::wgmma_m64n64k16_rs<1>(dv, frag, hopper::desc_sw128(g + 2048 * kk, 1024, 1024), 1);
     }
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<1>();  // dPᵀ is done; dsᵀ is computed while dV runs
-    hopper::fence_regs(dpt);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 dl = *reinterpret_cast<const float2*>(delta + 8 * j + c);
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int i = 4 * j + 2 * hh;
-        ds[2 * j + hh] = pack_bf16(st[i] * (dpt[i] - dl.x) * a.scale,
-                                   st[i + 1] * (dpt[i + 1] - dl.y) * a.scale);
-      }
-    }
-    hopper::fence_regs(dk);
-    hopper::fence_regs(ds);
-    hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const uint32_t frag[4] = {ds[4 * kk], ds[4 * kk + 1], ds[4 * kk + 2], ds[4 * kk + 3]};
@@ -1055,8 +1044,6 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
     hopper::wgmma_wait<0>();
     hopper::fence_regs(dk);
     hopper::fence_regs(dv);
-    hopper::fence_regs(p);   // the register operands stay put until their
-    hopper::fence_regs(ds);  // products are done
     __syncwarp();
     if (lane == 0) hopper::mbar_arrive(&empty[s]);
   }
