@@ -493,6 +493,13 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
+// Two floats rounded to a bf16 pair: one 32-bit register of an A
+// fragment of the register (RS) form of wgmma.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 pair = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&pair);
+}
+
 struct FwdArgs {
   bf16* out;
   float* lse;
@@ -639,10 +646,7 @@ __global__ void __launch_bounds__(kFwdThreads)
 
     uint32_t p[32];  // p as bf16 pairs: the A fragments, 4 per 16 keys
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const __nv_bfloat162 pair = __floats2bfloat162_rn(sc[2 * i], sc[2 * i + 1]);
-      p[i] = *reinterpret_cast<const uint32_t*>(&pair);
-    }
+    for (int i = 0; i < 32; ++i) p[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
     hopper::mbar_wait(&v_full[s], parity);
     hopper::fence_regs(o);
     hopper::fence_regs(p);
@@ -707,12 +711,14 @@ __global__ void __launch_bounds__(kFwdThreads)
 // full barrier beside the TMA bytes.
 //
 // One warpgroup a block, so that several blocks share an SM (K2a three,
-// at most 128 registers a thread; K2b two): they wait on their own
-// rings and drift apart, one's exponentials and epilogue running under
-// another's products.  Blocks of two warpgroups in step (128 rows or
-// keys, one block an SM) were 9 % (K2a 19 %) slower on the H100
-// (PERF.md).  Two kernels as in the JAX package, no atomics: dq, dk and
-// dv are summed in one fixed order, so every run gives the same bits.
+// at most 128 registers a thread; K2b two, at most 168): they wait on
+// their own rings and drift apart, one's exponentials and epilogue
+// running under another's products.  On the H100, blocks of two
+// warpgroups in step (one block an SM) were slower, and so was
+// exponentiating under the second score product (K2b then spills);
+// PERF.md has the times.  Two kernels as in the JAX package, no atomics:
+// dq, dk and dv are summed in one fixed order, so every run gives the
+// same bits.
 // The epilogue stages the fp32 accumulators through the freed ring (rows
 // padded to 72 floats) and writes whole 256-byte rows in coalesced
 // 16-byte stores.
@@ -741,11 +747,6 @@ struct BwdArgs {
   float scale;
   float scale_log2;  // scale * log2(e)
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 pair = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&pair);
-}
 
 // Writes the warpgroup's 64 x 64 fp32 accumulator to rows row0.. of an
 // fp32 [*, L, H, 64] tensor at dst (row stride `stride` floats; rows at

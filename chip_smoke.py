@@ -18,7 +18,9 @@ training of the MoE LM through ``ExpertParallel`` on an expert axis of 2:
    each time with its achieved TFLOP/s:
    K5-K7 at the serving shapes; K1, K2a and K2b at BERT-base's q/k/v
    ``[16, 512, 12, 64]`` and at ragged lengths 100 and 17, causal and
-   not; K3 bit for bit (levels and scale) at the ring's chunk of 2^21
+   not, with the bf16 kernels' registers and spills from ``nvcc -Xptxas
+   -v``, and the K2 pair (the whole autograd backward through K2a and
+   K2b, and its delta and casts alone) against SDPA's backward; K3 bit for bit (levels and scale) at the ring's chunk of 2^21
    elements and at 1, 1000 and 2^20 + 3, and on an all-zero chunk; K4 at
    the two row-parallel shapes of phase 7, at a ragged 100 x 72 x 40 and
    (bf16) at 100 x 70 x 38, whose unaligned rows the wrapper stages for
@@ -477,7 +479,7 @@ def backward_pair(q, k, v, g, causal, dtype, library_ms):
     esize = torch.empty((), dtype=dtype).element_size()
     nbytes, flops = map(sum, zip(*(
         attention_bytes_flops(name, B, L, H, D, esize, causal)
-        for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"))))
+        for name in PAIR)))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     rec = {"ms": time_ms(whole), "library_ms": library_ms,
            "bound_ms": max(t_bytes, t_ops) * 1e3,

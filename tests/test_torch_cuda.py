@@ -377,7 +377,7 @@ def _bwd_bf16(q, k, v, go, causal, scale=0.125):
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("L", [1, 63, 65, 127, 128, 129, 255, 512])
 def test_cuda_flash_attention_bwd_bf16_tile_edges(cuda, L, causal, layout):
-    """K2a and K2b in bf16 (the wgmma kernels: 128 rows or keys a block,
+    """K2a and K2b in bf16 (the wgmma kernels: 64 rows or keys a block,
     64-row tiles through the ring) against their plain versions at
     lengths on and around their tiles, on q/k/v sliced from one
     [B, L, 3, H, D] projection and on three contiguous tensors; fp32 dq,
