@@ -1,6 +1,5 @@
 // Helpers shared by the attention kernels: element conversions, warp
-// reductions, the dot product of an fp32 query with one cache row, and
-// the dispatch over element type and head dim.
+// reductions and the dispatch over element type and head dim.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -42,24 +41,6 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFullMask, x, o);
   return x;
-}
-
-// sum_i q[i] * row[i] for one D-element cache row in global memory,
-// read in 16-byte vectors (the wrapper checks the 16-byte alignment).
-template <typename T, int D>
-__device__ __forceinline__ float dot_row(const float* q, const T* row) {
-  constexpr int kVec = 16 / sizeof(T);
-  static_assert(D % kVec == 0, "head dim must fill 16-byte vectors");
-  const uint4* r4 = reinterpret_cast<const uint4*>(row);
-  float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < D / kVec; ++i) {
-    const uint4 raw = __ldg(r4 + i);
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) acc = fmaf(q[i * kVec + j], to_float(e[j]), acc);
-  }
-  return acc;
 }
 
 // Calls fn.template operator()<T, D>() for the runtime (dtype, head dim):

@@ -16,10 +16,11 @@ training of the MoE LM through ``ExpertParallel`` on an expert axis of 2:
    1e-5) and bf16 (atol = rtol = 1e-2), timed with CUDA events beside
    the plain version, one PyTorch library call and the card's bound,
    each time with its achieved TFLOP/s:
-   K5-K7 at the serving shapes; K1, K2a and K2b at BERT-base's q/k/v
+   K5-K7 at the serving shapes, and K5 and K6 again at the serve mix's
+   occupancy (lengths 1-192); K1, K2a and K2b at BERT-base's q/k/v
    ``[16, 512, 12, 64]`` and at ragged lengths 100 and 17, causal and
-   not, with the bf16 kernels' registers and spills from ``nvcc -Xptxas
-   -v``, and the K2 pair (the whole autograd backward through K2a and
+   not; the registers, spills and static shared memory of K1, K2a, K2b
+   (bf16), K5 and K6 (both dtypes) from ``nvcc -Xptxas -v``; the K2 pair (the whole autograd backward through K2a and
    K2b, and its delta and casts alone) against SDPA's backward; K3 bit for bit (levels and scale) at the ring's chunk of 2^21
    elements and at 1, 1000 and 2^20 + 3, and on an all-zero chunk; K4 at
    the two row-parallel shapes of phase 7, at a ragged 100 x 72 x 40 and
@@ -271,6 +272,48 @@ def tail_filled_table(spans, rng):
     return table
 
 
+def decode_cases(dtype, randn, dense_lengths, paged_lengths, pools, rng):
+    """(name, args, kwargs, bytes, flops) of K5 over dense lanes and K6
+    over ``pools`` (a table drawn from ``rng``) at the given lengths;
+    the bytes count each visible key's K and V row, q, out, the lengths
+    and the used table entries once."""
+    dev = "cuda"
+    esize = torch.empty((), dtype=dtype).element_size()
+    cases = []
+    for name, lengths in (("flash_decode", dense_lengths),
+                          ("flash_decode_paged", paged_lengths)):
+        B = len(lengths)
+        n_vis = np.minimum(lengths.astype(np.int64) + 1, MAX_LEN)
+        q = randn(B, 1, HEADS, HEAD_DIM)
+        nbytes = (2 * n_vis.sum() * HEADS * HEAD_DIM * esize
+                  + 2 * B * HEADS * HEAD_DIM * esize + B * 4)
+        if name == "flash_decode":
+            args = (q, randn(B, HEADS, MAX_LEN, HEAD_DIM),
+                    randn(B, HEADS, MAX_LEN, HEAD_DIM),
+                    torch.as_tensor(lengths, device=dev))
+            kw = {}
+        else:
+            table = tail_filled_table(n_vis, rng)
+            args = (q, *pools, torch.as_tensor(lengths, device=dev),
+                    torch.as_tensor(table, device=dev))
+            kw = {"block_len": BLOCK_LEN}
+            nbytes += 4 * sum(kv_cache.blocks_for(n, BLOCK_LEN)
+                              for n in n_vis)
+        cases.append((name, args, kw, nbytes,
+                      4 * HEAD_DIM * HEADS * n_vis.sum()))
+    return cases
+
+
+def serve_mix_lengths(rng):
+    """K5's and K6's lengths at the serve mix's occupancy: phase 3's
+    requests (1-64 prompt tokens, 128 new) reach lengths 1-192; the
+    dense engine's 8 slots are all busy, the paged engine's 32 hold the
+    16 requests and 16 idle slots at length 0."""
+    return (rng.randint(1, 193, 8).astype(np.int32),
+            np.concatenate([rng.randint(1, 193, 16),
+                            np.zeros(16, np.int64)]).astype(np.int32))
+
+
 def kernel_cases(dtype, gen, rng):
     """(name, args, kwargs, bytes, flops) at the serving shapes."""
     dev = "cuda"
@@ -280,31 +323,11 @@ def kernel_cases(dtype, gen, rng):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     mb = MAX_LEN // BLOCK_LEN
-    cases = []
-    # K5: 8 slots over dense lanes.
-    lengths = edge_values(8, MAX_LEN, rng)
-    n_vis = np.minimum(lengths.astype(np.int64) + 1, MAX_LEN)
-    args = (randn(8, 1, HEADS, HEAD_DIM), randn(8, HEADS, MAX_LEN, HEAD_DIM),
-            randn(8, HEADS, MAX_LEN, HEAD_DIM),
-            torch.as_tensor(lengths, device=dev))
-    kv_bytes = 2 * n_vis.sum() * HEADS * HEAD_DIM * esize
-    cases.append(("flash_decode", args, {},
-                  kv_bytes + 2 * 8 * HEADS * HEAD_DIM * esize + 8 * 4,
-                  4 * HEAD_DIM * HEADS * n_vis.sum()))
-    # K6: 32 slots over the 512-block pool.
+    # K5: 8 slots over dense lanes; K6: 32 slots over the 512-block pool.
     k_pool = randn(NUM_BLOCKS, HEADS, BLOCK_LEN, HEAD_DIM)
     v_pool = randn(NUM_BLOCKS, HEADS, BLOCK_LEN, HEAD_DIM)
-    lengths = edge_values(32, 200, rng)
-    n_vis = lengths.astype(np.int64) + 1
-    table = tail_filled_table(n_vis, rng)
-    args = (randn(32, 1, HEADS, HEAD_DIM), k_pool, v_pool,
-            torch.as_tensor(lengths, device=dev),
-            torch.as_tensor(table, device=dev))
-    kv_bytes = 2 * n_vis.sum() * HEADS * HEAD_DIM * esize
-    tab_bytes = 4 * sum(kv_cache.blocks_for(n, BLOCK_LEN) for n in n_vis)
-    cases.append(("flash_decode_paged", args, {"block_len": BLOCK_LEN},
-                  kv_bytes + 2 * 32 * HEADS * HEAD_DIM * esize + 32 * 4
-                  + tab_bytes, 4 * HEAD_DIM * HEADS * n_vis.sum()))
+    cases = decode_cases(dtype, randn, edge_values(8, MAX_LEN, rng),
+                         edge_values(32, 200, rng), (k_pool, v_pool), rng)
     # K7: a 64-row chunk for each of 32 slots over the same pool.
     starts = edge_values(32, 150, rng)
     n_keys = np.minimum(starts.astype(np.int64) + CHUNK, mb * BLOCK_LEN)
@@ -382,44 +405,71 @@ def timings(rec, flops):
             f"{lib}, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
 
 
+def check_and_time(name, args, kw, nbytes, flops, dtype):
+    """One K5-K7 case: the kernel against its plain version within the
+    dtype's tolerance, then the kernel, the plain version and the
+    library call timed; returns the record."""
+    tol = TOLERANCE[dtype]
+    wrapper = KERNELS[name]["wrapper"]
+    plain = {"flash_decode": fd.flash_decode_attention_plain,
+             "flash_decode_paged": fd.flash_decode_attention_paged_plain,
+             "flash_prefill_paged":
+                 fp.flash_prefill_attention_paged_plain}[name]
+    got = wrapper(*args, dtype=dtype, **kw)
+    ref = plain(*args, dtype=dtype, **kw)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs()
+    max_err = float(err.max())
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite")
+    check(bool((err <= tol + tol * ref.float().abs()).all()),
+          f"{name} {dtype}: max |kernel - plain| = {max_err} "
+          f"exceeds atol = rtol = {tol}")
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return {
+        "max_abs_err": max_err,
+        "ms": time_ms(lambda: wrapper(*args, dtype=dtype, **kw)),
+        "plain_ms": time_ms(lambda: plain(*args, dtype=dtype, **kw)),
+        "library_ms": time_ms(lambda: library_call(name, args)),
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+
+
 def phase_kernels(record):
-    """Kernel vs plain at both dtypes, into the per-kernel record."""
+    """Kernel vs plain at both dtypes, into the per-kernel record; K5
+    and K6 also at the serve mix's occupancy (``record[(name, dtype,
+    "serve_mix")]``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     rng = np.random.RandomState(0)
+    mix_gen = torch.Generator(device="cuda").manual_seed(2)
+    mix_rng = np.random.RandomState(2)
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOLERANCE[dtype]
         for name, args, kw, nbytes, flops in kernel_cases(dtype, gen, rng):
-            wrapper = KERNELS[name]["wrapper"]
-            plain = {"flash_decode": fd.flash_decode_attention_plain,
-                     "flash_decode_paged":
-                         fd.flash_decode_attention_paged_plain,
-                     "flash_prefill_paged":
-                         fp.flash_prefill_attention_paged_plain}[name]
-            got = wrapper(*args, dtype=dtype, **kw)
-            ref = plain(*args, dtype=dtype, **kw)
-            torch.cuda.synchronize()
-            err = (got.float() - ref.float()).abs()
-            max_err = float(err.max())
-            check(bool(torch.isfinite(got).all()), f"{name}: non-finite")
-            check(bool((err <= tol + tol * ref.float().abs()).all()),
-                  f"{name} {dtype}: max |kernel - plain| = {max_err} "
-                  f"exceeds atol = rtol = {tol}")
-            peak = PEAK_FLOPS[dtype]
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-            rec = {
-                "max_abs_err": max_err,
-                "ms": time_ms(lambda: wrapper(*args, dtype=dtype, **kw)),
-                "plain_ms": time_ms(lambda: plain(*args, dtype=dtype, **kw)),
-                "library_ms": time_ms(lambda: library_call(name, args)),
-                "bound_ms": max(t_bytes, t_ops) * 1e3,
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            }
+            rec = check_and_time(name, args, kw, nbytes, flops, dtype)
             print(f"phase 1 {name} {str(dtype)[6:]}: max_abs_err "
-                  f"{max_err:.3e} (tol {tol}), {timings(rec, flops)}",
-                  flush=True)
+                  f"{rec['max_abs_err']:.3e} (tol {tol}), "
+                  f"{timings(rec, flops)}", flush=True)
             record[(name, dtype)] = rec
+
+        def randn(*shape):
+            return torch.randn(shape, generator=mix_gen,
+                               device="cuda").to(dtype)
+
+        pools = (randn(NUM_BLOCKS, HEADS, BLOCK_LEN, HEAD_DIM),
+                 randn(NUM_BLOCKS, HEADS, BLOCK_LEN, HEAD_DIM))
+        for name, args, kw, nbytes, flops in decode_cases(
+                dtype, randn, *serve_mix_lengths(mix_rng), pools, mix_rng):
+            rec = check_and_time(name, args, kw, nbytes, flops, dtype)
+            print(f"phase 1 {name} {str(dtype)[6:]} serve mix [B="
+                  f"{args[0].shape[0]}, lengths {args[3].min().item()}-"
+                  f"{args[3].max().item()}]: max_abs_err "
+                  f"{rec['max_abs_err']:.3e} (tol {tol}), "
+                  f"{timings(rec, flops)}", flush=True)
+            record[(name, dtype, "serve_mix")] = rec
+        del pools
 
 
 def attention_bytes_flops(name, B, L, H, D, esize, causal):
@@ -492,38 +542,61 @@ def backward_pair(q, k, v, g, causal, dtype, library_ms):
 
 
 # The bf16 attention kernels in kernel/csrc/flash_attention.cu.
-WGMMA_KERNELS = {"flash_attention_fwd": "fwd_wgmma_kernel",
-                 "flash_attention_bwd_dq": "dq_wgmma_kernel",
-                 "flash_attention_bwd_dkv": "dkv_wgmma_kernel"}
+# The kernels whose registers, spills and static shared memory phase 1
+# prints, by source: record name -> a fragment of the mangled entry name
+# (bf16 instances, and K5's and K6's fp32 ones).
+PTXAS_KERNELS = {
+    "flash_attention.cu": {
+        "flash_attention_fwd": "16fwd_wgmma_kernelE",
+        "flash_attention_bwd_dq": "15dq_wgmma_kernelE",
+        "flash_attention_bwd_dkv": "16dkv_wgmma_kernelE"},
+    "flash_decode.cu": {
+        "flash_decode": "13decode_kernelI13__nv_bfloat16Li64ELb0E",
+        "flash_decode_paged": "13decode_kernelI13__nv_bfloat16Li64ELb1E",
+        "flash_decode fp32": "13decode_kernelIfLi64ELb0E",
+        "flash_decode_paged fp32": "13decode_kernelIfLi64ELb1E"},
+}
 
 
 def ptxas_registers():
-    """Registers and spill-store bytes a thread of each bf16 attention
-    kernel takes, from ``nvcc -Xptxas -v`` on its source with the
-    build's flags."""
-    src = build.CSRC_DIR / "flash_attention.cu"
+    """Registers, spill-store bytes and static shared-memory bytes a
+    thread block of each kernel of ``PTXAS_KERNELS`` takes, from ``nvcc
+    -Xptxas -v`` on its source with the build's flags (the sources
+    compiled in parallel)."""
+    found = {}
     with tempfile.TemporaryDirectory() as tmp:
-        out = subprocess.run(
+        procs = {src: subprocess.Popen(
             [build.find_nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
-             str(src), "-o", os.path.join(tmp, "fa.o")],
-            capture_output=True, text=True, check=True)
-    found, name = {}, None
-    for line in (out.stdout + out.stderr).splitlines():
-        entry = re.search(r"Compiling entry function '(\S+)'", line)
-        spill = re.search(r"(\d+) bytes spill stores", line)
-        regs = re.search(r"Used (\d+) registers", line)
-        if entry:
-            name = next((n for n, k in WGMMA_KERNELS.items()
-                         if f"{len(k)}{k}E" in entry.group(1)), None)
-        elif name and spill:
-            found.setdefault(name, {})["spill_bytes"] = int(spill.group(1))
-        elif name and regs:
-            found.setdefault(name, {})["registers"] = int(regs.group(1))
-    check(set(found) == set(WGMMA_KERNELS),
-          f"ptxas reported {sorted(found)}, expected {sorted(WGMMA_KERNELS)}")
-    print("phase 1 ptxas flash_attention.cu: " + "; ".join(
-        f"{WGMMA_KERNELS[n]} {r['registers']} registers, {r['spill_bytes']} "
-        f"bytes spill stores" for n, r in found.items()), flush=True)
+             str(build.CSRC_DIR / src), "-o", os.path.join(tmp, src + ".o")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src in PTXAS_KERNELS}
+        outs = {src: p.communicate()[0] for src, p in procs.items()}
+    for src, kernels in PTXAS_KERNELS.items():
+        check(procs[src].returncode == 0, f"nvcc -Xptxas -v {src}: "
+              f"{outs[src][-2000:]}")
+        name = None
+        for line in outs[src].splitlines():
+            entry = re.search(r"Compiling entry function '(\S+)'", line)
+            spill = re.search(r"(\d+) bytes spill stores", line)
+            regs = re.search(r"Used (\d+) registers", line)
+            smem = re.search(r"(\d+) bytes smem", line)
+            if entry:
+                name = next((n for n, frag in kernels.items()
+                             if frag in entry.group(1)), None)
+            elif name and spill:
+                found.setdefault(name, {})["spill_bytes"] = int(spill.group(1))
+            elif name and regs:
+                found[name]["registers"] = int(regs.group(1))
+                found[name]["static_smem_bytes"] = (
+                    int(smem.group(1)) if smem else 0)
+        print(f"phase 1 ptxas {src}: " + "; ".join(
+            f"{n} {found[n]['registers']} registers, "
+            f"{found[n]['spill_bytes']} bytes spill stores, "
+            f"{found[n]['static_smem_bytes']} bytes static shared memory"
+            for n in kernels if n in found), flush=True)
+    want = {n for kernels in PTXAS_KERNELS.values() for n in kernels}
+    check(set(found) == want,
+          f"ptxas reported {sorted(found)}, expected {sorted(want)}")
     return found
 
 
@@ -532,7 +605,6 @@ def phase_attention_kernels(record):
     and at ragged lengths, causal and not, both dtypes; timed at
     BERT-base.  q, k and v are slices of one [B, L, 3, H, D] projection,
     as the model hands them over."""
-    record["ptxas"] = ptxas_registers()
     gen = torch.Generator(device="cuda").manual_seed(1)
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOLERANCE[dtype]
@@ -844,7 +916,7 @@ def phase_parity():
 PROFILED = "chip_smoke.profiled_window"
 
 
-def profile_summary(intervals, span, k=1):
+def profile_summary(intervals, span, k=1, watch=None):
     """Per-step summary of a profiled window of ``k`` steps.
 
     ``intervals``: ``(name, start_us, end_us)`` of every device launch
@@ -854,8 +926,9 @@ def profile_summary(intervals, span, k=1):
     ``k``: the window's wall ms, its device-busy ms (the union of the
     intervals, so launches that overlap on several streams count once),
     the launches, the device-to-host copies, and the six names with the
-    most device time as ``"name xN t ms"``; ``None`` when no device time
-    lies in the window."""
+    most device time as ``"name xN t ms"``, followed by every other name
+    that contains ``watch``; ``None`` when no device time lies in the
+    window."""
     start, end = span
     clipped = [(name, max(lo, start), min(hi, end))
                for name, lo, hi in intervals if lo <= end and hi >= start]
@@ -871,7 +944,8 @@ def profile_summary(intervals, span, k=1):
     for name, lo, hi in clipped:
         n, us = by_name.get(name, (0, 0.0))
         by_name[name] = (n + 1, us + hi - lo)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    top = ranked[:6] + [kv for kv in ranked[6:] if watch and watch in kv[0]]
     d2h = sum(n for name, (n, _) in by_name.items()
               if name.startswith("Memcpy DtoH"))
     return ((end - start) / 1e3 / k, busy_us / 1e3 / k, len(clipped) / k,
@@ -879,7 +953,7 @@ def profile_summary(intervals, span, k=1):
                                for name, (n, us) in top))
 
 
-def device_profile(run, k=1):
+def device_profile(run, k=1, watch=None):
     """Run ``run()`` (``k`` steps) once under ``torch.profiler`` and
     return ``profile_summary`` of its device launches, per step.
     Annotation ranges (``nccl:*``, which repeat their kernels' time) are
@@ -898,7 +972,7 @@ def device_profile(run, k=1):
     return profile_summary(
         [(e.name, e.time_range.start, e.time_range.end) for e in events
          if e.device_type == DeviceType.CUDA and not e.is_user_annotation],
-        (span.start, span.end), k)
+        (span.start, span.end), k, watch)
 
 
 def profile_window(engine, n_active):
@@ -912,7 +986,8 @@ def profile_window(engine, n_active):
     t0 = time.perf_counter()
     engine.decode_window(active)
     wall_ms = (time.perf_counter() - t0) * 1e3
-    prof = device_profile(lambda: engine.decode_window(active))
+    prof = device_profile(lambda: engine.decode_window(active),
+                          watch="decode_kernel")
     if prof is None:
         print("phase 3 window profile: device time not measured")
         return
@@ -921,6 +996,9 @@ def profile_window(engine, n_active):
           f"{prof_ms:.2f} ms, device busy {busy_ms:.2f} ms "
           f"({busy_ms / prof_ms:.1%}), {n_launch:.0f} kernel launches, "
           f"{d2h:.0f} device-to-host copies; top: {top}", flush=True)
+    decode = [t for t in top.split("; ") if "decode_kernel" in t]
+    print(f"phase 3 window profile: flash decode kernel "
+          f"{'; '.join(decode) or 'not launched'} a window", flush=True)
 
 
 def phase_serve():
@@ -1458,9 +1536,11 @@ def main(argv=None) -> int:
           f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} "
           f"card(s)", flush=True)
     record, counts = {}, {}
-    steps = [(1, lambda: (phase_kernels(record), phase_attention_kernels(
-                 record), phase_tp_kernels(record),
-                 phase_a2a_kernels(record))),
+    steps = [(1, lambda: (record.update(ptxas=ptxas_registers()),
+                          phase_kernels(record),
+                          phase_attention_kernels(record),
+                          phase_tp_kernels(record),
+                          phase_a2a_kernels(record))),
              (2, phase_parity),
              (3, lambda: counts.update(phase_serve())),
              (4, phase_training_parity),
@@ -1496,6 +1576,9 @@ def main(argv=None) -> int:
             if (name, dtype, 512) in record:     # K4's out projection
                 kernels[-1]["k512"] = record[(name, dtype, 512)]
             kernels[-1].update(record["ptxas"].get(name, {}))
+            if (name, dtype, "serve_mix") in record:     # K5, K6
+                kernels[-1]["serve_mix"] = record[(name, dtype, "serve_mix")]
+                kernels[-1]["ptxas_fp32"] = record["ptxas"][f"{name} fp32"]
             if name in PAIR:
                 kernels[-1]["library"] = (
                     "SDPA's autograd backward (dq, dk, dv), shared by "

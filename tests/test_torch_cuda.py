@@ -82,6 +82,98 @@ def test_cuda_kernels_match_plain(cuda, dtype, d):
                                    atol=tol, rtol=tol)
 
 
+def _decode_inputs(cuda, dtype, lengths, T, H, bl, paged, seed=0):
+    """K5 or K6 inputs with NaN in every K and V row past each slot's
+    last visible key (dense lanes of extent ``T``; or a pool of
+    ``bl``-row blocks, ``T // bl`` table entries a slot, tail-filled rows
+    drawn from a shuffled pool whose unused blocks are all NaN)."""
+    rng = np.random.RandomState(seed)
+    B, d = len(lengths), 64
+    n_vis = np.minimum(np.asarray(lengths) + 1, T)
+
+    def randn(*shape):
+        return torch.as_tensor(rng.randn(*shape), dtype=torch.float32)
+
+    q = randn(B, 1, H, d)
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    past = torch.as_tensor(np.arange(T)[None, :] >= n_vis[:, None])  # [B, T]
+    if not paged:
+        k, v = randn(B, H, T, d), randn(B, H, T, d)
+        for x in (k, v):
+            x[past[:, None, :, None].expand_as(x)] = float("nan")
+        args = (q, k, v, lens)
+    else:
+        mb = T // bl
+        counts = [-(-int(n) // bl) for n in n_vis]
+        nb = sum(counts) + 3
+        free = list(rng.permutation(nb))
+        table = np.zeros((B, mb), np.int32)
+        kp = torch.full((nb, H, bl, d), float("nan"))
+        vp = torch.full((nb, H, bl, d), float("nan"))
+        for i, n in enumerate(counts):
+            blocks = [free.pop() for _ in range(n)]
+            table[i, :] = blocks[-1]
+            table[i, :n] = blocks
+            for t in range(int(n_vis[i])):
+                kp[table[i, t // bl], :, t % bl] = randn(H, d)
+                vp[table[i, t // bl], :, t % bl] = randn(H, d)
+        args = (q, kp, vp, lens, torch.as_tensor(table))
+    return tuple(a.to(cuda, dtype) if a.is_floating_point() else a.to(cuda)
+                 for a in args)
+
+
+# (lengths, extent, heads, paged block length): lengths at the edges of
+# both dtypes' chunks (32 and 64 keys) and of the lengths a split starts
+# at (4 chunks: 128 and 256 keys) +- 1, 0 and the extent's end; one long
+# slot among short ones; an extent that is not a multiple of the chunk
+# (paged: 5 blocks of 14 rows); an extent above S chunks at a few (slot,
+# head) pairs (S = 8, each block takes several chunks) and at many (S =
+# 1, one block takes them all).
+DECODE_SPLIT_CASES = {
+    "chunk_edges": ([0, 31, 32, 33, 63, 64, 65, 127, 128, 129, 255, 256, 257,
+                     1023], 1024, 2, 16),
+    "one_long_slot": ([1023, 3, 0, 5, 17, 2, 9, 1], 1024, 2, 16),
+    "ragged_extent": ([0, 17, 69], 70, 2, 14),
+    "several_chunks_a_block": ([4095, 1500], 4096, 2, 16),
+    "one_block_a_pair": ([511, 0, 200, 129] * 32, 512, 8, 16),
+}
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+@pytest.mark.parametrize("case", sorted(DECODE_SPLIT_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_decode_split_cases(cuda, dtype, case, layout):
+    """K5 and K6, each (slot, head) split over a cluster, against their
+    plain versions at fp32 (atol = rtol = 1e-5) and bf16 (1e-2) where the
+    split is hard; NaN in every row past each slot's length leaves the
+    output finite (the kernel never reads those rows); a second call on
+    the same inputs is bit-identical (the merge order is fixed)."""
+    lengths, T, H, bl = DECODE_SPLIT_CASES[case]
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    chunk = fd.CHUNK_KEYS[dtype]
+    splits = fd.decode_splits(len(lengths), H, T, fd.sm_count(cuda), chunk)
+    if case == "several_chunks_a_block":
+        assert splits == fd.MAX_SPLITS and splits * chunk < T
+    if case == "one_block_a_pair":
+        assert splits == 1 and chunk < T
+    args = _decode_inputs(cuda, dtype, lengths, T, H, bl, layout == "paged")
+    wrapper, plain, kw = (
+        (fd.flash_decode_attention, fd.flash_decode_attention_plain, {})
+        if layout == "dense" else
+        (fd.flash_decode_attention_paged,
+         fd.flash_decode_attention_paged_plain, {"block_len": bl}))
+    before = wrapper.launches
+    got = wrapper(*args, dtype=dtype, **kw)
+    again = wrapper(*args, dtype=dtype, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(),
+                               plain(*args, dtype=dtype, **kw).float(),
+                               atol=tol, rtol=tol)
+
+
 @pytest.mark.parametrize("bad", ["dtype", "fp16", "output_dtype",
                                  "contiguous", "head_dim", "index_dtype"])
 def test_cuda_wrapper_raises_on_what_the_kernel_does_not_take(cuda, bad):
