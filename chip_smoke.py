@@ -35,7 +35,8 @@ training of the MoE LM through ``ExpertParallel`` on an expert axis of 2:
    counts as a tie only where the reference's top two logits are within
    1e-4);
 3. bf16 serving of the bench mix on both engines, with the kernels'
-   launch counters held to the attention calls the engines made;
+   launch counters held to the attention calls the engines made, and a
+   profiled window's device time, the flash decode kernel's included;
 4. fp32 training parity: a 2-layer BERT at full width, 3 AdamW steps
    with the flash attention and with the einsum attention on the same
    weights and batches, every loss within 1e-4 relative;

@@ -64,3 +64,18 @@ def test_top_list_keeps_six_names_and_no_device_time_gives_none():
     assert chip_smoke.profile_summary([], (0.0, 100.0)) is None
     assert chip_smoke.profile_summary([("k", 200.0, 300.0)],
                                       (0.0, 100.0)) is None
+
+
+def test_watched_names_follow_the_top_six():
+    """A name containing ``watch`` is listed after the six largest when
+    it is not among them (phase 3 prints the decode kernel's time a
+    window so), and is not repeated when it is."""
+    many = [(f"k{i}", 10.0 * i, 10.0 * i + i + 1) for i in range(8)]
+
+    def names(watch):
+        top = chip_smoke.profile_summary(many, (0.0, 100.0), watch=watch)[4]
+        return [t.split()[0] for t in top.split("; ")]
+
+    assert names("k0") == ["k7", "k6", "k5", "k4", "k3", "k2", "k0"]
+    assert names("k7") == ["k7", "k6", "k5", "k4", "k3", "k2"]
+    assert names(None) == ["k7", "k6", "k5", "k4", "k3", "k2"]

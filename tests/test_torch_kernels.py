@@ -119,6 +119,47 @@ def test_paged_flash_decode_plain_matches_jax(lengths):
 
 
 # --------------------------------------------------------------------------- #
+# K5 and K6 on the card: the host's choice of blocks per (slot, head)
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("batch,heads,extent", [
+    (1, 1, 1), (3, 2, 70), (8, 2, 1024), (8, 16, 1024), (32, 16, 1024),
+    (2, 2, 4096), (64, 8, 512), (128, 8, 512), (1, 16, 32768),
+    (256, 32, 1024)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_splits_stay_in_bounds(batch, heads, extent, dtype):
+    """S is in 1..8, never above the extent's chunks nor above the
+    blocks a slot as long as the extent would want; the helpers never
+    exceed what S blocks a pair need nor the SMs; S = 1 and no helpers
+    once batch * heads fills the card's resident blocks.  On 1, 114 and
+    132 SMs."""
+    chunk = fd.CHUNK_KEYS[dtype]
+    chunks = -(-extent // chunk)
+    for sm in (1, 114, 132):
+        S, helpers = fd.decode_splits(batch, heads, extent, sm, chunk)
+        assert 1 <= S <= fd.MAX_SPLITS
+        assert S <= max(1, -(-chunks // fd.MIN_CHUNKS)) <= max(1, chunks)
+        assert 0 <= helpers <= min(batch * heads * (S - 1), sm)
+        if batch * heads >= sm * fd.BLOCKS_PER_SM:
+            assert (S, helpers) == (1, 0)
+
+
+def test_decode_splits_at_the_serving_shapes():
+    """The serve widths on an H100 (132 SMs, 1024-key lanes): K5's 8
+    slots x 16 heads may spread a long slot over 4 blocks a head at bf16
+    (8 chunks of 128 keys, at least 2 a block) and 8 at fp32, with 132
+    helpers; K6's 32 x 16 pairs already fill the card (3 resident blocks
+    on each SM): one block a pair; a lane of 256 keys is never split."""
+    bf16, f32 = fd.CHUNK_KEYS[torch.bfloat16], fd.CHUNK_KEYS[torch.float32]
+    assert (bf16, f32, fd.MIN_CHUNKS, fd.BLOCKS_PER_SM) == (128, 64, 2, 3)
+    assert fd.decode_splits(8, 16, 1024, 132, bf16) == (4, 132)
+    assert fd.decode_splits(8, 16, 1024, 132, f32) == (8, 132)
+    assert fd.decode_splits(32, 16, 1024, 132, bf16) == (1, 0)
+    assert fd.decode_splits(32, 16, 1024, 132, f32) == (1, 0)
+    assert fd.decode_splits(8, 16, 256, 132, bf16) == (1, 0)
+    assert fd.decode_splits(1, 16, 32768, 132, bf16) == (8, 112)
+
+
+# --------------------------------------------------------------------------- #
 # K7: paged flash prefill
 # --------------------------------------------------------------------------- #
 @pytest.mark.parametrize("starts", [[0, 0, 0], [0, 4, 17], [3, 12, 20]])
