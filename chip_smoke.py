@@ -17,15 +17,17 @@ training of the MoE LM through ``ExpertParallel`` on an expert axis of 2:
    the plain version, one PyTorch library call and the card's bound,
    each time with its achieved TFLOP/s:
    K5-K7 at the serving shapes, and K5 and K6 again at the serve mix's
-   occupancy (lengths 1-192); K1, K2a and K2b at BERT-base's q/k/v
-   ``[16, 512, 12, 64]`` and at ragged lengths 100 and 17, causal and
-   not; the registers, spills and static shared memory of K1, K2a, K2b
-   (bf16), K5 and K6 (both dtypes) from ``nvcc -Xptxas -v``; the K2 pair (the whole autograd backward through K2a and
-   K2b, and its delta and casts alone) against SDPA's backward; K3 bit for bit (levels and scale) at the ring's chunk of 2^21
-   elements and at 1, 1000 and 2^20 + 3, and on an all-zero chunk; K4 at
-   the two row-parallel shapes of phase 7, at a ragged 100 x 72 x 40 and
-   (bf16) at 100 x 70 x 38, whose unaligned rows the wrapper stages for
-   TMA (counted); K8 bit for bit (arrived, levels and scale) at the MoE
+   occupancy (lengths 1-192) and with one slot of 1024 keys; K1, K2a
+   and K2b at BERT-base's q/k/v ``[16, 512, 12, 64]`` and at ragged
+   lengths 100 and 17, causal and not; the registers, spills and static
+   shared memory of K1, K2a, K2b (bf16), K5 and K6 (both dtypes) from
+   ``nvcc -Xptxas -v``; the K2 pair (the whole autograd backward
+   through K2a and K2b, and its delta and casts alone) against SDPA's
+   backward; K3 bit for bit (levels and scale) at the ring's chunk of
+   2^21 elements and at 1, 1000 and 2^20 + 3, and on an all-zero chunk;
+   K4 at the two row-parallel shapes of phase 7, at a ragged 100 x 72 x
+   40 and (bf16) at 100 x 70 x 38, whose unaligned rows the wrapper
+   stages for TMA (counted); K8 bit for bit (arrived, levels and scale) at the MoE
    window's chunks of 2^21 and 2^20 elements and at 1, 1000 and 2^20 + 3,
    in the warm-up (scale_in 0), a hop, the last hop (all-zero nxt) and
    with a NaN in nxt;
@@ -438,8 +440,9 @@ def check_and_time(name, args, kw, nbytes, flops, dtype):
 
 def phase_kernels(record):
     """Kernel vs plain at both dtypes, into the per-kernel record; K5
-    and K6 also at the serve mix's occupancy (``record[(name, dtype,
-    "serve_mix")]``)."""
+    and K6 also at the serve mix's occupancy and with one slot of
+    ``MAX_LEN`` keys, which the kernel splits over several blocks
+    (``record[(name, dtype, "serve_mix" or "one_slot")]``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -461,15 +464,18 @@ def phase_kernels(record):
 
         pools = (randn(NUM_BLOCKS, HEADS, BLOCK_LEN, HEAD_DIM),
                  randn(NUM_BLOCKS, HEADS, BLOCK_LEN, HEAD_DIM))
-        for name, args, kw, nbytes, flops in decode_cases(
-                dtype, randn, *serve_mix_lengths(mix_rng), pools, mix_rng):
-            rec = check_and_time(name, args, kw, nbytes, flops, dtype)
-            print(f"phase 1 {name} {str(dtype)[6:]} serve mix [B="
-                  f"{args[0].shape[0]}, lengths {args[3].min().item()}-"
-                  f"{args[3].max().item()}]: max_abs_err "
-                  f"{rec['max_abs_err']:.3e} (tol {tol}), "
-                  f"{timings(rec, flops)}", flush=True)
-            record[(name, dtype, "serve_mix")] = rec
+        one_slot = np.array([MAX_LEN - 1], np.int32)
+        for label, lengths in (("serve_mix", serve_mix_lengths(mix_rng)),
+                               ("one_slot", (one_slot, one_slot))):
+            for name, args, kw, nbytes, flops in decode_cases(
+                    dtype, randn, *lengths, pools, mix_rng):
+                rec = check_and_time(name, args, kw, nbytes, flops, dtype)
+                print(f"phase 1 {name} {str(dtype)[6:]} {label} [B="
+                      f"{args[0].shape[0]}, lengths {args[3].min().item()}-"
+                      f"{args[3].max().item()}]: max_abs_err "
+                      f"{rec['max_abs_err']:.3e} (tol {tol}), "
+                      f"{timings(rec, flops)}", flush=True)
+                record[(name, dtype, label)] = rec
         del pools
 
 
@@ -1578,7 +1584,8 @@ def main(argv=None) -> int:
                 kernels[-1]["k512"] = record[(name, dtype, 512)]
             kernels[-1].update(record["ptxas"].get(name, {}))
             if (name, dtype, "serve_mix") in record:     # K5, K6
-                kernels[-1]["serve_mix"] = record[(name, dtype, "serve_mix")]
+                for label in ("serve_mix", "one_slot"):
+                    kernels[-1][label] = record[(name, dtype, label)]
                 kernels[-1]["ptxas_fp32"] = record["ptxas"][f"{name} fp32"]
             if name in PAIR:
                 kernels[-1]["library"] = (

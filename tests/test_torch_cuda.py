@@ -128,8 +128,7 @@ def _decode_inputs(cuda, dtype, lengths, T, H, bl, paged, seed=0):
 # slot among short ones; an extent that is not a multiple of the chunk
 # (paged: 5 blocks of 14 rows); an extent above S chunks at a few (slot,
 # head) pairs (S = 8, each block takes several chunks) and at many (S =
-# 1, one block takes them all); more long slots than helpers (the later
-# ones stay whole).
+# 1, one block takes them all); many slots split at once.
 DECODE_SPLIT_CASES = {
     "chunk_edges": ([0, 63, 64, 65, 127, 128, 129, 255, 256, 257, 1023],
                     1024, 2, 16),
@@ -137,7 +136,7 @@ DECODE_SPLIT_CASES = {
     "ragged_extent": ([0, 17, 69], 70, 2, 14),
     "several_chunks_a_block": ([4095, 1500], 4096, 2, 16),
     "one_block_a_pair": ([511, 0, 200, 129] * 32, 512, 8, 16),
-    "helpers_run_out": ([1023, 700, 5] * 20, 1024, 2, 16),
+    "many_long_slots": ([1023, 700, 5] * 8, 1024, 2, 16),
 }
 
 
@@ -153,15 +152,13 @@ def test_cuda_flash_decode_split_cases(cuda, dtype, case, layout):
     lengths, T, H, bl = DECODE_SPLIT_CASES[case]
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     chunk = fd.CHUNK_KEYS[dtype]
-    splits, helpers = fd.decode_splits(len(lengths), H, T, fd.sm_count(cuda),
-                                       chunk)
+    splits = fd.decode_splits(len(lengths), H, T, fd.sm_count(cuda), chunk)
     if case == "several_chunks_a_block":
         assert splits == fd.MAX_SPLITS and splits * chunk < T
-        assert helpers == len(lengths) * H * (splits - 1)
     if case == "one_block_a_pair":
-        assert (splits, helpers) == (1, 0) and chunk < T
-    if case == "helpers_run_out":
-        assert helpers < len(lengths) * H * (splits - 1) / 2
+        assert splits == 1 and chunk < T
+    if case == "many_long_slots":
+        assert splits > 1
     args = _decode_inputs(cuda, dtype, lengths, T, H, bl, layout == "paged")
     wrapper, plain, kw = (
         (fd.flash_decode_attention, fd.flash_decode_attention_plain, {})

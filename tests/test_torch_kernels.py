@@ -128,35 +128,35 @@ def test_paged_flash_decode_plain_matches_jax(lengths):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_splits_stay_in_bounds(batch, heads, extent, dtype):
     """S is in 1..8, never above the extent's chunks nor above the
-    blocks a slot as long as the extent would want; the helpers never
-    exceed what S blocks a pair need nor the SMs; S = 1 and no helpers
-    once batch * heads fills the card's resident blocks.  On 1, 114 and
-    132 SMs."""
+    blocks a slot as long as the extent would use, never more blocks
+    than the card keeps resident, and 1 once batch * heads puts a block
+    on half the SMs; on 1, 114 and 132 SMs."""
     chunk = fd.CHUNK_KEYS[dtype]
     chunks = -(-extent // chunk)
+    pairs = batch * heads
     for sm in (1, 114, 132):
-        S, helpers = fd.decode_splits(batch, heads, extent, sm, chunk)
+        S = fd.decode_splits(batch, heads, extent, sm, chunk)
         assert 1 <= S <= fd.MAX_SPLITS
         assert S <= max(1, -(-chunks // fd.MIN_CHUNKS)) <= max(1, chunks)
-        assert 0 <= helpers <= min(batch * heads * (S - 1), sm)
-        if batch * heads >= sm * fd.BLOCKS_PER_SM:
-            assert (S, helpers) == (1, 0)
+        assert S == 1 or pairs * S <= sm * fd.BLOCKS_PER_SM
+        if 2 * pairs > sm:
+            assert S == 1
 
 
 def test_decode_splits_at_the_serving_shapes():
-    """The serve widths on an H100 (132 SMs, 1024-key lanes): K5's 8
-    slots x 16 heads may spread a long slot over 4 blocks a head at bf16
-    (8 chunks of 128 keys, at least 2 a block) and 8 at fp32, with 132
-    helpers; K6's 32 x 16 pairs already fill the card (3 resident blocks
-    on each SM): one block a pair; a lane of 256 keys is never split."""
+    """On an H100 (132 SMs) with 1024-key lanes: the serve mix's K5 (8
+    slots x 16 heads) and K6 (32 x 16) run one block a pair; 4 slots x
+    16 heads split a long slot over 4 blocks at bf16 (8 chunks of 128
+    keys, at least 2 a block); one slot of 32768 keys over 8."""
     bf16, f32 = fd.CHUNK_KEYS[torch.bfloat16], fd.CHUNK_KEYS[torch.float32]
     assert (bf16, f32, fd.MIN_CHUNKS, fd.BLOCKS_PER_SM) == (128, 64, 2, 3)
-    assert fd.decode_splits(8, 16, 1024, 132, bf16) == (4, 132)
-    assert fd.decode_splits(8, 16, 1024, 132, f32) == (8, 132)
-    assert fd.decode_splits(32, 16, 1024, 132, bf16) == (1, 0)
-    assert fd.decode_splits(32, 16, 1024, 132, f32) == (1, 0)
-    assert fd.decode_splits(8, 16, 256, 132, bf16) == (1, 0)
-    assert fd.decode_splits(1, 16, 32768, 132, bf16) == (8, 112)
+    for dt in (bf16, f32):
+        assert fd.decode_splits(8, 16, 1024, 132, dt) == 1
+        assert fd.decode_splits(32, 16, 1024, 132, dt) == 1
+    assert fd.decode_splits(4, 16, 1024, 132, bf16) == 4
+    assert fd.decode_splits(4, 16, 1024, 132, f32) == 6
+    assert fd.decode_splits(4, 16, 256, 132, bf16) == 1
+    assert fd.decode_splits(1, 16, 32768, 132, bf16) == 8
 
 
 # --------------------------------------------------------------------------- #
