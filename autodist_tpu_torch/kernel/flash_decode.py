@@ -15,11 +15,12 @@ attends to itself and everything before it).  On CUDA tensors a wrapper
 launches the hand-written kernel of ``csrc/flash_decode.cu`` (built at
 first use), which spreads a long slot's keys over up to
 :func:`decode_splits` blocks, and counts the launch in its ``launches``
-attribute; on CPU tensors it runs the plain version below.  Both compute fp32 scores
-``q . k * (1 / sqrt(d))``, fp32 probabilities times fp32 values and one
-cast to ``dtype`` at the end — the Pallas kernel's numerics, which
-differ at bf16 from the composed ``cached_attention`` (that one casts
-the probabilities to ``dtype`` before the value product).
+attribute; on CPU tensors it runs the plain version below.  Both
+compute fp32 scores ``q . k * (1 / sqrt(d))``, fp32 probabilities times
+fp32 values and one cast to ``dtype`` at the end — the Pallas kernel's
+numerics, which differ at bf16 from the composed ``cached_attention``
+(that one casts the probabilities to ``dtype`` before the value
+product).
 """
 from __future__ import annotations
 
@@ -68,6 +69,9 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+# The split kernels' counters, per (device, stream): the kernel needs
+# them at zero on entry and leaves them so, and zeroing a fresh buffer
+# for every call would be a second launch.
 _COUNTS = {}
 
 

@@ -27,10 +27,10 @@ training of the MoE LM through ``ExpertParallel`` on an expert axis of 2:
    2^21 elements and at 1, 1000 and 2^20 + 3, and on an all-zero chunk;
    K4 at the two row-parallel shapes of phase 7, at a ragged 100 x 72 x
    40 and (bf16) at 100 x 70 x 38, whose unaligned rows the wrapper
-   stages for TMA (counted); K8 bit for bit (arrived, levels and scale) at the MoE
-   window's chunks of 2^21 and 2^20 elements and at 1, 1000 and 2^20 + 3,
-   in the warm-up (scale_in 0), a hop, the last hop (all-zero nxt) and
-   with a NaN in nxt;
+   stages for TMA (counted); K8 bit for bit (arrived, levels and scale)
+   at the MoE window's chunks of 2^21 and 2^20 elements and at 1, 1000
+   and 2^20 + 3, in the warm-up (scale_in 0), a hop, the last hop
+   (all-zero nxt) and with a NaN in nxt;
 2. fp32 parity: 4 requests through ``ContinuousBatcher`` on the dense
    and on the paged + chunked engine, each stream equal token for token
    to a greedy full recompute by ``sequential_logits`` (a divergence
