@@ -13,14 +13,12 @@ wrapper keeps the JAX function's signature and layouts:
 Keys at positions ``<= lengths[b]`` are visible (the token just written
 attends to itself and everything before it).  On CUDA tensors a wrapper
 launches the hand-written kernel of ``csrc/flash_decode.cu`` (built at
-first use), which spreads a long slot's keys over up to
-:func:`decode_splits` blocks, and counts the launch in its ``launches``
-attribute; on CPU tensors it runs the plain version below.  Both
-compute fp32 scores ``q . k * (1 / sqrt(d))``, fp32 probabilities times
-fp32 values and one cast to ``dtype`` at the end — the Pallas kernel's
-numerics, which differ at bf16 from the composed ``cached_attention``
-(that one casts the probabilities to ``dtype`` before the value
-product).
+first use) and counts the launch in its ``launches`` attribute; on CPU
+tensors it runs the plain version below.  Both compute fp32 scores
+``q . k * (1 / sqrt(d))``, fp32 probabilities times fp32 values and one
+cast to ``dtype`` at the end — the Pallas kernel's numerics, which
+differ at bf16 from the composed ``cached_attention`` (that one casts
+the probabilities to ``dtype`` before the value product).
 """
 from __future__ import annotations
 
@@ -34,66 +32,6 @@ from autodist_tpu_torch.kernel import NEG_INF, build
 
 SUPPORTED_HEAD_DIMS = (64,)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-# The kernel's chunk, the keys a block takes at a time (``Tile::kChunk``
-# in ``csrc/flash_decode.cu``: 16 KB of K at head dim 64), and the chunks
-# a block takes at least when a (slot, head) is split (``kMinChunks``).
-CHUNK_KEYS = {torch.float32: 64, torch.bfloat16: 128}
-MIN_CHUNKS = 2
-MAX_SPLITS = 8
-BLOCKS_PER_SM = 3     # blocks of the kernel an SM holds (64 KB tile ring)
-
-
-def decode_splits(batch: int, heads: int, extent: int, sm_count: int,
-                  chunk: int) -> int:
-    """The grid's blocks per (slot, head), S.  1 once ``batch * heads``
-    alone puts a block on half of the ``sm_count`` SMs: a block that a
-    short slot leaves idle still costs its launch, and at such widths
-    the card is spread already.  Else as many as a slot as long as the
-    static ``extent`` (T, or ``max_blocks * block_len``) of
-    ``chunk``-key chunks would use, ``ceil(chunks / MIN_CHUNKS)``, at
-    most ``MAX_SPLITS`` and at most what the card keeps resident
-    (``BLOCKS_PER_SM`` blocks on each SM).  Reads no length: the grid
-    is the same for every call at one shape, and the kernel decides on
-    the card how many of the S blocks each slot's length needs."""
-    pairs = batch * heads
-    if 2 * pairs > sm_count:
-        return 1
-    chunks = -(-extent // chunk)
-    return max(1, min(MAX_SPLITS, -(-chunks // MIN_CHUNKS),
-                      sm_count * BLOCKS_PER_SM // pairs))
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-# The split kernels' counters, per (device, stream): the kernel needs
-# them at zero on entry and leaves them so, and zeroing a fresh buffer
-# for every call would be a second launch.
-_COUNTS = {}
-
-
-def split_scratch(device, batch, heads, splits, head_dim):
-    """``(work, count)`` beside a call split over ``splits`` blocks: a
-    fresh fp32 buffer for each block's (max, sum, accumulator), and the
-    stream's int32 counters, one per (slot, head), zeroed once and left
-    at zero by every call.  ``(None, None)`` when ``splits == 1``."""
-    if splits == 1:
-        return None, None
-    work = torch.empty(batch * heads * splits * (head_dim + 2),
-                       dtype=torch.float32, device=device)
-    key = (device, torch.cuda.current_stream(device).cuda_stream)
-    count = _COUNTS.get(key)
-    if count is None or count.numel() < batch * heads:
-        count = _COUNTS[key] = torch.zeros(batch * heads, dtype=torch.int32,
-                                           device=device)
-    return work, count
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
 
 
 # --------------------------------------------------------------------------- #
@@ -220,10 +158,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def _c_kernels():
     lib = build.load_library()
     dense = lib.adt_flash_decode_dense
-    dense.argtypes = [_P] * 7 + [_I] * 5 + [_F, _I, _P]
+    dense.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]
     dense.restype = _I
     paged = lib.adt_flash_decode_paged
-    paged.argtypes = [_P] * 8 + [_I] * 7 + [_F, _I, _P]
+    paged.argtypes = [_P] * 6 + [_I] * 7 + [_F, _P]
     paged.restype = _I
     return dense, paged
 
@@ -252,13 +190,10 @@ def flash_decode_attention(q, k_layer, v_layer, lengths, *,
         [("lengths", lengths)])
     dense, _ = _c_kernels()
     out = torch.empty((B, 1, H, d), dtype=dtype, device=q.device)
-    splits = decode_splits(B, H, T, sm_count(q.device), CHUNK_KEYS[dtype])
     with torch.cuda.device(q.device):
-        work, count = split_scratch(q.device, B, H, splits, d)
         rc = dense(q.data_ptr(), k_layer.data_ptr(), v_layer.data_ptr(),
-                   lengths.data_ptr(), out.data_ptr(), _ptr(work),
-                   _ptr(count), B, H, T, d, code, 1.0 / math.sqrt(d), splits,
-                   stream_of(q))
+                   lengths.data_ptr(), out.data_ptr(), B, H, T, d, code,
+                   1.0 / math.sqrt(d), stream_of(q))
     raise_on_error(rc, "flash_decode_attention")
     flash_decode_attention.launches += 1
     return out
@@ -293,14 +228,11 @@ def flash_decode_attention_paged(q, k_pool, v_pool, lengths, block_table,
         [("lengths", lengths), ("block_table", block_table)])
     _, paged = _c_kernels()
     out = torch.empty((B, 1, H, d), dtype=dtype, device=q.device)
-    splits = decode_splits(B, H, mb * block_len, sm_count(q.device),
-                           CHUNK_KEYS[dtype])
     with torch.cuda.device(q.device):
-        work, count = split_scratch(q.device, B, H, splits, d)
         rc = paged(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                    lengths.data_ptr(), block_table.data_ptr(),
-                   out.data_ptr(), _ptr(work), _ptr(count), B, H, block_len,
-                   mb, NB, d, code, 1.0 / math.sqrt(d), splits, stream_of(q))
+                   out.data_ptr(), B, H, block_len, mb, NB, d, code,
+                   1.0 / math.sqrt(d), stream_of(q))
     raise_on_error(rc, "flash_decode_attention_paged")
     flash_decode_attention_paged.launches += 1
     return out

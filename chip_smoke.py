@@ -441,8 +441,8 @@ def check_and_time(name, args, kw, nbytes, flops, dtype):
 def phase_kernels(record):
     """Kernel vs plain at both dtypes, into the per-kernel record; K5
     and K6 also at the serve mix's occupancy and with one slot of
-    ``MAX_LEN`` keys, which the kernel splits over several blocks
-    (``record[(name, dtype, "serve_mix" or "one_slot")]``)."""
+    ``MAX_LEN`` keys (``record[(name, dtype, "serve_mix" or
+    "one_slot")]``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)

@@ -123,42 +123,33 @@ def _decode_inputs(cuda, dtype, lengths, T, H, bl, paged, seed=0):
 
 
 # (lengths, extent, heads, paged block length): lengths at the edges of
-# both dtypes' chunks (64 and 128 keys) and of the lengths a split starts
-# at (2 chunks: 128 and 256 keys) +- 1, 0 and the extent's end; one long
-# slot among short ones; an extent that is not a multiple of the chunk
-# (paged: 5 blocks of 14 rows); an extent above S chunks at a few (slot,
-# head) pairs (S = 8, each block takes several chunks) and at many (S =
-# 1, one block takes them all); many slots split at once.
-DECODE_SPLIT_CASES = {
-    "chunk_edges": ([0, 63, 64, 65, 127, 128, 129, 255, 256, 257, 1023],
-                    1024, 2, 16),
+# the kernel's chunks (48, 64, 96 and 128 keys at fp32 / bf16, paged /
+# dense) and at two chunks +- 1, 0 and the extent's end; one long slot
+# among short ones; an extent that is not a multiple of a chunk (paged: 5
+# blocks of 14 rows); an extent that a block walks in many chunks; many
+# (slot, head) pairs, more than the card holds at once; many long slots.
+DECODE_EDGE_CASES = {
+    "chunk_edges": ([0, 47, 48, 49, 63, 64, 65, 95, 96, 97, 127, 128, 129,
+                     191, 192, 193, 255, 256, 257, 1023], 1024, 2, 16),
     "one_long_slot": ([1023, 3, 0, 5, 17, 2, 9, 1], 1024, 2, 16),
     "ragged_extent": ([0, 17, 69], 70, 2, 14),
-    "several_chunks_a_block": ([4095, 1500], 4096, 2, 16),
-    "one_block_a_pair": ([511, 0, 200, 129] * 32, 512, 8, 16),
+    "long_extent": ([4095, 1500], 4096, 2, 16),
+    "many_pairs": ([511, 0, 200, 129] * 32, 512, 8, 16),
     "many_long_slots": ([1023, 700, 5] * 8, 1024, 2, 16),
 }
 
 
 @pytest.mark.parametrize("layout", ["dense", "paged"])
-@pytest.mark.parametrize("case", sorted(DECODE_SPLIT_CASES))
+@pytest.mark.parametrize("case", sorted(DECODE_EDGE_CASES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_flash_decode_split_cases(cuda, dtype, case, layout):
-    """K5 and K6, each (slot, head) split over a cluster, against their
-    plain versions at fp32 (atol = rtol = 1e-5) and bf16 (1e-2) where the
-    split is hard; NaN in every row past each slot's length leaves the
-    output finite (the kernel never reads those rows); a second call on
-    the same inputs is bit-identical (the merge order is fixed)."""
-    lengths, T, H, bl = DECODE_SPLIT_CASES[case]
+def test_cuda_flash_decode_edge_cases(cuda, dtype, case, layout):
+    """K5 and K6, one block a (slot, head), against their plain versions
+    at fp32 (atol = rtol = 1e-5) and bf16 (1e-2) at the tile and chunk
+    edges; NaN in every row past each slot's length leaves the output
+    finite (the kernel never reads those rows); a second call on the
+    same inputs is bit-identical."""
+    lengths, T, H, bl = DECODE_EDGE_CASES[case]
     tol = 1e-5 if dtype == torch.float32 else 1e-2
-    chunk = fd.CHUNK_KEYS[dtype]
-    splits = fd.decode_splits(len(lengths), H, T, fd.sm_count(cuda), chunk)
-    if case == "several_chunks_a_block":
-        assert splits == fd.MAX_SPLITS and splits * chunk < T
-    if case == "one_block_a_pair":
-        assert splits == 1 and chunk < T
-    if case == "many_long_slots":
-        assert splits > 1
     args = _decode_inputs(cuda, dtype, lengths, T, H, bl, layout == "paged")
     wrapper, plain, kw = (
         (fd.flash_decode_attention, fd.flash_decode_attention_plain, {})

@@ -119,44 +119,76 @@ def test_paged_flash_decode_plain_matches_jax(lengths):
 
 
 # --------------------------------------------------------------------------- #
-# K5 and K6 on the card: the host's choice of blocks per (slot, head)
+# K5 and K6 at the CUDA kernel's tile and chunk edges
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("batch,heads,extent", [
-    (1, 1, 1), (3, 2, 70), (8, 2, 1024), (8, 16, 1024), (32, 16, 1024),
-    (2, 2, 4096), (64, 8, 512), (128, 8, 512), (1, 16, 32768),
-    (256, 32, 1024)])
+# (lengths, extent, heads, paged block length): lengths at the edges of
+# the CUDA kernel's chunks (48, 64, 96 and 128 keys at fp32 / bf16, paged
+# / dense) +- 1, 0 and the extent's end; one long slot among short ones;
+# an extent that is not a multiple of a chunk (paged: 5 blocks of 14
+# rows); a long extent that a block walks in many chunks.
+DECODE_EDGE_CASES = {
+    "chunk_edges": ([0, 47, 48, 49, 63, 64, 65, 95, 96, 97, 127, 128, 129,
+                     255, 256, 257, 1023], 1024, 1, 16),
+    "one_long_slot": ([1023, 3, 0, 5, 17, 2, 9, 1], 1024, 2, 16),
+    "ragged_extent": ([0, 17, 69], 70, 2, 14),
+    "long_extent": ([2047, 700], 2048, 1, 16),
+}
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+@pytest.mark.parametrize("case", sorted(DECODE_EDGE_CASES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_decode_splits_stay_in_bounds(batch, heads, extent, dtype):
-    """S is in 1..8, never above the extent's chunks nor above the
-    blocks a slot as long as the extent would use, never more blocks
-    than the card keeps resident, and 1 once batch * heads puts a block
-    on half the SMs; on 1, 114 and 132 SMs."""
-    chunk = fd.CHUNK_KEYS[dtype]
-    chunks = -(-extent // chunk)
-    pairs = batch * heads
-    for sm in (1, 114, 132):
-        S = fd.decode_splits(batch, heads, extent, sm, chunk)
-        assert 1 <= S <= fd.MAX_SPLITS
-        assert S <= max(1, -(-chunks // fd.MIN_CHUNKS)) <= max(1, chunks)
-        assert S == 1 or pairs * S <= sm * fd.BLOCKS_PER_SM
-        if 2 * pairs > sm:
-            assert S == 1
+def test_flash_decode_plain_matches_jax_at_kernel_edges(dtype, case, layout):
+    """The CPU path (the plain version the CUDA kernel is held to on the
+    card) equals the Pallas kernel at the CUDA kernel's edge cases, at
+    fp32 (atol = rtol = 1e-5) and bf16 (1e-2), with NaN written into
+    every K and V row that no slot sees (the JAX side gets the clean
+    rows: the plain version must not read what it masks)."""
+    from autodist_tpu.kernel.pallas.flash_decode import (
+        flash_decode_attention, flash_decode_attention_paged)
 
-
-def test_decode_splits_at_the_serving_shapes():
-    """On an H100 (132 SMs) with 1024-key lanes: the serve mix's K5 (8
-    slots x 16 heads) and K6 (32 x 16) run one block a pair; 4 slots x
-    16 heads split a long slot over 4 blocks at bf16 (8 chunks of 128
-    keys, at least 2 a block); one slot of 32768 keys over 8."""
-    bf16, f32 = fd.CHUNK_KEYS[torch.bfloat16], fd.CHUNK_KEYS[torch.float32]
-    assert (bf16, f32, fd.MIN_CHUNKS, fd.BLOCKS_PER_SM) == (128, 64, 2, 3)
-    for dt in (bf16, f32):
-        assert fd.decode_splits(8, 16, 1024, 132, dt) == 1
-        assert fd.decode_splits(32, 16, 1024, 132, dt) == 1
-    assert fd.decode_splits(4, 16, 1024, 132, bf16) == 4
-    assert fd.decode_splits(4, 16, 1024, 132, f32) == 6
-    assert fd.decode_splits(4, 16, 256, 132, bf16) == 1
-    assert fd.decode_splits(1, 16, 32768, 132, bf16) == 8
+    lengths, T, H, bl = DECODE_EDGE_CASES[case]
+    B, d = len(lengths), 64
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 \
+        else dict(atol=1e-2, rtol=1e-2)
+    r = np.random.RandomState(3)
+    q = r.randn(B, 1, H, d).astype(np.float32)
+    lj, lt = _pair(np.asarray(lengths, np.int32))
+    if layout == "dense":
+        k, v = (r.randn(B, H, T, d).astype(np.float32) for _ in range(2))
+        stale = np.arange(T)[None, :] > np.asarray(lengths)[:, None]  # [B, T]
+        kn, vn = k.copy(), v.copy()
+        kn.transpose(0, 2, 1, 3)[stale] = np.nan
+        vn.transpose(0, 2, 1, 3)[stale] = np.nan
+        want = flash_decode_attention(
+            jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+            lj, interpret=True)
+        got = fd.flash_decode_attention(
+            *(torch.as_tensor(a).to(dtype) for a in (q, kn, vn)), lt,
+            dtype=dtype)
+    else:
+        mb = -(-T // bl)
+        nb = B * mb + 3
+        table = r.permutation(nb)[:B * mb].reshape(B, mb).astype(np.int32)
+        k, v = (r.randn(nb, H, bl, d).astype(np.float32) for _ in range(2))
+        seen = np.zeros((nb, bl), bool)
+        for b, n in enumerate(lengths):
+            pos = np.arange(min(n + 1, mb * bl))
+            seen[table[b, pos // bl], pos % bl] = True
+        kn, vn = k.copy(), v.copy()
+        kn.transpose(0, 2, 1, 3)[~seen] = np.nan
+        vn.transpose(0, 2, 1, 3)[~seen] = np.nan
+        tj, tt = _pair(table)
+        want = flash_decode_attention_paged(
+            jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+            lj, tj, block_len=bl, interpret=True)
+        got = fd.flash_decode_attention_paged(
+            *(torch.as_tensor(a).to(dtype) for a in (q, kn, vn)), lt, tt,
+            block_len=bl, dtype=dtype)
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **tol)
 
 
 # --------------------------------------------------------------------------- #
