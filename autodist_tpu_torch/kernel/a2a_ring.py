@@ -11,19 +11,23 @@ scale, and the rank's own chunk never leaves it and stays exact.
 :func:`fused_hop` (K8) is one hop's arithmetic: ``arrived = f32(q_in) *
 scale_in``, then for the next outgoing chunk ``scale = max(max|nxt| /
 127, 1e-20)`` and ``q_out = int8(clip(round(nxt / scale), -127, 127))``.
-On CUDA tensors it launches the kernel of ``csrc/a2a_ring.cu`` and
-counts the launch in its ``launches`` attribute; on CPU tensors it runs
-:func:`fused_hop_plain`.
+On CUDA tensors it launches the kernel of ``csrc/a2a_ring.cu`` (one
+cooperative launch a hop) and counts the launch in its ``launches``
+attribute, and in ``unaligned`` the launches whose arrays were not all
+16-byte aligned; on CPU tensors it runs :func:`fused_hop_plain`.
+``out=`` lets the ring dequantize straight into its output row.
 
 :func:`quantized_ring_all_to_all` follows the JAX ring hop for hop: a
 warm-up hop quantizes the chunk for rank ``me + 1`` (``scale_in = 0``,
 nothing arrived), then ``n - 1`` shift-``h`` hops, each sending the
 scale and the chunk to ``me + h`` as one message, receiving from ``me -
-h`` and running one fused hop that dequantizes what arrived and
-quantizes the chunk for hop ``h + 1`` (zeros after the last).  The
-result is reassembled in source order.  The scale stays a device
-tensor: the ring reads nothing back to the host beyond what the
-transport moves.
+h`` and running one fused hop that dequantizes what arrived into its
+row of the output and quantizes the chunk for hop ``h + 1`` (zeros
+after the last).  The message is the K3 ring's
+(:func:`autodist_tpu_torch.kernel.quant_ring.send`: a 16-byte header
+with the scale, then the levels).  The result is reassembled in source
+order.  The scale stays a device tensor: the ring reads nothing back to
+the host beyond what the transport moves.
 """
 from __future__ import annotations
 
@@ -36,67 +40,73 @@ from autodist_tpu_torch.kernel import build
 from autodist_tpu_torch.kernel import quantize as qz
 from autodist_tpu_torch.kernel.flash_decode import (on_cuda, raise_on_error,
                                                     stream_of)
+from autodist_tpu_torch.kernel.quant_ring import SCRATCH_WORDS, aligned, send
 
 
-def fused_hop_plain(q_in, scale_in, nxt):
+def fused_hop_plain(q_in, scale_in, nxt, out=None):
     """Plain PyTorch version of :func:`fused_hop`."""
     scale = qz.abs_max_scale(nxt)
-    return (q_in.float() * scale_in, qz.quantize_levels(nxt, scale).to(
-        torch.int8), scale)
+    return (torch.mul(q_in.float(), scale_in, out=out),
+            qz.quantize_levels(nxt, scale).to(torch.int8), scale)
 
 
-_P, _L = ctypes.c_void_p, ctypes.c_longlong
+_P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 
 @functools.lru_cache(maxsize=None)
 def _c_kernel():
     hop = build.load_library().adt_a2a_ring_hop
-    hop.argtypes = [_P] * 7 + [_L, _P]
+    hop.argtypes = [_P] * 7 + [_L, _L, _I, _P]
     hop.restype = ctypes.c_int
     return hop
 
 
-def fused_hop(q_in, scale_in, nxt):
+def fused_hop(q_in, scale_in, nxt, out=None):
     """One fused ring hop (K8): ``q_in`` int8, ``scale_in`` a one-element
     fp32 tensor, ``nxt`` fp32 of ``q_in``'s shape -> ``(arrived fp32,
-    q_out int8, scale_out 0-d fp32)``, all on ``nxt``'s device."""
+    q_out int8, scale_out 0-d fp32)``, all on ``nxt``'s device.
+    ``arrived`` is written into ``out`` (fp32 of ``nxt``'s shape,
+    contiguous) where one is given."""
     if q_in.shape != nxt.shape:
         raise ValueError(f"q_in {tuple(q_in.shape)} and nxt "
                          f"{tuple(nxt.shape)} differ in shape")
     if scale_in.numel() != 1:
         raise ValueError(f"scale_in must hold one value, got "
                          f"{tuple(scale_in.shape)}")
-    if not on_cuda(q_in, scale_in, nxt):
-        return fused_hop_plain(q_in, scale_in.reshape(()), nxt)
-    for name, t, dt in (("q_in", q_in, torch.int8),
-                        ("scale_in", scale_in, torch.float32),
-                        ("nxt", nxt, torch.float32)):
+    args = [("q_in", q_in, torch.int8), ("scale_in", scale_in, torch.float32),
+            ("nxt", nxt, torch.float32)]
+    if out is not None:
+        if out.shape != nxt.shape:
+            raise ValueError(f"out {tuple(out.shape)} and nxt "
+                             f"{tuple(nxt.shape)} differ in shape")
+        args.append(("out", out, torch.float32))
+    if not on_cuda(*(t for _, t, _ in args)):
+        return fused_hop_plain(q_in, scale_in.reshape(()), nxt, out)
+    for name, t, dt in args:
         if t.dtype != dt:
             raise TypeError(f"{name} must be {dt}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    arrived = torch.empty_like(nxt)
+    arrived = torch.empty_like(nxt) if out is None else out
     q_out = torch.empty_like(q_in)
     scale_out = torch.empty((), dtype=torch.float32, device=nxt.device)
-    amax = torch.empty((), dtype=torch.int32, device=nxt.device)
+    block_max = torch.empty(SCRATCH_WORDS, dtype=torch.int32,
+                            device=nxt.device)
+    vec = aligned(q_in, nxt, arrived, q_out)
     with torch.cuda.device(nxt.device):
         rc = _c_kernel()(q_in.data_ptr(), scale_in.data_ptr(),
                          nxt.data_ptr(), arrived.data_ptr(),
                          q_out.data_ptr(), scale_out.data_ptr(),
-                         amax.data_ptr(), nxt.numel(), stream_of(nxt))
+                         block_max.data_ptr(), SCRATCH_WORDS, nxt.numel(),
+                         int(vec), stream_of(nxt))
     raise_on_error(rc, "a2a_ring fused_hop")
     fused_hop.launches += 1
+    fused_hop.unaligned += not vec
     return arrived, q_out, scale_out
 
 
 fused_hop.launches = 0
-
-
-def _send(axis, q, s, shift):
-    """Pass ``(q, s)`` ``shift`` ranks along the ring as one message."""
-    wire = torch.cat([s.reshape(1).view(torch.uint8), q.view(torch.uint8)])
-    got = axis.ppermute(wire, shift=shift)
-    return got[4:].view(torch.int8), got[:4].view(torch.float32)
+fused_hop.unaligned = 0
 
 
 def _parts(x, n, split_axis):
@@ -135,11 +145,11 @@ def quantized_ring_all_to_all(x, axis, split_axis: int, concat_axis: int):
                         torch.zeros((), dtype=torch.float32,
                                     device=x.device), flat[(me + 1) % n])
     for h in range(1, n):
-        q, s = _send(axis, q, s, h)
+        q, s = send(axis, q, s, h)
         nxt = flat[(me + h + 1) % n] if h + 1 < n else torch.zeros_like(
             flat[0])
-        arrived, q, s = fused_hop(q, s, nxt)
-        out[(me - h) % n] = arrived      # rank me - h's chunk for me
+        # Rank me - h's chunk for me, dequantized into its row.
+        _, q, s = fused_hop(q, s, nxt, out=out[(me - h) % n])
     return _assemble(out, part_shape, split_axis, concat_axis).to(x.dtype)
 
 

@@ -6,17 +6,27 @@
 // The Pallas kernel holds the whole [1, C] chunk in VMEM and reads it
 // twice there: once for max|acc|, once to write the levels.  Here the
 // chunk is spread over the SMs, and the scale needs the maximum over
-// every block before any level can be written, so the hop is two
-// passes (the kernel boundary is the grid-wide barrier):
+// every block before any level can be written.  The hop is one
+// cooperative launch (quantize_common.cuh, launch_hop):
 //
-//   1. every block recomputes acc = f32(q_in) * scale_in + local over a
-//      grid-stride range and folds max|acc| into one 32-bit word with
-//      atomicMax on the float's bit pattern (for non-negative floats
-//      the unsigned order is the float order, and a NaN's pattern is
-//      above +inf's, so a NaN propagates as jnp.max propagates it);
-//   2. every block derives scale = max(amax / 127, 1e-20), recomputes
-//      acc and writes clip(rint(acc / scale), -127, 127) as int8; block
-//      0 writes the scale.
+//   1. each thread loads its unit of 16 consecutive elements
+//      (quant::Layout's runs), their 16 levels of q_in as one int4 and
+//      their floats of local as four float4, and keeps acc = f32(q_in) *
+//      scale_in + local in registers (runs and not K8's quads: 0.0138
+//      against 0.0147 ms a hop, PERF.md, PR 8);
+//   2. the grid folds max|acc| (warp, block, a word a block) and waits
+//      at one grid-wide barrier; every block then folds the blocks'
+//      words into scale = max(amax / 127, 1e-20);
+//   3. each thread writes clip(rint(acc / scale), -127, 127) from its
+//      registers as one int4; block 0 writes the scale.
+//
+// A grid holds resident-blocks x 1024 x 16 elements in registers: 2^21
+// (the main path's C) on 128 blocks, in one tile (kTiled false).  A
+// larger chunk is walked in tiles of that size twice (kTiled true), the
+// max first, then the levels, each tile read again (from the 50 MB L2
+// where it fits).  The vector path needs q_in, local and q_out
+// 16-byte aligned (the ring's wire puts the levels 16 bytes past its
+// start; the wrapper checks and takes the element-wise path otherwise).
 //
 // The arithmetic is the plain version's, rounding for rounding: the
 // product and the sum are separately rounded (__fmul_rn, __fadd_rn: no
@@ -27,44 +37,55 @@
 //
 // Bound on this card: bytes.  A hop must read q_in (1 byte) and local
 // (4 bytes) and write q_out (1 byte) per element: 6 bytes, about 3.8 us
-// at C = 2^21 on 3.35 TB/s.  The second pass reads q_in and local
-// again; at the main path's C (10.5 MB of inputs) they are still in the
-// 50 MB L2.  scale_in is read on the device and scale_out written
-// there: the ring never waits on the host between hops.
+// at C = 2^21 on 3.35 TB/s, and at the main path's C this kernel moves
+// exactly those bytes, once.  scale_in is read on the device and
+// scale_out written there: the ring never waits on the host between hops.
 #include "quantize_common.cuh"
 
 namespace adt {
 namespace {
 
 using quant::kThreads;
+using quant::kUnit;
 
-__device__ __forceinline__ float hop_acc(const int8_t* q_in, float s_in,
-                                         const float* local, long long i) {
-  return __fadd_rn(__fmul_rn(static_cast<float>(q_in[i]), s_in), local[i]);
+template <bool kVec>
+__device__ __forceinline__ void hop_unit(const int8_t* __restrict__ q_in, float s_in,
+                                         const float* __restrict__ local, long long base,
+                                         long long n, float (&acc)[kUnit]) {
+  float q[kUnit];
+  quant::load_levels<kVec, false>(q_in, base, n, q);
+  quant::load_floats<kVec, false>(local, base, n, acc);
+#pragma unroll
+  for (int k = 0; k < kUnit; ++k) acc[k] = __fadd_rn(__fmul_rn(q[k], s_in), acc[k]);
 }
 
+template <bool kVec, bool kTiled>
 __global__ void __launch_bounds__(kThreads)
-    amax_kernel(const int8_t* __restrict__ q_in, const float* __restrict__ scale_in,
-                const float* __restrict__ local, unsigned* __restrict__ amax, long long n) {
+    quant_ring_hop_kernel(const int8_t* __restrict__ q_in, const float* __restrict__ scale_in,
+                          const float* __restrict__ local, int8_t* __restrict__ q_out,
+                          float* __restrict__ scale_out, unsigned* __restrict__ block_max,
+                          long long n) {
   const float s_in = *scale_in;
-  unsigned m = 0;
-  for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x; i < n;
-       i += (long long)gridDim.x * kThreads) {
-    m = max(m, quant::abs_bits(hop_acc(q_in, s_in, local, i)));
-  }
-  quant::block_fold_max(m, amax);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    quantize_kernel(const int8_t* __restrict__ q_in, const float* __restrict__ scale_in,
-                    const float* __restrict__ local, const unsigned* __restrict__ amax,
-                    int8_t* __restrict__ q_out, float* __restrict__ scale_out, long long n) {
-  const float s_in = *scale_in;
-  const float scale = quant::scale_of(*amax);
-  if (blockIdx.x == 0 && threadIdx.x == 0) *scale_out = scale;
-  for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x; i < n;
-       i += (long long)gridDim.x * kThreads) {
-    q_out[i] = quant::level(hop_acc(q_in, s_in, local, i), scale);
+  const long long first = quant::unit_base<false>();
+  float acc[kUnit];
+  if constexpr (!kTiled) {  // one tile: acc stays in registers across the barrier
+    hop_unit<kVec>(q_in, s_in, local, first, n, acc);
+    const float scale = quant::grid_scale(quant::fold_unit<false>(0u, acc, first, n), block_max);
+    if (blockIdx.x == 0 && threadIdx.x == 0) *scale_out = scale;
+    quant::store_levels<kVec, false>(q_out, first, n, acc, scale);
+  } else {  // tiles: the max over every tile first, then the levels
+    const long long tile = quant::tile_elems(gridDim.x);
+    unsigned m = 0;
+    for (long long at = first; at < n; at += tile) {
+      hop_unit<kVec>(q_in, s_in, local, at, n, acc);
+      m = quant::fold_unit<false>(m, acc, at, n);
+    }
+    const float scale = quant::grid_scale(m, block_max);
+    if (blockIdx.x == 0 && threadIdx.x == 0) *scale_out = scale;
+    for (long long at = first; at < n; at += tile) {
+      hop_unit<kVec>(q_in, s_in, local, at, n, acc);
+      quant::store_levels<kVec, false>(q_out, at, n, acc, scale);
+    }
   }
 }
 
@@ -72,25 +93,17 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace adt
 
 // q_in int8 [n], scale_in fp32 [1], local fp32 [n] -> q_out int8 [n],
-// scale_out fp32 [1]; amax is one 32-bit word of scratch.  Returns a
-// cudaError_t (0 on success).
+// scale_out fp32 [1]; block_max is `scratch_words` 32-bit words of
+// scratch (one a block).  vec != 0: q_in, local and q_out are 16-byte
+// aligned.  Returns a cudaError_t (0 on success).
 extern "C" int adt_quant_ring_hop(const void* q_in, const void* scale_in, const void* local,
-                                  void* q_out, void* scale_out, void* amax, long long n,
-                                  void* stream) {
+                                  void* q_out, void* scale_out, void* block_max,
+                                  long long scratch_words, long long n, int vec, void* stream) {
   using namespace adt;
+  void* args[] = {&q_in, &scale_in, &local, &q_out, &scale_out, &block_max, &n};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(amax, 0, sizeof(unsigned), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = quant::grid_blocks(n);
-  amax_kernel<<<blocks, kThreads, 0, s>>>(static_cast<const int8_t*>(q_in),
-                                          static_cast<const float*>(scale_in),
-                                          static_cast<const float*>(local),
-                                          static_cast<unsigned*>(amax), n);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  quantize_kernel<<<blocks, kThreads, 0, s>>>(
-      static_cast<const int8_t*>(q_in), static_cast<const float*>(scale_in),
-      static_cast<const float*>(local), static_cast<const unsigned*>(amax),
-      static_cast<int8_t*>(q_out), static_cast<float*>(scale_out), n);
-  return static_cast<int>(cudaGetLastError());
+  return vec ? quant::launch_hop(quant_ring_hop_kernel<true, false>,
+                                 quant_ring_hop_kernel<true, true>, args, n, scratch_words, s)
+             : quant::launch_hop(quant_ring_hop_kernel<false, false>,
+                                 quant_ring_hop_kernel<false, true>, args, n, scratch_words, s);
 }

@@ -10,8 +10,10 @@ fp32 scale.
 :func:`fused_hop` (K3) is one hop's arithmetic: ``acc = f32(q_in) *
 scale_in + local`` (separately rounded), ``scale = max(max|acc| / 127,
 1e-20)``, ``q_out = int8(clip(round(acc / scale), -127, 127))``.  On
-CUDA tensors it launches the kernel of ``csrc/quant_ring.cu`` and counts
-the launch in its ``launches`` attribute; on CPU tensors it runs
+CUDA tensors it launches the kernel of ``csrc/quant_ring.cu`` (one
+cooperative launch a hop) and counts the launch in its ``launches``
+attribute, and in ``unaligned`` the launches whose arrays were not all
+16-byte aligned (the kernel's element-wise path); on CPU tensors it runs
 :func:`fused_hop_plain`.  ``scale_in = 0`` makes the incoming term
 vanish, so the same hop is the ring's opening quantizer.
 
@@ -20,9 +22,11 @@ flatten to fp32, zero-pad to ``n`` chunks, one opening quantize of chunk
 ``me``, ``n - 1`` reduce-scatter hops (after hop ``h`` rank ``me`` holds
 the partial sum of chunk ``me - h``), ``n - 1`` all-gather hops of the
 owned chunks, and the cast back.  Each hop sends the chunk and its scale
-to rank ``me + 1`` as one message (the scale's 4 bytes first).  The
-scale stays a device tensor: the ring reads nothing back to the host
-beyond what the transport itself moves.
+to rank ``me + 1`` as one message (:func:`send`): a 16-byte header
+whose first 4 bytes hold the scale, then the levels, so that the levels
+that arrive start 16-byte aligned and the next hop takes the kernel's
+vector path.  The scale stays a device tensor: the ring
+reads nothing back to the host beyond what the transport itself moves.
 """
 from __future__ import annotations
 
@@ -48,13 +52,25 @@ def fused_hop_plain(q_in, scale_in, local):
     return _quantize_pair(q_in.float() * scale_in + local.float())
 
 
-_P, _L = ctypes.c_void_p, ctypes.c_longlong
+_P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+
+# Words of the hop kernels' block-maxima scratch (one a block): more
+# blocks than a card keeps resident (an H100 holds 132 of 1024 threads).
+SCRATCH_WORDS = 1024
+# Bytes of the wire's header: the scale, then padding to 16 bytes.
+WIRE_HEADER = 16
+
+
+def aligned(*tensors) -> bool:
+    """Whether every tensor's data starts on a 16-byte boundary: the
+    hop kernels' vector path (int4 levels, float4 values)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 @functools.lru_cache(maxsize=None)
 def _c_kernel():
     hop = build.load_library().adt_quant_ring_hop
-    hop.argtypes = [_P] * 6 + [_L, _P]
+    hop.argtypes = [_P] * 6 + [_L, _L, _I, _P]
     hop.restype = ctypes.c_int
     return hop
 
@@ -80,25 +96,40 @@ def fused_hop(q_in, scale_in, local):
             raise ValueError(f"{name} must be contiguous")
     q_out = torch.empty_like(q_in)
     scale_out = torch.empty((), dtype=torch.float32, device=local.device)
-    amax = torch.empty((), dtype=torch.int32, device=local.device)
+    block_max = torch.empty(SCRATCH_WORDS, dtype=torch.int32,
+                            device=local.device)
+    vec = aligned(q_in, local, q_out)
     with torch.cuda.device(local.device):
         rc = _c_kernel()(q_in.data_ptr(), scale_in.data_ptr(),
                          local.data_ptr(), q_out.data_ptr(),
-                         scale_out.data_ptr(), amax.data_ptr(),
-                         local.numel(), stream_of(local))
+                         scale_out.data_ptr(), block_max.data_ptr(),
+                         SCRATCH_WORDS, local.numel(), int(vec),
+                         stream_of(local))
     raise_on_error(rc, "quant_ring fused_hop")
     fused_hop.launches += 1
+    fused_hop.unaligned += not vec
     return q_out, scale_out
 
 
 fused_hop.launches = 0
+fused_hop.unaligned = 0
 
 
-def _send_next(axis, q, s):
-    """Pass ``(q, s)`` one rank along the ring as one message."""
-    wire = torch.cat([s.reshape(1).view(torch.uint8), q.view(torch.uint8)])
-    got = axis.ppermute(wire)
-    return got[4:].view(torch.int8), got[:4].view(torch.float32)
+@functools.lru_cache(maxsize=None)
+def _header_pad(device):
+    return torch.zeros(WIRE_HEADER - 4, dtype=torch.uint8, device=device)
+
+
+def send(axis, q, s, shift=1):
+    """Pass levels ``q`` and scale ``s`` ``shift`` ranks along the ring
+    as one uint8 message (the scale's 4 bytes, zeros to ``WIRE_HEADER``
+    bytes, then the levels); returns ``(levels int8, scale [1] fp32)``
+    of what rank ``me - shift`` sent, views of the message that arrived,
+    the levels 16-byte aligned."""
+    wire = torch.cat([s.reshape(1).view(torch.uint8), _header_pad(q.device),
+                      q.view(torch.uint8)])
+    got = axis.ppermute(wire, shift=shift)
+    return got[WIRE_HEADER:].view(torch.int8), got[:4].view(torch.float32)
 
 
 def quantized_ring_all_reduce(x, axis):
@@ -123,14 +154,14 @@ def quantized_ring_all_reduce(x, axis):
                      torch.zeros((), dtype=torch.float32, device=x.device),
                      chunks[me])
     for h in range(1, n):
-        q, s = _send_next(axis, q, s)
+        q, s = send(axis, q, s)
         q, s = fused_hop(q, s, chunks[(me - h) % n])
     # All-gather: after j + 1 hops the arriving chunk is chunk
     # (me - j) % n.
     out = torch.empty((n, chunk), dtype=torch.float32, device=x.device)
     out[(me + 1) % n] = q.float() * s
     for j in range(n - 1):
-        q, s = _send_next(axis, q, s)
+        q, s = send(axis, q, s)
         out[(me - j) % n] = q.float() * s
     return out.view(-1)[:size].view(x.shape).to(x.dtype)
 

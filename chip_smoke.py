@@ -24,13 +24,20 @@ training of the MoE LM through ``ExpertParallel`` on an expert axis of 2:
    ``nvcc -Xptxas -v``; the K2 pair (the whole autograd backward
    through K2a and K2b, and its delta and casts alone) against SDPA's
    backward; K3 bit for bit (levels and scale) at the ring's chunk of
-   2^21 elements and at 1, 1000 and 2^20 + 3, and on an all-zero chunk;
+   2^21 elements, at 1, 1000, 2^20 + 3 and 2^23 + 5 (more than the grid
+   holds in registers), on exact ties (halves at scale 1), on all-zero
+   chunks, with a NaN in local, and with
+   q_in and local off a 16-byte boundary, each call one device kernel
+   (``torch.profiler``), timed beside a plain copy of the same bytes;
    K4 at the two row-parallel shapes of phase 7, at a ragged 100 x 72 x
    40 and (bf16) at 100 x 70 x 38, whose unaligned rows the wrapper
    stages for TMA (counted); K8 bit for bit (arrived, levels and scale)
-   at the MoE window's chunks of 2^21 and 2^20 elements and at 1, 1000
-   and 2^20 + 3, in the warm-up (scale_in 0), a hop, the last hop
-   (all-zero nxt) and with a NaN in nxt;
+   at the MoE window's chunks of 2^21 and 2^20 elements and at 1, 1000,
+   2^20 + 3 and 2^23 + 5, in the warm-up (scale_in 0, also on exact
+   ties), a hop, the last
+   hop (all-zero nxt), with a NaN in nxt, off a 16-byte boundary and
+   writing arrived into a row of a wider output, each call one device
+   kernel; the registers of K3's and K8's kernels;
 2. fp32 parity: 4 requests through ``ContinuousBatcher`` on the dense
    and on the paged + chunked engine, each stream equal token for token
    to a greedy full recompute by ``sequential_logits`` (a divergence
@@ -58,8 +65,9 @@ training of the MoE LM through ``ExpertParallel`` on an expert axis of 2:
    layers, max_len 512, batch 16, ``num_microbatches=2``,
    ``virtual_stages=4``, ``adam(1e-3)``) for the composed fp32, composed
    int8, ``quant_ring`` and ``collective_matmul`` programs: tokens/s,
-   step ms, peak memory per rank, the profiler's busy share, the K3 and
-   K4 launches held to 64 and 32 per step, and no K4 operand staged;
+   step ms, peak memory per rank, the profiler's busy share and K3's
+   device time per step, the K3 and K4 launches held to 64 and 32 per
+   step, no K4 operand staged and no K3 hop off the vector path;
 8. fp32 MoE parity: the MoE LM at full width (vocab 32768, hidden 1024,
    16 heads, expert hidden 4096, 8 experts) cut to 1 layer, seq 128,
    batch 8, capacity factor 4.0 (no token is dropped, so sharded and
@@ -71,9 +79,9 @@ training of the MoE LM through ``ExpertParallel`` on an expert axis of 2:
    layers, max_len 512, capacity factor 2.0, 2 rows per rank,
    ``adam(1e-3)``, nothing cut) for the composed int8 and ``a2a_ring``
    programs: a warm step, then 20 timed steps; tokens/s, step ms, peak
-   memory per rank, the profiler's busy share, and K8 held to 16
-   launches a step (2 layers x dispatch and combine x forward and
-   backward x 2 hops);
+   memory per rank, the profiler's busy share and K8's device time per
+   step, and K8 held to 16 launches a step (2 layers x dispatch and
+   combine x forward and backward x 2 hops), none off the vector path;
 10. one ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
@@ -551,7 +559,8 @@ def backward_pair(q, k, v, g, causal, dtype, library_ms):
 # The bf16 attention kernels in kernel/csrc/flash_attention.cu.
 # The kernels whose registers, spills and static shared memory phase 1
 # prints, by source: record name -> a fragment of the mangled entry name
-# (bf16 instances, and K5's and K6's fp32 ones).
+# (bf16 instances, and K5's and K6's fp32 ones; K3's and K8's vector
+# one-tile paths, the main path's).
 PTXAS_KERNELS = {
     "flash_attention.cu": {
         "flash_attention_fwd": "16fwd_wgmma_kernelE",
@@ -562,6 +571,8 @@ PTXAS_KERNELS = {
         "flash_decode_paged": "13decode_kernelI13__nv_bfloat16Li64ELb1E",
         "flash_decode fp32": "13decode_kernelIfLi64ELb0E",
         "flash_decode_paged fp32": "13decode_kernelIfLi64ELb1E"},
+    "quant_ring.cu": {"quant_ring_hop": "quant_ring_hop_kernelILb1ELb0E"},
+    "a2a_ring.cu": {"a2a_ring_hop": "a2a_ring_hop_kernelILb1ELb0E"},
 }
 
 
@@ -704,45 +715,125 @@ def phase_attention_kernels(record):
         torch.cuda.empty_cache()
 
 
+def misaligned(q_in, x):
+    """``q_in`` 4 bytes into a wire (a view ``wire[4:]``) and ``x`` at
+    an odd element offset: neither on a 16-byte boundary."""
+    wire = torch.empty(q_in.numel() + 4, dtype=torch.int8, device="cuda")
+    wire[4:] = q_in
+    odd = torch.empty(x.numel() + 1, device="cuda")
+    odd[1:] = x
+    return wire[4:], odd[1:]
+
+
+def hop_cases(n, gen):
+    """K3's and K8's cases at ``n`` elements, ``{name: (q_in, scale_in,
+    x, vector)}``: ``x`` is K3's ``local`` or K8's ``nxt``, ``vector``
+    whether every array is 16-byte aligned (the kernel's vector path)."""
+    x = torch.randn(n, generator=gen, device="cuda") * 3
+    q_in = torch.randint(-127, 128, (n,), generator=gen, device="cuda",
+                         dtype=torch.int8)
+    s_in = torch.full((1,), 0.0173, device="cuda")
+    zero_q, zero_s = torch.zeros_like(q_in), torch.zeros(1, device="cuda")
+    nan = x.clone()
+    nan[n // 2] = float("nan")
+    odd_q, odd_x = misaligned(q_in, x)
+    # Halves up to max |x| = 127: scale 1, every quotient a tie.
+    ties = torch.randint(-254, 255, (n,), generator=gen, device="cuda") / 2
+    ties[0] = 127.0
+    return {"open": (zero_q, zero_s, x, True),
+            "ties": (zero_q, zero_s, ties, True),
+            "hop": (q_in, s_in, x, True),
+            "zero": (zero_q, zero_s, torch.zeros_like(x), True),
+            "last": (q_in, s_in, torch.zeros_like(x), True),
+            "nan": (q_in, s_in, nan, True),
+            "misaligned": (odd_q, s_in, odd_x, False)}
+
+
+def device_ops(fn):
+    """The names of the device operations (kernels, copies, memsets)
+    one ``fn()`` ran, from ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+
+
+def check_hop(name, n, case, wrapper, plain, args, vector, out=None):
+    """One K3 or K8 case: the kernel's outputs equal the plain
+    version's byte for byte, the launch is counted (and in
+    ``unaligned`` unless ``vector``), and the call is one device kernel,
+    no memset or copy.  Returns the printed line."""
+    before = (wrapper.launches, wrapper.unaligned)
+    kw = {} if out is None else {"out": out}
+    got, want = wrapper(*args, **kw), plain(*args)
+    torch.cuda.synchronize()
+    check((wrapper.launches, wrapper.unaligned)
+          == (before[0] + 1, before[1] + (not vector)),
+          f"{name} n={n} {case}: launches and unaligned went from {before} "
+          f"to {(wrapper.launches, wrapper.unaligned)}")
+    diff = [int((a.reshape(-1).view(torch.uint8)
+                 != b.reshape(-1).view(torch.uint8)).sum())
+            for a, b in zip(got, want)]
+    check(diff == [0] * len(want), f"{name} n={n} {case}: bytes differ in "
+          f"the outputs: {diff}; scale {float(got[-1])} vs "
+          f"{float(want[-1])}")
+    ops = device_ops(lambda: wrapper(*args, **kw))
+    check(len(ops) == 1 and "ring_hop_kernel" in ops[0],
+          f"{name} n={n} {case}: device operations {ops}, expected one "
+          f"hop kernel")
+    kernel = re.search(r"\w+_hop_kernel<[^>]*>", ops[0]).group(0)
+    return (f"phase 1 {name} n={n} {case}: bit-exact, "
+            f"{'vector' if vector else 'element-wise'} path, "
+            f"{len(ops)} device operation a call ({kernel})")
+
+
+def time_hop(n, wrapper, plain, args, nbytes):
+    """K3's or K8's record at the main path's chunk: the kernel, the
+    plain version and a plain copy of the same bytes (``nbytes`` / 2
+    read and written: the event-timing floor beside the bound) timed by
+    ``time_ms``.  A multiply, a divide, a round and a compare an
+    element."""
+    src = torch.empty(nbytes // 2, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 4 * n / PEAK_FLOPS[torch.float32]
+    rec = {"max_abs_err": 0.0,
+           "ms": time_ms(lambda: wrapper(*args)),
+           "plain_ms": time_ms(lambda: plain(*args)),
+           "library_ms": None,
+           "copy_ms": time_ms(lambda: dst.copy_(src)),
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    return rec, (timings(rec, 4 * n) + f", copy of the same bytes "
+                 f"{rec['copy_ms']:.4f} ms")
+
+
+# Beyond what a grid holds in registers (2^21 elements on an H100): tiles.
+HOP_LARGE = 2 ** 23 + 5
+
+
 def phase_tp_kernels(record):
-    """K3 bit for bit against its plain version (levels and scale), K4
-    within tolerance; both timed at the shapes of phase 7."""
+    """K3 bit for bit against its plain version (levels and scale), one
+    device kernel a call, at the main path's chunk, at edge sizes and
+    past what the grid holds in registers, aligned and not; K4 within
+    tolerance; both timed at the shapes of phase 7."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for C in (RING_CHUNK, 1, 1000, 2 ** 20 + 3):
-        local = torch.randn(C, generator=gen, device="cuda") * 3
-        q_in = torch.randint(-127, 128, (C,), generator=gen, device="cuda",
-                             dtype=torch.int8)
-        zero_q, zero_s = torch.zeros_like(q_in), torch.zeros(1, device="cuda")
-        cases = {"open": (zero_q, zero_s, local),
-                 "hop": (q_in, torch.full((1,), 0.0173, device="cuda"),
-                         local)}
-        if C == RING_CHUNK:
-            cases["zero"] = (zero_q, zero_s, torch.zeros_like(local))
-        for case, args in cases.items():
-            q, s = qr.fused_hop(*args)
-            q_ref, s_ref = qr.fused_hop_plain(*args)
-            torch.cuda.synchronize()
-            diff = int((q != q_ref).sum())
-            check(diff == 0 and torch.equal(s.view(torch.int32),
-                                            s_ref.view(torch.int32)),
-                  f"quant_ring_hop C={C} {case}: {diff} levels differ, "
-                  f"scale {float(s)} vs {float(s_ref)}")
-            line = (f"phase 1 quant_ring_hop C={C} {case}: bit-exact (levels "
-                    f"and scale)")
+    for C in (RING_CHUNK, 1, 1000, 2 ** 20 + 3, HOP_LARGE):
+        for case, (*args, vector) in hop_cases(C, gen).items():
+            line = check_hop("quant_ring_hop", C, case, qr.fused_hop,
+                             qr.fused_hop_plain, args, vector)
             if C == RING_CHUNK and case == "hop":
-                # Read q_in and local, write q_out: 6 bytes an element;
-                # a multiply, an add, a divide and a compare each.
-                t_bytes = (6 * C + 8) / HBM_BYTES_PER_S
-                t_ops = 4 * C / PEAK_FLOPS[torch.float32]
-                rec = {"max_abs_err": 0.0,
-                       "ms": time_ms(lambda: qr.fused_hop(*args)),
-                       "plain_ms": time_ms(lambda: qr.fused_hop_plain(*args)),
-                       "library_ms": None,
-                       "bound_ms": max(t_bytes, t_ops) * 1e3,
-                       "bound_by": "bytes" if t_bytes >= t_ops
-                       else "operations"}
+                # Read q_in and local, write q_out: 6 bytes an element.
+                rec, times = time_hop(C, qr.fused_hop, qr.fused_hop_plain,
+                                      args, 6 * C + 8)
                 record[("quant_ring_hop", torch.float32)] = rec
-                line += ", " + timings(rec, 4 * C)
+                line += ", " + times
             print(line, flush=True)
     # bf16 at the main path's shapes, at a ragged one, at one whose rows
     # are not 16-byte aligned (the wrapper stages it for TMA) and at an
@@ -801,48 +892,28 @@ def phase_tp_kernels(record):
 
 def phase_a2a_kernels(record):
     """K8 bit for bit against its plain version (arrived, levels and
-    scale), timed at the MoE window's chunk."""
+    scale), one device kernel a call, at the MoE window's chunks, at
+    edge sizes and past what the grid holds in registers, aligned and
+    not, and writing arrived into a row of the ring's output; timed at
+    the MoE window's chunk."""
     gen = torch.Generator(device="cuda").manual_seed(3)
-    for L in (A2A_CHUNK, A2A_CHUNK // 2, 1, 1000, 2 ** 20 + 3):
-        nxt = torch.randn(L, generator=gen, device="cuda") * 3
-        q_in = torch.randint(-127, 128, (L,), generator=gen, device="cuda",
-                             dtype=torch.int8)
-        s_in = torch.full((1,), 0.0173, device="cuda")
-        nan = nxt.clone()
-        nan[L // 2] = float("nan")
-        cases = {"warm_up": (torch.zeros_like(q_in),
-                             torch.zeros(1, device="cuda"), nxt),
-                 "hop": (q_in, s_in, nxt),
-                 "last": (q_in, s_in, torch.zeros_like(nxt)),
-                 "nan": (q_in, s_in, nan)}
-        for case, args in cases.items():
-            got, want = ar.fused_hop(*args), ar.fused_hop_plain(*args)
-            torch.cuda.synchronize()
-            diff = [int((a.reshape(-1).view(torch.uint8)
-                         != b.reshape(-1).view(torch.uint8)).sum())
-                    for a, b in zip(got, want)]
-            check(diff == [0, 0, 0],
-                  f"a2a_ring_hop L={L} {case}: bytes differ in (arrived, "
-                  f"levels, scale): {diff}; scale {float(got[2])} vs "
-                  f"{float(want[2])}")
-            line = (f"phase 1 a2a_ring_hop L={L} {case}: bit-exact (arrived, "
-                    f"levels and scale)")
+    for L in (A2A_CHUNK, A2A_CHUNK // 2, 1, 1000, 2 ** 20 + 3, HOP_LARGE):
+        cases = hop_cases(L, gen)
+        rows = torch.empty(2, L, device="cuda")
+        for case, (*args, vector) in list(cases.items()) + [
+                ("out", (*cases["hop"][:3], L % 4 == 0))]:
+            line = check_hop("a2a_ring_hop", L, case, ar.fused_hop,
+                             ar.fused_hop_plain, args, vector,
+                             out=rows[1] if case == "out" else None)
             if L == A2A_CHUNK and case == "hop":
                 # Read q_in and nxt, write arrived and q_out: 10 bytes an
-                # element; a multiply, a divide, a round and a compare.
-                t_bytes = (10 * L + 8) / HBM_BYTES_PER_S
-                t_ops = 4 * L / PEAK_FLOPS[torch.float32]
-                rec = {"max_abs_err": 0.0,
-                       "ms": time_ms(lambda: ar.fused_hop(*args)),
-                       "plain_ms": time_ms(lambda: ar.fused_hop_plain(*args)),
-                       "library_ms": None,
-                       "bound_ms": max(t_bytes, t_ops) * 1e3,
-                       "bound_by": "bytes" if t_bytes >= t_ops
-                       else "operations"}
+                # element.
+                rec, times = time_hop(L, ar.fused_hop, ar.fused_hop_plain,
+                                      args, 10 * L + 8)
                 record[("a2a_ring_hop", torch.float32)] = rec
-                line += ", " + timings(rec, 4 * L)
+                line += ", " + times
             print(line, flush=True)
-    del nxt, q_in, nan, cases, got, want
+    del cases, rows
     torch.cuda.empty_cache()
 
 
@@ -1114,14 +1185,15 @@ def phase_training_parity():
           f"{losses['flash']}, einsum losses {losses['einsum']}", flush=True)
 
 
-def profile_steps(runner, window, k=3):
-    """``device_profile`` of ``k`` warm steps, per step.  ``window`` is
-    placed (``runner.place_steps``); its slice keeps the type, so the
-    runner does not split it again."""
+def profile_steps(runner, window, k=3, watch=None):
+    """``device_profile`` of ``k`` warm steps, per step, every kernel
+    whose name holds ``watch`` listed.  ``window`` is placed
+    (``runner.place_steps``); its slice keeps the type, so the runner
+    does not split it again."""
     part = type(window)({key: t[:k] for key, t in window.items()})
     runner.run_steps(part)
     torch.cuda.synchronize()
-    return device_profile(lambda: runner.run_steps(part), k)
+    return device_profile(lambda: runner.run_steps(part), k, watch)
 
 
 def timed_window(runner, window):
@@ -1245,12 +1317,15 @@ def tp_window_programs(job):
     for program in job["programs"]:
         runner = tp_runner(job, program, TP)
         window = runner.place_steps(tp_window(job, TP_STEPS))
-        cm.fused_matmul_add.staged = 0
+        cm.fused_matmul_add.staged = qr.fused_hop.unaligned = 0
         dt, metrics = timed_window(runner, window)
         got = {name: launches()[name] for name in TP_KERNELS}
         check(cm.fused_matmul_add.staged == 0,
               f"{program}: K4 staged {cm.fused_matmul_add.staged} operands "
               f"(the main path's are TMA-ready)")
+        check(qr.fused_hop.unaligned == 0,
+              f"{program}: {qr.fused_hop.unaligned} K3 hops took the "
+              f"element-wise path (the main path's arrays are aligned)")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         losses = metrics["loss"].float()
         check(bool(torch.isfinite(losses).all()),
@@ -1259,7 +1334,7 @@ def tp_window_programs(job):
         want.update({k: n * TP_STEPS
                      for k, n in TP_WANT.get(program, {}).items()})
         check(got == want, f"{program}: launches {got}, expected {want}")
-        prof = profile_steps(runner, window, k=2)
+        prof = profile_steps(runner, window, k=2, watch="ring_hop_kernel")
         out[program] = {"seconds": dt, "launches": got, "peak_gb": peak_gb,
                         "loss": [float(losses[0]), float(losses[-1])],
                         "profile": prof}
@@ -1430,6 +1505,7 @@ def moe_window_programs(job):
                                         window.items()}))["loss"])
         torch.cuda.synchronize()
         reset_launches()
+        ar.fused_hop.unaligned = 0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         metrics = runner.run_steps(window)
@@ -1437,6 +1513,9 @@ def moe_window_programs(job):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         got = launches()
+        check(ar.fused_hop.unaligned == 0,
+              f"{program}: {ar.fused_hop.unaligned} K8 hops took the "
+              f"element-wise path (the main path's arrays are aligned)")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         losses = metrics["loss"].float()
         check(bool(torch.isfinite(losses).all()),
@@ -1445,7 +1524,7 @@ def moe_window_programs(job):
         want.update({k: n * MOE_STEPS
                      for k, n in MOE_WANT.get(program, {}).items()})
         check(got == want, f"{program}: launches {got}, expected {want}")
-        prof = profile_steps(runner, window, k=2)
+        prof = profile_steps(runner, window, k=2, watch="ring_hop_kernel")
         out[program] = {"seconds": dt, "launches": got, "peak_gb": peak_gb,
                         "loss": [float(losses[0]), float(losses[-1])],
                         "profile": prof}
@@ -1580,6 +1659,8 @@ def main(argv=None) -> int:
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
                 "dtype": str(dtype)[6:]})
+            if "copy_ms" in rec:                 # K3, K8
+                kernels[-1]["copy_ms"] = rec["copy_ms"]
             if (name, dtype, 512) in record:     # K4's out projection
                 kernels[-1]["k512"] = record[(name, dtype, 512)]
             kernels[-1].update(record["ptxas"].get(name, {}))

@@ -325,29 +325,70 @@ def test_cuda_training_step_goes_through_the_kernels(cuda):
 # --------------------------------------------------------------------------- #
 # K3 and K4: the tensor-parallel hop kernels
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("C", [1, 1000, 2 ** 20 + 3, 8 * 512 * 1024 // 2])
+def _misaligned(q_in, x):
+    """``q_in`` 4 bytes into a wire (a view ``wire[4:]``, as a 4-byte
+    header would leave it) and ``x`` at an odd element offset: neither
+    starts on a 16-byte boundary."""
+    wire = torch.empty(q_in.numel() + 4, dtype=torch.int8, device=q_in.device)
+    wire[4:] = q_in
+    odd = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    odd[1:] = x
+    return wire[4:], odd[1:]
+
+
+def _hop_cases(n, cuda):
+    """Each hop case of K3 and K8 at ``n`` elements: ``(name, q_in,
+    scale_in, x, vector)``, ``x`` being K3's ``local`` or K8's ``nxt``
+    and ``vector`` whether every array is 16-byte aligned."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn(n, generator=g, device=cuda) * 3
+    q_in = torch.randint(-127, 128, (n,), generator=g, device=cuda,
+                         dtype=torch.int8)
+    s_in = torch.full((1,), 0.0173, device=cuda)
+    nan = x.clone()
+    nan[n // 2] = float("nan")
+    zero_q, zero_s = torch.zeros_like(q_in), torch.zeros(1, device=cuda)
+    odd_q, odd_x = _misaligned(q_in, x)
+    # Halves up to max |x| = 127: scale 1, every quotient a tie that
+    # rint rounds to even.
+    ties = torch.randint(-254, 255, (n,), generator=g, device=cuda) / 2
+    ties[0] = 127.0
+    return [("open", zero_q, zero_s, x, True),
+            ("ties", zero_q, zero_s, ties, True),
+            ("hop", q_in, s_in, x, True),
+            ("zero", zero_q, zero_s, torch.zeros_like(x), True),
+            ("last", q_in, s_in, torch.zeros_like(x), True),
+            ("nan", q_in, s_in, nan, True),
+            ("misaligned", odd_q, s_in, odd_x, False)]
+
+
+# A chunk of 2^23 + 5 is more than a grid holds in registers (128 blocks
+# of 1024 threads x 16 elements = 2^21 on an H100): the kernels walk it
+# in tiles.
+HOP_SIZES = [1, 1000, 2 ** 20 + 3, 8 * 512 * 1024 // 2, 2 ** 23 + 5]
+
+
+@pytest.mark.parametrize("C", HOP_SIZES)
 def test_cuda_quant_ring_hop_is_bit_exact(cuda, C):
     """K3 against its plain version, every level and the scale equal:
-    the opening quantize (scale_in 0), a hop with an incoming chunk, and
-    an all-zero chunk (levels 0, scale 1e-20).  2^20 elements is the main
-    path's chunk ([8, 512, 1024] over 2 ranks)."""
-    g = torch.Generator(device=cuda).manual_seed(C)
-    local = torch.randn(C, generator=g, device=cuda) * 3
-    q_in = torch.randint(-127, 128, (C,), generator=g, device=cuda,
-                         dtype=torch.int8)
-    cases = [(torch.zeros_like(q_in), torch.zeros(1, device=cuda), local),
-             (q_in, torch.full((1,), 0.0173, device=cuda), local),
-             (torch.zeros_like(q_in), torch.zeros(1, device=cuda),
-              torch.zeros_like(local))]
-    for args in cases:
-        before = qr.fused_hop.launches
-        q, s = qr.fused_hop(*args)
+    the opening quantize (scale_in 0) of random values and of exact
+    ties (halves at scale 1), a hop with an incoming chunk, an
+    all-zero chunk (levels 0, scale 1e-20), a hop onto an all-zero
+    local, a NaN in local (a NaN scale, levels 0), and the hop with q_in
+    and local off a 16-byte boundary (the element-wise path, counted in
+    ``unaligned``).  2^21 elements is the main path's chunk ([8, 512,
+    1024] over 2 ranks)."""
+    for case, q_in, s_in, local, vector in _hop_cases(C, cuda):
+        before = (qr.fused_hop.launches, qr.fused_hop.unaligned)
+        q, s = qr.fused_hop(q_in, s_in, local)
         torch.cuda.synchronize()
-        assert qr.fused_hop.launches == before + 1
-        q_ref, s_ref = qr.fused_hop_plain(*args)
+        assert (qr.fused_hop.launches, qr.fused_hop.unaligned) == (
+            before[0] + 1, before[1] + (not vector)), case
+        q_ref, s_ref = qr.fused_hop_plain(q_in, s_in, local)
         assert q.dtype == torch.int8 and q.shape == q_in.shape
-        assert torch.equal(q, q_ref)
-        assert torch.equal(s.view(torch.int32), s_ref.view(torch.int32))
+        assert torch.equal(q, q_ref), case
+        assert torch.equal(s.view(torch.int32), s_ref.view(torch.int32)), case
+        assert torch.isnan(s) == (case == "nan")
 
 
 @pytest.mark.parametrize("dtype,M,K,C,ldk", [
@@ -548,32 +589,76 @@ def test_cuda_flash_attention_with_lse_grads_match_the_cpu(cuda, causal):
 # --------------------------------------------------------------------------- #
 # K8: the quantized all-to-all ring's hop
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("L", [1, 1000, 2 ** 20, 2 ** 20 + 3, 2 ** 21])
+@pytest.mark.parametrize("L", HOP_SIZES + [2 ** 20])
 def test_cuda_a2a_ring_hop_is_bit_exact(cuda, L):
     """K8 against its plain version, bit for bit (arrived, levels and
-    scale): the warm-up (scale_in 0, zero levels), a hop, the last hop
-    (all-zero nxt: levels 0, scale 1e-20) and a NaN in nxt (a NaN scale,
-    levels 0).  2^21 and 2^20 are the main path's chunks at expert axis
-    2 and 4."""
-    g = torch.Generator(device=cuda).manual_seed(L)
-    nxt = torch.randn(L, generator=g, device=cuda) * 3
-    q_in = torch.randint(-127, 128, (L,), generator=g, device=cuda,
-                         dtype=torch.int8)
-    nan = nxt.clone()
-    nan[L // 2] = float("nan")
-    cases = [(torch.zeros_like(q_in), torch.zeros(1, device=cuda), nxt),
-             (q_in, torch.full((1,), 0.0173, device=cuda), nxt),
-             (q_in, torch.full((1,), 0.0173, device=cuda),
-              torch.zeros_like(nxt)),
-             (q_in, torch.full((1,), 0.0173, device=cuda), nan)]
-    for args in cases:
-        before = ar.fused_hop.launches
-        got = ar.fused_hop(*args)
+    scale): the warm-up (scale_in 0) of random values and of exact ties,
+    a hop, all zeros, the last hop
+    (all-zero nxt: levels 0, scale 1e-20), a NaN in nxt (a NaN scale,
+    levels 0), the hop with q_in and nxt off a 16-byte boundary (the
+    element-wise path, counted in ``unaligned``), and the hop writing
+    arrived into a row of a wider output (``out=``; off a 16-byte
+    boundary where 4 does not divide ``L``).  2^21 and 2^20 are the
+    main path's chunks at expert axis 2 and 4."""
+    rows = torch.full((2, L), -1.0, device=cuda)
+    cases = _hop_cases(L, cuda)
+    cases.append(("out", *cases[1][1:4], L % 4 == 0))
+    for case, q_in, s_in, nxt, vector in cases:
+        out = rows[1] if case == "out" else None
+        before = (ar.fused_hop.launches, ar.fused_hop.unaligned)
+        got = ar.fused_hop(q_in, s_in, nxt, out=out)
         torch.cuda.synchronize()
-        assert ar.fused_hop.launches == before + 1
-        want = ar.fused_hop_plain(*args)
+        assert (ar.fused_hop.launches, ar.fused_hop.unaligned) == (
+            before[0] + 1, before[1] + (not vector)), case
+        want = ar.fused_hop_plain(q_in, s_in, nxt)
         assert got[0].dtype == torch.float32 and got[1].dtype == torch.int8
         for a, b in zip(got, want):
+            assert torch.equal(a.reshape(-1).view(torch.uint8),
+                               b.reshape(-1).view(torch.uint8)), case
+        assert torch.isnan(got[2]) == (case == "nan")
+        if out is not None:
+            assert got[0].data_ptr() == out.data_ptr()
+            assert torch.equal(rows[0], torch.full_like(rows[0], -1.0))
+
+
+def _device_ops(fn):
+    """The names of the device operations (kernels, copies, memsets)
+    that ``fn()`` ran, from ``torch.profiler``'s CUDA activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+
+
+@pytest.mark.parametrize("n", [1000, 2 ** 21, 2 ** 23 + 5])
+def test_cuda_ring_hops_are_one_kernel_each(cuda, n):
+    """One ``fused_hop`` call of either ring is one device kernel (one
+    cooperative launch) and no memset or copy, aligned or not."""
+    for case, q_in, s_in, x, _ in _hop_cases(n, cuda):
+        if case not in ("hop", "misaligned"):
+            continue
+        for hop in (qr.fused_hop, ar.fused_hop):
+            hop(q_in, s_in, x)                   # the first call builds
+            ops = _device_ops(lambda: hop(q_in, s_in, x))
+            assert len(ops) == 1 and "ring_hop_kernel" in ops[0], (case, ops)
+
+
+@pytest.mark.parametrize("n", [1000, 2 ** 21, 2 ** 23 + 5])
+def test_cuda_ring_hops_repeat_bit_identically(cuda, n):
+    """The same hop twice back to back, no synchronize between: equal
+    bytes, so nothing a launch leaves on the card (its block maxima)
+    changes the next one."""
+    _, q_in, s_in, x, _ = _hop_cases(n, cuda)[1]
+    for hop in (qr.fused_hop, ar.fused_hop):
+        first, second = hop(q_in, s_in, x), hop(q_in, s_in, x)
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
             assert torch.equal(a.reshape(-1).view(torch.uint8),
                                b.reshape(-1).view(torch.uint8))
 

@@ -87,6 +87,26 @@ def test_hop_with_an_incoming_chunk(C):
                   ).max() <= 1
 
 
+@pytest.mark.parametrize("C", [1, 7, 1000])
+@pytest.mark.parametrize("scale_in", [0.0, 0.0173])
+def test_hop_plain_on_a_nan_is_bit_exact_with_pallas(C, scale_in):
+    """A NaN in ``local``: ``fused_hop_plain`` and ``_fused_hop(...,
+    interpret=True)`` both give a NaN scale, and equal levels (every
+    quotient is NaN, and a NaN level is 0), at the opening quantize and
+    on a hop."""
+    from autodist_tpu.kernel.pallas.quant_ring import _fused_hop
+
+    q_in, s_in, local = _hop_inputs(C, scale_in=scale_in)
+    local[0, C // 2] = np.nan
+    jq, js = _fused_hop(jnp.asarray(q_in), jnp.asarray(s_in),
+                        jnp.asarray(local), interpret=True)
+    tq, ts = qr.fused_hop_plain(torch.as_tensor(q_in), torch.tensor(s_in),
+                                torch.as_tensor(local))
+    assert np.isnan(float(js)) and torch.isnan(ts)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(tq.numpy(), np.zeros_like(q_in))
+
+
 def test_quantize_helpers_match_jax():
     """abs_max_scale, quantize_levels, quantize_int8 and dequantize_int8
     bit for bit against the JAX package's, ties included."""
