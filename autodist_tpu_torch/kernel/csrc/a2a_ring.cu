@@ -26,7 +26,7 @@
 // Quads and not K3's runs of 16 consecutive elements: with 16 floats a
 // lane, each store instruction of arrived writes half sectors 64 bytes
 // apart, and the hop measured 0.0184 ms against 0.0154 in quads
-// (PERF.md, PR 8).
+// on an H100 (PERF.md §6).
 //
 // A grid holds resident-blocks x 1024 x 16 elements in registers: 2^21
 // (the main path's L) on 128 blocks, in one tile (kTiled false).  A

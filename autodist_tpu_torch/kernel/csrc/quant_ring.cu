@@ -13,7 +13,7 @@
 //      (quant::Layout's runs), their 16 levels of q_in as one int4 and
 //      their floats of local as four float4, and keeps acc = f32(q_in) *
 //      scale_in + local in registers (runs and not K8's quads: 0.0138
-//      against 0.0147 ms a hop, PERF.md, PR 8);
+//      against 0.0147 ms a hop on an H100, PERF.md §6);
 //   2. the grid folds max|acc| (warp, block, a word a block) and waits
 //      at one grid-wide barrier; every block then folds the blocks'
 //      words into scale = max(amax / 127, 1e-20);
