@@ -482,23 +482,10 @@ constexpr int kFwdThreads = 32 * kFwdConsumerWarps + 32;  // + the producer warp
 constexpr int kTileBytes = 128 * 64 * 2;                  // 128 rows of D = 64
 constexpr int kBox = 64;                                  // rows per TMA box
 constexpr int kFwdBytes = (1 + 2 * kFwdStages) * kTileBytes + 8 * (1 + 3 * kFwdStages) + 1024;
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-// 2^x by the MUFU unit alone: relative error about 2^-22, results below
-// 2^-126 flushed to 0 (exp2f adds a range fix-up around it).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Two floats rounded to a bf16 pair: one 32-bit register of an A
-// fragment of the register (RS) form of wgmma.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 pair = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&pair);
-}
+using hopper::fast_exp2;
+using hopper::kLog2e;
+using hopper::pack_bf16;
 
 struct FwdArgs {
   bf16* out;

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the bf16 kernels K1, K2a
-// and K2b (flash_attention.cu) and K4 (collective_matmul.cu): TMA tensor
-// maps and bulk tensor loads, mbarrier rings, named barriers, and wgmma
-// on 128-byte-swizzled shared-memory tiles.
+// and K2b (flash_attention.cu), K4 (collective_matmul.cu) and K7
+// (flash_prefill.cu): TMA tensor maps and bulk tensor loads, mbarrier
+// rings, named barriers, wgmma on 128-byte-swizzled shared-memory tiles,
+// and the exp2 and bf16 packing of the softmax on its accumulators.
 //
 // Tensor maps are encoded on the host by cuTensorMapEncodeTiled, found
 // through the runtime's cudaGetDriverEntryPoint (so the library links no
@@ -35,6 +36,7 @@
 
 #include <cuda.h>          // CUtensorMap and its enums (types only)
 #include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -170,6 +172,13 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (global_ns() - t0 > kWaitLimitNs) __trap();
 }
 
+// Orders this thread's generic-proxy writes to shared memory before
+// later async-proxy reads of it (wgmma operands, TMA): after the
+// writes, before the barrier that hands the tile to the wgmma.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Barrier `id` (1..15; 0 is __syncthreads) over `count` threads, a
 // multiple of 32: syncs a subset of the block's warps.
 __device__ __forceinline__ void bar_sync(int id, int count) {
@@ -195,6 +204,26 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// ------------------------------------------------------------------ //
+// device: the softmax on wgmma accumulators
+// ------------------------------------------------------------------ //
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x by the MUFU unit alone: relative error about 2^-22, results below
+// 2^-126 flushed to 0 (exp2f adds a range fix-up around it).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two floats rounded to a bf16 pair: one 32-bit register of an A
+// fragment of the register (RS) form of wgmma.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 pair = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&pair);
 }
 
 // ------------------------------------------------------------------ //

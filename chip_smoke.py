@@ -16,11 +16,13 @@ training of the MoE LM through ``ExpertParallel`` on an expert axis of 2:
    1e-5) and bf16 (atol = rtol = 1e-2), timed with CUDA events beside
    the plain version, one PyTorch library call and the card's bound,
    each time with its achieved TFLOP/s:
-   K5-K7 at the serving shapes, and K5 and K6 again at the serve mix's
-   occupancy (lengths 1-192) and with one slot of 1024 keys; K1, K2a
+   K5-K7 at the serving shapes, and again at the serve mix's occupancy
+   (K5, K6: lengths 1-192; K7: 32 slots whose 64-row chunks start at 0)
+   and with one slot of 1024 keys (K7: a chunk at 960); K1, K2a
    and K2b at BERT-base's q/k/v ``[16, 512, 12, 64]`` and at ragged
    lengths 100 and 17, causal and not; the registers, spills and static
-   shared memory of K1, K2a, K2b (bf16), K5 and K6 (both dtypes) from
+   shared memory of K1, K2a, K2b (bf16), K5, K6 and K7 (both dtypes: K7's
+   tensor-core and CUDA-core instances) from
    ``nvcc -Xptxas -v``; the K2 pair (the whole autograd backward
    through K2a and K2b, and its delta and casts alone) against SDPA's
    backward; K3 bit for bit (levels and scale) at the ring's chunk of
@@ -44,8 +46,11 @@ training of the MoE LM through ``ExpertParallel`` on an expert axis of 2:
    counts as a tie only where the reference's top two logits are within
    1e-4);
 3. bf16 serving of the bench mix on both engines, with the kernels'
-   launch counters held to the attention calls the engines made, and a
-   profiled window's device time, the flash decode kernel's included;
+   launch counters held to the attention calls the engines made (and
+   K7's CUDA-core instance to none: the serve path is bf16 over blocks
+   of 16), a profiled window's device time, the flash decode kernel's
+   included, and on the paged engine a profiled prefill chunk of 16
+   prompts with K7's device time a chunk;
 4. fp32 training parity: a 2-layer BERT at full width, 3 AdamW steps
    with the flash attention and with the einsum attention on the same
    weights and batches, every loss within 1e-4 relative;
@@ -246,6 +251,7 @@ def check(cond, msg):
 def reset_launches():
     for k in KERNELS.values():
         k["wrapper"].launches = 0
+    fp.flash_prefill_attention_paged.cuda_core_launches = 0
 
 
 def launches():
@@ -340,20 +346,32 @@ def kernel_cases(dtype, gen, rng):
     cases = decode_cases(dtype, randn, edge_values(8, MAX_LEN, rng),
                          edge_values(32, 200, rng), (k_pool, v_pool), rng)
     # K7: a 64-row chunk for each of 32 slots over the same pool.
-    starts = edge_values(32, 150, rng)
-    n_keys = np.minimum(starts.astype(np.int64) + CHUNK, mb * BLOCK_LEN)
+    cases.append(prefill_case(dtype, randn, edge_values(32, 150, rng),
+                              (k_pool, v_pool), rng))
+    return cases
+
+
+def prefill_case(dtype, randn, starts, pools, rng):
+    """(name, args, kwargs, bytes, flops) of K7: a ``CHUNK``-row chunk a
+    slot starting at ``starts`` over ``pools`` (a table drawn from
+    ``rng``); the bytes count each visible key's K and V row, q, out,
+    the starts and the used table entries once, the flops each row's
+    visible keys."""
+    dev = "cuda"
+    esize = torch.empty((), dtype=dtype).element_size()
+    B, extent = len(starts), MAX_LEN // BLOCK_LEN * BLOCK_LEN
+    n_keys = np.minimum(starts.astype(np.int64) + CHUNK, extent)
     table = tail_filled_table(n_keys, rng)
-    args = (randn(32, CHUNK, HEADS, HEAD_DIM), k_pool, v_pool,
+    args = (randn(B, CHUNK, HEADS, HEAD_DIM), *pools,
             torch.as_tensor(starts, device=dev),
             torch.as_tensor(table, device=dev))
     rows = np.minimum(starts[:, None].astype(np.int64) + np.arange(CHUNK) + 1,
-                      mb * BLOCK_LEN)
+                      extent)
     kv_bytes = 2 * n_keys.sum() * HEADS * HEAD_DIM * esize
     tab_bytes = 4 * sum(kv_cache.blocks_for(n, BLOCK_LEN) for n in n_keys)
-    cases.append(("flash_prefill_paged", args, {"block_len": BLOCK_LEN},
-                  kv_bytes + 2 * 32 * CHUNK * HEADS * HEAD_DIM * esize
-                  + 32 * 4 + tab_bytes, 4 * HEAD_DIM * HEADS * rows.sum()))
-    return cases
+    return ("flash_prefill_paged", args, {"block_len": BLOCK_LEN},
+            kv_bytes + 2 * B * CHUNK * HEADS * HEAD_DIM * esize + B * 4
+            + tab_bytes, 4 * HEAD_DIM * HEADS * rows.sum())
 
 
 def library_call(name, args, block_len=None):
@@ -447,16 +465,18 @@ def check_and_time(name, args, kw, nbytes, flops, dtype):
 
 
 def phase_kernels(record):
-    """Kernel vs plain at both dtypes, into the per-kernel record; K5
-    and K6 also at the serve mix's occupancy and with one slot of
-    ``MAX_LEN`` keys (``record[(name, dtype, "serve_mix" or
-    "one_slot")]``)."""
+    """Kernel vs plain at both dtypes, into the per-kernel record; K5-K7
+    also at the serve mix's occupancy (K7: 32 chunks at 0) and with one
+    slot of ``MAX_LEN`` keys (K7: its last chunk) (``record[(name,
+    dtype, "serve_mix" or "one_slot")]``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     rng = np.random.RandomState(0)
     mix_gen = torch.Generator(device="cuda").manual_seed(2)
     mix_rng = np.random.RandomState(2)
+    pre_gen = torch.Generator(device="cuda").manual_seed(3)
+    pre_rng = np.random.RandomState(3)
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOLERANCE[dtype]
         for name, args, kw, nbytes, flops in kernel_cases(dtype, gen, rng):
@@ -470,16 +490,27 @@ def phase_kernels(record):
             return torch.randn(shape, generator=mix_gen,
                                device="cuda").to(dtype)
 
+        def pre_randn(*shape):
+            return torch.randn(shape, generator=pre_gen,
+                               device="cuda").to(dtype)
+
         pools = (randn(NUM_BLOCKS, HEADS, BLOCK_LEN, HEAD_DIM),
                  randn(NUM_BLOCKS, HEADS, BLOCK_LEN, HEAD_DIM))
         one_slot = np.array([MAX_LEN - 1], np.int32)
-        for label, lengths in (("serve_mix", serve_mix_lengths(mix_rng)),
-                               ("one_slot", (one_slot, one_slot))):
-            for name, args, kw, nbytes, flops in decode_cases(
-                    dtype, randn, *lengths, pools, mix_rng):
+        for label, lengths, starts in (
+                ("serve_mix", serve_mix_lengths(mix_rng),
+                 np.zeros(32, np.int32)),
+                ("one_slot", (one_slot, one_slot),
+                 np.array([MAX_LEN - CHUNK], np.int32))):
+            cases = decode_cases(dtype, randn, *lengths, pools, mix_rng)
+            cases.append(prefill_case(dtype, pre_randn, starts, pools,
+                                      pre_rng))
+            for name, args, kw, nbytes, flops in cases:
                 rec = check_and_time(name, args, kw, nbytes, flops, dtype)
+                what = "starts" if name == "flash_prefill_paged" \
+                    else "lengths"
                 print(f"phase 1 {name} {str(dtype)[6:]} {label} [B="
-                      f"{args[0].shape[0]}, lengths {args[3].min().item()}-"
+                      f"{args[0].shape[0]}, {what} {args[3].min().item()}-"
                       f"{args[3].max().item()}]: max_abs_err "
                       f"{rec['max_abs_err']:.3e} (tol {tol}), "
                       f"{timings(rec, flops)}", flush=True)
@@ -556,11 +587,10 @@ def backward_pair(q, k, v, g, causal, dtype, library_ms):
     return rec, flops
 
 
-# The bf16 attention kernels in kernel/csrc/flash_attention.cu.
 # The kernels whose registers, spills and static shared memory phase 1
 # prints, by source: record name -> a fragment of the mangled entry name
-# (bf16 instances, and K5's and K6's fp32 ones; K3's and K8's vector
-# one-tile paths, the main path's).
+# (bf16 instances, and K5's, K6's and K7's fp32 ones; K3's and K8's
+# vector one-tile paths, the main path's).
 PTXAS_KERNELS = {
     "flash_attention.cu": {
         "flash_attention_fwd": "16fwd_wgmma_kernelE",
@@ -571,6 +601,9 @@ PTXAS_KERNELS = {
         "flash_decode_paged": "13decode_kernelI13__nv_bfloat16Li64ELb1E",
         "flash_decode fp32": "13decode_kernelIfLi64ELb0E",
         "flash_decode_paged fp32": "13decode_kernelIfLi64ELb1E"},
+    "flash_prefill.cu": {
+        "flash_prefill_paged": "20prefill_wgmma_kernelE",
+        "flash_prefill_paged fp32": "14prefill_kernelIfLi64EE"},
     "quant_ring.cu": {"quant_ring_hop": "quant_ring_hop_kernelILb1ELb0E"},
     "a2a_ring.cu": {"a2a_ring_hop": "a2a_ring_hop_kernelILb1ELb0E"},
 }
@@ -1056,7 +1089,8 @@ def device_profile(run, k=1, watch=None):
 def profile_window(engine, n_active):
     """Where one decode window's time goes: its host wall time (timed
     without the profiler), then ``device_profile`` of a second window.
-    Prints "not measured" where the profiler records no device time."""
+    Prints "not measured" where the profiler records no device time.
+    Returns the flash decode kernel's entries of the window's top."""
     active = np.zeros(engine.num_slots, bool)
     active[:n_active] = True
     engine.decode_window(active)
@@ -1068,15 +1102,47 @@ def profile_window(engine, n_active):
                           watch="decode_kernel")
     if prof is None:
         print("phase 3 window profile: device time not measured")
-        return
+        return "not measured"
     prof_ms, busy_ms, n_launch, d2h, top = prof
     print(f"phase 3 window profile: wall {wall_ms:.2f} ms; profiled window "
           f"{prof_ms:.2f} ms, device busy {busy_ms:.2f} ms "
           f"({busy_ms / prof_ms:.1%}), {n_launch:.0f} kernel launches, "
           f"{d2h:.0f} device-to-host copies; top: {top}", flush=True)
-    decode = [t for t in top.split("; ") if "decode_kernel" in t]
+    decode = "; ".join(t for t in top.split("; ") if "decode_kernel" in t)
     print(f"phase 3 window profile: flash decode kernel "
-          f"{'; '.join(decode) or 'not launched'} a window", flush=True)
+          f"{decode or 'not launched'} a window", flush=True)
+    return decode or "not launched"
+
+
+def profile_chunk(engine, rng, decode):
+    """Where one prefill chunk's time goes on the paged engine: 16
+    prompts of 1-64 tokens (one chunk) admitted at once, ``engine.
+    prefill`` under ``device_profile``; K7's device time a chunk printed
+    beside the flash decode kernel's a window (``decode``)."""
+    B = engine.num_slots
+    prompts = np.zeros((B, engine.max_prompt_tokens), np.int64)
+    p_lens = np.zeros(B, np.int32)
+    admit = np.zeros(B, bool)
+    for i in range(16):
+        p_lens[i] = rng.randint(1, CHUNK + 1)
+        prompts[i, :p_lens[i]] = rng.randint(0, VOCAB, p_lens[i])
+        engine.reserve_slot(i, int(p_lens[i]), 128)
+        admit[i] = True
+    prof = device_profile(lambda: engine.prefill(prompts, p_lens, admit),
+                          watch="prefill")
+    check(engine.last_prefill_chunks == 1, "the profiled prefill took "
+          f"{engine.last_prefill_chunks} chunks")
+    engine.release_all_slots()
+    if prof is None:
+        print("phase 3 chunk profile: device time not measured")
+        return
+    prof_ms, busy_ms, n_launch, _, top = prof
+    k7 = "; ".join(t for t in top.split("; ") if "prefill" in t)
+    print(f"phase 3 chunk profile: profiled chunk {prof_ms:.2f} ms, device "
+          f"busy {busy_ms:.2f} ms ({busy_ms / prof_ms:.1%}), "
+          f"{n_launch:.0f} kernel launches; K7 {k7 or 'not launched'} a "
+          f"chunk, beside the flash decode kernel {decode} a window",
+          flush=True)
 
 
 def phase_serve():
@@ -1117,6 +1183,9 @@ def phase_serve():
             want["flash_prefill_paged"] = LAYERS * calls["chunks"]
         check(got == want, f"{layout}: launches {got}, attention calls "
               f"{want}")
+        cuda_core = fp.flash_prefill_attention_paged.cuda_core_launches
+        check(cuda_core == 0, f"{layout}: K7's CUDA-core instance ran "
+              f"{cuda_core} times on the bf16 serve path")
         check(all(n > 0 for n in want.values() if n != 0)
               and sum(n > 0 for n in got.values()) == (1 if layout == "dense"
                                                        else 2),
@@ -1132,7 +1201,10 @@ def phase_serve():
               f"{calls['windows']}, chunks {calls['chunks']}, launches "
               f"{got}", flush=True)
         counts.update({k: v for k, v in got.items() if v})
-        profile_window(engine, min(16, engine.num_slots))
+        decode = profile_window(engine, min(16, engine.num_slots))
+        if layout == "paged":
+            counts["flash_prefill_paged cuda_core"] = cuda_core
+            profile_chunk(engine, rng, decode)
         del engine, batcher
         torch.cuda.empty_cache()
     return counts
@@ -1664,10 +1736,12 @@ def main(argv=None) -> int:
             if (name, dtype, 512) in record:     # K4's out projection
                 kernels[-1]["k512"] = record[(name, dtype, 512)]
             kernels[-1].update(record["ptxas"].get(name, {}))
-            if (name, dtype, "serve_mix") in record:     # K5, K6
+            if (name, dtype, "serve_mix") in record:     # K5-K7
                 for label in ("serve_mix", "one_slot"):
                     kernels[-1][label] = record[(name, dtype, label)]
                 kernels[-1]["ptxas_fp32"] = record["ptxas"][f"{name} fp32"]
+            if f"{name} cuda_core" in counts:            # K7
+                kernels[-1]["cuda_core_launches"] = counts[f"{name} cuda_core"]
             if name in PAIR:
                 kernels[-1]["library"] = (
                     "SDPA's autograd backward (dq, dk, dv), shared by "

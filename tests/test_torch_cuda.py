@@ -168,6 +168,100 @@ def test_cuda_flash_decode_edge_cases(cuda, dtype, case, layout):
                                atol=tol, rtol=tol)
 
 
+# K7's cases, shared with tests/test_torch_kernels.py, which holds the
+# plain version to the Pallas kernel there: C at and around the
+# tensor-core kernel's 64-row groups; slots starting at 0, 63, 64 and one
+# whose chunk reaches past the table's extent.
+PREFILL_CHUNKS = (1, 40, 64, 65, 100)
+PREFILL_EXTENT = 192
+
+
+def prefill_edge_inputs(C, bl, rng):
+    """K7 inputs at ``C`` chunk rows over ``bl``-row blocks, as numpy:
+    q, the pools, the mask of pool rows that no chunk row sees (the
+    unused blocks whole), starts and a tail-filled block table (each
+    slot's blocks drawn from one shuffled pool, the row filled past its
+    last used block with that block); 2 heads of 64."""
+    H, d = 2, 64
+    starts = np.asarray([0, 63, 64, PREFILL_EXTENT - C // 2], np.int32)
+    B, mb = len(starts), PREFILL_EXTENT // bl
+    n_keys = np.minimum(starts + C, PREFILL_EXTENT)
+    counts = -(-n_keys // bl)
+    nb = int(counts.sum()) + 3
+    free = list(rng.permutation(nb))
+    table = np.zeros((B, mb), np.int32)
+    seen = np.zeros((nb, bl), bool)
+    for i, n in enumerate(counts):
+        blocks = [free.pop() for _ in range(n)]
+        table[i, :] = blocks[-1]
+        table[i, :n] = blocks
+        pos = np.arange(n_keys[i])
+        seen[table[i, pos // bl], pos % bl] = True
+    q = rng.randn(B, C, H, d).astype(np.float32)
+    k, v = (rng.randn(nb, H, bl, d).astype(np.float32) for _ in range(2))
+    return q, k, v, ~seen, starts, table
+
+
+def with_nan(pool, unseen):
+    """A copy of ``pool [nb, H, bl, d]`` with NaN in the rows ``unseen
+    [nb, bl]``."""
+    out = pool.copy()
+    out.transpose(0, 2, 1, 3)[unseen] = np.nan
+    return out
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp (8 significant bits) at each ``|x|``."""
+    _, exp = torch.frexp(x.abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(x), exp - 8)
+
+
+@pytest.mark.parametrize("bl", [8, 16, 24])
+@pytest.mark.parametrize("C", PREFILL_CHUNKS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_prefill_edge_cases(cuda, dtype, C, bl):
+    """K7 against its plain version at fp32 (atol = rtol = 1e-5) and
+    bf16 (1e-2) at the row-group, tile and box edges.  At bf16 over
+    blocks of 8 and 16 the tensor-core instance runs, and its output is
+    at most one bf16 ulp from the plain version's, element by element,
+    beyond what the split p = hi + lo can move it: bf16 rounds to within
+    2^-8, so |p - hi - lo| <= 2^-16 p and an output moves by at most
+    2^-16 sum(p |v|) / l (the plain version over |v|), which matters
+    only where the sum cancels to near 0.  Blocks of 24 and fp32 take
+    the CUDA-core instance, counted apart.  NaN in every pool row that
+    no chunk row sees leaves the output finite; a second call is
+    bit-identical."""
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    q, k, v, unseen, starts, table = prefill_edge_inputs(
+        C, bl, np.random.RandomState(C + bl))
+    args = (*(torch.as_tensor(a).to(cuda, dtype)
+              for a in (q, with_nan(k, unseen), with_nan(v, unseen))),
+            torch.as_tensor(starts).to(cuda), torch.as_tensor(table).to(cuda))
+    wrapper = fp.flash_prefill_attention_paged
+    tc = fp.tensor_core_route(dtype, bl, 64)
+    assert tc == (dtype == torch.bfloat16 and bl != 24)
+    before = (wrapper.launches, wrapper.cuda_core_launches)
+    got = wrapper(*args, block_len=bl, dtype=dtype)
+    again = wrapper(*args, block_len=bl, dtype=dtype)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before[0] + 2
+    assert wrapper.cuda_core_launches == before[1] + (0 if tc else 2)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, again)
+    ref = fp.flash_prefill_attention_paged_plain(*args, block_len=bl,
+                                                 dtype=dtype)
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+    if tc:
+        q, k, v, starts, table = args
+        split = 2.0 ** -16 * fp.flash_prefill_attention_paged_plain(
+            q, k, v.abs(), starts, table, block_len=bl,
+            dtype=torch.float32)
+        g, r = got.float(), ref.float()
+        ulps = (((g - r).abs() - split).clamp_min(0)
+                / torch.maximum(_bf16_ulp(g), _bf16_ulp(r)))
+        assert float(ulps.max()) <= 1.0, f"{float(ulps.max())} bf16 ulps"
+
+
 @pytest.mark.parametrize("bad", ["dtype", "fp16", "output_dtype",
                                  "contiguous", "head_dim", "index_dtype"])
 def test_cuda_wrapper_raises_on_what_the_kernel_does_not_take(cuda, bad):

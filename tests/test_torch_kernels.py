@@ -29,6 +29,7 @@ from autodist_tpu_torch.kernel import flash_decode as fd
 from autodist_tpu_torch.kernel import flash_prefill as fp
 from autodist_tpu_torch.kernel import quant_ring as qr
 from autodist_tpu_torch.serving import kv_cache as tkv
+from test_torch_cuda import PREFILL_CHUNKS, prefill_edge_inputs, with_nan
 
 fa = importlib.import_module("autodist_tpu_torch.ops.flash_attention")
 
@@ -221,6 +222,63 @@ def test_paged_flash_prefill_plain_matches_jax(starts):
         tkv.paged_chunk_attention(qt, kt, vt, st, tt, block_len=bl).numpy(),
         np.asarray(paged_chunk_attention(qj, kj, vj, sj, tj, block_len=bl)),
         **TOL)
+
+
+@pytest.mark.parametrize("bl", [8, 16, 24])
+@pytest.mark.parametrize("C", PREFILL_CHUNKS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_flash_prefill_plain_matches_jax_at_kernel_edges(dtype, C, bl):
+    """The CPU path (the plain version the CUDA kernels are held to on
+    the card) equals the Pallas kernel and the composed
+    ``paged_chunk_attention`` at the tensor-core kernel's row-group, tile
+    and box edges (blocks of 8 and 16; 24 is the CUDA-core instance's at
+    bf16), at fp32 (atol = rtol = 1e-5) and bf16 (1e-2), with NaN
+    in every pool row that no chunk row sees (the JAX side gets the clean
+    rows: the plain version must not read what it masks)."""
+    from autodist_tpu.kernel.pallas.flash_prefill import \
+        flash_prefill_attention_paged
+    from autodist_tpu.serving.kv_cache import paged_chunk_attention
+
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 \
+        else dict(atol=1e-2, rtol=1e-2)
+    q, k, v, unseen, starts, table = prefill_edge_inputs(
+        C, bl, np.random.RandomState(C + bl))
+    kn, vn = with_nan(k, unseen), with_nan(v, unseen)
+    sj, st = _pair(starts)
+    tj, tt = _pair(table)
+    qj, kj, vj = (jnp.asarray(a, jdt) for a in (q, k, v))
+    got = fp.flash_prefill_attention_paged(
+        *(torch.as_tensor(a).to(dtype) for a in (q, kn, vn)), st, tt,
+        block_len=bl, dtype=dtype)
+    assert bool(torch.isfinite(got).all())
+    got = got.float().numpy()
+    np.testing.assert_allclose(got, np.asarray(flash_prefill_attention_paged(
+        qj, kj, vj, sj, tj, block_len=bl, dtype=jdt, interpret=True),
+        np.float32), **tol)
+    np.testing.assert_allclose(got, np.asarray(paged_chunk_attention(
+        qj, kj, vj, sj, tj, block_len=bl), np.float32), **tol)
+
+
+@pytest.mark.parametrize("dtype,block_len,head_dim,want", [
+    (torch.bfloat16, 8, 64, True),
+    (torch.bfloat16, 16, 64, True),
+    (torch.bfloat16, 32, 64, True),
+    (torch.bfloat16, 64, 64, True),
+    (torch.bfloat16, 128, 64, True),
+    (torch.bfloat16, 4, 64, False),     # boxes under one swizzle atom
+    (torch.bfloat16, 14, 64, False),    # not a multiple of 8
+    (torch.bfloat16, 24, 64, False),    # does not divide 64
+    (torch.bfloat16, 96, 64, False),    # not a multiple of 64
+    (torch.bfloat16, 16, 128, False),   # no tensor-core head dim but 64
+    (torch.float32, 16, 64, False),     # fp32 keeps the CUDA cores
+])
+def test_prefill_tensor_core_route(dtype, block_len, head_dim, want):
+    """Which ``(dtype, block_len, head_dim)`` the wrapper sends to K7's
+    tensor-core instance: bf16 at head dim 64 over blocks whose TMA
+    boxes stack into a 64-key tile or hold one; the serve path's block
+    16 and the engine tests' block 8 among them."""
+    assert fp.tensor_core_route(dtype, block_len, head_dim) is want
 
 
 @pytest.mark.parametrize("bad", ["shape", "device"])
