@@ -9,7 +9,10 @@ under the names the JAX package gives (``/``-joined, sorted keys).
 
 The loss contract is the JAX package's: ``loss(params, extra, batch,
 rng) -> (loss, new_extra, metrics)``, with ``rng`` an integer seed for
-the step's dropout (``None`` for none) in place of a JAX key.
+the step's dropout (``None`` for none) in place of a JAX key; in a
+window captured as a CUDA graph it is a
+:class:`~autodist_tpu_torch.cuda_graph.GraphSeed` (read it through
+:func:`~autodist_tpu_torch.cuda_graph.dropout_generator`).
 :class:`PipelineTrainable` declares a model in stage form for the
 ``Pipeline`` strategy.  The ``fetch`` plane belongs to a later slice.
 """

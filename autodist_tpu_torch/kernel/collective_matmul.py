@@ -35,6 +35,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from autodist_tpu_torch import cuda_graph
 from autodist_tpu_torch.kernel import build
 from autodist_tpu_torch.kernel.flash_decode import (DTYPE_CODES, on_cuda,
                                                     raise_on_error,
@@ -128,8 +129,7 @@ def fused_matmul_add(carry, x2d, kc2d):
     return out
 
 
-fused_matmul_add.launches = 0
-fused_matmul_add.staged = 0
+cuda_graph.counted(fused_matmul_add, "launches", "staged")
 
 
 def _ring_forward(x, kernel, axis, axes: int, fused: bool):

@@ -28,6 +28,7 @@ import math
 
 import torch
 
+from autodist_tpu_torch import cuda_graph
 from autodist_tpu_torch.kernel import NEG_INF, build
 
 SUPPORTED_HEAD_DIMS = (64,)
@@ -199,7 +200,7 @@ def flash_decode_attention(q, k_layer, v_layer, lengths, *,
     return out
 
 
-flash_decode_attention.launches = 0
+cuda_graph.counted(flash_decode_attention, "launches")
 
 
 def flash_decode_attention_paged(q, k_pool, v_pool, lengths, block_table,
@@ -238,4 +239,4 @@ def flash_decode_attention_paged(q, k_pool, v_pool, lengths, block_table,
     return out
 
 
-flash_decode_attention_paged.launches = 0
+cuda_graph.counted(flash_decode_attention_paged, "launches")

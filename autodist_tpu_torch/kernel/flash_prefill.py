@@ -27,6 +27,7 @@ import math
 
 import torch
 
+from autodist_tpu_torch import cuda_graph
 from autodist_tpu_torch.kernel import build
 from autodist_tpu_torch.kernel.flash_decode import (check_kernel_args,
                                                     check_shape,
@@ -108,5 +109,5 @@ def flash_prefill_attention_paged(q, k_pool, v_pool, starts, block_table,
     return out
 
 
-flash_prefill_attention_paged.launches = 0
-flash_prefill_attention_paged.cuda_core_launches = 0
+cuda_graph.counted(flash_prefill_attention_paged, "launches",
+                   "cuda_core_launches")

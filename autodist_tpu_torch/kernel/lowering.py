@@ -36,7 +36,7 @@ from typing import Any, Callable, Optional
 import torch
 import torch.distributed as dist
 
-from autodist_tpu_torch import const, optim
+from autodist_tpu_torch import const, cuda_graph, optim
 from autodist_tpu_torch.device import resolve_device
 from autodist_tpu_torch.kernel import common
 from autodist_tpu_torch.strategy.ir import AllReduceSynchronizer
@@ -146,6 +146,20 @@ class Lowered:
         if self.batch_axis is None:
             self.batch_axis = self.mesh.axis(const.DATA_AXIS)
 
+    @property
+    def host_staged(self) -> bool:
+        """Whether the step's collectives on the card go through host
+        memory: a gloo group of several ranks on any of its axes."""
+        return any(axis.stages_through_host for axis in
+                   (*self.mesh.axes.values(), self.batch_axis))
+
+    @property
+    def capturable(self) -> bool:
+        """Whether ``run_steps`` records the window into one CUDA graph:
+        the step runs on the card with no host round trip (one replica,
+        or NCCL groups).  Otherwise it runs the steps in a host loop."""
+        return self.device.type == "cuda" and not self.host_staged
+
     def init_state(self, trainable):
         return self.init_fn(trainable.params, trainable.extra)
 
@@ -199,7 +213,7 @@ def lower(trainable, strategy, mesh, device=None) -> Lowered:
         params = state["params"]
         leaves = {nm: p.detach().requires_grad_(True)
                   for nm, p in params.items()}
-        local_rng = None if rng is None else int(rng) * n + mesh.replica
+        local_rng = cuda_graph.fold_seed(rng, n, mesh.replica)
         with torch.enable_grad():
             loss, new_extra, metrics = trainable.loss(
                 common.unflatten(leaves), state["extra"], batch, local_rng)

@@ -36,6 +36,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from autodist_tpu_torch import cuda_graph
 from autodist_tpu_torch.kernel import build
 from autodist_tpu_torch.kernel import quantize as qz
 from autodist_tpu_torch.kernel.flash_decode import (on_cuda, raise_on_error,
@@ -111,8 +112,7 @@ def fused_hop(q_in, scale_in, local):
     return q_out, scale_out
 
 
-fused_hop.launches = 0
-fused_hop.unaligned = 0
+cuda_graph.counted(fused_hop, "launches", "unaligned")
 
 
 @functools.lru_cache(maxsize=None)

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from autodist_tpu_torch import cuda_graph
 from autodist_tpu_torch.capture import Trainable
 from autodist_tpu_torch.device import resolve_device
 from autodist_tpu_torch.kernel.common import flatten_with_names, unflatten
@@ -129,7 +130,9 @@ def make_mlm_trainable(cfg: TransformerConfig, optimizer, generator, *,
     unpadded batches (the flash path).  With ``True`` such a kernel's
     rejection of the padding mask is raised here, as the JAX package's
     init raises it.  Dropout draws from a generator seeded with the
-    step's ``rng``."""
+    step's ``rng`` (an integer), or from a captured window's
+    :class:`~autodist_tpu_torch.cuda_graph.GraphSeed`, which the runner
+    seeds alike before each replay."""
     fn = cfg.attention_fn
     if with_input_mask and getattr(fn, "_adt_flash", False) \
             and not fn.causal:
@@ -146,10 +149,8 @@ def make_mlm_trainable(cfg: TransformerConfig, optimizer, generator, *,
     def loss(params, extra, batch, rng):
         flat = {name.replace("/", "."): p
                 for name, p in flatten_with_names(params)}
-        gen = None
-        if stochastic and rng is not None:
-            gen = torch.Generator(device=batch["input_ids"].device)
-            gen.manual_seed(int(rng))
+        gen = cuda_graph.dropout_generator(
+            rng if stochastic else None, batch["input_ids"].device)
         logits = torch.func.functional_call(model, flat, (batch,),
                                             {"generator": gen})
         l, metrics = mlm_loss_head(logits, batch)

@@ -37,6 +37,7 @@ import math
 
 import torch
 
+from autodist_tpu_torch import cuda_graph
 from autodist_tpu_torch.kernel import NEG_INF, build
 from autodist_tpu_torch.kernel.flash_decode import (DTYPE_CODES,
                                                     SUPPORTED_HEAD_DIMS,
@@ -203,7 +204,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False, scale=None):
     return out, lse
 
 
-flash_attention_fwd.launches = 0
+cuda_graph.counted(flash_attention_fwd, "launches")
 
 
 def flash_attention_bwd_dq(q, k, v, g, lse, delta, *, causal: bool = False,
@@ -232,7 +233,7 @@ def flash_attention_bwd_dq(q, k, v, g, lse, delta, *, causal: bool = False,
     return dq
 
 
-flash_attention_bwd_dq.launches = 0
+cuda_graph.counted(flash_attention_bwd_dq, "launches")
 
 
 def flash_attention_bwd_dkv(q, k, v, g, lse, delta, *, causal: bool = False,
@@ -260,7 +261,7 @@ def flash_attention_bwd_dkv(q, k, v, g, lse, delta, *, causal: bool = False,
     return dk, dv
 
 
-flash_attention_bwd_dkv.launches = 0
+cuda_graph.counted(flash_attention_bwd_dkv, "launches")
 
 
 # --------------------------------------------------------------------------- #

@@ -41,10 +41,18 @@ class Axis:
     group: Any = None
 
     # ---------------- transport ----------------------------------------- #
+    @property
+    def stages_through_host(self) -> bool:
+        """Whether this axis's collectives on CUDA tensors go through
+        host memory (a gloo group of more than one rank).  Such a step
+        makes host round trips and cannot be captured in a CUDA
+        graph."""
+        return self.size > 1 and dist.get_backend(self.group) == "gloo"
+
     def _staged(self, x) -> bool:
-        """Whether this group's transfers go through host memory: a gloo
-        group given CUDA tensors."""
-        return x.is_cuda and dist.get_backend(self.group) == "gloo"
+        """Whether this transfer goes through host memory: a gloo group
+        given CUDA tensors."""
+        return x.is_cuda and self.stages_through_host
 
     def _on_wire(self, x, *, copy: bool = False):
         """``x`` where the collective reads it: a host copy when staged,

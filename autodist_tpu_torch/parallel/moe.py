@@ -26,7 +26,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from autodist_tpu_torch import const, interop, optim
+from autodist_tpu_torch import const, cuda_graph, interop, optim
 from autodist_tpu_torch.device import resolve_device
 from autodist_tpu_torch.kernel import quantize as qz
 from autodist_tpu_torch.kernel.a2a_ring import ring_dispatch
@@ -326,8 +326,7 @@ def lower_expert_ir(trainable, strategy, mesh, device=None):
         params = state["params"]
         leaves = {nm: p.detach().requires_grad_(True)
                   for nm, p in params.items()}
-        local_rng = None if rng is None else int(rng) * batch.size \
-            + batch.index
+        local_rng = cuda_graph.fold_seed(rng, batch.size, batch.index)
         with torch.enable_grad(), expert_scope(expert):
             loss, new_extra, metrics = trainable.loss(
                 unflatten(leaves), state["extra"], placed, local_rng)

@@ -20,11 +20,22 @@ the card they launch the CUDA kernels, on CPU tensors they run the
 kernels' plain versions.  ``kernel=`` is validated and recorded for
 signature parity with the JAX engine; it selects nothing.
 
-JAX donates the cache into its compiled programs; here the cache
-tensors are updated **in place** and ``engine.cache`` keeps the same
-``k``/``v`` tensors for the engine's life.  PyTorch runs eagerly, so
-there are no compiled programs: a window is a host loop of kernel
-launches with one host sync at its end.
+JAX donates the cache into its compiled programs; here the decode
+state is updated **in place**: ``engine.cache`` keeps the same ``k``,
+``v``, ``lengths`` and block-table tensors for the engine's life, and
+the current tokens, the active mask and a window's emitted tokens live
+in static buffers too.  The JAX engine dispatches one program a window;
+on the card the port records the window body once into a CUDA graph
+(:mod:`autodist_tpu_torch.cuda_graph`; its shapes are fixed by
+``num_slots``, ``decode_steps`` and the cache), so that a window is one
+host-to-device copy of the active mask, one replay and one
+device-to-host copy of the tokens.  The first window runs the body
+eagerly, as the capture's warm-up, and is recorded after it.
+``decode_graph=False`` launches the body's kernels from the host
+instead, every window (the route the graph is measured against); on
+the CPU the body always runs eagerly.  Prefill stays eager: its chunk
+count varies from call to call, and the JAX engine dispatches it per
+call too.
 
 Everything outside the serving slice raises ``NotImplementedError``
 naming its ROADMAP item: tensor/vocab parallelism and ``comm_overlap``,
@@ -39,6 +50,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from autodist_tpu_torch import cuda_graph
 from autodist_tpu_torch.capture import stage_slice
 from autodist_tpu_torch.device import resolve_device
 from autodist_tpu_torch.kernel.flash_decode import (
@@ -101,7 +113,10 @@ class ServingEngine:
     against free blocks), ``prefill_chunk`` (paged only).
 
     ``device=None`` means the card and raises ``RuntimeError`` where
-    there is none; pass ``device="cpu"`` to run the plain path.
+    there is none; pass ``device="cpu"`` to run the plain path.  On the
+    card each decode window replays one CUDA graph unless
+    ``decode_graph=False``; :attr:`captures` and :attr:`replays` count
+    the graph route's work.
     """
 
     def __init__(self, cfg, params, *, tensor_parallel: int = 1,
@@ -117,7 +132,7 @@ class ServingEngine:
                  prefix_caching: bool = False,
                  speculative: Optional[int] = None,
                  draft_cfg=None, draft_params=None,
-                 device=None):
+                 device=None, decode_graph: bool = True):
         self.cfg = cfg
         self.kernel = normalize_kernel(kernel)
         if cfg.attention_fn is not None:
@@ -198,8 +213,16 @@ class ServingEngine:
             _matmul_weights(stage_slice(self.params["stages"], i), dtype)
             for i in range(cfg.num_layers)]
 
+        # Static decode buffers: the current token, the active mask and
+        # a window's emitted tokens (a graph replays on these addresses).
         self._tok = torch.zeros(self.num_slots, dtype=torch.int32,
                                 device=dev)
+        self._active = torch.zeros(self.num_slots, dtype=torch.bool,
+                                   device=dev)
+        self._emitted = torch.zeros((self.decode_steps, self.num_slots),
+                                    dtype=torch.int32, device=dev)
+        self.decode_graph = bool(decode_graph) and dev.type == "cuda"
+        self._graph = None
         if self.kv_layout == "paged":
             self.cache = kv_cache.init_paged_cache(
                 cfg.num_layers, self.num_slots, cfg.num_heads,
@@ -391,8 +414,8 @@ class ServingEngine:
                 kv_cache.write_prompt(c.v, layer, v, admit_t)
         rows = torch.arange(self.num_slots, device=dev)
         last = x[rows, (p_lens_t.long() - 1).clamp(0, S - 1)]
-        self._tok = torch.where(admit_t, self._greedy(last), self._tok)
-        c.lengths = torch.where(admit_t, p_lens_t, c.lengths)
+        self._tok.copy_(torch.where(admit_t, self._greedy(last), self._tok))
+        c.lengths.copy_(torch.where(admit_t, p_lens_t, c.lengths))
 
     def _chunked_prefill(self, prompts_np, p_lens_t, admit_np, admit_t):
         """Walk the prompts in ``prefill_chunk`` windows: each writes its
@@ -434,8 +457,9 @@ class ServingEngine:
                 attend_for_layer)
             emit = admit_t & (p_lens_t > cs) & (p_lens_t <= cs + C)
             last = x[rows, (p_lens_t.long() - 1 - cs).clamp(0, C - 1)]
-            self._tok = torch.where(emit, self._greedy(last), self._tok)
-            c.lengths = torch.where(emit, p_lens_t, c.lengths)
+            self._tok.copy_(torch.where(emit, self._greedy(last),
+                                        self._tok))
+            c.lengths.copy_(torch.where(emit, p_lens_t, c.lengths))
         self.last_prefill_chunks = n_chunks
 
     def decode(self, active):
@@ -443,8 +467,39 @@ class ServingEngine:
         their state (the dense layout still writes their lane at their
         length, which nothing reads).  Returns the emitted tokens
         ``[K, B]`` (numpy; inactive columns repeat the held token)."""
-        dev, bl = self.device, self.kv_block_len
-        act = torch.as_tensor(np.asarray(active, bool), device=dev)
+        self._active.copy_(torch.from_numpy(np.asarray(active, bool)))
+        if not self.decode_graph:
+            self._decode_body()
+        elif self._graph is None:
+            with torch.cuda.device(self.device):
+                self._graph = cuda_graph.Graph(
+                    self._decode_body, self._decode_body,
+                    keep_warmup_counts=True)
+        else:
+            self._graph.replay()
+        return self._emitted.cpu().numpy()
+
+    @property
+    def captures(self) -> int:
+        """Decode graphs captured (one an engine, at its first window)."""
+        return int(self._graph is not None)
+
+    @property
+    def capture_seconds(self) -> float:
+        return self._graph.seconds if self._graph is not None else 0.0
+
+    @property
+    def replays(self) -> int:
+        """Decode windows that replayed the captured graph."""
+        return self._graph.replays if self._graph is not None else 0
+
+    def _decode_body(self):
+        """The window on the static buffers: ``decode_steps`` token
+        steps over the slots that ``_active`` marks, each layer writing
+        the step's k/v and attending through K5 or K6; ``_tok``,
+        ``cache.lengths`` and ``_emitted`` are written in place."""
+        bl = self.kv_block_len
+        act = self._active
         step = act.int()
         c = self.cache
         paged = self.kv_layout == "paged"
@@ -475,8 +530,16 @@ class ServingEngine:
             tok = torch.where(act, self._greedy(x[:, 0]), tok)
             lengths = lengths + step
             emitted.append(tok)
-        self._tok, c.lengths = tok, lengths
-        return torch.stack(emitted).cpu().numpy()
+        torch.stack(emitted, out=self._emitted)
+        self._tok.copy_(tok)
+        c.lengths.copy_(lengths)
+
+    def close(self) -> None:
+        """Free the captured decode graph (safe to call more than
+        once)."""
+        if self._graph is not None:
+            self._graph.close()
+            self._graph = None
 
     def decode_window(self, active) -> DecodeWindow:
         """The batcher's decode unit: ``decode_steps`` tokens per active

@@ -45,22 +45,30 @@ training of the MoE LM through ``ExpertParallel`` on an expert axis of 2:
    to a greedy full recompute by ``sequential_logits`` (a divergence
    counts as a tie only where the reference's top two logits are within
    1e-4);
-3. bf16 serving of the bench mix on both engines, with the kernels'
-   launch counters held to the attention calls the engines made (and
-   K7's CUDA-core instance to none: the serve path is bf16 over blocks
-   of 16), a profiled window's device time, the flash decode kernel's
-   included, and on the paged engine a profiled prefill chunk of 16
-   prompts with K7's device time a chunk;
+3. bf16 serving of the bench mix on both engines, each twice: with
+   every decode window one CUDA-graph replay (the main path: one
+   capture in the warm-up, then a replay a window, asserted) and with
+   the window body launched from the host (``decode_graph=False``),
+   the two routes' streams equal token for token; the kernels' launch
+   counters held to the attention calls the engines made (and K7's
+   CUDA-core instance to none: the serve path is bf16 over blocks of
+   16), a profiled window's device time on each route, the flash
+   decode kernel's included, and on the paged engine a profiled
+   prefill chunk of 16 prompts with K7's device time a chunk;
 4. fp32 training parity: a 2-layer BERT at full width, 3 AdamW steps
    with the flash attention and with the einsum attention on the same
    weights and batches, every loss within 1e-4 relative;
 5. the bench's BERT-base training window in bf16 (``bench.py`` ``_bench``
    on one card: batch 16, seq 512, 76 masked, adamw(1e-4, weight decay
-   0.01, bf16 first moments), ``AllReduce(chunk_size=256)``): a warm
-   30-step ``run_steps`` window, then a timed one with K1, K2a and K2b
-   held to 12 x 30 launches each, examples/s, step time, MFU, the
-   profiler's busy share and launches per step, peak memory, and the
-   einsum attention's examples/s beside it;
+   0.01, bf16 first moments), ``AllReduce(chunk_size=256)``), with the
+   flash and with the einsum attention, each on two routes: a warm
+   30-step ``run_steps`` window (its capture) and a timed one, each one
+   CUDA-graph replay (the main path; one capture and two replays
+   asserted), then a warm and a timed loop of 30 ``step`` calls; K1,
+   K2a and K2b held to 12 x 30 launches each on either route;
+   examples/s, step time, MFU, peak memory (the capture's included),
+   the capture's seconds, the profiler's busy share and launches per
+   step;
 6. fp32 tensor-parallel parity: the pipelined LM at full width cut to 2
    layers, seq 128, 3 Adam steps: composed fp32 on T = 2 ranks against
    one process at T = 1 (1e-4 relative), the fused collective matmul
@@ -72,7 +80,9 @@ training of the MoE LM through ``ExpertParallel`` on an expert axis of 2:
    int8, ``quant_ring`` and ``collective_matmul`` programs: tokens/s,
    step ms, peak memory per rank, the profiler's busy share and K3's
    device time per step, the K3 and K4 launches held to 64 and 32 per
-   step, no K4 operand staged and no K3 hop off the vector path;
+   step, no K4 operand staged and no K3 hop off the vector path; over
+   gloo the lowering stages through host memory, and ``run_steps`` is
+   asserted to keep its host loop (no capture);
 8. fp32 MoE parity: the MoE LM at full width (vocab 32768, hidden 1024,
    16 heads, expert hidden 4096, 8 experts) cut to 1 layer, seq 128,
    batch 8, capacity factor 4.0 (no token is dropped, so sharded and
@@ -83,14 +93,17 @@ training of the MoE LM through ``ExpertParallel`` on an expert axis of 2:
 9. the MoE window in bf16 (``bench.py moe`` on an accelerator: 2
    layers, max_len 512, capacity factor 2.0, 2 rows per rank,
    ``adam(1e-3)``, nothing cut) for the composed int8 and ``a2a_ring``
-   programs: a warm step, then 20 timed steps; tokens/s, step ms, peak
-   memory per rank, the profiler's busy share and K8's device time per
-   step, and K8 held to 16 launches a step (2 layers x dispatch and
-   combine x forward and backward x 2 hops), none off the vector path;
+   programs: a warm window of 20 steps, then a timed one; tokens/s,
+   step ms, peak memory per rank, the profiler's busy share and K8's
+   device time per step, and K8 held to 16 launches a step (2 layers x dispatch and
+   combine x forward and backward x 2 hops), none off the vector path,
+   and ``run_steps`` on the host loop as in phase 7;
 10. one ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
-Phases 6 to 9 run 2 processes (``torch.multiprocessing`` spawn) on card
+Phases 2, 4, 6 (at T = 1) and 8 (the dense model) run one process on
+the card, so their windows replay CUDA graphs too.  Phases 6 to 9 run
+2 processes (``torch.multiprocessing`` spawn) on card
 0, joined in a gloo group: NCCL refuses two ranks on one device, so each
 transfer is staged through host memory while the kernels, the model and
 the optimizer stay on the card.  Their numbers are labelled so, and say
@@ -1086,7 +1099,7 @@ def device_profile(run, k=1, watch=None):
         (span.start, span.end), k, watch)
 
 
-def profile_window(engine, n_active):
+def profile_window(engine, n_active, label):
     """Where one decode window's time goes: its host wall time (timed
     without the profiler), then ``device_profile`` of a second window.
     Prints "not measured" where the profiler records no device time.
@@ -1101,15 +1114,15 @@ def profile_window(engine, n_active):
     prof = device_profile(lambda: engine.decode_window(active),
                           watch="decode_kernel")
     if prof is None:
-        print("phase 3 window profile: device time not measured")
+        print(f"phase 3 {label} window profile: device time not measured")
         return "not measured"
     prof_ms, busy_ms, n_launch, d2h, top = prof
-    print(f"phase 3 window profile: wall {wall_ms:.2f} ms; profiled window "
-          f"{prof_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+    print(f"phase 3 {label} window profile: wall {wall_ms:.2f} ms; profiled "
+          f"window {prof_ms:.2f} ms, device busy {busy_ms:.2f} ms "
           f"({busy_ms / prof_ms:.1%}), {n_launch:.0f} kernel launches, "
           f"{d2h:.0f} device-to-host copies; top: {top}", flush=True)
     decode = "; ".join(t for t in top.split("; ") if "decode_kernel" in t)
-    print(f"phase 3 window profile: flash decode kernel "
+    print(f"phase 3 {label} window profile: flash decode kernel "
           f"{decode or 'not launched'} a window", flush=True)
     return decode or "not launched"
 
@@ -1145,68 +1158,109 @@ def profile_chunk(engine, rng, decode):
           flush=True)
 
 
+def serve_mix(engine, rng):
+    """Two warm-up requests in turn, then the serve mix (16 requests of
+    1-64 prompt tokens and 128 new ones) timed through
+    ``ContinuousBatcher``, with the launch counters set to 0 just before
+    it.  The first warm-up's window captures the decode graph, and the
+    capture empties the allocator's cache; the second warms the prefill
+    after it.  Returns (seconds, completions, the engine's calls, the
+    launches, the graph replays)."""
+    batcher = port.ContinuousBatcher(engine)
+    for warm in (rng, np.random.RandomState(1)):        # warm-up
+        batcher.submit(warm.randint(0, VOCAB, 4).tolist(), max_new_tokens=16)
+        batcher.run()
+    calls = count_calls(engine)
+    replays = engine.replays
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [batcher.submit(
+        rng.randint(0, VOCAB, int(rng.randint(1, 65))).tolist(),
+        max_new_tokens=128) for _ in range(16)]
+    done = batcher.run()
+    wall = time.perf_counter() - t0
+    return (wall, [done[r] for r in rids], calls, launches(),
+            engine.replays - replays)
+
+
 def phase_serve():
+    """The bench mix on the dense and the paged engine, each with its
+    decode windows replaying one CUDA graph (the main path) and again
+    with the window body launched from the host; the two routes' streams
+    must be equal token for token."""
     cfg = cfg_of(torch.bfloat16)
     params = port.init_pipeline_lm_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     counts = {}
     for layout in ("dense", "paged"):
-        engine = port.serve(cfg, params=params, device="cuda",
-                            **ENGINES[layout])
-        batcher = port.ContinuousBatcher(engine)
-        rng = np.random.RandomState(0)
-        batcher.submit(rng.randint(0, VOCAB, 4).tolist(), max_new_tokens=16)
-        batcher.run()                                   # warm-up
-        calls = count_calls(engine)
-        reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rids = [batcher.submit(
-            rng.randint(0, VOCAB, int(rng.randint(1, 65))).tolist(),
-            max_new_tokens=128) for _ in range(16)]
-        done = batcher.run()
-        wall = time.perf_counter() - t0
-        got = launches()
-        comps = [done[r] for r in rids]
-        check(all(c.finish_reason in FINISH_REASONS for c in comps),
-              "invalid finish reason")
-        check(all(0 <= t < VOCAB for c in comps for t in c.tokens),
-              "token outside the vocabulary")
-        free, used, total = engine.block_accounting()
-        check(used == 0 and free == total, f"blocks leaked: {free, used}")
-        per_window = LAYERS * engine.decode_steps
-        want = dict.fromkeys(KERNELS, 0)
-        if layout == "dense":
-            want["flash_decode"] = per_window * calls["windows"]
-        else:
-            want["flash_decode_paged"] = per_window * calls["windows"]
-            want["flash_prefill_paged"] = LAYERS * calls["chunks"]
-        check(got == want, f"{layout}: launches {got}, attention calls "
-              f"{want}")
-        cuda_core = fp.flash_prefill_attention_paged.cuda_core_launches
-        check(cuda_core == 0, f"{layout}: K7's CUDA-core instance ran "
-              f"{cuda_core} times on the bf16 serve path")
-        check(all(n > 0 for n in want.values() if n != 0)
-              and sum(n > 0 for n in got.values()) == (1 if layout == "dense"
-                                                       else 2),
-              f"{layout}: a kernel of the path was never launched: {got}")
-        tokens = sum(len(c.tokens) for c in comps)
-        itl = [ms for c in comps for ms in c.inter_token_ms]
-        ttft = sorted(c.ttft_s * 1e3 for c in comps)
-        print(f"phase 3 {layout} bf16: {tokens} tokens in {wall:.3f} s = "
-              f"{tokens / wall:.1f} tokens/s, TTFT p50 "
-              f"{ttft[len(ttft) // 2]:.2f} ms, inter-token p50 "
-              f"{np.percentile(itl, 50):.3f} ms p99 "
-              f"{np.percentile(itl, 99):.3f} ms, windows "
-              f"{calls['windows']}, chunks {calls['chunks']}, launches "
-              f"{got}", flush=True)
-        counts.update({k: v for k, v in got.items() if v})
-        decode = profile_window(engine, min(16, engine.num_slots))
-        if layout == "paged":
-            counts["flash_prefill_paged cuda_core"] = cuda_core
-            profile_chunk(engine, rng, decode)
-        del engine, batcher
-        torch.cuda.empty_cache()
+        streams = {}
+        for route in ("graph", "body"):
+            label = f"{layout} {route}"
+            engine = port.serve(cfg, params=params, device="cuda",
+                                decode_graph=route == "graph",
+                                **ENGINES[layout])
+            wall, comps, calls, got, replays = serve_mix(
+                engine, np.random.RandomState(0))
+            check(all(c.finish_reason in FINISH_REASONS for c in comps),
+                  "invalid finish reason")
+            check(all(0 <= t < VOCAB for c in comps for t in c.tokens),
+                  "token outside the vocabulary")
+            free, used, total = engine.block_accounting()
+            check(used == 0 and free == total, f"blocks leaked: {free, used}")
+            if route == "graph":
+                check(engine.captures == 1 and replays == calls["windows"]
+                      and replays > 0,
+                      f"{label}: {engine.captures} captures and {replays} "
+                      f"replays for {calls['windows']} windows (one capture "
+                      f"in the warm-up, then a replay a window)")
+            else:
+                check(engine.captures == engine.replays == 0,
+                      f"{label}: the uncaptured route captured")
+            per_window = LAYERS * engine.decode_steps
+            want = dict.fromkeys(KERNELS, 0)
+            if layout == "dense":
+                want["flash_decode"] = per_window * calls["windows"]
+            else:
+                want["flash_decode_paged"] = per_window * calls["windows"]
+                want["flash_prefill_paged"] = LAYERS * calls["chunks"]
+            check(got == want, f"{label}: launches {got}, attention calls "
+                  f"{want}")
+            cuda_core = fp.flash_prefill_attention_paged.cuda_core_launches
+            check(cuda_core == 0, f"{label}: K7's CUDA-core instance ran "
+                  f"{cuda_core} times on the bf16 serve path")
+            check(all(n > 0 for n in want.values() if n != 0)
+                  and sum(n > 0 for n in got.values()) == (
+                      1 if layout == "dense" else 2),
+                  f"{label}: a kernel of the path was never launched: {got}")
+            tokens = sum(len(c.tokens) for c in comps)
+            itl = [ms for c in comps for ms in c.inter_token_ms]
+            ttft = sorted(c.ttft_s * 1e3 for c in comps)
+            print(f"phase 3 {label} bf16: {tokens} tokens in {wall:.3f} s = "
+                  f"{tokens / wall:.1f} tokens/s, TTFT p50 "
+                  f"{ttft[len(ttft) // 2]:.2f} ms, inter-token p50 "
+                  f"{np.percentile(itl, 50):.3f} ms p99 "
+                  f"{np.percentile(itl, 99):.3f} ms, windows "
+                  f"{calls['windows']}, chunks {calls['chunks']}, graph "
+                  f"replays {replays}, captures {engine.captures} "
+                  f"({engine.capture_seconds:.2f} s), launches {got}",
+                  flush=True)
+            streams[route] = [c.tokens for c in comps]
+            if route == "graph":
+                counts.update({k: v for k, v in got.items() if v})
+            decode = profile_window(engine, min(16, engine.num_slots), label)
+            if layout == "paged" and route == "graph":
+                counts["flash_prefill_paged cuda_core"] = cuda_core
+                profile_chunk(engine, np.random.RandomState(1), decode)
+            engine.close()
+            del engine
+            torch.cuda.empty_cache()
+        check(streams["graph"] == streams["body"],
+              f"{layout}: the replayed windows' streams differ from the "
+              f"uncaptured body's")
+        print(f"phase 3 {layout}: the graph route's {len(streams['graph'])} "
+              f"streams equal the uncaptured body's token for token",
+              flush=True)
     return counts
 
 
@@ -1257,85 +1311,126 @@ def phase_training_parity():
           f"{losses['flash']}, einsum losses {losses['einsum']}", flush=True)
 
 
-def profile_steps(runner, window, k=3, watch=None):
+def window_steps(window, k=None):
+    """The first ``k`` steps (all by default) of a placed window, one
+    batch each; each keeps the placed type, so the runner does not split
+    it again."""
+    k = len(next(iter(window.values()))) if k is None else k
+    return [type(window)({key: t[i] for key, t in window.items()})
+            for i in range(k)]
+
+
+def profile_steps(runner, window, k=3, watch=None, loop=False):
     """``device_profile`` of ``k`` warm steps, per step, every kernel
-    whose name holds ``watch`` listed.  ``window`` is placed
-    (``runner.place_steps``); its slice keeps the type, so the runner
-    does not split it again."""
-    part = type(window)({key: t[:k] for key, t in window.items()})
-    runner.run_steps(part)
+    whose name holds ``watch`` listed: one ``run_steps`` window, or with
+    ``loop`` ``k`` ``step`` calls.  ``window`` is placed
+    (``runner.place_steps``)."""
+    if loop:
+        steps = window_steps(window, k)
+        run = lambda: [runner.step(b) for b in steps]      # noqa: E731
+    else:
+        part = type(window)({key: t[:k] for key, t in window.items()})
+        run = lambda: runner.run_steps(part)               # noqa: E731
+    run()
     torch.cuda.synchronize()
-    return device_profile(lambda: runner.run_steps(part), k, watch)
+    return device_profile(run, k, watch)
 
 
-def timed_window(runner, window):
+def timed_window(runner, window, loop=False):
     """A warm window, then a timed one (host clock around a window that
-    ends in a host read of the last loss).  Returns (seconds, metrics)."""
+    ends in a host read of the last loss): one ``run_steps`` call, or
+    with ``loop`` a ``step`` call a step.  The launch counters are set
+    to 0 just before the timed window, the peak memory before the warm
+    one (so a graph's capture counts).  Returns (seconds, metrics)."""
     fence = lambda m: float(m["loss"][-1])              # noqa: E731
-    fence(runner.run_steps(window))
+    torch.cuda.reset_peak_memory_stats()
+    if loop:
+        steps = window_steps(window)
+
+        def run():
+            out = [runner.step(b) for b in steps]
+            return {key: torch.stack([m[key] for m in out])
+                    for key in out[0]}
+    else:
+        run = lambda: runner.run_steps(window)          # noqa: E731
+    fence(run())
     torch.cuda.synchronize()
     reset_launches()
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    metrics = runner.run_steps(window)
+    metrics = run()
     fence(metrics)
     torch.cuda.synchronize()
     return time.perf_counter() - t0, metrics
 
 
-def phase_train():
-    """bf16 BERT-base: the bench's training window through the flash
-    kernels, then through the einsum attention."""
-    cfg = bert.bert_base(dropout_rate=0.0, attention_dropout_rate=0.0,
-                         attention_fn=fa.make_attention_fn(False))
+def train_route(cfg, opt, label, route):
+    """One BERT-base training window on one route: ``"graph"`` (each
+    ``run_steps`` call one CUDA-graph replay: the main path) or
+    ``"loop"`` (a ``step`` call a step).  Checks the losses, the route's
+    captures and replays and the attention kernels' launches; prints
+    examples/s, step ms, MFU, peak memory, capture seconds and the
+    profiler's busy share.  Returns the launches."""
     flops = bert.mlm_model_flops_per_example(cfg, BERT_SEQ, BERT_MASKED)
     chip = port.ResourceSpec({}).chip
-    peak = chip.peak_bf16_tflops * 1e12
-    opt = port.optim.adamw(1e-4, weight_decay=0.01, mu_dtype=torch.bfloat16)
     runner = bert_runner(cfg, opt)
+    check(runner.lowered.capturable, f"{label}: one card's lowering is "
+          f"not capturable")
     window = runner.place_steps(bert_window(cfg, BERT_STEPS))
-    dt, metrics = timed_window(runner, window)
+    dt, metrics = timed_window(runner, window, loop=route == "loop")
     got = launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = metrics["loss"].float()
-    check(bool(torch.isfinite(losses).all()), f"non-finite loss: {losses}")
+    check(bool(torch.isfinite(losses).all()),
+          f"{label} {route}: non-finite loss: {losses}")
     want = dict.fromkeys(KERNELS, 0)
-    want.update(dict.fromkeys(TRAINING_KERNELS,
-                              cfg.num_layers * BERT_STEPS))
-    check(got == want, f"training launches {got}, expected {want}")
+    if cfg.attention_fn is not None:
+        want.update(dict.fromkeys(TRAINING_KERNELS,
+                                  cfg.num_layers * BERT_STEPS))
+    check(got == want, f"{label} {route}: training launches {got}, "
+          f"expected {want}")
+    graphs = (1, 2) if route == "graph" else (0, 0)
+    check((runner.captures, runner.replays) == graphs,
+          f"{label} {route}: {runner.captures} captures and "
+          f"{runner.replays} replays, expected {graphs}")
     rate = BERT_STEPS * BERT_BATCH / dt
-    print(f"phase 5 flash bf16: {BERT_STEPS} steps in {dt:.3f} s = "
-          f"{rate:.2f} examples/s, step {dt / BERT_STEPS * 1e3:.2f} ms, MFU "
-          f"{rate * flops / peak:.4f}, peak memory "
-          f"{peak_gb:.2f} GB of {chip.hbm_gb:g}, loss {losses[0]:.4f} -> "
-          f"{losses[-1]:.4f}, launches {got}", flush=True)
-    prof = profile_steps(runner, window)
+    print(f"phase 5 {label} bf16 {route}: {BERT_STEPS} steps in {dt:.3f} s "
+          f"= {rate:.2f} examples/s, step {dt / BERT_STEPS * 1e3:.2f} ms, "
+          f"MFU {rate * flops / (chip.peak_bf16_tflops * 1e12):.4f}, peak "
+          f"memory {peak_gb:.2f} GB of {chip.hbm_gb:g}, graph captures "
+          f"{runner.captures} ({runner.capture_seconds:.2f} s), replays "
+          f"{runner.replays}, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"launches {got}", flush=True)
+    prof = profile_steps(runner, window, loop=route == "loop")
     if prof is None:
-        print("phase 5 step profile: device time not measured", flush=True)
+        print(f"phase 5 {label} {route} step profile: device time not "
+              f"measured", flush=True)
     else:
         prof_ms, busy, n_launch, _, top = prof
-        print(f"phase 5 step profile: device busy {busy:.2f} ms of the "
-              f"profiled step's {prof_ms:.2f} ms ({busy / prof_ms:.1%}), "
-              f"{n_launch:.0f} kernel launches per step; top per step: "
-              f"{top}", flush=True)
+        print(f"phase 5 {label} {route} step profile: device busy "
+              f"{busy:.2f} ms of the profiled step's {prof_ms:.2f} ms "
+              f"({busy / prof_ms:.1%}), {n_launch:.0f} kernel launches per "
+              f"step; top per step: {top}", flush=True)
     runner.close()
     del runner, window
     torch.cuda.empty_cache()
+    return got
 
-    cfg = bert.bert_base(dropout_rate=0.0, attention_dropout_rate=0.0)
-    runner = bert_runner(cfg, opt)
-    window = runner.place_steps(bert_window(cfg, BERT_STEPS))
-    dt_e, metrics = timed_window(runner, window)
-    check(bool(torch.isfinite(metrics["loss"]).all()), "non-finite loss")
-    rate_e = BERT_STEPS * BERT_BATCH / dt_e
-    print(f"phase 5 einsum bf16: {rate_e:.2f} examples/s, step "
-          f"{dt_e / BERT_STEPS * 1e3:.2f} ms, MFU "
-          f"{rate_e * flops / peak:.4f} (flash: "
-          f"{rate:.2f} examples/s)", flush=True)
-    runner.close()
-    del runner, window
-    torch.cuda.empty_cache()
-    return {name: got[name] for name in TRAINING_KERNELS}
+
+def phase_train():
+    """bf16 BERT-base: the bench's training window through the flash
+    kernels, then through the einsum attention, each replayed as one
+    CUDA graph a window and as a loop of ``step`` calls."""
+    opt = port.optim.adamw(1e-4, weight_decay=0.01, mu_dtype=torch.bfloat16)
+    counts = {}
+    for label, fn in (("flash", fa.make_attention_fn(False)),
+                      ("einsum", None)):
+        cfg = bert.bert_base(dropout_rate=0.0, attention_dropout_rate=0.0,
+                             attention_fn=fn)
+        for route in ("graph", "loop"):
+            got = train_route(cfg, opt, label, route)
+            if label == "flash" and route == "graph":
+                counts = {name: got[name] for name in TRAINING_KERNELS}
+    return counts
 
 
 # --------------------------------------------------------------------- #
@@ -1382,6 +1477,22 @@ def tp_parity(job):
     return out
 
 
+def check_route(runner, job, program):
+    """Over gloo the step stages every exchange through host memory, so
+    ``run_steps`` keeps the host loop (no capture); over NCCL it replays
+    one CUDA graph."""
+    staged = job["backend"] == "gloo"
+    check(runner.lowered.host_staged == staged
+          and runner.lowered.capturable == (not staged),
+          f"{program} over {job['backend']}: host_staged "
+          f"{runner.lowered.host_staged}, capturable "
+          f"{runner.lowered.capturable}")
+    if staged:
+        check(runner.captures == runner.replays == 0,
+              f"{program}: the gloo loop captured {runner.captures} graphs")
+    return "loop" if staged else f"graph ({runner.captures} captures)"
+
+
 def tp_window_programs(job):
     """Phase 7 in one rank: per program a warm window, a timed one with
     the launch counters, then a profiled one."""
@@ -1391,6 +1502,7 @@ def tp_window_programs(job):
         window = runner.place_steps(tp_window(job, TP_STEPS))
         cm.fused_matmul_add.staged = qr.fused_hop.unaligned = 0
         dt, metrics = timed_window(runner, window)
+        route = check_route(runner, job, program)
         got = {name: launches()[name] for name in TP_KERNELS}
         check(cm.fused_matmul_add.staged == 0,
               f"{program}: K4 staged {cm.fused_matmul_add.staged} operands "
@@ -1409,7 +1521,7 @@ def tp_window_programs(job):
         prof = profile_steps(runner, window, k=2, watch="ring_hop_kernel")
         out[program] = {"seconds": dt, "launches": got, "peak_gb": peak_gb,
                         "loss": [float(losses[0]), float(losses[-1])],
-                        "profile": prof}
+                        "profile": prof, "route": route}
         runner.close()
         del runner, window
         torch.cuda.empty_cache()
@@ -1424,6 +1536,7 @@ def rank_worker(rank, backend, store, job, out_dir):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     testing.init_rank(rank, 2, store, backend)
+    job = dict(job, backend=backend)
     run = {"parity": tp_parity, "window": tp_window_programs,
            "moe_parity": moe_parity, "moe_window": moe_window_programs}
     result = run[job["kind"]](job)
@@ -1494,7 +1607,8 @@ def phase_tp_window():
             dt = max(r[program]["seconds"] for r in ranks)
             peaks = ", ".join(f"{r[program]['peak_gb']:.2f}" for r in ranks)
             per_step = {k: n / TP_STEPS for k, n in r0["launches"].items()}
-            line = (f"phase 7 {program} bf16 [{label}]: {TP_STEPS} steps in "
+            line = (f"phase 7 {program} bf16 [{label}, run_steps route "
+                    f"{r0['route']}]: {TP_STEPS} steps in "
                     f"{dt:.3f} s = {tokens / dt:.1f} tokens/s, step "
                     f"{dt / TP_STEPS * 1e3:.2f} ms, peak memory per rank "
                     f"{peaks} GB, loss {r0['loss'][0]:.4f} -> "
@@ -1567,24 +1681,16 @@ def moe_parity(job):
 
 
 def moe_window_programs(job):
-    """Phase 9 in one rank: per program a warm step, a timed window with
+    """Phase 9 in one rank: per program a warm window, a timed one with
     the launch counters, then a profiled one."""
     out = {}
     for program in job["programs"]:
         runner = moe_runner(job, program)
         window = runner.place_steps(moe_window(job, MOE_STEPS))
-        float(runner.step(type(window)({k: t[0] for k, t in
-                                        window.items()}))["loss"])
-        torch.cuda.synchronize()
-        reset_launches()
         ar.fused_hop.unaligned = 0
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        metrics = runner.run_steps(window)
-        float(metrics["loss"][-1])
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        dt, metrics = timed_window(runner, window)
         got = launches()
+        route = check_route(runner, job, program)
         check(ar.fused_hop.unaligned == 0,
               f"{program}: {ar.fused_hop.unaligned} K8 hops took the "
               f"element-wise path (the main path's arrays are aligned)")
@@ -1599,7 +1705,7 @@ def moe_window_programs(job):
         prof = profile_steps(runner, window, k=2, watch="ring_hop_kernel")
         out[program] = {"seconds": dt, "launches": got, "peak_gb": peak_gb,
                         "loss": [float(losses[0]), float(losses[-1])],
-                        "profile": prof}
+                        "profile": prof, "route": route}
         runner.close()
         del runner, window
         torch.cuda.empty_cache()
@@ -1659,7 +1765,8 @@ def phase_moe_window():
             peaks = ", ".join(f"{r[program]['peak_gb']:.2f}" for r in ranks)
             per_step = {k: n / MOE_STEPS for k, n in r0["launches"].items()
                         if n}
-            line = (f"phase 9 {program} bf16 [{label}]: {MOE_STEPS} steps "
+            line = (f"phase 9 {program} bf16 [{label}, run_steps route "
+                    f"{r0['route']}]: {MOE_STEPS} steps "
                     f"in {dt:.3f} s = {tokens / dt:.1f} tokens/s, step "
                     f"{dt / MOE_STEPS * 1e3:.2f} ms, peak memory per rank "
                     f"{peaks} GB, loss {r0['loss'][0]:.4f} -> "

@@ -766,3 +766,168 @@ def test_cuda_a2a_ring_hop_raises_on_what_the_kernel_does_not_take(cuda):
         ar.fused_hop(q, s, torch.zeros(16, device=cuda)[::2])
     with pytest.raises(ValueError, match="several devices"):
         ar.fused_hop(q, s, torch.zeros(8))
+
+
+# --------------------------------------------------------------------------- #
+# Steps-per-loop: a run_steps window and a decode window as one graph replay
+# --------------------------------------------------------------------------- #
+def _bert_runner(cuda, dtype, attention, dropout):
+    """A 2-layer BERT (hidden 128, 2 heads of 64) through AutoDist +
+    AllReduce on the card, weights from seed 0 (the same every call)."""
+    cfg = port.TransformerConfig(
+        vocab_size=97, hidden_size=128, num_layers=2, num_heads=2,
+        mlp_dim=256, max_len=64, dtype=dtype, dropout_rate=dropout,
+        attention_dropout_rate=dropout if attention == "einsum" else 0.0,
+        attention_fn=fa.make_attention_fn(False) if attention == "flash"
+        else None)
+    trainable = bert.make_mlm_trainable(
+        cfg, port.optim.adamw(1e-3), torch.Generator().manual_seed(0),
+        with_input_mask=False, device=cuda)
+    return port.AutoDist({}, port.AllReduce(), device=cuda).build(trainable)
+
+
+def _bert_steps(k, seed0=0):
+    batches = []
+    for i in range(k):
+        b = bert.synthetic_mlm_batch(seed0 + i, 4, 64, 8, 97)
+        b.pop("input_mask")
+        batches.append(b)
+    return batches
+
+
+def _leaves(runner, metrics):
+    """What a window leaves behind: the metrics, then every parameter and
+    optimizer moment, on the host."""
+    out = {f"metric/{n}": t.detach().cpu() for n, t in metrics.items()}
+    out.update((f"state/{n}", t.detach().cpu()) for n, t in
+               flatten_with_names({"params": runner.state["params"],
+                                   "opt": runner.state["opt_state"]}))
+    return out
+
+
+def _hold_to_eager(captured, eager_a, eager_b):
+    """The determinism rule: bit-equal where two eager windows are
+    bit-equal; elsewhere within the largest difference they show."""
+    for name, a in eager_a.items():
+        b, c = eager_b[name], captured[name]
+        same = a == b
+        assert torch.equal(c[same], a[same]), name
+        if not same.all():
+            spread = (a.float() - b.float()).abs().max()
+            assert (c.float() - a.float()).abs().max() <= spread, name
+
+
+@pytest.mark.parametrize("dtype,attention,dropout", [
+    (torch.float32, "flash", 0.0), (torch.bfloat16, "flash", 0.0),
+    (torch.float32, "einsum", 0.1), (torch.bfloat16, "einsum", 0.1),
+    (torch.bfloat16, "flash", 0.1)])
+def test_cuda_run_steps_replay_equals_step_calls(cuda, dtype, attention,
+                                                 dropout):
+    """A captured ``run_steps`` window of 4 steps against 4 ``step``
+    calls from the same state and ``rngs``, under the determinism rule
+    (two eager windows measure what the card's atomics leave open).
+    With dropout the replay's masks come from ``GraphSeed``s seeded on
+    the host, and equal the fresh generators of eager steps."""
+    batches, rngs = _bert_steps(4), [3, 1, 4, 1 << 30]
+    eager = []
+    for _ in range(2):
+        runner = _bert_runner(cuda, dtype, attention, dropout)
+        m = [runner.step(b, rng=r) for b, r in zip(batches, rngs)]
+        eager.append(_leaves(runner, {n: torch.stack([x[n] for x in m])
+                                      for n in m[0]}))
+        assert runner.captures == 0
+        runner.close()
+    runner = _bert_runner(cuda, dtype, attention, dropout)
+    assert runner.lowered.capturable
+    before = [w.launches for w in ATTENTION]
+    metrics = runner.run_steps(port.stack_steps(batches), rngs=rngs)
+    torch.cuda.synchronize()
+    assert (runner.captures, runner.replays) == (1, 1)
+    assert runner.state is runner._state_buf
+    _hold_to_eager(_leaves(runner, metrics), *eager)
+    want = 4 * 2 if attention == "flash" else 0
+    assert [w.launches - n for w, n in zip(ATTENTION, before)] == [want] * 3
+    runner.close()
+
+
+def test_cuda_run_steps_step_run_steps_equals_five_steps(cuda):
+    """``run_steps(k=2)``, ``step()``, ``run_steps(k=2)`` equals five
+    ``step`` calls (bf16, flash, seeds from the runner's own stream) and
+    captures once: the ``step`` in between leaves new tensors, which the
+    second replay copies into the graph's state.  A window of another
+    ``k`` captures once more; the kernel counters equal the steps
+    run."""
+    batches = _bert_steps(8)
+    eager = []
+    for _ in range(2):
+        runner = _bert_runner(cuda, torch.bfloat16, "flash", 0.0)
+        m = [runner.step(b) for b in batches[:5]]
+        eager.append(_leaves(runner, {"loss": torch.stack(
+            [x["loss"] for x in m])}))
+        runner.close()
+    runner = _bert_runner(cuda, torch.bfloat16, "flash", 0.0)
+    before = [w.launches for w in ATTENTION]
+    first = runner.run_steps(port.stack_steps(batches[:2]))
+    middle = runner.step(batches[2])
+    assert runner.state is not runner._state_buf
+    last = runner.run_steps(port.stack_steps(batches[3:5]))
+    torch.cuda.synchronize()
+    assert (runner.captures, runner.replays) == (1, 2)
+    assert runner.step_count == 5
+    loss = torch.cat([first["loss"], middle["loss"][None], last["loss"]])
+    _hold_to_eager(_leaves(runner, {"loss": loss}), *eager)
+    runner.run_steps(port.stack_steps(batches[5:8]))
+    torch.cuda.synchronize()
+    assert (runner.captures, runner.replays) == (2, 3)
+    assert runner.step_count == 8
+    assert [w.launches - n for w, n in zip(ATTENTION, before)] == [16] * 3
+    runner.close()
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged_chunked"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_replay_equals_the_uncaptured_body(cuda, layout, dtype):
+    """Requests through ``ContinuousBatcher`` on an engine whose decode
+    windows replay one CUDA graph and on one that runs the window body
+    uncaptured, with admissions and releases between windows (five
+    requests, two slots, a ``max_len`` run): equal streams token for
+    token, one capture, a replay for every window after the first, and
+    the decode kernel's counter equal to the attention calls made."""
+    cfg = port.TransformerConfig(
+        vocab_size=97, hidden_size=128, num_layers=2, num_heads=2, mlp_dim=256,
+        max_len=48, dtype=dtype, dropout_rate=0.0, attention_dropout_rate=0.0)
+    params = port.init_pipeline_lm_params(cfg, torch.Generator().manual_seed(0),
+                                          device="cpu")
+    kw = dict(num_slots=2, prefill_len=16, decode_steps=4)
+    if layout == "paged_chunked":
+        kw.update(kv_layout="paged", kv_block_len=8, prefill_chunk=16)
+    wrapper = (fd.flash_decode_attention if layout == "dense"
+               else fd.flash_decode_attention_paged)
+    rng = np.random.RandomState(1)
+    reqs = [(rng.randint(0, 97, n).tolist(), m)
+            for n, m in [(5, 9), (16, 7), (3, 100), (11, 13), (1, 6)]]
+
+    def run(graph):
+        engine = port.serve(cfg, params=params, device=cuda,
+                            decode_graph=graph, **kw)
+        windows = []
+        decode_window = engine.decode_window
+        engine.decode_window = lambda a: windows.append(1) or \
+            decode_window(a)
+        batcher = port.ContinuousBatcher(engine)
+        before = wrapper.launches
+        rids = [batcher.submit(p, max_new_tokens=m) for p, m in reqs]
+        done = batcher.run()
+        torch.cuda.synchronize()
+        assert wrapper.launches - before == \
+            cfg.num_layers * kw["decode_steps"] * len(windows)
+        assert engine.block_accounting()[1] == 0
+        return engine, len(windows), [(done[r].tokens, done[r].finish_reason)
+                                      for r in rids]
+
+    engine, n, captured = run(True)
+    assert (engine.captures, engine.replays) == (1, n - 1) and n > 2
+    plain, _, uncaptured = run(False)
+    assert (plain.captures, plain.replays) == (0, 0)
+    assert captured == uncaptured
+    assert captured[2][1] == "max_len"

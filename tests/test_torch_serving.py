@@ -191,6 +191,33 @@ def test_batcher_completions_match_jax(layout, jcfg, jparams, tcfg,
     assert len(want[-1][0]) == MAX_LEN - 3
 
 
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_engine_keeps_its_decode_state_tensors(layout, jcfg, jparams, tcfg,
+                                               tparams):
+    """Prefill, chunked prefill and decode write the current tokens, the
+    lengths, the active mask and the emitted window in place: the engine
+    holds the same tensor objects from construction to the last release
+    (a CUDA graph replays on their addresses), and its stream still
+    equals the JAX engine's.  On the CPU no window is captured."""
+    engine = port_engine(tcfg, tparams, layout)
+    held = {"tok": engine._tok, "lengths": engine.cache.lengths,
+            "active": engine._active, "emitted": engine._emitted,
+            "k": engine.cache.k, "v": engine.cache.v}
+    if layout != "dense":
+        held["block_table"] = engine.cache.block_table
+    n = MAX_NEW + 5
+    want = run_single(jax_engine(jcfg, jparams, layout), PROMPT, n, slot=1)
+    assert run_single(engine, PROMPT, n, slot=1) == want
+    now = {"tok": engine._tok, "lengths": engine.cache.lengths,
+           "active": engine._active, "emitted": engine._emitted,
+           "k": engine.cache.k, "v": engine.cache.v,
+           "block_table": getattr(engine.cache, "block_table", None)}
+    for name, t in held.items():
+        assert now[name] is t, name
+    assert not engine.decode_graph
+    assert engine.captures == engine.replays == 0
+
+
 def test_dense_slot_reuse_after_max_len(tcfg, tparams):
     """A request admitted into the dense slot a ``max_len`` request just
     left decodes its run-alone stream.  (The JAX engine does not: the

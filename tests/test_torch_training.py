@@ -11,6 +11,7 @@ Attention is the einsum path here; the flash path's parity is
 ``tests/test_torch_flash_attention.py``.
 """
 import copy
+import json
 import textwrap
 
 import jax
@@ -255,6 +256,107 @@ def test_run_steps_equals_step_calls(jparams):
     for (n, x), (_, y) in zip(flatten_with_names(a.get_params()),
                               flatten_with_names(b.get_params())):
         torch.testing.assert_close(x, y, atol=0, rtol=0, msg=n)
+
+
+def test_run_steps_with_dropout_equals_step_calls_with_those_seeds():
+    """Dropout on (hidden and attention, 0.1) and explicit ``rngs``: a
+    ``run_steps`` window equals ``step`` calls given the same seeds, bit
+    for bit, and other seeds give other losses.  (On the card the window
+    is one CUDA-graph replay that draws each step's masks from a
+    ``GraphSeed``; here it is the host loop, which the GPU tests hold
+    the replay to.)"""
+    cfg = port.TransformerConfig(**dict(SIZES, dropout_rate=0.1,
+                                        attention_dropout_rate=0.1),
+                                 dtype=torch.float32)
+    batches = [_batch(40 + i) for i in range(3)]
+    rngs = [101, 7, 2 ** 31 - 2]
+
+    def runner():
+        return port.AutoDist({}, port.AllReduce(), device="cpu").build(
+            tbert.make_mlm_trainable(cfg, port.optim.sgd(0.1),
+                                     torch.Generator().manual_seed(0),
+                                     device="cpu"))
+
+    a, b, c = runner(), runner(), runner()
+    stepped = [a.step(batch, rng=r)["loss"] for batch, r in
+               zip(batches, rngs)]
+    window = b.run_steps(port.stack_steps(batches), rngs=rngs)
+    torch.testing.assert_close(window["loss"], torch.stack(stepped),
+                               atol=0, rtol=0)
+    for (n, x), (_, y) in zip(flatten_with_names(a.get_params()),
+                              flatten_with_names(b.get_params())):
+        torch.testing.assert_close(x, y, atol=0, rtol=0, msg=n)
+    other = c.run_steps(port.stack_steps(batches), rngs=[5, 6, 8])["loss"]
+    assert not torch.equal(other, window["loss"])
+    assert not b.lowered.capturable and b.captures == b.replays == 0
+
+
+@pytest.mark.parametrize("bad", ["ragged", "scalar"])
+def test_run_steps_window_shape_errors_raise(jparams, bad):
+    """``run_steps`` needs one leading steps dimension on every leaf
+    (the contract of the JAX package's
+    ``test_run_steps_ragged_leading_dim_raises``): a ragged one, or a
+    leaf without it, raises before any step runs."""
+    runner = port.AutoDist({}, port.AllReduce(), device="cpu").build(
+        _port_trainable(port.optim.sgd(0.1), jparams))
+    window = port.stack_steps([_batch(1), _batch(2)])
+    if bad == "ragged":
+        window["masked_ids"] = window["masked_ids"][:1]
+    else:
+        window["masked_weights"] = np.float32(1.0)
+    with pytest.raises(ValueError, match="same leading steps dimension"):
+        runner.run_steps(window)
+    assert runner.step_count == 0
+
+
+_STAGING_WORKER = textwrap.dedent("""
+    import json, sys
+    import torch
+    import autodist_tpu_torch as port
+    from autodist_tpu_torch import testing
+    from autodist_tpu_torch.models import bert
+    rank, world, store, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+    torch.set_num_threads(1)
+    cfg = port.TransformerConfig(vocab_size=97, hidden_size=128, num_layers=1,
+                                 num_heads=2, mlp_dim=256, max_len=32,
+                                 dropout_rate=0.0, attention_dropout_rate=0.0,
+                                 dtype=torch.float32)
+
+    def lowered():
+        trainable = bert.make_mlm_trainable(
+            cfg, port.optim.sgd(0.5), torch.Generator().manual_seed(0),
+            device="cpu")
+        runner = port.AutoDist({}, port.AllReduce(), device="cpu").build(
+            trainable)
+        runner.run_steps(port.stack_steps(
+            [bert.synthetic_mlm_batch(i, 4, 16, 4, 97) for i in range(2)]))
+        return {"host_staged": runner.lowered.host_staged,
+                "capturable": runner.lowered.capturable,
+                "captures": runner.captures}
+
+    alone = lowered()
+    testing.init_rank(rank, world, store)
+    joined = lowered()
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump({"alone": alone, "gloo": joined}, f)
+    testing.end_rank()
+""")
+
+
+def test_a_lowering_over_a_gloo_group_reports_host_staging(tmp_path):
+    """Two gloo ranks stage every CUDA collective through host memory,
+    which a CUDA graph cannot hold: their lowering says so and takes the
+    host loop (no capture); the same model in one process stages
+    nothing."""
+    out = tmp_path / "staging.json"
+    testing.launch(_STAGING_WORKER, 2, (str(out),), tmp=tmp_path,
+                   timeout=180)()
+    got = json.loads(out.read_text())
+    assert got["alone"] == {"host_staged": False, "capturable": False,
+                            "captures": 0}
+    assert got["gloo"] == {"host_staged": True, "capturable": False,
+                           "captures": 0}
 
 
 _GLOO_WORKER = textwrap.dedent("""
