@@ -12,10 +12,12 @@ cache, chunked prefill, continuous batching) with the flash-decode and
 paged flash-prefill kernels; the data-parallel training path
 (``AutoDist(spec, AllReduce(...)).build(make_mlm_trainable(...))``,
 ``runner.run_steps``) with the flash-attention forward and backward
-kernels; and Megatron tensor-parallel training of the pipelined LM at
-one pipe device (``AutoDist({"mesh": {"data": d, "pipe": 1, "model":
-t}}, Pipeline(tensor_parallel=t, ...)).build(make_pipeline_lm_trainable
-(...))``) with the quantized-ring and collective-matmul hop kernels;
+kernels; pipeline-parallel training of the pipelined LM over a pipe
+axis, GPipe and interleaved, with Megatron tensor parallelism inside the
+stages (``AutoDist({"mesh": {"data": d, "pipe": p, "model": t}},
+Pipeline(num_microbatches=M, virtual_stages=V, tensor_parallel=t,
+...)).build(make_pipeline_lm_trainable(...))``) with the quantized-ring
+and collective-matmul hop kernels;
 and expert-parallel training of the MoE LM (``AutoDist({"mesh":
 {"data": d, "expert": e}}, ExpertParallel(...)).build(
 make_moe_lm_trainable(...))``) with the quantized all-to-all ring's hop

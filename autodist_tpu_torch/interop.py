@@ -22,7 +22,8 @@ A ``Pipeline(tensor_parallel=t)`` strategy shards stage variables over
 the model axis; :func:`model_dims` reads which dim of each variable its
 partitioner spec shards, and :func:`shard_params` cuts a rank's slices
 from a full tree (the slice ``NamedSharding`` gives model index ``i``);
-the pipeline lowering gathers them back over the model axis.  An
+the pipeline lowering cuts a pipe rank's chunks first and gathers both
+back.  An
 ``ExpertParallel`` strategy shards the expert tables on their leading
 dim: :func:`expert_dims` names them for :func:`shard_params`, and the
 expert lowering gathers them back over the expert axis.

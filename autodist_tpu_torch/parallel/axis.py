@@ -88,11 +88,17 @@ class Axis:
     def pmean_all(self, tensors: dict) -> dict:
         """Every tensor of ``{name: tensor}`` averaged over the axis in
         one flat fp32 all-reduce, each cast back to its dtype."""
+        return self.psum_all(tensors, mean=True)
+
+    def psum_all(self, tensors: dict, mean: bool = False) -> dict:
+        """Every tensor of ``{name: tensor}`` summed (``mean``: averaged)
+        over the axis in one flat fp32 all-reduce, each cast back to its
+        dtype."""
         if self.size == 1 or not tensors:
             return tensors
         names = list(tensors)
-        flat = self.pmean(torch.cat([tensors[n].reshape(-1).float()
-                                     for n in names]))
+        flat = torch.cat([tensors[n].reshape(-1).float() for n in names])
+        flat = self.pmean(flat) if mean else self.psum(flat)
         out, offset = {}, 0
         for n in names:
             size = tensors[n].numel()

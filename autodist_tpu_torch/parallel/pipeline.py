@@ -1,42 +1,63 @@
-"""The ``pipeline`` lowering at one pipe device, with tensor parallelism
+"""The ``pipeline`` lowering: GPipe and interleaved schedules over the
+pipe axis, one process per pipe coordinate, with tensor parallelism
 inside the stages.
 
-Counterpart of ``lower_pipeline_ir`` and ``_build_pipeline`` of
-``autodist_tpu/parallel/pipeline.py`` for a pipe axis of 1 (what the
-port's resource spec accepts; the cross-process schedule is ROADMAP
-Queue 1, slice 3 leftovers, item 1).  Every process of the job runs the
-step on its (data, model) coordinate:
+Counterpart of ``lower_pipeline_ir``, ``_build_pipeline`` and
+``pipeline_apply`` of ``autodist_tpu/parallel/pipeline.py``.  Every
+process of the job runs the step on its (data, pipe, model) coordinate:
 
-1. stage variables are stored as this rank's model shard, cut by the
-   strategy's partitioner specs (:func:`autodist_tpu_torch.interop
-   .shard_params`); shared variables are replicated;
-2. the prologue runs on the data shard of the batch, whose rows split
-   into ``num_microbatches`` contiguous microbatches; each goes through
-   every stage in order (what ``pipeline_apply`` computes at one pipe
-   device), with activations ``[B/M, L, H]`` at each boundary, and the
-   stage function gets ``model_axis`` (and ``comm_overlap``) under
-   ``tensor_parallel > 1``;
-3. the outputs are concatenated and the loss head runs on the whole
-   shard;
-4. forward and backward run inside ``precision_scope`` and
+1. storage: pipe rank ``d`` of ``n`` keeps its ``V`` chunks (logical
+   chunk ``v·n + d`` at row ``v``, the interleaved storage order of
+   :func:`chunk_permutation`), cut to its model shard by the strategy's
+   partitioner specs (:func:`autodist_tpu_torch.interop.shard_params`);
+   shared variables are replicated on every rank;
+2. the schedule: every pipe rank walks the same ``num_ticks(M, n, V)``
+   ticks.  Each tick it shifts its last output one step along the pipe
+   ring (:meth:`~autodist_tpu_torch.parallel.axis.Axis.ppermute`; a
+   rank with nothing to send sends zeros, so every send meets its
+   receive) and runs its stage only where :func:`_tick_assignment`
+   makes the tick valid: bubble ticks run nothing, so the model-axis
+   collectives and the K3/K4 launches inside the stages do not grow
+   with the bubble.  Global chunk 0 takes microbatch ``m`` of the
+   prologue's output (run on the data shard, whose rows split into
+   ``num_microbatches`` contiguous microbatches) instead of what
+   arrived.  Activations are ``[B/M, L, H]``, and the stage function
+   gets ``model_axis`` (and ``comm_overlap``) under ``tensor_parallel
+   > 1``;
+3. the loss head runs once, on the last pipe rank, on the last chunk's
+   ``M`` outputs, and back-propagates to one output gradient a
+   microbatch;
+4. the backward walks the ticks in reverse with the same shape: a
+   gradient shift the other way every tick, and on a valid tick one
+   ``torch.autograd.grad`` of that tick's output against the cotangent
+   that arrived (the last chunk's from the head), whose input gradient
+   is sent back.  The ring itself carries no autograd edge: a rank
+   whose received carry went unused would never run that edge's
+   backward, and its neighbour's matching exchange would never happen;
+5. forward and backward run inside ``precision_scope`` and
    ``kernel_scope`` with the strategy's policy and election, as the JAX
    package opens them around its step;
-5. stage and shared gradients are averaged over the data axis only (at
-   one pipe device the JAX package's pipe-axis sum of shared gradients
-   is the identity), in one flat fp32 all-reduce, and the functional
-   optimizer updates each stored shard.
+6. shared gradients (the prologue's on pipe rank 0, the head's on rank
+   ``n - 1``) are summed over the pipe axis, then every gradient is
+   averaged over the data axis in one flat fp32 all-reduce, and the
+   functional optimizer updates each stored shard.  The head's metrics
+   are broadcast from the last pipe rank, then averaged over data.
 
-The strategy is checked as ``lower_pipeline_ir`` checks it, with the
-same errors; what this slice does not run raises ``NotImplementedError``.
+At one pipe device the same schedule runs every (microbatch, chunk) in
+order, what ``pipeline_apply`` computes there.  The strategy is checked
+as ``lower_pipeline_ir`` checks it, with the same errors; what the port
+does not run raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from autodist_tpu_torch import const, interop, optim
-from autodist_tpu_torch.capture import PipelineTrainable, stage_slice
+from autodist_tpu_torch.capture import PipelineTrainable
 from autodist_tpu_torch.device import resolve_device
 from autodist_tpu_torch.kernel.common import flatten_with_names, unflatten
 from autodist_tpu_torch.kernel.lowering import Lowered, reduce_metrics
@@ -50,12 +71,63 @@ from autodist_tpu_torch.strategy.ir import (AllReduceSynchronizer,
 _LEFTOVERS = "ROADMAP Queue 1, slice 3 leftovers"
 
 
+# --------------------------------------------------------------------------- #
+# The schedule (host math)
+# --------------------------------------------------------------------------- #
+def start_tick(m: int, c: int, *, num_devices: int, virtual_stages: int):
+    """Tick at which chunk ``c`` of microbatch ``m`` runs."""
+    n, V = num_devices, virtual_stages
+    return n * V * (m // n) + m % n + c
+
+
+def num_ticks(num_microbatches: int, num_devices: int,
+              virtual_stages: int) -> int:
+    """Total schedule ticks = start of the last (microbatch, chunk) + 1."""
+    n, V, M = num_devices, virtual_stages, num_microbatches
+    return start_tick(M - 1, n * V - 1, num_devices=n,
+                      virtual_stages=V) + 1
+
+
+def bubble_fraction(num_microbatches: int, num_devices: int,
+                    virtual_stages: int) -> float:
+    """Idle fraction of the schedule: (ticks - useful) / ticks, where a
+    device's useful ticks are its M·V chunk computations."""
+    T = num_ticks(num_microbatches, num_devices, virtual_stages)
+    useful = num_microbatches * virtual_stages
+    return (T - useful) / T
+
+
+def _tick_assignment(t: int, device: int, *, n: int, V: int, M: int):
+    """``(valid, m, v)`` processed by ``device`` at tick ``t``.
+
+    Inverts ``start(m, c)``: with ``c = v·n + device``,
+    ``t - device = (m mod n) + n·(v + V·⌊m/n⌋)``.
+    """
+    rel = max(t - device, 0)
+    r, v, q = rel % n, (rel // n) % V, rel // (n * V)
+    m = q * n + r
+    return t >= device and m < M, min(m, M - 1), v
+
+
+def chunk_permutation(n: int, V: int) -> np.ndarray:
+    """``perm`` with storage row ``d·V + v`` = logical chunk ``v·n + d``:
+    ``logical[perm]`` is the storage order whose rows ``d·V`` to
+    ``d·V + V - 1`` are pipe rank ``d``'s V chunks."""
+    return np.array([(r % V) * n + r // V for r in range(n * V)])
+
+
+def chunk_permutation_inv(n: int, V: int) -> np.ndarray:
+    """Inverse: ``storage[perm_inv]`` restores logical chunk order."""
+    return np.array([(c % n) * V + c // n for c in range(n * V)])
+
+
 @dataclasses.dataclass
 class PipelinePlan:
     """The resolved pipeline strategy."""
 
     num_microbatches: int
     num_stages: int
+    virtual_stages: int
     tensor_parallel: int
     model_dims: dict           # stage variable -> dim sharded over model
     comm_overlap: object       # None or "matmul"
@@ -160,7 +232,7 @@ def make_pipeline_plan(trainable, strategy, mesh) -> PipelinePlan:
         not_ported("gradient accumulation", "ROADMAP Queue 1, item 8")
     return PipelinePlan(
         num_microbatches=int(par.get("num_microbatches", 1)),
-        num_stages=trainable.num_stages,
+        num_stages=trainable.num_stages, virtual_stages=V,
         tensor_parallel=tp_mesh if dims else 1, model_dims=dims,
         comm_overlap=overlap, precision=precision,
         kernel={k: True for k in kernel
@@ -172,9 +244,13 @@ def lower_pipeline(trainable, strategy, mesh, device=None) -> Lowered:
     the card)."""
     plan = make_pipeline_plan(trainable, strategy, mesh)
     dev, opt = resolve_device(device), trainable.optimizer
-    M, C = plan.num_microbatches, plan.num_stages
+    M, V = plan.num_microbatches, plan.virtual_stages
     data = mesh.axis(const.DATA_AXIS)
+    pipe = mesh.axis(const.PIPE_AXIS)
     model = mesh.axis(const.MODEL_AXIS)
+    n, d = pipe.size, pipe.index
+    T = num_ticks(M, n, V)
+    first, last = d == 0, d == n - 1
     has_shared = trainable.has_shared
     tp_kwargs = {}
     if plan.tensor_parallel > 1:
@@ -182,56 +258,190 @@ def lower_pipeline(trainable, strategy, mesh, device=None) -> Lowered:
         if plan.comm_overlap:
             tp_kwargs["comm_overlap"] = plan.comm_overlap
 
+    def is_stage(name):
+        return not has_shared or name.startswith("stages/")
+
     def init_fn(params, extra):
-        local = interop.shard_params(params, plan.model_dims, model.index,
-                                     model.size)
+        flat = dict(flatten_with_names(params))
+        mine = torch.as_tensor(chunk_permutation(n, V)[d * V:(d + 1) * V])
+        local = interop.shard_params(unflatten({
+            nm: t.index_select(0, mine.to(t.device)) if is_stage(nm) else t
+            for nm, t in flat.items()}), plan.model_dims, model.index,
+            model.size)
         stored = {nm: t.detach().to(dev).clone()
                   for nm, t in flatten_with_names(local)}
         return {"step": torch.zeros((), dtype=torch.int32, device=dev),
                 "params": stored, "opt_state": opt.init(stored),
                 "extra": extra}
 
-    def forward(tree, batch):
-        stages = tree["stages"] if has_shared else tree
-        shared = tree.get("shared") if has_shared else None
-        x = trainable.prologue(shared, batch) \
-            if trainable.prologue is not None else batch[trainable.batch_key]
+    def tree(leaves: dict, part: str):
+        return unflatten(leaves)[part] if has_shared else unflatten(leaves)
+
+    def first_input(shared, batch):
+        """The prologue's output (or the batch key), split into the M
+        microbatches.  Every rank computes it for the activation's shape;
+        only pipe rank 0's carries gradients."""
+        if trainable.prologue is None:
+            x = batch[trainable.batch_key]
+        else:
+            with torch.set_grad_enabled(first):
+                x = trainable.prologue(shared, batch)
+        if not x.is_floating_point():
+            raise TypeError(f"the pipeline's activations must be floating "
+                            f"point; chunk 0 gets {x.dtype}")
         B = x.shape[0]
         if B % M:
             raise ValueError(f"batch {B} not divisible by microbatches {M}")
-        outs = []
-        for mb in x.split(B // M):
-            for c in range(C):
-                mb = trainable.stage_fn(stage_slice(stages, c), mb,
-                                        **tp_kwargs)
-            outs.append(mb)
-        outputs = torch.cat(outs)
-        return (trainable.loss_head(outputs, batch, shared) if has_shared
-                else trainable.loss_head(outputs, batch))
+        return x, x.detach().split(B // M)
+
+    def forward_ticks(chunks, mbs):
+        """The forward schedule; each valid tick's (input leaf, output),
+        by tick, and the last chunk's outputs, by microbatch."""
+        zeros = torch.zeros_like(mbs[0])
+        carry, saved, outs = zeros, {}, {}
+        for t in range(T):
+            recv = pipe.ppermute(carry, 1)
+            valid, m, v = _tick_assignment(t, d, n=n, V=V, M=M)
+            if not valid:
+                carry = zeros
+                continue
+            src = mbs[m] if first and v == 0 else recv
+            x = src.detach().requires_grad_()
+            out = trainable.stage_fn(chunks[v], x, **tp_kwargs)
+            if out.shape != x.shape or out.dtype != x.dtype:
+                raise ValueError(
+                    f"stage activations must match the microbatch's shape "
+                    f"and dtype (chunk 0 consumes the batch): got "
+                    f"{tuple(out.shape)} {out.dtype} from "
+                    f"{tuple(x.shape)} {x.dtype}")
+            saved[t] = (x, out)
+            carry = out.detach()
+            if last and v == V - 1:
+                outs[m] = carry
+        return saved, outs
+
+    def backward_ticks(saved, head_grads, chunk_leaves, zeros):
+        """The reverse schedule; the stage leaves' gradients by chunk,
+        and chunk 0's input gradients by microbatch."""
+        grads = [dict.fromkeys(leaves) for leaves in chunk_leaves]
+        g_first = [None] * M
+        carry = zeros
+        for t in reversed(range(T)):
+            recv = pipe.ppermute(carry, -1)
+            valid, m, v = _tick_assignment(t, d, n=n, V=V, M=M)
+            if not valid:
+                carry = zeros
+                continue
+            x, out = saved.pop(t)
+            cot = head_grads[m] if last and v == V - 1 else recv
+            leaves = chunk_leaves[v]
+            gs = torch.autograd.grad(out, [x, *leaves.values()], cot,
+                                     allow_unused=True)
+            for nm, g in zip(leaves, gs[1:]):
+                if g is not None:
+                    acc = grads[v][nm]
+                    grads[v][nm] = g if acc is None else acc + g
+            g_x = zeros if gs[0] is None else gs[0]
+            if first and v == 0:
+                g_first[m], carry = g_x, zeros
+            else:
+                carry = g_x
+        return grads, g_first
+
+    metric_layout = []        # [(name, dtype)] of the head's metrics
+
+    def broadcast_metrics(metrics):
+        """The last pipe rank's metrics on every pipe rank (its names and
+        dtypes are sent once, at the first step)."""
+        if n == 1:
+            return metrics
+        if not metric_layout:
+            obj = [[(k, v.dtype) for k, v in metrics.items()] if last
+                   else None]
+            dist.broadcast_object_list(obj, src=pipe.ranks[-1],
+                                       group=pipe.group)
+            metric_layout.extend(obj[0])
+        vec = (torch.stack([metrics[k].float() for k, _ in metric_layout])
+               if last else torch.zeros(len(metric_layout), device=dev))
+        vec = pipe.psum(vec)
+        return {k: vec[i].to(dt) for i, (k, dt) in enumerate(metric_layout)}
+
+    def gradients(params, batch):
+        """This rank's gradients of the step and the head's metrics."""
+        chunk_leaves = [{nm: p[v].detach().requires_grad_()
+                         for nm, p in params.items() if is_stage(nm)}
+                        for v in range(V)]
+        shared_leaves = {nm: p.detach().requires_grad_()
+                         for nm, p in params.items() if not is_stage(nm)}
+        shared = tree(shared_leaves, "shared") if has_shared else None
+        chunks = [tree(leaves, "stages") for leaves in chunk_leaves]
+        x, mbs = first_input(shared, batch)
+        saved, outs = forward_ticks(chunks, mbs)
+        shared_grads = dict.fromkeys(shared_leaves)
+        head_grads, metrics = [None] * M, {}
+        if last:
+            ins = [outs[m].requires_grad_() for m in range(M)]
+            outputs = torch.cat(ins)
+            loss, metrics = (trainable.loss_head(outputs, batch, shared)
+                             if has_shared
+                             else trainable.loss_head(outputs, batch))
+            metrics = {k: torch.as_tensor(v).detach()
+                       for k, v in dict(metrics, loss=loss).items()}
+            gs = torch.autograd.grad(loss, [*ins, *shared_leaves.values()],
+                                     allow_unused=True)
+            head_grads = [torch.zeros_like(i) if g is None else g
+                          for i, g in zip(ins, gs[:M])]
+            shared_grads = dict(zip(shared_leaves, gs[M:]))
+        grads, g_first = backward_ticks(saved, head_grads, chunk_leaves,
+                                        torch.zeros_like(mbs[0]))
+        if first and x.requires_grad:
+            gs = torch.autograd.grad(x, list(shared_leaves.values()),
+                                     torch.cat(g_first), allow_unused=True)
+            for nm, g in zip(shared_leaves, gs):
+                if g is not None:
+                    acc = shared_grads[nm]
+                    shared_grads[nm] = g if acc is None else acc + g
+        out = {}
+        for nm, p in params.items():
+            if is_stage(nm):
+                out[nm] = torch.stack([
+                    torch.zeros_like(p[v]) if grads[v][nm] is None
+                    else grads[v][nm] for v in range(V)])
+            else:
+                g = shared_grads[nm]
+                out[nm] = torch.zeros_like(p) if g is None else g
+        return out, broadcast_metrics(metrics)
 
     def step_fn(state, batch, rng):
         del rng                      # no stage draws (PipelineTrainable)
         params = state["params"]
-        leaves = {nm: p.detach().requires_grad_(True)
-                  for nm, p in params.items()}
         with torch.enable_grad(), precision_scope(plan.precision), \
                 kernel_scope(plan.kernel):
-            loss, metrics = forward(unflatten(leaves), batch)
-            grads = torch.autograd.grad(loss, list(leaves.values()),
-                                        allow_unused=True)
-        grads = {nm: torch.zeros_like(params[nm]) if g is None else g
-                 for nm, g in zip(leaves, grads)}
+            grads, metrics = gradients(params, batch)
+        # Shared gradients: each pipe rank holds a different piece (the
+        # prologue's on rank 0, the head's on rank n - 1): sum them over
+        # the pipe axis; then every gradient is averaged over data.
+        grads.update(pipe.psum_all(
+            {nm: g for nm, g in grads.items() if not is_stage(nm)}))
         updates, opt_state = opt.update(data.pmean_all(grads),
                                         state["opt_state"], params)
         new_state = {"step": state["step"] + 1,
                      "params": optim.apply_updates(params, updates),
                      "opt_state": opt_state, "extra": state["extra"]}
-        return new_state, reduce_metrics(dict(metrics, loss=loss), mesh)
+        return new_state, reduce_metrics(metrics, mesh)
 
     def full_params(stored: dict) -> dict:
-        return {nm: model.all_gather(t, dim=plan.model_dims[nm])
-                if nm in plan.model_dims else t
-                for nm, t in stored.items()}
+        """The logical tree: model shards gathered, then the pipe ranks'
+        chunks gathered in storage order and put back in logical order."""
+        inv = torch.as_tensor(chunk_permutation_inv(n, V))
+        out = {}
+        for nm, t in stored.items():
+            if nm in plan.model_dims:
+                t = model.all_gather(t, dim=plan.model_dims[nm])
+            if is_stage(nm) and n > 1:
+                t = pipe.all_gather(t).index_select(0, inv.to(t.device))
+            out[nm] = t
+        return out
 
     return Lowered(plan=plan, mesh=mesh, device=dev, init_fn=init_fn,
                    step_fn=step_fn, full_params_fn=full_params)

@@ -4,19 +4,22 @@ Counterpart of ``autodist_tpu/resource.py``: one process per rank of a
 ``torch.distributed`` job.  The spec ``{}`` (or ``None``) means every
 process of the job is one replica on the ``data`` axis: ``data`` is the
 process group's world size, or 1 without a process group.  ``{"mesh":
-{"data": d, "pipe": 1, "model": t}}`` (or ``{"data": d, "expert": e}``)
+{"data": d, "pipe": p, "model": t}}`` (or ``{"data": d, "expert": e}``)
 lays the job out as a mesh whose sizes multiply to the world size; ranks
 map to mesh coordinates row-major over the declared axes, as the JAX
 package reshapes its device list (declare ``model`` or ``expert`` last
-to put each such group on adjacent ranks).
+to put each such group on adjacent ranks: ``{"data", "pipe", "model"}``
+puts each model pair of a pipe coordinate on neighbouring ranks).
 :meth:`ResourceSpec.make_mesh` builds one process group per axis line
-(:class:`~autodist_tpu_torch.parallel.axis.Axis`), and
-:meth:`Mesh.joint_axis` one over several axes (``data x expert``).
+(:class:`~autodist_tpu_torch.parallel.axis.Axis`; ``mesh.axis("pipe")``
+is this rank's pipe line, the ring the pipe schedule shifts activations
+along), and :meth:`Mesh.joint_axis` one over several axes (``data x
+expert``).
 
 :attr:`ResourceSpec.chip` is the card's :class:`ChipSpec`; only the H100
-has one.  A pipe axis above 1 (the cross-process pipe schedule), the
-``seq`` and ``dcn`` axes, other ``topology`` keys and ``multihost``
-blocks belong to later items and raise ``NotImplementedError``.
+has one.  The ``seq`` and ``dcn`` axes, other ``topology`` keys and
+``multihost`` blocks belong to later items and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -143,18 +146,13 @@ class ResourceSpec:
                 f"not ported yet (ROADMAP Queue 1, slice 3)")
         self._requested_devices = topo.get("num_devices")
         self.mesh_shape: dict = dict(spec.get("mesh") or {})
-        for ax, size in self.mesh_shape.items():
+        for ax in self.mesh_shape:
             if ax not in const.ALL_AXES:
                 raise ValueError(f"unknown mesh axis {ax!r}; valid axes: "
                                  f"{const.ALL_AXES}")
             if ax not in _PORTED_AXES:
                 raise NotImplementedError(
                     f"mesh axis {ax!r} is not ported yet ({_AXIS_ITEMS[ax]})")
-            if ax == const.PIPE_AXIS and size != 1:
-                raise NotImplementedError(
-                    f"a pipe axis of {size} (the cross-process pipe "
-                    f"schedule) is not ported yet (ROADMAP Queue 1, slice 3 "
-                    f"leftovers, item 1); the pipe axis must be 1")
 
     @property
     def chip(self) -> ChipSpec:

@@ -227,8 +227,8 @@ class DistributedRunner:
 
     def get_params(self):
         """The full logical parameter tree (copies).  Where the strategy
-        shards variables over the model or the expert axis this gathers
-        them, a collective: every rank of that axis calls it."""
+        shards variables over the pipe, model or expert axis this
+        gathers them, a collective: every rank of that axis calls it."""
         full = self.lowered.full_params(self.state["params"])
         return common.unflatten({nm: p.detach().clone()
                                  for nm, p in full.items()})

@@ -10,11 +10,13 @@ knobs, the precision policy and the kernel election), so the two
 packages' strategies for the same model serialize alike, and it runs the
 same build-time checks with the same errors.
 
-The lowering ported so far runs a pipe axis of 1 (ROADMAP Queue 1,
-slice 3).  What it does not run raises ``NotImplementedError`` here,
-after the JAX builder's own checks: ZeRO stages, gradient compressors
-and the ``grad`` precision slot, remat, ``vocab_parallel``,
-``comm_overlap="rsag"`` and a narrowed ``tp_psum`` under overlap.
+The lowering runs GPipe (``virtual_stages=1``) and interleaved
+schedules over any pipe axis, one process per pipe coordinate
+(:mod:`autodist_tpu_torch.parallel.pipeline`).  What it does not run
+raises ``NotImplementedError`` here, after the JAX builder's own
+checks: ZeRO stages, gradient compressors and the ``grad`` precision
+slot, remat, ``vocab_parallel``, ``comm_overlap="rsag"`` and a narrowed
+``tp_psum`` under overlap.
 """
 from __future__ import annotations
 

@@ -9,8 +9,11 @@ paths: serving the pipelined LM at the serve bench's width (vocab 32768,
 hidden 1024, 16 heads of 64, mlp 4096, 8 layers, max_len 1024),
 training BERT-base masked-LM through ``AutoDist`` + ``AllReduce``,
 Megatron tensor-parallel training of the pipelined LM through
-``Pipeline(tensor_parallel=2)`` at one pipe device, and expert-parallel
-training of the MoE LM through ``ExpertParallel`` on an expert axis of 2:
+``Pipeline(tensor_parallel=2)`` at one pipe device and on ``bench.py
+quant``'s 4-device mesh (the cross-process pipe schedule over a pipe
+axis of 2, interleaved, with the Megatron stages inside), and
+expert-parallel training of the MoE LM through ``ExpertParallel`` on an
+expert axis of 2:
 
 1. each kernel against its plain PyTorch version, fp32 (atol = rtol =
    1e-5) and bf16 (atol = rtol = 1e-2), timed with CUDA events beside
@@ -69,20 +72,25 @@ training of the MoE LM through ``ExpertParallel`` on an expert axis of 2:
    examples/s, step time, MFU, peak memory (the capture's included),
    the capture's seconds, the profiler's busy share and launches per
    step;
-6. fp32 tensor-parallel parity: the pipelined LM at full width cut to 2
-   layers, seq 128, 3 Adam steps: composed fp32 on T = 2 ranks against
-   one process at T = 1 (1e-4 relative), the fused collective matmul
-   against the composed one (1e-5), the quantized ring against the
-   composed int8 program (2e-2);
+6. fp32 tensor- and pipeline-parallel parity: the pipelined LM at full
+   width cut to 2 layers, seq 128, 3 Adam steps, against one process at
+   T = 1 (1e-4 relative): composed fp32 on T = 2 ranks at pipe 1, on a
+   pipe axis of 2 (GPipe, 2 ranks) and on pipe 2 x model 2 (4 ranks);
+   at pipe 1 and at pipe 2 x model 2 the fused collective matmul against
+   the composed one (1e-5) and the quantized ring against the composed
+   int8 program (2e-2);
 7. the slice's window in bf16 (``bench.py quant`` on an accelerator: 4
    layers, max_len 512, batch 16, ``num_microbatches=2``,
-   ``virtual_stages=4``, ``adam(1e-3)``) for the composed fp32, composed
-   int8, ``quant_ring`` and ``collective_matmul`` programs: tokens/s,
+   ``adam(1e-3)``) for the composed fp32, composed int8, ``quant_ring``
+   and ``collective_matmul`` programs, at pipe 1 (``virtual_stages=4``,
+   2 ranks) and on ``bench.py quant``'s 4-device mesh, pipe 2 x model 2
+   (``virtual_stages=2``, 4 ranks; no ``vocab_parallel``): tokens/s,
    step ms, peak memory per rank, the profiler's busy share and K3's
-   device time per step, the K3 and K4 launches held to 64 and 32 per
-   step, no K4 operand staged and no K3 hop off the vector path; over
-   gloo the lowering stages through host memory, and ``run_steps`` is
-   asserted to keep its host loop (no capture);
+   device time per step, the K3 and K4 launches of every rank held to
+   64 and 32 per step at pipe 1 and 32 and 16 at pipe 2 (a bubble tick
+   runs no stage), no K4 operand staged and no K3 hop off the vector
+   path; over gloo the lowering stages through host memory, and
+   ``run_steps`` is asserted to keep its host loop (no capture);
 8. fp32 MoE parity: the MoE LM at full width (vocab 32768, hidden 1024,
    16 heads, expert hidden 4096, 8 experts) cut to 1 layer, seq 128,
    batch 8, capacity factor 4.0 (no token is dropped, so sharded and
@@ -103,13 +111,14 @@ training of the MoE LM through ``ExpertParallel`` on an expert axis of 2:
 
 Phases 2, 4, 6 (at T = 1) and 8 (the dense model) run one process on
 the card, so their windows replay CUDA graphs too.  Phases 6 to 9 run
-2 processes (``torch.multiprocessing`` spawn) on card
-0, joined in a gloo group: NCCL refuses two ranks on one device, so each
-transfer is staged through host memory while the kernels, the model and
-the optimizer stay on the card.  Their numbers are labelled so, and say
+2 or 4 processes (``torch.multiprocessing`` spawn) on card 0, joined in
+a gloo group: NCCL refuses two ranks on one device, so each transfer is
+staged through host memory while the kernels, the model and the
+optimizer stay on the card.  Their numbers are labelled so, and say
 nothing about multi-GPU speed.  Where the machine has at least 2 cards,
-phases 7 and 9 run again over NCCL, one rank per card, and print that
-apart.  Every rank joins and leaves the job through
+phases 7 (pipe 1, and a pipe axis of 2 in fp32) and 9 run again over
+NCCL, one rank per card, and with 4 cards phase 7's pipe 2 x model 2
+too; each prints apart.  Every rank joins and leaves the job through
 ``autodist_tpu_torch.testing`` (a barrier before the groups go).
 
 Any failed check raises, in any rank, and the script exits non-zero;
@@ -213,8 +222,13 @@ MOE_KERNELS = ("a2a_ring_hop",)
 # BERT-base (bench.py _bench on an accelerator).
 BERT_BATCH, BERT_SEQ, BERT_MASKED, BERT_STEPS = 16, 512, 76, 30
 
-# The tensor-parallel window (bench.py quant on an accelerator, pipe 1).
+# The tensor-parallel window (bench.py quant on an accelerator): at one
+# pipe device, and on bench.py quant's 4-device mesh, pipe 2 x model 2
+# (V = 2 chunks a pipe rank).
 TP, TP_LAYERS, TP_SEQ, TP_BATCH, TP_MICRO, TP_STEPS = 2, 4, 512, 16, 2, 5
+PIPE = 2
+TP_MESH = {"data": 1, "pipe": 1, "model": TP}
+QUANT_MESH = {"data": 1, "pipe": PIPE, "model": TP}
 # K3's chunk on that path: one [8, 512, 1024] boundary over 2 ranks.
 RING_CHUNK = TP_BATCH // TP_MICRO * TP_SEQ * HIDDEN // TP
 # K4's shapes there: [M, K] @ [K, C] per hop, M = 8 x 512 rows, C = the
@@ -247,13 +261,17 @@ MOE_PROGRAMS = {
 # dispatch and combine, forward and backward, in every layer.
 MOE_WANT = {"a2a_ring": {"a2a_ring_hop": EXPERT * 2 * 2 * MOE_LAYERS}}
 
-# Per step of phase 7: K3 opens and hops once per ring at T = 2, four
-# rings per layer and microbatch (two forward sums, two backward);
-# K4 runs T times per row-parallel boundary, two per layer and
-# microbatch, forward only.
-TP_WANT = {"quant_ring": {"quant_ring_hop": 2 * 4 * TP_LAYERS * TP_MICRO},
-           "collective_matmul": {
-               "collective_matmul_hop": TP * 2 * TP_LAYERS * TP_MICRO}}
+
+def tp_want(program, layers):
+    """Per step of phase 7 in a rank that holds ``layers`` layers: K3
+    opens and hops once per ring at T = 2, four rings per layer and
+    microbatch (two forward sums, two backward); K4 runs T times per
+    row-parallel boundary, two per layer and microbatch, forward only.
+    A bubble tick runs no stage, so the pipe schedule adds none."""
+    return {"quant_ring": {"quant_ring_hop": 2 * 4 * layers * TP_MICRO},
+            "collective_matmul": {
+                "collective_matmul_hop": TP * 2 * layers * TP_MICRO},
+            }.get(program, {})
 
 
 def check(cond, msg):
@@ -596,8 +614,14 @@ def backward_pair(q, k, v, g, causal, dtype, library_ms):
            "outside_ms": time_ms(outside)}
     for key, fn in (("launches", whole), ("outside_launches", outside)):
         prof = device_profile(fn)
-        rec[key] = None if prof is None else round(prof[2])
+        rec[key] = "not measured" if prof is None else round(prof[2])
     return rec, flops
+
+
+def in_launches(n):
+    """``in N launches``, or that the profiler saw none."""
+    return (f"in {n} launches" if isinstance(n, int)
+            else "(launches not measured: the profiler saw no device time)")
 
 
 # The kernels whose registers, spills and static shared memory phase 1
@@ -747,11 +771,12 @@ def phase_attention_kernels(record):
                                                pair_library)
                     print(f"phase 1 K2 pair {str(dtype)[6:]} [{B},{L},{H},"
                           f"{D}] causal={causal}: the port's backward "
-                          f"{rec['ms']:.4f} ms in {rec['launches']} "
-                          f"launches ({tflop_rate(flops, rec['ms']):.1f} "
+                          f"{rec['ms']:.4f} ms "
+                          f"{in_launches(rec['launches'])} "
+                          f"({tflop_rate(flops, rec['ms']):.1f} "
                           f"TFLOP/s), of which delta and casts "
-                          f"{rec['outside_ms']:.4f} ms in "
-                          f"{rec['outside_launches']} launches; SDPA "
+                          f"{rec['outside_ms']:.4f} ms "
+                          f"{in_launches(rec['outside_launches'])}; SDPA "
                           f"backward {rec['library_ms']:.4f} ms; bound "
                           f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})",
                           flush=True)
@@ -795,19 +820,29 @@ def hop_cases(n, gen):
             "misaligned": (odd_q, s_in, odd_x, False)}
 
 
-def device_ops(fn):
+def device_ops(fn, tries=3):
     """The names of the device operations (kernels, copies, memsets)
-    one ``fn()`` ran, from ``torch.profiler``."""
+    one ``fn()`` ran, from ``torch.profiler``.  The profiler now and then
+    records no device event at all in a session (a run of the whole
+    script on an H100 saw it once among dozens of sessions, for a hop
+    whose launch was counted and whose bytes were checked): such an
+    empty record is taken again, up to ``tries`` sessions; the first
+    record with any device event is returned as it is."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
+        if ops:
+            break
+    return ops
 
 
 def check_hop(name, n, case, wrapper, plain, args, vector, out=None):
@@ -1434,24 +1469,29 @@ def phase_train():
 
 
 # --------------------------------------------------------------------- #
-# phases 6 and 7: tensor-parallel training of the pipelined LM
+# phases 6 and 7: tensor- and pipeline-parallel training of the pipelined LM
 # --------------------------------------------------------------------- #
-def tp_runner(job, program, tp):
-    """AutoDist + Pipeline(tensor_parallel=tp) on the pipelined LM at
-    full width, depth ``job["layers"]``; weights from seed 0 on the card
-    (every rank draws the same tree and keeps its shard)."""
+def tp_runner(job, program, mesh):
+    """AutoDist + Pipeline on the pipelined LM at full width, depth
+    ``job["layers"]``, over ``mesh`` (``virtual_stages`` the layers a
+    pipe rank holds, ``tensor_parallel`` the model axis); weights from
+    seed 0 on the card (every rank draws the same tree and keeps its
+    chunks' shard)."""
     cfg = port.TransformerConfig(
         vocab_size=VOCAB, hidden_size=HIDDEN, num_layers=job["layers"],
         num_heads=HEADS, mlp_dim=MLP, max_len=job["seq"], dtype=job["dtype"],
         dropout_rate=0.0, attention_dropout_rate=0.0)
     trainable = make_pipeline_lm_trainable(
         cfg, port.optim.adam(1e-3), torch.Generator(device="cuda").manual_seed(0))
-    mesh = {"data": 1, "pipe": 1, "model": tp} if tp > 1 else {
-        "data": 1, "pipe": 1}
     builder = Pipeline(num_microbatches=TP_MICRO,
-                       virtual_stages=job["layers"], tensor_parallel=tp,
+                       virtual_stages=job["layers"] // mesh.get("pipe", 1),
+                       tensor_parallel=mesh.get("model", 1),
                        **TP_PROGRAMS[program])
     return port.AutoDist({"mesh": mesh}, builder).build(trainable)
+
+
+def mesh_label(mesh):
+    return " x ".join(f"{ax} {n}" for ax, n in mesh.items() if n > 1)
 
 
 def tp_window(job, steps, seed0=0):
@@ -1469,7 +1509,7 @@ def tp_parity(job):
     """Phase 6 in one rank: 3 steps of each program; the losses."""
     out = {}
     for program in job["programs"]:
-        runner = tp_runner(job, program, TP)
+        runner = tp_runner(job, program, job["mesh"])
         out[program] = runner.run_steps(tp_window(job, 3, seed0=100))[
             "loss"].tolist()
         runner.close()
@@ -1497,8 +1537,9 @@ def tp_window_programs(job):
     """Phase 7 in one rank: per program a warm window, a timed one with
     the launch counters, then a profiled one."""
     out = {}
+    layers = job["layers"] // job["mesh"].get("pipe", 1)
     for program in job["programs"]:
-        runner = tp_runner(job, program, TP)
+        runner = tp_runner(job, program, job["mesh"])
         window = runner.place_steps(tp_window(job, TP_STEPS))
         cm.fused_matmul_add.staged = qr.fused_hop.unaligned = 0
         dt, metrics = timed_window(runner, window)
@@ -1516,8 +1557,9 @@ def tp_window_programs(job):
               f"{program}: non-finite loss {losses}")
         want = dict.fromkeys(TP_KERNELS, 0)
         want.update({k: n * TP_STEPS
-                     for k, n in TP_WANT.get(program, {}).items()})
-        check(got == want, f"{program}: launches {got}, expected {want}")
+                     for k, n in tp_want(program, layers).items()})
+        check(got == want, f"{program} on {job['mesh']}: launches {got}, "
+                           f"expected {want}")
         prof = profile_steps(runner, window, k=2, watch="ring_hop_kernel")
         out[program] = {"seconds": dt, "launches": got, "peak_gb": peak_gb,
                         "loss": [float(losses[0]), float(losses[-1])],
@@ -1528,14 +1570,14 @@ def tp_window_programs(job):
     return out
 
 
-def rank_worker(rank, backend, store, job, out_dir):
-    """One rank of a two-rank phase; writes its result as JSON.  It
-    joins and leaves the job through ``autodist_tpu_torch.testing``; a
-    failure raises here and ``mp.spawn`` stops the other rank."""
+def rank_worker(rank, world, backend, store, job, out_dir):
+    """One rank of a spawned phase; writes its result as JSON.  It joins
+    and leaves the job through ``autodist_tpu_torch.testing``; a failure
+    raises here and ``mp.spawn`` stops the other ranks."""
     torch.cuda.set_device(rank if backend == "nccl" else 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    testing.init_rank(rank, 2, store, backend)
+    testing.init_rank(rank, world, store, backend)
     job = dict(job, backend=backend)
     run = {"parity": tp_parity, "window": tp_window_programs,
            "moe_parity": moe_parity, "moe_window": moe_window_programs}
@@ -1545,64 +1587,87 @@ def rank_worker(rank, backend, store, job, out_dir):
     testing.end_rank()
 
 
-def spawn_ranks(job, backend="gloo"):
-    """Run ``job`` in two spawned ranks; every rank's result.  A failure
-    in any rank stops the others and raises here."""
+def spawn_ranks(job, world, backend="gloo"):
+    """Run ``job`` in ``world`` spawned ranks; every rank's result.  A
+    failure in any rank stops the others and raises here."""
     with tempfile.TemporaryDirectory() as tmp:
-        mp.spawn(rank_worker, args=(backend, os.path.join(tmp, "store"),
-                                    job, tmp), nprocs=2, join=True)
+        mp.spawn(rank_worker, args=(world, backend,
+                                    os.path.join(tmp, "store"), job, tmp),
+                 nprocs=world, join=True)
         results = []
-        for rank in range(2):
+        for rank in range(world):
             with open(os.path.join(tmp, f"rank{rank}.json")) as f:
                 results.append(json.load(f))
     return results
 
 
 def phase_tp_parity():
-    """fp32 on the card: T = 2 composed against one process at T = 1,
-    and each kernel program against its composed sibling."""
+    """fp32 on the card against one process at T = 1: T = 2 ranks at
+    pipe 1, a pipe axis of 2 at V = 1 (2 ranks), and pipe 2 x model 2 at
+    V = 1 (4 ranks); each kernel program against its composed sibling,
+    at pipe 1 and at pipe 2 x model 2."""
     job = {"kind": "parity", "layers": 2, "seq": 128, "batch": 8,
-           "dtype": torch.float32, "programs": list(TP_PROGRAMS)}
+           "dtype": torch.float32}
     torch.backends.cuda.matmul.allow_tf32 = False
-    runner = tp_runner(job, "fp32", 1)
+    runner = tp_runner(job, "fp32", {"data": 1, "pipe": 1})
     one = runner.run_steps(tp_window(job, 3, seed0=100))["loss"].tolist()
     runner.close()
     torch.cuda.empty_cache()
-    ranks = spawn_ranks(job)
-    got = ranks[0]
-    for rank in ranks[1:]:
-        for program, losses in rank.items():
-            check(all(abs(a - b) <= 1e-5 * abs(b)
-                      for a, b in zip(losses, got[program])),
-                  f"{program}: the ranks' losses differ: {ranks}")
-    pairs = (("fp32", one, 1e-4, "T = 1"),
-             ("collective_matmul", got["matmul"], 1e-5, "composed matmul"),
-             ("quant_ring", got["int8"], 2e-2, "composed int8"))
-    for program, ref, tol, what in pairs:
-        for i, (a, b) in enumerate(zip(got[program], ref)):
-            check(math.isfinite(a) and abs(a - b) <= tol * abs(b),
-                  f"step {i}: {program} loss {a} vs {what} {b} differ by "
-                  f"more than {tol} relative")
-    print(f"phase 6 fp32 2-layer pipelined LM, seq 128, batch 8, 3 Adam "
-          f"steps, T = 2 ranks on one card over gloo: T = 1 losses {one}; "
-          + "; ".join(f"{p} {got[p]}" for p in TP_PROGRAMS), flush=True)
+    runs = ((TP_MESH, list(TP_PROGRAMS)), ({"data": 1, "pipe": PIPE},
+                                           ["fp32"]),
+            (QUANT_MESH, list(TP_PROGRAMS)))
+    for mesh, programs in runs:
+        world = math.prod(mesh.values())
+        ranks = spawn_ranks(dict(job, mesh=mesh, programs=programs), world)
+        got = ranks[0]
+        for rank in ranks[1:]:
+            for program, losses in rank.items():
+                check(all(abs(a - b) <= 1e-5 * abs(b)
+                          for a, b in zip(losses, got[program])),
+                      f"{program} on {mesh}: the ranks' losses differ: "
+                      f"{ranks}")
+        pairs = [("fp32", one, 1e-4, "T = 1")]
+        if "matmul" in got:
+            pairs += [("collective_matmul", got["matmul"], 1e-5,
+                       "composed matmul"),
+                      ("quant_ring", got["int8"], 2e-2, "composed int8")]
+        for program, ref, tol, what in pairs:
+            for i, (a, b) in enumerate(zip(got[program], ref)):
+                check(math.isfinite(a) and abs(a - b) <= tol * abs(b),
+                      f"{mesh_label(mesh)}, step {i}: {program} loss {a} vs "
+                      f"{what} {b} differ by more than {tol} relative")
+        print(f"phase 6 fp32 2-layer pipelined LM, seq 128, batch 8, 3 Adam "
+              f"steps, {mesh_label(mesh)} ({world} ranks on one card over "
+              f"gloo, V = {job['layers'] // mesh['pipe']}): T = 1 losses "
+              f"{one}; " + "; ".join(f"{p} {got[p]}" for p in programs),
+              flush=True)
 
 
 def phase_tp_window():
-    """bf16 window of the four programs: T ranks on card 0 over gloo,
-    and over NCCL one rank per card where the machine has T cards."""
+    """bf16 window of the four programs at pipe 1 (T ranks) and on
+    bench.py quant's mesh, pipe 2 x model 2 (4 ranks), on card 0 over
+    gloo; over NCCL, one rank per card, where the machine has the
+    cards (2: pipe 1 and a pipe axis of 2, fp32; 4: pipe 2 x model 2)."""
     job = {"kind": "window", "layers": TP_LAYERS, "seq": TP_SEQ,
-           "batch": TP_BATCH, "dtype": torch.bfloat16,
-           "programs": ["fp32", "int8", "quant_ring", "collective_matmul"]}
+           "batch": TP_BATCH, "dtype": torch.bfloat16}
+    programs = ["fp32", "int8", "quant_ring", "collective_matmul"]
+    pipe_only = {"data": 1, "pipe": PIPE}
+    runs = [("gloo", TP_MESH, programs), ("gloo", QUANT_MESH, programs)]
+    cards = torch.cuda.device_count()
+    if cards >= TP:
+        runs += [("nccl", TP_MESH, programs), ("nccl", pipe_only, ["fp32"])]
+    if cards >= math.prod(QUANT_MESH.values()):
+        runs.append(("nccl", QUANT_MESH, programs))
     counts = {}
-    runs = [("gloo", f"{TP} ranks on one card, gloo, transfers through "
-                     f"host")]
-    if torch.cuda.device_count() >= TP:
-        runs.append(("nccl", f"{TP} ranks on {TP} cards, NCCL"))
     tokens = TP_STEPS * TP_BATCH * TP_SEQ
-    for backend, label in runs:
-        ranks = spawn_ranks(job, backend)
-        for program in job["programs"]:
+    for backend, mesh, progs in runs:
+        world = math.prod(mesh.values())
+        label = (f"{mesh_label(mesh)}, {world} ranks on one card, gloo, "
+                 f"transfers through host" if backend == "gloo" else
+                 f"{mesh_label(mesh)}, {world} ranks on {world} cards, NCCL")
+        ranks = spawn_ranks(dict(job, mesh=mesh, programs=progs), world,
+                            backend)
+        for program in progs:
             r0 = ranks[0][program]
             dt = max(r[program]["seconds"] for r in ranks)
             peaks = ", ".join(f"{r[program]['peak_gb']:.2f}" for r in ranks)
@@ -1612,7 +1677,8 @@ def phase_tp_window():
                     f"{dt:.3f} s = {tokens / dt:.1f} tokens/s, step "
                     f"{dt / TP_STEPS * 1e3:.2f} ms, peak memory per rank "
                     f"{peaks} GB, loss {r0['loss'][0]:.4f} -> "
-                    f"{r0['loss'][1]:.4f}, launches per step {per_step}")
+                    f"{r0['loss'][1]:.4f}, launches per step and rank "
+                    f"{per_step}")
             if r0["profile"] is None:
                 line += "; rank 0 profile: device time not measured"
             else:
@@ -1726,7 +1792,7 @@ def phase_moe_parity():
     dense = runner.run_steps(moe_window(job, 3, seed0=200))["nll"].tolist()
     runner.close()
     torch.cuda.empty_cache()
-    ranks = spawn_ranks(job)
+    ranks = spawn_ranks(job, EXPERT)
     got = ranks[0]
     for program in job["programs"]:
         check(all(abs(a - b) <= 1e-6 * abs(b) for k in ("nll", "loss")
@@ -1758,7 +1824,7 @@ def phase_moe_window():
         runs.append(("nccl", f"{EXPERT} ranks on {EXPERT} cards, NCCL"))
     tokens = MOE_STEPS * job["batch"] * MOE_SEQ
     for backend, label in runs:
-        ranks = spawn_ranks(job, backend)
+        ranks = spawn_ranks(job, EXPERT, backend)
         for program in job["programs"]:
             r0 = ranks[0][program]
             dt = max(r[program]["seconds"] for r in ranks)

@@ -1,8 +1,10 @@
 """``chip_smoke.profile_summary``: the per-step summary of a profiled
-window, held on the CPU with hand-made device intervals.
+window, held on the CPU with hand-made device intervals; and the launch
+counts phase 7 holds each rank to, and how a missing profile prints.
 
-``chip_smoke.py`` prints it for phases 3, 5, 7 and 9 on the card; every
-field there must be per step (or per window), the top list included.
+``chip_smoke.py`` prints the summary for phases 3, 5, 7 and 9 on the
+card; every field there must be per step (or per window), the top list
+included.
 """
 import os
 import sys
@@ -79,3 +81,22 @@ def test_watched_names_follow_the_top_six():
     assert names("k0") == ["k7", "k6", "k5", "k4", "k3", "k2", "k0"]
     assert names("k7") == ["k7", "k6", "k5", "k4", "k3", "k2"]
     assert names(None) == ["k7", "k6", "k5", "k4", "k3", "k2"]
+
+
+@pytest.mark.parametrize("layers,k3,k4", [(4, 64, 32), (2, 32, 16)])
+def test_phase7_holds_each_rank_to_its_layers(layers, k3, k4):
+    """A rank's K3 and K4 launches a step follow the layers it holds:
+    64 and 32 with all 4 at pipe 1, 32 and 16 with 2 at pipe 2 x model
+    2 (bubble ticks run no stage); the other programs launch neither."""
+    assert chip_smoke.tp_want("quant_ring", layers) == {
+        "quant_ring_hop": k3}
+    assert chip_smoke.tp_want("collective_matmul", layers) == {
+        "collective_matmul_hop": k4}
+    assert chip_smoke.tp_want("int8", layers) == {}
+
+
+def test_a_missing_profile_prints_not_measured():
+    """The K2 pair's launches print as counted, or as not measured where
+    the profiler saw no device time (never as "None")."""
+    assert chip_smoke.in_launches(9) == "in 9 launches"
+    assert "not measured" in chip_smoke.in_launches("not measured")

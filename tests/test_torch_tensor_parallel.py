@@ -407,7 +407,19 @@ def test_out_of_slice_options_raise(what, jparams):
     naming its ROADMAP item."""
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         if what == "pipe_axis":
-            port.ResourceSpec({"mesh": {"pipe": 2}})
+            # A pipe axis of 2 lowers; ZeRO on it still raises.
+            tr = _port_trainable(jparams)
+            ad = port.AutoDist({"mesh": {"pipe": 1}}, Pipeline(**PIPE),
+                               device="cpu")
+            d = json.loads(ad.build_or_load_strategy(tr).to_json())
+            d["graph_config"]["mesh_axes"]["pipe"] = 2
+            d["graph_config"]["parallel"].update(virtual_stages=1,
+                                                 zero_stage=1)
+            from autodist_tpu_torch.parallel.pipeline import lower_pipeline
+            from autodist_tpu_torch.resource import Mesh
+
+            lower_pipeline(tr, port.Strategy.from_json(json.dumps(d)),
+                           Mesh(shape={"data": 1, "pipe": 2}), device="cpu")
         elif what == "seq_axis":
             port.ResourceSpec({"mesh": {"seq": 2}})
         elif what == "zero":
