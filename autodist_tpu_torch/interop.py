@@ -19,11 +19,13 @@ nothing else: :func:`to_jax_params` of :func:`from_jax_params` gives
 back the same arrays bit for bit.
 
 A ``Pipeline(tensor_parallel=t)`` strategy shards stage variables over
-the model axis; :func:`model_dims` reads which dim of each variable its
-partitioner spec shards, and :func:`shard_params` cuts a rank's slices
-from a full tree (the slice ``NamedSharding`` gives model index ``i``);
-the pipeline lowering cuts a pipe rank's chunks first and gathers both
-back.  An
+the model axis, and under ``vocab_parallel`` the tied embedding's rows;
+:func:`model_dims` reads which dim of each variable its partitioner
+spec shards, and :func:`shard_params` cuts a rank's slices from a full
+tree (the slice ``NamedSharding`` gives model index ``i``), zero-padding
+the vocabulary to divide the model axis (:func:`pad_to_shards`); the
+pipeline lowering cuts a pipe rank's chunks first and gathers both
+back, the padding cut off (:func:`unpad`).  An
 ``ExpertParallel`` strategy shards the expert tables on their leading
 dim: :func:`expert_dims` names them for :func:`shard_params`, and the
 expert lowering gathers them back over the expert axis.
@@ -151,16 +153,39 @@ def expert_dims(strategy) -> dict:
             and const.EXPERT_AXIS in nc.partitioner.spec}
 
 
-def shard_params(params, dims: dict, index: int, size: int):
+def pad_to_shards(t: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    """``t`` zero-padded along ``dim`` to a multiple of ``size`` (the
+    stored form of a vocab-sharded table whose vocabulary does not
+    divide the model axis, JAX ``shared_padded_shape``)."""
+    pad = (-t.shape[dim]) % size
+    if not pad:
+        return t
+    shape = list(t.shape)
+    shape[dim] = pad
+    return torch.cat([t, t.new_zeros(shape)], dim=dim)
+
+
+def shard_params(params, dims: dict, index: int, size: int, *, padded=()):
     """Shard ``index`` of ``size`` of a full tree: each variable in
     ``dims`` cut into ``size`` equal slices along its dim (a model
-    shard, or a rank's local experts)."""
+    shard, or a rank's local experts).  Variables named in ``padded``
+    are zero-padded to divide first (:func:`pad_to_shards`); any other
+    dim that does not divide raises.  :func:`unpad` takes a gathered
+    padded variable back to its logical shape."""
     flat = dict(flatten_with_names(params))
     for name, d in dims.items():
-        n = flat[name].shape[d]
+        t = flat[name]
+        if name in padded:
+            t = pad_to_shards(t, d, size)
+        n = t.shape[d]
         if n % size:
             raise ValueError(f"{name}: dim {d} of {n} does not divide by "
                              f"{size} shards")
-        flat[name] = flat[name].narrow(d, index * (n // size), n // size)
+        flat[name] = t.narrow(d, index * (n // size), n // size)
     return unflatten(flat)
 
+
+def unpad(t: torch.Tensor, dim: int, logical: int) -> torch.Tensor:
+    """A gathered padded variable cut back to ``logical`` rows along
+    ``dim`` (JAX ``unpad_params``)."""
+    return t.narrow(dim, 0, logical) if t.shape[dim] != logical else t

@@ -2,9 +2,10 @@
 
 Counterpart of ``autodist_tpu/kernel/quantize.py`` for what the
 tensor-parallel boundaries use: the precision vocabulary, the symmetric
-int8 scale and levels, and :func:`quantized_psum` at fp32, bf16 and
-int8.  The error-feedback helpers and the decomposed int8/bf16 halves
-belong to the compressor and overlap items (ROADMAP Queue 1).
+int8 scale and levels, :func:`quantized_psum` at fp32, bf16 and int8,
+and :func:`quantized_pmax` (the vocab epilogue's stabilizing max).
+The error-feedback helpers and the decomposed int8/bf16 halves belong
+to the compressor and overlap items (ROADMAP Queue 1).
 
 Two numeric rules keep the port bit-exact with the JAX package:
 
@@ -106,3 +107,13 @@ def quantized_psum(x, axis, precision: str):
     q = quantize_levels(x.float(), scale)
     summed = axis.psum(q.to(torch.float16))
     return (summed.float() * scale).to(x.dtype)
+
+
+def quantized_pmax(x, axis, precision: str):
+    """Group max at the wire precision.  A max is order-free, so a
+    narrowed wire only rounds the result; ``int8`` takes the bf16 wire
+    (8-bit levels would waste the max's role as a softmax stabilizer)."""
+    precision = check_precision(precision)
+    if precision == "fp32":
+        return axis.pmax(x)
+    return axis.pmax(x.to(torch.bfloat16)).to(x.dtype)

@@ -3,7 +3,8 @@ stage code.
 
 The JAX package names a mesh axis inside ``shard_map`` and calls
 ``lax.axis_index``, ``axis_size``, ``ppermute``, ``psum``,
-``psum_scatter``, ``all_gather``, ``all_to_all`` and ``pmax`` on it.  The port builds
+``psum_scatter``, ``all_gather``, ``all_to_all``, ``pmax`` and ``pmin``
+on it.  The port builds
 one :class:`Axis` per mesh axis (:meth:`autodist_tpu_torch.resource
 .ResourceSpec.make_mesh`): the process group of the ranks that differ
 only along that axis, its size, and this rank's index in it.  Ranks map
@@ -75,10 +76,19 @@ class Axis:
     def pmax(self, x):
         """Max over the axis.  bf16 and fp16 travel as fp32 (exact for
         a max)."""
+        return self._extremum(x, dist.ReduceOp.MAX)
+
+    def pmin(self, x):
+        """Min over the axis (the argmax election's smallest winning
+        id).  Integers travel as they are, bf16 and fp16 as fp32."""
+        return self._extremum(x, dist.ReduceOp.MIN)
+
+    def _extremum(self, x, op):
         if self.size == 1:
             return x
-        buf = self._on_wire(x.float(), copy=True)
-        dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=self.group)
+        wire = x if not x.is_floating_point() else x.float()
+        buf = self._on_wire(wire, copy=True)
+        dist.all_reduce(buf, op=op, group=self.group)
         return buf.to(device=x.device, dtype=x.dtype)
 
     def pmean(self, x):

@@ -10,7 +10,9 @@ process of the job runs the step on its (data, pipe, model) coordinate:
    chunk ``v·n + d`` at row ``v``, the interleaved storage order of
    :func:`chunk_permutation`), cut to its model shard by the strategy's
    partitioner specs (:func:`autodist_tpu_torch.interop.shard_params`);
-   shared variables are replicated on every rank;
+   shared variables are replicated on every rank, except under
+   ``vocab_parallel``, where the tied table is stored as its ``[V_pad /
+   tp, H]`` model shard, the vocabulary zero-padded to divide;
 2. the schedule: every pipe rank walks the same ``num_ticks(M, n, V)``
    ticks.  Each tick it shifts its last output one step along the pipe
    ring (:meth:`~autodist_tpu_torch.parallel.axis.Axis.ppermute`; a
@@ -21,12 +23,17 @@ process of the job runs the step on its (data, pipe, model) coordinate:
    with the bubble.  Global chunk 0 takes microbatch ``m`` of the
    prologue's output (run on the data shard, whose rows split into
    ``num_microbatches`` contiguous microbatches) instead of what
-   arrived.  Activations are ``[B/M, L, H]``, and the stage function
+   arrived.  Only pipe rank 0 runs the prologue; the others take its
+   output's shape and dtype from a run on meta tensors (no compute, no
+   collective).  Activations are ``[B/M, L, H]``, and the stage function
    gets ``model_axis`` (and ``comm_overlap``) under ``tensor_parallel
    > 1``;
 3. the loss head runs once, on the last pipe rank, on the last chunk's
    ``M`` outputs, and back-propagates to one output gradient a
-   microbatch;
+   microbatch.  Under ``vocab_parallel`` the prologue and the head get
+   ``model_axis`` (and ``comm_overlap``): the masked shard lookup and
+   the streaming cross-entropy of :mod:`autodist_tpu_torch.parallel
+   .tensor`;
 4. the backward walks the ticks in reverse with the same shape: a
    gradient shift the other way every tick, and on a valid tick one
    ``torch.autograd.grad`` of that tick's output against the cotangent
@@ -40,7 +47,9 @@ process of the job runs the step on its (data, pipe, model) coordinate:
 6. shared gradients (the prologue's on pipe rank 0, the head's on rank
    ``n - 1``) are summed over the pipe axis, then every gradient is
    averaged over the data axis in one flat fp32 all-reduce, and the
-   functional optimizer updates each stored shard.  The head's metrics
+   functional optimizer updates each stored shard.  A vocab shard's
+   gradient is summed over pipe within its model coordinate and never
+   over model: each model rank owns its rows.  The head's metrics
    are broadcast from the last pipe rank, then averaged over data.
 
 At one pipe device the same schedule runs every (microbatch, chunk) in
@@ -51,6 +60,7 @@ does not run raises ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 
 import numpy as np
 import torch
@@ -130,10 +140,28 @@ class PipelinePlan:
     virtual_stages: int
     tensor_parallel: int
     model_dims: dict           # stage variable -> dim sharded over model
+    vocab_dims: dict           # shared variable -> 0, its vocab sharded
     comm_overlap: object       # None or "matmul"
     precision: dict
     kernel: dict
 
+
+
+def _accepts(fn, name: str) -> bool:
+    """Whether ``fn`` takes keyword ``name`` (a callable whose signature
+    cannot be read is trusted)."""
+    try:
+        return name in inspect.signature(fn).parameters
+    except (TypeError, ValueError):
+        return True
+
+
+def _on_meta(tree):
+    """A tree of tensors as meta tensors of the same shapes and dtypes."""
+    if tree is None:
+        return None
+    return unflatten({nm: torch.empty_like(t, device="meta")
+                      for nm, t in flatten_with_names(tree)})
 
 
 def _one(values: set, what: str):
@@ -172,9 +200,20 @@ def make_pipeline_plan(trainable, strategy, mesh) -> PipelinePlan:
         return not trainable.has_shared or name.startswith("stages/")
 
     dims = interop.model_dims(strategy)
-    if any(not is_stage(name) for name in dims) or par.get("vocab_parallel"):
-        not_ported("vocab parallelism (a model-sharded shared variable)",
-                   f"{_LEFTOVERS}, item 2")
+    stage_dims = {nm: d for nm, d in dims.items() if is_stage(nm)}
+    vocab_dims = {nm: d for nm, d in dims.items() if not is_stage(nm)}
+    for nm, d in vocab_dims.items():
+        if d != 0:
+            raise ValueError(
+                f"{nm}: a shared variable shards over the model axis on "
+                f"its vocabulary (dim 0) only; its spec shards dim {d}")
+    if vocab_dims:
+        for role in ("prologue", "loss_head"):
+            if not _accepts(getattr(trainable, role), "model_axis"):
+                raise ValueError(
+                    f"vocab parallelism needs a vocab-parallel-aware "
+                    f"{role}: it must accept model_axis= and use the "
+                    "autodist_tpu_torch.parallel.tensor vocab primitives")
     if dims and tp_mesh == 1:
         raise ValueError(
             "strategy shards variables over the model axis but the mesh "
@@ -184,15 +223,19 @@ def make_pipeline_plan(trainable, strategy, mesh) -> PipelinePlan:
     overlap = normalize_comm_overlap(par.get("comm_overlap")) or _one(
         {p.comm_overlap for p in parts if p.comm_overlap}, "comm_overlap")
     precision = dict(normalize_precision(cfg.precision))
-    if "tp_psum" not in precision:
-        # A hand-edited strategy may carry the slot only per variable.
-        tp_prec = _one({nc.partitioner.precision
-                        for nc in strategy.node_configs
-                        if nc.partitioner is not None and is_stage(nc.var_name)
-                        and nc.partitioner.precision not in (None, "fp32")},
-                       "tp_psum precisions")
-        if tp_prec:
-            precision["tp_psum"] = tp_prec
+    for slot, stage_vars in (("tp_psum", True), ("vocab_stats", False)):
+        if slot in precision:
+            continue
+        # A hand-edited strategy may carry the slot only per variable:
+        # stage variables the tp_psum slot, the vocab table vocab_stats.
+        prec = _one({nc.partitioner.precision
+                     for nc in strategy.node_configs
+                     if nc.partitioner is not None
+                     and is_stage(nc.var_name) == stage_vars
+                     and nc.partitioner.precision not in (None, "fp32")},
+                    f"{slot} precisions")
+        if prec:
+            precision[slot] = prec
     precision = normalize_precision(precision)
     kernel = normalize_kernel(cfg.kernel)
     if "quant_ring" in kernel:
@@ -228,12 +271,16 @@ def make_pipeline_plan(trainable, strategy, mesh) -> PipelinePlan:
     if overlap and precision.get("tp_psum"):
         not_ported("a narrowed tp_psum precision under comm_overlap",
                    f"{_LEFTOVERS}, item 3")
+    if overlap and vocab_dims and precision.get("vocab_stats"):
+        not_ported("a narrowed vocab_stats precision under comm_overlap",
+                   f"{_LEFTOVERS}, item 3")
     if cfg.accum_steps != 1:
         not_ported("gradient accumulation", "ROADMAP Queue 1, item 8")
     return PipelinePlan(
         num_microbatches=int(par.get("num_microbatches", 1)),
         num_stages=trainable.num_stages, virtual_stages=V,
-        tensor_parallel=tp_mesh if dims else 1, model_dims=dims,
+        tensor_parallel=tp_mesh if stage_dims else 1, model_dims=stage_dims,
+        vocab_dims=vocab_dims,
         comm_overlap=overlap, precision=precision,
         kernel={k: True for k in kernel
                 if k in ("quant_ring", "collective_matmul")})
@@ -252,11 +299,17 @@ def lower_pipeline(trainable, strategy, mesh, device=None) -> Lowered:
     T = num_ticks(M, n, V)
     first, last = d == 0, d == n - 1
     has_shared = trainable.has_shared
-    tp_kwargs = {}
+    tp_kwargs, vp_kwargs = {}, {}
     if plan.tensor_parallel > 1:
         tp_kwargs["model_axis"] = model
         if plan.comm_overlap:
             tp_kwargs["comm_overlap"] = plan.comm_overlap
+    if plan.vocab_dims:
+        vp_kwargs["model_axis"] = model
+        if plan.comm_overlap:
+            vp_kwargs["comm_overlap"] = plan.comm_overlap
+    logical = {nm: tuple(t.shape)
+               for nm, t in flatten_with_names(trainable.params)}
 
     def is_stage(name):
         return not has_shared or name.startswith("stages/")
@@ -266,8 +319,9 @@ def lower_pipeline(trainable, strategy, mesh, device=None) -> Lowered:
         mine = torch.as_tensor(chunk_permutation(n, V)[d * V:(d + 1) * V])
         local = interop.shard_params(unflatten({
             nm: t.index_select(0, mine.to(t.device)) if is_stage(nm) else t
-            for nm, t in flat.items()}), plan.model_dims, model.index,
-            model.size)
+            for nm, t in flat.items()}),
+            {**plan.model_dims, **plan.vocab_dims}, model.index, model.size,
+            padded=plan.vocab_dims)
         stored = {nm: t.detach().to(dev).clone()
                   for nm, t in flatten_with_names(local)}
         return {"step": torch.zeros((), dtype=torch.int32, device=dev),
@@ -279,13 +333,15 @@ def lower_pipeline(trainable, strategy, mesh, device=None) -> Lowered:
 
     def first_input(shared, batch):
         """The prologue's output (or the batch key), split into the M
-        microbatches.  Every rank computes it for the activation's shape;
-        only pipe rank 0's carries gradients."""
+        microbatches.  Pipe rank 0 computes it; the other ranks need
+        only its shape and dtype, from the prologue on meta tensors."""
         if trainable.prologue is None:
             x = batch[trainable.batch_key]
+        elif first:
+            x = trainable.prologue(shared, batch, **vp_kwargs)
         else:
-            with torch.set_grad_enabled(first):
-                x = trainable.prologue(shared, batch)
+            meta = trainable.prologue(_on_meta(shared), _on_meta(batch))
+            x = torch.zeros(meta.shape, dtype=meta.dtype, device=dev)
         if not x.is_floating_point():
             raise TypeError(f"the pipeline's activations must be floating "
                             f"point; chunk 0 gets {x.dtype}")
@@ -382,7 +438,8 @@ def lower_pipeline(trainable, strategy, mesh, device=None) -> Lowered:
         if last:
             ins = [outs[m].requires_grad_() for m in range(M)]
             outputs = torch.cat(ins)
-            loss, metrics = (trainable.loss_head(outputs, batch, shared)
+            loss, metrics = (trainable.loss_head(outputs, batch, shared,
+                                                 **vp_kwargs)
                              if has_shared
                              else trainable.loss_head(outputs, batch))
             metrics = {k: torch.as_tensor(v).detach()
@@ -431,13 +488,16 @@ def lower_pipeline(trainable, strategy, mesh, device=None) -> Lowered:
         return new_state, reduce_metrics(metrics, mesh)
 
     def full_params(stored: dict) -> dict:
-        """The logical tree: model shards gathered, then the pipe ranks'
-        chunks gathered in storage order and put back in logical order."""
+        """The logical tree: model shards gathered (a vocab table's
+        padding cut off), then the pipe ranks' chunks gathered in storage
+        order and put back in logical order."""
         inv = torch.as_tensor(chunk_permutation_inv(n, V))
         out = {}
         for nm, t in stored.items():
             if nm in plan.model_dims:
                 t = model.all_gather(t, dim=plan.model_dims[nm])
+            if nm in plan.vocab_dims:
+                t = interop.unpad(model.all_gather(t), 0, logical[nm][0])
             if is_stage(nm) and n > 1:
                 t = pipe.all_gather(t).index_select(0, inv.to(t.device))
             out[nm] = t

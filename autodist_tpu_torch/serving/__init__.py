@@ -1,4 +1,5 @@
-"""Batched inference for the pipelined LM on one GPU.
+"""Batched inference for the pipelined LM, on one GPU or on a
+tensor-parallel group of ranks.
 
 * :mod:`~autodist_tpu_torch.serving.kv_cache` — dense and paged KV
   cache, in-place writers, block allocator;
@@ -16,6 +17,10 @@ Typical use::
     batcher = serving.ContinuousBatcher(engine)
     rid = batcher.submit([1, 5, 3], max_new_tokens=32, eos_id=2)
     out = batcher.run()[rid].tokens
+
+At tensor parallel 2, every rank of a 2-rank ``torch.distributed`` job
+runs the same lines with ``serving.serve(cfg, params=params,
+tensor_parallel=2, vocab_parallel=True)``.
 """
 from autodist_tpu_torch.serving.batcher import (FINISH_REASONS, Completion,
                                                 ContinuousBatcher,
@@ -35,9 +40,14 @@ __all__ = [
 ]
 
 
-def serve(cfg, *, params, device=None, **engine_kwargs) -> ServingEngine:
+def serve(cfg, *, params, device=None, tensor_parallel: int = 1,
+          vocab_parallel: bool = False, **engine_kwargs) -> ServingEngine:
     """Build a :class:`ServingEngine` from a logical ``params`` tree on
-    ``device`` (``None``: the card).  The JAX package's ``runner=``,
-    ``artifact=`` and ``strategy=`` forms are not ported yet (ROADMAP
-    Queue 1, slice 4: the rest of serving)."""
-    return ServingEngine(cfg, params, device=device, **engine_kwargs)
+    ``device`` (``None``: the card), on ``tensor_parallel`` ranks of the
+    default process group, the vocabulary sharded with
+    ``vocab_parallel``.  The JAX package's ``runner=``, ``artifact=``
+    and ``strategy=`` forms are not ported yet (ROADMAP Queue 1, slice
+    4: the rest of serving)."""
+    return ServingEngine(cfg, params, device=device,
+                         tensor_parallel=tensor_parallel,
+                         vocab_parallel=vocab_parallel, **engine_kwargs)

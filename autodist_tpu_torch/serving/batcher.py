@@ -14,6 +14,16 @@ Because every slot's computation depends only on its own cache lane and
 token, a request decodes the exact same tokens whether it runs alone or
 interleaved with arrivals and departures.
 
+On a tensor-parallel engine (``engine.model_axis`` of more than one
+rank) every rank runs its own batcher over the same submissions, and
+the ranks must admit, evict and decode alike or their collectives hang.
+What a rank's clock or caller decides is therefore agreed once a
+:meth:`~ContinuousBatcher.step`, in one exchange over the group: the
+deadline expiries rank 0's clock finds, and the ids ``cancel`` was
+called with on any rank, which take effect at that step.  Request ids
+count submissions, so they agree wherever every rank submits in the
+same order.
+
 Telemetry goes to the port's in-memory sink
 (:mod:`autodist_tpu_torch.telemetry`): ``serve/ttft_ms`` and
 ``serve/inter_token_ms`` histograms (a window attributes ``window/K``
@@ -30,6 +40,7 @@ from collections import deque
 from typing import Optional
 
 import numpy as np
+import torch.distributed as dist
 
 from autodist_tpu_torch import telemetry
 
@@ -131,6 +142,10 @@ class ContinuousBatcher:
         self._ids = itertools.count()
         self._draining = False
         self.completions: dict[str, Completion] = {}
+        # A tensor-parallel group agrees on clock and cancel decisions.
+        axis = getattr(engine, "model_axis", None)
+        self._group = axis if axis is not None and axis.size > 1 else None
+        self._cancels: list[str] = []
 
     # ------------------------------------------------------------------ #
     def submit(self, prompt, *, max_new_tokens: int = 16,
@@ -209,7 +224,17 @@ class ContinuousBatcher:
         paged blocks back on the free list immediately — a hedge
         loser's reservation must not outlive the race it lost).
         Returns False when ``rid`` is not live (already completed, or
-        never submitted)."""
+        never submitted).  On a tensor-parallel group the withdrawal
+        takes effect at the next :meth:`step`, on every rank."""
+        if self._group is not None:
+            live = any(req.rid == rid for req in self._queue) or any(
+                s is not None and s.req.rid == rid for s in self._slots)
+            if live:
+                self._cancels.append(rid)
+            return live
+        return self._withdraw(rid)
+
+    def _withdraw(self, rid: str) -> bool:
         for req in self._queue:
             if req.rid == rid:
                 self._queue.remove(req)
@@ -231,15 +256,19 @@ class ContinuousBatcher:
         return False
 
     # ------------------------------------------------------------------ #
-    def _expire_queued(self):
+    def _expire_queued(self, expired_ids=None):
         """Complete queued requests already past their deadline — a
         request nobody is waiting for anymore must not win a slot over
-        one somebody is.  No-op when no request carries a deadline."""
+        one somebody is.  No-op when no request carries a deadline.
+        ``expired_ids``: the group's agreed expiries, in place of this
+        rank's clock."""
         now = time.perf_counter()
         kept: deque[Request] = deque()
         expired = False
         for req in self._queue:
-            if req.deadline_s is not None and now >= req.deadline_s:
+            if (req.rid in expired_ids if expired_ids is not None
+                    else req.deadline_s is not None
+                    and now >= req.deadline_s):
                 expired = True
                 telemetry.counter("serve/deadline_exceeded").inc()
                 self._finish(req, tokens=[], reason="deadline_exceeded",
@@ -252,15 +281,17 @@ class ContinuousBatcher:
             self._queue = kept
             telemetry.gauge("serve/queue_depth").set(len(self._queue))
 
-    def _expire_slots(self):
+    def _expire_slots(self, expired_ids=None):
         """Mark in-flight slots past their deadline terminal (tokens
         decoded so far are kept — partial output beats none at the
-        deadline)."""
+        deadline).  ``expired_ids``: the group's agreed expiries."""
         now = time.perf_counter()
         for slot in self._slots:
-            if slot is not None and slot.done is None \
-                    and slot.req.deadline_s is not None \
-                    and now >= slot.req.deadline_s:
+            if slot is None or slot.done is not None:
+                continue
+            if (slot.req.rid in expired_ids if expired_ids is not None
+                    else slot.req.deadline_s is not None
+                    and now >= slot.req.deadline_s):
                 telemetry.counter("serve/deadline_exceeded").inc()
                 slot.done = "deadline_exceeded"
 
@@ -273,8 +304,10 @@ class ContinuousBatcher:
         big request at the head waits rather than being jumped, so the
         admission order, and with it the parity contract, stays
         deterministic).  Dense engines keep the slots-only predicate
-        byte-identically (``blocks_needed`` is 0)."""
-        self._expire_queued()
+        byte-identically (``blocks_needed`` is 0).  A tensor-parallel
+        group expired its queue at the step's agreement instead."""
+        if self._group is None:
+            self._expire_queued()
         free = [i for i, s in enumerate(self._slots) if s is None]
         if not free or not self._queue:
             return
@@ -471,10 +504,36 @@ class ContinuousBatcher:
             telemetry.counter("serve/tokens").inc(kept)
 
     # ------------------------------------------------------------------ #
+    def _agree(self):
+        """The group's decisions for this step, from one exchange: the
+        expiries of rank 0's clock, queued and in flight, and every
+        rank's pending cancels; applied alike on every rank."""
+        now = time.perf_counter()
+        mine = {"cancel": self._cancels}
+        if self._group.index == 0:
+            mine["queued"] = [r.rid for r in self._queue
+                              if r.deadline_s is not None
+                              and now >= r.deadline_s]
+            mine["slots"] = [s.req.rid for s in self._slots
+                             if s is not None and s.done is None
+                             and s.req.deadline_s is not None
+                             and now >= s.req.deadline_s]
+        every = [None] * self._group.size
+        dist.all_gather_object(every, mine, group=self._group.group)
+        self._cancels = []
+        self._expire_slots(set(every[0]["slots"]))
+        for rid in dict.fromkeys(r for d in every for r in d["cancel"]):
+            self._withdraw(rid)
+        self._expire_queued(set(every[0]["queued"]))
+
     def step(self):
         """One scheduler round: expire deadlines, evict finished,
-        admit, decode."""
-        self._expire_slots()
+        admit, decode.  A tensor-parallel group first agrees on its
+        expiries and cancels (:meth:`_agree`)."""
+        if self._group is None:
+            self._expire_slots()
+        else:
+            self._agree()
         for i, slot in enumerate(self._slots):
             if slot is not None and slot.done is not None:
                 self._evict(i)

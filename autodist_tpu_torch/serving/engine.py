@@ -1,9 +1,10 @@
-"""Batched-inference engine for the pipelined LM, on one GPU.
+"""Batched-inference engine for the pipelined LM, on one GPU or on a
+tensor-parallel group.
 
-Counterpart of ``autodist_tpu/serving/engine.py`` at tensor parallel 1
-with greedy decoding.  The same host-side contract — ``prefill`` /
-``decode_window`` over a fixed slot batch, block accounting for the
-paged layout — drives the same model math
+Counterpart of ``autodist_tpu/serving/engine.py`` with greedy
+decoding.  The same host-side contract — ``prefill`` / ``decode_window``
+over a fixed slot batch, block accounting for the paged layout — drives
+the same model math
 (:func:`~autodist_tpu_torch.models.pipeline_lm._tp_encoder_layer`):
 
 * **prefill** runs the zero-padded prompt bucket through every layer
@@ -37,22 +38,41 @@ the CPU the body always runs eagerly.  Prefill stays eager: its chunk
 count varies from call to call, and the JAX engine dispatches it per
 call too.
 
+At ``tensor_parallel=t > 1`` every process of a ``torch.distributed``
+job of ``t`` ranks builds the same engine and makes the same calls
+(:class:`~autodist_tpu_torch.serving.batcher.ContinuousBatcher` keeps
+them in step): each rank holds its Megatron shards, cut from the full
+tree by the pipeline builder's rule tables (:func:`serving_param_dims`,
+JAX ``serving_param_specs``), and a cache of ``num_heads / t`` heads;
+the layers sum their row-parallel outputs over the group
+(``comm_overlap="matmul"``: the collective-matmul ring).  Under
+``vocab_parallel`` the tied table is sharded too, padded to divide, and
+the embedding and the greedy epilogue take the vocab-parallel forms of
+:mod:`autodist_tpu_torch.parallel.tensor`; without it every rank holds
+the whole table and picks the same token alone.  A group of NCCL ranks
+replays the decode window's graph like one card; gloo ranks on the card
+stage every exchange through the host, so their windows run the host
+loop.
+
 Everything outside the serving slice raises ``NotImplementedError``
-naming its ROADMAP item: tensor/vocab parallelism and ``comm_overlap``,
-sampling (``temperature``/``top_k``), speculative decoding, prefix
-caching, ``cfg.attention_fn``, and the runner/artifact constructors.
+naming its ROADMAP item: ``comm_overlap="rsag"``, sampling
+(``temperature``/``top_k``), speculative decoding, prefix caching,
+``cfg.attention_fn``, and the runner/artifact constructors.
 """
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from autodist_tpu_torch import cuda_graph
+from autodist_tpu_torch import const, cuda_graph, interop
 from autodist_tpu_torch.capture import stage_slice
 from autodist_tpu_torch.device import resolve_device
+from autodist_tpu_torch.kernel.common import flatten_with_names, unflatten
 from autodist_tpu_torch.kernel.flash_decode import (
     flash_decode_attention, flash_decode_attention_paged)
 from autodist_tpu_torch.kernel.flash_prefill import \
@@ -60,9 +80,13 @@ from autodist_tpu_torch.kernel.flash_prefill import \
 from autodist_tpu_torch.models.pipeline_lm import (_layer_norm,
                                                    _tp_encoder_layer,
                                                    tree_map)
-from autodist_tpu_torch.parallel.tensor import (vocab_parallel_embedding,
+from autodist_tpu_torch.parallel.axis import Axis
+from autodist_tpu_torch.parallel.tensor import (normalize_comm_overlap,
+                                                vocab_parallel_embedding,
                                                 vocab_parallel_greedy_token)
 from autodist_tpu_torch.serving import kv_cache
+from autodist_tpu_torch.strategy.parallel_builders import (
+    PIPELINE_TP_RULES, PIPELINE_VOCAB_RULES)
 from autodist_tpu_torch.strategy.ir import (normalize_kernel,
                                             normalize_kv_layout,
                                             normalize_prefill_chunk,
@@ -75,6 +99,50 @@ _REST_OF_SERVING = "ROADMAP Queue 1, slice 4: the rest of serving"
 
 def _not_ported(what: str, item: str = _REST_OF_SERVING):
     raise NotImplementedError(f"{what} is not ported yet ({item})")
+
+
+def serving_param_dims(params, tp: int, vocab_parallel: bool) -> dict:
+    """``{leaf name: dim}`` of the leaves a tensor-parallel engine
+    shards over the model axis, from the rule tables the ``Pipeline``
+    builder writes into the Strategy IR (JAX ``serving_param_specs``):
+    a stage leaf keeps its leading layer dim and shards the Megatron dim
+    its tp rule names; the shared tied table shards its vocabulary under
+    ``vocab_parallel``; the rest replicate."""
+    if tp == 1:
+        return {}
+    tp_rules = [(re.compile(p), spec) for p, spec in PIPELINE_TP_RULES]
+    vocab_rules = [(re.compile(p), spec)
+                   for p, spec in PIPELINE_VOCAB_RULES]
+    dims = {}
+    for name, leaf in flatten_with_names(params):
+        shape = tuple(leaf.shape)
+        if name.startswith("stages/"):
+            rules, tail = tp_rules, shape[1:]
+        elif vocab_parallel and name.startswith("shared/"):
+            rules, tail = vocab_rules, shape
+        else:
+            continue
+        for pat, spec in rules:
+            if pat.search(name) and len(spec) == len(tail):
+                d = spec.index(const.MODEL_AXIS)
+                if rules is tp_rules and tail[d] % tp:
+                    raise ValueError(f"{name}: dim {tail[d]} does not "
+                                     f"divide by tensor_parallel={tp}")
+                dims[name] = d + len(shape) - len(tail)
+                break
+    return dims
+
+
+def _model_group(tp: int) -> Axis:
+    """The model axis of a tensor-parallel engine: every rank of the
+    default process group, which must hold ``tp`` ranks."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != tp:
+        raise ValueError(
+            f"tensor_parallel={tp} needs a torch.distributed job of {tp} "
+            f"ranks (init_process_group first); the job has {world}")
+    return Axis(const.MODEL_AXIS, size=tp, index=dist.get_rank(),
+                ranks=tuple(range(tp)), group=dist.group.WORLD)
 
 
 @dataclasses.dataclass
@@ -112,11 +180,20 @@ class ServingEngine:
     ``kv_num_blocks`` blocks of ``kv_block_len`` positions, admitted
     against free blocks), ``prefill_chunk`` (paged only).
 
+    ``tensor_parallel=t`` runs the engine on the ``t`` ranks of the
+    default process group (every rank constructs it with the same
+    arguments and ``params``, the full logical tree);
+    ``vocab_parallel`` shards the tied table's vocabulary over them;
+    ``comm_overlap="matmul"`` sums the row-parallel outputs with the
+    collective-matmul ring.  :attr:`model_axis` is the group's
+    :class:`~autodist_tpu_torch.parallel.axis.Axis` (``None`` at one
+    rank).
+
     ``device=None`` means the card and raises ``RuntimeError`` where
     there is none; pass ``device="cpu"`` to run the plain path.  On the
     card each decode window replays one CUDA graph unless
-    ``decode_graph=False``; :attr:`captures` and :attr:`replays` count
-    the graph route's work.
+    ``decode_graph=False`` or the group stages through the host (gloo);
+    :attr:`captures` and :attr:`replays` count the graph route's work.
     """
 
     def __init__(self, cfg, params, *, tensor_parallel: int = 1,
@@ -145,15 +222,16 @@ class ServingEngine:
         tp = int(tensor_parallel)
         if tp < 1:
             raise ValueError("tensor_parallel must be >= 1")
-        if tp > 1:
-            _not_ported("tensor_parallel > 1")
-        if vocab_parallel:
-            _not_ported("vocab_parallel")
-        if comm_overlap:
-            _not_ported("comm_overlap")
-        self.tensor_parallel = 1
-        self.vocab_parallel = False
-        self.comm_overlap = None
+        if tp > 1 and cfg.num_heads % tp:
+            raise ValueError(
+                f"num_heads={cfg.num_heads} must divide by "
+                f"tensor_parallel={tp}")
+        self.tensor_parallel = tp
+        self.vocab_parallel = bool(vocab_parallel) and tp > 1
+        self.comm_overlap = normalize_comm_overlap(comm_overlap)
+        if self.comm_overlap == "rsag":
+            _not_ported("comm_overlap='rsag'",
+                        "ROADMAP Queue 1, slice 3 leftovers, item 3")
         self.num_slots = int(num_slots)
         self.max_len = int(max_len or cfg.max_len)
         if self.max_len > cfg.max_len:
@@ -206,8 +284,21 @@ class ServingEngine:
             _not_ported("sampling (temperature > 0 or top_k)")
 
         self.device = resolve_device(device)
+        self.model_axis = _model_group(tp) if tp > 1 else None
         dev, dtype = self.device, cfg.dtype
-        self.params = tree_map(lambda t: torch.as_tensor(t).to(dev), params)
+        # Each rank keeps its shards (the table padded to divide under
+        # vocab_parallel), copied out of the full tree.
+        dims = serving_param_dims(params, tp, self.vocab_parallel)
+        local = interop.shard_params(
+            tree_map(torch.as_tensor, params), dims,
+            self.model_axis.index if tp > 1 else 0, tp,
+            padded={"shared/embedding"})
+        self.params = unflatten({
+            nm: t.to(dev).clone() if nm in dims else t.to(dev)
+            for nm, t in flatten_with_names(local)})
+        self._tp = dict(model_axis=self.model_axis,
+                        comm_overlap=self.comm_overlap)
+        self._vocab_axis = self.model_axis if self.vocab_parallel else None
         self._shared = self.params["shared"]
         self._layers = [
             _matmul_weights(stage_slice(self.params["stages"], i), dtype)
@@ -221,11 +312,16 @@ class ServingEngine:
                                    device=dev)
         self._emitted = torch.zeros((self.decode_steps, self.num_slots),
                                     dtype=torch.int32, device=dev)
-        self.decode_graph = bool(decode_graph) and dev.type == "cuda"
+        # A gloo group on the card stages its sums through the host: no
+        # capture, the host loop (the route is read from the group).
+        self.decode_graph = (bool(decode_graph) and dev.type == "cuda"
+                             and not (self.model_axis is not None and
+                                      self.model_axis.stages_through_host))
         self._graph = None
+        heads = cfg.num_heads // tp
         if self.kv_layout == "paged":
             self.cache = kv_cache.init_paged_cache(
-                cfg.num_layers, self.num_slots, cfg.num_heads,
+                cfg.num_layers, self.num_slots, heads,
                 cfg.head_dim, self.max_len, block_len=self.kv_block_len,
                 num_blocks=self.kv_num_blocks, dtype=dtype, device=dev)
             # Host-side block accounting: the free list and the numpy
@@ -237,7 +333,7 @@ class ServingEngine:
             self._emit_block_gauges()
         else:
             self.cache = kv_cache.init_cache(
-                cfg.num_layers, self.num_slots, cfg.num_heads,
+                cfg.num_layers, self.num_slots, heads,
                 cfg.head_dim, self.max_len, dtype=dtype, device=dev)
             self._allocator = None
         self.last_prefill_chunks = 0
@@ -262,7 +358,9 @@ class ServingEngine:
         window's over-decode reaches such positions; its tokens are
         discarded by the batcher)."""
         dtype = self.cfg.dtype
-        x = vocab_parallel_embedding(tokens, self._shared["embedding"])
+        x = vocab_parallel_embedding(tokens, self._shared["embedding"],
+                                     model_axis=self._vocab_axis,
+                                     comm_overlap=self.comm_overlap)
         table = self._shared["pos_embed"]
         positions = positions.long()
         pos = table[positions.clamp(0, table.shape[0] - 1)]
@@ -275,13 +373,14 @@ class ServingEngine:
         x = _layer_norm(h, self._shared["ln_final_scale"],
                         self._shared["ln_final_bias"])
         tok, _ = vocab_parallel_greedy_token(
-            x, self._shared["embedding"], vocab_size=self.cfg.vocab_size)
+            x, self._shared["embedding"], vocab_size=self.cfg.vocab_size,
+            model_axis=self._vocab_axis)
         return tok
 
     def _forward(self, x, attend_for_layer):
         for layer in range(self.cfg.num_layers):
             x = _tp_encoder_layer(self.cfg, self._layers[layer], x, None,
-                                  attend=attend_for_layer(layer))
+                                  attend=attend_for_layer(layer), **self._tp)
         return x
 
     # ------------------------------------------------------------------ #
@@ -403,7 +502,7 @@ class ServingEngine:
                         torch.arange(S, device=dev))
         for layer in range(cfg.num_layers):
             x, k, v = _tp_encoder_layer(cfg, self._layers[layer], x, mask,
-                                        return_kv=True)
+                                        return_kv=True, **self._tp)
             if paged:
                 for arr, kv in ((c.k, k), (c.v, v)):
                     kv_cache.paged_write_prompt(

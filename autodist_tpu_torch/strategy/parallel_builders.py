@@ -2,10 +2,12 @@
 inside each stage, and the ``ExpertParallel`` builder.
 
 Counterpart of ``autodist_tpu/strategy/parallel_builders.py``
-``Pipeline``, :data:`PIPELINE_TP_RULES` and ``ExpertParallel``.  The builder emits the JAX
+``Pipeline``, :data:`PIPELINE_TP_RULES`, :data:`PIPELINE_VOCAB_RULES`
+and ``ExpertParallel``.  The builder emits the JAX
 builder's node configs (every stage variable partitioned ``["pipe",
 ...]`` with the model-axis dims its tp rule names, shared variables
-replicated) and graph config (``lowering="pipeline"``, the schedule
+replicated or, under ``vocab_parallel``, the tied table ``["model",
+None]``) and graph config (``lowering="pipeline"``, the schedule
 knobs, the precision policy and the kernel election), so the two
 packages' strategies for the same model serialize alike, and it runs the
 same build-time checks with the same errors.
@@ -15,8 +17,8 @@ schedules over any pipe axis, one process per pipe coordinate
 (:mod:`autodist_tpu_torch.parallel.pipeline`).  What it does not run
 raises ``NotImplementedError`` here, after the JAX builder's own
 checks: ZeRO stages, gradient compressors and the ``grad`` precision
-slot, remat, ``vocab_parallel``, ``comm_overlap="rsag"`` and a narrowed
-``tp_psum`` under overlap.
+slot, remat, ``comm_overlap="rsag"`` and a narrowed ``tp_psum`` under
+overlap.
 """
 from __future__ import annotations
 
@@ -46,6 +48,14 @@ PIPELINE_TP_RULES = (
     (r"(^|/)wi/bias$", [const.MODEL_AXIS]),
 )
 
+# Vocab-parallel rules for the shared variables (the tied embedding,
+# ``shared/embedding``): dim 0, the vocabulary, shards over the model
+# axis; a vocabulary that does not divide is zero-padded by the
+# lowering.
+PIPELINE_VOCAB_RULES = (
+    (r"(^|/)embedding$", [const.MODEL_AXIS, None]),
+)
+
 _LEFTOVERS = "ROADMAP Queue 1, slice 3 leftovers"
 
 
@@ -55,8 +65,13 @@ class Pipeline(StrategyBuilder):
     inside each stage (stage variables matching ``tp_rules``).
 
     ``comm_overlap="matmul"`` (or ``True``) runs the row-parallel
-    boundaries as the collective-matmul ring; ``collective_precision``
-    narrows the boundaries (``{"tp_psum": "int8"}``); ``kernel`` elects
+    boundaries as the collective-matmul ring; ``vocab_parallel=True``
+    shards the shared tied table's vocabulary over the model axis
+    (``vocab_rules``, default :data:`PIPELINE_VOCAB_RULES`; recorded
+    and without effect at ``tensor_parallel=1``), whose prologue and
+    loss head must accept ``model_axis=``; ``collective_precision``
+    narrows the boundaries (``{"tp_psum": "int8", "vocab_stats":
+    "bf16"}``); ``kernel`` elects
     the fused kernels: ``quant_ring`` needs the int8 ``tp_psum`` and the
     blocking form, ``collective_matmul`` needs ``comm_overlap="matmul"``.
     """
@@ -82,6 +97,10 @@ class Pipeline(StrategyBuilder):
                          for pat, spec in (tp_rules if tp_rules is not None
                                            else PIPELINE_TP_RULES)]
         self.vocab_parallel = bool(vocab_parallel)
+        self.vocab_rules = [(re.compile(pat), list(spec))
+                            for pat, spec in (vocab_rules if vocab_rules
+                                              is not None
+                                              else PIPELINE_VOCAB_RULES)]
         self.comm_overlap = normalize_comm_overlap(comm_overlap)
         self.precision = normalize_precision(collective_precision)
         if self.precision.get("grad") and (compressor or "none") != "none":
@@ -118,13 +137,15 @@ class Pipeline(StrategyBuilder):
         if (compressor or "none") != "none" or self.precision.get("grad"):
             not_ported("gradient compressors (and the 'grad' precision "
                        "slot)", "ROADMAP Queue 1, slice 2 leftovers, item 3")
-        if self.vocab_parallel or vocab_rules is not None:
-            not_ported("vocab_parallel", f"{_LEFTOVERS}, item 2")
         if self.comm_overlap == "rsag":
             not_ported("comm_overlap='rsag'", f"{_LEFTOVERS}, item 3")
         if self.comm_overlap and self.precision.get("tp_psum"):
             not_ported("a narrowed tp_psum precision under comm_overlap",
                        f"{_LEFTOVERS}, item 3")
+        if self.comm_overlap and self.vocab_parallel \
+                and self.precision.get("vocab_stats"):
+            not_ported("a narrowed vocab_stats precision under "
+                       "comm_overlap", f"{_LEFTOVERS}, item 3")
 
     def _tp_spec_for(self, name: str, stage_shape: tuple, tp: int):
         """Per-stage model-axis spec of a stage variable, or None: the
@@ -179,7 +200,32 @@ class Pipeline(StrategyBuilder):
                     "and route it to its row/column-parallel boundaries "
                     "(autodist_tpu_torch.parallel.tensor primitives)")
         has_shared = getattr(trainable, "has_shared", False)
-        nodes, tp_matched = [], []
+        if tp > 1 and self.vocab_parallel:
+            # The lowering hands the prologue and the loss head local
+            # vocab shards: both must accept model_axis=.
+            if not has_shared:
+                raise ValueError(
+                    "vocab_parallel=True shards the shared embedding/"
+                    "unembedding; this trainable declares no shared_params")
+            for role in ("prologue", "loss_head"):
+                try:
+                    sig = inspect.signature(
+                        getattr(trainable, role, None)).parameters
+                except (TypeError, ValueError):  # partials: trust it
+                    sig = {"model_axis": None}
+                if "model_axis" not in sig:
+                    raise ValueError(
+                        f"vocab_parallel=True needs a vocab-parallel-aware "
+                        f"{role}: it must accept model_axis= and use the "
+                        "autodist_tpu_torch.parallel.tensor vocab "
+                        "primitives (vocab_parallel_embedding / "
+                        "vocab_parallel_cross_entropy)")
+                if self.comm_overlap and "comm_overlap" not in sig:
+                    raise ValueError(
+                        f"comm_overlap={self.comm_overlap!r} with "
+                        f"vocab_parallel=True needs the {role} to accept "
+                        "comm_overlap= and route it to the epilogue psums")
+        nodes, tp_matched, vocab_matched = [], [], []
         for info in trainable.var_infos():
             node = NodeConfig(var_name=info.name,
                               synchronizer=AllReduceSynchronizer(),
@@ -202,7 +248,23 @@ class Pipeline(StrategyBuilder):
                     mesh_axis=const.PIPE_AXIS,
                     spec=[const.PIPE_AXIS] + tail,
                     comm_overlap=overlap, precision=tp_prec)
+            elif self.vocab_parallel and tp > 1:
+                # A shared variable the vocab rules name shards dim 0
+                # over the model axis; the rest replicate.
+                for pat, spec in self.vocab_rules:
+                    if pat.search(info.name) and len(spec) == len(info.shape):
+                        node.partitioner = PartitionerConfig(
+                            mesh_axis=const.MODEL_AXIS, spec=list(spec),
+                            comm_overlap=self.comm_overlap,
+                            precision=self.precision.get("vocab_stats"))
+                        vocab_matched.append(info.name)
+                        break
             nodes.append(node)
+        if tp > 1 and self.vocab_parallel and not vocab_matched:
+            raise ValueError(
+                "Pipeline(vocab_parallel=True): no shared variable "
+                "matched the vocab rules; name the tied table "
+                "'embedding' (PIPELINE_VOCAB_RULES) or pass vocab_rules=...")
         if tp > 1 and not tp_matched:
             raise ValueError(
                 f"Pipeline(tensor_parallel={tp}): no stage variable "

@@ -9,19 +9,21 @@ paths: serving the pipelined LM at the serve bench's width (vocab 32768,
 hidden 1024, 16 heads of 64, mlp 4096, 8 layers, max_len 1024),
 training BERT-base masked-LM through ``AutoDist`` + ``AllReduce``,
 Megatron tensor-parallel training of the pipelined LM through
-``Pipeline(tensor_parallel=2)`` at one pipe device and on ``bench.py
-quant``'s 4-device mesh (the cross-process pipe schedule over a pipe
-axis of 2, interleaved, with the Megatron stages inside), and
-expert-parallel training of the MoE LM through ``ExpertParallel`` on an
-expert axis of 2:
+``Pipeline(tensor_parallel=2, vocab_parallel=True)`` at one pipe device
+and on ``bench.py quant``'s 4-device mesh (the cross-process pipe
+schedule over a pipe axis of 2, interleaved, with the Megatron stages
+inside and the vocabulary sharded over the model axis), expert-parallel
+training of the MoE LM through ``ExpertParallel`` on an expert axis of
+2, and serving at tensor parallel 2:
 
 1. each kernel against its plain PyTorch version, fp32 (atol = rtol =
    1e-5) and bf16 (atol = rtol = 1e-2), timed with CUDA events beside
    the plain version, one PyTorch library call and the card's bound,
    each time with its achieved TFLOP/s:
    K5-K7 at the serving shapes, and again at the serve mix's occupancy
-   (K5, K6: lengths 1-192; K7: 32 slots whose 64-row chunks start at 0)
-   and with one slot of 1024 keys (K7: a chunk at 960); K1, K2a
+   (K5, K6: lengths 1-192; K7: 32 slots whose 64-row chunks start at 0),
+   there also at a tensor-parallel rank's 8 heads (phase 10), and
+   with one slot of 1024 keys (K7: a chunk at 960); K1, K2a
    and K2b at BERT-base's q/k/v ``[16, 512, 12, 64]`` and at ragged
    lengths 100 and 17, causal and not; the registers, spills and static
    shared memory of K1, K2a, K2b (bf16), K5, K6 and K7 (both dtypes: K7's
@@ -29,7 +31,8 @@ expert axis of 2:
    ``nvcc -Xptxas -v``; the K2 pair (the whole autograd backward
    through K2a and K2b, and its delta and casts alone) against SDPA's
    backward; K3 bit for bit (levels and scale) at the ring's chunk of
-   2^21 elements, at 1, 1000, 2^20 + 3 and 2^23 + 5 (more than the grid
+   2^21 elements, at the vocab-parallel prologue's 2^22, at 1, 1000,
+   2^20 + 3 and 2^23 + 5 (more than the grid
    holds in registers), on exact ties (halves at scale 1), on all-zero
    chunks, with a NaN in local, and with
    q_in and local off a 16-byte boundary, each call one device kernel
@@ -77,20 +80,25 @@ expert axis of 2:
    T = 1 (1e-4 relative): composed fp32 on T = 2 ranks at pipe 1, on a
    pipe axis of 2 (GPipe, 2 ranks) and on pipe 2 x model 2 (4 ranks);
    at pipe 1 and at pipe 2 x model 2 the fused collective matmul against
-   the composed one (1e-5) and the quantized ring against the composed
-   int8 program (2e-2);
+   the composed one (1e-5), the quantized ring against the composed
+   int8 program (2e-2), and ``vocab_parallel`` against the full-vocab
+   head (1e-5);
 7. the slice's window in bf16 (``bench.py quant`` on an accelerator: 4
    layers, max_len 512, batch 16, ``num_microbatches=2``,
-   ``adam(1e-3)``) for the composed fp32, composed int8, ``quant_ring``
-   and ``collective_matmul`` programs, at pipe 1 (``virtual_stages=4``,
-   2 ranks) and on ``bench.py quant``'s 4-device mesh, pipe 2 x model 2
-   (``virtual_stages=2``, 4 ranks; no ``vocab_parallel``): tokens/s,
-   step ms, peak memory per rank, the profiler's busy share and K3's
-   device time per step, the K3 and K4 launches of every rank held to
-   64 and 32 per step at pipe 1 and 32 and 16 at pipe 2 (a bubble tick
-   runs no stage), no K4 operand staged and no K3 hop off the vector
-   path; over gloo the lowering stages through host memory, and
-   ``run_steps`` is asserted to keep its host loop (no capture);
+   ``adam(1e-3)``, ``vocab_parallel=True`` as ``bench.py:342`` runs
+   it) for the composed fp32, composed int8 (``vocab_stats`` int8 too),
+   ``quant_ring`` and ``collective_matmul`` programs, at pipe 1
+   (``virtual_stages=4``, 2 ranks) and on ``bench.py quant``'s 4-device
+   mesh, pipe 2 x model 2 (``virtual_stages=2``, 4 ranks), there also
+   fp32 with the full-vocab head: tokens/s, step ms, peak memory per
+   rank (the last pipe coordinate's held below the full head's),
+   the profiler's busy share and K3's device time per step, the K3 and
+   K4 launches of every rank held to 66 and 32 per step at pipe 1 and
+   34 (pipe rank 0: the prologue's lookup ring) or 32 and 16 at pipe 2
+   (a bubble tick runs no stage), no K4 operand staged and no K3 hop
+   off the vector path; over gloo the lowering stages through host
+   memory, and ``run_steps`` is asserted to keep its host loop (no
+   capture);
 8. fp32 MoE parity: the MoE LM at full width (vocab 32768, hidden 1024,
    16 heads, expert hidden 4096, 8 experts) cut to 1 layer, seq 128,
    batch 8, capacity factor 4.0 (no token is dropped, so sharded and
@@ -106,25 +114,36 @@ expert axis of 2:
    device time per step, and K8 held to 16 launches a step (2 layers x dispatch and
    combine x forward and backward x 2 hops), none off the vector path,
    and ``run_steps`` on the host loop as in phase 7;
-10. one ``{"kernels": [...]}`` line, the card's name and power limit, and
+10. serving at tensor parallel 2 with the vocabulary sharded, on the
+   serve mix's model cut to 4 layers (8 of the 16 heads a rank): fp32 streams
+   of 3 requests on the dense and the paged + chunked engine equal the
+   one-process engine's (a divergence counts as a tie where the
+   recompute's top two logits are within 1e-4), then the bf16 serve mix
+   on both: tokens/s, TTFT, inter-token latency, peak memory per rank,
+   K5-K7 held to the attention calls; over gloo the decode windows run
+   the host loop (asserted);
+11. one ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
 Phases 2, 4, 6 (at T = 1) and 8 (the dense model) run one process on
-the card, so their windows replay CUDA graphs too.  Phases 6 to 9 run
+the card, so their windows replay CUDA graphs too.  Phases 6 to 10 run
 2 or 4 processes (``torch.multiprocessing`` spawn) on card 0, joined in
 a gloo group: NCCL refuses two ranks on one device, so each transfer is
 staged through host memory while the kernels, the model and the
 optimizer stay on the card.  Their numbers are labelled so, and say
 nothing about multi-GPU speed.  Where the machine has at least 2 cards,
-phases 7 (pipe 1, and a pipe axis of 2 in fp32) and 9 run again over
-NCCL, one rank per card, and with 4 cards phase 7's pipe 2 x model 2
-too; each prints apart.  Every rank joins and leaves the job through
+phases 7 (pipe 1, and a pipe axis of 2 in fp32), 9 and 10 run again
+over NCCL, one rank per card (phase 10 on the graph route: one capture,
+then a replay a window, asserted), and with 4 cards phase 7's pipe 2 x
+model 2 too; each prints apart.  Every rank joins and leaves the job through
 ``autodist_tpu_torch.testing`` (a barrier before the groups go).
 
 Any failed check raises, in any rank, and the script exits non-zero;
 without a CUDA device it exits 2 and prints no result.  ``--phases 7,9``
 (a comma-separated list) runs only those phases and prints no kernels
-line.  Each phase prints its seconds.  Imports torch, numpy and
+line; ``--nccl-only`` (on a machine of several cards) skips the gloo
+runs of phases 7, 9 and 10.  Each phase prints its seconds.  Imports
+torch, numpy and
 ``autodist_tpu_torch`` only.
 """
 from __future__ import annotations
@@ -234,6 +253,10 @@ RING_CHUNK = TP_BATCH // TP_MICRO * TP_SEQ * HIDDEN // TP
 # K4's shapes there: [M, K] @ [K, C] per hop, M = 8 x 512 rows, C = the
 # 1024 features over 2 ranks; K = 512 (out projection), 2048 (mlp wo).
 MATMUL_SHAPES = ((4096, 512, 512), (4096, 2048, 512))
+# K3's chunk at the vocab-parallel prologue's lookup sum (pipe rank 0):
+# the [16, 512, 1024] fp32 lookup of the whole batch over 2 ranks.
+PROLOGUE_CHUNK = TP_BATCH * TP_SEQ * HIDDEN // TP
+# Phase 6's programs.
 TP_PROGRAMS = {
     "fp32": {},
     "int8": dict(collective_precision={"tp_psum": "int8"}),
@@ -242,6 +265,21 @@ TP_PROGRAMS = {
     "matmul": dict(comm_overlap="matmul"),
     "collective_matmul": dict(comm_overlap="matmul",
                               kernel=("collective_matmul",)),
+    "fp32 vocab": dict(vocab_parallel=True),
+}
+# Phase 7's: bench.py quant's programs, each with vocab_parallel as
+# bench.py:342 runs them (its "int8" string narrows vocab_stats too; the
+# grad slot stays out, compressors are not ported), and at pipe 2 x
+# model 2 the fp32 program with the full-vocab head beside them.
+VOCAB_PARALLEL = dict(vocab_parallel=True)
+WINDOW_PROGRAMS = {
+    "fp32": VOCAB_PARALLEL,
+    "int8": dict(VOCAB_PARALLEL, collective_precision={
+        "tp_psum": "int8", "vocab_stats": "int8"}),
+    "quant_ring": dict(VOCAB_PARALLEL, **TP_PROGRAMS["quant_ring"]),
+    "collective_matmul": dict(VOCAB_PARALLEL,
+                              **TP_PROGRAMS["collective_matmul"]),
+    "fp32 full head": {},
 }
 # The MoE window (bench.py moe on an accelerator) on an expert axis of 2.
 EXPERT, MOE_LAYERS, MOE_SEQ, MOE_ROWS, MOE_STEPS = 2, 2, 512, 2, 20
@@ -262,16 +300,29 @@ MOE_PROGRAMS = {
 MOE_WANT = {"a2a_ring": {"a2a_ring_hop": EXPERT * 2 * 2 * MOE_LAYERS}}
 
 
-def tp_want(program, layers):
+def tp_want(program, layers, first):
     """Per step of phase 7 in a rank that holds ``layers`` layers: K3
     opens and hops once per ring at T = 2, four rings per layer and
-    microbatch (two forward sums, two backward); K4 runs T times per
-    row-parallel boundary, two per layer and microbatch, forward only.
-    A bubble tick runs no stage, so the pipe schedule adds none."""
-    return {"quant_ring": {"quant_ring_hop": 2 * 4 * layers * TP_MICRO},
+    microbatch (two forward sums, two backward), and on pipe rank 0
+    (``first``) one more ring for the vocab-parallel prologue's lookup
+    sum (its backward is the identity); K4 runs T times per row-parallel
+    boundary, two per layer and microbatch, forward only.  A bubble tick
+    runs no stage, so the pipe schedule adds none."""
+    return {"quant_ring": {"quant_ring_hop": 2 * 4 * layers * TP_MICRO
+                           + (TP if first else 0)},
             "collective_matmul": {
                 "collective_matmul_hop": TP * 2 * layers * TP_MICRO},
             }.get(program, {})
+
+
+# ``--nccl-only``: phases 7, 9 and 10 skip their runs over gloo.
+NCCL_ONLY = False
+
+
+def transports(runs):
+    """The runs of a phase this invocation makes: every one, or those
+    over NCCL with ``--nccl-only``."""
+    return [r for r in runs if not NCCL_ONLY or r[0] == "nccl"]
 
 
 def check(cond, msg):
@@ -289,9 +340,9 @@ def launches():
     return {name: k["wrapper"].launches for name, k in KERNELS.items()}
 
 
-def cfg_of(dtype):
+def cfg_of(dtype, layers=LAYERS):
     return port.TransformerConfig(
-        vocab_size=VOCAB, hidden_size=HIDDEN, num_layers=LAYERS,
+        vocab_size=VOCAB, hidden_size=HIDDEN, num_layers=layers,
         num_heads=HEADS, mlp_dim=MLP, max_len=MAX_LEN, dtype=dtype,
         dropout_rate=0.0, attention_dropout_rate=0.0)
 
@@ -320,9 +371,11 @@ def tail_filled_table(spans, rng):
     return table
 
 
-def decode_cases(dtype, randn, dense_lengths, paged_lengths, pools, rng):
+def decode_cases(dtype, randn, dense_lengths, paged_lengths, pools, rng,
+                 heads=HEADS):
     """(name, args, kwargs, bytes, flops) of K5 over dense lanes and K6
-    over ``pools`` (a table drawn from ``rng``) at the given lengths;
+    over ``pools`` (a table drawn from ``rng``) at the given lengths, of
+    ``heads`` heads (a tensor-parallel rank's: 16 / T);
     the bytes count each visible key's K and V row, q, out, the lengths
     and the used table entries once."""
     dev = "cuda"
@@ -332,12 +385,12 @@ def decode_cases(dtype, randn, dense_lengths, paged_lengths, pools, rng):
                           ("flash_decode_paged", paged_lengths)):
         B = len(lengths)
         n_vis = np.minimum(lengths.astype(np.int64) + 1, MAX_LEN)
-        q = randn(B, 1, HEADS, HEAD_DIM)
-        nbytes = (2 * n_vis.sum() * HEADS * HEAD_DIM * esize
-                  + 2 * B * HEADS * HEAD_DIM * esize + B * 4)
+        q = randn(B, 1, heads, HEAD_DIM)
+        nbytes = (2 * n_vis.sum() * heads * HEAD_DIM * esize
+                  + 2 * B * heads * HEAD_DIM * esize + B * 4)
         if name == "flash_decode":
-            args = (q, randn(B, HEADS, MAX_LEN, HEAD_DIM),
-                    randn(B, HEADS, MAX_LEN, HEAD_DIM),
+            args = (q, randn(B, heads, MAX_LEN, HEAD_DIM),
+                    randn(B, heads, MAX_LEN, HEAD_DIM),
                     torch.as_tensor(lengths, device=dev))
             kw = {}
         else:
@@ -348,7 +401,7 @@ def decode_cases(dtype, randn, dense_lengths, paged_lengths, pools, rng):
             nbytes += 4 * sum(kv_cache.blocks_for(n, BLOCK_LEN)
                               for n in n_vis)
         cases.append((name, args, kw, nbytes,
-                      4 * HEAD_DIM * HEADS * n_vis.sum()))
+                      4 * HEAD_DIM * heads * n_vis.sum()))
     return cases
 
 
@@ -382,7 +435,7 @@ def kernel_cases(dtype, gen, rng):
     return cases
 
 
-def prefill_case(dtype, randn, starts, pools, rng):
+def prefill_case(dtype, randn, starts, pools, rng, heads=HEADS):
     """(name, args, kwargs, bytes, flops) of K7: a ``CHUNK``-row chunk a
     slot starting at ``starts`` over ``pools`` (a table drawn from
     ``rng``); the bytes count each visible key's K and V row, q, out,
@@ -393,16 +446,16 @@ def prefill_case(dtype, randn, starts, pools, rng):
     B, extent = len(starts), MAX_LEN // BLOCK_LEN * BLOCK_LEN
     n_keys = np.minimum(starts.astype(np.int64) + CHUNK, extent)
     table = tail_filled_table(n_keys, rng)
-    args = (randn(B, CHUNK, HEADS, HEAD_DIM), *pools,
+    args = (randn(B, CHUNK, heads, HEAD_DIM), *pools,
             torch.as_tensor(starts, device=dev),
             torch.as_tensor(table, device=dev))
     rows = np.minimum(starts[:, None].astype(np.int64) + np.arange(CHUNK) + 1,
                       extent)
-    kv_bytes = 2 * n_keys.sum() * HEADS * HEAD_DIM * esize
+    kv_bytes = 2 * n_keys.sum() * heads * HEAD_DIM * esize
     tab_bytes = 4 * sum(kv_cache.blocks_for(n, BLOCK_LEN) for n in n_keys)
     return ("flash_prefill_paged", args, {"block_len": BLOCK_LEN},
-            kv_bytes + 2 * B * CHUNK * HEADS * HEAD_DIM * esize + B * 4
-            + tab_bytes, 4 * HEAD_DIM * HEADS * rows.sum())
+            kv_bytes + 2 * B * CHUNK * heads * HEAD_DIM * esize + B * 4
+            + tab_bytes, 4 * HEAD_DIM * heads * rows.sum())
 
 
 def library_call(name, args, block_len=None):
@@ -525,23 +578,29 @@ def phase_kernels(record):
             return torch.randn(shape, generator=pre_gen,
                                device="cuda").to(dtype)
 
-        pools = (randn(NUM_BLOCKS, HEADS, BLOCK_LEN, HEAD_DIM),
-                 randn(NUM_BLOCKS, HEADS, BLOCK_LEN, HEAD_DIM))
         one_slot = np.array([MAX_LEN - 1], np.int32)
-        for label, lengths, starts in (
+        # The serve mix's occupancy at 16 heads and, for phase 10's
+        # tensor-parallel ranks, at 16 / T.
+        for label, lengths, starts, heads in (
                 ("serve_mix", serve_mix_lengths(mix_rng),
-                 np.zeros(32, np.int32)),
+                 np.zeros(32, np.int32), HEADS),
                 ("one_slot", (one_slot, one_slot),
-                 np.array([MAX_LEN - CHUNK], np.int32))):
-            cases = decode_cases(dtype, randn, *lengths, pools, mix_rng)
+                 np.array([MAX_LEN - CHUNK], np.int32), HEADS),
+                ("tp2", serve_mix_lengths(mix_rng), np.zeros(32, np.int32),
+                 HEADS // TP)):
+            pools = (randn(NUM_BLOCKS, heads, BLOCK_LEN, HEAD_DIM),
+                     randn(NUM_BLOCKS, heads, BLOCK_LEN, HEAD_DIM))
+            cases = decode_cases(dtype, randn, *lengths, pools, mix_rng,
+                                 heads)
             cases.append(prefill_case(dtype, pre_randn, starts, pools,
-                                      pre_rng))
+                                      pre_rng, heads))
             for name, args, kw, nbytes, flops in cases:
                 rec = check_and_time(name, args, kw, nbytes, flops, dtype)
                 what = "starts" if name == "flash_prefill_paged" \
                     else "lengths"
                 print(f"phase 1 {name} {str(dtype)[6:]} {label} [B="
-                      f"{args[0].shape[0]}, {what} {args[3].min().item()}-"
+                      f"{args[0].shape[0]}, heads {heads}, {what} "
+                      f"{args[3].min().item()}-"
                       f"{args[3].max().item()}]: max_abs_err "
                       f"{rec['max_abs_err']:.3e} (tol {tol}), "
                       f"{timings(rec, flops)}", flush=True)
@@ -905,7 +964,7 @@ def phase_tp_kernels(record):
     past what the grid holds in registers, aligned and not; K4 within
     tolerance; both timed at the shapes of phase 7."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for C in (RING_CHUNK, 1, 1000, 2 ** 20 + 3, HOP_LARGE):
+    for C in (RING_CHUNK, PROLOGUE_CHUNK, 1, 1000, 2 ** 20 + 3, HOP_LARGE):
         for case, (*args, vector) in hop_cases(C, gen).items():
             line = check_hop("quant_ring_hop", C, case, qr.fused_hop,
                              qr.fused_hop_plain, args, vector)
@@ -1474,9 +1533,11 @@ def phase_train():
 def tp_runner(job, program, mesh):
     """AutoDist + Pipeline on the pipelined LM at full width, depth
     ``job["layers"]``, over ``mesh`` (``virtual_stages`` the layers a
-    pipe rank holds, ``tensor_parallel`` the model axis); weights from
-    seed 0 on the card (every rank draws the same tree and keeps its
-    chunks' shard)."""
+    pipe rank holds, ``tensor_parallel`` the model axis) with a program
+    of phase 6 (``TP_PROGRAMS``) or of phase 7's window
+    (``WINDOW_PROGRAMS``); weights from seed 0 on the card (every rank
+    draws the same tree and keeps its chunks' shard)."""
+    programs = WINDOW_PROGRAMS if job["kind"] == "window" else TP_PROGRAMS
     cfg = port.TransformerConfig(
         vocab_size=VOCAB, hidden_size=HIDDEN, num_layers=job["layers"],
         num_heads=HEADS, mlp_dim=MLP, max_len=job["seq"], dtype=job["dtype"],
@@ -1486,7 +1547,7 @@ def tp_runner(job, program, mesh):
     builder = Pipeline(num_microbatches=TP_MICRO,
                        virtual_stages=job["layers"] // mesh.get("pipe", 1),
                        tensor_parallel=mesh.get("model", 1),
-                       **TP_PROGRAMS[program])
+                       **programs[program])
     return port.AutoDist({"mesh": mesh}, builder).build(trainable)
 
 
@@ -1539,7 +1600,9 @@ def tp_window_programs(job):
     out = {}
     layers = job["layers"] // job["mesh"].get("pipe", 1)
     for program in job["programs"]:
+        torch.cuda.reset_peak_memory_stats()
         runner = tp_runner(job, program, job["mesh"])
+        pipe = runner.lowered.mesh.axis("pipe").index
         window = runner.place_steps(tp_window(job, TP_STEPS))
         cm.fused_matmul_add.staged = qr.fused_hop.unaligned = 0
         dt, metrics = timed_window(runner, window)
@@ -1557,11 +1620,12 @@ def tp_window_programs(job):
               f"{program}: non-finite loss {losses}")
         want = dict.fromkeys(TP_KERNELS, 0)
         want.update({k: n * TP_STEPS
-                     for k, n in tp_want(program, layers).items()})
+                     for k, n in tp_want(program, layers, pipe == 0).items()})
         check(got == want, f"{program} on {job['mesh']}: launches {got}, "
                            f"expected {want}")
         prof = profile_steps(runner, window, k=2, watch="ring_hop_kernel")
         out[program] = {"seconds": dt, "launches": got, "peak_gb": peak_gb,
+                        "pipe": pipe,
                         "loss": [float(losses[0]), float(losses[-1])],
                         "profile": prof, "route": route}
         runner.close()
@@ -1580,7 +1644,8 @@ def rank_worker(rank, world, backend, store, job, out_dir):
     testing.init_rank(rank, world, store, backend)
     job = dict(job, backend=backend)
     run = {"parity": tp_parity, "window": tp_window_programs,
-           "moe_parity": moe_parity, "moe_window": moe_window_programs}
+           "moe_parity": moe_parity, "moe_window": moe_window_programs,
+           "serve": tp_serve}
     result = run[job["kind"]](job)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(result, f)
@@ -1627,6 +1692,9 @@ def phase_tp_parity():
                       f"{program} on {mesh}: the ranks' losses differ: "
                       f"{ranks}")
         pairs = [("fp32", one, 1e-4, "T = 1")]
+        if "fp32 vocab" in got:
+            pairs.append(("fp32 vocab", got["fp32"], 1e-5,
+                          "the full-vocab head"))
         if "matmul" in got:
             pairs += [("collective_matmul", got["matmul"], 1e-5,
                        "composed matmul"),
@@ -1651,16 +1719,17 @@ def phase_tp_window():
     job = {"kind": "window", "layers": TP_LAYERS, "seq": TP_SEQ,
            "batch": TP_BATCH, "dtype": torch.bfloat16}
     programs = ["fp32", "int8", "quant_ring", "collective_matmul"]
+    quant = programs + ["fp32 full head"]
     pipe_only = {"data": 1, "pipe": PIPE}
-    runs = [("gloo", TP_MESH, programs), ("gloo", QUANT_MESH, programs)]
+    runs = [("gloo", TP_MESH, programs), ("gloo", QUANT_MESH, quant)]
     cards = torch.cuda.device_count()
     if cards >= TP:
         runs += [("nccl", TP_MESH, programs), ("nccl", pipe_only, ["fp32"])]
     if cards >= math.prod(QUANT_MESH.values()):
-        runs.append(("nccl", QUANT_MESH, programs))
+        runs.append(("nccl", QUANT_MESH, quant))
     counts = {}
     tokens = TP_STEPS * TP_BATCH * TP_SEQ
-    for backend, mesh, progs in runs:
+    for backend, mesh, progs in transports(runs):
         world = math.prod(mesh.values())
         label = (f"{mesh_label(mesh)}, {world} ranks on one card, gloo, "
                  f"transfers through host" if backend == "gloo" else
@@ -1691,6 +1760,188 @@ def phase_tp_window():
             if backend == "gloo":
                 for name, n in r0["launches"].items():
                     counts[name] = counts.get(name, 0) + n
+        if "fp32 full head" in progs:
+            # The last pipe coordinate holds the loss head: the
+            # vocab-parallel head's peak must sit below the full one's.
+            last = [(r["fp32"]["peak_gb"], r["fp32 full head"]["peak_gb"])
+                    for r in ranks if r["fp32"]["pipe"] == PIPE - 1]
+            check(all(vp < full for vp, full in last),
+                  f"{label}: the last pipe coordinate's peak memory with "
+                  f"vocab_parallel {last} is not below the full head's")
+            print(f"phase 7 [{label}] last pipe coordinate's peak memory "
+                  f"per rank: vocab_parallel " + ", ".join(
+                      f"{vp:.2f}" for vp, _ in last) + " GB, full-vocab "
+                  "head " + ", ".join(f"{full:.2f}" for _, full in last)
+                  + " GB", flush=True)
+    return counts
+
+
+# --------------------------------------------------------------------- #
+# phase 10: tensor-parallel serving
+# --------------------------------------------------------------------- #
+# The serve mix's model at tensor parallel 2, the vocabulary sharded:
+# each rank holds 8 of the 16 heads and half of the table; cut to 4 of
+# its 8 layers to keep the whole script near its earlier run time.
+SERVE_TP_LAYERS = 4
+SERVE_TP_NEW = 24          # new tokens a request of the fp32 parity
+
+
+def tp_serve_prompts(rng):
+    """Phase 10's fp32 requests by layout: one of the longest prompt the
+    engine takes, one random, one of a single token."""
+    return {layout: [rng.randint(0, VOCAB, int(n)).tolist()
+                     for n in (longest, rng.randint(1, longest + 1), 1)]
+            for layout, longest in (("dense", 64), ("paged", 200))}
+
+
+def tp_serve_mix(engine, layers, backend, label):
+    """The bf16 serve mix on one tensor-parallel engine (``serve_mix``:
+    the launch counters set to 0 just before it), held to the attention
+    calls it made and to its route: gloo ranks keep the host loop, NCCL
+    ranks capture one decode graph and replay it a window."""
+    wall, comps, calls, got, replays = serve_mix(engine,
+                                                 np.random.RandomState(0))
+    check(all(c.finish_reason in FINISH_REASONS for c in comps),
+          "invalid finish reason")
+    check(all(0 <= t < VOCAB for c in comps for t in c.tokens),
+          "token outside the vocabulary")
+    free, used, total = engine.block_accounting()
+    check(used == 0 and free == total, f"blocks leaked: {free, used}")
+    if backend == "nccl":
+        check(engine.captures == 1 and replays == calls["windows"] > 0,
+              f"{label}: {engine.captures} captures and {replays} replays "
+              f"for {calls['windows']} windows")
+    else:
+        check(engine.captures == engine.replays == 0,
+              f"{label}: the gloo group captured a decode graph")
+    want = dict.fromkeys(KERNELS, 0)
+    if engine.kv_layout == "dense":
+        want["flash_decode"] = layers * engine.decode_steps * calls["windows"]
+    else:
+        want["flash_decode_paged"] = (layers * engine.decode_steps
+                                      * calls["windows"])
+        want["flash_prefill_paged"] = layers * calls["chunks"]
+    check(got == want, f"{label}: launches {got}, attention calls {want}")
+    cuda_core = fp.flash_prefill_attention_paged.cuda_core_launches
+    check(cuda_core == 0, f"{label}: K7's CUDA-core instance ran")
+    itl = [ms for c in comps for ms in c.inter_token_ms]
+    return {"wall": wall, "tokens": sum(len(c.tokens) for c in comps),
+            "ttft_p50": sorted(c.ttft_s * 1e3 for c in comps)[len(comps) // 2],
+            "itl": [float(np.percentile(itl, 50)),
+                    float(np.percentile(itl, 99))],
+            "windows": calls["windows"], "chunks": calls["chunks"],
+            "replays": replays, "captures": engine.captures,
+            "launches": got, "streams": [c.tokens for c in comps],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def tp_serve(job):
+    """Phase 10 in one rank of the tensor-parallel group: the fp32
+    streams of ``job["prompts"]`` on the dense and the paged + chunked
+    engine, then the bf16 serve mix on each (``tp_serve_mix``)."""
+    out = {"streams": {}, "mix": {}}
+    for dtype, seed in ((torch.float32, 1), (torch.bfloat16, 0)):
+        cfg = cfg_of(dtype, job["layers"])
+        params = port.init_pipeline_lm_params(
+            cfg, torch.Generator(device="cuda").manual_seed(seed),
+            device="cuda")
+        for layout in ENGINES:
+            torch.cuda.reset_peak_memory_stats()
+            engine = port.serve(cfg, params=params, device="cuda",
+                                tensor_parallel=TP, vocab_parallel=True,
+                                **ENGINES[layout])
+            if dtype == torch.float32:
+                batcher = port.ContinuousBatcher(engine)
+                rids = [batcher.submit(p, max_new_tokens=SERVE_TP_NEW)
+                        for p in job["prompts"][layout]]
+                done = batcher.run()
+                out["streams"][layout] = [done[r].tokens for r in rids]
+            else:
+                out["mix"][layout] = tp_serve_mix(
+                    engine, job["layers"], job["backend"],
+                    f"{layout} on {job['backend']}")
+            engine.close()
+            del engine
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp_serve():
+    """Serving at tensor parallel 2 with the vocabulary sharded: 2 ranks
+    on card 0 over gloo, and again over NCCL one rank a card where the
+    machine has 2 cards.  The fp32 streams equal the one-process
+    engine's (a divergence counts as a tie where the recompute's top two
+    logits are within 1e-4); the bf16 serve mix's numbers and counts."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    layers = SERVE_TP_LAYERS
+    cfg = cfg_of(torch.float32, layers)
+    params = port.init_pipeline_lm_params(
+        cfg, torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    prompts = tp_serve_prompts(np.random.RandomState(1))
+    want = {}
+    for layout in ENGINES:
+        engine = port.serve(cfg, params=params, device="cuda",
+                            **ENGINES[layout])
+        batcher = port.ContinuousBatcher(engine)
+        rids = [batcher.submit(p, max_new_tokens=SERVE_TP_NEW)
+                for p in prompts[layout]]
+        done = batcher.run()
+        want[layout] = [done[r].tokens for r in rids]
+        engine.close()
+    runs = [("gloo", f"{TP} ranks on one card, gloo, transfers through "
+                     "host")]
+    if torch.cuda.device_count() >= TP:
+        runs.append(("nccl", f"{TP} ranks on {TP} cards, NCCL"))
+    counts = {}
+    for backend, label in transports(runs):
+        ranks = spawn_ranks({"kind": "serve", "layers": layers,
+                             "prompts": prompts}, TP, backend)
+        for r in ranks[1:]:
+            check(r["streams"] == ranks[0]["streams"] and all(
+                r["mix"][lay]["streams"] == ranks[0]["mix"][lay]["streams"]
+                for lay in ENGINES), f"{label}: the ranks' streams differ")
+        ties = 0
+        for layout in ENGINES:
+            for p, got, ref in zip(prompts[layout],
+                                   ranks[0]["streams"][layout],
+                                   want[layout]):
+                if got == ref:
+                    continue
+                i = next(i for i, (a, b) in enumerate(zip(got, ref))
+                         if a != b)
+                seq = torch.as_tensor([p + ref[:i]], device="cuda")
+                top2 = sequential_logits(cfg, params, seq)[0, -1].topk(2)
+                gap = float(top2.values[0] - top2.values[1])
+                check(gap < 1e-4, f"{label} {layout}: token {i} is "
+                      f"{got[i]}, tensor parallel 1 gives {ref[i]} (top-2 "
+                      f"gap {gap})")
+                ties += 1
+        print(f"phase 10 fp32 {layers}-layer pipelined LM [{label}]: "
+              f"{sum(len(w) for w in want.values())} requests of "
+              f"{SERVE_TP_NEW} tokens, dense and paged + chunked, equal "
+              f"to tensor parallel 1 token for token (ties: {ties})",
+              flush=True)
+        for layout in ENGINES:
+            m = ranks[0]["mix"][layout]
+            peaks = ", ".join(f"{r['mix'][layout]['peak_gb']:.2f}"
+                              for r in ranks)
+            print(f"phase 10 {layout} bf16 [{label}, decode "
+                  f"{'graph' if m['captures'] else 'host loop'}]: "
+                  f"{m['tokens']} tokens in {m['wall']:.3f} s = "
+                  f"{m['tokens'] / m['wall']:.1f} tokens/s, TTFT p50 "
+                  f"{m['ttft_p50']:.2f} ms, inter-token p50 "
+                  f"{m['itl'][0]:.3f} ms p99 {m['itl'][1]:.3f} ms, windows "
+                  f"{m['windows']}, chunks {m['chunks']}, graph replays "
+                  f"{m['replays']}, captures {m['captures']}, peak memory "
+                  f"per rank {peaks} GB, rank 0 launches "
+                  f"{ {k: v for k, v in m['launches'].items() if v} }",
+                  flush=True)
+            if backend == "gloo":
+                for name, n in m["launches"].items():
+                    counts[name] = counts.get(name, 0) + n
+    del params
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -1823,7 +2074,7 @@ def phase_moe_window():
     if torch.cuda.device_count() >= EXPERT:
         runs.append(("nccl", f"{EXPERT} ranks on {EXPERT} cards, NCCL"))
     tokens = MOE_STEPS * job["batch"] * MOE_SEQ
-    for backend, label in runs:
+    for backend, label in transports(runs):
         ranks = spawn_ranks(job, EXPERT, backend)
         for program in job["programs"]:
             r0 = ranks[0][program]
@@ -1855,10 +2106,17 @@ def phase_moe_window():
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
-        "--phases", default="1,2,3,4,5,6,7,8,9",
+        "--phases", default="1,2,3,4,5,6,7,8,9,10",
         help="comma-separated phases to run (default: all); the kernels "
              "line needs them all")
-    phases = {int(p) for p in parser.parse_args(argv).phases.split(",")}
+    parser.add_argument(
+        "--nccl-only", action="store_true",
+        help="phases 7, 9 and 10 run only over NCCL, one rank a card (on "
+             "a machine of several cards)")
+    args = parser.parse_args(argv)
+    global NCCL_ONLY
+    NCCL_ONLY = args.nccl_only
+    phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1867,19 +2125,25 @@ def main(argv=None) -> int:
           f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} "
           f"card(s)", flush=True)
     record, counts = {}, {}
+
+    def add(found):
+        for name, n in found.items():
+            counts[name] = counts.get(name, 0) + n
+
     steps = [(1, lambda: (record.update(ptxas=ptxas_registers()),
                           phase_kernels(record),
                           phase_attention_kernels(record),
                           phase_tp_kernels(record),
                           phase_a2a_kernels(record))),
              (2, phase_parity),
-             (3, lambda: counts.update(phase_serve())),
+             (3, lambda: add(phase_serve())),
              (4, phase_training_parity),
-             (5, lambda: counts.update(phase_train())),
+             (5, lambda: add(phase_train())),
              (6, phase_tp_parity),
-             (7, lambda: counts.update(phase_tp_window())),
+             (7, lambda: add(phase_tp_window())),
              (8, phase_moe_parity),
-             (9, lambda: counts.update(phase_moe_window()))]
+             (9, lambda: add(phase_moe_window())),
+             (10, lambda: add(phase_tp_serve()))]
     for phase, run in steps:
         if phase in phases:
             t1 = time.perf_counter()
@@ -1910,7 +2174,7 @@ def main(argv=None) -> int:
                 kernels[-1]["k512"] = record[(name, dtype, 512)]
             kernels[-1].update(record["ptxas"].get(name, {}))
             if (name, dtype, "serve_mix") in record:     # K5-K7
-                for label in ("serve_mix", "one_slot"):
+                for label in ("serve_mix", "one_slot", "tp2"):
                     kernels[-1][label] = record[(name, dtype, label)]
                 kernels[-1]["ptxas_fp32"] = record["ptxas"][f"{name} fp32"]
             if f"{name} cuda_core" in counts:            # K7

@@ -87,12 +87,15 @@ def test_watched_names_follow_the_top_six():
 def test_phase7_holds_each_rank_to_its_layers(layers, k3, k4):
     """A rank's K3 and K4 launches a step follow the layers it holds:
     64 and 32 with all 4 at pipe 1, 32 and 16 with 2 at pipe 2 x model
-    2 (bubble ticks run no stage); the other programs launch neither."""
-    assert chip_smoke.tp_want("quant_ring", layers) == {
-        "quant_ring_hop": k3}
-    assert chip_smoke.tp_want("collective_matmul", layers) == {
-        "collective_matmul_hop": k4}
-    assert chip_smoke.tp_want("int8", layers) == {}
+    2 (bubble ticks run no stage); pipe rank 0 adds one K3 ring of 2
+    hops, the vocab-parallel prologue's lookup sum; the other programs
+    launch neither."""
+    for first in (False, True):
+        assert chip_smoke.tp_want("quant_ring", layers, first) == {
+            "quant_ring_hop": k3 + 2 * first}
+        assert chip_smoke.tp_want("collective_matmul", layers, first) == {
+            "collective_matmul_hop": k4}
+        assert chip_smoke.tp_want("int8", layers, first) == {}
 
 
 def test_a_missing_profile_prints_not_measured():

@@ -931,3 +931,84 @@ def test_cuda_decode_replay_equals_the_uncaptured_body(cuda, layout, dtype):
     assert (plain.captures, plain.replays) == (0, 0)
     assert captured == uncaptured
     assert captured[2][1] == "max_len"
+
+
+@pytest.mark.parametrize("vocab", [1000, 999])
+def test_cuda_streaming_cross_entropy_matches_the_cpu(cuda, vocab):
+    """The vocab-parallel loss head's streaming cross-entropy (one shard)
+    on CUDA tensors: nll, pred, dx and dW equal its CPU result within
+    1e-5 (fp32, TF32 off)."""
+    from autodist_tpu_torch.parallel.tensor import \
+        vocab_parallel_cross_entropy
+
+    r = np.random.RandomState(0)
+    x = torch.tensor(r.randn(2, 96, 64), dtype=torch.float32)
+    emb = torch.tensor(r.randn(vocab, 64) * 0.1, dtype=torch.float32)
+    targets = torch.tensor(r.randint(0, vocab, (2, 96)))
+
+    def run(device):
+        xx = x.to(device).requires_grad_()
+        ee = emb.to(device).requires_grad_()
+        nll, pred = vocab_parallel_cross_entropy(
+            xx, ee, targets.to(device), vocab_size=vocab, seq_chunk=32)
+        nll.mean().backward()
+        return [t.detach().cpu() for t in (nll, pred, xx.grad, ee.grad)]
+
+    got, want = run(cuda), run("cpu")
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+
+
+_TP_SERVING_WORKER = """
+import sys
+import torch
+import autodist_tpu_torch as port
+from autodist_tpu_torch import testing
+from autodist_tpu_torch.kernel import flash_decode as fd
+rank, world, store, inp, out = (int(sys.argv[1]), int(sys.argv[2]),
+                                sys.argv[3], sys.argv[4], sys.argv[5])
+torch.cuda.set_device(0)
+torch.backends.cuda.matmul.allow_tf32 = False
+testing.init_rank(rank, world, store)
+job = torch.load(inp, weights_only=False)
+engine = port.serve(job["cfg"], params=job["params"], device="cuda",
+                    tensor_parallel=2, vocab_parallel=True, **job["kw"])
+batcher = port.ContinuousBatcher(engine)
+rids = [batcher.submit(p, max_new_tokens=m) for p, m in job["reqs"]]
+done = batcher.run()
+if rank == 0:
+    torch.save({"streams": [done[r].tokens for r in rids],
+                "launches": fd.flash_decode_attention.launches,
+                "captures": engine.captures}, out)
+testing.end_rank()
+"""
+
+
+def test_cuda_tp2_serving_stream_equals_tp1(cuda, tmp_path):
+    """Two gloo ranks on the card serve at tensor parallel 2 with the
+    vocabulary sharded (vocab 97, odd): their fp32 streams equal the
+    tp-1 engine's on the card, K5 launches at 1 of the 2 heads, and the
+    gloo group keeps the decode loop on the host (no capture)."""
+    from autodist_tpu_torch import testing
+
+    cfg = port.TransformerConfig(
+        vocab_size=97, hidden_size=128, num_layers=2, num_heads=2, mlp_dim=256,
+        max_len=48, dtype=torch.float32, dropout_rate=0.0,
+        attention_dropout_rate=0.0)
+    params = port.init_pipeline_lm_params(
+        cfg, torch.Generator().manual_seed(0), device="cpu")
+    kw = dict(num_slots=2, prefill_len=16, decode_steps=4)
+    rng = np.random.RandomState(0)
+    reqs = [(rng.randint(0, 97, n).tolist(), m) for n, m in [(5, 9), (16, 7)]]
+    inp, out = str(tmp_path / "job.pt"), str(tmp_path / "res.pt")
+    torch.save({"cfg": cfg, "params": params, "kw": kw, "reqs": reqs}, inp)
+    join = testing.launch(_TP_SERVING_WORKER, 2, (inp, out), tmp=tmp_path,
+                          timeout=600)
+    batcher = port.ContinuousBatcher(port.serve(cfg, params=params,
+                                                device=cuda, **kw))
+    rids = [batcher.submit(p, max_new_tokens=m) for p, m in reqs]
+    done = batcher.run()
+    join()
+    got = torch.load(out, weights_only=False)
+    assert got["streams"] == [done[r].tokens for r in rids]
+    assert got["launches"] > 0 and got["captures"] == 0

@@ -268,7 +268,8 @@ def test_batcher_telemetry(tcfg, tparams):
 # what the slice refuses
 # --------------------------------------------------------------------------- #
 @pytest.mark.parametrize("kw", [
-    dict(tensor_parallel=2), dict(vocab_parallel=True),
+    dict(tensor_parallel=2, temperature=0.7),
+    dict(tensor_parallel=2, vocab_parallel=True, speculative=2),
     dict(comm_overlap="rsag"), dict(temperature=0.7), dict(top_k=4),
     dict(speculative=2), dict(kv_layout="paged", prefix_caching=True)])
 def test_out_of_slice_options_raise(kw, tcfg, tparams):
