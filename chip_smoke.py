@@ -141,9 +141,7 @@ model 2 too; each prints apart.  Every rank joins and leaves the job through
 Any failed check raises, in any rank, and the script exits non-zero;
 without a CUDA device it exits 2 and prints no result.  ``--phases 7,9``
 (a comma-separated list) runs only those phases and prints no kernels
-line; ``--nccl-only`` (on a machine of several cards) skips the gloo
-runs of phases 7, 9 and 10.  Each phase prints its seconds.  Imports
-torch, numpy and
+line.  Each phase prints its seconds.  Imports torch, numpy and
 ``autodist_tpu_torch`` only.
 """
 from __future__ import annotations
@@ -313,16 +311,6 @@ def tp_want(program, layers, first):
             "collective_matmul": {
                 "collective_matmul_hop": TP * 2 * layers * TP_MICRO},
             }.get(program, {})
-
-
-# ``--nccl-only``: phases 7, 9 and 10 skip their runs over gloo.
-NCCL_ONLY = False
-
-
-def transports(runs):
-    """The runs of a phase this invocation makes: every one, or those
-    over NCCL with ``--nccl-only``."""
-    return [r for r in runs if not NCCL_ONLY or r[0] == "nccl"]
 
 
 def check(cond, msg):
@@ -1729,7 +1717,7 @@ def phase_tp_window():
         runs.append(("nccl", QUANT_MESH, quant))
     counts = {}
     tokens = TP_STEPS * TP_BATCH * TP_SEQ
-    for backend, mesh, progs in transports(runs):
+    for backend, mesh, progs in runs:
         world = math.prod(mesh.values())
         label = (f"{mesh_label(mesh)}, {world} ranks on one card, gloo, "
                  f"transfers through host" if backend == "gloo" else
@@ -1894,7 +1882,7 @@ def phase_tp_serve():
     if torch.cuda.device_count() >= TP:
         runs.append(("nccl", f"{TP} ranks on {TP} cards, NCCL"))
     counts = {}
-    for backend, label in transports(runs):
+    for backend, label in runs:
         ranks = spawn_ranks({"kind": "serve", "layers": layers,
                              "prompts": prompts}, TP, backend)
         for r in ranks[1:]:
@@ -2074,7 +2062,7 @@ def phase_moe_window():
     if torch.cuda.device_count() >= EXPERT:
         runs.append(("nccl", f"{EXPERT} ranks on {EXPERT} cards, NCCL"))
     tokens = MOE_STEPS * job["batch"] * MOE_SEQ
-    for backend, label in transports(runs):
+    for backend, label in runs:
         ranks = spawn_ranks(job, EXPERT, backend)
         for program in job["programs"]:
             r0 = ranks[0][program]
@@ -2109,14 +2097,7 @@ def main(argv=None) -> int:
         "--phases", default="1,2,3,4,5,6,7,8,9,10",
         help="comma-separated phases to run (default: all); the kernels "
              "line needs them all")
-    parser.add_argument(
-        "--nccl-only", action="store_true",
-        help="phases 7, 9 and 10 run only over NCCL, one rank a card (on "
-             "a machine of several cards)")
-    args = parser.parse_args(argv)
-    global NCCL_ONLY
-    NCCL_ONLY = args.nccl_only
-    phases = {int(p) for p in args.phases.split(",")}
+    phases = {int(p) for p in parser.parse_args(argv).phases.split(",")}
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
