@@ -18,10 +18,17 @@ stages (``AutoDist({"mesh": {"data": d, "pipe": p, "model": t}},
 Pipeline(num_microbatches=M, virtual_stages=V, tensor_parallel=t,
 ...)).build(make_pipeline_lm_trainable(...))``) with the quantized-ring
 and collective-matmul hop kernels;
-and expert-parallel training of the MoE LM (``AutoDist({"mesh":
+expert-parallel training of the MoE LM (``AutoDist({"mesh":
 {"data": d, "expert": e}}, ExpertParallel(...)).build(
 make_moe_lm_trainable(...))``) with the quantized all-to-all ring's hop
-kernel.  ROADMAP.md lists what comes next.
+kernel; and sequence-parallel training of the causal LM over a seq
+axis (``AutoDist({"mesh": {"data": d, "seq": s}},
+SequenceParallel()).build(make_lm_trainable(cfg, ...))``, the config's
+``attention_fn`` a ring from :mod:`autodist_tpu_torch.parallel
+.ring_attention` and its ``position_fn``
+:func:`~autodist_tpu_torch.parallel.sequence.global_positions`) with
+the flash-attention kernels per ring chunk.  ROADMAP.md lists what
+comes next.
 """
 from autodist_tpu_torch import optim
 from autodist_tpu_torch.autodist import AutoDist
@@ -31,19 +38,24 @@ from autodist_tpu_torch.models.moe_transformer import (MoeConfig,
                                                        make_moe_lm_trainable)
 from autodist_tpu_torch.models.pipeline_lm import (init_pipeline_lm_params,
                                                    make_pipeline_lm_trainable)
-from autodist_tpu_torch.models.transformer import TransformerConfig
+from autodist_tpu_torch.models.transformer import (TransformerConfig,
+                                                   TransformerLM,
+                                                   lm_loss_head,
+                                                   make_lm_trainable)
 from autodist_tpu_torch.resource import ResourceSpec
 from autodist_tpu_torch.runner import DistributedRunner, stack_steps
 from autodist_tpu_torch.serving import (ContinuousBatcher, ServingEngine,
                                         serve)
 from autodist_tpu_torch.strategy.builders import (AllReduce, ExpertParallel,
-                                                  Pipeline)
+                                                  Pipeline, SequenceParallel)
 from autodist_tpu_torch.strategy.ir import Strategy
 
 __all__ = ["AutoDist", "Trainable", "PipelineTrainable", "VarInfo",
            "ResourceSpec", "DistributedRunner", "stack_steps", "Strategy",
-           "AllReduce", "Pipeline", "ExpertParallel", "optim", "serve",
+           "AllReduce", "Pipeline", "ExpertParallel", "SequenceParallel",
+           "optim", "serve",
            "ServingEngine", "ContinuousBatcher", "TransformerConfig",
            "init_pipeline_lm_params", "make_pipeline_lm_trainable",
-           "MoeConfig", "make_moe_lm_trainable", "from_jax_params",
+           "MoeConfig", "make_moe_lm_trainable", "TransformerLM",
+           "lm_loss_head", "make_lm_trainable", "from_jax_params",
            "to_jax_params"]

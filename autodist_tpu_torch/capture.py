@@ -3,7 +3,8 @@
 Counterpart of ``autodist_tpu/capture.py``.  A :class:`Trainable`
 bundles the pure loss function, the initial parameter tree (a nested
 dict of tensors, named as flax names it) and an optimizer from
-:mod:`autodist_tpu_torch.optim`; :meth:`Trainable.var_infos` is the
+:mod:`autodist_tpu_torch.optim` (:meth:`Trainable.from_loss_fn` wraps a
+plain ``loss_fn(params, batch)``); :meth:`Trainable.var_infos` is the
 per-variable inventory the strategy builders consume, in the order and
 under the names the JAX package gives (``/``-joined, sorted keys).
 
@@ -52,6 +53,20 @@ class Trainable:
         self.optimizer = optimizer
         self.extra = extra
         self._explicit_sparse = set(sparse_params)
+
+    @classmethod
+    def from_loss_fn(cls, loss_fn, params, optimizer, *, with_rng=False,
+                     **kw):
+        """Wrap ``loss_fn(params, batch)`` (or ``(params, batch, rng)``
+        with ``with_rng``) returning a scalar loss or ``(loss,
+        metrics)``; the metrics gain ``loss``."""
+
+        def canonical(p, extra, batch, rng):
+            out = loss_fn(p, batch, rng) if with_rng else loss_fn(p, batch)
+            loss, metrics = out if isinstance(out, tuple) else (out, {})
+            return loss, extra, dict(metrics, loss=loss)
+
+        return cls(canonical, params, optimizer, **kw)
 
     def var_infos(self) -> list:
         infos = []

@@ -1,6 +1,6 @@
 """Convert parameter trees between the two packages.
 
-Three models so far, each with its own leaf list:
+Four models so far, each with its own leaf list:
 
 * the pipelined LM's logical tree (``make_pipeline_lm_trainable(...)
   .params`` or a ``checkpoint/export`` artifact's ``params/``; see
@@ -11,7 +11,11 @@ Three models so far, each with its own leaf list:
   see :mod:`autodist_tpu_torch.models.bert`);
 * the MoE LM's flax tree (``make_moe_lm_trainable(...).params``, e.g.
   ``layer_0_moe/expert_wi`` ``[E, H, F]``; see
-  :mod:`autodist_tpu_torch.models.moe_transformer`).
+  :mod:`autodist_tpu_torch.models.moe_transformer`);
+* ``TransformerLM``'s flax tree (``make_lm_trainable(...).params``:
+  ``token_embed/embedding``, ``pos_embed``, ``encoder/layer_i/...`` as
+  BERT's, ``ln_final/{scale,bias}``; see
+  :mod:`autodist_tpu_torch.models.transformer`).
 
 The JAX tree (numpy or JAX arrays) and the port's tree share names,
 nesting and layouts leaf for leaf, so the conversion moves bytes and
@@ -52,19 +56,31 @@ PIPELINE_LM_LEAVES = (
 )
 
 
-def bert_leaves(num_layers: int) -> tuple:
-    """Every leaf of BERT's flax tree at ``num_layers`` layers."""
+def _encoder_leaves(num_layers: int) -> tuple:
+    """Every leaf of the flax encoder's ``encoder/layer_i`` subtrees."""
     dense = ("kernel", "bias")
     norm = ("scale", "bias")
     layer = ([f"attention/{m}/{p}" for m in ("qkv", "out") for p in dense]
              + [f"ln_attention/{p}" for p in norm]
              + [f"mlp/{m}/{p}" for m in ("wi", "wo") for p in dense]
              + [f"ln_mlp/{p}" for p in norm])
+    return tuple(f"encoder/layer_{i}/{leaf}" for i in range(num_layers)
+                 for leaf in layer)
+
+
+def bert_leaves(num_layers: int) -> tuple:
+    """Every leaf of BERT's flax tree at ``num_layers`` layers."""
     return (("token_embed/embedding", "pos_embed", "segment_embed/embedding",
              "ln_embed/scale", "ln_embed/bias", "mlm_dense/kernel",
              "mlm_dense/bias", "mlm_ln/scale", "mlm_ln/bias", "mlm_bias")
-            + tuple(f"encoder/layer_{i}/{leaf}" for i in range(num_layers)
-                    for leaf in layer))
+            + _encoder_leaves(num_layers))
+
+
+def transformer_lm_leaves(num_layers: int) -> tuple:
+    """Every leaf of ``TransformerLM``'s flax tree at ``num_layers``
+    layers."""
+    return (("token_embed/embedding", "pos_embed", "ln_final/scale",
+             "ln_final/bias") + _encoder_leaves(num_layers))
 
 
 def moe_lm_leaves(num_layers: int) -> tuple:
@@ -85,14 +101,16 @@ def _check_leaves(flat):
     names = set(flat)
     layers = {n.split("/")[1] for n in names if n.startswith("encoder/")}
     moe_layers = {n.split("_")[1] for n in names if n.startswith("layer_")}
-    want = set(bert_leaves(len(layers)) if layers
+    want = set(bert_leaves(len(layers)) if "mlm_bias" in names
+               else transformer_lm_leaves(len(layers)) if layers
                else moe_lm_leaves(len(moe_layers)) if moe_layers
                else PIPELINE_LM_LEAVES)
     if names == want:
         return
     raise ValueError(
-        f"not a pipelined-LM, BERT or MoE-LM parameter tree: missing "
-        f"{sorted(want - names)}, unexpected {sorted(names - want)}")
+        f"not a pipelined-LM, BERT, TransformerLM or MoE-LM parameter "
+        f"tree: missing {sorted(want - names)}, unexpected "
+        f"{sorted(names - want)}")
 
 
 def _to_torch(a) -> torch.Tensor:

@@ -21,11 +21,12 @@ process of the job:
 
 The step updates nothing in place: it returns a new state.  Other
 update spaces (``U_FLAT``, ``U_AXIS``), compressors, gradient
-accumulation and the lowerings other than ``pipeline`` and ``expert``
-(:mod:`autodist_tpu_torch.parallel.pipeline` and
-:mod:`autodist_tpu_torch.parallel.moe`, to which :func:`lower` hands a
-``Pipeline`` and an ``ExpertParallel`` strategy) raise
-``NotImplementedError`` naming their ROADMAP item.
+accumulation and the lowerings other than ``pipeline``, ``expert`` and
+``sequence`` (:mod:`autodist_tpu_torch.parallel.pipeline`,
+:mod:`autodist_tpu_torch.parallel.moe` and
+:mod:`autodist_tpu_torch.parallel.sequence`, to which :func:`lower`
+hands a ``Pipeline``, an ``ExpertParallel`` and a ``SequenceParallel``
+strategy) raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -71,7 +72,7 @@ def make_plan(trainable, strategy, mesh) -> Plan:
     if gc.lowering != "collective":
         raise NotImplementedError(
             f"the {gc.lowering!r} lowering is not ported yet (ROADMAP "
-            f"Queue 1, slice 5 and item 8)")
+            f"Queue 1, item 8)")
     if any(size > 1 for ax, size in mesh.shape.items()
            if ax != const.DATA_AXIS):
         raise ValueError(f"the collective lowering runs on a data-only "
@@ -132,7 +133,9 @@ class Lowered:
     collective where variables are sharded; the identity otherwise);
     ``batch_axis`` is the :class:`~autodist_tpu_torch.parallel.axis
     .Axis` whose ranks each take a shard of the batch (``None``: the
-    data axis)."""
+    data axis); ``placement`` (``batch -> {leaf name: ((dim, Axis),
+    ...)}``), where given, replaces that single batch axis per leaf
+    (:meth:`placement_of`)."""
 
     plan: Any
     mesh: Any
@@ -141,10 +144,20 @@ class Lowered:
     step_fn: Callable     # (state, batch, rng) -> (state, metrics)
     full_params_fn: Optional[Callable] = None
     batch_axis: Any = None
+    placement: Optional[Callable] = None
 
     def __post_init__(self):
         if self.batch_axis is None:
             self.batch_axis = self.mesh.axis(const.DATA_AXIS)
+
+    def placement_of(self, batch) -> dict:
+        """``{leaf name: ((dim, Axis), ...)}``: each leaf of a step's
+        batch is cut along each ``dim`` over each axis, this rank
+        keeping its contiguous slice (a leaf with fewer dims goes
+        whole).  By default every leaf's dim 0 over ``batch_axis``."""
+        if self.placement is not None:
+            return self.placement(batch)
+        return {name: ((0, self.batch_axis),) for name in batch}
 
     @property
     def host_staged(self) -> bool:
@@ -172,7 +185,8 @@ def lower(trainable, strategy, mesh, device=None) -> Lowered:
     """Build the train step for (trainable, strategy, mesh) on ``device``
     (``None``: the card): the data-parallel step here, the pipeline
     lowering for a ``Pipeline`` strategy, the expert lowering for an
-    ``ExpertParallel`` one."""
+    ``ExpertParallel`` one, the sequence lowering for a
+    ``SequenceParallel`` one."""
     if strategy.graph_config.lowering == "pipeline":
         from autodist_tpu_torch.parallel.pipeline import lower_pipeline
 
@@ -181,6 +195,10 @@ def lower(trainable, strategy, mesh, device=None) -> Lowered:
         from autodist_tpu_torch.parallel.moe import lower_expert_ir
 
         return lower_expert_ir(trainable, strategy, mesh, device)
+    if strategy.graph_config.lowering == "sequence":
+        from autodist_tpu_torch.parallel.sequence import lower_sequence_ir
+
+        return lower_sequence_ir(trainable, strategy, mesh, device)
     plan = make_plan(trainable, strategy, mesh)
     n, dev, opt = plan.num_replicas, resolve_device(device), trainable.optimizer
     names = list(plan.var_plans)

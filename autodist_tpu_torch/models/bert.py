@@ -18,8 +18,6 @@ logits are fp32.
 """
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -29,8 +27,8 @@ from autodist_tpu_torch import cuda_graph
 from autodist_tpu_torch.capture import Trainable
 from autodist_tpu_torch.device import resolve_device
 from autodist_tpu_torch.kernel.common import flatten_with_names, unflatten
-from autodist_tpu_torch.models.transformer import (DenseGeneral, Encoder,
-                                                   LayerNorm,
+from autodist_tpu_torch.models.transformer import (DenseGeneral, Embed,
+                                                   Encoder, LayerNorm,
                                                    TransformerConfig,
                                                    dropout, normal)
 
@@ -51,17 +49,6 @@ def mlm_model_flops_per_example(cfg, seq_len: int, num_masked: int) -> float:
     encoder_fwd = L * cfg.num_layers * per_token_layer
     head_fwd = P * (2.0 * H * H + 2.0 * H * V)
     return 3.0 * (encoder_fwd + head_fwd)
-
-
-class Embed(nn.Module):
-    """flax ``nn.Embed``'s table, drawn from its default init
-    ``variance_scaling(1, "fan_in", "normal", out_axis=0)``: N(0, 1/H)."""
-
-    def __init__(self, num_embeddings: int, features: int, generator):
-        super().__init__()
-        self.embedding = nn.Parameter(normal(
-            (num_embeddings, features), 1.0 / math.sqrt(features),
-            generator))
 
 
 class BertModel(nn.Module):

@@ -29,14 +29,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from autodist_tpu_torch import const
 from autodist_tpu_torch.capture import Trainable
 from autodist_tpu_torch.device import resolve_device
 from autodist_tpu_torch.kernel.common import flatten_with_names, unflatten
-from autodist_tpu_torch.models.bert import Embed
-from autodist_tpu_torch.models.transformer import (LayerNorm, SelfAttention,
+from autodist_tpu_torch.models.transformer import (Embed, LayerNorm,
+                                                   SelfAttention,
                                                    TransformerConfig, normal)
-from autodist_tpu_torch.parallel.moe import (active_expert_axis,
-                                             dense_moe_reference,
+from autodist_tpu_torch.parallel.axis import bound_axis
+from autodist_tpu_torch.parallel.moe import (dense_moe_reference,
                                              expert_capacity,
                                              expert_parallel_ffn)
 
@@ -65,9 +66,9 @@ class MoeConfig:
 
 class MoeBlock(nn.Module):
     """Top-2 gated expert MLP over the flattened tokens, in fp32.  With
-    ``expert_sharded`` the tables hold this rank's experts and the axis
-    comes from the lowering's :func:`~autodist_tpu_torch.parallel.moe
-    .expert_scope`."""
+    ``expert_sharded`` the tables hold this rank's experts and the
+    expert axis is the one the lowering binds by name
+    (:func:`~autodist_tpu_torch.parallel.axis.bound_axis`)."""
 
     def __init__(self, cfg: MoeConfig, expert_sharded: bool, generator):
         super().__init__()
@@ -87,7 +88,8 @@ class MoeBlock(nn.Module):
             precision, kernel = a2a
             out, aux = expert_parallel_ffn(
                 tokens, self.expert_gate, self.expert_wi, self.expert_wo,
-                active_expert_axis(), capacity_factor=cfg.capacity_factor,
+                bound_axis(const.EXPERT_AXIS),
+                capacity_factor=cfg.capacity_factor,
                 a2a_precision=precision, a2a_kernel=kernel)
         else:
             capacity = expert_capacity(tokens.shape[0],

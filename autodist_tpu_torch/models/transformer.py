@@ -18,8 +18,14 @@ Parameters are fp32 and every module computes in ``cfg.dtype``, as flax
 does with ``dtype=cfg.dtype``.  The MLP's GELU is the tanh form of
 ``flax.linen.gelu``.  Dropout draws from an explicit ``torch.Generator``
 (``None`` turns it off); its bits differ from ``jax.random``'s, so
-parity runs at rate 0.  ``TransformerLM`` and remat are among ROADMAP
-Queue 1's slice 2 leftovers.
+parity runs at rate 0.  ``cfg.remat`` checkpoints each encoder layer
+(``torch.utils.checkpoint``), its recompute redrawing the first pass's
+dropout masks.
+
+:class:`TransformerLM` is the decoder-only causal LM (``token_embed``,
+``pos_embed``, ``encoder``, ``ln_final``, the tied readout) that
+sequence parallelism trains, and :func:`lm_loss_head` its next-token
+loss; :func:`make_lm_trainable` builds its trainable.
 """
 from __future__ import annotations
 
@@ -30,8 +36,13 @@ from typing import Any, Callable, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from autodist_tpu_torch import cuda_graph
+from autodist_tpu_torch.capture import Trainable
+from autodist_tpu_torch.device import resolve_device
 from autodist_tpu_torch.kernel import NEG_INF
+from autodist_tpu_torch.kernel.common import flatten_with_names, unflatten
 
 
 @dataclasses.dataclass(unsafe_hash=True)
@@ -48,6 +59,10 @@ class TransformerConfig:
     dtype: Any = torch.bfloat16
     remat: bool = False
     attention_fn: Optional[Callable] = None  # (q, k, v, mask, dropout_rng) -> out
+    # (local_len, device=) -> position ids on device; None = arange.
+    # Sequence-parallel models pass parallel.sequence.global_positions:
+    # ids past max_len are NaN-poisoned at the gather (the loss turns
+    # NaN at once), and global_positions(max_len=...) rejects them first.
     position_fn: Optional[Callable] = None
     causal: bool = False
 
@@ -72,6 +87,17 @@ def lecun_normal(shape, fan_in, generator):
 def normal(shape, std, generator):
     t = torch.empty(shape, dtype=torch.float32, device=generator.device)
     return t.normal_(0.0, std, generator=generator)
+
+
+class Embed(nn.Module):
+    """flax ``nn.Embed``'s table, drawn from its default init
+    ``variance_scaling(1, "fan_in", "normal", out_axis=0)``: N(0, 1/H)."""
+
+    def __init__(self, num_embeddings: int, features: int, generator):
+        super().__init__()
+        self.embedding = nn.Parameter(normal(
+            (num_embeddings, features), 1.0 / math.sqrt(features),
+            generator))
 
 
 def dropout(x, rate: float, generator):
@@ -212,21 +238,125 @@ class EncoderLayer(nn.Module):
         return self.ln_mlp(x + m)
 
 
+def _rematerialized(layer, x, mask, generator):
+    """``layer(x, mask, generator)`` with its activations recomputed in
+    the backward instead of kept.  The recompute runs on the weights of
+    the first pass (under ``functional_call`` those are not the module's
+    own), and it restores the generator's state from before the layer,
+    so it redraws the first pass's dropout masks (JAX's ``nn.remat``
+    reuses the layer's key).  Inside a captured window (a
+    :class:`~autodist_tpu_torch.cuda_graph.GraphSeed` generator) that
+    save and restore is not tested."""
+    weights = dict(layer.named_parameters())
+    state = None if generator is None else generator.get_state()
+    passes = []
+
+    def run(x):
+        if passes and state is not None:
+            generator.set_state(state)
+        passes.append(1)
+        return torch.func.functional_call(layer, weights,
+                                          (x, mask, generator))
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+
+
 class Encoder(nn.Module):
-    """``layer_0`` ... ``layer_{num_layers-1}``.  Remat (``cfg.remat``)
-    is not ported yet (ROADMAP Queue 1, slice 2 leftovers)."""
+    """``layer_0`` ... ``layer_{num_layers-1}``, each rematerialized
+    under ``cfg.remat``."""
 
     def __init__(self, cfg: TransformerConfig, generator):
         super().__init__()
-        if cfg.remat:
-            raise NotImplementedError(
-                "cfg.remat (per-layer activation checkpointing) is not "
-                "ported yet (ROADMAP Queue 1, slice 2 leftovers)")
-        self.num_layers = cfg.num_layers
+        self.num_layers, self.remat = cfg.num_layers, cfg.remat
         for i in range(cfg.num_layers):
             self.add_module(f"layer_{i}", EncoderLayer(cfg, generator))
 
     def forward(self, x, mask, generator=None):
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, mask, generator)
+            layer = getattr(self, f"layer_{i}")
+            x = (_rematerialized(layer, x, mask, generator) if self.remat
+                 else layer(x, mask, generator))
         return x
+
+
+class TransformerLM(nn.Module):
+    """Decoder-only causal LM: token and position embeddings, the causal
+    encoder, a final norm and the readout tied to the token table.
+
+    The positions come from ``cfg.position_fn`` (the global positions
+    of a sequence chunk) or ``arange``; ids outside ``[0, max_len)`` are
+    clamped for the gather and their rows set to NaN, so the loss goes
+    NaN on the first step (a CUDA gather out of range would kill the
+    process).  The readout multiplies in ``cfg.dtype``, as flax's
+    ``Embed.attend`` promotes both operands to the module's dtype."""
+
+    def __init__(self, cfg: TransformerConfig, generator):
+        super().__init__()
+        self.cfg = cfg
+        H = cfg.hidden_size
+        self.token_embed = Embed(cfg.vocab_size, H, generator)
+        self.pos_embed = nn.Parameter(normal((cfg.max_len, H), 0.02,
+                                             generator))
+        self.encoder = Encoder(cfg, generator)
+        self.ln_final = LayerNorm(H, cfg.dtype, generator)
+
+    def forward(self, tokens, generator=None):
+        cfg, dtype = self.cfg, self.cfg.dtype
+        L, dev = tokens.shape[1], tokens.device
+        if cfg.position_fn is not None:
+            ids = cfg.position_fn(L, device=dev)
+            oob = (ids < 0) | (ids >= cfg.max_len)
+            pos = self.pos_embed[ids.clamp(0, cfg.max_len - 1)]
+            pos = torch.where(oob[:, None], float("nan"), pos)
+        else:
+            pos = self.pos_embed[:L]
+        table = self.token_embed.embedding.to(dtype)
+        x = F.embedding(tokens.long(), table) + pos[None].to(dtype)
+        x = dropout(x, cfg.dropout_rate, generator)
+        causal = torch.ones(L, L, dtype=torch.bool, device=dev).tril()
+        x = self.encoder(x, causal[None, None], generator)
+        return self.ln_final(x) @ table.T
+
+
+def lm_loss_head(logits, batch):
+    """Next-token cross entropy with optional per-token weights ``w``:
+    ``ll = logit[target] - logsumexp(logits)`` in fp32, over
+    ``max(sum(w), 1)``; the metric ``accuracy`` is the weighted share of
+    argmax hits."""
+    targets = batch["y"].long()
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, targets[..., None])[..., 0] - lse
+    weights = batch.get("w")
+    weights = torch.ones_like(ll) if weights is None else weights.float()
+    denom = torch.clamp(weights.sum(), min=1.0)
+    loss = -(ll * weights).sum() / denom
+    acc = ((logits.argmax(-1) == targets) * weights).sum() / denom
+    return loss, {"accuracy": acc}
+
+
+def make_lm_trainable(cfg: TransformerConfig, optimizer, generator, *,
+                      device=None):
+    """A Trainable for :class:`TransformerLM` with :func:`lm_loss_head`
+    on batches ``{"x": tokens [B, L], "y": targets [B, L]}`` (and
+    optionally ``"w"``), its parameters drawn from ``generator`` with
+    flax's default initializers and placed on ``device`` (``None``: the
+    card): the port's ``Trainable.from_flax(TransformerLM(cfg),
+    lm_loss_head, ...)``.  Dropout draws from a generator seeded with
+    the step's ``rng`` (or a captured window's ``GraphSeed``)."""
+    dev = resolve_device(device)
+    model = TransformerLM(cfg, generator).to(dev)
+    params = unflatten({name.replace(".", "/"): p.detach()
+                        for name, p in model.named_parameters()})
+    stochastic = cfg.dropout_rate > 0 or cfg.attention_dropout_rate > 0
+
+    def loss_fn(params, batch, rng):
+        flat = {name.replace("/", "."): p
+                for name, p in flatten_with_names(params)}
+        gen = cuda_graph.dropout_generator(rng if stochastic else None,
+                                           batch["x"].device)
+        logits = torch.func.functional_call(model, flat, (batch["x"],),
+                                            {"generator": gen})
+        return lm_loss_head(logits, batch)
+
+    return Trainable.from_loss_fn(loss_fn, params, optimizer, with_rng=True)

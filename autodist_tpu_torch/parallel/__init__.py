@@ -1,1 +1,1 @@
-"""Parallel building blocks of the port (tensor parallel 1 so far)."""
+"""Parallel building blocks of the port."""

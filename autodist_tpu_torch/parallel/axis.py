@@ -19,11 +19,20 @@ the tensor is copied to the host, the gloo collective runs there, and
 the result is copied back.  That is how several ranks share one card
 (NCCL refuses two ranks on one device); it is chosen by the group's
 backend, never by catching a failure.
+
+Model code finds an axis by name, as JAX code names one inside
+``shard_map``: a lowering opens :func:`axis_scope` around its forward
+and backward, and :func:`bound_axis` (``global_positions``, ring
+attention, the MoE layer) returns the axis bound to a name, or raises
+outside a scope, as an unbound axis name does in JAX.
+:func:`ring_shift` is the differentiable ``ppermute`` of one step
+around an axis.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any
+from typing import Any, Mapping
 
 import torch
 import torch.distributed as dist
@@ -176,3 +185,60 @@ class Axis:
         parts = dst.to(x.device).view((n, src.shape[0] // n) + src.shape[1:])
         return torch.cat([p.movedim(0, split_axis) for p in parts],
                          dim=concat_axis)
+
+
+# --------------------------------------------------------------------------- #
+# Named axes in model code
+# --------------------------------------------------------------------------- #
+# The axes bound by the innermost open axis_scope, by name.  A module
+# global and not a context variable: the autograd engine runs a CUDA
+# backward (and the recompute of a checkpointed layer) on its own
+# thread, which must see the axes the step bound.
+_bound: dict = {}
+
+
+@contextlib.contextmanager
+def axis_scope(axes: Mapping[str, Axis]):
+    """Bind ``{name: Axis}`` for the model code that runs inside the
+    ``with`` body, forward and backward (the lowering's counterpart of
+    the mesh axis names ``shard_map`` binds).  Scopes nest; the inner
+    one's names win, and leaving it restores the outer ones."""
+    global _bound
+    prev = _bound
+    _bound = {**prev, **axes}
+    try:
+        yield
+    finally:
+        _bound = prev
+
+
+def bound_axis(name: str) -> Axis:
+    """The axis :func:`axis_scope` bound to ``name``; raises outside
+    one, as an unbound axis name does in JAX."""
+    axis = _bound.get(name)
+    if axis is None:
+        raise NameError(
+            f"unbound axis name: {name!r}; model code that names a mesh "
+            f"axis runs inside a lowering that binds it (AutoDist with a "
+            f"strategy whose mesh has a {name!r} axis)")
+    return axis
+
+
+class _RingShift(torch.autograd.Function):
+    """``ppermute(x, +1)`` forward; the transpose, ``ppermute(g, -1)``,
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return axis.ppermute(x, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.ppermute(g.contiguous(), -1), None
+
+
+def ring_shift(x, axis: Axis):
+    """``x`` sent one rank along ``axis`` (``i -> i + 1``); the gradient
+    travels back (``i -> i - 1``), JAX's transpose of ``ppermute``."""
+    return _RingShift.apply(x, axis)

@@ -10,15 +10,16 @@ whole-payload scale) or as the fused int8 ring with ``a2a_ring`` elected
 function whose backward is the transposed exchange at the same
 precision.
 
-:func:`lower_expert_ir` lowers an ``ExpertParallel`` strategy.  Where the
-JAX package traces one ``shard_map`` program, every process of the job
-runs the step on its (data, expert) coordinate; the loss finds the
-expert axis through :func:`expert_scope`, which the lowering opens
-around its forward and backward, as ``shard_map`` binds the axis name.
+:func:`lower_expert_ir` lowers an ``ExpertParallel`` strategy on the
+shared replicated-parameter step (:mod:`autodist_tpu_torch.parallel
+._spmd`).  Where the JAX package traces one ``shard_map`` program, every
+process of the job runs the step on its (data, expert) coordinate; the
+loss finds the expert axis by name (:func:`~autodist_tpu_torch.parallel
+.axis.bound_axis`), bound around its forward and backward as
+``shard_map`` binds the axis name.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 from typing import Optional
@@ -26,11 +27,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from autodist_tpu_torch import const, cuda_graph, interop, optim
-from autodist_tpu_torch.device import resolve_device
+from autodist_tpu_torch import const, interop
 from autodist_tpu_torch.kernel import quantize as qz
 from autodist_tpu_torch.kernel.a2a_ring import ring_dispatch
-from autodist_tpu_torch.kernel.common import flatten_with_names, unflatten
 from autodist_tpu_torch.strategy.ir import (AllReduceSynchronizer,
                                             normalize_kernel,
                                             normalize_precision, not_ported)
@@ -191,34 +190,6 @@ def dense_moe_reference(tokens, gate_w, expert_wi, expert_wo,
     return torch.einsum("ecm,gec->gm", ys, combine).to(tokens.dtype), aux
 
 
-_active_axis = None
-
-
-@contextlib.contextmanager
-def expert_scope(axis):
-    """Bind the expert axis for the MoE layers whose forward runs inside
-    the ``with`` body (the lowering's counterpart of the ``expert`` axis
-    name of ``shard_map``).  The exchanges keep it for their
-    backward."""
-    global _active_axis
-    prev, _active_axis = _active_axis, axis
-    try:
-        yield
-    finally:
-        _active_axis = prev
-
-
-def active_expert_axis():
-    """The axis :func:`expert_scope` bound; raises outside one."""
-    if _active_axis is None:
-        raise ValueError(
-            "an expert-sharded MoE layer runs inside the expert lowering "
-            "(AutoDist with ExpertParallel), which binds the expert axis; "
-            "build the model with expert_sharded=False to run it on one "
-            "process")
-    return _active_axis
-
-
 # --------------------------------------------------------------------------- #
 # The lowering
 # --------------------------------------------------------------------------- #
@@ -280,20 +251,21 @@ def make_expert_plan(trainable, strategy, mesh) -> ExpertPlan:
 def lower_expert_ir(trainable, strategy, mesh, device=None):
     """The train step of an ``ExpertParallel`` strategy on ``device``
     (``None``: the card), counterpart of the JAX package's
-    ``lower_expert_ir``:
+    ``lower_expert_ir``, on the shared replicated-parameter step
+    (:func:`~autodist_tpu_torch.parallel._spmd.build_replicated_spmd`):
 
     * expert tables are stored as this rank's slice of their leading
       (expert) dim; every other variable is replicated;
     * the batch shards over ``data x expert``, the dropout seed is
-      folded with the rank's index on those axes, and the loss runs
-      inside :func:`expert_scope`;
+      folded with the rank's index on those axes, and the loss finds
+      the expert axis by name (the builder binds it);
     * expert gradients are scaled by ``1 / E_shards`` (the objective is
       the mean over every token group) and averaged over ``data`` only;
       every other gradient is averaged over ``data x expert``; each set
       in one flat fp32 all-reduce;
     * metrics are averaged over ``data x expert``.
     """
-    from autodist_tpu_torch.kernel.lowering import Lowered, reduce_metrics
+    from autodist_tpu_torch.parallel._spmd import build_replicated_spmd
 
     plan = make_expert_plan(trainable, strategy, mesh)
     # Bind the dispatch/combine wire election into the trainable's slot;
@@ -307,48 +279,22 @@ def lower_expert_ir(trainable, strategy, mesh, device=None):
             f"(precision={plan.precision!r}, a2a_ring={plan.kernel}) but "
             f"trainable {getattr(trainable, 'name', type(trainable).__name__)!r}"
             " has no moe_a2a binding slot (see make_moe_lm_trainable)")
-    dev, opt = resolve_device(device), trainable.optimizer
     expert = mesh.axis(const.EXPERT_AXIS)
     data = mesh.axis(const.DATA_AXIS)
-    batch = mesh.joint_axis(plan.batch_axes)
     sharded = set(plan.expert_vars)
 
-    def init_fn(params, extra):
-        local = interop.shard_params(params, dict.fromkeys(sharded, 0),
-                                     expert.index, expert.size)
-        stored = {nm: t.detach().to(dev).clone()
-                  for nm, t in flatten_with_names(local)}
-        return {"step": torch.zeros((), dtype=torch.int32, device=dev),
-                "params": stored, "opt_state": opt.init(stored),
-                "extra": extra}
+    def param_spec(name, leaf):
+        return (0, expert) if name in sharded else None
 
-    def step_fn(state, placed, rng):
-        params = state["params"]
-        leaves = {nm: p.detach().requires_grad_(True)
-                  for nm, p in params.items()}
-        local_rng = cuda_graph.fold_seed(rng, batch.size, batch.index)
-        with torch.enable_grad(), expert_scope(expert):
-            loss, new_extra, metrics = trainable.loss(
-                unflatten(leaves), state["extra"], placed, local_rng)
-            grads = torch.autograd.grad(loss, list(leaves.values()),
-                                        allow_unused=True)
-        grads = {nm: torch.zeros_like(params[nm]) if g is None else g
-                 for nm, g in zip(leaves, grads)}
-        synced = data.pmean_all({n: g / plan.expert_shards
-                                 for n, g in grads.items() if n in sharded})
-        synced.update(batch.pmean_all({n: g for n, g in grads.items()
-                                       if n not in sharded}))
-        synced = {n: synced[n] for n in grads}
-        updates, opt_state = opt.update(synced, state["opt_state"], params)
-        new_state = {"step": state["step"] + 1,
-                     "params": optim.apply_updates(params, updates),
-                     "opt_state": opt_state, "extra": new_extra}
-        return new_state, reduce_metrics(metrics, mesh, axis=batch)
+    def grad_sync(name, g):
+        # None: the builder's joint data x expert axis.
+        return (g / plan.expert_shards, data) if name in sharded \
+            else (g, None)
 
-    def full_params(stored: dict) -> dict:
-        return {nm: expert.all_gather(t, dim=0) if nm in sharded else t
-                for nm, t in stored.items()}
-
-    return Lowered(plan=plan, mesh=mesh, device=dev, init_fn=init_fn,
-                   step_fn=step_fn, full_params_fn=full_params,
-                   batch_axis=batch)
+    cfg = strategy.graph_config
+    return build_replicated_spmd(
+        trainable, mesh, sync_axes=plan.batch_axes,
+        param_spec_fn=param_spec, grad_sync=grad_sync, accum=cfg.accum_steps,
+        precision={k: v for k, v in normalize_precision(cfg.precision)
+                   .items() if k != "moe_a2a"},
+        plan=plan, device=device)

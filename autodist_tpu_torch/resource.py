@@ -4,12 +4,13 @@ Counterpart of ``autodist_tpu/resource.py``: one process per rank of a
 ``torch.distributed`` job.  The spec ``{}`` (or ``None``) means every
 process of the job is one replica on the ``data`` axis: ``data`` is the
 process group's world size, or 1 without a process group.  ``{"mesh":
-{"data": d, "pipe": p, "model": t}}`` (or ``{"data": d, "expert": e}``)
-lays the job out as a mesh whose sizes multiply to the world size; ranks
-map to mesh coordinates row-major over the declared axes, as the JAX
-package reshapes its device list (declare ``model`` or ``expert`` last
-to put each such group on adjacent ranks: ``{"data", "pipe", "model"}``
-puts each model pair of a pipe coordinate on neighbouring ranks).
+{"data": d, "pipe": p, "model": t}}`` (or ``{"data": d, "expert": e}``,
+or ``{"data": d, "seq": s}``) lays the job out as a mesh whose sizes
+multiply to the world size; ranks map to mesh coordinates row-major over the declared axes, as the JAX
+package reshapes its device list (declare ``model``, ``expert`` or
+``seq`` last to put each such group on adjacent ranks: ``{"data",
+"pipe", "model"}`` puts each model pair of a pipe coordinate on
+neighbouring ranks, ``{"data": 2, "seq": 2}`` each seq pair).
 :meth:`ResourceSpec.make_mesh` builds one process group per axis line
 (:class:`~autodist_tpu_torch.parallel.axis.Axis`; ``mesh.axis("pipe")``
 is this rank's pipe line, the ring the pipe schedule shifts activations
@@ -17,9 +18,8 @@ along), and :meth:`Mesh.joint_axis` one over several axes (``data x
 expert``).
 
 :attr:`ResourceSpec.chip` is the card's :class:`ChipSpec`; only the H100
-has one.  The ``seq`` and ``dcn`` axes, other ``topology`` keys and
-``multihost`` blocks belong to later items and raise
-``NotImplementedError``.
+has one.  The ``dcn`` axis, other ``topology`` keys and ``multihost``
+blocks belong to later items and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -54,9 +54,8 @@ H100 = ChipSpec("h100", peak_bf16_tflops=989.0, peak_fp32_tflops=67.0,
 
 # Mesh axes the port lays out, and where the others come.
 _PORTED_AXES = (const.DATA_AXIS, const.PIPE_AXIS, const.MODEL_AXIS,
-                const.EXPERT_AXIS)
+                const.EXPERT_AXIS, const.SEQ_AXIS)
 _AXIS_ITEMS = {
-    const.SEQ_AXIS: "ROADMAP Queue 1, slice 5: sequence parallelism",
     const.DCN_AXIS: "ROADMAP Queue 1, item 9: runtime and multi-host",
 }
 

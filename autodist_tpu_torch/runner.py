@@ -3,7 +3,9 @@
 Counterpart of ``autodist_tpu/runner.py``'s ``DistributedRunner``.  The
 feed contract is the JAX package's: every leaf of a host batch with a
 leading batch dimension is split across the replicas (this process
-keeps its own contiguous shard), scalars go to every replica whole.
+keeps its own contiguous shard), scalars go to every replica whole; a
+lowering may cut a leaf along more dims (sequence parallelism splits
+the token leaves along dim 1 over ``seq`` too).
 Metrics come back as device tensors; nothing in :meth:`step` or
 :meth:`run_steps` waits for the device, so the host enqueues a whole
 window ahead of the card.  Each step draws its dropout seed from a host
@@ -93,25 +95,33 @@ class DistributedRunner:
         return int(self._seeds.randint(0, 2 ** 31 - 1))
 
     # ---------------- feed ---------------------------------------------- #
-    def _place(self, x, batch_axis: int):
-        """One leaf on this replica: its shard along ``batch_axis`` (a
-        leaf without that axis goes whole), on the runner's device.  The
-        lowering says which mesh axes shard the batch (the data axis,
-        or ``data x expert`` for ``ExpertParallel``)."""
+    def _place(self, name, x, cuts, offset: int):
+        """One leaf on this rank: cut along each ``(dim, axis)`` of
+        ``cuts`` (dims shifted by ``offset``, 1 in a ``[k, ...]``
+        window), this rank keeping its contiguous slice; a leaf without
+        that dim goes whole.  On the runner's device."""
         t = torch.as_tensor(x)
-        n, rank = self.lowered.batch_axis.size, self.lowered.batch_axis.index
-        if t.dim() > batch_axis and n > 1:
-            size = t.shape[batch_axis]
+        for dim, axis in cuts:
+            dim += offset
+            if t.dim() <= dim or axis.size == 1:
+                continue
+            size, n = t.shape[dim], axis.size
             if size % n:
-                raise ValueError(f"batch dimension {size} is not divisible "
-                                 f"by the {n} replicas")
-            t = t.narrow(batch_axis, rank * (size // n), size // n)
+                raise ValueError(
+                    f"batch leaf {name!r}: dim {dim} of {size} does not "
+                    f"divide by the {n}-way {axis.name!r} axis")
+            t = t.narrow(dim, axis.index * (size // n), size // n)
         return t.to(self.lowered.device)
 
-    def _place_batch(self, batch, batch_axis: int = 0):
+    def _place_batch(self, batch, offset: int = 0):
+        """The lowering says how each leaf splits
+        (:meth:`~autodist_tpu_torch.kernel.lowering.Lowered.placement_of`:
+        dim 0 over the data axis, or ``data x expert``; token leaves
+        also along dim 1 over ``seq``)."""
         if isinstance(batch, _Placed):
             return batch
-        return _Placed({key: self._place(x, batch_axis)
+        cuts = self.lowered.placement_of(batch)
+        return _Placed({key: self._place(key, x, cuts[key], offset)
                         for key, x in batch.items()})
 
     # ---------------- the hot loop -------------------------------------- #
@@ -124,10 +134,10 @@ class DistributedRunner:
 
     def place_steps(self, batches):
         """A ``run_steps`` window on the device: every leaf ``[k, ...]``
-        split across replicas along its batch axis (axis 1).  Placing a
+        split as a step's leaf is, each dim shifted by one.  Placing a
         window once and passing it to several ``run_steps`` calls
         transfers nothing again."""
-        return self._place_batch(batches, batch_axis=1)
+        return self._place_batch(batches, offset=1)
 
     def run_steps(self, batches, *, rngs=None):
         """``k`` optimizer steps over a ``[k, ...]`` window, with no host

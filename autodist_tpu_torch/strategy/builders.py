@@ -1,11 +1,12 @@
-"""The strategy builder catalog: ``AllReduce``, ``Pipeline`` and
-``ExpertParallel`` so far.
+"""The strategy builder catalog: ``AllReduce``, ``Pipeline``,
+``ExpertParallel`` and ``SequenceParallel`` so far.
 
 Counterpart of ``autodist_tpu/strategy/builders.py``.  ``AllReduce``
 emits the same node configs as the JAX builder (variable ``i`` in
 bucket ``i // chunk_size``), so the two packages' strategies for the
-same model serialize alike; ``Pipeline`` and ``ExpertParallel`` live
-in :mod:`~autodist_tpu_torch.strategy.parallel_builders`.  Gradient
+same model serialize alike; ``Pipeline``, ``ExpertParallel`` and
+``SequenceParallel`` live in
+:mod:`~autodist_tpu_torch.strategy.parallel_builders`.  Gradient
 compressors and the other builders raise ``NotImplementedError`` naming
 their ROADMAP item.
 """
@@ -15,7 +16,8 @@ from autodist_tpu_torch.strategy.base import StrategyBuilder
 from autodist_tpu_torch.strategy.ir import (AllReduceSynchronizer, NodeConfig,
                                             Strategy)
 from autodist_tpu_torch.strategy.parallel_builders import (ExpertParallel,
-                                                           Pipeline)
+                                                           Pipeline,
+                                                           SequenceParallel)
 
 # Builders of the JAX package and where the port brings them.
 NOT_PORTED = {
@@ -24,7 +26,6 @@ NOT_PORTED = {
                     "UnevenPartitionedPS", "PartitionedAR",
                     "RandomAxisPartitionAR", "Parallax", "GradAccumulation",
                     "ZeRO", "Sharded", "TensorParallel", "FSDPSharded")},
-    "SequenceParallel": "ROADMAP Queue 1, slice 5: sequence parallelism",
     "AutoStrategy": "ROADMAP Queue 1, item 10: simulator and plan lint",
 }
 
@@ -55,7 +56,8 @@ class AllReduce(StrategyBuilder):
 
 
 BUILDERS = {"AllReduce": AllReduce, "Pipeline": Pipeline,
-            "ExpertParallel": ExpertParallel}
+            "ExpertParallel": ExpertParallel,
+            "SequenceParallel": SequenceParallel}
 
 
 def create(name: str, **kw) -> StrategyBuilder:

@@ -1,9 +1,10 @@
 """The ``Pipeline`` strategy builder, with Megatron tensor parallelism
-inside each stage, and the ``ExpertParallel`` builder.
+inside each stage, and the ``ExpertParallel`` and ``SequenceParallel``
+builders.
 
 Counterpart of ``autodist_tpu/strategy/parallel_builders.py``
-``Pipeline``, :data:`PIPELINE_TP_RULES`, :data:`PIPELINE_VOCAB_RULES`
-and ``ExpertParallel``.  The builder emits the JAX
+``Pipeline``, :data:`PIPELINE_TP_RULES`, :data:`PIPELINE_VOCAB_RULES`,
+``ExpertParallel`` and ``SequenceParallel``.  The builder emits the JAX
 builder's node configs (every stage variable partitioned ``["pipe",
 ...]`` with the model-axis dims its tp rule names, shared variables
 replicated or, under ``vocab_parallel``, the tied table ``["model",
@@ -103,11 +104,7 @@ class Pipeline(StrategyBuilder):
                                               else PIPELINE_VOCAB_RULES)]
         self.comm_overlap = normalize_comm_overlap(comm_overlap)
         self.precision = normalize_precision(collective_precision)
-        if self.precision.get("grad") and (compressor or "none") != "none":
-            raise ValueError(
-                "collective_precision's 'grad' slot elects an error-"
-                "feedback compressor; pass either it or compressor=, "
-                "not both")
+        _check_grad_precision(self.precision, compressor)
         self.kernel = normalize_kernel(kernel)
         if "quant_ring" in self.kernel:
             if tensor_parallel <= 1 \
@@ -288,6 +285,30 @@ _EXPERT_NAME_RE = re.compile(r"(expert|moe)", re.IGNORECASE)
 _MOE_LEFTOVERS = "ROADMAP Queue 1, slice 5 leftovers"
 
 
+def _check_grad_precision(precision: dict, compressor):
+    """The precision policy's grad slot elects an error-feedback
+    compressor, so it conflicts with an explicit ``compressor=`` (the
+    JAX builders' check)."""
+    if precision.get("grad") and (compressor or "none") != "none":
+        raise ValueError(
+            "collective_precision's 'grad' slot elects an error-"
+            "feedback compressor; pass either it or compressor=, "
+            "not both")
+
+
+def _check_zero_compressor(zero_stage: int, compressor: str, zero_min_bytes):
+    """ZeRO and a compressor exclude each other per variable unless
+    ``zero_min_bytes`` splits the variables between them (the JAX
+    builders' check)."""
+    if zero_stage and compressor != "none" and zero_min_bytes is None:
+        raise ValueError(
+            f"zero_stage={zero_stage} and compressor are mutually "
+            "exclusive per variable: PS (ZeRO) sync reduces at full "
+            "precision; compression is an AllReduce knob (zero_min_bytes "
+            "composes them: large vars ZeRO-staged, small vars "
+            "compressed)")
+
+
 def _resolve_zero_stage(zero_stage, zero1) -> int:
     """The JAX builders' ZeRO request: ``zero_stage`` in {0, 1, 2, 3}, or
     the deprecated ``zero1`` alias."""
@@ -335,11 +356,7 @@ class ExpertParallel(StrategyBuilder):
         self.detect = detect
         self.zero_stage = _resolve_zero_stage(zero_stage, zero1)
         self.precision = normalize_precision(collective_precision)
-        if self.precision.get("grad") and (compressor or "none") != "none":
-            raise ValueError(
-                "collective_precision's 'grad' slot elects an error-"
-                "feedback compressor; pass either it or compressor=, "
-                "not both")
+        _check_grad_precision(self.precision, compressor)
         self.num_experts = num_experts
         self.capacity_factor = float(capacity_factor)
         if self.capacity_factor <= 0:
@@ -364,13 +381,7 @@ class ExpertParallel(StrategyBuilder):
                     "kernel 'a2a_ring' is an ICI ring; it cannot span "
                     "slices — drop expert_over_dcn or the kernel")
         comp = compressor or "none"
-        if self.zero_stage and comp != "none" and zero_min_bytes is None:
-            raise ValueError(
-                f"zero_stage={self.zero_stage} and compressor are mutually "
-                "exclusive per variable: PS (ZeRO) sync reduces at full "
-                "precision; compression is an AllReduce knob (zero_min_bytes "
-                "composes them: large vars ZeRO-staged, small vars "
-                "compressed)")
+        _check_zero_compressor(self.zero_stage, comp, zero_min_bytes)
         # What the port's expert lowering does not run yet.
         if self.zero_stage or zero_min_bytes is not None:
             not_ported("ZeRO in the expert lowering (zero_stage, zero1, "
@@ -437,4 +448,60 @@ class ExpertParallel(StrategyBuilder):
         }
         cfg.precision = dict(self.precision)
         cfg.kernel = dict(self.kernel)
+        return Strategy(node_configs=nodes, graph_config=cfg)
+
+
+class SequenceParallel(StrategyBuilder):
+    """Sequence parallelism over the ``seq`` mesh axis (e.g. ``mesh:
+    {data: 2, seq: 4}``): token-dimension batch leaves (named by
+    ``seq_leaves``) split over ``data x seq``, parameters replicate, and
+    gradients are averaged over both axes.  The model attends globally
+    (:mod:`autodist_tpu_torch.parallel.ring_attention`) and positions
+    its tokens with :func:`autodist_tpu_torch.parallel.sequence
+    .global_positions`.
+
+    The JAX builder's checks run first, with its errors.  ZeRO
+    (``zero_stage``, ``zero1``, ``zero_min_bytes``), gradient
+    compressors and a ``collective_precision`` raise
+    ``NotImplementedError`` after them.
+    """
+
+    def __init__(self, seq_leaves: Sequence[str] = ("x", "y"), *,
+                 zero_stage: int = None, zero1: bool = None,
+                 compressor: str = "none", zero_min_bytes=None,
+                 collective_precision=None):
+        self.seq_leaves = tuple(seq_leaves)
+        self.zero_stage = _resolve_zero_stage(zero_stage, zero1)
+        self.precision = normalize_precision(collective_precision)
+        comp = compressor or "none"
+        _check_grad_precision(self.precision, comp)
+        _check_zero_compressor(self.zero_stage, comp, zero_min_bytes)
+        # What the port's sequence lowering does not run yet.
+        if self.zero_stage or zero_min_bytes is not None:
+            not_ported("ZeRO in the sequence lowering (zero_stage, zero1, "
+                       "zero_min_bytes)", f"{_LEFTOVERS}, item 4")
+        if comp != "none" or self.precision.get("grad"):
+            not_ported("gradient compressors in the sequence lowering (and "
+                       "the 'grad' precision slot)",
+                       "ROADMAP Queue 1, slice 2 leftovers: compressors")
+        if self.precision:
+            not_ported(f"collective_precision {self.precision} in the "
+                       "sequence lowering",
+                       "ROADMAP Queue 1, slice 2 leftovers: compressors")
+
+    def build(self, trainable, resource_spec):
+        shape = resource_spec.resolved_mesh_shape()
+        if const.SEQ_AXIS not in shape:
+            raise ValueError(
+                f"SequenceParallel needs a {const.SEQ_AXIS!r} mesh axis; "
+                f"spec resolves to {shape} — declare e.g. "
+                "mesh: {data: ..., seq: ...}")
+        nodes = [NodeConfig(var_name=i.name,
+                            synchronizer=AllReduceSynchronizer(),
+                            is_sparse=i.is_sparse)
+                 for i in trainable.var_infos()]
+        cfg = self._graph_config(resource_spec)
+        cfg.lowering = "sequence"
+        cfg.parallel = {"seq_leaves": list(self.seq_leaves)}
+        cfg.precision = dict(self.precision)
         return Strategy(node_configs=nodes, graph_config=cfg)

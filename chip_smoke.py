@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``autodist_tpu_torch/kernel/csrc``
-(at first use, into a git-ignored directory) and drives the port's four
+(at first use, into a git-ignored directory) and drives the port's
 paths: serving the pipelined LM at the serve bench's width (vocab 32768,
 hidden 1024, 16 heads of 64, mlp 4096, 8 layers, max_len 1024),
 training BERT-base masked-LM through ``AutoDist`` + ``AllReduce``,
@@ -14,7 +14,9 @@ and on ``bench.py quant``'s 4-device mesh (the cross-process pipe
 schedule over a pipe axis of 2, interleaved, with the Megatron stages
 inside and the vocabulary sharded over the model axis), expert-parallel
 training of the MoE LM through ``ExpertParallel`` on an expert axis of
-2, and serving at tensor parallel 2:
+2, serving at tensor parallel 2, and sequence-parallel training of the
+causal LM through ``SequenceParallel`` on a seq axis of 2 (ring
+attention over K1/K2a/K2b):
 
 1. each kernel against its plain PyTorch version, fp32 (atol = rtol =
    1e-5) and bf16 (atol = rtol = 1e-2), timed with CUDA events beside
@@ -25,7 +27,9 @@ training of the MoE LM through ``ExpertParallel`` on an expert axis of
    there also at a tensor-parallel rank's 8 heads (phase 10), and
    with one slot of 1024 keys (K7: a chunk at 960); K1, K2a
    and K2b at BERT-base's q/k/v ``[16, 512, 12, 64]`` and at ragged
-   lengths 100 and 17, causal and not; the registers, spills and static
+   lengths 100 and 17, causal and not, and in bf16 at the ring chunk of
+   phase 12, ``[8, 1024, 16, 64]``, full and causal (with the K2
+   pair there); the registers, spills and static
    shared memory of K1, K2a, K2b (bf16), K5, K6 and K7 (both dtypes: K7's
    tensor-core and CUDA-core instances) from
    ``nvcc -Xptxas -v``; the K2 pair (the whole autograd backward
@@ -122,20 +126,38 @@ training of the MoE LM through ``ExpertParallel`` on an expert axis of
    on both: tokens/s, TTFT, inter-token latency, peak memory per rank,
    K5-K7 held to the attention calls; over gloo the decode windows run
    the host loop (asserted);
-11. one ``{"kernels": [...]}`` line, the card's name and power limit, and
+11. fp32 sequence-parallel parity: ``TransformerLM`` at full width cut
+   to 2 layers, global seq 256, batch 4, 3 Adam steps on a seq axis of
+   2 with the flash ring, the einsum ring and the flash ring under
+   ``remat``, every loss within 1e-4 relative of one process running
+   ``flash_attention`` causal over the whole sequence (remat against no
+   remat: 1e-6);
+12. the sequence-parallel window in bf16 (``bench.py:442-446``'s model,
+   nothing cut: 4 layers, max_len 2048; batch 8 of 2048 tokens,
+   ``adamw(3e-4)`` as ``examples/long_context.py`` trains it, the flash
+   ring on ``{"seq": 2}``): a warm window of 10 steps, then a timed
+   one; tokens/s (the slowest rank), step ms, peak memory per rank, each
+   rank's busy share and K1/K2a/K2b device time a step, K1, K2a and K2b
+   held to 4 x (index + 1) launches a rank and step (a causal ring skips
+   the chunks after the rank's own); then the long-context rows, batch 1
+   of 8192 tokens (the positional table grown to 8192 rows), remat off
+   and on (K1 doubled under remat), beside one process at the whole
+   sequence; over gloo ``run_steps`` keeps its host loop (asserted);
+13. one ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
-Phases 2, 4, 6 (at T = 1) and 8 (the dense model) run one process on
-the card, so their windows replay CUDA graphs too.  Phases 6 to 10 run
-2 or 4 processes (``torch.multiprocessing`` spawn) on card 0, joined in
+Phases 2, 4, 6 (at T = 1), 8 (the dense model) and 11 (one process)
+run one process on the card, so their windows replay CUDA graphs too.
+Phases 6 to 12 run 2 or 4 processes (``torch.multiprocessing`` spawn) on card 0, joined in
 a gloo group: NCCL refuses two ranks on one device, so each transfer is
 staged through host memory while the kernels, the model and the
 optimizer stay on the card.  Their numbers are labelled so, and say
 nothing about multi-GPU speed.  Where the machine has at least 2 cards,
 phases 7 (pipe 1, and a pipe axis of 2 in fp32), 9 and 10 run again
 over NCCL, one rank per card (phase 10 on the graph route: one capture,
-then a replay a window, asserted), and with 4 cards phase 7's pipe 2 x
-model 2 too; each prints apart.  Every rank joins and leaves the job through
+then a replay a window, asserted) and 12 (seq 2, on the graph route,
+asserted), and with 4 cards phase 7's pipe 2 x model 2 and phase 12 at
+seq 4 too; each prints apart.  Every rank joins and leaves the job through
 ``autodist_tpu_torch.testing`` (a barrier before the groups go).
 
 Any failed check raises, in any rank, and the script exits non-zero;
@@ -172,6 +194,8 @@ from autodist_tpu_torch.kernel import quant_ring as qr
 from autodist_tpu_torch.models import bert, moe_transformer
 from autodist_tpu_torch.models.pipeline_lm import (make_pipeline_lm_trainable,
                                                    sequential_logits)
+from autodist_tpu_torch.parallel import ring_attention as ra
+from autodist_tpu_torch.parallel.sequence import global_positions
 from autodist_tpu_torch.strategy.parallel_builders import Pipeline
 from autodist_tpu_torch.resource import H100
 from autodist_tpu_torch.serving import FINISH_REASONS, kv_cache
@@ -296,6 +320,27 @@ MOE_PROGRAMS = {
 # Per step of phase 9: a warm-up hop and one hop per peer for every
 # dispatch and combine, forward and backward, in every layer.
 MOE_WANT = {"a2a_ring": {"a2a_ring_hop": EXPERT * 2 * 2 * MOE_LAYERS}}
+# The sequence-parallel window: bench.py:442-446's model (4 layers,
+# max_len 2048) trained as examples/long_context.py trains it
+# (adamw(3e-4), batch 8), the flash ring causal on a seq axis of 2: a
+# ring chunk is [8, 1024, 16, 64].  The long-context rows: batch 1 of
+# 8192 tokens, the positional table grown to 8192 rows.
+SEQ, SEQ_LAYERS, SEQ_LEN, SEQ_BATCH, SEQ_STEPS = 2, 4, 2048, 8, 10
+LONG_LEN, LONG_STEPS = 8192, 3
+RING_CHUNK_SHAPE = (SEQ_BATCH, SEQ_LEN // SEQ, HEADS)
+RINGS = {"flash": ra.make_ring_flash_attention_fn,
+         "einsum": ra.make_ring_attention_fn}
+
+
+def seq_want(index, layers, remat=False):
+    """K1, K2a and K2b per step on seq rank ``index`` under the causal
+    flash ring: one chunk call a ring step that is not skipped (the
+    diagonal and the ``index`` chunks before it) a layer; remat runs
+    each forward again in the backward."""
+    calls = layers * (index + 1)
+    return {"flash_attention_fwd": calls * (2 if remat else 1),
+            "flash_attention_bwd_dq": calls,
+            "flash_attention_bwd_dkv": calls}
 
 
 def tp_want(program, layers, first):
@@ -735,102 +780,111 @@ def ptxas_registers():
     return found
 
 
+def attention_shape(gen, dtype, B, L, H, causal, timed):
+    """K1, K2a and K2b against their plain versions at ``[B, L, H, 64]``
+    (q, k and v slices of one [B, L, 3, H, D] projection, as the model
+    hands them over) within the dtype's tolerance; with ``timed`` each
+    kernel, its plain version and the library call timed, and the K2
+    pair.  Prints a line a kernel; returns ``({name: rec}, pair rec)``
+    (empty and ``None`` untimed)."""
+    D, tol = HEAD_DIM, TOLERANCE[dtype]
+    esize = torch.empty((), dtype=dtype).element_size()
+    qkv = torch.randn((B, L, 3, H, D), generator=gen,
+                      device="cuda").to(dtype)
+    q, k, v = qkv.unbind(2)
+    g = torch.randn((B, L, H, D), generator=gen, device="cuda").to(dtype)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    delta = (g.float() * out.float()).sum(-1)
+    kw = dict(causal=causal, scale=1.0 / math.sqrt(D))
+    calls = {
+        "flash_attention_fwd": (
+            lambda: fa.flash_attention_fwd(q, k, v, **kw),
+            lambda: fa.flash_attention_fwd_plain(q, k, v, **kw)),
+        "flash_attention_bwd_dq": (
+            lambda: fa.flash_attention_bwd_dq(q, k, v, g, lse, delta, **kw),
+            lambda: fa.flash_attention_bwd_dq_plain(
+                q, k, v, g, lse, delta, **kw)),
+        "flash_attention_bwd_dkv": (
+            lambda: fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, **kw),
+            lambda: fa.flash_attention_bwd_dkv_plain(
+                q, k, v, g, lse, delta, **kw)),
+    }
+    if timed:
+        pair_library = time_ms(attention_library(
+            "flash_attention_bwd_dq", q, k, v, g, causal))
+    recs, pair = {}, None
+    for name, (kernel, plain) in calls.items():
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        max_err = 0.0
+        for a, b in zip(got, ref):
+            err = (a.float() - b.float()).abs()
+            max_err = max(max_err, float(err.max()))
+            check(bool(torch.isfinite(a).all()), f"{name}: non-finite")
+            check(bool((err <= tol + tol * b.float().abs()).all()),
+                  f"{name} {dtype} [{B},{L},{H},{D}] causal={causal}: max "
+                  f"|kernel - plain| = {max_err} exceeds atol = rtol = "
+                  f"{tol}")
+        del got, ref
+        line = (f"phase 1 {name} {str(dtype)[6:]} [{B},{L},{H},{D}] "
+                f"causal={causal}: max_abs_err {max_err:.3e} (tol {tol})")
+        if timed:
+            nbytes, flops = attention_bytes_flops(name, B, L, H, D, esize,
+                                                  causal)
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = flops / PEAK_FLOPS[dtype]
+            recs[name] = {
+                "max_abs_err": max_err,
+                "ms": time_ms(kernel),
+                "plain_ms": time_ms(plain),
+                "library_ms": (pair_library if name in PAIR else time_ms(
+                    attention_library(name, q, k, v, g, causal))),
+                "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            }
+            line += ", " + timings(recs[name], flops)
+        print(line, flush=True)
+    if timed:
+        pair, flops = backward_pair(q, k, v, g, causal, dtype, pair_library)
+        print(f"phase 1 K2 pair {str(dtype)[6:]} [{B},{L},{H},{D}] "
+              f"causal={causal}: the port's backward {pair['ms']:.4f} ms "
+              f"{in_launches(pair['launches'])} "
+              f"({tflop_rate(flops, pair['ms']):.1f} TFLOP/s), of which "
+              f"delta and casts {pair['outside_ms']:.4f} ms "
+              f"{in_launches(pair['outside_launches'])}; SDPA backward "
+              f"{pair['library_ms']:.4f} ms; bound {pair['bound_ms']:.4f} "
+              f"ms ({pair['bound_by']})", flush=True)
+    del qkv, q, k, v, g, out, lse, delta, calls
+    torch.cuda.empty_cache()
+    return recs, pair
+
+
 def phase_attention_kernels(record):
     """K1, K2a and K2b against their plain versions at BERT-base shapes
-    and at ragged lengths, causal and not, both dtypes; timed at
-    BERT-base.  q, k and v are slices of one [B, L, 3, H, D] projection,
-    as the model hands them over."""
+    and at ragged lengths, causal and not, both dtypes, timed at
+    BERT-base (the non-causal record is the training path's); and in
+    bf16 at the ring chunk of phase 12, ``[8, 1024, 16, 64]``, full and
+    causal (the ring's two kinds of step), timed (``record[(name, bf16,
+    "ring_chunk" or "ring_chunk_causal")]``)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     for dtype in (torch.float32, torch.bfloat16):
-        tol = TOLERANCE[dtype]
-        esize = torch.empty((), dtype=dtype).element_size()
         for B, L in ((BERT_BATCH, BERT_SEQ), (4, 100), (4, 17)):
             for causal in (False, True):
-                H, D = 12, 64
-                qkv = torch.randn((B, L, 3, H, D), generator=gen,
-                                  device="cuda").to(dtype)
-                q, k, v = qkv.unbind(2)
-                g = torch.randn((B, L, H, D), generator=gen,
-                                device="cuda").to(dtype)
-                out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
-                delta = (g.float() * out.float()).sum(-1)
-                scale = 1.0 / math.sqrt(D)
-                kw = dict(causal=causal, scale=scale)
-                calls = {
-                    "flash_attention_fwd": (
-                        lambda: fa.flash_attention_fwd(q, k, v, **kw),
-                        lambda: fa.flash_attention_fwd_plain(q, k, v, **kw)),
-                    "flash_attention_bwd_dq": (
-                        lambda: fa.flash_attention_bwd_dq(
-                            q, k, v, g, lse, delta, **kw),
-                        lambda: fa.flash_attention_bwd_dq_plain(
-                            q, k, v, g, lse, delta, **kw)),
-                    "flash_attention_bwd_dkv": (
-                        lambda: fa.flash_attention_bwd_dkv(
-                            q, k, v, g, lse, delta, **kw),
-                        lambda: fa.flash_attention_bwd_dkv_plain(
-                            q, k, v, g, lse, delta, **kw)),
-                }
-                if L == BERT_SEQ:
-                    pair_library = time_ms(attention_library(
-                        "flash_attention_bwd_dq", q, k, v, g, causal))
-                for name, (kernel, plain) in calls.items():
-                    got, ref = kernel(), plain()
-                    torch.cuda.synchronize()
-                    got = got if isinstance(got, tuple) else (got,)
-                    ref = ref if isinstance(ref, tuple) else (ref,)
-                    max_err = 0.0
-                    for a, b in zip(got, ref):
-                        err = (a.float() - b.float()).abs()
-                        max_err = max(max_err, float(err.max()))
-                        check(bool(torch.isfinite(a).all()),
-                              f"{name}: non-finite")
-                        check(bool((err <= tol + tol * b.float().abs()).all()),
-                              f"{name} {dtype} L={L} causal={causal}: max "
-                              f"|kernel - plain| = {max_err} exceeds atol = "
-                              f"rtol = {tol}")
-                    line = (f"phase 1 {name} {str(dtype)[6:]} [{B},{L},{H},"
-                            f"{D}] causal={causal}: max_abs_err "
-                            f"{max_err:.3e} (tol {tol})")
-                    if L == BERT_SEQ:
-                        nbytes, flops = attention_bytes_flops(
-                            name, B, L, H, D, esize, causal)
-                        t_bytes = nbytes / HBM_BYTES_PER_S
-                        t_ops = flops / PEAK_FLOPS[dtype]
-                        rec = {
-                            "max_abs_err": max_err,
-                            "ms": time_ms(kernel),
-                            "plain_ms": time_ms(plain),
-                            "library_ms": (
-                                pair_library if name in PAIR else
-                                time_ms(attention_library(
-                                    name, q, k, v, g, causal))),
-                            "bound_ms": max(t_bytes, t_ops) * 1e3,
-                            "bound_by": ("bytes" if t_bytes >= t_ops
-                                         else "operations"),
-                        }
-                        line += ", " + timings(rec, flops)
-                        if not causal:          # the training path's case
-                            record[(name, dtype)] = rec
-                    print(line, flush=True)
-                if L == BERT_SEQ:
-                    rec, flops = backward_pair(q, k, v, g, causal, dtype,
-                                               pair_library)
-                    print(f"phase 1 K2 pair {str(dtype)[6:]} [{B},{L},{H},"
-                          f"{D}] causal={causal}: the port's backward "
-                          f"{rec['ms']:.4f} ms "
-                          f"{in_launches(rec['launches'])} "
-                          f"({tflop_rate(flops, rec['ms']):.1f} "
-                          f"TFLOP/s), of which delta and casts "
-                          f"{rec['outside_ms']:.4f} ms "
-                          f"{in_launches(rec['outside_launches'])}; SDPA "
-                          f"backward {rec['library_ms']:.4f} ms; bound "
-                          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})",
-                          flush=True)
-                    if not causal:
-                        record[("K2 pair", dtype)] = rec
-                del qkv, q, k, v, g, out, lse, delta, calls
-        torch.cuda.empty_cache()
+                recs, pair = attention_shape(gen, dtype, B, L, 12, causal,
+                                             timed=L == BERT_SEQ)
+                if recs and not causal:
+                    for name, rec in recs.items():
+                        record[(name, dtype)] = rec
+                    record[("K2 pair", dtype)] = pair
+    for causal in (False, True):
+        recs, pair = attention_shape(gen, torch.bfloat16, *RING_CHUNK_SHAPE,
+                                     causal, timed=True)
+        label = "ring_chunk_causal" if causal else "ring_chunk"
+        for name, rec in recs.items():
+            record[(name, torch.bfloat16, label)] = rec
+        record[("K2 pair", torch.bfloat16, label)] = pair
 
 
 def misaligned(q_in, x):
@@ -1633,7 +1687,8 @@ def rank_worker(rank, world, backend, store, job, out_dir):
     job = dict(job, backend=backend)
     run = {"parity": tp_parity, "window": tp_window_programs,
            "moe_parity": moe_parity, "moe_window": moe_window_programs,
-           "serve": tp_serve}
+           "serve": tp_serve, "seq_parity": seq_parity,
+           "seq_window": seq_window_rows}
     result = run[job["kind"]](job)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(result, f)
@@ -2091,10 +2146,228 @@ def phase_moe_window():
     return counts
 
 
+# --------------------------------------------------------------------- #
+# phases 11 and 12: sequence-parallel training of the causal LM
+# --------------------------------------------------------------------- #
+def lm_runner(job, ring=None, remat=False):
+    """``TransformerLM`` at full width, depth ``job["layers"]``, weights
+    from seed 0 on the card (the same in every rank): with ``ring`` (a
+    key of ``RINGS``) the causal ring and ``global_positions`` through
+    ``AutoDist`` + ``SequenceParallel`` on ``job["mesh"]``; without, the
+    whole sequence through ``flash_attention`` causal on one process
+    (``AllReduce``)."""
+    fn, pos = ((RINGS[ring](causal=True), global_positions) if ring
+               else (fa.make_attention_fn(True), None))
+    cfg = port.TransformerConfig(
+        vocab_size=VOCAB, hidden_size=HIDDEN, num_layers=job["layers"],
+        num_heads=HEADS, mlp_dim=MLP, max_len=job["max_len"],
+        dtype=job["dtype"], dropout_rate=0.0, attention_dropout_rate=0.0,
+        remat=remat, attention_fn=fn, position_fn=pos)
+    name, lr = job["opt"]
+    trainable = port.make_lm_trainable(
+        cfg, getattr(port.optim, name)(lr),
+        torch.Generator(device="cuda").manual_seed(0))
+    if ring is None:
+        return port.AutoDist({}, port.AllReduce()).build(trainable)
+    return port.AutoDist({"mesh": job["mesh"]},
+                         port.SequenceParallel()).build(trainable)
+
+
+def lm_window(job, steps, seed0=0):
+    """``steps`` next-token batches ``{"x", "y" = x shifted}`` of
+    ``job["batch"]`` sequences of ``job["seq"]`` tokens from a numpy
+    seed, stacked ``[steps, B, L]``."""
+    batches = []
+    for i in range(steps):
+        x = np.random.RandomState(seed0 + i).randint(
+            0, VOCAB, (job["batch"], job["seq"])).astype(np.int32)
+        batches.append({"x": x, "y": np.roll(x, -1, axis=1)})
+    return port.stack_steps(batches)
+
+
+def seq_parity(job):
+    """Phase 11 in one rank: 3 steps of each program; the losses."""
+    out = {}
+    for program in job["programs"]:
+        runner = lm_runner(job, program.split()[0], "remat" in program)
+        out[program] = runner.run_steps(lm_window(job, 3, seed0=300))[
+            "loss"].tolist()
+        runner.close()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_seq_parity():
+    """fp32 on the card: the flash ring, the einsum ring and the flash
+    ring under remat on a seq axis of 2 against one process with
+    ``flash_attention`` causal over the whole sequence."""
+    job = {"kind": "seq_parity", "layers": 2, "seq": 256, "max_len": 256,
+           "batch": 4, "dtype": torch.float32, "opt": ("adam", 1e-4),
+           "mesh": {"seq": SEQ},
+           "programs": ["flash", "einsum", "flash remat"]}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runner = lm_runner(job)
+    one = runner.run_steps(lm_window(job, 3, seed0=300))["loss"].tolist()
+    runner.close()
+    torch.cuda.empty_cache()
+    ranks = spawn_ranks(job, SEQ)
+    got = ranks[0]
+    for program in job["programs"]:
+        check(all(abs(a - b) <= 1e-6 * abs(b) for a, b in
+                  zip(ranks[1][program], got[program])),
+              f"{program}: the ranks' losses differ: {ranks}")
+    pairs = [("flash", one, 1e-4, "one process"),
+             ("einsum", one, 1e-4, "one process"),
+             ("flash remat", got["flash"], 1e-6, "no remat")]
+    for program, ref, tol, what in pairs:
+        for i, (a, b) in enumerate(zip(got[program], ref)):
+            check(math.isfinite(a) and abs(a - b) <= tol * abs(b),
+                  f"step {i}: {program} loss {a} vs {what} {b} differ by "
+                  f"more than {tol} relative")
+    print(f"phase 11 fp32 2-layer TransformerLM, global seq 256, batch 4, "
+          f"3 Adam steps, seq 2 on one card over gloo: one process "
+          f"(flash_attention causal) {one}; " + "; ".join(
+              f"{p} {got[p]}" for p in job["programs"]), flush=True)
+
+
+def kernel_ms(top):
+    """K1, K2a and K2b device ms a step from a profile's top list."""
+    frags = {"flash_attention_fwd": "fwd_wgmma_kernel",
+             "flash_attention_bwd_dq": "dq_wgmma_kernel",
+             "flash_attention_bwd_dkv": "dkv_wgmma_kernel"}
+    found = dict.fromkeys(frags, 0.0)
+    for entry in top.split("; "):
+        m = re.match(r"(.*) x[\d.]+ ([\d.]+) ms$", entry)
+        for name, frag in frags.items():
+            if m and frag in m.group(1) and "matmul" not in m.group(1):
+                found[name] += float(m.group(2))
+    return found
+
+
+def seq_window_rows(job):
+    """Phase 12 in one rank: per row a warm window, a timed one with the
+    launch counters, then a profiled one of 2 steps."""
+    out = {}
+    for row in job["rows"]:
+        rj = dict(job, **row)
+        runner = lm_runner(rj, "flash", row["remat"])
+        index = runner.lowered.mesh.axis("seq").index
+        window = runner.place_steps(lm_window(rj, row["steps"]))
+        dt, metrics = timed_window(runner, window)
+        graphs = (runner.captures, runner.replays)
+        route = check_route(runner, job, row["label"])
+        if job["backend"] == "nccl":
+            check(graphs == (1, 2), f"{row['label']}: {graphs[0]} captures "
+                  f"and {graphs[1]} replays, expected 1 and 2")
+        got = launches()
+        want = dict.fromkeys(KERNELS, 0)
+        want.update({k: n * row["steps"] for k, n in seq_want(
+            index, job["layers"], row["remat"]).items()})
+        check(got == want, f"{row['label']} on seq rank {index}: launches "
+                           f"{got}, expected {want}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses = metrics["loss"].float()
+        check(bool(torch.isfinite(losses).all()),
+              f"{row['label']}: non-finite loss {losses}")
+        prof = profile_steps(runner, window, k=2, watch="wgmma_kernel")
+        out[row["label"]] = {
+            "seconds": dt, "launches": got, "peak_gb": peak_gb,
+            "index": index, "loss": [float(losses[0]), float(losses[-1])],
+            "profile": prof, "route": route,
+            "attention_ms": None if prof is None else kernel_ms(prof[4])}
+        runner.close()
+        del runner, window
+        torch.cuda.empty_cache()
+    return out
+
+
+def long_context_one_process(job):
+    """One process over the whole 8192-token sequence (``flash_attention``
+    causal, a loop of ``step`` calls as the gloo ranks run): step ms and
+    peak memory."""
+    rj = dict(job, batch=1, seq=LONG_LEN, max_len=LONG_LEN)
+    runner = lm_runner(rj)
+    window = runner.place_steps(lm_window(rj, LONG_STEPS))
+    dt, _ = timed_window(runner, window, loop=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    runner.close()
+    del runner, window
+    torch.cuda.empty_cache()
+    return dt, peak_gb
+
+
+def phase_seq_window():
+    """bf16: the window on a seq axis of 2 over gloo (2 ranks on card
+    0), then the long-context rows, remat off and on, beside one process
+    at the whole sequence; over NCCL, one rank per card, where the
+    machine has the cards (2: seq 2; 4: also seq 4, global 2048)."""
+    main = {"label": "window", "batch": SEQ_BATCH, "seq": SEQ_LEN,
+            "max_len": SEQ_LEN, "steps": SEQ_STEPS, "remat": False}
+    long_rows = [{"label": f"long context{' remat' if remat else ''}",
+                  "batch": 1, "seq": LONG_LEN, "max_len": LONG_LEN,
+                  "steps": LONG_STEPS, "remat": remat}
+                 for remat in (False, True)]
+    job = {"kind": "seq_window", "layers": SEQ_LAYERS,
+           "dtype": torch.bfloat16, "opt": ("adamw", 3e-4)}
+    runs = [("gloo", {"seq": SEQ}, [main] + long_rows)]
+    cards = torch.cuda.device_count()
+    if cards >= SEQ:
+        runs.append(("nccl", {"seq": SEQ}, [main]))
+    if cards >= 4:
+        runs.append(("nccl", {"seq": 4}, [main]))
+    counts = {}
+    for backend, mesh, rows in runs:
+        world = math.prod(mesh.values())
+        label = (f"{mesh_label(mesh)}, {world} ranks on one card, gloo, "
+                 f"transfers through host" if backend == "gloo" else
+                 f"{mesh_label(mesh)}, {world} ranks on {world} cards, NCCL")
+        ranks = spawn_ranks(dict(job, mesh=mesh, rows=rows), world, backend)
+        for row in rows:
+            rs = [r[row["label"]] for r in ranks]
+            dt = max(r["seconds"] for r in rs)
+            tokens = row["steps"] * row["batch"] * row["seq"]
+            line = (f"phase 12 {row['label']} bf16 [{label}, batch "
+                    f"{row['batch']} of {row['seq']} tokens, positional "
+                    f"table {row['max_len']} rows, run_steps route "
+                    f"{rs[0]['route']}]: {row['steps']} steps in {dt:.3f} s "
+                    f"= {tokens / dt:.1f} tokens/s, step "
+                    f"{dt / row['steps'] * 1e3:.2f} ms, peak memory per "
+                    f"rank " + ", ".join(f"{r['peak_gb']:.2f}" for r in rs)
+                    + f" GB, loss {rs[0]['loss'][0]:.4f} -> "
+                    f"{rs[0]['loss'][1]:.4f}")
+            for r in rs:
+                per_step = {k: n / row["steps"]
+                            for k, n in r["launches"].items() if n}
+                line += f"; seq rank {r['index']}: launches a step {per_step}"
+                if r["profile"] is None:
+                    line += ", profile: device time not measured"
+                    continue
+                prof_ms, busy, n_launch, _, top = r["profile"]
+                line += (f", device busy {busy:.2f} ms of the profiled "
+                         f"step's {prof_ms:.2f} ms ({busy / prof_ms:.1%}), "
+                         f"{n_launch:.0f} kernel launches a step, K1/K2a/"
+                         f"K2b device ms a step "
+                         + "/".join(f"{ms:.3f}" for ms in
+                                    r["attention_ms"].values())
+                         + f"; top a step: {top}")
+            print(line, flush=True)
+            if backend == "gloo" and row is main:
+                for r in rs:
+                    for name, n in r["launches"].items():
+                        counts[name] = counts.get(name, 0) + n
+        if backend == "gloo":
+            dt, peak_gb = long_context_one_process(job)
+            print(f"phase 12 long context bf16 [one process on one card, "
+                  f"batch 1 of {LONG_LEN} tokens, flash_attention causal, "
+                  f"a loop of step calls]: step {dt / LONG_STEPS * 1e3:.2f} "
+                  f"ms, peak memory {peak_gb:.2f} GB", flush=True)
+    return counts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
-        "--phases", default="1,2,3,4,5,6,7,8,9,10",
+        "--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
         help="comma-separated phases to run (default: all); the kernels "
              "line needs them all")
     phases = {int(p) for p in parser.parse_args(argv).phases.split(",")}
@@ -2124,7 +2397,9 @@ def main(argv=None) -> int:
              (7, lambda: add(phase_tp_window())),
              (8, phase_moe_parity),
              (9, lambda: add(phase_moe_window())),
-             (10, lambda: add(phase_tp_serve()))]
+             (10, lambda: add(phase_tp_serve())),
+             (11, phase_seq_parity),
+             (12, lambda: add(phase_seq_window()))]
     for phase, run in steps:
         if phase in phases:
             t1 = time.perf_counter()
@@ -2165,6 +2440,11 @@ def main(argv=None) -> int:
                     "SDPA's autograd backward (dq, dk, dv), shared by "
                     "K2a and K2b: compare the pair")
                 kernels[-1]["pair"] = record[("K2 pair", dtype)]
+            if name in TRAINING_KERNELS:                  # K1, K2a, K2b
+                for label in ("ring_chunk", "ring_chunk_causal"):
+                    kernels[-1][label] = dict(
+                        record[(name, dtype, label)],
+                        pair=record[("K2 pair", dtype, label)])
         print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

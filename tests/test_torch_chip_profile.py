@@ -103,3 +103,50 @@ def test_a_missing_profile_prints_not_measured():
     the profiler saw no device time (never as "None")."""
     assert chip_smoke.in_launches(9) == "in 9 launches"
     assert "not measured" in chip_smoke.in_launches("not measured")
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("index", [0, 1, 3])
+def test_phase12_holds_each_seq_rank_to_its_chunks(monkeypatch, index,
+                                                   remat):
+    """The K1, K2a and K2b calls a step that phase 12 asserts
+    (``seq_want``) are the calls a 4-layer ``TransformerLM`` with the
+    causal flash ring makes on seq rank ``index`` (of 2, or of 4 at
+    index 3; the ring's shifts stubbed to the identity on one process):
+    index + 1 chunks a layer, K1 twice under remat."""
+    import importlib
+
+    import torch
+
+    import autodist_tpu_torch as port
+    from autodist_tpu_torch.kernel.common import flatten_with_names, unflatten
+    from autodist_tpu_torch.parallel import ring_attention as ra
+    from autodist_tpu_torch.parallel.axis import Axis, axis_scope
+    from autodist_tpu_torch.parallel.sequence import global_positions
+
+    fa_mod = importlib.import_module("autodist_tpu_torch.ops.flash_attention")
+    calls = dict.fromkeys(chip_smoke.TRAINING_KERNELS, 0)
+    for name in calls:
+        real = getattr(fa_mod, name)
+
+        def counted(*a, _name=name, _real=real, **kw):
+            calls[_name] += 1
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(fa_mod, name, counted)
+    monkeypatch.setattr(ra, "ring_shift", lambda x, axis: x.clone())
+    cfg = port.TransformerConfig(
+        vocab_size=32, hidden_size=16, num_layers=4, num_heads=2,
+        mlp_dim=32, max_len=64, dtype=torch.float32, dropout_rate=0.0,
+        attention_dropout_rate=0.0, remat=remat, position_fn=global_positions,
+        attention_fn=ra.make_ring_flash_attention_fn(causal=True))
+    tr = port.make_lm_trainable(cfg, port.optim.sgd(0.1), torch.Generator(),
+                                device="cpu")
+    leaves = {n: t.clone().requires_grad_()
+              for n, t in flatten_with_names(tr.params)}
+    x = torch.randint(0, 32, (2, 8))
+    size = 4 if index == 3 else 2
+    with axis_scope({"seq": Axis("seq", size=size, index=index)}):
+        loss, _, _ = tr.loss(unflatten(leaves), None, {"x": x, "y": x}, None)
+        torch.autograd.grad(loss, list(leaves.values()))
+    assert calls == chip_smoke.seq_want(index, 4, remat)

@@ -1012,3 +1012,98 @@ def test_cuda_tp2_serving_stream_equals_tp1(cuda, tmp_path):
     got = torch.load(out, weights_only=False)
     assert got["streams"] == [done[r].tokens for r in rids]
     assert got["launches"] > 0 and got["captures"] == 0
+
+
+# --------------------------------------------------------------------------- #
+# Sequence parallelism: the ring and the causal LM
+# --------------------------------------------------------------------------- #
+def test_cuda_one_rank_flash_ring_is_flash_attention(cuda):
+    """A seq axis of one rank: the flash ring is one diagonal chunk, so
+    its output and dq, dk, dv in bf16 equal ``flash_attention`` causal
+    on the card bit for bit, through one K1, K2a and K2b launch each."""
+    from autodist_tpu_torch.parallel.axis import Axis, axis_scope
+    from autodist_tpu_torch.parallel.ring_attention import (
+        ring_flash_attention)
+
+    rng = np.random.RandomState(4)
+    q, k, v, go = (torch.from_numpy(rng.randn(2, 200, 4, 64)).to(
+        cuda, torch.bfloat16) for _ in range(4))
+
+    def run(fn):
+        x = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*x)
+        return [out.detach()] + list(torch.autograd.grad(out, x, go))
+
+    before = [w.launches for w in ATTENTION]
+    with axis_scope({"seq": Axis("seq")}):
+        got = run(lambda *x: ring_flash_attention(*x, causal=True))
+    torch.cuda.synchronize()
+    assert [w.launches for w in ATTENTION] == [n + 1 for n in before]
+    want = run(lambda *x: fa.flash_attention(*x, causal=True))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def _lm_trainable(dtype, **kw):
+    """A 2-layer ``TransformerLM`` with the causal flash ring and global
+    positions (head dim 64), weights from seed 0 on the CPU."""
+    from autodist_tpu_torch.parallel.ring_attention import (
+        make_ring_flash_attention_fn)
+    from autodist_tpu_torch.parallel.sequence import global_positions
+
+    cfg = port.TransformerConfig(
+        vocab_size=512, hidden_size=128, num_layers=2, num_heads=2,
+        mlp_dim=256, max_len=256, dtype=dtype,
+        attention_fn=make_ring_flash_attention_fn(causal=True),
+        position_fn=global_positions, **{
+            "dropout_rate": 0.0, "attention_dropout_rate": 0.0, **kw})
+    return port.make_lm_trainable(cfg, port.optim.sgd(0.1),
+                                  torch.Generator().manual_seed(0),
+                                  device="cpu")
+
+
+def _lm_loss_and_grads(tr, device, rng=None):
+    """Loss and gradients of one batch on ``device``, under a one-rank
+    seq axis."""
+    from autodist_tpu_torch.kernel.common import unflatten
+    from autodist_tpu_torch.parallel.axis import Axis, axis_scope
+
+    x = torch.from_numpy(np.random.RandomState(5).randint(0, 512, (2, 256)))
+    batch = {"x": x.to(device), "y": x.roll(-1, 1).to(device)}
+    leaves = {n: t.to(device).requires_grad_()
+              for n, t in flatten_with_names(tr.params)}
+    with axis_scope({"seq": Axis("seq")}):
+        loss, _, _ = tr.loss(unflatten(leaves), None, batch, rng)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach().float().cpu(), {n: g.float().cpu()
+                                         for n, g in zip(leaves, grads)}
+
+
+def test_cuda_transformer_lm_bf16_equals_its_cpu_run(cuda):
+    """``TransformerLM`` in bf16 through the flash ring (K1, K2a, K2b
+    on the card, their plain versions on the CPU): the loss within
+    1e-2 relative and every gradient within atol = rtol = 2e-2 of the
+    CPU run on the same weights and batch."""
+    tr = _lm_trainable(torch.bfloat16)
+    loss, grads = _lm_loss_and_grads(tr, cuda)
+    want_loss, want = _lm_loss_and_grads(tr, "cpu")
+    torch.testing.assert_close(loss, want_loss, atol=0, rtol=1e-2)
+    for name, g in grads.items():
+        torch.testing.assert_close(g, want[name], atol=2e-2, rtol=2e-2,
+                                   msg=name)
+
+
+def test_cuda_remat_equals_no_remat_with_dropout(cuda):
+    """``cfg.remat`` on the card at dropout 0.1 (a CUDA generator): the
+    recompute redraws the first pass's masks, so the fp32 loss is the
+    same and every gradient agrees within 1e-6 (atomic sums may round
+    in another order)."""
+    drop = dict(dropout_rate=0.1, attention_dropout_rate=0.1)
+    plain = _lm_loss_and_grads(_lm_trainable(torch.float32, **drop), cuda,
+                               rng=7)
+    remat = _lm_loss_and_grads(_lm_trainable(torch.float32, remat=True,
+                                             **drop), cuda, rng=7)
+    torch.testing.assert_close(remat[0], plain[0], atol=0, rtol=0)
+    for name, g in plain[1].items():
+        torch.testing.assert_close(remat[1][name], g, atol=1e-6, rtol=1e-6,
+                                   msg=name)

@@ -463,7 +463,7 @@ def test_out_of_slice_options_raise(what, jparams):
             d["graph_config"]["accum_steps"] = 2
             ad.lower(tr, port.Strategy.from_json(json.dumps(d)))
         else:
-            port.ResourceSpec({"mesh": {"seq": 2}})
+            port.ResourceSpec({"mesh": {"dcn": 2}})
 
 
 def test_entry_points_default_to_the_card(jparams):

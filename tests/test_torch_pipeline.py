@@ -301,5 +301,5 @@ def test_pipe_axis_builds():
     """A spec with a pipe axis of 2 is accepted; the other axes of later
     items keep raising under their item names."""
     assert port.ResourceSpec({"mesh": {"pipe": 2}}).mesh_shape == {"pipe": 2}
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        port.ResourceSpec({"mesh": {"pipe": 2, "seq": 2}})
+    with pytest.raises(NotImplementedError, match="item 9"):
+        port.ResourceSpec({"mesh": {"pipe": 2, "dcn": 2}})

@@ -421,7 +421,7 @@ def test_out_of_slice_options_raise(what, jparams):
             lower_pipeline(tr, port.Strategy.from_json(json.dumps(d)),
                            Mesh(shape={"data": 1, "pipe": 2}), device="cpu")
         elif what == "seq_axis":
-            port.ResourceSpec({"mesh": {"seq": 2}})
+            port.ResourceSpec({"mesh": {"dcn": 2}})
         elif what == "zero":
             Pipeline(zero_stage=1)
         elif what == "remat":

@@ -429,14 +429,14 @@ def test_out_of_slice_options_raise(what, jtrainable, jparams):
                 '"partitioner": null', '"partitioner": {"partition_str": '
                 '"2,1"}', 1))
         elif what == "mesh_axis":
-            port.ResourceSpec({"mesh": {"data": 1, "seq": 2}})
+            port.ResourceSpec({"mesh": {"data": 1, "dcn": 2}})
         elif what == "topology_key":
             port.ResourceSpec({"topology": {"generation": "v5e"}})
         elif what == "multihost":
             port.ResourceSpec({"multihost": {"num_processes": 2}})
         elif what == "remat":
-            tbert.make_mlm_trainable(_tcfg(remat=True), port.optim.sgd(0.1),
-                                     torch.Generator(), device="cpu")
+            # The encoder's remat runs; the pipeline lowering's raises.
+            port.Pipeline(remat=True)
         elif what == "compressor_json":
             strategy = port.Strategy.from_json(doc.replace(
                 '"compressor": "none"', '"compressor": "bf16_ef"'))
