@@ -9,10 +9,14 @@ CUDA kernel in ``kernel/csrc/``, built with ``nvcc`` at first use.
 
 Ported so far: the serving path of the pipelined LM (dense and paged KV
 cache, chunked prefill, continuous batching) with the flash-decode and
-paged flash-prefill kernels; the data-parallel training path
-(``AutoDist(spec, AllReduce(...)).build(make_mlm_trainable(...))``,
-``runner.run_steps``) with the flash-attention forward and backward
-kernels; pipeline-parallel training of the pipelined LM over a pipe
+paged flash-prefill kernels; the data-parallel training path with the
+whole strategy zoo of the collective lowering
+(``AutoDist(spec).build(make_mlm_trainable(...))``, by default
+``PSLoadBalancing``, or with ``PS``, ``PartitionedPS``,
+``UnevenPartitionedPS``, ``AllReduce(compressor=...)``,
+``PartitionedAR``, ``RandomAxisPartitionAR``, ``Parallax``,
+``GradAccumulation`` or ``ZeRO``; ``runner.run_steps``) with the
+flash-attention forward and backward kernels; pipeline-parallel training of the pipelined LM over a pipe
 axis, GPipe and interleaved, with Megatron tensor parallelism inside the
 stages (``AutoDist({"mesh": {"data": d, "pipe": p, "model": t}},
 Pipeline(num_microbatches=M, virtual_stages=V, tensor_parallel=t,
@@ -46,13 +50,18 @@ from autodist_tpu_torch.resource import ResourceSpec
 from autodist_tpu_torch.runner import DistributedRunner, stack_steps
 from autodist_tpu_torch.serving import (ContinuousBatcher, ServingEngine,
                                         serve)
-from autodist_tpu_torch.strategy.builders import (AllReduce, ExpertParallel,
-                                                  Pipeline, SequenceParallel)
+from autodist_tpu_torch.strategy.builders import (
+    PS, AllReduce, ExpertParallel, GradAccumulation, Parallax, PartitionedAR,
+    PartitionedPS, Pipeline, PSLoadBalancing, RandomAxisPartitionAR,
+    SequenceParallel, UnevenPartitionedPS, ZeRO)
 from autodist_tpu_torch.strategy.ir import Strategy
 
 __all__ = ["AutoDist", "Trainable", "PipelineTrainable", "VarInfo",
            "ResourceSpec", "DistributedRunner", "stack_steps", "Strategy",
-           "AllReduce", "Pipeline", "ExpertParallel", "SequenceParallel",
+           "AllReduce", "PS", "PSLoadBalancing", "PartitionedPS",
+           "UnevenPartitionedPS", "PartitionedAR", "RandomAxisPartitionAR",
+           "Parallax", "GradAccumulation", "ZeRO", "Pipeline",
+           "ExpertParallel", "SequenceParallel",
            "optim", "serve",
            "ServingEngine", "ContinuousBatcher", "TransformerConfig",
            "init_pipeline_lm_params", "make_pipeline_lm_trainable",

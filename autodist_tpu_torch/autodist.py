@@ -20,19 +20,19 @@ from autodist_tpu_torch.strategy.ir import Strategy
 
 class AutoDist:
     """Entry object: ``AutoDist(resource_spec, strategy_builder)`` then
-    ``build(trainable)`` -> runner.  ``device=None`` runs on the card
-    (this process's current CUDA device); pass ``device="cpu"`` to run
-    the plain PyTorch path on the CPU."""
+    ``build(trainable)`` -> runner.  The builder defaults to
+    ``PSLoadBalancing()``; a builder's name takes its keyword arguments
+    (``AutoDist(spec, "AllReduce", chunk_size=256)``).  ``device=None``
+    runs on the card (this process's current CUDA device); pass
+    ``device="cpu"`` to run the plain PyTorch path on the CPU."""
 
     def __init__(self, resource_spec=None, strategy_builder=None, *,
                  device=None, **builder_kwargs):
         if not isinstance(resource_spec, ResourceSpec):
             resource_spec = ResourceSpec(resource_spec)
         if strategy_builder is None:
-            raise NotImplementedError(
-                "the default builder PSLoadBalancing is not ported yet "
-                "(ROADMAP Queue 1, item 8); pass AllReduce(...)")
-        if isinstance(strategy_builder, str):
+            strategy_builder = _builders.PSLoadBalancing()
+        elif isinstance(strategy_builder, str):
             strategy_builder = _builders.create(strategy_builder,
                                                 **builder_kwargs)
         self.resource_spec = resource_spec

@@ -37,6 +37,17 @@ class VarInfo:
     dtype: Any
     is_sparse: bool  # embedding-style row access
 
+    @property
+    def size(self) -> int:
+        n = 1
+        for d in self.shape:
+            n *= d
+        return n
+
+    @property
+    def byte_size(self) -> int:
+        return self.size * self.dtype.itemsize
+
 
 # Embedding-style variables by name and shape, as in the JAX package.
 _SPARSE_NAME_RE = re.compile(r"(embed|embedding|lookup|vocab)", re.IGNORECASE)

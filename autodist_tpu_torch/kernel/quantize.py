@@ -1,11 +1,13 @@
 """Quantize/dequantize arithmetic for collectives, and the composed psums.
 
 Counterpart of ``autodist_tpu/kernel/quantize.py`` for what the
-tensor-parallel boundaries use: the precision vocabulary, the symmetric
-int8 scale and levels, :func:`quantized_psum` at fp32, bf16 and int8,
-and :func:`quantized_pmax` (the vocab epilogue's stabilizing max).
-The error-feedback helpers and the decomposed int8/bf16 halves belong
-to the compressor and overlap items (ROADMAP Queue 1).
+tensor-parallel boundaries and the gradient compressors use: the
+precision vocabulary, the symmetric int8 scale and levels,
+:func:`quantized_psum` at fp32, bf16 and int8, :func:`quantized_pmax`
+(the vocab epilogue's stabilizing max) and the error-feedback pair
+:func:`ef_correct` / :func:`ef_residual`
+(:mod:`~autodist_tpu_torch.kernel.compressor`).  The decomposed
+int8/bf16 halves belong to the overlap item (ROADMAP Queue 1).
 
 Two numeric rules keep the port bit-exact with the JAX package:
 
@@ -117,3 +119,14 @@ def quantized_pmax(x, axis, precision: str):
     if precision == "fp32":
         return axis.pmax(x)
     return axis.pmax(x.to(torch.bfloat16)).to(x.dtype)
+
+
+def ef_correct(grad, residual):
+    """The carried quantization error applied before compressing:
+    ``grad + residual`` in fp32."""
+    return grad.float() + residual
+
+
+def ef_residual(corrected, wire):
+    """Next step's residual: what this step's wire form lost."""
+    return corrected - wire.float()

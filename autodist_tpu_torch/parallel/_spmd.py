@@ -1,71 +1,90 @@
 """The shared step of the replicated-parameter lowerings.
 
 Counterpart of ``autodist_tpu/parallel/_spmd.py``'s
-``build_replicated_spmd`` at its plain-policy core.  The sequence and
-expert lowerings differ only in placement (which variables are stored
-sharded, how the batch leaves split, over which axes each gradient is
-averaged); the step is this one, run eagerly in every process of the
-job where the JAX package traces one ``shard_map`` program:
+``build_replicated_spmd``.  The sequence and expert lowerings differ
+only in placement (which variables are stored sharded, how the batch
+leaves split, over which axes each gradient is averaged); the step is
+this one, run eagerly in every process of the job where the JAX
+package traces one ``shard_map`` program:
 
 1. the loss and its gradients on this rank's part of the batch, with
    the dropout seed folded with the rank's joint index over
    ``sync_axes``, inside :func:`~autodist_tpu_torch.parallel.axis
-   .axis_scope` binding every mesh axis by name (forward and backward);
-2. each gradient averaged over the axis its variable's ``grad_sync``
-   names, the variables of one axis in one flat fp32 all-reduce;
+   .axis_scope` binding every mesh axis by name (forward and backward),
+   over ``accum`` microbatches where the strategy asks
+   (:func:`~autodist_tpu_torch.kernel.common.accumulate_microbatches`);
+2. each gradient synchronized: a variable with a compressor policy
+   (:class:`VarPolicy`: a node's ``AllReduceSynchronizer(compressor=)``,
+   or every variable under the ``grad`` precision slot's error-feedback
+   compressor) through its compressor's all-reduce, with its own state
+   row in ``state["sync_state"]``, then scaled; every other one
+   averaged over the axis its ``grad_sync`` names, the variables of one
+   axis in one flat fp32 all-reduce;
 3. the optimizer update, alike on every rank;
-4. float metrics and float ``extra`` leaves averaged over ``sync_axes``.
+4. metrics (floats averaged, counts summed, flags OR-ed) and float
+   ``extra`` leaves averaged over ``sync_axes``.
 
-Gradient accumulation, ZeRO, the compressors and the ``grad`` and
-``zero3_gather`` precision slots raise ``NotImplementedError`` here,
-each naming its ROADMAP item: this is the one place they will be
-filled in.
+ZeRO (a PS synchronizer, the ``zero3_gather`` slot) raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+import dataclasses
+from typing import Any, Callable, Optional, Sequence
 
 import torch
 
 from autodist_tpu_torch import cuda_graph, optim
 from autodist_tpu_torch.device import resolve_device
+from autodist_tpu_torch.kernel import common
 from autodist_tpu_torch.kernel.common import flatten_with_names, unflatten
+from autodist_tpu_torch.kernel.compressor import Compressor
 from autodist_tpu_torch.parallel.axis import axis_scope
-from autodist_tpu_torch.strategy.ir import normalize_precision, not_ported
+from autodist_tpu_torch.strategy.ir import (PSSynchronizer,
+                                            normalize_precision, not_ported)
 
 ZERO_ITEM = "ROADMAP Queue 1, slice 3 leftovers, item 4"
-COMPRESSORS_ITEM = "ROADMAP Queue 1, slice 2 leftovers: compressors"
-ACCUM_ITEM = "ROADMAP Queue 1, item 8: GradAccumulation"
+# The grad slot's compressor for each narrowed precision.
+GRAD_SLOT_COMPRESSORS = {"bf16": "bf16_ef", "int8": "int8_ef"}
 
 
-def check_plain_policies(strategy, what: str):
-    """Refuse a per-variable compressor, which the builder does not run
-    yet, naming its item (a PS synchronizer, ZeRO, is refused when the
-    strategy is read); JAX ``policies_from_node_configs`` resolves
-    both."""
+@dataclasses.dataclass
+class VarPolicy:
+    """A variable's compressed gradient sync: ``compressor`` over
+    ``axis`` (``None``: the builder's joint ``sync_axes``), the mean
+    then multiplied by ``scale``."""
+
+    compressor: str
+    axis: Any = None
+    scale: float = 1.0
+
+
+def compressor_policies(strategy, what: str, axis_for=None,
+                        scale_for=None) -> dict:
+    """``{name: VarPolicy}`` of the node configs that name a compressor
+    (JAX ``policies_from_node_configs``); ``axis_for(name)`` and
+    ``scale_for(name)`` override the axis and the scale.  A PS
+    synchronizer (ZeRO) raises, naming its item."""
+    policies = {}
     for nc in strategy.node_configs:
-        if nc.synchronizer.compressor not in ("", "none"):
-            not_ported(f"gradient compressor {nc.synchronizer.compressor!r}"
-                       f" on {nc.var_name} in the {what} lowering",
-                       COMPRESSORS_ITEM)
-
-
-def _mean_float_leaves(tree, axis):
-    """Float tensors of a nest of dicts, lists and tuples averaged over
-    ``axis``; everything else as it is."""
-    if isinstance(tree, torch.Tensor):
-        return axis.pmean(tree) if tree.is_floating_point() else tree
-    if isinstance(tree, dict):
-        return {k: _mean_float_leaves(v, axis) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_mean_float_leaves(v, axis) for v in tree)
-    return tree
+        sync = nc.synchronizer
+        if isinstance(sync, PSSynchronizer):
+            not_ported(f"ZeRO (a PS synchronizer on {nc.var_name}) in the "
+                       f"{what} lowering", ZERO_ITEM)
+        if sync.compressor not in ("", "none"):
+            Compressor.create(sync.compressor)      # the name, checked
+            policies[nc.var_name] = VarPolicy(
+                sync.compressor,
+                axis_for(nc.var_name) if axis_for else None,
+                scale_for(nc.var_name) if scale_for else 1.0)
+    return policies
 
 
 def build_replicated_spmd(trainable, mesh, *, sync_axes: Sequence[str],
                           batch_spec_fn: Optional[Callable] = None,
                           param_spec_fn: Optional[Callable] = None,
                           grad_sync: Optional[Callable] = None,
+                          policies: Optional[dict] = None,
                           accum: int = 1, precision=None, plan=None,
                           device=None):
     """The train step of a (mostly) replicated-parameter strategy, as a
@@ -87,24 +106,34 @@ def build_replicated_spmd(trainable, mesh, *, sync_axes: Sequence[str],
       grad_sync: ``(name, grad) -> (grad, Axis or None)``: the gradient
         to average and the axis to average it over, ``None`` for the
         joint ``sync_axes`` (the default for every variable).
-      accum, precision: the strategy's accumulation count and precision
-        policy; only ``accum == 1`` and the ``moe_a2a`` slot (which the
-        expert lowering binds into its trainable) run yet.
+      policies: ``{name: VarPolicy}``, the compressed variables
+        (:func:`compressor_policies`).
+      accum: the microbatches a step.
+      precision: the strategy's precision policy: the ``grad`` slot
+        elects the matching error-feedback compressor for every
+        variable without a policy, where the default ``grad_sync``
+        applies (a custom one, the expert lowering's scaled rule,
+        keeps its own sync, as in the JAX package); ``moe_a2a`` is the
+        expert lowering's, bound into its trainable.
     """
-    if accum != 1:
-        not_ported("gradient accumulation (accum_steps > 1)", ACCUM_ITEM)
+    from autodist_tpu_torch.kernel.lowering import (Lowered,
+                                                    mean_float_leaves,
+                                                    reduce_metrics)
+
     precision = normalize_precision(precision)
-    if precision.get("grad"):
-        not_ported("the 'grad' precision slot (an error-feedback "
-                   "compressor on the gradient sync)", COMPRESSORS_ITEM)
     if precision.get("zero3_gather"):
         not_ported("the 'zero3_gather' precision slot (ZeRO-3)", ZERO_ITEM)
-    from autodist_tpu_torch.kernel.lowering import Lowered, reduce_metrics
-
     dev, opt = resolve_device(device), trainable.optimizer
     sync = mesh.joint_axis(tuple(sync_axes))
     scope = {name: mesh.axis(name) for name in mesh.shape}
     names = [info.name for info in trainable.var_infos()]
+    policies = dict(policies or {})
+    if precision.get("grad") and grad_sync is None:
+        comp = GRAD_SLOT_COMPRESSORS[precision["grad"]]
+        policies.update({nm: VarPolicy(comp) for nm in names
+                         if nm not in policies})
+    comps = {nm: Compressor.create(pol.compressor)
+             for nm, pol in policies.items()}
     flat = dict(flatten_with_names(trainable.params))
     sharded = {}
     for name in names:
@@ -119,49 +148,79 @@ def build_replicated_spmd(trainable, mesh, *, sync_axes: Sequence[str],
     if grad_sync is None:
         grad_sync = lambda name, g: (g, None)              # noqa: E731
 
+    def store(nm, t):
+        if nm not in sharded:
+            return t
+        dim, axis = sharded[nm]
+        n = t.shape[dim] // axis.size
+        return t.narrow(dim, axis.index * n, n)
+
     def init_fn(params, extra):
-        stored = {}
-        for nm, t in flatten_with_names(params):
-            if nm in sharded:
-                dim, axis = sharded[nm]
-                n = t.shape[dim] // axis.size
-                t = t.narrow(dim, axis.index * n, n)
-            stored[nm] = t.detach().to(dev).clone()
+        stored = {nm: store(nm, t).detach().to(dev).clone()
+                  for nm, t in flatten_with_names(params)}
+        rows = {nm: torch.as_tensor(comp.init_state_flat(
+                    stored[nm].numel()), device=dev)
+                for nm, comp in comps.items() if comp.stateful}
         return {"step": torch.zeros((), dtype=torch.int32, device=dev),
                 "params": stored, "opt_state": opt.init(stored),
-                "extra": extra}
+                "extra": extra, "sync_state": rows}
 
-    def sync_grads(grads: dict) -> dict:
-        """Each axis's variables in one flat fp32 mean, in the order of
-        their first variable."""
-        buckets: dict = {}
+    def sync_grads(grads: dict, rows: dict):
+        """The compressed variables one by one, then each plain axis's
+        variables in one flat fp32 mean, in the order of their first
+        variable; returns the synced gradients and the new rows."""
+        buckets, synced, new_rows = {}, {}, dict(rows)
         for nm, g in grads.items():
-            g, axis = grad_sync(nm, g)
-            axis = sync if axis is None else axis
-            buckets.setdefault(id(axis), (axis, {}))[1][nm] = g
-        synced = {}
+            pol = policies.get(nm)
+            if pol is None:
+                g, axis = grad_sync(nm, g)
+                axis = sync if axis is None else axis
+                buckets.setdefault(id(axis), (axis, {}))[1][nm] = g
+                continue
+            comp = comps[nm]
+            red, row = comp.allreduce(
+                g.reshape(-1).float(), rows[nm] if comp.stateful else None,
+                sync if pol.axis is None else pol.axis)
+            if comp.stateful:
+                new_rows[nm] = row
+            red = red.view(g.shape).to(g.dtype)
+            synced[nm] = red if pol.scale == 1.0 else red * pol.scale
         for axis, group in buckets.values():
             synced.update(axis.pmean_all(group))
-        return {nm: synced[nm] for nm in grads}
+        return {nm: synced[nm] for nm in grads}, new_rows
 
-    def step_fn(state, batch, rng):
-        params = state["params"]
+    def micro_grads(params, batch, rng, extra):
         leaves = {nm: p.detach().requires_grad_(True)
                   for nm, p in params.items()}
-        local_rng = cuda_graph.fold_seed(rng, sync.size, sync.index)
         with torch.enable_grad(), axis_scope(scope):
             loss, new_extra, metrics = trainable.loss(
-                unflatten(leaves), state["extra"], batch, local_rng)
+                unflatten(leaves), extra, batch, rng)
             grads = torch.autograd.grad(loss, list(leaves.values()),
                                         allow_unused=True)
         grads = {nm: torch.zeros_like(params[nm]) if g is None else g
                  for nm, g in zip(leaves, grads)}
-        updates, opt_state = opt.update(sync_grads(grads),
-                                        state["opt_state"], params)
+        return grads, new_extra, metrics
+
+    def step_fn(state, batch, rng):
+        params = state["params"]
+        local_rng = cuda_graph.fold_seed(rng, sync.size, sync.index)
+
+        def micro(mb, r, extra):
+            return micro_grads(params, mb, r, extra)
+
+        if accum == 1:
+            grads, new_extra, metrics = micro(batch, local_rng,
+                                              state["extra"])
+        else:
+            grads, new_extra, metrics = common.accumulate_microbatches(
+                micro, batch, local_rng, state["extra"], accum)
+        synced, rows = sync_grads(grads, state["sync_state"])
+        updates, opt_state = opt.update(synced, state["opt_state"], params)
         new_state = {"step": state["step"] + 1,
                      "params": optim.apply_updates(params, updates),
                      "opt_state": opt_state,
-                     "extra": _mean_float_leaves(new_extra, sync)}
+                     "extra": mean_float_leaves(new_extra, sync),
+                     "sync_state": rows}
         return new_state, reduce_metrics(metrics, mesh, axis=sync)
 
     def full_params(stored: dict) -> dict:

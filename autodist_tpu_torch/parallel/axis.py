@@ -139,7 +139,8 @@ class Axis:
     def psum_scatter(self, flat):
         """Reduce-scatter of a flat payload whose length divides the
         axis size: this rank's chunk of the sum
-        (``lax.psum_scatter(..., tiled=True)``).  Taken from a full
+        (``lax.psum_scatter(..., tiled=True)``).  One
+        ``reduce_scatter_tensor`` on NCCL; elsewhere taken from a full
         all-reduce, which every backend has (gloo has no
         reduce-scatter); the chunk's values are the same."""
         if self.size == 1:
@@ -148,6 +149,11 @@ class Axis:
         if chunk * self.size != flat.shape[0]:
             raise ValueError(f"psum_scatter: length {flat.shape[0]} does not "
                              f"divide by the axis size {self.size}")
+        if flat.is_cuda and dist.get_backend(self.group) == "nccl":
+            out = flat.new_empty(chunk)
+            dist.reduce_scatter_tensor(out, flat.contiguous(),
+                                       group=self.group)
+            return out
         summed = self.psum(flat)
         return summed[self.index * chunk:(self.index + 1) * chunk].clone()
 

@@ -221,15 +221,12 @@ def make_expert_plan(trainable, strategy, mesh) -> ExpertPlan:
             for nc in strategy.node_configs):
         not_ported("ZeRO in the expert lowering",
                    "ROADMAP Queue 1, slice 5 leftovers, item 1")
-    if precision.get("grad") or any(
-            nc.synchronizer.compressor not in ("", "none")
-            for nc in strategy.node_configs):
-        not_ported("gradient compressors in the expert lowering (and the "
-                   "'grad' precision slot)",
+    if precision.get("grad"):
+        # The JAX lowering's scaled per-variable sync leaves the blanket
+        # slot unapplied; here it is refused rather than dropped.
+        not_ported("the 'grad' precision slot in the expert lowering "
+                   "(per-variable compressors run)",
                    "ROADMAP Queue 1, slice 5 leftovers, item 2")
-    if cfg.accum_steps != 1:
-        not_ported("gradient accumulation in the expert lowering",
-                   "ROADMAP Queue 1, slice 5 leftovers, item 4")
     E_shards = mesh.shape[const.EXPERT_AXIS]
     expert_vars = list(interop.expert_dims(strategy))
     infos = {v.name: v for v in trainable.var_infos()}
@@ -263,9 +260,14 @@ def lower_expert_ir(trainable, strategy, mesh, device=None):
       the mean over every token group) and averaged over ``data`` only;
       every other gradient is averaged over ``data x expert``; each set
       in one flat fp32 all-reduce;
-    * metrics are averaged over ``data x expert``.
+    * a node's compressor runs over the same axes, its mean then scaled
+      (an expert variable on a mesh without a data axis has nothing to
+      sync, as in the JAX package);
+    * metrics are averaged over ``data x expert``; ``accum_steps``
+      microbatches a step.
     """
-    from autodist_tpu_torch.parallel._spmd import build_replicated_spmd
+    from autodist_tpu_torch.parallel._spmd import (build_replicated_spmd,
+                                                   compressor_policies)
 
     plan = make_expert_plan(trainable, strategy, mesh)
     # Bind the dispatch/combine wire election into the trainable's slot;
@@ -292,9 +294,17 @@ def lower_expert_ir(trainable, strategy, mesh, device=None):
             else (g, None)
 
     cfg = strategy.graph_config
+    policies = compressor_policies(
+        strategy, "expert",
+        axis_for=lambda n: data if n in sharded else None,
+        scale_for=lambda n: 1.0 / plan.expert_shards if n in sharded
+        else 1.0)
+    if const.DATA_AXIS not in mesh.shape:
+        policies = {n: p for n, p in policies.items() if n not in sharded}
     return build_replicated_spmd(
         trainable, mesh, sync_axes=plan.batch_axes,
-        param_spec_fn=param_spec, grad_sync=grad_sync, accum=cfg.accum_steps,
+        param_spec_fn=param_spec, grad_sync=grad_sync, policies=policies,
+        accum=max(cfg.accum_steps, 1),
         precision={k: v for k, v in normalize_precision(cfg.precision)
                    .items() if k != "moe_a2a"},
         plan=plan, device=device)

@@ -275,7 +275,8 @@ def make_pipeline_plan(trainable, strategy, mesh) -> PipelinePlan:
         not_ported("a narrowed vocab_stats precision under comm_overlap",
                    f"{_LEFTOVERS}, item 3")
     if cfg.accum_steps != 1:
-        not_ported("gradient accumulation", "ROADMAP Queue 1, item 8")
+        not_ported("gradient accumulation in the pipeline lowering",
+                   "ROADMAP Queue 1, item 8: GradAccumulation")
     return PipelinePlan(
         num_microbatches=int(par.get("num_microbatches", 1)),
         num_stages=trainable.num_stages, virtual_stages=V,

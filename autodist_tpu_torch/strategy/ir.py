@@ -7,16 +7,17 @@ Counterpart of ``autodist_tpu/strategy/ir.py``.  Ported:
   ``normalize_prefix_caching``, ``normalize_speculative``), with the
   same canonical forms and the same errors;
 * the core of the IR: :class:`AllReduceSynchronizer`,
-  :class:`PartitionerConfig` (the mesh-axis ``spec`` form the
-  ``Pipeline`` builder writes), :class:`NodeConfig`, :class:`GraphConfig`
-  with the per-collective precision policy (:func:`normalize_precision`)
-  and the kernel slot, and :class:`Strategy`, whose JSON is the JAX
-  package's byte for byte (same keys, same order, same ``indent=1``), so
-  a strategy either package writes reads back in the other.
+  :class:`PSSynchronizer`, :class:`PartitionerConfig` (the
+  data-parallel zoo's single-axis ``partition_str`` form and the
+  mesh-axis ``spec`` form the ``Pipeline`` builder writes),
+  :class:`NodeConfig`, :class:`GraphConfig` with the per-collective
+  precision policy (:func:`normalize_precision`) and the kernel slot,
+  and :class:`Strategy`, whose JSON is the JAX package's byte for byte
+  (same keys, same order, same ``indent=1``), so a strategy either
+  package writes reads back in the other.
 
-``PSSynchronizer`` and the ``partition_str`` partitioners of the
-data-parallel zoo raise ``NotImplementedError`` naming the item that
-brings them.
+A ``PSSynchronizer`` with ``sync=False`` or ``staleness > 0`` reads
+back; the lowering refuses it (:data:`ASYNC_PS_ITEM`).
 """
 from __future__ import annotations
 
@@ -184,25 +185,54 @@ class AllReduceSynchronizer:
         return dataclasses.asdict(self)
 
 
+# Where asynchronous PS and the stale-synchronous gate come.
+ASYNC_PS_ITEM = "ROADMAP Queue 1, item 8: AsyncPSRunner and the SSP gate"
+
+
+@dataclasses.dataclass
+class PSSynchronizer:
+    """Sharded-state synchronization, parameter-server semantics on the
+    data axis: each rank owns ``1/n`` of a variable's flattened
+    gradient (reduce-scattered), runs the optimizer on it and all-gathers
+    the updated values (ZeRO-1); with an axis partitioner the parameter
+    itself is stored sharded (FSDP).  ``reduction_destination`` is the
+    load balancer's shard tag (provenance only); ``local_replication``
+    is a no-op (parameters are gathered every step); ``zero_stage`` the
+    cost model's record.  ``sync=False`` and ``staleness > 0`` read
+    back but do not lower (:data:`ASYNC_PS_ITEM`)."""
+
+    kind: str = "ps"
+    reduction_destination: str = ""
+    local_replication: bool = False
+    sync: bool = True
+    staleness: int = 0
+    zero_stage: int = 1
+
+    def to_dict(self):
+        return dataclasses.asdict(self)
+
+
+SYNCHRONIZER_TYPES = {"allreduce": AllReduceSynchronizer,
+                      "ps": PSSynchronizer}
+
+
 def synchronizer_from_dict(d: dict):
     d = dict(d)
     kind = d.get("kind", "allreduce")
-    if kind == "ps":
-        not_ported("the PS synchronizer (PS, ZeRO, PartitionedPS)",
-                    "ROADMAP Queue 1, item 8")
-    if kind != "allreduce":
+    if kind not in SYNCHRONIZER_TYPES:
         raise ValueError(f"unknown synchronizer kind {kind!r}")
-    return AllReduceSynchronizer(**d)
+    return SYNCHRONIZER_TYPES[kind](**d)
 
 
 @dataclasses.dataclass
 class PartitionerConfig:
-    """How one variable is split over the mesh.  The port reads the
-    ``spec`` form: one mesh axis name (or ``None``) per dimension, e.g.
-    ``["pipe", None, "model"]``; ``comm_overlap`` and ``precision``
-    record the variable's model-axis boundary for the cost model, as in
-    the JAX package.  The ``partition_str`` form (``"1,4,1"``, the
-    data-parallel zoo's single-axis split) is not ported yet."""
+    """How one variable is split over the mesh: ``partition_str``
+    (``"1,4,1"``: a split count a dimension, one dimension split, the
+    data-parallel zoo's form; the lowering maps the split onto the data
+    axis whatever its count) or ``spec``, one mesh axis name (or
+    ``None``) per dimension, e.g. ``["pipe", None, "model"]``;
+    ``comm_overlap`` and ``precision`` record the variable's model-axis
+    boundary for the cost model, as in the JAX package."""
 
     partition_str: str = ""
     mesh_axis: str = const.DATA_AXIS
@@ -210,15 +240,30 @@ class PartitionerConfig:
     comm_overlap: Optional[str] = None
     precision: Optional[str] = None
 
+    @property
+    def partition_list(self) -> list:
+        if not self.partition_str:
+            return []
+        return [int(x) for x in self.partition_str.split(",")]
+
+    @property
+    def split_axis(self) -> int:
+        """The one split dimension (``-1`` for none)."""
+        axes = [i for i, n in enumerate(self.partition_list) if n > 1]
+        if len(axes) > 1:
+            raise ValueError(f"single-axis partitioning only (got "
+                             f"{self.partition_str!r})")
+        return axes[0] if axes else -1
+
+    @property
+    def num_shards(self) -> int:
+        return max(self.partition_list, default=1)
+
     def to_dict(self):
         return dataclasses.asdict(self)
 
     @classmethod
     def from_dict(cls, d):
-        if d.get("partition_str"):
-            not_ported("variable partitioning by partition_str "
-                        "(PartitionedAR, PartitionedPS, Parallax)",
-                        "ROADMAP Queue 1, item 8")
         prec = d.get("precision")
         if prec is not None and prec not in PRECISIONS:
             raise UnknownPrecisionError(
@@ -232,7 +277,7 @@ class NodeConfig:
     """Per-variable distribution choice."""
 
     var_name: str
-    synchronizer: AllReduceSynchronizer = dataclasses.field(
+    synchronizer: AllReduceSynchronizer | PSSynchronizer = dataclasses.field(
         default_factory=AllReduceSynchronizer)
     partitioner: Optional[PartitionerConfig] = None
     is_sparse: bool = False

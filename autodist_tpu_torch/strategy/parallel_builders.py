@@ -340,9 +340,10 @@ class ExpertParallel(StrategyBuilder):
     combine wire; ``kernel=("a2a_ring",)`` takes the fused int8 ring and
     needs the int8 ``moe_a2a`` slot.
 
-    The JAX builder's checks run first, with its errors.  ZeRO
-    (``zero_stage``, ``zero1``, ``zero_min_bytes``), gradient
-    compressors and the ``grad`` slot, and ``expert_over_dcn`` raise
+    ``compressor=`` names each variable's gradient compressor.  The JAX
+    builder's checks run first, with its errors.  ZeRO (``zero_stage``,
+    ``zero1``, ``zero_min_bytes``), the ``grad`` slot and
+    ``expert_over_dcn`` raise
     ``NotImplementedError`` after them.
     """
 
@@ -386,10 +387,11 @@ class ExpertParallel(StrategyBuilder):
         if self.zero_stage or zero_min_bytes is not None:
             not_ported("ZeRO in the expert lowering (zero_stage, zero1, "
                        "zero_min_bytes)", f"{_MOE_LEFTOVERS}, item 1")
-        if comp != "none" or self.precision.get("grad"):
-            not_ported("gradient compressors in the expert lowering (and "
-                       "the 'grad' precision slot)",
+        if self.precision.get("grad"):
+            not_ported("the 'grad' precision slot in the expert lowering "
+                       "(per-variable compressors run)",
                        f"{_MOE_LEFTOVERS}, item 2")
+        self.compressor = comp
         if self.expert_over_dcn:
             not_ported("expert_over_dcn (an expert axis across hosts)",
                        f"{_MOE_LEFTOVERS}, item 3")
@@ -420,7 +422,8 @@ class ExpertParallel(StrategyBuilder):
                     "expert_params=(%r,) if it is a per-expert table",
                     i.name, i.name.rsplit("/", 1)[-1])
             node = NodeConfig(var_name=i.name,
-                              synchronizer=AllReduceSynchronizer(),
+                              synchronizer=AllReduceSynchronizer(
+                                  compressor=self.compressor),
                               is_sparse=i.is_sparse)
             if explicit or auto:
                 matched.add(i.name)
@@ -460,9 +463,11 @@ class SequenceParallel(StrategyBuilder):
     its tokens with :func:`autodist_tpu_torch.parallel.sequence
     .global_positions`.
 
-    The JAX builder's checks run first, with its errors.  ZeRO
-    (``zero_stage``, ``zero1``, ``zero_min_bytes``), gradient
-    compressors and a ``collective_precision`` raise
+    ``compressor=`` names each variable's gradient compressor, and
+    ``collective_precision``'s ``grad`` slot elects the error-feedback
+    one for all of them.  The JAX builder's checks run first, with its
+    errors.  ZeRO (``zero_stage``, ``zero1``, ``zero_min_bytes``, the
+    ``zero3_gather`` slot) and the other slots raise
     ``NotImplementedError`` after them.
     """
 
@@ -480,14 +485,15 @@ class SequenceParallel(StrategyBuilder):
         if self.zero_stage or zero_min_bytes is not None:
             not_ported("ZeRO in the sequence lowering (zero_stage, zero1, "
                        "zero_min_bytes)", f"{_LEFTOVERS}, item 4")
-        if comp != "none" or self.precision.get("grad"):
-            not_ported("gradient compressors in the sequence lowering (and "
-                       "the 'grad' precision slot)",
+        if self.precision.get("zero3_gather"):
+            not_ported("the 'zero3_gather' precision slot (ZeRO-3) in the "
+                       "sequence lowering", f"{_LEFTOVERS}, item 4")
+        others = {k: v for k, v in self.precision.items() if k != "grad"}
+        if others:
+            not_ported(f"collective_precision {others} in the sequence "
+                       "lowering",
                        "ROADMAP Queue 1, slice 2 leftovers: compressors")
-        if self.precision:
-            not_ported(f"collective_precision {self.precision} in the "
-                       "sequence lowering",
-                       "ROADMAP Queue 1, slice 2 leftovers: compressors")
+        self.compressor = comp
 
     def build(self, trainable, resource_spec):
         shape = resource_spec.resolved_mesh_shape()
@@ -497,7 +503,8 @@ class SequenceParallel(StrategyBuilder):
                 f"spec resolves to {shape} — declare e.g. "
                 "mesh: {data: ..., seq: ...}")
         nodes = [NodeConfig(var_name=i.name,
-                            synchronizer=AllReduceSynchronizer(),
+                            synchronizer=AllReduceSynchronizer(
+                                compressor=self.compressor),
                             is_sparse=i.is_sparse)
                  for i in trainable.var_infos()]
         cfg = self._graph_config(resource_spec)

@@ -8,7 +8,10 @@ Builds the port's CUDA kernels from ``autodist_tpu_torch/kernel/csrc``
 paths: serving the pipelined LM at the serve bench's width (vocab 32768,
 hidden 1024, 16 heads of 64, mlp 4096, 8 layers, max_len 1024),
 training BERT-base masked-LM through ``AutoDist`` + ``AllReduce``,
-Megatron tensor-parallel training of the pipelined LM through
+the data-parallel strategy zoo on BERT (every builder of the collective
+lowering, the compressors and accumulation, the default
+``AutoDist(rs)``), Megatron tensor-parallel training of the pipelined
+LM through
 ``Pipeline(tensor_parallel=2, vocab_parallel=True)`` at one pipe device
 and on ``bench.py quant``'s 4-device mesh (the cross-process pipe
 schedule over a pipe axis of 2, interleaved, with the Megatron stages
@@ -143,12 +146,42 @@ attention over K1/K2a/K2b):
    of 8192 tokens (the positional table grown to 8192 rows), remat off
    and on (K1 doubled under remat), beside one process at the whole
    sequence; over gloo ``run_steps`` keeps its host loop (asserted);
-13. one ``{"kernels": [...]}`` line, the card's name and power limit, and
+13. fp32 parity of the data-parallel strategy zoo: BERT at full width
+   cut to 2 layers (seq 128, batch 4 a rank, flash, dropout 0), 3
+   ``adamw(1e-4, eps=1e-4, weight_decay=0.01)`` steps (an eps that keeps
+   the k bias's zero gradient's noise from whole steps) of every
+   builder of the JAX golden list,
+   ``GradAccumulation(AllReduce(), 2)`` and ``AllReduce`` with each of
+   the seven compressors, on 2 ranks over gloo (and over NCCL, one rank
+   a card, where there are cards): ``get_params`` has the logical
+   shapes; compressor-free builders' losses and parameters within 1e-5
+   relative (per tensor, of its largest value floored at 1e-3) of
+   ``AllReduce``'s; a compressed run's loss at step k within ``eps x k``
+   of it relative (``eps`` the wire's unit: fp16 2^-11, bf16 2^-8, int8
+   2/127; PowerSGD 1: a rank-2 wire bounds nothing, so its first loss and
+   finite losses are what is held); the stored bytes a
+   rank of PS (optimizer state) and PartitionedPS (both) at ``1/n`` of
+   AllReduce's, printed;
+14. the zoo on the bench's BERT-base window (bf16, batch 16, seq 512, 76
+   masked, ``adamw(1e-4, 0.01, mu bf16)``, flash, nothing cut): on one
+   card on the graph route, ``AutoDist(rs)`` with no builder
+   (``PSLoadBalancing``), ``PartitionedPS``, ``AllReduce(256)`` with
+   ``bf16_ef``, ``int8_ring``, ``int8_ef`` and ``powersgd:2``,
+   ``GradAccumulation(AllReduce(256), 2)`` and ``AllReduce(256)``, each a
+   warm and a timed 30-step window (one capture, two replays, K1/K2a/K2b
+   held to 12 x 30 launches, twice that under accumulation): examples/s,
+   step ms, MFU, peak memory, stored bytes, capture seconds; then
+   ``PS``, ``PartitionedPS`` and ``AllReduce`` at data 2 on 2 ranks over
+   gloo (3 steps, host loop): per-rank peak memory and stored bytes;
+   with 2 or more cards every row again over NCCL at data = the cards,
+   each row's parameters within 0.1 of one card's update (L2, per
+   tensor) on the same batches;
+15. one ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
 Phases 2, 4, 6 (at T = 1), 8 (the dense model) and 11 (one process)
 run one process on the card, so their windows replay CUDA graphs too.
-Phases 6 to 12 run 2 or 4 processes (``torch.multiprocessing`` spawn) on card 0, joined in
+Phases 6 to 14 run 2 or 4 processes (``torch.multiprocessing`` spawn) on card 0, joined in
 a gloo group: NCCL refuses two ranks on one device, so each transfer is
 staged through host memory while the kernels, the model and the
 optimizer stay on the card.  Their numbers are labelled so, and say
@@ -191,6 +224,7 @@ from autodist_tpu_torch.kernel import collective_matmul as cm
 from autodist_tpu_torch.kernel import flash_decode as fd
 from autodist_tpu_torch.kernel import flash_prefill as fp
 from autodist_tpu_torch.kernel import quant_ring as qr
+from autodist_tpu_torch.kernel.common import flatten_with_names
 from autodist_tpu_torch.models import bert, moe_transformer
 from autodist_tpu_torch.models.pipeline_lm import (make_pipeline_lm_trainable,
                                                    sequential_logits)
@@ -291,8 +325,9 @@ TP_PROGRAMS = {
 }
 # Phase 7's: bench.py quant's programs, each with vocab_parallel as
 # bench.py:342 runs them (its "int8" string narrows vocab_stats too; the
-# grad slot stays out, compressors are not ported), and at pipe 2 x
-# model 2 the fp32 program with the full-vocab head beside them.
+# grad slot stays out: the pipeline lowering takes no compressor yet),
+# and at pipe 2 x model 2 the fp32 program with the full-vocab head
+# beside them.
 VOCAB_PARALLEL = dict(vocab_parallel=True)
 WINDOW_PROGRAMS = {
     "fp32": VOCAB_PARALLEL,
@@ -1688,7 +1723,8 @@ def rank_worker(rank, world, backend, store, job, out_dir):
     run = {"parity": tp_parity, "window": tp_window_programs,
            "moe_parity": moe_parity, "moe_window": moe_window_programs,
            "serve": tp_serve, "seq_parity": seq_parity,
-           "seq_window": seq_window_rows}
+           "seq_window": seq_window_rows, "zoo_parity": zoo_parity,
+           "zoo_window": zoo_window_rows}
     result = run[job["kind"]](job)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(result, f)
@@ -2364,10 +2400,342 @@ def phase_seq_window():
     return counts
 
 
+# --------------------------------------------------------------------- #
+# phases 13 and 14: the data-parallel strategy zoo on BERT
+# --------------------------------------------------------------------- #
+def zoo_builder(spec):
+    """A builder from ``(name, kwargs)``; ``None`` is AutoDist's default
+    (``PSLoadBalancing``)."""
+    if spec is None:
+        return None
+    name, kw = spec
+    if name == "GradAccumulation":
+        kw = dict(kw, builder=zoo_builder(kw["builder"]))
+    return getattr(port, name)(**kw)
+
+
+def zoo_runner(job, spec, batch):
+    """BERT at full width, ``job["layers"]`` deep, the flash attention,
+    weights from seed 0 on the card (every rank and row alike), through
+    ``AutoDist({}, builder)``: the data axis is the job's ranks."""
+    cfg = port.TransformerConfig(               # BERT-base's widths
+        num_layers=job["layers"], dtype=job["dtype"], dropout_rate=0.0,
+        attention_dropout_rate=0.0, attention_fn=fa.make_attention_fn(False))
+    lr, wd, mu, eps = job["opt"]
+    trainable = bert.make_mlm_trainable(
+        cfg, port.optim.adamw(lr, eps=eps, weight_decay=wd, mu_dtype=mu),
+        torch.Generator(device="cuda").manual_seed(0),
+        with_input_mask=False)
+    return port.AutoDist({}, zoo_builder(spec)).build(trainable), trainable
+
+
+def zoo_window(job, steps, batch, seed0=0):
+    batches = []
+    for i in range(steps):
+        b = bert.synthetic_mlm_batch(seed0 + i, batch, job["seq"],
+                                     job["masked"], 30522)
+        b.pop("input_mask")
+        batches.append(b)
+    return port.stack_steps(batches)
+
+
+def state_bytes(tree):
+    return sum(t.numel() * t.element_size()
+               for _, t in flatten_with_names(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def rel_err(got, want):
+    """Per tensor max |a - b| over max |b|, floored at 1e-3 (a tensor
+    that stays near 0, as the k projection's bias whose gradient is
+    zero, is held at 1e-3 absolute times the tolerance); the largest
+    over the tree."""
+    w = dict(flatten_with_names(want))
+    return max(float((a.float() - w[n].float()).abs().max()
+                     / w[n].float().abs().max().clamp(min=1e-3))
+               for n, a in flatten_with_names(got))
+
+
+# Phase 13's wire units: a loss may part from AllReduce's by this much of
+# itself for every update behind it (fp16, bf16: the wire's unit; int8:
+# two levels of 1/127 of the largest value, its own rounding and the
+# group scale's; PowerSGD: 1, a rank-r wire keeps no precision of the
+# gradient outside its top r directions, so only the first loss, before
+# any update, and finite losses are held).
+ZOO_WIRE = {"fp16": 2.0 ** -11, "fp16_ef": 2.0 ** -11, "bf16": 2.0 ** -8,
+            "bf16_ef": 2.0 ** -8, "int8_ef": 2.0 / 127,
+            "int8_ring": 2.0 / 127, "powersgd:2": 1.0}
+ZOO_GOLDEN = [("AllReduce", ("AllReduce", {"chunk_size": 2})),
+              ("AllReduce-chunk1", ("AllReduce", {"chunk_size": 1})),
+              ("PS", ("PS", {})), ("PSLoadBalancing", ("PSLoadBalancing", {})),
+              ("PartitionedPS", ("PartitionedPS", {})),
+              ("UnevenPartitionedPS", ("UnevenPartitionedPS", {})),
+              ("PartitionedAR", ("PartitionedAR", {})),
+              ("RandomAxisPartitionAR", ("RandomAxisPartitionAR",
+                                         {"seed": 3})),
+              ("Parallax", ("Parallax", {})),
+              ("ZeRO1", ("ZeRO", {"stage": 1})),
+              ("ZeRO2", ("ZeRO", {"stage": 2})),
+              ("ZeRO3", ("ZeRO", {"stage": 3})),
+              ("GradAccumulation", ("GradAccumulation", {
+                  "builder": ("AllReduce", {}), "steps": 2}))]
+ZOO_COMPRESSED = [(c, ("AllReduce", {"compressor": c})) for c in ZOO_WIRE]
+
+
+def zoo_parity(job):
+    """Phase 13 in one rank: 3 steps of every builder; losses, the
+    parameters' largest relative distance from AllReduce's, the logical
+    shapes of ``get_params``, stored bytes."""
+    out, ref = {}, None
+    world = torch.distributed.get_world_size()
+    window = zoo_window(job, 3, job["batch"] * world, seed0=400)
+    for label, spec in ZOO_GOLDEN + ZOO_COMPRESSED:
+        runner, trainable = zoo_runner(job, spec, job["batch"])
+        losses = runner.run_steps(window)["loss"].tolist()
+        params = runner.get_params()
+        shapes_ok = ([(n, tuple(t.shape)) for n, t in
+                      flatten_with_names(params)]
+                     == [(n, tuple(t.shape)) for n, t in
+                         flatten_with_names(trainable.params)])
+        if ref is None:
+            ref = params
+        out[label] = {"loss": losses, "shapes_ok": shapes_ok,
+                      "err": rel_err(params, ref),
+                      "params_bytes": state_bytes(runner.state["params"]),
+                      "opt_bytes": state_bytes(runner.state["opt_state"]),
+                      "route": check_route(runner, job, label)}
+        runner.close()
+        del runner, trainable, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_zoo_parity():
+    """fp32 on the card: BERT at full width cut to 2 layers, 3 AdamW
+    steps of every golden builder, every compressor and accumulation on
+    2 ranks over gloo (and over NCCL with 2 or more cards), each held to
+    AllReduce's run on the same weights and batches."""
+    # Adam's eps at 1e-4: the k projection's bias has an exactly zero
+    # gradient (a softmax does not see a shift of every score), and at
+    # 1e-8 Adam turns its summation-order noise into steps of the
+    # learning rate that differ between any two reduction orders (a
+    # microbatch sum, a reduce-scatter, NCCL's ring).
+    job = {"kind": "zoo_parity", "layers": 2, "dtype": torch.float32,
+           "seq": 128, "masked": 20, "batch": 4,
+           "opt": (1e-4, 0.01, None, 1e-4)}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = [("gloo", 2)]
+    if torch.cuda.device_count() >= 2:
+        runs.append(("nccl", torch.cuda.device_count()))
+    for backend, world in runs:
+        ranks = spawn_ranks(job, world, backend)
+        got, ar = ranks[0], ranks[0]["AllReduce"]["loss"]
+        faults = []
+        for label, res in got.items():
+            if not res["shapes_ok"]:
+                faults.append(f"{label}: get_params shapes differ from "
+                              f"the logical tree")
+            if not all(math.isfinite(x) for x in res["loss"]):
+                faults.append(f"{label}: non-finite loss {res['loss']}")
+            if label not in ZOO_WIRE:
+                if not (res["err"] <= 1e-5 and all(
+                        abs(a - b) <= 1e-5 * abs(b)
+                        for a, b in zip(res["loss"], ar))):
+                    faults.append(
+                        f"{label}: losses {res['loss']} vs AllReduce "
+                        f"{ar}, params {res['err']:.3g} relative")
+                continue
+            eps = ZOO_WIRE[label]
+            for k, (a, b) in enumerate(zip(res["loss"], ar)):
+                bound = 1e-6 * abs(b) if k == 0 else eps * k * abs(b)
+                if abs(a - b) > bound:
+                    faults.append(f"{label} step {k}: loss {a} vs "
+                                  f"AllReduce {b}, bound {bound:.3g}")
+        sizes = {n: (got[n]["params_bytes"], got[n]["opt_bytes"])
+                 for n in ("AllReduce", "PS", "PartitionedPS")}
+        ar_p, ar_o = sizes["AllReduce"]
+        if not (sizes["PS"][0] == ar_p and sizes["PS"][1] <= ar_o / world
+                * 1.01 and sizes["PartitionedPS"][0] <= ar_p / world * 1.01
+                and sizes["PartitionedPS"][1] <= ar_o / world * 1.01):
+            faults.append(f"stored bytes a rank at data {world}: {sizes}")
+        print(f"phase 13 fp32 2-layer BERT-base width, seq 128, batch "
+              f"{job['batch']} a rank, 3 AdamW steps, data {world} "
+              f"[{world} ranks, {backend}, run_steps route "
+              f"{got['AllReduce']['route']}]: AllReduce losses {ar}; "
+              + "; ".join(f"{n} params {r['err']:.2e} rel., last loss "
+                          f"{r['loss'][-1]:.6f}" for n, r in got.items()
+                          if n != "AllReduce")
+              + "; stored bytes a rank (params, optimizer state) "
+              + ", ".join(f"{n} {p}, {o}" for n, (p, o) in sizes.items()),
+              flush=True)
+        check(not faults, f"phase 13 over {backend}: " + "; ".join(faults))
+
+
+# Phase 14's rows on the graph route: (label, builder spec).
+ZOO_ROWS = [
+    ("AutoDist default (PSLoadBalancing)", None),
+    ("PartitionedPS", ("PartitionedPS", {})),
+    *[(f"AllReduce {c}", ("AllReduce", {"chunk_size": 256,
+                                        "compressor": c}))
+      for c in ("bf16_ef", "int8_ring", "int8_ef", "powersgd:2")],
+    ("GradAccumulation 2", ("GradAccumulation", {
+        "builder": ("AllReduce", {"chunk_size": 256}), "steps": 2})),
+    ("AllReduce", ("AllReduce", {"chunk_size": 256}))]
+ZOO_GLOO = [("PS", ("PS", {})), ("PartitionedPS", ("PartitionedPS", {})),
+            ("AllReduce", ("AllReduce", {"chunk_size": 256}))]
+
+
+def zoo_bf16_job(world=1):
+    return {"kind": "zoo_window", "layers": 12, "dtype": torch.bfloat16,
+            "seq": BERT_SEQ, "masked": BERT_MASKED, "batch": BERT_BATCH,
+            "opt": (1e-4, 0.01, torch.bfloat16, 1e-8), "world": world}
+
+
+def zoo_row(job, label, spec, steps, check_graph):
+    """One row: a warm window and a timed one (launch counters from 0
+    before it), on the runner's route; the row's numbers and its final
+    parameters."""
+    world = job["world"]
+    runner, _ = zoo_runner(job, spec, job["batch"])
+    window = runner.place_steps(zoo_window(job, steps, job["batch"] * world))
+    dt, metrics = timed_window(runner, window)
+    got = launches()
+    accum = 2 if label.startswith("GradAccumulation") else 1
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(dict.fromkeys(TRAINING_KERNELS,
+                              job["layers"] * steps * accum))
+    check(got == want, f"{label}: launches {got}, expected {want}")
+    if check_graph:
+        check((runner.captures, runner.replays) == (1, 2),
+              f"{label}: {runner.captures} captures and {runner.replays} "
+              f"replays, expected 1 and 2")
+    losses = metrics["loss"].float()
+    check(bool(torch.isfinite(losses).all()), f"{label}: non-finite loss")
+    row = {"seconds": dt, "launches": got,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "capture_s": runner.capture_seconds,
+           "graphs": (runner.captures, runner.replays),
+           "loss": [float(losses[0]), float(losses[-1])],
+           "params_bytes": state_bytes(runner.state["params"]),
+           "opt_bytes": state_bytes(runner.state["opt_state"]),
+           "sync_bytes": state_bytes(runner.state["sync_state"])}
+    params = runner.get_params()
+    runner.close()
+    del runner, window
+    torch.cuda.empty_cache()
+    return row, params
+
+
+def zoo_window_rows(job):
+    """Phase 14 in one rank of a spawned job: each row of ``job["rows"]``
+    (labels into ``ZOO_ROWS`` or ``ZOO_GLOO``); with ``job["digest"]``
+    rank 0 keeps each row's final parameters for the caller."""
+    out, rows = {}, dict(ZOO_ROWS + ZOO_GLOO)
+    for label in job["rows"]:
+        row, params = zoo_row(job, label, rows[label], job["steps"],
+                              job["backend"] == "nccl")
+        row["route"] = "graph" if job["backend"] == "nccl" else "loop"
+        if job.get("digest") and torch.distributed.get_rank() == 0:
+            torch.save({n: t.cpu() for n, t in flatten_with_names(params)},
+                       os.path.join(job["digest"], f"{label}.pt"))
+        out[label] = row
+        del params
+    return out
+
+
+def zoo_line(label, row, steps, batch, flops, chip, where):
+    rate = steps * batch / row["seconds"]
+    return (f"phase 14 {label} bf16 [{where}]: {steps} steps in "
+            f"{row['seconds']:.3f} s = {rate:.2f} examples/s, step "
+            f"{row['seconds'] / steps * 1e3:.2f} ms, MFU "
+            f"{rate * flops / (chip.peak_bf16_tflops * 1e12):.4f}, peak "
+            f"memory {row['peak_gb']:.2f} GB, stored bytes (params, "
+            f"optimizer state, compressor rows) {row['params_bytes']}, "
+            f"{row['opt_bytes']}, {row['sync_bytes']}, graph captures "
+            f"{row['graphs'][0]} ({row['capture_s']:.2f} s), replays "
+            f"{row['graphs'][1]}, loss {row['loss'][0]:.4f} -> "
+            f"{row['loss'][1]:.4f}")
+
+
+def update_distance(got, want, init):
+    """The largest per-tensor ``|got - want|_2 / |want - init|_2``: how
+    far two runs part, against how far the reference moved."""
+    return max(float((got[n].float() - w.float()).norm()
+                     / (w.float() - init[n].float()).norm().clamp(min=1e-30))
+               for n, w in want.items())
+
+
+def phase_zoo_window():
+    """bf16 BERT-base, the bench's window: every row on one card on the
+    graph route; PS, PartitionedPS and AllReduce at data 2 over gloo on
+    the card; over NCCL at data = the cards where there are 2 or more,
+    each row's parameters held to one card's on the same batches.
+    Returns the default row's launches."""
+    cfg = bert.bert_base()
+    flops = bert.mlm_model_flops_per_example(cfg, BERT_SEQ, BERT_MASKED)
+    chip = port.ResourceSpec({}).chip
+    job = dict(zoo_bf16_job(), backend="nccl")       # one card: graph
+    counts = {}
+    for label, spec in ZOO_ROWS:
+        row, _ = zoo_row(job, label, spec, BERT_STEPS, True)
+        if spec is None:
+            counts = {k: row["launches"][k] for k in TRAINING_KERNELS}
+        print(zoo_line(label, row, BERT_STEPS, BERT_BATCH, flops, chip,
+                       "one card, data 1, run_steps route graph"),
+              flush=True)
+    ranks = spawn_ranks(dict(zoo_bf16_job(2), steps=3,
+                             rows=[label for label, _ in ZOO_GLOO]), 2)
+    for label, _ in ZOO_GLOO:
+        rs = [r[label] for r in ranks]
+        dt = max(r["seconds"] for r in rs)
+        print(f"phase 14 {label} bf16 [data 2, 2 ranks on one card, gloo, "
+              f"transfers through host, run_steps route loop, batch "
+              f"{BERT_BATCH} a rank]: 3 steps in {dt:.3f} s, step "
+              f"{dt / 3 * 1e3:.2f} ms; per rank: peak memory "
+              + ", ".join(f"{r['peak_gb']:.2f}" for r in rs)
+              + " GB, stored bytes (params, optimizer state) "
+              + ", ".join(f"{r['params_bytes']}, {r['opt_bytes']}"
+                          for r in rs), flush=True)
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        with tempfile.TemporaryDirectory() as digest:
+            ranks = spawn_ranks(dict(zoo_bf16_job(cards), steps=BERT_STEPS,
+                                     rows=[label for label, _ in ZOO_ROWS],
+                                     digest=digest), cards, "nccl")
+            init_runner, _ = zoo_runner(zoo_bf16_job(cards), None,
+                                        BERT_BATCH)
+            init = {n: t.cpu() for n, t in flatten_with_names(
+                init_runner.get_params())}
+            init_runner.close()
+            job_n = dict(zoo_bf16_job(cards), backend="nccl",
+                         batch=BERT_BATCH * cards, world=1)
+            for label, spec in ZOO_ROWS:
+                rs = [r[label] for r in ranks]
+                _, params = zoo_row(job_n, label, spec, BERT_STEPS, True)
+                ref = {n: t.cpu() for n, t in flatten_with_names(params)}
+                del params
+                dist = update_distance(
+                    torch.load(os.path.join(digest, f"{label}.pt")), ref,
+                    init)
+                check(dist <= 0.1, f"{label} over NCCL at data {cards}: "
+                      f"parameters {dist:.3g} of one card's update away")
+                print(zoo_line(label, rs[0], BERT_STEPS,
+                               BERT_BATCH * cards, flops, chip,
+                               f"data {cards}, {cards} cards, NCCL, "
+                               f"run_steps route graph, batch {BERT_BATCH} "
+                               f"a card")
+                      + f"; parameters against one card's on the same "
+                      f"{BERT_BATCH * cards}-row batches: {dist:.3e} of "
+                      f"its update; peak memory per rank "
+                      + ", ".join(f"{r['peak_gb']:.2f}" for r in rs)
+                      + " GB", flush=True)
+    return counts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
-        "--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
+        "--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
         help="comma-separated phases to run (default: all); the kernels "
              "line needs them all")
     phases = {int(p) for p in parser.parse_args(argv).phases.split(",")}
@@ -2399,7 +2767,9 @@ def main(argv=None) -> int:
              (9, lambda: add(phase_moe_window())),
              (10, lambda: add(phase_tp_serve())),
              (11, phase_seq_parity),
-             (12, lambda: add(phase_seq_window()))]
+             (12, lambda: add(phase_seq_window())),
+             (13, phase_zoo_parity),
+             (14, lambda: add(phase_zoo_window()))]
     for phase, run in steps:
         if phase in phases:
             t1 = time.perf_counter()

@@ -771,9 +771,10 @@ def test_cuda_a2a_ring_hop_raises_on_what_the_kernel_does_not_take(cuda):
 # --------------------------------------------------------------------------- #
 # Steps-per-loop: a run_steps window and a decode window as one graph replay
 # --------------------------------------------------------------------------- #
-def _bert_runner(cuda, dtype, attention, dropout):
+def _bert_runner(cuda, dtype, attention, dropout, builder=None):
     """A 2-layer BERT (hidden 128, 2 heads of 64) through AutoDist +
-    AllReduce on the card, weights from seed 0 (the same every call)."""
+    ``builder`` (``AllReduce()`` by default) on the card, weights from
+    seed 0 (the same every call)."""
     cfg = port.TransformerConfig(
         vocab_size=97, hidden_size=128, num_layers=2, num_heads=2,
         mlp_dim=256, max_len=64, dtype=dtype, dropout_rate=dropout,
@@ -783,7 +784,8 @@ def _bert_runner(cuda, dtype, attention, dropout):
     trainable = bert.make_mlm_trainable(
         cfg, port.optim.adamw(1e-3), torch.Generator().manual_seed(0),
         with_input_mask=False, device=cuda)
-    return port.AutoDist({}, port.AllReduce(), device=cuda).build(trainable)
+    return port.AutoDist({}, builder or port.AllReduce(),
+                         device=cuda).build(trainable)
 
 
 def _bert_steps(k, seed0=0):
@@ -881,6 +883,49 @@ def test_cuda_run_steps_step_run_steps_equals_five_steps(cuda):
     assert (runner.captures, runner.replays) == (2, 3)
     assert runner.step_count == 8
     assert [w.launches - n for w, n in zip(ATTENTION, before)] == [16] * 3
+    runner.close()
+
+
+ZOO = {"PS": lambda: port.PS(),
+       "PartitionedPS": lambda: port.PartitionedPS(),
+       "UnevenPartitionedPS": lambda: port.UnevenPartitionedPS(),
+       "bf16_ef": lambda: port.AllReduce(compressor="bf16_ef"),
+       "powersgd": lambda: port.AllReduce(compressor="powersgd:2"),
+       "GradAccumulation": lambda: port.GradAccumulation(port.AllReduce(),
+                                                         2)}
+
+
+@pytest.mark.parametrize("name", list(ZOO))
+def test_cuda_zoo_run_steps_replay_equals_step_calls(cuda, name):
+    """Each update space and a stateful compressor under capture: a
+    ``run_steps`` window of 4 bf16 flash steps is one graph replay and
+    equals 4 ``step`` calls under the determinism rule.  At one replica
+    PS and PartitionedPS update flat shards (one shard), and
+    UnevenPartitionedPS stores its tables split in 3 or more pieces
+    over one rank (the token table behind a ``ShardedEmbedding``).  The
+    attention kernels launch 4 steps x 2 layers, twice that under
+    accumulation; the compressor's state row is carried."""
+    batches, rngs = _bert_steps(4), [3, 1, 4, 1]
+    eager = []
+    for _ in range(2):
+        runner = _bert_runner(cuda, torch.bfloat16, "flash", 0.0, ZOO[name]())
+        m = [runner.step(b, rng=r) for b, r in zip(batches, rngs)]
+        eager.append(_leaves(runner, {"loss": torch.stack(
+            [x["loss"] for x in m])}))
+        runner.close()
+    runner = _bert_runner(cuda, torch.bfloat16, "flash", 0.0, ZOO[name]())
+    assert runner.lowered.capturable
+    before = [w.launches for w in ATTENTION]
+    metrics = runner.run_steps(port.stack_steps(batches), rngs=rngs)
+    torch.cuda.synchronize()
+    assert (runner.captures, runner.replays) == (1, 1)
+    _hold_to_eager(_leaves(runner, {"loss": metrics["loss"]}), *eager)
+    want = 4 * 2 * (2 if name == "GradAccumulation" else 1)
+    assert [w.launches - n for w, n in zip(ATTENTION, before)] == [want] * 3
+    if name in ("bf16_ef", "powersgd"):
+        assert runner.state["sync_state"]
+    params = runner.get_params()
+    assert params["token_embed"]["embedding"].shape == (97, 128)
     runner.close()
 
 

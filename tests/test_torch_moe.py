@@ -12,6 +12,11 @@ before the JAX runs so that the two run side by side.  Tolerances: the
 fp32 and bf16 programs 1e-5 (the same arithmetic in other summation
 orders; bf16 rounds the same values to nearest even in both), the int8
 programs 1e-4 relative on the losses and 1e-4 on the params.  The
+gradient compressors (``compressor="bf16_ef"`` and ``"int8_ef"``, each
+variable with its own error-feedback row) and ``GradAccumulation(...,
+2)`` run as further programs, the compressors to twice the wire's unit
+of each tensor's update (a bf16 sum of 4 ranks parts by its order; an
+int8 level by the residual's rounding).  The
 port's hop rounds as the JAX package's host mirror of the ring does,
 and no rounding of the int8 programs flips against XLA's compiled
 Pallas hop at this size: their final params agree to 1e-6.
@@ -42,7 +47,13 @@ PROGRAMS = {
     "bf16": dict(collective_precision={"moe_a2a": "bf16"}),
     "int8": dict(collective_precision=INT8),
     "a2a_ring": dict(collective_precision=INT8, kernel=("a2a_ring",)),
+    "bf16_ef": dict(compressor="bf16_ef"),
+    "int8_ef": dict(compressor="int8_ef"),
+    "accum2": dict(accum=2),
 }
+# Programs whose sums part by more than fp32 summation order: int8
+# levels, and the bf16 and int8 gradient wires of the compressors.
+NARROW = ("int8", "a2a_ring", "bf16_ef", "int8_ef")
 BUILD = dict(num_experts=4, capacity_factor=4.0)
 # Adam's eps: the k projection's bias has an exactly zero gradient (a
 # softmax does not see a shift of every score), and at eps 1e-8 Adam
@@ -91,10 +102,16 @@ def _jax_spec(mesh):
 def _jax_run(mesh, program):
     """Losses, nlls, final params and strategy JSON of the JAX package's
     program."""
-    from autodist_tpu import AutoDist
+    from autodist_tpu import AutoDist, GradAccumulation
+    from autodist_tpu.strategy.parallel_builders import (
+        ExpertParallel as JExpertParallel)
 
-    runner = AutoDist(_jax_spec(mesh), "ExpertParallel", **BUILD,
-                      **PROGRAMS[program]).build(_jax_trainable())
+    kw = dict(PROGRAMS[program])
+    accum = kw.pop("accum", 1)
+    builder = JExpertParallel(**BUILD, **kw)
+    if accum > 1:
+        builder = GradAccumulation(builder, accum)
+    runner = AutoDist(_jax_spec(mesh), builder).build(_jax_trainable())
     try:
         ms = [runner.step(b) for b in _batches()]
         return ({k: [float(np.asarray(m[k])) for m in ms]
@@ -144,8 +161,13 @@ _WORKER = textwrap.dedent("""
             torch.Generator().manual_seed(0), batch_size=8, seq_len=8,
             device="cpu")
         tr.params = job["params"]
-        runner = port.AutoDist({"mesh": job["mesh"]}, port.ExpertParallel(
-            **job["build"], **kw), device="cpu").build(tr)
+        kw = dict(kw)
+        accum = kw.pop("accum", 1)
+        builder = port.ExpertParallel(**job["build"], **kw)
+        if accum > 1:
+            builder = port.GradAccumulation(builder, accum)
+        runner = port.AutoDist({"mesh": job["mesh"]}, builder,
+                               device="cpu").build(tr)
         ms = [runner.step(b) for b in job["batches"]]
         res[name] = {"loss": [float(m["loss"]) for m in ms],
                      "nll": [float(m["nll"]) for m in ms],
@@ -209,7 +231,24 @@ def test_training_matches_jax(request, jax_runs, world, program):
     the expert axis) against the JAX package's same program."""
     got = request.getfixturevalue(f"port{world}")[program]
     jm, jfinal, _ = jax_runs[(world, program)]
-    int8 = program in ("int8", "a2a_ring")
+    if program in ("bf16_ef", "int8_ef"):
+        # A bf16 sum of 4 ranks parts by its order, an int8 level by
+        # the residual's rounding: the runs agree to twice the wire's
+        # unit of each tensor's update (in L2 norm: Adam turns one
+        # element's near-zero gradient's rounding into a whole step) and
+        # of the loss's fall.
+        unit = 2 * {"bf16_ef": 2.0 ** -8, "int8_ef": 1 / 127}[program]
+        init = _jflat(request.getfixturevalue("jparams"))
+        for name, p in flatten_with_names(got["params"]):
+            moved = np.linalg.norm(jfinal[name] - init[name])
+            assert np.linalg.norm(p.numpy() - jfinal[name]) \
+                <= unit * moved + 1e-7, name
+        for k in ("loss", "nll"):
+            assert np.all(np.abs(np.subtract(got[k], jm[k]))
+                          <= unit * np.abs(np.subtract(jm[k], jm[k][0]))
+                          + 1e-6), k
+        return
+    int8 = program in NARROW
     for k in ("loss", "nll"):
         np.testing.assert_allclose(got[k], jm[k], **(
             dict(atol=0, rtol=INT8_RTOL) if int8 else TOL))
@@ -441,7 +480,9 @@ def test_one_rank_expert_axis_trains_as_the_dense_model(jparams, program):
                                   "seq_axis"])
 def test_out_of_slice_options_raise(what, jparams):
     """What this slice does not run raises ``NotImplementedError``
-    naming its ROADMAP item."""
+    naming its ROADMAP item.  Compressors and accumulation run now:
+    their cases hold ZeRO beside a compressor (a PS synchronizer in the
+    strategy) and the pipeline lowering's accumulation."""
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         if what == "zero":
             ExpertParallel(zero_stage=1)
@@ -450,18 +491,30 @@ def test_out_of_slice_options_raise(what, jparams):
         elif what == "zero_min_bytes":
             ExpertParallel(zero_min_bytes=1 << 20)
         elif what == "compressor":
-            ExpertParallel(compressor="bf16_ef")
+            tr = _port_trainable(jparams)
+            ad = port.AutoDist({"mesh": {"expert": 1}}, ExpertParallel(
+                compressor="bf16_ef"), device="cpu")
+            d = json.loads(ad.build_or_load_strategy(tr).to_json())
+            d["node_configs"][0]["synchronizer"] = {"kind": "ps"}
+            ad.lower(tr, port.Strategy.from_json(json.dumps(d)))
         elif what == "grad_precision":
             ExpertParallel(collective_precision={"grad": "bf16"})
         elif what == "expert_over_dcn":
             ExpertParallel(expert_over_dcn=True)
         elif what == "accum_json":
-            tr = _port_trainable(jparams)
-            ad = port.AutoDist({"mesh": {"expert": 1}}, ExpertParallel(),
-                               device="cpu")
-            d = json.loads(ad.build_or_load_strategy(tr).to_json())
-            d["graph_config"]["accum_steps"] = 2
-            ad.lower(tr, port.Strategy.from_json(json.dumps(d)))
+            from autodist_tpu_torch.models.pipeline_lm import (
+                make_pipeline_lm_trainable)
+
+            cfg = port.TransformerConfig(
+                vocab_size=16, hidden_size=8, num_layers=1, num_heads=2,
+                mlp_dim=16, max_len=8, dtype=torch.float32,
+                dropout_rate=0.0, attention_dropout_rate=0.0)
+            port.AutoDist({"mesh": {"data": 1, "pipe": 1, "model": 1}},
+                          port.GradAccumulation(
+                              port.Pipeline(num_microbatches=1), 2),
+                          device="cpu").build(make_pipeline_lm_trainable(
+                              cfg, port.optim.sgd(0.1), torch.Generator(),
+                              device="cpu"))
         else:
             port.ResourceSpec({"mesh": {"dcn": 2}})
 

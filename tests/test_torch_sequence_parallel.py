@@ -10,7 +10,12 @@ the einsum ring or the flash ring (causal) and its ``position_fn``
 "seq": 2}`` and at ``{"seq": 4}``; the JAX package runs
 ``lower_sequence_parallel`` on the same mesh of its simulated devices.
 The final params agree within 2e-5 (the JAX tests' tolerance) and the
-losses within 1e-5.  The strategy JSON equals the JAX builder's; the
+losses within 1e-5.  At data 2 x seq 2 with the einsum ring the port
+also runs ``compressor="bf16_ef"``, the ``grad`` slot at int8 (every
+variable's ``int8_ef``) and ``GradAccumulation(..., 2)`` through
+``AutoDist`` against the JAX builders' runners (the compressed ones to
+twice the wire's unit of each tensor's update: a bf16 sum of 4 ranks
+parts by its order, an int8 level by the residual's rounding).  The strategy JSON equals the JAX builder's; the
 JAX package's errors (no matching ``seq_leaves``, no seq axis, its
 builder checks) and the out-of-range position's NaN loss hold in both;
 what the slice does not run raises, naming its item.
@@ -37,6 +42,11 @@ LM = dict(vocab_size=64, hidden_size=32, num_layers=1, num_heads=2,
           attention_dropout_rate=0.0)
 SEQ, BATCH, STEPS, LR = 32, 4, 3, 0.5
 MESHES = {"data 2 x seq 2": {"data": 2, "seq": 2}, "seq 4": {"seq": 4}}
+# Compressors, the grad slot and accumulation: builder keywords (accum:
+# GradAccumulation around SequenceParallel) at data 2 x seq 2, einsum.
+SYNC_PROGRAMS = {"bf16_ef": dict(compressor="bf16_ef"),
+                 "grad_int8": dict(collective_precision={"grad": "int8"}),
+                 "accum2": dict(accum=2)}
 RINGS = ("einsum", "flash")
 TOL = dict(atol=2e-5, rtol=2e-5)
 
@@ -166,6 +176,25 @@ _WORKER = textwrap.dedent("""
                              job["batches"][0].items()})
             except ValueError as e:
                 res[(label, ring)]["indivisible"] = str(e)
+    for name, kw in job["sync_programs"].items():
+        kw = dict(kw)
+        accum = kw.pop("accum", 1)
+        cfg = port.TransformerConfig(
+            **job["lm"], dtype=torch.float32,
+            attention_fn=rings["einsum"](causal=True),
+            position_fn=sequence.global_positions)
+        tr = port.make_lm_trainable(cfg, port.optim.sgd(job["lr"]),
+                                    torch.Generator(), device="cpu")
+        tr.params = job["params"]
+        builder = port.SequenceParallel(**kw)
+        if accum > 1:
+            builder = port.GradAccumulation(builder, accum)
+        runner = port.AutoDist({"mesh": job["meshes"]["data 2 x seq 2"]},
+                               builder, device="cpu").build(tr)
+        res[("sync", name)] = {
+            "loss": [float(runner.step(b)["loss"]) for b in job["batches"]],
+            "params": runner.get_params(),
+            "rows": sorted(runner.state["sync_state"])}
     if rank == 0:
         torch.save(res, out)
     testing.end_rank()
@@ -179,6 +208,7 @@ def started(jparams, tmp_path_factory):
     tmp = tmp_path_factory.mktemp("seq")
     inp, out = tmp / "job.pt", tmp / "res.pt"
     torch.save({"meshes": MESHES, "rings": RINGS, "lm": LM, "lr": LR,
+                "sync_programs": SYNC_PROGRAMS,
                 "params": port.from_jax_params(jparams, device="cpu"),
                 "batches": _batches()}, inp)
     join = testing.launch(_WORKER, 4, (inp, out), tmp=tmp, timeout=300)
@@ -190,10 +220,34 @@ def started(jparams, tmp_path_factory):
     return result
 
 
+def _jax_sync_run(program):
+    """A ``SYNC_PROGRAMS`` program through the JAX builders' runner."""
+    from autodist_tpu import AutoDist, GradAccumulation
+    from autodist_tpu.strategy.parallel_builders import (
+        SequenceParallel as JSeq)
+
+    kw = dict(SYNC_PROGRAMS[program])
+    accum = kw.pop("accum", 1)
+    builder = JSeq(**kw)
+    if accum > 1:
+        builder = GradAccumulation(builder, accum)
+    runner = AutoDist({"topology": {"platform": "cpu", "num_devices": 4},
+                       "mesh": MESHES["data 2 x seq 2"]},
+                      builder).build(_jax_trainable("einsum"))
+    try:
+        losses = [float(np.asarray(runner.step(b)["loss"]))
+                  for b in _batches()]
+        return losses, _jflat(jax.device_get(runner.get_params()))
+    finally:
+        runner.close()
+
+
 @pytest.fixture(scope="module")
 def jax_runs(started):
-    return {(label, ring): _jax_run(mesh, ring)
-            for label, mesh in MESHES.items() for ring in RINGS}
+    out = {(label, ring): _jax_run(mesh, ring)
+           for label, mesh in MESHES.items() for ring in RINGS}
+    out.update({("sync", p): _jax_sync_run(p) for p in SYNC_PROGRAMS})
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -214,6 +268,37 @@ def test_training_matches_jax(port4, jax_runs, label, ring):
     for name, p in flatten_with_names(got["params"]):
         np.testing.assert_allclose(p.numpy(), jfinal[name], **TOL,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("program", list(SYNC_PROGRAMS))
+def test_compressors_and_accumulation_match_jax(port4, jax_runs, jparams,
+                                                program):
+    """A per-variable compressor, the ``grad`` slot and accumulation on
+    ``data 2 x seq 2``: losses and final params against the JAX
+    builders' runner; a stateful compressor keeps one row a variable."""
+    got = port4[("sync", program)]
+    jlosses, jfinal = jax_runs[("sync", program)]
+    assert got["rows"] == ([] if program == "accum2"
+                           else sorted(jfinal))
+    if program == "accum2":
+        np.testing.assert_allclose(got["loss"], jlosses, atol=1e-5,
+                                   rtol=1e-5)
+        for name, p in flatten_with_names(got["params"]):
+            np.testing.assert_allclose(p.numpy(), jfinal[name], **TOL,
+                                       err_msg=name)
+        return
+    # A narrow wire's sum of 4 ranks parts by its order (bf16), a level
+    # by the residual's rounding (int8): the runs agree to twice the
+    # wire's unit of each tensor's update (in L2 norm) and of the loss's
+    # fall.
+    unit = 2 * {"bf16_ef": 2.0 ** -8, "grad_int8": 1 / 127}[program]
+    init = _jflat(jparams)
+    for name, p in flatten_with_names(got["params"]):
+        moved = np.linalg.norm(jfinal[name] - init[name])
+        assert np.linalg.norm(p.numpy() - jfinal[name]) \
+            <= unit * moved + 1e-7, name
+    assert np.all(np.abs(np.subtract(got["loss"], jlosses))
+                  <= unit * np.abs(np.subtract(jlosses, jlosses[0])) + 1e-6)
 
 
 def test_rank_holds_its_batch_and_sequence_chunk(port4):
@@ -364,6 +449,21 @@ def test_builder_checks_match_jax(jparams):
              "mesh": {"data": 2}}))
 
 
+def _pipeline_accumulation():
+    """``GradAccumulation`` over a ``Pipeline``: the pipeline lowering
+    refuses it."""
+    from autodist_tpu_torch.models.pipeline_lm import (
+        make_pipeline_lm_trainable)
+
+    cfg = port.TransformerConfig(**{**LM, "num_layers": 1},
+                                 dtype=torch.float32)
+    tr = make_pipeline_lm_trainable(cfg, port.optim.sgd(LR),
+                                    torch.Generator(), device="cpu")
+    port.AutoDist({"mesh": {"data": 1, "pipe": 1, "model": 1}},
+                  port.GradAccumulation(port.Pipeline(num_microbatches=1),
+                                        2), device="cpu").build(tr)
+
+
 @pytest.mark.parametrize("what,item", [
     ("zero", "slice 3 leftovers, item 4"),
     ("zero1", "slice 3 leftovers, item 4"),
@@ -375,7 +475,11 @@ def test_builder_checks_match_jax(jparams):
     ("dcn_axis", "item 9")])
 def test_out_of_slice_options_raise(what, item, jparams):
     """What this slice does not run raises ``NotImplementedError``
-    naming its ROADMAP item."""
+    naming its ROADMAP item.  Compressors, the ``grad`` slot and
+    accumulation run now: their cases hold the precision slots the
+    sequence lowering has no boundary for (``tp_psum``, ``vocab_stats``,
+    ``moe_a2a``, beside the ``grad`` slot that runs) and the pipeline
+    lowering's accumulation."""
     tr = _port_trainable(jparams)
     ad = port.AutoDist({"mesh": {"seq": 1}}, SequenceParallel(),
                        device="cpu")
@@ -388,15 +492,17 @@ def test_out_of_slice_options_raise(what, item, jparams):
         elif what == "zero_min_bytes":
             SequenceParallel(zero_min_bytes=1 << 20)
         elif what == "compressor":
-            SequenceParallel(compressor="bf16_ef")
+            SequenceParallel(compressor="bf16_ef",
+                             collective_precision={"tp_psum": "bf16"})
         elif what == "grad_precision":
-            SequenceParallel(collective_precision={"grad": "bf16"})
+            SequenceParallel(collective_precision={"grad": "bf16",
+                                                   "vocab_stats": "int8"})
         elif what == "compressor_json":
             d["node_configs"][0]["synchronizer"]["compressor"] = "bf16_ef"
+            d["graph_config"]["precision"] = {"moe_a2a": "int8"}
             ad.lower(tr, port.Strategy.from_json(json.dumps(d)))
         elif what == "accum_json":
-            d["graph_config"]["accum_steps"] = 2
-            ad.lower(tr, port.Strategy.from_json(json.dumps(d)))
+            _pipeline_accumulation()
         else:
             port.ResourceSpec({"mesh": {"dcn": 2, "seq": 2}})
 

@@ -416,18 +416,23 @@ def test_out_of_slice_options_raise(what, jtrainable, jparams):
         jtrainable,
         JaxResourceSpec({"topology": {"num_devices": 1}}))
     doc = jstrategy.to_json()
+    spec = JaxResourceSpec({"topology": {"num_devices": 1}})
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         if what == "compressor":
-            port.AllReduce(compressor="bf16_ef")
+            # The pipeline lowering's gradient compressors.
+            port.Pipeline(compressor="bf16_ef")
         elif what == "builder":
-            port.AutoDist({}, "PartitionedPS")
-        elif what == "ps_json":
-            port.Strategy.from_json(doc.replace('"kind": "allreduce"',
-                                                '"kind": "ps"'))
-        elif what == "partitioner_json":
-            port.Strategy.from_json(doc.replace(
-                '"partitioner": null', '"partitioner": {"partition_str": '
-                '"2,1"}', 1))
+            port.AutoDist({}, "FSDPSharded")
+        elif what in ("ps_json", "partitioner_json"):
+            # Asynchronous PS, and stale-synchronous PS: the JSON reads
+            # back, the lowering refuses it.
+            from autodist_tpu import PS as JaxPS
+
+            kw = {"sync": False} if what == "ps_json" else {"staleness": 2}
+            strategy = port.Strategy.from_json(
+                JaxPS(**kw).build(jtrainable, spec).to_json())
+            port.AutoDist({}, device="cpu").lower(
+                _port_trainable(port.optim.sgd(0.1), jparams), strategy)
         elif what == "mesh_axis":
             port.ResourceSpec({"mesh": {"data": 1, "dcn": 2}})
         elif what == "topology_key":
@@ -438,12 +443,15 @@ def test_out_of_slice_options_raise(what, jtrainable, jparams):
             # The encoder's remat runs; the pipeline lowering's raises.
             port.Pipeline(remat=True)
         elif what == "compressor_json":
+            # A precision policy on the collective lowering (JAX's reads
+            # none; its compressors are AllReduce(compressor=...)).
             strategy = port.Strategy.from_json(doc.replace(
-                '"compressor": "none"', '"compressor": "bf16_ef"'))
+                '"precision": {}', '"precision": {"grad": "bf16"}'))
             port.AutoDist({}, port.AllReduce(), device="cpu").lower(
                 _port_trainable(port.optim.sgd(0.1), jparams), strategy)
         else:
-            port.AutoDist({})
+            # The default builder runs; AutoStrategy does not yet.
+            port.AutoDist({}, "AutoStrategy")
 
 
 def test_chip_spec_is_the_h100s_alone():
