@@ -174,8 +174,8 @@ attention over K1/K2a/K2b):
    ``PS``, ``PartitionedPS`` and ``AllReduce`` at data 2 on 2 ranks over
    gloo (3 steps, host loop): per-rank peak memory and stored bytes;
    with 2 or more cards every row again over NCCL at data = the cards,
-   each row's parameters within 0.1 of one card's update (L2, per
-   tensor) on the same batches;
+   each row's parameters within 0.1 of one card's update (L2 over the
+   tree) on the same batches;
 15. one ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
@@ -2658,11 +2658,16 @@ def zoo_line(label, row, steps, batch, flops, chip, where):
 
 
 def update_distance(got, want, init):
-    """The largest per-tensor ``|got - want|_2 / |want - init|_2``: how
-    far two runs part, against how far the reference moved."""
-    return max(float((got[n].float() - w.float()).norm()
-                     / (w.float() - init[n].float()).norm().clamp(min=1e-30))
-               for n, w in want.items())
+    """``|got - want|_2 / |want - init|_2`` over the whole tree: how far
+    two runs part, against how far the reference moved.  Over the tree,
+    not a tensor: the k projection's bias has a zero gradient, so at
+    Adam's eps 1e-8 its steps are summation noise, as large in one run
+    as the other."""
+    apart = sum(float((got[n].float() - w.float()).norm()) ** 2
+                for n, w in want.items())
+    moved = sum(float((w.float() - init[n].float()).norm()) ** 2
+                for n, w in want.items())
+    return (apart / max(moved, 1e-30)) ** 0.5
 
 
 def phase_zoo_window():
