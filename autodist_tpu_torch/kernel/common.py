@@ -16,6 +16,8 @@ lanes carry zero gradients, so an element-wise optimizer leaves them at
 zero.  :func:`all_gather_axis` is differentiable: its backward is the
 transposed collective, a reduce-scatter that sums (the caller divides
 by ``n`` for the replicas' mean), as JAX's transpose of ``all_gather``.
+:func:`zero3_gather` is the same pair over a flat ZeRO-3 shard, at the
+strategy's ``zero3_gather`` wire precision.
 """
 from __future__ import annotations
 
@@ -164,6 +166,57 @@ def local_axis_shard(x, axis, dim: int):
     x = pad_axis_to(x, dim, padded_flat_size(x.shape[dim], n))
     k = x.shape[dim] // n
     return x.narrow(dim, axis.index * k, k)
+
+
+# --------------------------------------------------------------------- #
+# ZeRO-3: the parameter gathered on demand from its flat shard
+# --------------------------------------------------------------------- #
+def _zero3_gather_impl(shard, axis, shape: tuple, precision: str):
+    if precision == "fp32":
+        return all_gather_flat(shard, axis, shape)
+    from autodist_tpu_torch.kernel import quantize as qz
+
+    full = qz.quantized_all_gather_flat(shard, axis, precision)
+    size = math.prod(shape) if shape else 1
+    return full[:size].reshape(shape).to(shard.dtype)
+
+
+def _zero3_scatter_impl(ct, axis, precision: str):
+    if precision == "fp32":
+        return reduce_scatter_flat(ct, axis, mean=False)
+    from autodist_tpu_torch.kernel import quantize as qz
+
+    return qz.quantized_psum_scatter_flat(
+        _flat_padded(ct, axis.size), axis, precision).to(ct.dtype)
+
+
+class _Zero3Gather(torch.autograd.Function):
+    """The flat all-gather forward; backward: the cotangent
+    reduce-scattered (a sum), both at the slot's precision."""
+
+    @staticmethod
+    def forward(ctx, shard, axis, shape, precision):
+        ctx.args = (axis, precision)
+        return _zero3_gather_impl(shard, axis, shape, precision)
+
+    @staticmethod
+    def backward(ctx, ct):
+        axis, precision = ctx.args
+        return _zero3_scatter_impl(ct, axis, precision), None, None, None
+
+
+def zero3_gather(shard, axis, shape: tuple, precision: str = "fp32"):
+    """One full parameter of ``shape`` from this rank's flat ZeRO-3
+    shard (the :func:`local_flat_shard` layout over ``axis``).  Its
+    gradient reaches ``shard`` reduce-scattered, a sum over the axis
+    (divide by the replicas for their mean), so a parameter stored
+    sharded gets a shard-shaped gradient.  ``precision``, the
+    ``zero3_gather`` slot, narrows both ways: the forward carries int8
+    levels with each source shard's scale (or bf16), the backward sums
+    int8 levels on an fp16 wire (:mod:`~autodist_tpu_torch.kernel
+    .quantize`)."""
+    return _Zero3Gather.apply(shard, axis, tuple(int(d) for d in shape),
+                              precision)
 
 
 # --------------------------------------------------------------------- #

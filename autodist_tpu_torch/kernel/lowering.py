@@ -245,7 +245,17 @@ class Lowered:
     .Axis` whose ranks each take a shard of the batch (``None``: the
     data axis); ``placement`` (``batch -> {leaf name: ((dim, Axis),
     ...)}``), where given, replaces that single batch axis per leaf
-    (:meth:`placement_of`)."""
+    (:meth:`placement_of`).
+
+    The records of what the lowering did with the strategy's requests:
+    ``zero3_shapes`` the logical shape of each variable stored as a
+    flat ZeRO-3 shard (``full_params_fn`` returns it at that shape);
+    ``zero_degraded`` each ZeRO request that degraded to plain sync,
+    with its reason (JAX ``zero_degraded``); ``unapplied`` each
+    precision slot or compressor the lowering has no boundary for or
+    leaves unapplied, with its reason, where the JAX package drops it
+    (its expert lowering's ``grad`` slot, a compressor on a pipeline
+    without a data axis)."""
 
     plan: Any
     mesh: Any
@@ -255,6 +265,9 @@ class Lowered:
     full_params_fn: Optional[Callable] = None
     batch_axis: Any = None
     placement: Optional[Callable] = None
+    zero3_shapes: dict = dataclasses.field(default_factory=dict)
+    zero_degraded: dict = dataclasses.field(default_factory=dict)
+    unapplied: dict = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
         if self.batch_axis is None:

@@ -4,10 +4,14 @@ Counterpart of ``autodist_tpu/kernel/quantize.py`` for what the
 tensor-parallel boundaries and the gradient compressors use: the
 precision vocabulary, the symmetric int8 scale and levels,
 :func:`quantized_psum` at fp32, bf16 and int8, :func:`quantized_pmax`
-(the vocab epilogue's stabilizing max) and the error-feedback pair
+(the vocab epilogue's stabilizing max), the error-feedback pair
 :func:`ef_correct` / :func:`ef_residual`
-(:mod:`~autodist_tpu_torch.kernel.compressor`).  The decomposed
-int8/bf16 halves belong to the overlap item (ROADMAP Queue 1).
+(:mod:`~autodist_tpu_torch.kernel.compressor`) and the flat pair of the
+ZeRO-3 gather's ``zero3_gather`` slot,
+:func:`quantized_psum_scatter_flat` and
+:func:`quantized_all_gather_flat`.  The decomposed int8/bf16 halves of
+the tensor-parallel boundaries belong to the overlap item (ROADMAP
+Queue 1).
 
 Two numeric rules keep the port bit-exact with the JAX package:
 
@@ -130,3 +134,34 @@ def ef_correct(grad, residual):
 def ef_residual(corrected, wire):
     """Next step's residual: what this step's wire form lost."""
     return corrected - wire.float()
+
+
+def quantized_psum_scatter_flat(flat, axis, precision: str):
+    """Reduce-scatter of a padded flat payload (its length divides the
+    axis size) at the wire precision: this rank's fp32 chunk of the
+    sum.  ``int8`` agrees a shared scale and sums integer levels on an
+    fp16 wire, as :func:`quantized_psum` does."""
+    precision = check_precision(precision)
+    if precision == "fp32":
+        return axis.psum_scatter(flat)
+    if precision == "bf16":
+        return axis.psum_scatter(flat.to(torch.bfloat16)).float()
+    scale = shared_scale(flat, axis)
+    q = quantize_levels(flat.float(), scale)
+    return axis.psum_scatter(q.to(torch.float16)).float() * scale
+
+
+def quantized_all_gather_flat(shard, axis, precision: str):
+    """All-gather of equal flat shards at the wire precision: the fp32
+    flat concatenation in axis order.  A gather never sums, so ``int8``
+    carries true ``int8`` levels, each source shard's fp32 scale
+    gathered beside them, and every row dequantizes with its own."""
+    precision = check_precision(precision)
+    if precision == "fp32":
+        return axis.all_gather(shard)
+    if precision == "bf16":
+        return axis.all_gather(shard.to(torch.bfloat16)).float()
+    q, scale = quantize_int8(shard.float())
+    rows = axis.all_gather(q.unsqueeze(0))               # [n, shard] int8
+    scales = axis.all_gather(scale.reshape(1))           # [n] fp32
+    return (rows.float() * scales[:, None]).reshape(-1)

@@ -30,8 +30,7 @@ import torch.nn.functional as F
 from autodist_tpu_torch import const, interop
 from autodist_tpu_torch.kernel import quantize as qz
 from autodist_tpu_torch.kernel.a2a_ring import ring_dispatch
-from autodist_tpu_torch.strategy.ir import (AllReduceSynchronizer,
-                                            normalize_kernel,
+from autodist_tpu_torch.strategy.ir import (normalize_kernel,
                                             normalize_precision, not_ported)
 
 
@@ -216,17 +215,6 @@ def make_expert_plan(trainable, strategy, mesh) -> ExpertPlan:
     if par.get("expert_over_dcn"):
         not_ported("expert_over_dcn (an expert axis across hosts)",
                    "ROADMAP Queue 1, slice 5 leftovers, item 3")
-    if par.get("zero_stage") or any(
-            not isinstance(nc.synchronizer, AllReduceSynchronizer)
-            for nc in strategy.node_configs):
-        not_ported("ZeRO in the expert lowering",
-                   "ROADMAP Queue 1, slice 5 leftovers, item 1")
-    if precision.get("grad"):
-        # The JAX lowering's scaled per-variable sync leaves the blanket
-        # slot unapplied; here it is refused rather than dropped.
-        not_ported("the 'grad' precision slot in the expert lowering "
-                   "(per-variable compressors run)",
-                   "ROADMAP Queue 1, slice 5 leftovers, item 2")
     E_shards = mesh.shape[const.EXPERT_AXIS]
     expert_vars = list(interop.expert_dims(strategy))
     infos = {v.name: v for v in trainable.var_infos()}
@@ -260,14 +248,23 @@ def lower_expert_ir(trainable, strategy, mesh, device=None):
       the mean over every token group) and averaged over ``data`` only;
       every other gradient is averaged over ``data x expert``; each set
       in one flat fp32 all-reduce;
+    * a node's PS synchronizer is ZeRO over ``data x expert`` on a
+      replicated variable (its optimizer state, and at stage 3 the
+      parameter, stored as a flat shard); on an expert table, whose
+      state already shards with it, it degrades to the plain sync
+      above and is recorded in ``Lowered.zero_degraded``, as the JAX
+      package records it;
     * a node's compressor runs over the same axes, its mean then scaled
       (an expert variable on a mesh without a data axis has nothing to
       sync, as in the JAX package);
+    * the ``grad`` precision slot is not applied: the scaled rule above
+      is the lowering's own sync, which the JAX lowering keeps over the
+      slot's blanket compressor; ``Lowered.unapplied`` records it;
     * metrics are averaged over ``data x expert``; ``accum_steps``
       microbatches a step.
     """
     from autodist_tpu_torch.parallel._spmd import (build_replicated_spmd,
-                                                   compressor_policies)
+                                                   policies_from_node_configs)
 
     plan = make_expert_plan(trainable, strategy, mesh)
     # Bind the dispatch/combine wire election into the trainable's slot;
@@ -284,6 +281,7 @@ def lower_expert_ir(trainable, strategy, mesh, device=None):
     expert = mesh.axis(const.EXPERT_AXIS)
     data = mesh.axis(const.DATA_AXIS)
     sharded = set(plan.expert_vars)
+    d_axes = plan.batch_axes[:-1]
 
     def param_spec(name, leaf):
         return (0, expert) if name in sharded else None
@@ -294,17 +292,16 @@ def lower_expert_ir(trainable, strategy, mesh, device=None):
             else (g, None)
 
     cfg = strategy.graph_config
-    policies = compressor_policies(
-        strategy, "expert",
-        axis_for=lambda n: data if n in sharded else None,
+    degraded: dict = {}
+    policies = policies_from_node_configs(
+        strategy, mesh, replicated_axes=plan.batch_axes,
+        axes_for=lambda n: d_axes if n in sharded else plan.batch_axes,
         scale_for=lambda n: 1.0 / plan.expert_shards if n in sharded
-        else 1.0)
-    if const.DATA_AXIS not in mesh.shape:
-        policies = {n: p for n, p in policies.items() if n not in sharded}
+        else 1.0, sharded_vars=sharded, degraded=degraded)
     return build_replicated_spmd(
         trainable, mesh, sync_axes=plan.batch_axes,
         param_spec_fn=param_spec, grad_sync=grad_sync, policies=policies,
-        accum=max(cfg.accum_steps, 1),
+        zero_degraded=degraded, accum=max(cfg.accum_steps, 1),
         precision={k: v for k, v in normalize_precision(cfg.precision)
                    .items() if k != "moe_a2a"},
         plan=plan, device=device)

@@ -12,8 +12,16 @@ process of the job runs the step on its (data, pipe, model) coordinate:
    partitioner specs (:func:`autodist_tpu_torch.interop.shard_params`);
    shared variables are replicated on every rank, except under
    ``vocab_parallel``, where the tied table is stored as its ``[V_pad /
-   tp, H]`` model shard, the vocabulary zero-padded to divide;
-2. the schedule: every pipe rank walks the same ``num_ticks(M, n, V)``
+   tp, H]`` model shard, the vocabulary zero-padded to divide.  A ZeRO-3
+   stage variable is stored as ``[V, padded_chunk / n_data]`` rows, each
+   chunk's flat shard over the data axis, and a ZeRO-3 shared one as its
+   flat shard over pipe x data;
+2. the ZeRO-3 gathers: once a step (once an accumulation slice), before
+   the ticks, shared leaves first and then the chunks in layer order,
+   every rank in the same order (a gather a tick would run ``M`` times,
+   and the bubble ticks would part the data peers' orders); their
+   backward reduce-scatters run after the ticks, in the same order;
+3. the schedule: every pipe rank walks the same ``num_ticks(M, n, V)``
    ticks.  Each tick it shifts its last output one step along the pipe
    ring (:meth:`~autodist_tpu_torch.parallel.axis.Axis.ppermute`; a
    rank with nothing to send sends zeros, so every send meets its
@@ -27,30 +35,39 @@ process of the job runs the step on its (data, pipe, model) coordinate:
    output's shape and dtype from a run on meta tensors (no compute, no
    collective).  Activations are ``[B/M, L, H]``, and the stage function
    gets ``model_axis`` (and ``comm_overlap``) under ``tensor_parallel
-   > 1``;
-3. the loss head runs once, on the last pipe rank, on the last chunk's
+   > 1``; under ``remat`` each stage call is a non-reentrant
+   ``torch.utils.checkpoint``, recomputed (its model-axis rings
+   included) in the backward;
+4. the loss head runs once, on the last pipe rank, on the last chunk's
    ``M`` outputs, and back-propagates to one output gradient a
    microbatch.  Under ``vocab_parallel`` the prologue and the head get
    ``model_axis`` (and ``comm_overlap``): the masked shard lookup and
    the streaming cross-entropy of :mod:`autodist_tpu_torch.parallel
    .tensor`;
-4. the backward walks the ticks in reverse with the same shape: a
+5. the backward walks the ticks in reverse with the same shape: a
    gradient shift the other way every tick, and on a valid tick one
    ``torch.autograd.grad`` of that tick's output against the cotangent
    that arrived (the last chunk's from the head), whose input gradient
    is sent back.  The ring itself carries no autograd edge: a rank
    whose received carry went unused would never run that edge's
    backward, and its neighbour's matching exchange would never happen;
-5. forward and backward run inside ``precision_scope`` and
-   ``kernel_scope`` with the strategy's policy and election, as the JAX
-   package opens them around its step;
-6. shared gradients (the prologue's on pipe rank 0, the head's on rank
-   ``n - 1``) are summed over the pipe axis, then every gradient is
-   averaged over the data axis in one flat fp32 all-reduce, and the
-   functional optimizer updates each stored shard.  A vocab shard's
-   gradient is summed over pipe within its model coordinate and never
-   over model: each model rank owns its rows.  The head's metrics
-   are broadcast from the last pipe rank, then averaged over data.
+6. forward and backward (remat's recompute too) run inside
+   ``precision_scope`` and ``kernel_scope`` with the strategy's policy
+   and election, as the JAX package opens them around its step;
+   ``GradAccumulation`` runs the whole schedule once a slice;
+7. the gradient sync, by each variable's policy
+   (:func:`pipeline_policies`): shared gradients (the prologue's on
+   pipe rank 0, the head's on rank ``n - 1``) are summed over the pipe
+   axis, except a ZeRO one, whose one reduce-scatter over pipe x data
+   sums and shards at once; a ZeRO stage gradient is reduce-scattered
+   over data (a ZeRO-3 one is only divided: its gather's backward
+   scattered it); a compressed one runs its compressor over data with
+   its state row; the rest are averaged over data in one flat fp32
+   all-reduce.  The functional optimizer updates each update-space
+   shard, and ZeRO-1 and 2 all-gather the updated values.  A vocab
+   shard's gradient is summed within its model coordinate and never
+   over model: each model rank owns its rows.  The head's metrics are
+   broadcast from the last pipe rank, then averaged over data.
 
 At one pipe device the same schedule runs every (microbatch, chunk) in
 order, what ``pipeline_apply`` computes there.  The strategy is checked
@@ -66,10 +83,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from autodist_tpu_torch import const, interop, optim
+from autodist_tpu_torch import const, interop
 from autodist_tpu_torch.capture import PipelineTrainable
 from autodist_tpu_torch.device import resolve_device
+from autodist_tpu_torch.kernel import common
 from autodist_tpu_torch.kernel.common import flatten_with_names, unflatten
+from autodist_tpu_torch.kernel.compressor import Compressor
 from autodist_tpu_torch.kernel.lowering import Lowered, reduce_metrics
 from autodist_tpu_torch.parallel.tensor import (kernel_scope,
                                                 normalize_comm_overlap,
@@ -144,7 +163,8 @@ class PipelinePlan:
     comm_overlap: object       # None or "matmul"
     precision: dict
     kernel: dict
-
+    remat: bool = False        # each stage call recomputed in the backward
+    accum: int = 1             # whole schedules a step (GradAccumulation)
 
 
 def _accepts(fn, name: str) -> bool:
@@ -255,17 +275,6 @@ def make_pipeline_plan(trainable, strategy, mesh) -> PipelinePlan:
             "ring; it requires comm_overlap='matmul' "
             f"(got {overlap!r})")
     # What this slice does not run.
-    if par.get("remat"):
-        not_ported("Pipeline(remat=True)", f"{_LEFTOVERS}, item 4")
-    if par.get("zero_stage") or any(
-            not isinstance(nc.synchronizer, AllReduceSynchronizer)
-            for nc in strategy.node_configs):
-        not_ported("ZeRO in the pipeline lowering", f"{_LEFTOVERS}, item 4")
-    if precision.get("grad") or any(
-            nc.synchronizer.compressor not in ("", "none")
-            for nc in strategy.node_configs):
-        not_ported("gradient compressors (and the 'grad' precision slot)",
-                   "ROADMAP Queue 1, slice 2 leftovers, item 3")
     if overlap == "rsag":
         not_ported("comm_overlap='rsag'", f"{_LEFTOVERS}, item 3")
     if overlap and precision.get("tp_psum"):
@@ -274,9 +283,6 @@ def make_pipeline_plan(trainable, strategy, mesh) -> PipelinePlan:
     if overlap and vocab_dims and precision.get("vocab_stats"):
         not_ported("a narrowed vocab_stats precision under comm_overlap",
                    f"{_LEFTOVERS}, item 3")
-    if cfg.accum_steps != 1:
-        not_ported("gradient accumulation in the pipeline lowering",
-                   "ROADMAP Queue 1, item 8: GradAccumulation")
     return PipelinePlan(
         num_microbatches=int(par.get("num_microbatches", 1)),
         num_stages=trainable.num_stages, virtual_stages=V,
@@ -284,19 +290,82 @@ def make_pipeline_plan(trainable, strategy, mesh) -> PipelinePlan:
         vocab_dims=vocab_dims,
         comm_overlap=overlap, precision=precision,
         kernel={k: True for k in kernel
-                if k in ("quant_ring", "collective_matmul")})
+                if k in ("quant_ring", "collective_matmul")},
+        remat=bool(par.get("remat", False)),
+        accum=max(int(cfg.accum_steps), 1))
+
+
+def pipeline_policies(trainable, strategy, mesh, plan: PipelinePlan):
+    """The per-variable synchronizers of a pipeline strategy, as the JAX
+    ``lower_pipeline_ir`` resolves them: ``(policies, zero_degraded,
+    unapplied)``.
+
+    A stage variable is replicated only across the data axis (it is
+    pipe-sharded), a shared one across pipe x data: a PS synchronizer is
+    ZeRO over those axes; on a model-sharded stage variable it degrades
+    to plain sync (its optimizer state shards with it), recorded in
+    ``zero_degraded``, as is a ZeRO-3 request on the vocab-sharded table
+    (which shards its optimizer state over pipe x data within its model
+    coordinate instead).  The ``grad`` slot elects its error-feedback
+    compressor for every AllReduce variable without one.  A mesh
+    without a data axis runs no compressor (the JAX lowering logs it);
+    each such variable is recorded in ``unapplied``."""
+    from autodist_tpu_torch.parallel._spmd import (GRAD_SLOT_COMPRESSORS,
+                                                   VarPolicy,
+                                                   policies_from_node_configs)
+
+    d_axes = (const.DATA_AXIS,) if const.DATA_AXIS in mesh.shape else ()
+    shared_axes = (const.PIPE_AXIS, *d_axes)
+
+    def is_stage(name):
+        return not trainable.has_shared or name.startswith("stages/")
+
+    degraded: dict = {}
+    policies = policies_from_node_configs(
+        strategy, mesh, replicated_axes=shared_axes,
+        axes_for=lambda nm: d_axes if is_stage(nm) else shared_axes,
+        sharded_vars=set(plan.model_dims), degraded=degraded)
+    for name in plan.vocab_dims:
+        pol = policies.get(name)
+        if pol is not None and pol.zero_axes and pol.zero_stage >= 3:
+            degraded[name] = (
+                "zero_stage=3 on the model-sharded table degrades to "
+                "optimizer-state sharding: the parameter is already "
+                "1/tp-sharded over the model axis; state shards over "
+                "(model, pipe, data)")
+    grad = plan.precision.get("grad")
+    if grad:
+        for nc in strategy.node_configs:
+            sync = nc.synchronizer
+            if (isinstance(sync, AllReduceSynchronizer)
+                    and (sync.compressor or "none") == "none"
+                    and nc.var_name not in policies):
+                policies[nc.var_name] = VarPolicy(
+                    compressor=GRAD_SLOT_COMPRESSORS[grad])
+    unapplied = {}
+    if not d_axes:
+        unapplied = {nm: f"compressor {pol.compressor!r}: the mesh has no "
+                         "data axis to compress over; synced uncompressed"
+                     for nm, pol in sorted(policies.items())
+                     if pol.compressor != "none"}
+    return policies, degraded, unapplied
 
 
 def lower_pipeline(trainable, strategy, mesh, device=None) -> Lowered:
     """The train step of a ``Pipeline`` strategy on ``device`` (``None``:
     the card)."""
+    from autodist_tpu_torch.parallel._spmd import UpdateSpace, axis_over
+
     plan = make_pipeline_plan(trainable, strategy, mesh)
+    policies, zero_degraded, unapplied = pipeline_policies(
+        trainable, strategy, mesh, plan)
     dev, opt = resolve_device(device), trainable.optimizer
     M, V = plan.num_microbatches, plan.virtual_stages
     data = mesh.axis(const.DATA_AXIS)
     pipe = mesh.axis(const.PIPE_AXIS)
     model = mesh.axis(const.MODEL_AXIS)
-    n, d = pipe.size, pipe.index
+    has_data = const.DATA_AXIS in mesh.shape
+    n, d, n_d = pipe.size, pipe.index, data.size
     T = num_ticks(M, n, V)
     first, last = d == 0, d == n - 1
     has_shared = trainable.has_shared
@@ -311,9 +380,46 @@ def lower_pipeline(trainable, strategy, mesh, device=None) -> Lowered:
             vp_kwargs["comm_overlap"] = plan.comm_overlap
     logical = {nm: tuple(t.shape)
                for nm, t in flatten_with_names(trainable.params)}
+    zero3_precision = plan.precision.get("zero3_gather", "fp32")
 
     def is_stage(name):
         return not has_shared or name.startswith("stages/")
+
+    # ZeRO's axes: a stage variable's the data axis, a shared one's
+    # pipe x data (one group a model coordinate), made in name order.
+    groups: dict = {}
+    zaxes = {nm: axis_over(mesh, pol.zero_axes, groups)
+             for nm, pol in sorted(policies.items()) if pol.zero_axes}
+    comps = {nm: Compressor.create(pol.compressor)
+             for nm, pol in sorted(policies.items())
+             if pol.compressor != "none" and has_data}
+    # Stored as the ZeRO shard and gathered once a step: never a
+    # model-sharded variable, whose request degrades.
+    space = UpdateSpace(zaxes, frozenset(
+        nm for nm in zaxes if policies[nm].zero_stage >= 3
+        and nm not in plan.model_dims and nm not in plan.vocab_dims), comps)
+
+    zero3_shapes = {nm: logical[nm] for nm in logical if nm in space.zero3}
+
+    def stage_fn(chunk, x):
+        if not plan.remat:
+            return trainable.stage_fn(chunk, x, **tp_kwargs)
+        # The recompute runs inside the backward's precision and kernel
+        # scopes, and the pipelined trainables draw no randomness.
+        return torch.utils.checkpoint.checkpoint(
+            trainable.stage_fn, chunk, x, use_reentrant=False,
+            preserve_rng_state=False, **tp_kwargs)
+
+    def store(nm, t):
+        """A ZeRO-3 variable's storage: a stage leaf's ``V`` chunks as
+        ``[V, padded_chunk / n_d]`` rows, each chunk's flat data shard;
+        a shared leaf's flat shard over pipe x data."""
+        if nm not in space.zero3:
+            return t
+        if is_stage(nm):
+            return torch.stack([common.local_flat_shard(t[v], zaxes[nm])
+                                for v in range(V)])
+        return common.local_flat_shard(t, zaxes[nm])
 
     def init_fn(params, extra):
         flat = dict(flatten_with_names(params))
@@ -323,11 +429,14 @@ def lower_pipeline(trainable, strategy, mesh, device=None) -> Lowered:
             for nm, t in flat.items()}),
             {**plan.model_dims, **plan.vocab_dims}, model.index, model.size,
             padded=plan.vocab_dims)
-        stored = {nm: t.detach().to(dev).clone()
+        stored = {nm: store(nm, t).detach().to(dev).clone()
                   for nm, t in flatten_with_names(local)}
+        # The vocab table's update space is its flat shard within its
+        # model coordinate.
+        opt_state, rows = space.init(opt, stored, dev)
         return {"step": torch.zeros((), dtype=torch.int32, device=dev),
-                "params": stored, "opt_state": opt.init(stored),
-                "extra": extra}
+                "params": stored, "opt_state": opt_state,
+                "extra": extra, "sync_state": rows}
 
     def tree(leaves: dict, part: str):
         return unflatten(leaves)[part] if has_shared else unflatten(leaves)
@@ -364,7 +473,7 @@ def lower_pipeline(trainable, strategy, mesh, device=None) -> Lowered:
                 continue
             src = mbs[m] if first and v == 0 else recv
             x = src.detach().requires_grad_()
-            out = trainable.stage_fn(chunks[v], x, **tp_kwargs)
+            out = stage_fn(chunks[v], x)
             if out.shape != x.shape or out.dtype != x.dtype:
                 raise ValueError(
                     f"stage activations must match the microbatch's shape "
@@ -423,13 +532,45 @@ def lower_pipeline(trainable, strategy, mesh, device=None) -> Lowered:
         vec = pipe.psum(vec)
         return {k: vec[i].to(dt) for i, (k, dt) in enumerate(metric_layout)}
 
-    def gradients(params, batch):
-        """This rank's gradients of the step and the head's metrics."""
-        chunk_leaves = [{nm: p[v].detach().requires_grad_()
+    def materialize(params):
+        """The step's leaves: each ZeRO-3 shard gathered once, outside
+        the tick loop (a gather a tick would run M times, and bubble
+        ticks would break the data peers' common order): shared leaves
+        first, then the stage chunks in layer order.  Returns the leaves
+        (a gathered one detached, to be differentiated by the ticks) and
+        ``[(shard, full, name, v)]`` of the gathers, for
+        :func:`scatter_back`."""
+        gathered = []
+
+        def leaf(nm, shard, shape, v=None):
+            if nm not in space.zero3:
+                return shard.detach().requires_grad_()
+            src = shard.detach().requires_grad_()
+            full = common.zero3_gather(src, zaxes[nm], shape,
+                                       zero3_precision)
+            gathered.append((src, full, nm, v))
+            return full.detach().requires_grad_()
+
+        shared_leaves = {nm: leaf(nm, p, logical[nm])
+                         for nm, p in params.items() if not is_stage(nm)}
+        chunk_leaves = [{nm: leaf(nm, p[v], logical[nm][1:], v)
                          for nm, p in params.items() if is_stage(nm)}
                         for v in range(V)]
-        shared_leaves = {nm: p.detach().requires_grad_()
-                         for nm, p in params.items() if not is_stage(nm)}
+        return shared_leaves, chunk_leaves, gathered
+
+    def scatter_back(gathered, shared_grads, stage_grads):
+        """Each gathered leaf's gradient through its gather's backward
+        (a reduce-scatter sum over its ZeRO axes), in gather order."""
+        for src, full, nm, v in gathered:
+            grads = shared_grads if v is None else stage_grads[v]
+            g = grads[nm]
+            grads[nm] = torch.autograd.grad(
+                full, src, torch.zeros_like(full) if g is None else g)[0]
+
+    def gradients(params, batch):
+        """This rank's gradients of one whole schedule (in the update
+        layout: a ZeRO-3 variable's shard) and the head's metrics."""
+        shared_leaves, chunk_leaves, gathered = materialize(params)
         shared = tree(shared_leaves, "shared") if has_shared else None
         chunks = [tree(leaves, "stages") for leaves in chunk_leaves]
         x, mbs = first_input(shared, batch)
@@ -459,6 +600,7 @@ def lower_pipeline(trainable, strategy, mesh, device=None) -> Lowered:
                 if g is not None:
                     acc = shared_grads[nm]
                     shared_grads[nm] = g if acc is None else acc + g
+        scatter_back(gathered, shared_grads, grads)
         out = {}
         for nm, p in params.items():
             if is_stage(nm):
@@ -470,31 +612,72 @@ def lower_pipeline(trainable, strategy, mesh, device=None) -> Lowered:
                 out[nm] = torch.zeros_like(p) if g is None else g
         return out, broadcast_metrics(metrics)
 
+    def sync_grads(grads: dict, rows: dict):
+        """Shared gradients summed over pipe (each pipe rank holds a
+        different piece: the prologue's on rank 0, the head's on rank
+        n - 1), in one flat all-reduce, except under ZeRO, whose one
+        reduce-scatter over pipe x data sums and shards at once; then,
+        in name order, each ZeRO gradient reduce-scattered (a ZeRO-3
+        one only divided: its gather's backward scattered it) and each
+        compressed one through its compressor over data; the rest
+        averaged over data in one flat fp32 all-reduce.  A vocab
+        shard's gradient is summed within its model coordinate only:
+        each model rank owns its rows."""
+        grads = dict(grads)
+        grads.update(pipe.psum_all({nm: g for nm, g in grads.items()
+                                    if not is_stage(nm)
+                                    and nm not in zaxes}))
+        out, plain, new_rows = {}, {}, dict(rows)
+        for nm, g in grads.items():
+            if nm in zaxes:
+                # A shared gradient's scatter over pipe x data sums the
+                # pipe ranks' pieces: only the data replicas average.
+                out[nm] = space.zero_reduce(nm, g, n_d)
+            elif nm in comps:
+                out[nm] = space.compress(nm, g, rows, new_rows, data)
+            else:
+                plain[nm] = g
+        out.update(data.pmean_all(plain))
+        return {nm: out[nm] for nm in grads}, new_rows
+
     def step_fn(state, batch, rng):
-        del rng                      # no stage draws (PipelineTrainable)
         params = state["params"]
+
+        def micro(mb, r, extra):
+            # No stage draws randomness: the slice's seed goes unused.
+            grads, metrics = gradients(params, mb)
+            return grads, extra, metrics
+
         with torch.enable_grad(), precision_scope(plan.precision), \
                 kernel_scope(plan.kernel):
-            grads, metrics = gradients(params, batch)
-        # Shared gradients: each pipe rank holds a different piece (the
-        # prologue's on rank 0, the head's on rank n - 1): sum them over
-        # the pipe axis; then every gradient is averaged over data.
-        grads.update(pipe.psum_all(
-            {nm: g for nm, g in grads.items() if not is_stage(nm)}))
-        updates, opt_state = opt.update(data.pmean_all(grads),
-                                        state["opt_state"], params)
-        new_state = {"step": state["step"] + 1,
-                     "params": optim.apply_updates(params, updates),
-                     "opt_state": opt_state, "extra": state["extra"]}
+            if plan.accum == 1:
+                grads, metrics = gradients(params, batch)
+            else:
+                # Each accumulation slice runs the whole schedule.
+                grads, _, metrics = common.accumulate_microbatches(
+                    micro, batch, rng, None, plan.accum)
+        synced, rows = sync_grads(grads, state["sync_state"])
+        new_params, opt_state = space.update(opt, synced,
+                                             state["opt_state"], params)
+        new_state = {"step": state["step"] + 1, "params": new_params,
+                     "opt_state": opt_state, "extra": state["extra"],
+                     "sync_state": rows}
         return new_state, reduce_metrics(metrics, mesh)
 
     def full_params(stored: dict) -> dict:
-        """The logical tree: model shards gathered (a vocab table's
-        padding cut off), then the pipe ranks' chunks gathered in storage
-        order and put back in logical order."""
+        """The logical tree: ZeRO-3 shards gathered and unpadded, model
+        shards gathered (a vocab table's padding cut off), then the pipe
+        ranks' chunks gathered in storage order and put back in logical
+        order."""
         inv = torch.as_tensor(chunk_permutation_inv(n, V))
         out = {}
         for nm, t in stored.items():
+            if nm in space.zero3 and is_stage(nm):
+                size = int(np.prod(logical[nm][1:], dtype=np.int64))
+                t = zaxes[nm].all_gather(t, dim=1)[:, :size].reshape(
+                    (V,) + logical[nm][1:])
+            elif nm in space.zero3:
+                t = common.all_gather_flat(t, zaxes[nm], logical[nm])
             if nm in plan.model_dims:
                 t = model.all_gather(t, dim=plan.model_dims[nm])
             if nm in plan.vocab_dims:
@@ -505,4 +688,6 @@ def lower_pipeline(trainable, strategy, mesh, device=None) -> Lowered:
         return out
 
     return Lowered(plan=plan, mesh=mesh, device=dev, init_fn=init_fn,
-                   step_fn=step_fn, full_params_fn=full_params)
+                   step_fn=step_fn, full_params_fn=full_params,
+                   zero3_shapes=zero3_shapes, zero_degraded=zero_degraded,
+                   unapplied=unapplied)

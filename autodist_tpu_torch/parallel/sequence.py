@@ -29,7 +29,7 @@ import torch
 
 from autodist_tpu_torch import const
 from autodist_tpu_torch.parallel.axis import bound_axis
-from autodist_tpu_torch.strategy.ir import normalize_precision, not_ported
+from autodist_tpu_torch.strategy.ir import normalize_precision
 
 
 def global_positions(local_len: int, *, seq_axis: str = const.SEQ_AXIS,
@@ -54,7 +54,8 @@ def global_positions(local_len: int, *, seq_axis: str = const.SEQ_AXIS,
 
 def _build_sequence(trainable, mesh, *, seq_leaves: Sequence[str],
                     seq_axis: str, data_axis: str, accum: int = 1,
-                    policies=None, precision=None, plan=None, device=None):
+                    policies=None, unapplied=None, precision=None,
+                    plan=None, device=None):
     """The placement of both entries (the direct API and the strategy
     lowering) on the shared builder: a
     :class:`~autodist_tpu_torch.kernel.lowering.Lowered`."""
@@ -81,8 +82,8 @@ def _build_sequence(trainable, mesh, *, seq_leaves: Sequence[str],
 
     return build_replicated_spmd(
         trainable, mesh, sync_axes=sync_axes, batch_spec_fn=batch_spec_fn,
-        policies=policies, accum=accum, precision=precision, plan=plan,
-        device=device)
+        policies=policies, unapplied=unapplied, accum=accum,
+        precision=precision, plan=plan, device=device)
 
 
 def lower_sequence_parallel(trainable, mesh, *,
@@ -107,22 +108,30 @@ def lower_sequence_ir(trainable, strategy, mesh, device=None):
     """The strategy entry: lower a ``lowering == "sequence"`` strategy
     (built by :class:`~autodist_tpu_torch.strategy.parallel_builders
     .SequenceParallel`), the form that flows through ``AutoDist.build``.
-    A node's compressor (and the ``grad`` precision slot's) averages over
-    ``data x seq``, the axes its variable is replicated across; ZeRO
-    raises, naming its item."""
-    from autodist_tpu_torch.parallel._spmd import compressor_policies
+    Every variable is replicated across ``data x seq``, so a node's PS
+    synchronizer is ZeRO over both axes (the largest sharding of its
+    optimizer state, and at stage 3 of the parameter) and a compressor
+    (or the ``grad`` slot's) averages over them; the ``zero3_gather``
+    slot narrows the ZeRO-3 gathers.  The slots this lowering has no
+    boundary for (``tp_psum``, ``vocab_stats``, ``moe_a2a``) are
+    recorded on the ``Lowered`` as unapplied, where the JAX package
+    leaves them unused."""
+    from autodist_tpu_torch.parallel._spmd import policies_from_node_configs
 
     cfg = strategy.graph_config
-    others = {k: v for k, v in normalize_precision(cfg.precision).items()
-              if k not in ("grad", "zero3_gather")}
-    if others:
-        not_ported(f"collective_precision {others} in the sequence "
-                   "lowering",
-                   "ROADMAP Queue 1, slice 2 leftovers: compressors")
+    seq_axis = cfg.parallel.get("seq_axis", const.SEQ_AXIS)
+    d_axes = (const.DATA_AXIS,) if const.DATA_AXIS in mesh.shape else ()
+    precision = normalize_precision(cfg.precision)
+    unapplied = {slot: "no such boundary in the sequence lowering"
+                 for slot in precision
+                 if slot not in ("grad", "zero3_gather")}
+    # Nothing is stored sharded here, so no ZeRO request degrades.
+    policies = policies_from_node_configs(
+        strategy, mesh, replicated_axes=(*d_axes, seq_axis), degraded={})
     return _build_sequence(
         trainable, mesh,
         seq_leaves=tuple(cfg.parallel.get("seq_leaves", ("x", "y"))),
-        seq_axis=cfg.parallel.get("seq_axis", const.SEQ_AXIS),
-        data_axis=const.DATA_AXIS, accum=max(cfg.accum_steps, 1),
-        policies=compressor_policies(strategy, "sequence"),
-        precision=cfg.precision, plan=strategy, device=device)
+        seq_axis=seq_axis, data_axis=const.DATA_AXIS,
+        accum=max(cfg.accum_steps, 1), policies=policies,
+        unapplied=unapplied, precision=precision, plan=strategy,
+        device=device)

@@ -15,11 +15,13 @@ same build-time checks with the same errors.
 
 The lowering runs GPipe (``virtual_stages=1``) and interleaved
 schedules over any pipe axis, one process per pipe coordinate
-(:mod:`autodist_tpu_torch.parallel.pipeline`).  What it does not run
-raises ``NotImplementedError`` here, after the JAX builder's own
-checks: ZeRO stages, gradient compressors and the ``grad`` precision
-slot, remat, ``comm_overlap="rsag"`` and a narrowed ``tp_psum`` under
-overlap.
+(:mod:`autodist_tpu_torch.parallel.pipeline`).  Every builder emits
+its per-variable synchronizers as the JAX builders do
+(:func:`_default_sync`: ZeRO at ``zero_stage``, a compressor, or the
+``zero_min_bytes`` mix of both).  What the port does not run raises
+``NotImplementedError`` here, after the JAX builder's own checks:
+``comm_overlap="rsag"``, a narrowed precision under overlap and
+``expert_over_dcn``.
 """
 from __future__ import annotations
 
@@ -32,8 +34,8 @@ from autodist_tpu_torch import const
 from autodist_tpu_torch.parallel.tensor import normalize_comm_overlap
 from autodist_tpu_torch.strategy.base import StrategyBuilder
 from autodist_tpu_torch.strategy.ir import (AllReduceSynchronizer, NodeConfig,
-                                            PartitionerConfig, Strategy,
-                                            normalize_kernel,
+                                            PartitionerConfig, PSSynchronizer,
+                                            Strategy, normalize_kernel,
                                             normalize_precision, not_ported)
 
 # Megatron rules for the stage variables, matched against the name with
@@ -75,6 +77,15 @@ class Pipeline(StrategyBuilder):
     "bf16"}``); ``kernel`` elects
     the fused kernels: ``quant_ring`` needs the int8 ``tp_psum`` and the
     blocking form, ``collective_matmul`` needs ``comm_overlap="matmul"``.
+    ``zero_stage`` (or ``zero1``), ``compressor=`` and ``zero_min_bytes``
+    name each variable's synchronizer (:func:`_default_sync`: ZeRO over
+    the data axis for a stage variable, over pipe x data for a shared
+    one; a model-sharded variable's request degrades in the lowering,
+    which records it); the ``grad`` slot elects the error-feedback
+    compressor, the ``zero3_gather`` slot narrows ZeRO-3's gathers;
+    ``remat=True`` recomputes each stage call in the backward; a
+    ``GradAccumulation`` around the builder runs the whole schedule
+    once an accumulation slice.
     """
 
     def __init__(self, num_microbatches: int = 1, virtual_stages: int = 1,
@@ -124,16 +135,13 @@ class Pipeline(StrategyBuilder):
                 "kernel 'collective_matmul' fuses the chunked ppermute "
                 "ring: it needs tensor_parallel > 1 and "
                 "comm_overlap='matmul'")
-        self.zero_stage = 0
+        # ZeRO over the data axes (stage variables) or pipe x data
+        # (shared ones): 1 shards the optimizer state, 2 runs the same
+        # program, 3 also stores the parameters as flat shards.
+        self.zero_stage = _resolve_zero_stage(zero_stage, zero1)
+        self.make_sync = _default_sync(self.zero_stage, compressor,
+                                       zero_min_bytes)
         # What the port's pipeline lowering does not run yet.
-        if zero_stage or zero1 or zero_min_bytes is not None:
-            not_ported("ZeRO in the pipeline lowering",
-                       f"{_LEFTOVERS}, item 4")
-        if remat:
-            not_ported("Pipeline(remat=True)", f"{_LEFTOVERS}, item 4")
-        if (compressor or "none") != "none" or self.precision.get("grad"):
-            not_ported("gradient compressors (and the 'grad' precision "
-                       "slot)", "ROADMAP Queue 1, slice 2 leftovers, item 3")
         if self.comm_overlap == "rsag":
             not_ported("comm_overlap='rsag'", f"{_LEFTOVERS}, item 3")
         if self.comm_overlap and self.precision.get("tp_psum"):
@@ -225,7 +233,7 @@ class Pipeline(StrategyBuilder):
         nodes, tp_matched, vocab_matched = [], [], []
         for info in trainable.var_infos():
             node = NodeConfig(var_name=info.name,
-                              synchronizer=AllReduceSynchronizer(),
+                              synchronizer=self.make_sync(info),
                               is_sparse=info.is_sparse)
             # Stage variables shard on the pipe axis (their leading
             # stage dim), plus the model axis on the dims their tp rule
@@ -296,17 +304,36 @@ def _check_grad_precision(precision: dict, compressor):
             "not both")
 
 
-def _check_zero_compressor(zero_stage: int, compressor: str, zero_min_bytes):
-    """ZeRO and a compressor exclude each other per variable unless
-    ``zero_min_bytes`` splits the variables between them (the JAX
-    builders' check)."""
-    if zero_stage and compressor != "none" and zero_min_bytes is None:
+def _default_sync(zero_stage: int, compressor: str, zero_min_bytes=None):
+    """The per-variable synchronizer a parallel builder emits, as a
+    function of the variable's :class:`~autodist_tpu_torch.capture
+    .VarInfo` (JAX ``_default_sync``): a PS synchronizer, ZeRO at
+    ``zero_stage``, or an AllReduce one with ``compressor``.
+    ``zero_min_bytes`` mixes them: a variable of at least that many
+    bytes in its declared dtype gets ZeRO (at ``zero_stage``, stage 1
+    by default), a smaller one the compressed all-reduce.  ZeRO and a
+    compressor exclude each other per variable unless
+    ``zero_min_bytes`` splits the variables between them."""
+    comp = compressor or "none"
+    if zero_stage and comp != "none" and zero_min_bytes is None:
         raise ValueError(
             f"zero_stage={zero_stage} and compressor are mutually "
             "exclusive per variable: PS (ZeRO) sync reduces at full "
             "precision; compression is an AllReduce knob (zero_min_bytes "
             "composes them: large vars ZeRO-staged, small vars "
             "compressed)")
+    stage = zero_stage or 1
+
+    def sync_for(info):
+        if zero_min_bytes is not None:
+            if info.byte_size >= zero_min_bytes:
+                return PSSynchronizer(zero_stage=stage)
+            return AllReduceSynchronizer(compressor=comp)
+        if zero_stage:
+            return PSSynchronizer(zero_stage=zero_stage)
+        return AllReduceSynchronizer(compressor=comp)
+
+    return sync_for
 
 
 def _resolve_zero_stage(zero_stage, zero1) -> int:
@@ -340,10 +367,11 @@ class ExpertParallel(StrategyBuilder):
     combine wire; ``kernel=("a2a_ring",)`` takes the fused int8 ring and
     needs the int8 ``moe_a2a`` slot.
 
-    ``compressor=`` names each variable's gradient compressor.  The JAX
-    builder's checks run first, with its errors.  ZeRO (``zero_stage``,
-    ``zero1``, ``zero_min_bytes``), the ``grad`` slot and
-    ``expert_over_dcn`` raise
+    ``zero_stage`` (or ``zero1``), ``compressor=`` and
+    ``zero_min_bytes`` name each variable's synchronizer
+    (:func:`_default_sync`); ZeRO on an expert table degrades to plain
+    sync in the lowering, which records it.  The JAX builder's checks
+    run first, with its errors; ``expert_over_dcn`` raises
     ``NotImplementedError`` after them.
     """
 
@@ -381,17 +409,9 @@ class ExpertParallel(StrategyBuilder):
                 raise ValueError(
                     "kernel 'a2a_ring' is an ICI ring; it cannot span "
                     "slices — drop expert_over_dcn or the kernel")
-        comp = compressor or "none"
-        _check_zero_compressor(self.zero_stage, comp, zero_min_bytes)
+        self.make_sync = _default_sync(self.zero_stage, compressor,
+                                       zero_min_bytes)
         # What the port's expert lowering does not run yet.
-        if self.zero_stage or zero_min_bytes is not None:
-            not_ported("ZeRO in the expert lowering (zero_stage, zero1, "
-                       "zero_min_bytes)", f"{_MOE_LEFTOVERS}, item 1")
-        if self.precision.get("grad"):
-            not_ported("the 'grad' precision slot in the expert lowering "
-                       "(per-variable compressors run)",
-                       f"{_MOE_LEFTOVERS}, item 2")
-        self.compressor = comp
         if self.expert_over_dcn:
             not_ported("expert_over_dcn (an expert axis across hosts)",
                        f"{_MOE_LEFTOVERS}, item 3")
@@ -422,8 +442,7 @@ class ExpertParallel(StrategyBuilder):
                     "expert_params=(%r,) if it is a per-expert table",
                     i.name, i.name.rsplit("/", 1)[-1])
             node = NodeConfig(var_name=i.name,
-                              synchronizer=AllReduceSynchronizer(
-                                  compressor=self.compressor),
+                              synchronizer=self.make_sync(i),
                               is_sparse=i.is_sparse)
             if explicit or auto:
                 matched.add(i.name)
@@ -463,12 +482,12 @@ class SequenceParallel(StrategyBuilder):
     its tokens with :func:`autodist_tpu_torch.parallel.sequence
     .global_positions`.
 
-    ``compressor=`` names each variable's gradient compressor, and
-    ``collective_precision``'s ``grad`` slot elects the error-feedback
-    one for all of them.  The JAX builder's checks run first, with its
-    errors.  ZeRO (``zero_stage``, ``zero1``, ``zero_min_bytes``, the
-    ``zero3_gather`` slot) and the other slots raise
-    ``NotImplementedError`` after them.
+    ``zero_stage`` (or ``zero1``), ``compressor=`` and
+    ``zero_min_bytes`` name each variable's synchronizer
+    (:func:`_default_sync`); ``collective_precision``'s ``grad`` slot
+    elects the error-feedback compressor for every variable without
+    one, and its ``zero3_gather`` slot narrows the ZeRO-3 gathers.
+    The JAX builder's checks run, with its errors.
     """
 
     def __init__(self, seq_leaves: Sequence[str] = ("x", "y"), *,
@@ -478,22 +497,9 @@ class SequenceParallel(StrategyBuilder):
         self.seq_leaves = tuple(seq_leaves)
         self.zero_stage = _resolve_zero_stage(zero_stage, zero1)
         self.precision = normalize_precision(collective_precision)
-        comp = compressor or "none"
-        _check_grad_precision(self.precision, comp)
-        _check_zero_compressor(self.zero_stage, comp, zero_min_bytes)
-        # What the port's sequence lowering does not run yet.
-        if self.zero_stage or zero_min_bytes is not None:
-            not_ported("ZeRO in the sequence lowering (zero_stage, zero1, "
-                       "zero_min_bytes)", f"{_LEFTOVERS}, item 4")
-        if self.precision.get("zero3_gather"):
-            not_ported("the 'zero3_gather' precision slot (ZeRO-3) in the "
-                       "sequence lowering", f"{_LEFTOVERS}, item 4")
-        others = {k: v for k, v in self.precision.items() if k != "grad"}
-        if others:
-            not_ported(f"collective_precision {others} in the sequence "
-                       "lowering",
-                       "ROADMAP Queue 1, slice 2 leftovers: compressors")
-        self.compressor = comp
+        _check_grad_precision(self.precision, compressor)
+        self.make_sync = _default_sync(self.zero_stage, compressor,
+                                       zero_min_bytes)
 
     def build(self, trainable, resource_spec):
         shape = resource_spec.resolved_mesh_shape()
@@ -503,8 +509,7 @@ class SequenceParallel(StrategyBuilder):
                 f"spec resolves to {shape} — declare e.g. "
                 "mesh: {data: ..., seq: ...}")
         nodes = [NodeConfig(var_name=i.name,
-                            synchronizer=AllReduceSynchronizer(
-                                compressor=self.compressor),
+                            synchronizer=self.make_sync(i),
                             is_sparse=i.is_sparse)
                  for i in trainable.var_infos()]
         cfg = self._graph_config(resource_spec)

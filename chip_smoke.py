@@ -93,8 +93,10 @@ attention over K1/K2a/K2b):
 7. the slice's window in bf16 (``bench.py quant`` on an accelerator: 4
    layers, max_len 512, batch 16, ``num_microbatches=2``,
    ``adam(1e-3)``, ``vocab_parallel=True`` as ``bench.py:342`` runs
-   it) for the composed fp32, composed int8 (``vocab_stats`` int8 too),
-   ``quant_ring`` and ``collective_matmul`` programs, at pipe 1
+   it) for the composed fp32, composed int8 (the bare ``"int8"`` string
+   of ``bench.py:342``: ``tp_psum``, ``vocab_stats`` and the ``grad``
+   slot's ``int8_ef``), ``quant_ring`` (the same string and the fused
+   ring) and ``collective_matmul`` programs, at pipe 1
    (``virtual_stages=4``, 2 ranks) and on ``bench.py quant``'s 4-device
    mesh, pipe 2 x model 2 (``virtual_stages=2``, 4 ranks), there also
    fp32 with the full-vocab head: tokens/s, step ms, peak memory per
@@ -176,13 +178,48 @@ attention over K1/K2a/K2b):
    with 2 or more cards every row again over NCCL at data = the cards,
    each row's parameters within 0.1 of one card's update (L2 over the
    tree) on the same batches;
-15. one ``{"kernels": [...]}`` line, the card's name and power limit, and
+15. fp32 parity of ZeRO, compressors, accumulation and remat in the
+   pipeline, sequence and expert lowerings, four jobs at once on card
+   0: the pipelined LM at full width cut to 2 layers (1 at pipe 1; seq
+   128, batch 8, 2 ``adam(1e-3, eps=0.1)``
+   steps: an eps that keeps the k bias's zero gradient's noise from
+   whole steps) on data 2 x pipe 2 and on data 2 x model 2 with
+   ``vocab_parallel`` (4 ranks each): ZeRO-1, 2 and 3, the
+   ``zero_min_bytes`` mix of ZeRO-3 and ``bf16_ef``, ZeRO-3 with the
+   ``zero3_gather`` slot at bf16, ``bf16_ef``, the ``"int8"`` string
+   (on the vocab mesh every slot of it but ``vocab_stats``, whose int8
+   sum rounds a confident token's sum-exp to 0 at this fp32 width, in
+   both packages), ``GradAccumulation(..., 2)`` and ``remat``, and on
+   the vocab mesh the
+   ``quant_ring`` program under remat (K3 held to the recomputed
+   forward rings: 26 a step on 1 layer), each against the plain
+   program of its mesh by phase 13's rule (1e-5 per tensor and loss for
+   exact wires; a narrowed wire's loss at step k within its unit x k);
+   the causal LM's ZeRO-3 with the flash ring on seq 2 (phase 11's
+   model; K1/K2a/K2b held to the ring's calls) and the MoE LM's ZeRO-1
+   with ``a2a_ring`` on expert 2 (phase 8's; K8 held to 8 a step), each
+   against its plain program; every row's stored bytes a rank checked
+   variable by variable against what ZeRO promises (optimizer state at
+   ``1/n``, at stage 3 the parameter too, a degraded variable whole, as
+   its record says) and printed;
+16. the bf16 windows under ZeRO: the pipelined LM at ``bench.py
+   quant``'s width, 4 layers, batch 16 of 512, on data 2 x pipe 2,
+   plain, ZeRO-1, ZeRO-3, ``GradAccumulation 2`` and ``remat``, and
+   phase 12's sequence window on seq 2 (cut to 2 layers) plain and
+   under ZeRO-3 (K1/K2a/K2b held to the ring's calls), each a warm and
+   a timed window of 2 steps: step
+   ms, peak memory and stored bytes a rank beside the plain row's, the
+   ZeRO-3 rows' parameters at most 0.51 and ZeRO-1's optimizer state at
+   most 0.51 of the plain row's (asserted); 4 and 2 ranks over gloo on
+   card 0, and over NCCL on the graph route, one rank a card, where the
+   machine has the cards (captures asserted);
+17. one ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
 Phases 2, 4, 6 (at T = 1), 8 (the dense model) and 11 (one process)
 run one process on the card, so their windows replay CUDA graphs too.
-Phases 6 to 14 run 2 or 4 processes (``torch.multiprocessing`` spawn) on card 0, joined in
-a gloo group: NCCL refuses two ranks on one device, so each transfer is
+Phases 6 to 16 run 2 or 4 processes (``torch.multiprocessing`` spawn;
+phase 15 four such jobs at once) on card 0, joined in a gloo group: NCCL refuses two ranks on one device, so each transfer is
 staged through host memory while the kernels, the model and the
 optimizer stay on the card.  Their numbers are labelled so, and say
 nothing about multi-GPU speed.  Where the machine has at least 2 cards,
@@ -323,17 +360,17 @@ TP_PROGRAMS = {
                               kernel=("collective_matmul",)),
     "fp32 vocab": dict(vocab_parallel=True),
 }
-# Phase 7's: bench.py quant's programs, each with vocab_parallel as
-# bench.py:342 runs them (its "int8" string narrows vocab_stats too; the
-# grad slot stays out: the pipeline lowering takes no compressor yet),
-# and at pipe 2 x model 2 the fp32 program with the full-vocab head
-# beside them.
+# Phase 7's: bench.py quant's programs, each with vocab_parallel and
+# the bare "int8" string as bench.py:342 passes them (every slot
+# narrowed: tp_psum, vocab_stats and the grad slot's int8_ef over the
+# data axis of 1), and at pipe 2 x model 2 the fp32 program with the
+# full-vocab head beside them.
 VOCAB_PARALLEL = dict(vocab_parallel=True)
 WINDOW_PROGRAMS = {
     "fp32": VOCAB_PARALLEL,
-    "int8": dict(VOCAB_PARALLEL, collective_precision={
-        "tp_psum": "int8", "vocab_stats": "int8"}),
-    "quant_ring": dict(VOCAB_PARALLEL, **TP_PROGRAMS["quant_ring"]),
+    "int8": dict(VOCAB_PARALLEL, collective_precision="int8"),
+    "quant_ring": dict(VOCAB_PARALLEL, collective_precision="int8",
+                       kernel=("quant_ring",)),
     "collective_matmul": dict(VOCAB_PARALLEL,
                               **TP_PROGRAMS["collective_matmul"]),
     "fp32 full head": {},
@@ -1510,13 +1547,17 @@ def profile_steps(runner, window, k=3, watch=None, loop=False):
 def timed_window(runner, window, loop=False):
     """A warm window, then a timed one (host clock around a window that
     ends in a host read of the last loss): one ``run_steps`` call, or
-    with ``loop`` a ``step`` call a step.  The launch counters are set
-    to 0 just before the timed window, the peak memory before the warm
-    one (so a graph's capture counts).  Returns (seconds, metrics)."""
-    fence = lambda m: float(m["loss"][-1])              # noqa: E731
+    with ``loop`` a ``step`` call a step.  The warm window is the whole
+    window where ``run_steps`` captures a graph, one step on a host
+    loop (a loop has nothing to capture; its one-time costs fall in its
+    first step).  The launch counters are set to 0 just before the timed
+    window, the peak memory before the warm one (so a graph's capture
+    counts).  Returns (seconds, metrics)."""
+    fence = lambda m: float(m["loss"].reshape(-1)[-1])  # noqa: E731
     torch.cuda.reset_peak_memory_stats()
     if loop:
         steps = window_steps(window)
+        fence(runner.step(steps[0]))
 
         def run():
             out = [runner.step(b) for b in steps]
@@ -1524,7 +1565,8 @@ def timed_window(runner, window, loop=False):
                     for key in out[0]}
     else:
         run = lambda: runner.run_steps(window)          # noqa: E731
-    fence(run())
+        fence(run() if runner.lowered.capturable else runner.run_steps(
+            type(window)({k: v[:1] for k, v in window.items()})))
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
@@ -1724,7 +1766,11 @@ def rank_worker(rank, world, backend, store, job, out_dir):
            "moe_parity": moe_parity, "moe_window": moe_window_programs,
            "serve": tp_serve, "seq_parity": seq_parity,
            "seq_window": seq_window_rows, "zoo_parity": zoo_parity,
-           "zoo_window": zoo_window_rows}
+           "zoo_window": zoo_window_rows,
+           "zero_pipe_parity": zero_pipe_parity,
+           "zero_seq_parity": zero_seq_parity,
+           "zero_moe_parity": zero_moe_parity,
+           "zero_window": zero_window_rows}
     result = run[job["kind"]](job)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(result, f)
@@ -1745,6 +1791,40 @@ def spawn_ranks(job, world, backend="gloo"):
     return results
 
 
+def spawn_together(jobs):
+    """Run several ``(job, world)`` jobs at once over gloo, each in its
+    own spawned ranks and process group; every job's ranks' results, in
+    order.  A failure in any rank stops every rank of every job and
+    raises here."""
+    with tempfile.TemporaryDirectory() as tmp:
+        started = []
+        try:
+            for i, (job, world) in enumerate(jobs):
+                out = os.path.join(tmp, str(i))
+                os.mkdir(out)
+                started.append((mp.spawn(
+                    rank_worker, args=(world, "gloo",
+                                       os.path.join(out, "store"), job, out),
+                    nprocs=world, join=False), out, world))
+            for ctx, _, _ in started:
+                while not ctx.join():
+                    pass
+        except BaseException:
+            for ctx, _, _ in started:
+                for proc in ctx.processes:
+                    if proc.is_alive():
+                        proc.terminate()
+            raise
+        results = []
+        for _, out, world in started:
+            ranks = []
+            for rank in range(world):
+                with open(os.path.join(out, f"rank{rank}.json")) as f:
+                    ranks.append(json.load(f))
+            results.append(ranks)
+    return results
+
+
 def phase_tp_parity():
     """fp32 on the card against one process at T = 1: T = 2 ranks at
     pipe 1, a pipe axis of 2 at V = 1 (2 ranks), and pipe 2 x model 2 at
@@ -1760,9 +1840,12 @@ def phase_tp_parity():
     runs = ((TP_MESH, list(TP_PROGRAMS)), ({"data": 1, "pipe": PIPE},
                                            ["fp32"]),
             (QUANT_MESH, list(TP_PROGRAMS)))
-    for mesh, programs in runs:
+    # The three jobs at once: parity, not time, is read here.
+    results = spawn_together([
+        (dict(job, mesh=mesh, programs=programs),
+         math.prod(mesh.values())) for mesh, programs in runs])
+    for (mesh, programs), ranks in zip(runs, results):
         world = math.prod(mesh.values())
-        ranks = spawn_ranks(dict(job, mesh=mesh, programs=programs), world)
         got = ranks[0]
         for rank in ranks[1:]:
             for program, losses in rank.items():
@@ -2035,10 +2118,11 @@ def moe_cfg(job):
         dtype=job["dtype"])
 
 
-def moe_runner(job, program, expert_sharded=True):
+def moe_runner(job, program, expert_sharded=True, extra=None):
     """AutoDist + ExpertParallel on the MoE LM (weights from seed 0 on
-    the card, the same in every rank), or with ``expert_sharded=False``
-    the dense model through ``AllReduce`` on one process."""
+    the card, the same in every rank), with ``extra`` builder keywords
+    beside the program's, or with ``expert_sharded=False`` the dense
+    model through ``AllReduce`` on one process."""
     cfg = moe_cfg(job)
     trainable = port.make_moe_lm_trainable(
         cfg, port.optim.adam(job["lr"]),
@@ -2049,7 +2133,7 @@ def moe_runner(job, program, expert_sharded=True):
         return port.AutoDist({}, port.AllReduce()).build(trainable)
     return port.AutoDist({"mesh": {"expert": EXPERT}}, port.ExpertParallel(
         num_experts=MOE_EXPERTS, capacity_factor=job["capacity"],
-        **MOE_PROGRAMS[program])).build(trainable)
+        **MOE_PROGRAMS[program], **(extra or {}))).build(trainable)
 
 
 def moe_window(job, steps, seed0=0):
@@ -2185,13 +2269,13 @@ def phase_moe_window():
 # --------------------------------------------------------------------- #
 # phases 11 and 12: sequence-parallel training of the causal LM
 # --------------------------------------------------------------------- #
-def lm_runner(job, ring=None, remat=False):
+def lm_runner(job, ring=None, remat=False, builder_kw=None):
     """``TransformerLM`` at full width, depth ``job["layers"]``, weights
     from seed 0 on the card (the same in every rank): with ``ring`` (a
     key of ``RINGS``) the causal ring and ``global_positions`` through
-    ``AutoDist`` + ``SequenceParallel`` on ``job["mesh"]``; without, the
-    whole sequence through ``flash_attention`` causal on one process
-    (``AllReduce``)."""
+    ``AutoDist`` + ``SequenceParallel(**builder_kw)`` on
+    ``job["mesh"]``; without, the whole sequence through
+    ``flash_attention`` causal on one process (``AllReduce``)."""
     fn, pos = ((RINGS[ring](causal=True), global_positions) if ring
                else (fa.make_attention_fn(True), None))
     cfg = port.TransformerConfig(
@@ -2205,8 +2289,8 @@ def lm_runner(job, ring=None, remat=False):
         torch.Generator(device="cuda").manual_seed(0))
     if ring is None:
         return port.AutoDist({}, port.AllReduce()).build(trainable)
-    return port.AutoDist({"mesh": job["mesh"]},
-                         port.SequenceParallel()).build(trainable)
+    return port.AutoDist({"mesh": job["mesh"]}, port.SequenceParallel(
+        **(builder_kw or {}))).build(trainable)
 
 
 def lm_window(job, steps, seed0=0):
@@ -2445,15 +2529,19 @@ def state_bytes(tree):
                if isinstance(t, torch.Tensor))
 
 
-def rel_err(got, want):
+def tensor_errs(got, want):
     """Per tensor max |a - b| over max |b|, floored at 1e-3 (a tensor
     that stays near 0, as the k projection's bias whose gradient is
-    zero, is held at 1e-3 absolute times the tolerance); the largest
-    over the tree."""
+    zero, is held at 1e-3 absolute times the tolerance)."""
     w = dict(flatten_with_names(want))
-    return max(float((a.float() - w[n].float()).abs().max()
+    return {n: float((a.float() - w[n].float()).abs().max()
                      / w[n].float().abs().max().clamp(min=1e-3))
-               for n, a in flatten_with_names(got))
+            for n, a in flatten_with_names(got)}
+
+
+def rel_err(got, want):
+    """The largest of :func:`tensor_errs` over the tree."""
+    return max(tensor_errs(got, want).values())
 
 
 # Phase 13's wire units: a loss may part from AllReduce's by this much of
@@ -2737,10 +2825,627 @@ def phase_zoo_window():
     return counts
 
 
+# --------------------------------------------------------------------- #
+# phases 15 and 16: ZeRO, compressors, accumulation and remat in the
+# pipeline, sequence and expert lowerings
+# --------------------------------------------------------------------- #
+# A narrowed wire's unit, and whether it narrows the forward on its mesh
+# too (a weight gather or a model-axis boundary: the first loss moves)
+# or only the gradients.
+BF16_GRAD, BF16_FWD = (2.0 ** -8, False), (2.0 ** -8, True)
+INT8_GRAD, INT8_FWD = (2.0 / 127, False), (2.0 / 127, True)
+# The fault row: the plain program at a learning rate of 0, which every
+# bound must reject.
+NO_UPDATE = "no update"
+# The narrowed rows' optimizer and their reference: SGD, whose update is
+# the synced gradient times the rate, so that a wire's rounding of each
+# gradient shows in the parameters in proportion.  Adam at eps 1e-8
+# steps every element by about the rate whatever its gradient, so an
+# int8 wire that rounds the small gradients to 0 takes those steps away
+# (0.88 of the table's update, the no-update run's 1.0: PERF.md, phase
+# 15).
+LINEAR, LINEAR_LR = "plain, SGD", 0.1
+# An exact row held on SGD: accumulation sums each gradient as two
+# half-batch sums, and where the halves cancel their rounding is a large
+# share of a small gradient, which Adam divides by that gradient's own
+# size (3.0e-4 of the q and v biases' largest value at eps 1e-4, 2.71e-3
+# at 1e-8: PERF.md, phase 15).  SGD's step is linear in the gradient.
+EXACT_SGD = "exact, SGD"
+# Every slot of the "int8" string but vocab_stats: at this fp32 width a
+# token whose tied logit stands ~11 above the rest has a sum-exp near 1
+# beside others' ~400, and the group's shared int8 scale rounds it to 0
+# (log 0: a loss of -inf).  The JAX package's rule gives the same -inf
+# on such inputs (tests/test_torch_vocab_parallel.py,
+# test_int8_stats_underflow_is_the_jax_rule).
+INT8_BUT_STATS = {"tp_psum": "int8", "grad": "int8", "zero3_gather": "int8",
+                  "moe_a2a": "int8"}
+
+
+def zero_pipe_programs(int8, model_axis):
+    """Phase 15's pipeline programs: (label, Pipeline keywords,
+    accumulation steps, the wire, None for an exact one), the int8
+    program at ``int8``, which narrows the forward only on a mesh with a
+    ``model_axis``.  The mix: variables of 1 MiB and more (the kernels,
+    the table) ZeRO-3, the rest bf16_ef."""
+    return [
+        ("plain", {}, 1, None),
+        (LINEAR, {}, 1, LINEAR),
+        (NO_UPDATE, {}, 1, NO_UPDATE),
+        ("ZeRO-1", dict(zero_stage=1), 1, None),
+        ("ZeRO-2", dict(zero_stage=2), 1, None),
+        ("ZeRO-3", dict(zero_stage=3), 1, None),
+        ("zero_min_bytes", dict(zero_stage=3, zero_min_bytes=1 << 20,
+                                compressor="bf16_ef"), 1, BF16_GRAD),
+        ("ZeRO-3 zero3_gather bf16", dict(zero_stage=3, collective_precision={
+            "zero3_gather": "bf16"}), 1, BF16_FWD),
+        ("bf16_ef", dict(compressor="bf16_ef"), 1, BF16_GRAD),
+        ("int8", dict(collective_precision=int8), 1,
+         INT8_FWD if model_axis else INT8_GRAD),
+        ("GradAccumulation 2", {}, 2, EXACT_SGD),
+        ("remat", dict(remat=True), 1, None)]
+
+
+# On the vocab-parallel mesh also the fused int8 ring under remat: its
+# recompute re-runs the stages' forward rings in the backward.
+RING_REMAT = ("int8 quant_ring remat", dict(
+    collective_precision=INT8_BUT_STATS, kernel=("quant_ring",),
+    remat=True), 1, INT8_FWD)
+# (mesh, layout, the int8 program's precision)
+ZERO_PIPE_MESHES = [({"data": 2, "pipe": 2}, {}, "int8"),
+                    ({"data": 2, "pipe": 1, "model": TP}, VOCAB_PARALLEL,
+                     INT8_BUT_STATS)]
+# Phase 16's pipeline rows at data 2 x pipe 2: (label, keywords, accum).
+ZERO_WINDOW_ROWS = [("plain", {}, 1), ("ZeRO-1", dict(zero_stage=1), 1),
+                    ("ZeRO-3", dict(zero_stage=3), 1),
+                    ("GradAccumulation 2", {}, 2),
+                    ("remat", dict(remat=True), 1)]
+ZERO_WINDOW_STEPS = 2
+ZERO_PARITY_STEPS = 2
+
+
+def ring_remat_want(layers, first):
+    """K3 a rank and step under remat at T = 2: ``tp_want``'s four rings
+    a layer and microbatch plus the two forward rings recomputed in the
+    backward (the prologue's lookup ring is outside the stages)."""
+    return {"quant_ring_hop": 2 * 6 * layers * TP_MICRO
+            + (TP if first else 0)}
+
+
+def zero_pipe_runner(job, kw, accum, opt=None):
+    """AutoDist + Pipeline (wrapped in GradAccumulation when ``accum`` >
+    1) on the pipelined LM at full width, depth ``job["layers"]``, over
+    ``job["mesh"]``; weights from seed 0 on the card; ``opt``, or Adam
+    at ``job["opt"]``."""
+    mesh = job["mesh"]
+    cfg = port.TransformerConfig(
+        vocab_size=VOCAB, hidden_size=HIDDEN, num_layers=job["layers"],
+        num_heads=HEADS, mlp_dim=MLP, max_len=job["seq"], dtype=job["dtype"],
+        dropout_rate=0.0, attention_dropout_rate=0.0)
+    rate, eps = job["opt"]
+    trainable = make_pipeline_lm_trainable(
+        cfg, opt or port.optim.adam(rate, eps=eps),
+        torch.Generator(device="cuda").manual_seed(0))
+    builder = Pipeline(num_microbatches=TP_MICRO,
+                       virtual_stages=job["layers"] // mesh["pipe"],
+                       tensor_parallel=mesh.get("model", 1),
+                       **job["layout"], **kw)
+    if accum > 1:
+        builder = port.GradAccumulation(builder, accum)
+    return port.AutoDist({"mesh": mesh}, builder).build(trainable)
+
+
+def var_bytes(state):
+    """Bytes a rank stores a variable: ``(params, optimizer state)``, the
+    latter its Adam moments."""
+    params = {nm: t.numel() * t.element_size()
+              for nm, t in state["params"].items()}
+    opt = dict.fromkeys(params, 0)
+    for nm, t in flatten_with_names(state["opt_state"]):
+        if nm.startswith(("mu/", "nu/")):
+            opt[nm[3:]] += t.numel() * t.element_size()
+    return params, opt
+
+
+def zero_record(runner):
+    """Stored bytes a variable and the lowering's records: the ZeRO
+    (PS) variables, those stored as ZeRO-3 shards, the degraded ones,
+    the unapplied slots."""
+    params, opt = var_bytes(runner.state)
+    low = runner.lowered
+    return {"params_bytes": params, "opt_bytes": opt,
+            "zero": sorted(nc.var_name for nc in runner.strategy.node_configs
+                           if nc.synchronizer.kind == "ps"),
+            "zero3": sorted(low.zero3_shapes),
+            "degraded": sorted(low.zero_degraded),
+            "unapplied": sorted(low.unapplied)}
+
+
+def gradient_kept(runner):
+    """From a run under Adam: each tensor's elements (logical shapes)
+    whose gradient is more than summation noise, the root of Adam's
+    second moment above 1e-5 of its tensor's largest; and each tensor's
+    peak, the largest of those roots over their mean square's root.  A
+    gradient that is zero in exact arithmetic (the k projection's bias:
+    a softmax does not see a shift of every score) is fp32 noise, which
+    Adam scales by up to lr / eps: two summation orders draw it
+    apart."""
+    nu = {nm[3:]: t for nm, t in flatten_with_names(
+        runner.state["opt_state"]) if nm.startswith("nu/")}
+    kept, peak = {}, {}
+    for nm, t in runner.lowered.full_params(nu).items():
+        g = t.sqrt()
+        kept[nm] = g > 1e-5 * g.max()
+        k = g[kept[nm]]
+        peak[nm] = float(k.max() / k.pow(2).mean().sqrt()) if k.numel() \
+            else 1.0
+    return kept, peak
+
+
+def kept_distances(got, want, init, kept):
+    """Per tensor over its ``kept`` elements: ``(max |a - b| / max |b|,
+    floored at 1e-3; |a - b|_2 / |b - init|_2)``, the exact rows' and the
+    narrowed rows' distances from the reference ``want``."""
+    out = {}
+    for n, a in got.items():
+        k = kept[n]
+        d = (a.float() - want[n].float())[k]
+        moved = (want[n].float() - init[n].float())[k].norm()
+        out[n] = (float(d.abs().max() / want[n].float().abs().max().clamp(
+                      min=1e-3)) if d.numel() else 0.0,
+                  float(d.norm() / moved.clamp(min=1e-30)))
+    return out
+
+
+def wire_allowance(wire, peak):
+    """A narrowed row's distance from the SGD reference a tensor may
+    take, in units of the tensor's update: the wire's unit a step (bf16
+    rounds each element by half a unit at most); int8 rounds to a level
+    of 1/127 of the tensor's largest gradient, so a quarter of its
+    ``peak`` (largest over mean square) times that, at least one
+    unit."""
+    unit, _ = wire
+    if unit == BF16_GRAD[0]:
+        return unit * ZERO_PARITY_STEPS
+    return unit * ZERO_PARITY_STEPS * max(1.0, peak / 4)
+
+
+def zero_pipe_parity(job):
+    """Phase 15's pipeline in one rank: 2 steps of each program; losses,
+    the parameters' distances from the reference's over the elements
+    with a real gradient (:func:`gradient_kept`: the plain program's
+    for the exact rows, the SGD program's for the narrowed ones),
+    stored bytes a variable, and K3's launches."""
+    out, refs, init, kept, peak = {}, {}, None, None, None
+    window = tp_window(job, ZERO_PARITY_STEPS, seed0=500)
+    eps = job["opt"][1]
+    for label, kw, accum, wire in job["programs"]:
+        # Adam for the exact rows (ZeRO's optimizer state is what they
+        # shard), SGD for the rest.
+        opt = (port.optim.adam(0.0, eps=eps) if wire == NO_UPDATE
+               else None if wire is None
+               else port.optim.sgd(LINEAR_LR))
+        runner = zero_pipe_runner(job, kw, accum, opt)
+        pipe = runner.lowered.mesh.axis("pipe").index
+        if init is None:
+            init = dict(flatten_with_names(runner.get_params()))
+        reset_launches()
+        losses = runner.run_steps(window)["loss"].tolist()
+        got = launches()
+        params = dict(flatten_with_names(runner.get_params()))
+        if label == "plain":
+            kept, peak = gradient_kept(runner)
+        if label in ("plain", LINEAR):
+            refs[label] = params
+        ref = refs["plain" if wire in (None, NO_UPDATE) else LINEAR]
+        dists = kept_distances(params, ref, init, kept)
+        errs = {n: e for n, (e, _) in dists.items()}
+        moved = {n: m for n, (_, m) in dists.items()}
+        over = ({n: m / wire_allowance(wire, peak[n])
+                 for n, m in moved.items()}
+                if isinstance(wire, tuple) else {"-": 0.0})
+        out[label] = dict(zero_record(runner), loss=losses,
+                          err=max(errs.values()),
+                          worst=max(errs, key=errs.get),
+                          moved=max(moved.values()),
+                          moved_worst=max(moved, key=moved.get),
+                          over=max(over.values()),
+                          over_worst=max(over, key=over.get),
+                          left_out=sum(int((~k).sum()) for k in
+                                       kept.values()),
+                          launches=got, pipe=pipe,
+                          route=check_route(runner, job, label))
+        runner.close()
+        del runner, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def zero_seq_parity(job):
+    """Phase 15's sequence rows in one rank: 3 steps plain and under
+    ZeRO-3 with the flash ring; losses, parameter distance, bytes and
+    K1/K2 launches."""
+    out, ref = {}, None
+    window = lm_window(job, ZERO_PARITY_STEPS, seed0=600)
+    for label, kw in job["programs"]:
+        runner = lm_runner(job, "flash", builder_kw=kw)
+        reset_launches()
+        losses = runner.run_steps(window)["loss"].tolist()
+        got = launches()
+        params = runner.get_params()
+        ref = params if ref is None else ref
+        out[label] = dict(zero_record(runner), loss=losses,
+                          err=rel_err(params, ref), launches=got,
+                          index=runner.lowered.mesh.axis("seq").index)
+        runner.close()
+        del runner, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def zero_moe_parity(job):
+    """Phase 15's expert rows in one rank: 3 steps of ``a2a_ring`` plain
+    and under ZeRO-1; losses, parameter distance, bytes and K8's
+    launches."""
+    out, ref = {}, None
+    window = moe_window(job, ZERO_PARITY_STEPS, seed0=700)
+    for label, kw in job["programs"]:
+        runner = moe_runner(job, "a2a_ring", extra=kw)
+        reset_launches()
+        losses = runner.run_steps(window)["loss"].tolist()
+        got = launches()
+        params = runner.get_params()
+        ref = params if ref is None else ref
+        out[label] = dict(zero_record(runner), loss=losses,
+                          err=rel_err(params, ref), launches=got)
+        runner.close()
+        del runner, params
+        torch.cuda.empty_cache()
+    return out
+
+
+# A narrowed forward wire's loss at step 0, before any update, relative
+# to the reference's: the readings reach 1.28e-4 (the int8 ring under
+# remat; the bf16 gather 2.2e-5: PERF.md, phase 15), a broken wire's scale
+# would part it by its own error.
+FWD_LOSS0 = 1e-3
+
+
+def held(label, res, plain, wire, fault=None):
+    """Phase 13's rule against the plain program: exact wires within 1e-5
+    per tensor (of its largest value, floored at 1e-3) and 1e-5 on every
+    loss.  A narrowed wire (``plain`` the SGD reference) per tensor
+    within :func:`wire_allowance` of the tensor's update (``|a - b|_2 /
+    |b - init|_2``), its loss at step k >= 1 within ``unit x k`` of the
+    gap the updates opened between the reference's loss and the
+    no-update run's (``fault``), and at step 0, before any update, within
+    1e-6 of the reference's loss for a gradient wire and FWD_LOSS0 for a
+    forward one.  Returns the faults."""
+    faults = []
+    if not all(math.isfinite(x) for x in res["loss"]):
+        return [f"{label}: non-finite loss {res['loss']}"]
+    if wire is None:
+        if not (res["err"] <= 1e-5 and all(
+                abs(a - b) <= 1e-5 * abs(b)
+                for a, b in zip(res["loss"], plain["loss"]))):
+            faults.append(f"{label}: losses {res['loss']} vs plain "
+                          f"{plain['loss']}, params {res['err']:.3g} "
+                          f"relative")
+        return faults
+    unit, forward = wire
+    if res["over"] > 1:
+        faults.append(f"{label}: {res['over_worst']} {res['over']:.3g} of "
+                      f"its allowance from the SGD reference")
+    for k, (a, b, c) in enumerate(zip(res["loss"], plain["loss"],
+                                      fault["loss"])):
+        bound = (unit * k * abs(b - c) if k
+                 else (FWD_LOSS0 if forward else 1e-6) * abs(b))
+        if abs(a - b) > bound:
+            faults.append(f"{label} step {k}: loss {a} vs plain {b}, bound "
+                          f"{bound:.3g}")
+    return faults
+
+
+def sharded_as_promised(label, res, plain, n):
+    """The fraction ZeRO promises a rank, variable by variable: a ZeRO
+    variable keeps about ``1/n`` of its optimizer state, at stage 3 of
+    its parameter too; a degraded one and any other keep their plain
+    bytes (the vocab table's state still shards: its record names stage
+    3 only)."""
+    faults = []
+    for nm, p in plain["params_bytes"].items():
+        o = plain["opt_bytes"][nm]
+        got_p, got_o = res["params_bytes"][nm], res["opt_bytes"][nm]
+        slack = 4 * n * 4                   # a few padded elements
+        if nm not in res["zero"] or (nm in res["degraded"]
+                                     and nm != "shared/embedding"):
+            ok = got_p == p and got_o == o
+        else:
+            ok = got_o <= o / n + slack and (
+                got_p <= p / n + slack if nm in res["zero3"]
+                else got_p == p)
+        if not ok:
+            faults.append(f"{label} {nm}: params {got_p} of {p}, optimizer "
+                          f"state {got_o} of {o} bytes a rank")
+    return faults
+
+
+def zero_sums(res):
+    return (sum(res["params_bytes"].values()),
+            sum(res["opt_bytes"].values()))
+
+
+def phase_zero_parity():
+    """fp32 on the card: the pipelined LM at full width cut to 2 layers
+    (1 at pipe 1) with every ZeRO stage, the zero_min_bytes mix, the
+    narrowed gather, a compressor, the "int8" string, accumulation and
+    remat, each held to the plain program of its mesh (data 2 x pipe 2;
+    data 2 x model 2 with vocab_parallel); the sequence lowering's
+    ZeRO-3 on seq 2 and the expert lowering's ZeRO-1 on expert 2, each
+    to its plain program; the stored bytes a rank of every row.  The
+    four jobs (4, 4, 2 and 2 ranks) run at once on card 0 over gloo;
+    2 steps each."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counts, faults, jobs = {}, [], []
+    for mesh, layout, int8 in ZERO_PIPE_MESHES:
+        # Adam at lr 1e-3 as bench.py quant builds it, at eps 1e-4 as
+        # phase 13 runs it: at the bench's 1e-8 Adam steps each element
+        # by the whole rate wherever its gradient's sign is summation
+        # noise, and accumulation's two half-batch sums drew elements
+        # 2 x lr apart (2.71e-3 and 2.17e-3 of a tensor's largest value,
+        # with every gradient at or below 100 x eps left out: PERF.md,
+        # phase 15); at 1e-4 the step is continuous in the gradient.  The
+        # elements whose gradient is summation noise are left out of
+        # the parameter checks (gradient_kept).
+        jobs.append(({"kind": "zero_pipe_parity", "layers": mesh["pipe"],
+                      "seq": 128, "batch": 8, "dtype": torch.float32,
+                      "opt": (1e-3, 1e-4), "mesh": mesh, "layout": layout,
+                      "programs": zero_pipe_programs(int8, "model" in mesh)
+                      + ([RING_REMAT] if layout else [])},
+                     math.prod(mesh.values())))
+    seq_job = {"kind": "zero_seq_parity", "layers": 2, "seq": 256,
+               "max_len": 256, "batch": 4, "dtype": torch.float32,
+               "opt": ("adam", 1e-4), "mesh": {"seq": SEQ},
+               "programs": [("plain", {}), ("ZeRO-3", dict(zero_stage=3))]}
+    moe_job = {"kind": "zero_moe_parity", "layers": 1, "seq": 128,
+               "batch": 8, "capacity": 4.0, "dtype": torch.float32,
+               "lr": 1e-4,
+               "programs": [("plain", {}), ("ZeRO-1", dict(zero_stage=1))]}
+    *pipe_ranks, seq_ranks, moe_ranks = spawn_together(
+        jobs + [(seq_job, SEQ), (moe_job, EXPERT)])
+    for (job, world), ranks in zip(jobs, pipe_ranks):
+        mesh, programs = job["mesh"], job["programs"]
+        got, plain = ranks[0], ranks[0]["plain"]
+        where = f"{mesh_label(mesh)}" + (", vocab_parallel"
+                                         if job["layout"] else "")
+        for label, _, _, wire in programs:
+            for r in ranks:
+                res = r[label]
+                if wire == NO_UPDATE:
+                    # Every bound must reject a run that never moves: its
+                    # parameters a whole update away, beyond the exact
+                    # rule, and its later losses apart from both
+                    # references' (so that the narrowed rows' loss bound,
+                    # a part of that gap, stands above fp32 noise).
+                    if not (res["err"] > 1e-5 and all(
+                            abs(a - b) > 1e-4 * abs(b)
+                            for ref in ("plain", LINEAR) for a, b in zip(
+                                res["loss"][1:], r[ref]["loss"][1:]))):
+                        faults.append(f"{where}: the no-update run is not "
+                                      f"rejected ({res['err']:.3g}, losses "
+                                      f"{res['loss']})")
+                    continue
+                ref = r["plain"] if wire is None else r[LINEAR]
+                if wire != LINEAR:
+                    faults += held(f"{where} {label}", res, ref,
+                                   None if wire == EXACT_SGD else wire,
+                                   r[NO_UPDATE])
+                faults += sharded_as_promised(f"{where} {label}", res, ref,
+                                              mesh["data"])
+            if label == RING_REMAT[0]:
+                for r in ranks:
+                    res = r[label]
+                    want = dict.fromkeys(KERNELS, 0)
+                    want.update({k: n * ZERO_PARITY_STEPS
+                                 for k, n in ring_remat_want(
+                                     job["layers"] // mesh["pipe"],
+                                     res["pipe"] == 0).items()})
+                    if res["launches"] != want:
+                        faults.append(f"{where} {label}: launches "
+                                      f"{res['launches']}, expected {want}")
+                for name, n in got[label]["launches"].items():
+                    counts[name] = counts.get(name, 0) + n
+        print(f"phase 15 fp32 {job['layers']}-layer pipelined LM, seq 128, "
+              f"batch 8, {ZERO_PARITY_STEPS} Adam steps (lr 1e-3, eps 1e-4; "
+              f"accumulation and the narrowed rows SGD at {LINEAR_LR}), "
+              f"{where} [{world} ranks on one card, gloo, run_steps route "
+              f"{plain['route']}]: plain losses {plain['loss']}; "
+              f"{plain['left_out']} elements with a noise gradient left "
+              f"out; "
+              + "; ".join(
+                  f"{label} losses {got[label]['loss']}, params "
+                  f"{got[label]['err']:.2e} rel. ({got[label]['worst']}), "
+                  f"{got[label]['moved']:.3e} of the update "
+                  f"({got[label]['moved_worst']}), "
+                  f"{got[label]['over']:.3g} of the allowance "
+                  f"({got[label]['over_worst']})"
+                  for label, *_ in programs if label != "plain")
+              + "; stored bytes rank 0 (params, optimizer state): "
+              + ", ".join(f"{label} {'%d, %d' % zero_sums(got[label])}"
+                          for label, *_ in programs)
+              + "; degraded: " + ", ".join(
+                  f"{label} {len(got[label]['degraded'])}"
+                  for label, *_ in programs if got[label]["degraded"])
+              + "; unapplied: " + (", ".join(
+                  f"{label} {got[label]['unapplied']}"
+                  for label, *_ in programs if got[label]["unapplied"])
+                  or "none"), flush=True)
+    for r in seq_ranks:
+        res = r["ZeRO-3"]
+        faults += held("seq 2 ZeRO-3", res, r["plain"], None)
+        faults += sharded_as_promised("ZeRO-3", res, r["plain"], SEQ)
+        for label in ("plain", "ZeRO-3"):
+            want = dict.fromkeys(KERNELS, 0)
+            want.update({k: n * ZERO_PARITY_STEPS for k, n in seq_want(
+                r[label]["index"], seq_job["layers"]).items()})
+            if r[label]["launches"] != want:
+                faults.append(f"seq 2 {label} on seq rank "
+                              f"{r[label]['index']}: launches "
+                              f"{r[label]['launches']}, expected {want}")
+        for name, n in r["ZeRO-3"]["launches"].items():
+            counts[name] = counts.get(name, 0) + n
+    got = seq_ranks[0]
+    print(f"phase 15 fp32 2-layer TransformerLM, global seq 256, batch 4, "
+          f"{ZERO_PARITY_STEPS} Adam steps, the flash ring on seq 2 [2 ranks "
+          f"on one card, gloo]: plain losses {got['plain']['loss']}, ZeRO-3 "
+          f"{got['ZeRO-3']['loss']}, params {got['ZeRO-3']['err']:.2e} "
+          f"rel.; stored bytes a rank (params, optimizer state) plain "
+          f"{'%d, %d' % zero_sums(got['plain'])}, ZeRO-3 "
+          f"{'%d, %d' % zero_sums(got['ZeRO-3'])}", flush=True)
+    for r in moe_ranks:
+        res = r["ZeRO-1"]
+        faults += held("expert 2 ZeRO-1", res, r["plain"], None)
+        faults += sharded_as_promised("ZeRO-1", res, r["plain"], EXPERT)
+        if not res["degraded"]:
+            faults.append("expert 2 ZeRO-1: no expert table degraded")
+        want = dict.fromkeys(KERNELS, 0)
+        want["a2a_ring_hop"] = (EXPERT * 2 * 2 * moe_job["layers"]
+                                * ZERO_PARITY_STEPS)
+        for label in ("plain", "ZeRO-1"):
+            if r[label]["launches"] != want:
+                faults.append(f"expert 2 {label}: launches "
+                              f"{r[label]['launches']}, expected {want}")
+    got = moe_ranks[0]
+    for name, n in got["ZeRO-1"]["launches"].items():
+        counts[name] = counts.get(name, 0) + n
+    print(f"phase 15 fp32 1-layer MoE LM, seq 128, batch 8, capacity 4.0, "
+          f"{ZERO_PARITY_STEPS} Adam steps, a2a_ring on expert 2 [2 ranks "
+          f"on one card, gloo]: plain losses {got['plain']['loss']}, ZeRO-1 "
+          f"{got['ZeRO-1']['loss']}, params {got['ZeRO-1']['err']:.2e} "
+          f"rel.; stored bytes a rank (params, optimizer state) plain "
+          f"{'%d, %d' % zero_sums(got['plain'])}, ZeRO-1 "
+          f"{'%d, %d' % zero_sums(got['ZeRO-1'])}; degraded "
+          f"{got['ZeRO-1']['degraded']}", flush=True)
+    check(not faults, "phase 15: " + "; ".join(faults))
+    return counts
+
+
+def zero_window_rows(job):
+    """Phase 16 in one rank: per row a warm window and a timed one (the
+    launch counters from 0 before it); step seconds, peak memory, stored
+    bytes."""
+    out = {}
+    for label, kw, accum in job["rows"]:
+        if job["lowering"] == "pipeline":
+            runner = zero_pipe_runner(job, kw, accum)
+            window = runner.place_steps(tp_window(job, ZERO_WINDOW_STEPS))
+        else:
+            runner = lm_runner(job, "flash", builder_kw=kw)
+            window = runner.place_steps(lm_window(job, ZERO_WINDOW_STEPS))
+        dt, metrics = timed_window(runner, window)
+        route = check_route(runner, job, label)
+        if job["backend"] == "nccl":
+            check((runner.captures, runner.replays) == (1, 2),
+                  f"{label}: {runner.captures} captures and "
+                  f"{runner.replays} replays, expected 1 and 2")
+        losses = metrics["loss"].float()
+        check(bool(torch.isfinite(losses).all()),
+              f"{label}: non-finite loss {losses}")
+        rec = zero_record(runner)
+        out[label] = {"seconds": dt, "launches": launches(),
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "bytes": zero_sums(rec), "route": route,
+                      "loss": [float(losses[0]), float(losses[-1])]}
+        if job["lowering"] == "sequence":
+            index = runner.lowered.mesh.axis("seq").index
+            want = dict.fromkeys(KERNELS, 0)
+            want.update({k: n * ZERO_WINDOW_STEPS for k, n in seq_want(
+                index, job["layers"]).items()})
+            check(out[label]["launches"] == want,
+                  f"{label} on seq rank {index}: launches "
+                  f"{out[label]['launches']}, expected {want}")
+        runner.close()
+        del runner, window
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_zero_window():
+    """bf16: the pipelined LM of bench.py quant's width, 4 layers, at data
+    2 x pipe 2 plain, under ZeRO-1, ZeRO-3, GradAccumulation 2 and
+    remat, and the sequence window (phase 12's model, seq 2) plain and
+    under ZeRO-3: step ms, peak memory a rank and stored bytes a rank,
+    ZeRO-3's parameters about half the plain row's; 2-step windows, the
+    sequence model cut to 2 layers.  Over gloo on card 0; over
+    NCCL on the graph route, one rank a card, where there are the cards
+    (4: the pipeline; 2: the sequence window)."""
+    pipe_job = {"kind": "zero_window", "lowering": "pipeline",
+                "layers": TP_LAYERS, "seq": TP_SEQ, "batch": TP_BATCH,
+                "dtype": torch.bfloat16, "opt": (1e-3, 1e-8),
+                "mesh": {"data": 2, "pipe": PIPE}, "layout": {},
+                "rows": ZERO_WINDOW_ROWS}
+    # The sequence rows cut phase 12's model to 2 of its 4 layers (the
+    # rows run over gloo, so their depth is the lever on run time).
+    seq_job = {"kind": "zero_window", "lowering": "sequence",
+               "layers": 2, "seq": SEQ_LEN, "max_len": SEQ_LEN,
+               "batch": SEQ_BATCH, "dtype": torch.bfloat16,
+               "opt": ("adamw", 3e-4), "mesh": {"seq": SEQ},
+               "rows": [("plain", {}, 1),
+                        ("ZeRO-3", dict(zero_stage=3), 1)]}
+    runs = [("gloo", pipe_job), ("gloo", seq_job)]
+    cards = torch.cuda.device_count()
+    if cards >= 4:
+        runs.append(("nccl", pipe_job))
+    if cards >= SEQ:
+        runs.append(("nccl", seq_job))
+    counts = {}
+    for backend, job in runs:
+        mesh = job["mesh"]
+        world = math.prod(mesh.values())
+        where = (f"{mesh_label(mesh)}, {world} ranks on one card, gloo, "
+                 f"transfers through host" if backend == "gloo" else
+                 f"{mesh_label(mesh)}, {world} ranks on {world} cards, NCCL")
+        ranks = spawn_ranks(job, world, backend)
+        plain = ranks[0]["plain"]["bytes"]
+        for label, _, accum in job["rows"]:
+            rs = [r[label] for r in ranks]
+            dt = max(r["seconds"] for r in rs)
+            tokens = ZERO_WINDOW_STEPS * job["batch"] * job["seq"]
+            print(f"phase 16 {job['lowering']} {label} bf16 [{where}, "
+                  f"{job['layers']} layers, batch {job['batch']} of "
+                  f"{job['seq']} tokens, run_steps route {rs[0]['route']}]: "
+                  f"{ZERO_WINDOW_STEPS} steps in {dt:.3f} s = "
+                  f"{tokens / dt:.1f} tokens/s, step "
+                  f"{dt / ZERO_WINDOW_STEPS * 1e3:.2f} ms, peak memory per "
+                  f"rank " + ", ".join(f"{r['peak_gb']:.2f}" for r in rs)
+                  + " GB, stored bytes a rank (params, optimizer state) "
+                  + ", ".join(f"{r['bytes'][0]}, {r['bytes'][1]}"
+                              for r in rs)
+                  + f" (plain rank 0: {plain[0]}, {plain[1]}), loss "
+                  f"{rs[0]['loss'][0]:.4f} -> {rs[0]['loss'][1]:.4f}",
+                  flush=True)
+            if label == "ZeRO-3":
+                for r in ranks:
+                    p3, p = r[label]["bytes"][0], r["plain"]["bytes"][0]
+                    check(p3 <= 0.51 * p, f"{job['lowering']} ZeRO-3 over "
+                          f"{backend}: {p3} parameter bytes a rank against "
+                          f"the plain row's {p}")
+            if label == "ZeRO-1":
+                for r in ranks:
+                    o1, o = r[label]["bytes"][1], r["plain"]["bytes"][1]
+                    check(o1 <= 0.51 * o, f"pipeline ZeRO-1 over {backend}: "
+                          f"{o1} optimizer bytes a rank against {o}")
+            if backend == "gloo" and job["lowering"] == "sequence" \
+                    and label == "ZeRO-3":
+                for r in rs:
+                    for name, n in r["launches"].items():
+                        counts[name] = counts.get(name, 0) + n
+    return counts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
-        "--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
+        "--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
         help="comma-separated phases to run (default: all); the kernels "
              "line needs them all")
     phases = {int(p) for p in parser.parse_args(argv).phases.split(",")}
@@ -2774,7 +3479,9 @@ def main(argv=None) -> int:
              (11, phase_seq_parity),
              (12, lambda: add(phase_seq_window())),
              (13, phase_zoo_parity),
-             (14, lambda: add(phase_zoo_window()))]
+             (14, lambda: add(phase_zoo_window())),
+             (15, lambda: add(phase_zero_parity())),
+             (16, lambda: add(phase_zero_window()))]
     for phase, run in steps:
         if phase in phases:
             t1 = time.perf_counter()

@@ -480,25 +480,37 @@ def test_one_rank_expert_axis_trains_as_the_dense_model(jparams, program):
                                   "seq_axis"])
 def test_out_of_slice_options_raise(what, jparams):
     """What this slice does not run raises ``NotImplementedError``
-    naming its ROADMAP item.  Compressors and accumulation run now:
-    their cases hold ZeRO beside a compressor (a PS synchronizer in the
-    strategy) and the pipeline lowering's accumulation."""
+    naming its ROADMAP item.  ZeRO, compressors, the ``grad`` slot and
+    accumulation run now: the ZeRO cases hold the PS synchronizers the
+    expert lowering still refuses (asynchronous, stale), the compressor
+    case a compressor beside ``expert_over_dcn``, the accumulation case
+    the pipelined LM's dropout; ``zero_min_bytes`` and the ``grad`` slot
+    build, and the ``Lowered`` records what they did (the expert tables'
+    degraded ZeRO, the unapplied slot)."""
+    tr = _port_trainable(jparams)
+    ad = port.AutoDist({"mesh": {"expert": 1}}, ExpertParallel(**BUILD),
+                       device="cpu")
+    if what == "zero_min_bytes":
+        low = port.AutoDist({"mesh": {"expert": 1}}, ExpertParallel(
+            **BUILD, zero_min_bytes=0), device="cpu").build(tr).lowered
+        assert set(low.zero_degraded) == {
+            nm for nm in low.plan.expert_vars}
+        return
+    if what == "grad_precision":
+        low = port.AutoDist({"mesh": {"expert": 1}}, ExpertParallel(
+            **BUILD, collective_precision={"grad": "bf16"}),
+            device="cpu").build(tr).lowered
+        assert set(low.unapplied) == {"grad"}
+        return
+    d = json.loads(ad.build_or_load_strategy(tr).to_json())
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        if what == "zero":
-            ExpertParallel(zero_stage=1)
-        elif what == "zero1":
-            ExpertParallel(zero1=True)
-        elif what == "zero_min_bytes":
-            ExpertParallel(zero_min_bytes=1 << 20)
-        elif what == "compressor":
-            tr = _port_trainable(jparams)
-            ad = port.AutoDist({"mesh": {"expert": 1}}, ExpertParallel(
-                compressor="bf16_ef"), device="cpu")
-            d = json.loads(ad.build_or_load_strategy(tr).to_json())
-            d["node_configs"][0]["synchronizer"] = {"kind": "ps"}
+        if what in ("zero", "zero1"):
+            for node in d["node_configs"]:
+                node["synchronizer"] = {"kind": "ps", "sync": what != "zero",
+                                        "staleness": int(what == "zero1")}
             ad.lower(tr, port.Strategy.from_json(json.dumps(d)))
-        elif what == "grad_precision":
-            ExpertParallel(collective_precision={"grad": "bf16"})
+        elif what == "compressor":
+            ExpertParallel(compressor="bf16_ef", expert_over_dcn=True)
         elif what == "expert_over_dcn":
             ExpertParallel(expert_over_dcn=True)
         elif what == "accum_json":
@@ -508,7 +520,7 @@ def test_out_of_slice_options_raise(what, jparams):
             cfg = port.TransformerConfig(
                 vocab_size=16, hidden_size=8, num_layers=1, num_heads=2,
                 mlp_dim=16, max_len=8, dtype=torch.float32,
-                dropout_rate=0.0, attention_dropout_rate=0.0)
+                dropout_rate=0.1, attention_dropout_rate=0.0)
             port.AutoDist({"mesh": {"data": 1, "pipe": 1, "model": 1}},
                           port.GradAccumulation(
                               port.Pipeline(num_microbatches=1), 2),

@@ -449,13 +449,14 @@ def test_builder_checks_match_jax(jparams):
              "mesh": {"data": 2}}))
 
 
-def _pipeline_accumulation():
-    """``GradAccumulation`` over a ``Pipeline``: the pipeline lowering
-    refuses it."""
+def _pipeline_accumulation_with_dropout():
+    """``GradAccumulation`` over a ``Pipeline`` runs; the pipelined LM
+    with dropout still raises (its per-row draws, ``stage_rng``)."""
     from autodist_tpu_torch.models.pipeline_lm import (
         make_pipeline_lm_trainable)
 
-    cfg = port.TransformerConfig(**{**LM, "num_layers": 1},
+    cfg = port.TransformerConfig(**{**LM, "num_layers": 1,
+                                    "dropout_rate": 0.1},
                                  dtype=torch.float32)
     tr = make_pipeline_lm_trainable(cfg, port.optim.sgd(LR),
                                     torch.Generator(), device="cpu")
@@ -464,45 +465,66 @@ def _pipeline_accumulation():
                                         2), device="cpu").build(tr)
 
 
+def _ps_json(d, **sync):
+    """The strategy JSON ``d`` with every node a PS synchronizer."""
+    for node in d["node_configs"]:
+        node["synchronizer"] = {"kind": "ps", **sync}
+    return port.Strategy.from_json(json.dumps(d))
+
+
 @pytest.mark.parametrize("what,item", [
-    ("zero", "slice 3 leftovers, item 4"),
-    ("zero1", "slice 3 leftovers, item 4"),
-    ("zero_min_bytes", "slice 3 leftovers, item 4"),
-    ("compressor", "slice 2 leftovers: compressors"),
-    ("grad_precision", "slice 2 leftovers: compressors"),
-    ("compressor_json", "slice 2 leftovers: compressors"),
-    ("accum_json", "item 8: GradAccumulation"),
+    ("zero", "item 8: AsyncPSRunner"),
+    ("zero1", "item 8: AsyncPSRunner"),
+    ("zero_min_bytes", None),
+    ("compressor", None),
+    ("grad_precision", None),
+    ("compressor_json", None),
+    ("accum_json", "slice 3 leftovers"),
     ("dcn_axis", "item 9")])
 def test_out_of_slice_options_raise(what, item, jparams):
     """What this slice does not run raises ``NotImplementedError``
-    naming its ROADMAP item.  Compressors, the ``grad`` slot and
-    accumulation run now: their cases hold the precision slots the
-    sequence lowering has no boundary for (``tp_psum``, ``vocab_stats``,
-    ``moe_a2a``, beside the ``grad`` slot that runs) and the pipeline
-    lowering's accumulation."""
+    naming its ROADMAP item; ZeRO, compressors, the precision slots and
+    accumulation run now.  The ZeRO cases hold the PS synchronizers the
+    sequence lowering still refuses (asynchronous, stale); the
+    accumulation case the pipelined LM's dropout; the rest (item
+    ``None``) build: a ZeRO mix, and the slots this lowering has no
+    boundary for, which its ``Lowered`` records as unapplied."""
     tr = _port_trainable(jparams)
     ad = port.AutoDist({"mesh": {"seq": 1}}, SequenceParallel(),
                        device="cpu")
     d = json.loads(ad.build_or_load_strategy(tr).to_json())
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, {item}"):
-        if what == "zero":
-            SequenceParallel(zero_stage=1)
-        elif what == "zero1":
-            SequenceParallel(zero1=True)
-        elif what == "zero_min_bytes":
-            SequenceParallel(zero_min_bytes=1 << 20)
-        elif what == "compressor":
-            SequenceParallel(compressor="bf16_ef",
-                             collective_precision={"tp_psum": "bf16"})
+    if item is None:
+        if what == "zero_min_bytes":
+            low = port.AutoDist({"mesh": {"seq": 1}}, SequenceParallel(
+                zero_min_bytes=1 << 10, compressor="bf16"),
+                device="cpu").build(tr).lowered
+            assert low.zero3_shapes == {} and low.unapplied == {}
+            return
+        if what == "compressor":
+            builder = SequenceParallel(
+                compressor="bf16_ef", collective_precision={"tp_psum": "bf16"})
+            slots = {"tp_psum"}
         elif what == "grad_precision":
-            SequenceParallel(collective_precision={"grad": "bf16",
-                                                   "vocab_stats": "int8"})
-        elif what == "compressor_json":
+            builder = SequenceParallel(collective_precision={
+                "grad": "bf16", "vocab_stats": "int8"})
+            slots = {"vocab_stats"}
+        else:
             d["node_configs"][0]["synchronizer"]["compressor"] = "bf16_ef"
             d["graph_config"]["precision"] = {"moe_a2a": "int8"}
-            ad.lower(tr, port.Strategy.from_json(json.dumps(d)))
+            assert set(ad.lower(tr, port.Strategy.from_json(
+                json.dumps(d))).unapplied) == {"moe_a2a"}
+            return
+        low = port.AutoDist({"mesh": {"seq": 1}}, builder,
+                            device="cpu").build(tr).lowered
+        assert set(low.unapplied) == slots
+        return
+    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, {item}"):
+        if what == "zero":
+            ad.lower(tr, _ps_json(d, sync=False))
+        elif what == "zero1":
+            ad.lower(tr, _ps_json(d, staleness=2))
         elif what == "accum_json":
-            _pipeline_accumulation()
+            _pipeline_accumulation_with_dropout()
         else:
             port.ResourceSpec({"mesh": {"dcn": 2, "seq": 2}})
 

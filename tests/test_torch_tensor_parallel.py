@@ -404,17 +404,20 @@ def test_build_checks_the_mesh_and_the_trainable(jparams):
     "vocab_embedding"])
 def test_out_of_slice_options_raise(what, jparams):
     """What this slice does not run raises ``NotImplementedError``
-    naming its ROADMAP item."""
+    naming its ROADMAP item.  ZeRO, compressors and remat run now: their
+    cases hold them beside what still raises (``rsag``, a narrowed
+    precision under overlap, an asynchronous or stale PS)."""
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         if what == "pipe_axis":
-            # A pipe axis of 2 lowers; ZeRO on it still raises.
+            # A pipe axis of 2 lowers, with ZeRO; rsag on it still raises.
             tr = _port_trainable(jparams)
             ad = port.AutoDist({"mesh": {"pipe": 1}}, Pipeline(**PIPE),
                                device="cpu")
             d = json.loads(ad.build_or_load_strategy(tr).to_json())
             d["graph_config"]["mesh_axes"]["pipe"] = 2
             d["graph_config"]["parallel"].update(virtual_stages=1,
-                                                 zero_stage=1)
+                                                 zero_stage=1,
+                                                 comm_overlap="rsag")
             from autodist_tpu_torch.parallel.pipeline import lower_pipeline
             from autodist_tpu_torch.resource import Mesh
 
@@ -423,19 +426,32 @@ def test_out_of_slice_options_raise(what, jparams):
         elif what == "seq_axis":
             port.ResourceSpec({"mesh": {"dcn": 2}})
         elif what == "zero":
-            Pipeline(zero_stage=1)
+            # ZeRO runs; an asynchronous PS still raises.
+            tr = _port_trainable(jparams)
+            ad = port.AutoDist({"mesh": {"pipe": 1}}, Pipeline(
+                **PIPE, zero_stage=1), device="cpu")
+            d = json.loads(ad.build_or_load_strategy(tr).to_json())
+            d["node_configs"][0]["synchronizer"]["sync"] = False
+            ad.lower(tr, port.Strategy.from_json(json.dumps(d)))
         elif what == "remat":
-            Pipeline(remat=True)
+            # remat runs; beside int8 under overlap it still raises.
+            Pipeline(remat=True, tensor_parallel=2, comm_overlap="matmul",
+                     collective_precision=INT8)
         elif what == "vocab_parallel":
-            # vocab_parallel runs; with ZeRO it still raises.
-            Pipeline(tensor_parallel=2, vocab_parallel=True, zero_stage=1)
+            # vocab_parallel and ZeRO run; a narrowed vocab_stats under
+            # overlap still raises.
+            Pipeline(tensor_parallel=2, vocab_parallel=True, zero_stage=1,
+                     comm_overlap="matmul",
+                     collective_precision={"vocab_stats": "bf16"})
         elif what == "rsag":
             Pipeline(tensor_parallel=2, comm_overlap="rsag")
         elif what == "int8_overlap":
             Pipeline(tensor_parallel=2, comm_overlap="matmul",
                      collective_precision=INT8)
         elif what == "compressor":
-            Pipeline(compressor="bf16_ef")
+            # A compressor runs; beside rsag it still raises.
+            Pipeline(compressor="bf16_ef", tensor_parallel=2,
+                     comm_overlap="rsag")
         elif what == "dropout":
             tlm.make_pipeline_lm_trainable(
                 port.TransformerConfig(**dict(SIZES, dropout_rate=0.1),
@@ -446,11 +462,14 @@ def test_out_of_slice_options_raise(what, jparams):
                 lambda c, x: x, {"w": torch.zeros(2)}, lambda o, b: (0, {}),
                 port.optim.sgd(0.1), num_stages=2, stage_aux=True)
         elif what == "remat_json":
+            # remat read back from JSON runs; a stale PS still raises.
             tr = _port_trainable(jparams)
             ad = port.AutoDist({"mesh": {"pipe": 1}}, Pipeline(**PIPE),
                                device="cpu")
             d = json.loads(ad.build_or_load_strategy(tr).to_json())
             d["graph_config"]["parallel"]["remat"] = True
+            d["node_configs"][0]["synchronizer"] = {"kind": "ps",
+                                                    "staleness": 2}
             ad.lower(tr, port.Strategy.from_json(json.dumps(d)))
         else:
             # The sharded lookup runs; its decomposed sum at a narrowed

@@ -419,8 +419,10 @@ def test_out_of_slice_options_raise(what, jtrainable, jparams):
     spec = JaxResourceSpec({"topology": {"num_devices": 1}})
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         if what == "compressor":
-            # The pipeline lowering's gradient compressors.
-            port.Pipeline(compressor="bf16_ef")
+            # The pipeline lowering's compressors run; beside rsag they
+            # still raise.
+            port.Pipeline(compressor="bf16_ef", tensor_parallel=2,
+                          comm_overlap="rsag")
         elif what == "builder":
             port.AutoDist({}, "FSDPSharded")
         elif what in ("ps_json", "partitioner_json"):
@@ -440,8 +442,10 @@ def test_out_of_slice_options_raise(what, jtrainable, jparams):
         elif what == "multihost":
             port.ResourceSpec({"multihost": {"num_processes": 2}})
         elif what == "remat":
-            # The encoder's remat runs; the pipeline lowering's raises.
-            port.Pipeline(remat=True)
+            # The encoder's remat and the pipeline lowering's run; beside
+            # rsag the pipeline's still raises.
+            port.Pipeline(remat=True, tensor_parallel=2,
+                          comm_overlap="rsag")
         elif what == "compressor_json":
             # A precision policy on the collective lowering (JAX's reads
             # none; its compressors are AllReduce(compressor=...)).

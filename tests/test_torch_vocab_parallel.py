@@ -92,6 +92,22 @@ def _xent_inputs(vocab):
             r.randint(0, vocab, (2, 4)).astype(np.int32))
 
 
+def _underflow_inputs():
+    """A confident token beside flat ones, what the pipelined LM's tied
+    head meets at full width: vocab 1024, hidden 256, one sequence of 4
+    tokens (one sequence chunk, so one int8 scale).  Token 0's hidden
+    state is its target's embedding row scaled so that its logit stands
+    11 above the rest (a sum-exp near 1); tokens 1-3 sit near zero
+    (logits near 0, a sum-exp near 1024, about 512 a shard)."""
+    r = np.random.RandomState(500)
+    emb = (0.1 * r.randn(1024, 256)).astype(np.float32)
+    targets = r.randint(0, 1024, (1, 4)).astype(np.int32)
+    x = (0.01 * r.randn(1, 4, 256)).astype(np.float32)
+    row = emb[targets[0, 0]]
+    x[0, 0] = 11.0 * row / np.dot(row, row)
+    return x, emb, targets
+
+
 def _lookup_inputs():
     r = np.random.RandomState(0)
     return (r.randn(7, 4).astype(np.float32),
@@ -192,6 +208,22 @@ def _jax_xent(vocab, prec):
     return [np.asarray(o) for o in out]
 
 
+def _jax_underflow(prec):
+    from autodist_tpu.parallel.tensor import (precision_scope,
+                                              vocab_parallel_cross_entropy)
+
+    x, emb, targets = _underflow_inputs()
+    with precision_scope({"vocab_stats": prec}):
+        nll, _ = jax.shard_map(
+            lambda xx, ee: vocab_parallel_cross_entropy(
+                xx, ee, jnp.asarray(targets), vocab_size=emb.shape[0],
+                model_axis="model"),
+            mesh=_jax_mesh(), in_specs=(P(), P("model", None)),
+            out_specs=(P(), P()), check_vma=False)(
+                jnp.asarray(x), jnp.asarray(emb))
+    return np.asarray(nll)
+
+
 def _jax_greedy(x, emb, vocab):
     from autodist_tpu.parallel.tensor import vocab_parallel_greedy_token
 
@@ -243,6 +275,13 @@ _WORKER = textwrap.dedent("""
             val.backward()
             res[("xent", vocab, prec)] = (
                 val.detach(), pred, x.grad, model.all_gather(e.grad))
+        for prec in ("fp32", "int8"):
+            x, emb, targets = p["underflow"]
+            with tensor.precision_scope({"vocab_stats": prec}):
+                nll, _ = tensor.vocab_parallel_cross_entropy(
+                    x, shard(emb), targets, vocab_size=emb.shape[0],
+                    model_axis=model)
+            res[("underflow", prec)] = nll
         for name, (x, emb, vocab) in p["greedy"].items():
             res[("greedy", name)] = tensor.vocab_parallel_greedy_token(
                 x, shard(emb), vocab_size=vocab, model_axis=model)
@@ -279,7 +318,8 @@ def _prims():
     greedy = {name: (t(x), t(_padded(e)), vocab)
               for name, (x, e, vocab) in _greedy_inputs().items()}
     return {"lookup": (t(_padded(emb)), tokens), "xent": xent,
-            "greedy": greedy}
+            "greedy": greedy,
+            "underflow": tuple(t(a) for a in _underflow_inputs())}
 
 
 def _start_gloo(world, params, tmp):
@@ -359,6 +399,26 @@ def test_cross_entropy_matches_jax(ranks, vocab, prec):
     if prec == "fp32":
         x, emb, targets = _xent_inputs(vocab)
         np.testing.assert_array_equal(pred.numpy(), (x @ emb.T).argmax(-1))
+
+
+def test_int8_stats_underflow_is_the_jax_rule(ranks):
+    """At int8 the sum-exp's group scale is set by the flat tokens
+    (about 512 a shard, a level of about 4), so the confident token's
+    sum-exp near 1 rounds to level 0 and its loss is log 0 = -inf: in the
+    JAX epilogue as in the port's, the same tokens finite and equal
+    (1e-6 relative) and the same token -inf.  At fp32 both are finite
+    and agree."""
+    want = _jax_underflow("fp32")
+    got = ranks[("underflow", "fp32")].numpy()
+    assert np.isfinite(want).all()
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    want = _jax_underflow("int8")
+    got = ranks[("underflow", "int8")].numpy()
+    print(f"vocab_stats int8: JAX nll {want.tolist()}, port nll "
+          f"{got.tolist()}")
+    assert np.isneginf(want[0, 0]) and np.isneginf(got[0, 0])
+    np.testing.assert_allclose(got[0, 1:], want[0, 1:], rtol=1e-6)
+    assert np.isfinite(want[0, 1:]).all()
 
 
 @pytest.mark.parametrize("name", ["adversarial", "random"])
