@@ -41,9 +41,10 @@ The lowerings other than ``pipeline``, ``expert`` and ``sequence``
 (:mod:`autodist_tpu_torch.parallel.pipeline`,
 :mod:`autodist_tpu_torch.parallel.moe` and
 :mod:`autodist_tpu_torch.parallel.sequence`, to which :func:`lower`
-hands those strategies), an asynchronous or stale-synchronous PS and a
-precision policy raise ``NotImplementedError`` naming their ROADMAP
-item.
+hands those strategies) and an asynchronous or stale-synchronous PS
+raise ``NotImplementedError`` naming their ROADMAP item.  A precision
+policy trains the fp32 program, as in the JAX package, whose collective
+lowering reads none; its slots are recorded in ``Lowered.unapplied``.
 """
 from __future__ import annotations
 
@@ -59,7 +60,8 @@ from autodist_tpu_torch.kernel import common
 from autodist_tpu_torch.kernel.compressor import Compressor
 from autodist_tpu_torch.strategy.ir import (ASYNC_PS_ITEM,
                                             AllReduceSynchronizer,
-                                            PSSynchronizer, not_ported)
+                                            PSSynchronizer,
+                                            normalize_precision, not_ported)
 
 # Update spaces: where a variable's optimizer update runs.
 U_REPLICATED = "replicated"   # the full variable on every rank
@@ -133,12 +135,6 @@ def make_plan(trainable, strategy, mesh) -> Plan:
            if ax != const.DATA_AXIS):
         raise ValueError(f"the collective lowering runs on a data-only "
                          f"mesh; this one is {mesh.shape}")
-    if gc.precision:
-        raise NotImplementedError(
-            "a collective precision policy on the collective lowering "
-            "(the JAX package's collective lowering reads none; the "
-            "compressors are AllReduce(compressor=...)) is not ported "
-            "(ROADMAP Queue 1, slice 2 leftovers, item 3)")
     node_index = {nc.var_name: nc for nc in strategy.node_configs}
     var_plans, buckets, bucket_comp = {}, {}, {}
     for info in trainable.var_infos():
@@ -455,6 +451,13 @@ def lower(trainable, strategy, mesh, device=None) -> Lowered:
                      "sync_state": new_sync}
         return new_state, reduce_metrics(metrics, mesh)
 
+    # The JAX package's collective lowering reads no precision policy
+    # (its compressors are AllReduce(compressor=...)): the slots train
+    # the fp32 program and are recorded as unapplied.
+    unapplied = {slot: "the collective lowering has no precision boundary"
+                 for slot in normalize_precision(
+                     strategy.graph_config.precision)}
     return Lowered(plan=plan, mesh=mesh, device=dev, init_fn=init_fn,
                    step_fn=step_fn,
-                   full_params_fn=lambda stored: full(stored, False))
+                   full_params_fn=lambda stored: full(stored, False),
+                   unapplied=unapplied)

@@ -35,8 +35,10 @@ ported (ROADMAP Queue 1, slice 3 leftovers).
 Vocab parallelism shards the tied embedding's rows over the model axis:
 :func:`vocab_parallel_embedding` is a masked shard lookup and a sum,
 :func:`vocab_parallel_cross_entropy` the streaming loss head, and
-:func:`vocab_parallel_greedy_token` the serving epilogue; the last two
-share one argmax election (:func:`_resolve_global_argmax`).  Their
+:func:`vocab_parallel_greedy_token` and :func:`vocab_parallel_sample_token`
+the serving epilogues (greedy, and seeded Gumbel-max sampling keyed on
+``(seed, position, row)``); the last three share one argmax election
+(:func:`_resolve_global_argmax`).  Their
 statistics sums run at the ``vocab_stats`` precision.
 """
 from __future__ import annotations
@@ -53,6 +55,7 @@ from autodist_tpu_torch.kernel.collective_matmul import (
     RingMatmul, collective_matmul_row_fused)
 from autodist_tpu_torch.kernel.quant_ring import (ring_gather_grads,
                                                   ring_sum_partials)
+from autodist_tpu_torch.ops import threefry
 
 _OVERLAP_ITEM = "ROADMAP Queue 1, slice 3 leftovers, item 3"
 
@@ -454,6 +457,71 @@ def vocab_parallel_cross_entropy(x, embedding, targets, *, vocab_size: int,
     chunk = _resolve_seq_chunk(targets.shape[1], seq_chunk)
     return _VocabCrossEntropy.apply(x, embedding, targets, vocab_size,
                                     model_axis, chunk, prec, psum)
+
+
+def _rowwise_gumbel(seeds, positions, row_ids):
+    """Gumbel noise ``[B, rows]`` for slots keyed ``(seeds[b],
+    positions[b])`` at global vocab rows ``row_ids``: the JAX package's
+    ``jax.random`` draw (``fold_in`` by seed, position and row, then
+    ``uniform`` in ``[1e-7, 1)``), bit for bit in ``u``
+    (:mod:`~autodist_tpu_torch.ops.threefry`).  A function of ``(seed,
+    position, row)`` alone, so every shard of a vocab-sharded table
+    draws its own rows of one virtual ``[V]`` vector."""
+    base = threefry.fold_in(threefry.fold_in(
+        threefry.key(0, seeds.device), seeds), positions)
+    keys = threefry.fold_in((base[0][:, None], base[1][:, None]),
+                            row_ids[None, :])
+    u = threefry.uniform(keys, 1e-7, 1.0)
+    return -torch.log(-torch.log(u))
+
+
+def sampled_scores(logits, start: int, *, seeds, positions,
+                   temperature: float, top_k: int = 0, vocab_size: int,
+                   model_axis=None):
+    """The Gumbel-max scores of :func:`vocab_parallel_sample_token` from
+    this shard's masked fp32 ``logits [B, rows]`` (rows from global id
+    ``start``): under ``top_k`` every row below the global ``k``-th
+    largest logit drops to the fp32 minimum (the shards all-gather
+    their local top-k values over ``model_axis``), the rest become
+    ``logits / temperature + gumbel``.  The argmax of the scores is the
+    sampled token; a full recompute's logits give the same scores."""
+    rows = logits.shape[-1]
+    if top_k and top_k > 0:
+        k = min(int(top_k), vocab_size)
+        loc = logits.topk(min(k, rows), dim=-1).values      # [B, k_loc]
+        if model_axis is not None:
+            loc = model_axis.all_gather(loc, dim=1)         # [B, k_loc*tp]
+        kth = loc.topk(k, dim=-1).values[:, -1]
+        logits = torch.where(logits >= kth[:, None], logits, NEG_INF)
+    row_ids = start + torch.arange(rows, device=logits.device)
+    g = _rowwise_gumbel(seeds, positions, row_ids)
+    temp = torch.full((), temperature, dtype=torch.float32,
+                      device=logits.device)
+    return torch.where(logits > NEG_INF, logits / temp + g, NEG_INF)
+
+
+def vocab_parallel_sample_token(x, embedding, *, vocab_size: int, seeds,
+                                positions, temperature: float,
+                                top_k: int = 0, model_axis=None):
+    """Temperature / top-k sampling from last-position hidden states
+    ``[B, H]``, the sampling form of :func:`vocab_parallel_greedy_token`
+    with the same ``[B, V/tp]`` live logits: the Gumbel-max trick,
+    ``argmax(logits / temperature + g)`` with ``g`` keyed per (slot
+    ``seeds``, ``positions``, global row) (:func:`sampled_scores`),
+    elected by :func:`_resolve_global_argmax`.  The draw reads no
+    generator state, so a sampled stream is the same at any tensor
+    parallel split, interleaved or alone, and replays inside a CUDA
+    graph.  ``temperature`` must be > 0 (0 is the greedy epilogue).
+    Returns ``(token [B] int32, max score [B] fp32)``."""
+    if temperature <= 0.0:
+        raise ValueError("temperature must be > 0 (temperature == 0 is "
+                         "the greedy path)")
+    start = _shard_start(embedding.shape[0], model_axis)
+    logits = _masked_logits(x, embedding, vocab_size, model_axis)
+    z = sampled_scores(logits, start, seeds=seeds, positions=positions,
+                       temperature=temperature, top_k=top_k,
+                       vocab_size=vocab_size, model_axis=model_axis)
+    return _resolve_global_argmax(z, start, vocab_size, model_axis)
 
 
 def vocab_parallel_greedy_token(x, embedding, *, vocab_size: int,

@@ -142,7 +142,8 @@ class ResourceSpec:
         if set(topo) - {"num_devices"}:
             raise NotImplementedError(
                 f"topology keys {sorted(set(topo) - {'num_devices'})} are "
-                f"not ported yet (ROADMAP Queue 1, slice 3)")
+                f"not ported yet (ROADMAP Queue 1, item 9: runtime and "
+                f"multi-host)")
         self._requested_devices = topo.get("num_devices")
         self.mesh_shape: dict = dict(spec.get("mesh") or {})
         for ax in self.mesh_shape:

@@ -1,12 +1,13 @@
 """KV cache for batched decode: dense lanes and a block-paged pool.
 
-Counterpart of ``autodist_tpu/serving/kv_cache.py`` at tensor
-parallel 1.  **Dense**: one pair of tensors holds every layer's keys
-and values, ``[layer, slot, heads, max_len, head_dim]``.  **Paged**: a
-pool ``[layer, num_blocks, heads, block_len, head_dim]`` with a per-slot
-block table ``[num_slots, max_blocks]`` mapping logical block ``j`` of a
-slot's sequence to a pool block, and a host-side free-list
-:class:`BlockAllocator`; logical position ``p`` of slot ``s`` lives at
+Counterpart of ``autodist_tpu/serving/kv_cache.py``.  **Dense**: one
+pair of tensors holds every layer's keys and values, ``[layer, slot,
+heads, max_len, head_dim]``.  **Paged**: a pool ``[layer, num_blocks,
+heads, block_len, head_dim]`` with a per-slot block table ``[num_slots, max_blocks]`` mapping logical block ``j`` of a
+slot's sequence to a pool block, and a host-side refcounted
+:class:`BlockAllocator` (prefix caching shares blocks between slots,
+keyed by :func:`prefix_block_keys`, and copies one before a write with
+:func:`copy_pool_block`); logical position ``p`` of slot ``s`` lives at
 ``(block_table[s, p // block_len], p % block_len)``.  In both layouts
 ``k[layer]`` is contiguous, which the kernels need.
 
@@ -32,10 +33,13 @@ previous occupant are never observable.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import hashlib
 import math
 from typing import Any
 
+import numpy as np
 import torch
 
 from autodist_tpu_torch.device import resolve_device
@@ -135,10 +139,24 @@ class PoolExhaustedError(RuntimeError):
 
 
 class BlockAllocator:
-    """Host-side free-list over the pool's ``num_blocks`` ids: the JAX
-    package's allocator without the prefix cache's block sharing (pure
-    accounting, no device traffic).  ``free_blocks + used_blocks ==
-    num_blocks`` always; double-frees and foreign ids raise."""
+    """Host-side refcounted free list over the pool's ``num_blocks`` ids
+    (pure accounting, no device traffic), the JAX package's allocator.
+
+    ``free_blocks + used_blocks == num_blocks`` always, ``used_blocks``
+    counting physical blocks with a reference.  Prefix caching shares a
+    block between slots by taking another reference (:meth:`share`); a
+    block returns to the free list when its last reference drops
+    (:meth:`free_one`).  Double-frees and foreign ids raise.
+
+    Every alloc, share and free is appended to :attr:`events`, and the
+    engine notes the ``write`` and ``cow`` events of what it dispatches
+    (:meth:`note`): the trace the JAX package's ``lint_block_trace``
+    replays to show that no shared block is written through a table
+    entry without a copy first."""
+
+    #: the trace is bounded, so a long-lived server cannot grow it
+    #: without bound.
+    TRACE_LIMIT = 1 << 18
 
     def __init__(self, num_blocks: int):
         if num_blocks < 1:
@@ -146,7 +164,8 @@ class BlockAllocator:
         self.num_blocks = int(num_blocks)
         # LIFO free list: deterministic reuse order, the JAX package's.
         self._free = list(range(self.num_blocks - 1, -1, -1))
-        self._used: set = set()
+        self._rc: dict = {}
+        self.events = collections.deque(maxlen=self.TRACE_LIMIT)
 
     @property
     def free_blocks(self) -> int:
@@ -154,7 +173,14 @@ class BlockAllocator:
 
     @property
     def used_blocks(self) -> int:
-        return len(self._used)
+        return len(self._rc)
+
+    def refcount(self, block: int) -> int:
+        return self._rc.get(block, 0)
+
+    def note(self, *event) -> None:
+        """Append an event the engine observed (``write``, ``cow``)."""
+        self.events.append(tuple(event))
 
     def alloc(self, n: int) -> list:
         if n < 0:
@@ -165,24 +191,75 @@ class BlockAllocator:
                 f"{len(self._free)} free of {self.num_blocks} — the "
                 "admission predicate must gate on free blocks")
         blocks = [self._free.pop() for _ in range(n)]
-        self._used.update(blocks)
+        for b in blocks:
+            self._rc[b] = 1
+            self.events.append(("alloc", b))
         return blocks
 
+    def share(self, block: int) -> int:
+        """Take one more reference on an allocated block (a prefix
+        hit)."""
+        if block not in self._rc:
+            raise ValueError(f"block {block} is not allocated — cannot "
+                             "share a free block")
+        self._rc[block] += 1
+        self.events.append(("share", block))
+        return block
+
     def free(self, blocks) -> list:
-        """Return ``blocks`` to the free list; returns them."""
-        for b in blocks:
-            if b not in self._used:
-                raise ValueError(
-                    f"block {b} is not allocated (double-free or foreign "
-                    "id)")
-            self._used.remove(b)
-            self._free.append(b)
-        return list(blocks)
+        """Drop one reference per listed block; returns the blocks whose
+        last reference dropped (now free again)."""
+        return [b for b in blocks if self.free_one(b)]
+
+    def free_one(self, block: int) -> bool:
+        """Drop one reference; True iff the block is free again."""
+        if block not in self._rc:
+            raise ValueError(
+                f"block {block} is not allocated (double-free or foreign "
+                "id)")
+        self.events.append(("free", block))
+        self._rc[block] -= 1
+        if self._rc[block] == 0:
+            del self._rc[block]
+            self._free.append(block)
+            return True
+        return False
 
 
 def blocks_for(tokens: int, block_len: int) -> int:
     """Pool blocks covering ``tokens`` logical positions."""
     return -(-max(int(tokens), 0) // int(block_len))
+
+
+def prefix_block_keys(prompt, block_len: int):
+    """Content keys of a prompt's blocks, chained so that a key commits
+    to the whole prefix through its block: ``(full_keys, partial_key)``,
+    one ``("full", sha1)`` a full block and ``("partial", n, sha1)`` for
+    a trailing partial block of ``n`` tokens (``None`` when the prompt
+    fills its last block).  The JAX package's keys: the sha1 chain over
+    the int64 token bytes from the seed ``b"adt-prefix"``."""
+    toks = np.asarray(prompt, dtype=np.int64)
+    bl = int(block_len)
+    n_full = len(toks) // bl
+    full_keys, h = [], hashlib.sha1(b"adt-prefix")
+    for j in range(n_full):
+        h.update(toks[j * bl:(j + 1) * bl].tobytes())
+        full_keys.append(("full", h.hexdigest()))
+    partial_key = None
+    tail = toks[n_full * bl:]
+    if len(tail):
+        h.update(tail.tobytes())
+        partial_key = ("partial", len(tail), h.hexdigest())
+    return full_keys, partial_key
+
+
+def copy_pool_block(k_pool, v_pool, src: int, dst: int):
+    """Copy pool block ``src`` into ``dst`` in every layer's k and v
+    pools, in place (the copy-on-write data move: the writer's table row
+    turns to ``dst``, the other holders keep reading ``src``)."""
+    k_pool[:, dst].copy_(k_pool[:, src])
+    v_pool[:, dst].copy_(v_pool[:, src])
+    return k_pool, v_pool
 
 
 @dataclasses.dataclass
@@ -270,11 +347,12 @@ def paged_write_token(cache_arr, layer: int, kv, positions, block_table,
 
 
 def _write_block_rows(cache_arr, layer, kv, admit, block_table, block_len,
-                      first_pos, p_lens):
+                      first_pos, p_lens, write_from=None):
     """Rows ``first_pos + p`` of ``kv [B, S, heads, d]`` through the
-    table, block-granular: a logical block is written whole when the
-    slot is admitted and its first position lies below ``p_lens``;
-    otherwise it is left untouched."""
+    table, block-granular: a logical block ``j`` is written whole when
+    the slot is admitted, its first position lies below ``p_lens`` and
+    ``j >= write_from`` (where given); otherwise it is left untouched.
+    ``first_pos`` is an int or a device scalar."""
     B, S = kv.shape[:2]
     mb = block_table.shape[1]
     r = torch.arange(S, device=kv.device)
@@ -282,33 +360,38 @@ def _write_block_rows(cache_arr, layer, kv, admit, block_table, block_len,
     lo = first_pos + (r // block_len) * block_len       # its first position
     blk = block_table[:, j.clamp(0, mb - 1)].long()    # [B, S]
     take = admit.bool()[:, None] & (lo[None, :] < p_lens.long()[:, None])
+    if write_from is not None:
+        take = take & (j[None, :] >= write_from.long()[:, None])
     return _write_rows(cache_arr, layer, blk.reshape(-1),
                        (r % block_len).repeat(B),
                        kv.reshape(B * S, *kv.shape[2:]), take.reshape(-1))
 
 
 def paged_write_prompt(cache_arr, layer: int, kv, admit, block_table,
-                       block_len: int, p_lens):
+                       block_len: int, p_lens, write_from=None):
     """The paged :func:`write_prompt`: an admitted slot's prompt bucket
     ``kv [B, S, heads, d]`` lands block by block through the table.  A
     logical block holding no real prompt row (``j * block_len >=
     p_lens[i]``) is left untouched; the final partial prompt block is
     written whole, its tail taking the bucket's padding projections
-    (unreachable behind the length mask)."""
+    (unreachable behind the length mask).  ``write_from`` (``[B]``
+    int32, optional) skips logical blocks ``j < write_from[i]``: prefix
+    hits, whose shared blocks already hold these projections."""
     return _write_block_rows(cache_arr, layer, kv, admit, block_table,
-                             block_len, 0, p_lens)
+                             block_len, 0, p_lens, write_from)
 
 
 def paged_write_chunk(cache_arr, layer: int, kv, admit, block_table,
-                      block_len: int, chunk_start: int, p_lens):
+                      block_len: int, chunk_start, p_lens, write_from=None):
     """The chunked :func:`paged_write_prompt`: one prompt chunk ``kv [B,
     C, heads, d]`` (``C % block_len == 0``) at positions ``chunk_start +
-    r``, under the same block rules."""
+    r`` (``chunk_start`` an int or a device scalar, as JAX traces it),
+    under the same block rules."""
     if kv.shape[1] % block_len:
         raise ValueError(f"chunk of {kv.shape[1]} rows is not a multiple "
                          f"of block_len={block_len}")
     return _write_block_rows(cache_arr, layer, kv, admit, block_table,
-                             block_len, int(chunk_start), p_lens)
+                             block_len, chunk_start, p_lens, write_from)
 
 
 def gather_blocks(pool, block_table):

@@ -35,7 +35,10 @@ attention over K1/K2a/K2b):
    pair there); the registers, spills and static
    shared memory of K1, K2a, K2b (bf16), K5, K6 and K7 (both dtypes: K7's
    tensor-core and CUDA-core instances) from
-   ``nvcc -Xptxas -v``; the K2 pair (the whole autograd backward
+   ``nvcc -Xptxas -v``; K1 causal at the serving prompt buckets of 8
+   prompts, 16, 64 and 512 (timed in bf16 at 64 and 512), and K7 at the
+   speculative verify window (8 slots, 5 rows at ragged starts, blocks
+   of 16); the K2 pair (the whole autograd backward
    through K2a and K2b, and its delta and casts alone) against SDPA's
    backward; K3 bit for bit (levels and scale) at the ring's chunk of
    2^21 elements, at the vocab-parallel prologue's 2^22, at 1, 1000,
@@ -213,7 +216,33 @@ attention over K1/K2a/K2b):
    most 0.51 of the plain row's (asserted); 4 and 2 ranks over gloo on
    card 0, and over NCCL on the graph route, one rank a card, where the
    machine has the cards (captures asserted);
-17. one ``{"kernels": [...]}`` line, the card's name and power limit, and
+17. fp32 parity of the serving ladder: the serve width cut to 2 layers,
+   4 requests on a shared 2-block prefix (the first admitted alone, the
+   last repeating its prompt so that its partial tail is shared and
+   copied on write) through ``ContinuousBatcher`` on 14 engines, each
+   with the prefill graph and eagerly: dense, paged and paged + chunked,
+   greedy and sampled (``temperature=0.9, top_k=40``), prefix-cached,
+   speculative (k 4, a same-weights and a 1-layer other-weights draft)
+   and K1 in the prefill; every stream equal to a full recompute
+   (``sequential_logits``, and sampled the port's epilogue at the same
+   seed and position, phase 2's tie rule), the graph route's to the
+   eager one's, the speculative and cached engines' to their vanilla
+   engine's; launches equal to the calls, one prefill and one window
+   graph replayed at every call after the first; the pools idle; the
+   allocator's trace replayed with no write on a shared block;
+18. bf16 at the serve widths: the serve mix on dense and paged + chunked
+   with the prefill graph, eagerly, and sampled (tokens/s, TTFT,
+   inter-token, a profiled prefill's wall, device busy and launches);
+   ``bench.py serve --prompt-mix shared-prefix``'s configuration paged
+   alone, prefix-cached and with K1 in the 512-token prefill (peak
+   admitted, hit blocks, TTFT; in the bench's order the JAX engine's
+   18, 18 and 48 hits, and with the prefix resident first the cached
+   run admitting strictly more); ``bench.py serve --speculative 4``'s
+   configuration vanilla and speculative (tokens/s, acceptance); every
+   run's launches equal to its calls (K1 8 a single-shot prefill, K7 8
+   a chunk or verify window, K5/K6 8 a token step, the draft's 1) and
+   its graphs' captures and replays to the shapes and calls;
+19. one ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
 Phases 2, 4, 6 (at T = 1), 8 (the dense model) and 11 (one process)
@@ -239,6 +268,7 @@ line.  Each phase prints its seconds.  Imports torch, numpy and
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib
 import json
 import math
@@ -267,6 +297,7 @@ from autodist_tpu_torch.models.pipeline_lm import (make_pipeline_lm_trainable,
                                                    sequential_logits)
 from autodist_tpu_torch.parallel import ring_attention as ra
 from autodist_tpu_torch.parallel.sequence import global_positions
+from autodist_tpu_torch.parallel.tensor import sampled_scores
 from autodist_tpu_torch.strategy.parallel_builders import Pipeline
 from autodist_tpu_torch.resource import H100
 from autodist_tpu_torch.serving import FINISH_REASONS, kv_cache
@@ -281,6 +312,8 @@ PEAK_FLOPS = {torch.bfloat16: H100.peak_bf16_tflops * 1e12,
 VOCAB, HIDDEN, LAYERS, HEADS, MLP, MAX_LEN = 32768, 1024, 8, 16, 4096, 1024
 HEAD_DIM = HIDDEN // HEADS
 BLOCK_LEN, NUM_BLOCKS, CHUNK = 16, 512, 64
+SPEC_K = 4                # bench.py serve --speculative's default k
+PREFILL_BUCKETS = (16, 64, 512)
 TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 1e-2}  # atol = rtol
 
 KERNELS = {
@@ -540,26 +573,26 @@ def kernel_cases(dtype, gen, rng):
     return cases
 
 
-def prefill_case(dtype, randn, starts, pools, rng, heads=HEADS):
-    """(name, args, kwargs, bytes, flops) of K7: a ``CHUNK``-row chunk a
-    slot starting at ``starts`` over ``pools`` (a table drawn from
-    ``rng``); the bytes count each visible key's K and V row, q, out,
-    the starts and the used table entries once, the flops each row's
-    visible keys."""
+def prefill_case(dtype, randn, starts, pools, rng, heads=HEADS, C=CHUNK):
+    """(name, args, kwargs, bytes, flops) of K7: a ``C``-row window a
+    slot (a prefill chunk, or the speculative verify window) starting at
+    ``starts`` over ``pools`` (a table drawn from ``rng``); the bytes
+    count each visible key's K and V row, q, out, the starts and the
+    used table entries once, the flops each row's visible keys."""
     dev = "cuda"
     esize = torch.empty((), dtype=dtype).element_size()
     B, extent = len(starts), MAX_LEN // BLOCK_LEN * BLOCK_LEN
-    n_keys = np.minimum(starts.astype(np.int64) + CHUNK, extent)
+    n_keys = np.minimum(starts.astype(np.int64) + C, extent)
     table = tail_filled_table(n_keys, rng)
-    args = (randn(B, CHUNK, heads, HEAD_DIM), *pools,
+    args = (randn(B, C, heads, HEAD_DIM), *pools,
             torch.as_tensor(starts, device=dev),
             torch.as_tensor(table, device=dev))
-    rows = np.minimum(starts[:, None].astype(np.int64) + np.arange(CHUNK) + 1,
+    rows = np.minimum(starts[:, None].astype(np.int64) + np.arange(C) + 1,
                       extent)
     kv_bytes = 2 * n_keys.sum() * heads * HEAD_DIM * esize
     tab_bytes = 4 * sum(kv_cache.blocks_for(n, BLOCK_LEN) for n in n_keys)
     return ("flash_prefill_paged", args, {"block_len": BLOCK_LEN},
-            kv_bytes + 2 * B * CHUNK * heads * HEAD_DIM * esize + B * 4
+            kv_bytes + 2 * B * C * heads * HEAD_DIM * esize + B * 4
             + tab_bytes, 4 * HEAD_DIM * heads * rows.sum())
 
 
@@ -710,7 +743,23 @@ def phase_kernels(record):
                       f"{rec['max_abs_err']:.3e} (tol {tol}), "
                       f"{timings(rec, flops)}", flush=True)
                 record[(name, dtype, label)] = rec
-        del pools
+        # The speculative verify window (phase 18 (d): 8 slots, k = 4):
+        # 5 rows a slot at ragged starts, neither chunk- nor
+        # block-aligned, over blocks of 16 (bf16: the tensor-core
+        # instance).
+        starts = np.array([1, 15, 17, 63, 100, 150, 191, MAX_LEN - 3],
+                          np.int32)
+        pools = (pre_randn(NUM_BLOCKS, HEADS, BLOCK_LEN, HEAD_DIM),
+                 pre_randn(NUM_BLOCKS, HEADS, BLOCK_LEN, HEAD_DIM))
+        name, args, kw, nbytes, flops = prefill_case(
+            dtype, pre_randn, starts, pools, pre_rng, C=SPEC_K + 1)
+        rec = check_and_time(name, args, kw, nbytes, flops, dtype)
+        print(f"phase 1 {name} {str(dtype)[6:]} verify [B=8, C="
+              f"{SPEC_K + 1}, heads {HEADS}, blocks of {BLOCK_LEN}, starts "
+              f"{starts.tolist()}]: max_abs_err {rec['max_abs_err']:.3e} "
+              f"(tol {tol}), {timings(rec, flops)}", flush=True)
+        record[(name, dtype, "verify")] = rec
+        del pools, args
 
 
 def attention_bytes_flops(name, B, L, H, D, esize, causal):
@@ -852,13 +901,14 @@ def ptxas_registers():
     return found
 
 
-def attention_shape(gen, dtype, B, L, H, causal, timed):
+def attention_shape(gen, dtype, B, L, H, causal, timed, forward_only=False):
     """K1, K2a and K2b against their plain versions at ``[B, L, H, 64]``
     (q, k and v slices of one [B, L, 3, H, D] projection, as the model
     hands them over) within the dtype's tolerance; with ``timed`` each
     kernel, its plain version and the library call timed, and the K2
-    pair.  Prints a line a kernel; returns ``({name: rec}, pair rec)``
-    (empty and ``None`` untimed)."""
+    pair.  ``forward_only``: K1 alone (the serving prefill's).  Prints
+    a line a kernel; returns ``({name: rec}, pair rec)`` (empty and
+    ``None`` untimed or forward only)."""
     D, tol = HEAD_DIM, TOLERANCE[dtype]
     esize = torch.empty((), dtype=dtype).element_size()
     qkv = torch.randn((B, L, 3, H, D), generator=gen,
@@ -881,7 +931,9 @@ def attention_shape(gen, dtype, B, L, H, causal, timed):
             lambda: fa.flash_attention_bwd_dkv_plain(
                 q, k, v, g, lse, delta, **kw)),
     }
-    if timed:
+    if forward_only:
+        calls = {"flash_attention_fwd": calls["flash_attention_fwd"]}
+    elif timed:
         pair_library = time_ms(attention_library(
             "flash_attention_bwd_dq", q, k, v, g, causal))
     recs, pair = {}, None
@@ -918,7 +970,7 @@ def attention_shape(gen, dtype, B, L, H, causal, timed):
             }
             line += ", " + timings(recs[name], flops)
         print(line, flush=True)
-    if timed:
+    if timed and not forward_only:
         pair, flops = backward_pair(q, k, v, g, causal, dtype, pair_library)
         print(f"phase 1 K2 pair {str(dtype)[6:]} [{B},{L},{H},{D}] "
               f"causal={causal}: the port's backward {pair['ms']:.4f} ms "
@@ -957,6 +1009,17 @@ def phase_attention_kernels(record):
         for name, rec in recs.items():
             record[(name, torch.bfloat16, label)] = rec
         record[("K2 pair", torch.bfloat16, label)] = pair
+    # K1 in the serving prefill: causal at the prompt buckets of 8
+    # prompts (16: the engine's default; 64: bench.py serve and
+    # --speculative; 512: --prompt-mix shared-prefix), held at both
+    # dtypes, timed in bf16 at 64 and 512.
+    for dtype in (torch.float32, torch.bfloat16):
+        for L in PREFILL_BUCKETS:
+            recs, _ = attention_shape(
+                gen, dtype, 8, L, HEADS, True, forward_only=True,
+                timed=dtype == torch.bfloat16 and L > 16)
+            for name, rec in recs.items():
+                record[(name, dtype, f"prefill_{L}")] = rec
 
 
 def misaligned(q_in, x):
@@ -1174,22 +1237,31 @@ def phase_a2a_kernels(record):
 # --------------------------------------------------------------------- #
 # phase 2: fp32 parity against the greedy full recompute
 # --------------------------------------------------------------------- #
-def count_calls(engine):
-    """Wrap the engine so the phase can count decode windows and
-    prefill chunks (the attention calls it made)."""
-    calls = {"windows": 0, "chunks": 0}
-    decode_window, prefill = engine.decode_window, engine.prefill
+def ladder_calls(engine):
+    """Wrap the engine (and its draft) so the phase counts what it ran:
+    target prefill calls and chunks, windows (decode, or verify on a
+    speculative engine), the draft's prefill chunks, proposal windows
+    and catch-ups."""
+    calls = dict.fromkeys(("prefills", "chunks", "windows", "draft_prefills",
+                           "draft_chunks", "proposals", "catchups"), 0)
 
-    def counted_window(active):
-        calls["windows"] += 1
-        return decode_window(active)
+    def wrap(owner, attr, key, chunk_key=None):
+        fn = getattr(owner, attr)
 
-    def counted_prefill(*a, **kw):
-        out = prefill(*a, **kw)
-        calls["chunks"] += engine.last_prefill_chunks
-        return out
+        def counted(*a, **kw):
+            out = fn(*a, **kw)
+            calls[key] += 1
+            if chunk_key:
+                calls[chunk_key] += owner.last_prefill_chunks
+            return out
+        setattr(owner, attr, counted)
 
-    engine.decode_window, engine.prefill = counted_window, counted_prefill
+    wrap(engine, "prefill", "prefills", "chunks")
+    wrap(engine, "decode_window", "windows")
+    if engine.draft is not None:
+        wrap(engine.draft, "prefill", "draft_prefills", "draft_chunks")
+        wrap(engine.draft, "decode", "proposals")
+        wrap(engine.draft, "decode_one", "catchups")
     return calls
 
 
@@ -1199,6 +1271,34 @@ ENGINES = {
                   kv_layout="paged", kv_block_len=BLOCK_LEN,
                   kv_num_blocks=NUM_BLOCKS, prefill_chunk=CHUNK),
 }
+
+
+def recompute_check(cfg, params, prompt, gen, seed, sampling, label):
+    """The stream against a full recompute: ``sequential_logits`` and,
+    sampled, the port's epilogue at the same ``(seed, position)``
+    (:func:`~autodist_tpu_torch.parallel.tensor.sampled_scores`).  A
+    divergence counts only at a near tie (the top two scores within
+    1e-4) and ends the comparison.  Returns the index the comparison
+    stopped at (the stream's length where it equals the recompute)."""
+    seq = torch.as_tensor([prompt + gen[:-1]], device="cuda")
+    scores = sequential_logits(cfg, params, seq)[0, len(prompt) - 1:]
+    if sampling:
+        n = len(gen)
+        pos = torch.arange(len(prompt), len(prompt) + n, device="cuda",
+                           dtype=torch.int32)
+        scores = sampled_scores(
+            scores, 0, seeds=torch.full((n,), seed, dtype=torch.int32,
+                                        device="cuda"),
+            positions=pos, vocab_size=cfg.vocab_size, **sampling)
+    want = scores.argmax(-1).tolist()
+    for i, tok in enumerate(gen):
+        if tok != want[i]:
+            top2 = scores[i].topk(2).values
+            gap = float(top2[0] - top2[1])
+            check(gap < 1e-4, f"{label}: token {i} is {tok}, the recompute "
+                  f"gives {want[i]} (top-2 gap {gap})")
+            return i
+    return len(gen)
 
 
 def phase_parity():
@@ -1221,19 +1321,10 @@ def phase_parity():
         compared = 0
         for p, rid in zip(prompts, rids):
             gen = done[rid].tokens
-            seq = torch.as_tensor([p + gen[:-1]], device="cuda")
-            logits = sequential_logits(cfg, params, seq)[0, len(p) - 1:]
-            want = logits.argmax(-1).tolist()
-            for i, tok in enumerate(gen):
-                if tok == want[i]:
-                    compared += 1
-                    continue
-                top2 = logits[i].topk(2).values
-                gap = float(top2[0] - top2[1])
-                check(gap < 1e-4, f"{layout} {rid}: token {i} is {tok}, "
-                      f"the recompute gives {want[i]} (top-2 gap {gap})")
-                ties += 1
-                break
+            stop = recompute_check(cfg, params, p, gen, 0, {},
+                                   f"{layout} {rid}")
+            compared += stop
+            ties += stop < len(gen)
         check(engine.block_accounting()[1] == 0, "blocks leaked")
         print(f"phase 2 {layout}: {compared} tokens equal to the greedy "
               f"recompute over {len(prompts)} requests", flush=True)
@@ -1335,25 +1426,34 @@ def profile_window(engine, n_active, label):
     return decode or "not launched"
 
 
-def profile_chunk(engine, rng, decode):
-    """Where one prefill chunk's time goes on the paged engine: 16
-    prompts of 1-64 tokens (one chunk) admitted at once, ``engine.
-    prefill`` under ``device_profile``; K7's device time a chunk printed
-    beside the flash decode kernel's a window (``decode``)."""
+def profile_prefill(engine, rng, n, watch=None):
+    """Where one prefill's time goes: ``n`` prompts of 1-64 tokens (one
+    bucket, or one chunk) admitted at once, prefilled once (on the graph
+    route, the capture) and then under ``device_profile``.  Returns its
+    summary, ``None`` where the profiler saw no device time."""
     B = engine.num_slots
     prompts = np.zeros((B, engine.max_prompt_tokens), np.int64)
-    p_lens = np.zeros(B, np.int32)
+    p_lens = np.ones(B, np.int32)
     admit = np.zeros(B, bool)
-    for i in range(16):
+    for i in range(n):
         p_lens[i] = rng.randint(1, CHUNK + 1)
         prompts[i, :p_lens[i]] = rng.randint(0, VOCAB, p_lens[i])
         engine.reserve_slot(i, int(p_lens[i]), 128)
         admit[i] = True
+    engine.prefill(prompts, p_lens, admit)
     prof = device_profile(lambda: engine.prefill(prompts, p_lens, admit),
-                          watch="prefill")
+                          watch=watch)
     check(engine.last_prefill_chunks == 1, "the profiled prefill took "
           f"{engine.last_prefill_chunks} chunks")
     engine.release_all_slots()
+    return prof
+
+
+def profile_chunk(engine, rng, decode):
+    """A paged prefill chunk of 16 prompts (:func:`profile_prefill`); K7's
+    device time a chunk printed beside the flash decode kernel's a
+    window (``decode``)."""
+    prof = profile_prefill(engine, rng, 16, watch="prefill")
     if prof is None:
         print("phase 3 chunk profile: device time not measured")
         return
@@ -1378,7 +1478,7 @@ def serve_mix(engine, rng):
     for warm in (rng, np.random.RandomState(1)):        # warm-up
         batcher.submit(warm.randint(0, VOCAB, 4).tolist(), max_new_tokens=16)
         batcher.run()
-    calls = count_calls(engine)
+    calls = ladder_calls(engine)
     replays = engine.replays
     reset_launches()
     torch.cuda.synchronize()
@@ -3052,6 +3152,9 @@ def zero_pipe_parity(job):
                           over_worst=max(over, key=over.get),
                           left_out=sum(int((~k).sum()) for k in
                                        kept.values()),
+                          left_out_by=({n: int((~k).sum())
+                                        for n, k in kept.items()
+                                        if int((~k).sum())}),
                           launches=got, pipe=pipe,
                           route=check_route(runner, job, label))
         runner.close()
@@ -3260,7 +3363,7 @@ def phase_zero_parity():
               f"{where} [{world} ranks on one card, gloo, run_steps route "
               f"{plain['route']}]: plain losses {plain['loss']}; "
               f"{plain['left_out']} elements with a noise gradient left "
-              f"out; "
+              f"out (by tensor: {plain['left_out_by']}); "
               + "; ".join(
                   f"{label} losses {got[label]['loss']}, params "
                   f"{got[label]['err']:.2e} rel. ({got[label]['worst']}), "
@@ -3442,10 +3545,493 @@ def phase_zero_window():
     return counts
 
 
+# --------------------------------------------------------------------- #
+# phases 17 and 18: the rest of serving (sampling, prefix caching,
+# speculative decoding, K1 in the prefill, the prefill graphs)
+# --------------------------------------------------------------------- #
+SAMPLING = dict(temperature=0.9, top_k=40)
+LADDER_LAYERS = 2          # phase 17: the serve width cut to 2 layers
+LADDER_NEW = 24            # new tokens a request of phase 17
+SHARED_PREFIX = 2 * BLOCK_LEN
+
+
+def card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def ladder_want(engine, calls):
+    """The launches each kernel wrapper must count for ``calls``: K5/K6
+    ``layers`` a token step (the draft's 1 a step), K7 ``layers`` a
+    chunk or verify window, K1 ``layers`` a single-shot prefill under
+    the flash ``attention_fn``."""
+    want = dict.fromkeys(KERNELS, 0)
+    decode = ("flash_decode" if engine.kv_layout == "dense"
+              else "flash_decode_paged")
+    parts = [(engine, calls["prefills"], calls["chunks"])]
+    if engine.draft is None:
+        want[decode] += (engine.cfg.num_layers * engine.decode_steps
+                         * calls["windows"])
+    else:
+        d = engine.draft
+        want[decode] += d.cfg.num_layers * (
+            d.decode_steps * calls["proposals"] + calls["catchups"])
+        want["flash_prefill_paged"] += engine.cfg.num_layers * calls[
+            "windows"]
+        parts.append((d, calls["draft_prefills"], calls["draft_chunks"]))
+    for e, prefills, chunks in parts:
+        if e.prefill_chunk is not None:
+            want["flash_prefill_paged"] += e.cfg.num_layers * chunks
+        elif e.cfg.attention_fn is not None:
+            want["flash_attention_fwd"] += e.cfg.num_layers * prefills
+    return want
+
+
+def check_graphs(engine, calls, label):
+    """One prefill graph (the bucket or the chunk shape) and one window
+    graph (decode or verify; the draft's decode and catch-up), each
+    replayed at every call after the first; none on the eager routes."""
+    def dispatches(e, prefills, chunks):
+        return chunks if e.prefill_chunk is not None else prefills
+
+    d = engine.draft
+    rows = [(engine, dispatches(engine, calls["prefills"], calls["chunks"]),
+             calls["windows"], 0)]
+    if d is not None:
+        rows.append((d, dispatches(d, calls["draft_prefills"],
+                                   calls["draft_chunks"]),
+                     calls["proposals"], calls["catchups"]))
+    for e, n_pre, n_win, n_one in rows:
+        pre = (int(n_pre > 0), max(n_pre - 1, 0)) if e.prefill_graph \
+            else (0, 0)
+        win = ((int(n_win > 0) + int(n_one > 0),
+                max(n_win - 1, 0) + max(n_one - 1, 0)) if e.decode_graph
+               else (0, 0))
+        got = ((e.prefill_captures, e.prefill_replays),
+               (e.captures, e.replays))
+        check(got == (pre, win), f"{label}: prefill (captures, replays) "
+              f"{got[0]} and window {got[1]}, the calls give {pre} and "
+              f"{win}")
+
+
+def run_staggered(engine, requests):
+    """The first request admitted alone (one scheduler round), then the
+    rest, so that later admissions find its prefix resident (same-batch
+    requests never share).  Returns the completions in request order."""
+    batcher = port.ContinuousBatcher(engine)
+    p, n, s = requests[0]
+    rids = [batcher.submit(p, max_new_tokens=n, seed=s)]
+    batcher.step()
+    rids += [batcher.submit(p, max_new_tokens=n, seed=s)
+             for p, n, s in requests[1:]]
+    batcher.run()
+    return [batcher.completions[r] for r in rids]
+
+
+def block_trace_clean(events):
+    """Replay an allocator trace: no ``write`` lands on a block whose
+    reference count is not exactly 1.  Returns (writes, cows)."""
+    rc, writes, cows = {}, 0, 0
+    for ev in events:
+        kind, b = ev[0], ev[1]
+        if kind == "alloc":
+            rc[b] = 1
+        elif kind == "share":
+            rc[b] += 1
+        elif kind == "free":
+            rc[b] -= 1
+        elif kind == "write":
+            check(rc.get(b, 0) == 1, f"write on block {b} at refcount "
+                  f"{rc.get(b, 0)}")
+            writes += 1
+        elif kind == "cow":
+            cows += 1
+    return writes, cows
+
+
+def same_streams(a, b, stops, label):
+    """Two engines' streams token for token, each up to where its
+    recompute comparison stopped at a near tie."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        m = min(stops[0][i], stops[1][i])
+        check(x[:m] == y[:m], f"{label}: request {i} differs: {x} vs {y}")
+        if m == len(x):
+            check(x == y, f"{label}: request {i} differs: {x} vs {y}")
+
+
+def phase_ladder_parity():
+    """fp32 parity of the serving ladder at the serve width cut to 2
+    layers (4 requests sharing a 2-block prefix through
+    ``ContinuousBatcher``, each engine on the prefill-graph route and
+    eagerly)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    where = card()
+    cfg = cfg_of(torch.float32, LADDER_LAYERS)
+    k1 = dataclasses.replace(cfg, attention_fn=port.ops.make_attention_fn(
+        True))
+    params = port.init_pipeline_lm_params(
+        cfg, torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    draft_cfg = cfg_of(torch.float32, 1)
+    drafts = {"same": dict(draft_cfg=cfg, draft_params=params),
+              "other": dict(draft_cfg=draft_cfg,
+                            draft_params=port.init_pipeline_lm_params(
+                                draft_cfg, torch.Generator(
+                                    device="cuda").manual_seed(2),
+                                device="cuda"))}
+    layouts = {
+        "dense": dict(num_slots=8, decode_steps=8, prefill_len=64),
+        "paged": dict(num_slots=8, decode_steps=8, prefill_len=64,
+                      kv_layout="paged", kv_block_len=BLOCK_LEN),
+        "chunked": dict(num_slots=8, decode_steps=8, prefill_len=64,
+                        kv_layout="paged", kv_block_len=BLOCK_LEN,
+                        prefill_chunk=BLOCK_LEN)}
+    # (label, layout, the vanilla engine it must equal, kwargs); the
+    # first of each layout and sampling is its vanilla engine.
+    variants = [
+        ("dense", "dense", None, {}),
+        ("dense sampled", "dense", None, SAMPLING),
+        ("dense spec same", "dense", "dense", dict(speculative=SPEC_K,
+                                                   draft="same")),
+        ("dense spec other sampled", "dense", "dense sampled",
+         dict(speculative=SPEC_K, draft="other", **SAMPLING)),
+        ("dense K1 sampled", "dense", "dense sampled",
+         dict(k1=True, **SAMPLING)),
+        ("paged", "paged", None, {}),
+        ("paged sampled", "paged", None, SAMPLING),
+        ("paged K1 sampled", "paged", "paged sampled",
+         dict(k1=True, **SAMPLING)),
+        ("paged cached sampled", "paged", "paged sampled",
+         dict(prefix_caching=True, **SAMPLING)),
+        ("paged spec other", "paged", "paged", dict(speculative=SPEC_K,
+                                                    draft="other")),
+        ("chunked", "chunked", None, {}),
+        ("chunked sampled", "chunked", None, SAMPLING),
+        ("chunked cached", "chunked", "chunked",
+         dict(prefix_caching=True)),
+        ("chunked cached spec same sampled", "chunked", "chunked sampled",
+         dict(prefix_caching=True, speculative=SPEC_K, draft="same",
+              **SAMPLING)),
+    ]
+    # A 2-block shared prefix and suffixes of 10, 25 and 3 tokens; the
+    # last request repeats the first, so its partial tail block is shared
+    # too and its first decode step copies it on write.
+    rng = np.random.RandomState(17)
+    shared = rng.randint(0, VOCAB, SHARED_PREFIX).tolist()
+    requests = [(shared + rng.randint(0, VOCAB, n).tolist(), LADDER_NEW, s)
+                for s, n in enumerate((10, 25, 3))]
+    requests.append((requests[0][0], LADDER_NEW, 3))
+    streams, stops, ties = {}, {}, 0
+    for label, layout, vanilla, kw in variants:
+        kw = dict(kw)
+        draft = drafts[kw.pop("draft")] if "draft" in kw else {}
+        ecfg = k1 if kw.pop("k1", False) else cfg
+        sampling = {k: kw[k] for k in SAMPLING if k in kw}
+        for route in ("graph", "eager"):
+            name = f"{label} {route}"
+            engine = port.serve(ecfg, params=params, device="cuda",
+                                prefill_graph=route == "graph",
+                                **layouts[layout], **draft, **kw)
+            calls = ladder_calls(engine)
+            reset_launches()
+            comps = run_staggered(engine, requests)
+            torch.cuda.synchronize()
+            got = [c.tokens for c in comps]
+            check(launches() == ladder_want(engine, calls),
+                  f"{name}: launches {launches()}, the calls "
+                  f"{ladder_want(engine, calls)}")
+            check_graphs(engine, calls, name)
+            stop = []
+            for (p, _, s), toks in zip(requests, got):
+                at = recompute_check(cfg, params, p, toks, s, sampling,
+                                     name)
+                stop.append(at)
+                ties += at < len(toks)
+            for e in (engine, engine.draft):
+                if e is not None:
+                    free, used, total = e.block_accounting()
+                    check(used == 0 and free == total,
+                          f"{name}: blocks leaked ({free}, {used})")
+            writes = cows = 0
+            if engine.kv_layout == "paged":
+                writes, cows = block_trace_clean(engine._allocator.events)
+            hits = sum(c.prefix_hit_blocks for c in comps)
+            proposed = sum(c.spec_proposed for c in comps)
+            accepted = sum(c.spec_accepted for c in comps)
+            if engine.prefix_caching:
+                check(hits > 0 and cows > 0, f"{name}: {hits} hit blocks, "
+                      f"{cows} copies on write")
+            if engine.draft is not None:
+                check(proposed > 0, f"{name}: nothing proposed")
+            streams[name], stops[name] = got, stop
+            if route == "eager":
+                same_streams(streams[f"{label} graph"], got,
+                             (stops[f"{label} graph"], stop),
+                             f"{label}: graph against eager")
+            if vanilla is not None:
+                same_streams(streams[f"{vanilla} {route}"], got,
+                             (stops[f"{vanilla} {route}"], stop),
+                             f"{name} against {vanilla}")
+            print(f"phase 17 {name} fp32 [{where}]: "
+                  f"{sum(map(len, got))} tokens over {len(got)} requests "
+                  f"equal to the recompute, graph == eager"
+                  + (f", == {vanilla}" if vanilla else "")
+                  + f"; prefix-hit blocks {hits}, writes {writes}, copies "
+                  f"on write {cows}; proposed {proposed}, accepted "
+                  f"{accepted}; launches "
+                  f"{ {k: v for k, v in launches().items() if v} }; "
+                  f"prefill graphs {engine.prefill_captures}/"
+                  f"{engine.prefill_replays}, window graphs "
+                  f"{engine.captures}/{engine.replays}", flush=True)
+            engine.close()
+            del engine
+    print(f"phase 17 ties: {ties}", flush=True)
+    del params, drafts
+    torch.cuda.empty_cache()
+
+
+def timed_mix(engine, requests, warm, resident=None):
+    """``warm`` (prompt, new) requests run to completion first (the
+    graphs' captures), then ``requests`` through ``ContinuousBatcher``
+    timed, with the launch counters set to 0 just before, the batcher
+    stepped by hand to track the admitted count; ``resident``, where
+    given, is admitted alone first (one scheduler round) and held for
+    64 tokens.  The
+    launches are held to the timed run's calls, the graphs' captures and
+    replays to all of the engine's.  Returns (seconds, completions, the
+    timed run's calls, launches, peak admitted)."""
+    batcher = port.ContinuousBatcher(engine)
+    totals = ladder_calls(engine)
+    for p, n in warm:
+        batcher.submit(p, max_new_tokens=n)
+        batcher.run()
+    before = dict(totals)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if resident is not None:
+        batcher.submit(resident, max_new_tokens=64)
+        batcher.step()
+    rids = [batcher.submit(p, max_new_tokens=n, seed=s)
+            for p, n, s in requests]
+    admitted = 0
+    while batcher.queue_depth or batcher.active_slots:
+        batcher.step()
+        admitted = max(admitted, batcher.active_slots)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    comps = [batcher.completions[r] for r in rids]
+    got = launches()
+    calls = {k: v - before[k] for k, v in totals.items()}
+    check(got == ladder_want(engine, calls),
+          f"launches {got}, the calls {ladder_want(engine, calls)}")
+    check_graphs(engine, totals, "the timed mix")
+    check(all(c.finish_reason in FINISH_REASONS and
+              all(0 <= t < VOCAB for t in c.tokens) for c in comps),
+          "a completion out of the vocabulary or with no reason")
+    for e in (engine, engine.draft):
+        if e is not None:
+            free, used, total = e.block_accounting()
+            check(used == 0 and free == total, f"blocks leaked: {free, used}")
+    return wall, comps, calls, got, admitted
+
+
+def mix_line(wall, comps):
+    tokens = sum(len(c.tokens) for c in comps)
+    itl = [ms for c in comps for ms in c.inter_token_ms] or [0.0]
+    ttft = sorted(c.ttft_s * 1e3 for c in comps)
+    return (tokens / wall, ttft[len(ttft) // 2], np.percentile(itl, 50),
+            np.percentile(itl, 99),
+            f"{tokens} tokens in {wall:.3f} s = {tokens / wall:.1f} tokens/s,"
+            f" TTFT p50 {ttft[len(ttft) // 2]:.2f} ms, inter-token p50 "
+            f"{np.percentile(itl, 50):.3f} ms p99 "
+            f"{np.percentile(itl, 99):.3f} ms")
+
+
+def phase_ladder_serve():
+    """bf16 at the serve widths: the serve mix with the prefill graph and
+    eagerly, sampled; bench.py serve --prompt-mix shared-prefix's
+    configuration paged-alone and prefix-cached, and with K1 in the
+    prefill; bench.py serve --speculative 4's configuration vanilla and
+    speculative.  Returns the main path's launches."""
+    where = card()
+    cfg = cfg_of(torch.bfloat16)
+    params = port.init_pipeline_lm_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    counts = {}
+
+    def add(got):
+        for k, v in got.items():
+            counts[k] = counts.get(k, 0) + v
+
+    def mix(rng):
+        return [(rng.randint(0, VOCAB, int(rng.randint(1, 65))).tolist(), 128,
+                 s) for s in range(16)]
+
+    warm = [([1, 2, 3, 4], 16), ([5, 6, 7, 8], 16)]
+    # (a) and (b): the serve mix (phase 3's engines and requests).
+    for layout in ("dense", "paged"):
+        greedy = None
+        for label, kw in (("prefill graph", {}),
+                          ("eager prefill", dict(prefill_graph=False)),
+                          ("sampled", SAMPLING)):
+            engine = port.serve(cfg, params=params, device="cuda",
+                                **ENGINES[layout], **kw)
+            wall, comps, calls, got, _ = timed_mix(
+                engine, mix(np.random.RandomState(0)), warm)
+            rate, ttft, p50, p99, line = mix_line(wall, comps)
+            print(f"phase 18 (a/b) {layout} {label} bf16 [{where}]: {line};"
+                  f" windows {calls['windows']}, prefill calls "
+                  f"{calls['prefills']}, chunks {calls['chunks']}, prefill "
+                  f"graphs {engine.prefill_captures}/"
+                  f"{engine.prefill_replays} "
+                  f"({engine.prefill_capture_seconds:.2f} s), launches "
+                  f"{ {k: v for k, v in got.items() if v} }", flush=True)
+            if label == "prefill graph":
+                greedy = (rate, p50, p99)
+                add(got)
+            if label == "sampled":
+                print(f"phase 18 (b) {layout} [{where}]: sampled "
+                      f"{rate:.1f} tokens/s, inter-token p50 {p50:.3f} / "
+                      f"p99 {p99:.3f} ms beside greedy {greedy[0]:.1f} "
+                      f"tokens/s, {greedy[1]:.3f} / {greedy[2]:.3f} ms",
+                      flush=True)
+            else:
+                prof = profile_prefill(engine, np.random.RandomState(1), 8)
+                print(f"phase 18 {layout} {label} prefill profile [{where}]: "
+                      + ("device time not measured" if prof is None else
+                         f"one prefill of 8 prompts {prof[0]:.2f} ms wall, "
+                         f"device busy {prof[1]:.2f} ms, {prof[2]:.0f} "
+                         f"kernel launches; top: {prof[4]}"), flush=True)
+            engine.close()
+            del engine
+            torch.cuda.empty_cache()
+    # (c) and (e): bench.py serve --prompt-mix shared-prefix.
+    shared_kw = dict(num_slots=32, max_len=MAX_LEN, prefill_len=512,
+                     decode_steps=16, kv_layout="paged", kv_block_len=16,
+                     kv_num_blocks=8 * (MAX_LEN // 16))
+    rng = np.random.RandomState(0)
+    shared = rng.randint(0, VOCAB, 256).tolist()
+    requests = [(shared + rng.randint(0, VOCAB, int(rng.randint(
+        1, 512 - 256 + 1))).tolist(), int(rng.randint(2, 65)), 0)
+        for _ in range(24)]
+    rows = {}
+    k1 = dataclasses.replace(cfg, attention_fn=port.ops.make_attention_fn(
+        True))
+    # The bench submits the mix at once: its first admission round fills
+    # the pool before any prefix is registered, and the JAX engine peaks
+    # at 18 both ways with 48 hit blocks (tests/test_torch_prefix_
+    # capacity.py holds the port to it on the CPU).  With the prefix
+    # resident first, as a cached system prompt is, caching admits more.
+    resident = shared + [1, 2, 3]
+    for label, ecfg, caching, first in (
+            ("paged alone", cfg, False, None),
+            ("prefix cached", cfg, True, None),
+            ("prefix cached K1", k1, True, None),
+            ("paged alone, prefix resident", cfg, False, resident),
+            ("prefix cached, prefix resident", cfg, True, resident)):
+        engine = port.serve(ecfg, params=params, device="cuda",
+                            prefix_caching=caching, **shared_kw)
+        wall, comps, calls, got, peak = timed_mix(
+            engine, requests, [([1, 2, 3, 4], 16)], resident=first)
+        hits = sum(c.prefix_hit_blocks for c in comps)
+        rate, ttft, p50, p99, line = mix_line(wall, comps)
+        rows[label] = (peak, ttft, hits)
+        print(f"phase 18 (c/e) shared-prefix {label} bf16 [{where}, 32 "
+              f"slots, pool {shared_kw['kv_num_blocks']} x 16]: peak admitted"
+              f" {peak}, prefix-hit blocks {hits}; {line}; launches "
+              f"{ {k: v for k, v in got.items() if v} }", flush=True)
+        if caching:
+            block_trace_clean(engine._allocator.events)
+        if label == "prefix cached K1":
+            add(got)
+        engine.close()
+        del engine
+        torch.cuda.empty_cache()
+    bench = (rows["paged alone"][0], rows["prefix cached"][0],
+             rows["prefix cached"][2])
+    check(bench == (18, 18, 48), f"bench order: peaks and hit blocks "
+          f"{bench}, the JAX engine's (18, 18, 48)")
+    alone, cached = (rows[f"{k}, prefix resident"][0]
+                     for k in ("paged alone", "prefix cached"))
+    check(cached > alone, f"prefix resident: the prefix-cached run admitted "
+          f"{cached}, no more than paged alone's {alone}")
+    print(f"phase 18 (e) [{where}]: TTFT p50 with K1 in the prefill "
+          f"{rows['prefix cached K1'][1]:.2f} ms against the composed "
+          f"prefill's {rows['prefix cached'][1]:.2f} ms", flush=True)
+    # (d): bench.py serve --speculative 4.
+    draft_cfg = cfg_of(torch.bfloat16, 1)
+    draft = port.init_pipeline_lm_params(
+        draft_cfg, torch.Generator(device="cuda").manual_seed(1),
+        device="cuda")
+    rng = np.random.RandomState(0)
+    requests = [(rng.randint(0, VOCAB, int(rng.randint(1, 65))).tolist(), 128,
+                 0) for _ in range(16)]
+    spec_kw = dict(num_slots=8, max_len=MAX_LEN, prefill_len=64,
+                   decode_steps=16, kv_layout="paged", kv_block_len=16)
+    rates, streams = {}, {}
+    for label, kw in (("vanilla", {}),
+                      ("speculative", dict(speculative=SPEC_K,
+                                           draft_cfg=draft_cfg,
+                                           draft_params=draft))):
+        engine = port.serve(cfg, params=params, device="cuda", **spec_kw,
+                            **kw)
+        wall, comps, calls, got, _ = timed_mix(engine, requests,
+                                               [([1, 2, 3, 4], 16)])
+        rate, ttft, p50, p99, line = mix_line(wall, comps)
+        rates[label] = rate
+        streams[label] = [c.tokens for c in comps]
+        proposed = sum(c.spec_proposed for c in comps)
+        accepted = sum(c.spec_accepted for c in comps)
+        acc = f", acceptance {accepted / proposed:.4f} ({accepted} of " \
+            f"{proposed})" if proposed else ""
+        print(f"phase 18 (d) {label} bf16 [{where}, 8 slots, k {SPEC_K}, "
+              f"1-layer draft]: {line}{acc}; windows {calls['windows']}, "
+              f"proposals {calls['proposals']}, catch-ups "
+              f"{calls['catchups']}; launches "
+              f"{ {k: v for k, v in got.items() if v} }", flush=True)
+        if label == "speculative":
+            add(got)
+        engine.close()
+        del engine
+        torch.cuda.empty_cache()
+    # In bf16 the verify window (K7 over k + 1 rows) and a decode step
+    # (K6) round apart: a stream may part from vanilla only where the
+    # recompute's top two logits lie within bf16's tolerance (1e-2 of
+    # the top logit), and the comparison ends there.
+    parted = []
+    for (p, _, _), a, b in zip(requests, streams["vanilla"],
+                               streams["speculative"]):
+        i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None:
+            check(a == b, "a speculative stream's length differs")
+            continue
+        logits = sequential_logits(cfg, params, torch.as_tensor(
+            [p + a[:i]], device="cuda"))[0, -1]
+        top2 = logits.topk(2).values
+        gap, bound = float(top2[0] - top2[1]), 1e-2 * max(
+            1.0, abs(float(top2[0])))
+        check(gap <= bound, f"a speculative stream parts from vanilla at "
+              f"token {i} ({b[i]} against {a[i]}), top-2 gap {gap} > {bound}")
+        parted.append((i, round(gap, 5)))
+    print(f"phase 18 (d) [{where}]: speculative {rates['speculative']:.1f} "
+          f"against vanilla {rates['vanilla']:.1f} tokens/s; "
+          f"{len(requests) - len(parted)} of {len(requests)} streams equal "
+          f"to vanilla's, the rest parting at near ties (token, top-2 gap) "
+          f"{parted}", flush=True)
+    del params, draft
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
-        "--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
+        "--phases",
+        default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18",
         help="comma-separated phases to run (default: all); the kernels "
              "line needs them all")
     phases = {int(p) for p in parser.parse_args(argv).phases.split(",")}
@@ -3481,7 +4067,9 @@ def main(argv=None) -> int:
              (13, phase_zoo_parity),
              (14, lambda: add(phase_zoo_window())),
              (15, lambda: add(phase_zero_parity())),
-             (16, lambda: add(phase_zero_window()))]
+             (16, lambda: add(phase_zero_window())),
+             (17, phase_ladder_parity),
+             (18, lambda: add(phase_ladder_serve()))]
     for phase, run in steps:
         if phase in phases:
             t1 = time.perf_counter()
@@ -3527,6 +4115,9 @@ def main(argv=None) -> int:
                     kernels[-1][label] = dict(
                         record[(name, dtype, label)],
                         pair=record[("K2 pair", dtype, label)])
+            for label in ("verify", "prefill_64", "prefill_512"):
+                if (name, dtype, label) in record:        # K7, K1
+                    kernels[-1][label] = record[(name, dtype, label)]
         print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1152,3 +1152,149 @@ def test_cuda_remat_equals_no_remat_with_dropout(cuda):
     for name, g in plain[1].items():
         torch.testing.assert_close(remat[1][name], g, atol=1e-6, rtol=1e-6,
                                    msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [16, 64])
+def test_cuda_flash_attention_fwd_at_the_prefill_buckets(cuda, dtype, L):
+    """K1, causal, at the serving prompt buckets 16 and 64 (8 prompts of
+    16 heads, q/k/v sliced from one projection as the prefill hands them
+    over) against its plain version: fp32 at atol = rtol = 1e-5, bf16
+    at 1e-2; one launch a call."""
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    g = torch.Generator(device=cuda).manual_seed(L)
+    qkv = torch.randn((8, L, 3, 16, 64), generator=g, device=cuda).to(dtype)
+    q, k, v = qkv.unbind(2)
+    before = fa.flash_attention_fwd.launches
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == before + 1
+    want = fa.flash_attention_fwd_plain(q, k, v, causal=True, scale=0.125)
+    for got, ref in zip((out, lse), want):
+        torch.testing.assert_close(got.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_prefill_at_the_verify_window(cuda, dtype):
+    """K7 at the speculative verify window: C = 5 query rows a slot at
+    ragged starts (neither chunk- nor block-aligned, one past the
+    table's extent) over blocks of 16 (bf16: the tensor-core instance),
+    and over dense lanes read as one 1024-row block a slot (the dense
+    verify window), against its plain version; a repeat is
+    bit-identical."""
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    g = torch.Generator(device=cuda).manual_seed(5)
+    B, H, C, bl, nb = 8, 16, 5, 16, 512
+    starts = torch.tensor([0, 1, 15, 17, 63, 500, 1018, 1020],
+                          dtype=torch.int32, device=cuda)
+    rng = np.random.RandomState(5)
+    table = torch.as_tensor(rng.permutation(nb)[:B * 64].reshape(B, 64)
+                            .astype(np.int32), device=cuda)
+    lanes = torch.arange(B, dtype=torch.int32, device=cuda)[:, None]
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(dtype)
+
+    q = randn(B, C, H, 64)
+    for pools, tab, block in (((randn(nb, H, bl, 64), randn(nb, H, bl, 64)),
+                               table, bl),
+                              ((randn(B, H, 1024, 64), randn(B, H, 1024, 64)),
+                               lanes, 1024)):
+        args = (q, *pools, starts, tab)
+        got = fp.flash_prefill_attention_paged(*args, block_len=block,
+                                               dtype=dtype)
+        again = fp.flash_prefill_attention_paged(*args, block_len=block,
+                                                 dtype=dtype)
+        ref = fp.flash_prefill_attention_paged_plain(*args, block_len=block,
+                                                     dtype=dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+
+
+LADDER_ENGINES = {
+    "dense_sampled_k1": dict(temperature=0.9, top_k=40, flash=True),
+    "chunked_prefix_sampled": dict(kv_layout="paged", kv_block_len=8,
+                                   prefill_chunk=16, prefix_caching=True,
+                                   temperature=0.9, top_k=40),
+    "paged_spec_k1": dict(kv_layout="paged", kv_block_len=8, speculative=3,
+                          flash=True),
+    "dense_spec_sampled": dict(speculative=3, temperature=0.9),
+}
+
+
+@pytest.mark.parametrize("name", list(LADDER_ENGINES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_prefill_replay_equals_eager(cuda, dtype, name):
+    """The ladder's engines through ``ContinuousBatcher`` (five requests
+    sharing a prefix, two slots, seeds, a ``max_len`` run) with every
+    program replaying its CUDA graph and with every body launched from
+    the host: equal streams and hit and speculation counts, one prefill
+    graph (the bucket or the chunk shape) replayed at every prefill call
+    or chunk after the first, the window graphs (decode; verify and
+    catch-up when speculative) likewise, and no block leaked."""
+    import dataclasses
+
+    kw = dict(LADDER_ENGINES[name])
+    cfg = port.TransformerConfig(
+        vocab_size=97, hidden_size=128, num_layers=2, num_heads=2, mlp_dim=256,
+        max_len=48, dtype=dtype, dropout_rate=0.0, attention_dropout_rate=0.0)
+    if kw.pop("flash", False):
+        cfg = dataclasses.replace(cfg, attention_fn=port.ops.make_attention_fn(
+            True))
+    params = port.init_pipeline_lm_params(cfg, torch.Generator().manual_seed(0),
+                                          device="cpu")
+    if "speculative" in kw:
+        draft_cfg = dataclasses.replace(cfg, num_layers=1)
+        kw.update(draft_cfg=draft_cfg, draft_params=port.init_pipeline_lm_params(
+            draft_cfg, torch.Generator().manual_seed(1), device="cpu"))
+    rng = np.random.RandomState(2)
+    shared = rng.randint(0, 97, 9).tolist()
+    reqs = [(shared + rng.randint(0, 97, n).tolist(), m, s)
+            for s, (n, m) in enumerate([(5, 9), (7, 7), (3, 100), (0, 13),
+                                        (1, 6)])]
+
+    def run(graph):
+        engine = port.serve(cfg, params=params, device=cuda, num_slots=2,
+                            prefill_len=16, decode_steps=4,
+                            decode_graph=graph, prefill_graph=graph, **kw)
+        calls = {"prefill": 0, "chunks": 0}
+        prefill = engine.prefill
+
+        def counted(*a, **k):
+            out = prefill(*a, **k)
+            calls["prefill"] += 1
+            calls["chunks"] += engine.last_prefill_chunks
+            return out
+        engine.prefill = counted
+        batcher = port.ContinuousBatcher(engine)
+        rids = [batcher.submit(p, max_new_tokens=m, seed=s)
+                for p, m, s in reqs]
+        done = batcher.run()
+        torch.cuda.synchronize()
+        for e in (engine, engine.draft):
+            if e is not None:
+                assert e.block_accounting()[1] == 0
+        return engine, calls, [
+            (done[r].tokens, done[r].finish_reason, done[r].prefix_hit_blocks,
+             done[r].spec_proposed, done[r].spec_accepted) for r in rids]
+
+    engine, calls, replayed = run(True)
+    n = calls["chunks"] if engine.prefill_chunk else calls["prefill"]
+    assert (engine.prefill_captures, engine.prefill_replays) == (1, n - 1)
+    # The window graph: decode, or the verify window (the draft keeps its
+    # own decode and catch-up graphs).
+    assert engine.captures == 1 and engine.replays > 0
+    if engine.draft is not None:
+        assert engine.draft.captures >= 1 and engine.draft.replays > 0
+    plain, _, eager = run(False)
+    assert plain.captures == plain.prefill_captures == 0
+    assert replayed == eager
+    assert replayed[2][1] == "max_len"
+    if "prefix_caching" in kw:
+        assert sum(r[2] for r in replayed) > 0
+    if "speculative" in kw:
+        assert sum(r[3] for r in replayed) > 0
+    engine.close()

@@ -136,7 +136,8 @@ WORKER = textwrap.dedent("""
     testing.init_rank(rank, world, store)
     job = torch.load(inp, weights_only=False)
     OPTS = {"sgd": lambda: port.optim.sgd(job["lr"]),
-            "adam": lambda: port.optim.adam(1e-2)}
+            "adam": lambda: port.optim.adam(1e-2),
+            "adam_quant": lambda: port.optim.adam(1e-3)}
 
     def mlp_stage(chunk, x):
         return torch.relu(x @ chunk["w"] + chunk["b"])

@@ -14,6 +14,7 @@ CPU or to serve what the slice has not ported.
 """
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -267,25 +268,48 @@ def test_batcher_telemetry(tcfg, tparams):
 # --------------------------------------------------------------------------- #
 # what the slice refuses
 # --------------------------------------------------------------------------- #
+def _other_vocab_draft(tcfg, tparams):
+    import dataclasses
+
+    return dict(speculative=2, draft_params=tparams,
+                draft_cfg=dataclasses.replace(tcfg, vocab_size=V + 1))
+
+
+def _einsum_attention(tcfg, tparams):
+    import dataclasses
+
+    return dict(cfg=dataclasses.replace(tcfg, attention_fn=lambda *a: None))
+
+
 @pytest.mark.parametrize("kw", [
-    dict(tensor_parallel=2, temperature=0.7),
-    dict(tensor_parallel=2, vocab_parallel=True, speculative=2),
-    dict(comm_overlap="rsag"), dict(temperature=0.7), dict(top_k=4),
-    dict(speculative=2), dict(kv_layout="paged", prefix_caching=True)])
+    (dict(prefix_caching=True), ValueError, "requires kv_layout='paged'"),
+    (dict(speculative=2), ValueError, "needs a draft model"),
+    (_other_vocab_draft, ValueError, "must match the target's"),
+    (dict(comm_overlap="rsag"), NotImplementedError,
+     "ROADMAP Queue 1, slice 3 leftovers, item 3"),
+    (dict(temperature=-0.5), ValueError, "temperature must be >= 0"),
+    (dict(top_k=-1), ValueError, "top_k must be >= 0"),
+    (_einsum_attention, NotImplementedError, "flash-attention family")])
 def test_out_of_slice_options_raise(kw, tcfg, tparams):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        port.ServingEngine(tcfg, tparams, device="cpu", **kw)
+    """What the engine refuses: the JAX engine's own validation errors,
+    with its messages, and ``comm_overlap="rsag"``, not ported yet."""
+    make, exc, match = kw
+    kw = make(tcfg, tparams) if callable(make) else dict(make)
+    cfg = kw.pop("cfg", tcfg)
+    with pytest.raises(exc, match=re.escape(match)):
+        port.ServingEngine(cfg, tparams, device="cpu", **kw)
 
 
 def test_out_of_slice_constructors_raise(tcfg, tparams):
     import dataclasses
 
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+    with pytest.raises(NotImplementedError, match="flash-attention family"):
         port.ServingEngine(dataclasses.replace(
             tcfg, attention_fn=lambda *a: None), tparams, device="cpu")
-    for make in (lambda: port.ServingEngine.from_runner(None, tcfg),
-                 lambda: port.ServingEngine.from_artifact("x", tcfg)):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+    for make in (lambda: port.ServingEngine.from_artifact("x", tcfg),
+                 lambda: port.serve(tcfg, artifact="x", device="cpu")):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1, item 8"):
             make()
 
 

@@ -405,6 +405,65 @@ def test_two_gloo_ranks_on_half_batches_match_one_rank(tmp_path):
         torch.testing.assert_close(x, y, **TOL, msg=n)
 
 
+_PRECISION_WORKER = textwrap.dedent("""
+    import sys
+    import torch
+    import autodist_tpu_torch as port
+    from autodist_tpu_torch import testing
+    from autodist_tpu_torch.models import bert
+    rank, world, store, inp, out = (int(sys.argv[1]), int(sys.argv[2]),
+                                    sys.argv[3], sys.argv[4], sys.argv[5])
+    torch.set_num_threads(1)
+    testing.init_rank(rank, world, store)
+    job = torch.load(inp, weights_only=False)
+    cfg = port.TransformerConfig(**job["sizes"], dtype=torch.float32)
+    trainable = bert.make_mlm_trainable(cfg, port.optim.sgd(0.1),
+                                        torch.Generator().manual_seed(0),
+                                        device="cpu")
+    trainable.params = job["params"]
+    runner = port.AutoDist({}, device="cpu").build(
+        trainable, port.Strategy.from_json(job["strategy"]))
+    losses = [float(runner.step(b)["loss"]) for b in job["batches"]]
+    if rank == 0:
+        torch.save({"losses": losses, "params": runner.get_params(),
+                    "unapplied": runner.lowered.unapplied}, out)
+    testing.end_rank()
+""")
+
+
+def test_collective_precision_policy_trains_the_jax_fp32_program(
+        jtrainable, jparams, tmp_path):
+    """An ``AllReduce`` strategy whose JSON sets ``precision`` (the
+    ``grad`` and ``tp_psum`` slots) on the collective lowering, on 2 gloo
+    ranks: the JAX package's collective lowering reads no precision, so
+    the JAX program is the fp32 one; the port's losses and parameters
+    after 3 SGD steps equal the JAX runner's on 2 devices (1e-5), and
+    both slots are recorded as unapplied."""
+    spec = JaxResourceSpec({"topology": {"num_devices": 2}})
+    doc = JaxAllReduce(chunk_size=2).build(jtrainable, spec).to_json()
+    assert '"precision": {}' in doc
+    batches = [_batch(20 + i) for i in range(3)]
+    inp, out = str(tmp_path / "job.pt"), str(tmp_path / "out.pt")
+    torch.save({"sizes": SIZES, "params": port.from_jax_params(
+        jparams, device="cpu"), "batches": batches,
+        "strategy": doc.replace('"precision": {}', '"precision": '
+                                '{"grad": "bf16", "tp_psum": "int8"}')},
+        inp)
+    join = testing.launch(_PRECISION_WORKER, 2, (inp, out), tmp=tmp_path,
+                          timeout=180)
+    jr = JaxAutoDist(spec, JaxAllReduce(chunk_size=2)).build(
+        _jax_trainable(optax.sgd(0.1), jtrainable))
+    want = [float(jr.step(b)["loss"]) for b in batches]
+    join()
+    got = torch.load(out, weights_only=False)
+    np.testing.assert_allclose(got["losses"], want, **TOL)
+    params = _jflat(jr.get_params())
+    for name, p in flatten_with_names(got["params"]):
+        np.testing.assert_allclose(p.numpy(), params[name], **TOL,
+                                   err_msg=name)
+    assert set(got["unapplied"]) == {"grad", "tp_psum"}
+
+
 @pytest.mark.parametrize("what", ["compressor", "compressor_json",
                                   "builder", "ps_json", "partitioner_json",
                                   "mesh_axis", "topology_key", "multihost",
@@ -417,6 +476,16 @@ def test_out_of_slice_options_raise(what, jtrainable, jparams):
         JaxResourceSpec({"topology": {"num_devices": 1}}))
     doc = jstrategy.to_json()
     spec = JaxResourceSpec({"topology": {"num_devices": 1}})
+    if what == "compressor_json":
+        # A precision policy on the collective lowering trains the fp32
+        # program, as the JAX package's (which reads none), its slots
+        # recorded as unapplied.
+        strategy = port.Strategy.from_json(doc.replace(
+            '"precision": {}', '"precision": {"grad": "bf16"}'))
+        lowered = port.AutoDist({}, port.AllReduce(), device="cpu").lower(
+            _port_trainable(port.optim.sgd(0.1), jparams), strategy)
+        assert set(lowered.unapplied) == {"grad"}
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         if what == "compressor":
             # The pipeline lowering's compressors run; beside rsag they
@@ -438,6 +507,9 @@ def test_out_of_slice_options_raise(what, jtrainable, jparams):
         elif what == "mesh_axis":
             port.ResourceSpec({"mesh": {"data": 1, "dcn": 2}})
         elif what == "topology_key":
+            with pytest.raises(NotImplementedError,
+                               match="item 9: runtime and multi-host"):
+                port.ResourceSpec({"topology": {"generation": "v5e"}})
             port.ResourceSpec({"topology": {"generation": "v5e"}})
         elif what == "multihost":
             port.ResourceSpec({"multihost": {"num_processes": 2}})
@@ -446,13 +518,6 @@ def test_out_of_slice_options_raise(what, jtrainable, jparams):
             # rsag the pipeline's still raises.
             port.Pipeline(remat=True, tensor_parallel=2,
                           comm_overlap="rsag")
-        elif what == "compressor_json":
-            # A precision policy on the collective lowering (JAX's reads
-            # none; its compressors are AllReduce(compressor=...)).
-            strategy = port.Strategy.from_json(doc.replace(
-                '"precision": {}', '"precision": {"grad": "bf16"}'))
-            port.AutoDist({}, port.AllReduce(), device="cpu").lower(
-                _port_trainable(port.optim.sgd(0.1), jparams), strategy)
         else:
             # The default builder runs; AutoStrategy does not yet.
             port.AutoDist({}, "AutoStrategy")
