@@ -31,12 +31,23 @@ SequenceParallel()).build(make_lm_trainable(cfg, ...))``, the config's
 ``attention_fn`` a ring from :mod:`autodist_tpu_torch.parallel
 .ring_attention` and its ``position_fn``
 :func:`~autodist_tpu_torch.parallel.sequence.global_positions`) with
-the flash-attention kernels per ring chunk.  ROADMAP.md lists what
-comes next.
+the flash-attention kernels per ring chunk.  Around every runner, the
+training lifecycle: ``fit(runner, source, steps=..., eval_source=...,
+saver=Saver(dir), steps_per_loop=k)`` over a prefetching
+:class:`~autodist_tpu_torch.data.DataLoader`, ``runner.eval_step`` /
+``evaluate`` / ``run``, :func:`fetch` tags in a loss, the
+:class:`~autodist_tpu_torch.checkpoint.Saver` (exact resume, and
+portable restore under any strategy), ``export_model`` /
+``load_exported`` and ``serve(cfg, artifact=dir)``.  ROADMAP.md lists
+what comes next.
 """
 from autodist_tpu_torch import optim
 from autodist_tpu_torch.autodist import AutoDist
 from autodist_tpu_torch.capture import PipelineTrainable, Trainable, VarInfo
+from autodist_tpu_torch.checkpoint import (Saver, export_model, load_exported,
+                                           load_exported_params)
+from autodist_tpu_torch.data import DataLoader
+from autodist_tpu_torch.fetches import fetch
 from autodist_tpu_torch.interop import from_jax_params, to_jax_params
 from autodist_tpu_torch.models.moe_transformer import (MoeConfig,
                                                        make_moe_lm_trainable)
@@ -55,6 +66,7 @@ from autodist_tpu_torch.strategy.builders import (
     PartitionedPS, Pipeline, PSLoadBalancing, RandomAxisPartitionAR,
     SequenceParallel, UnevenPartitionedPS, ZeRO)
 from autodist_tpu_torch.strategy.ir import Strategy
+from autodist_tpu_torch.train import fit
 
 __all__ = ["AutoDist", "Trainable", "PipelineTrainable", "VarInfo",
            "ResourceSpec", "DistributedRunner", "stack_steps", "Strategy",
@@ -67,4 +79,5 @@ __all__ = ["AutoDist", "Trainable", "PipelineTrainable", "VarInfo",
            "init_pipeline_lm_params", "make_pipeline_lm_trainable",
            "MoeConfig", "make_moe_lm_trainable", "TransformerLM",
            "lm_loss_head", "make_lm_trainable", "from_jax_params",
-           "to_jax_params"]
+           "to_jax_params", "fit", "fetch", "DataLoader", "Saver",
+           "export_model", "load_exported", "load_exported_params"]

@@ -15,7 +15,11 @@ window captured as a CUDA graph it is a
 :class:`~autodist_tpu_torch.cuda_graph.GraphSeed` (read it through
 :func:`~autodist_tpu_torch.cuda_graph.dropout_generator`).
 :class:`PipelineTrainable` declares a model in stage form for the
-``Pipeline`` strategy.  The ``fetch`` plane belongs to a later slice.
+``Pipeline`` strategy.  Values tagged with
+:func:`~autodist_tpu_torch.fetches.fetch` inside the loss (or the
+pipeline's loss head) surface as ``fetch/<name>`` metrics under every
+lowering; ``eval_loss`` (the train loss when not given) is what
+``runner.eval_step`` runs.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import dataclasses
 import re
 from typing import Any, Callable, Sequence
 
+from autodist_tpu_torch import fetches as _fetches
 from autodist_tpu_torch.kernel.common import flatten_with_names
 
 _STAGE_ITEM = "ROADMAP Queue 1, slice 3 leftovers, item 6"
@@ -54,12 +59,30 @@ _SPARSE_NAME_RE = re.compile(r"(embed|embedding|lookup|vocab)", re.IGNORECASE)
 _SPARSE_MIN_ROWS = 8192
 
 
+def _with_fetches(loss_fn):
+    """A canonical loss whose :func:`~autodist_tpu_torch.fetches.fetch`
+    tags surface as ``fetch/<name>`` metrics: one wrapper serves every
+    lowering, since they all call ``trainable.loss`` / ``eval_loss``."""
+
+    def wrapped(params, extra, batch, rng):
+        with _fetches.collecting() as fd:
+            loss, new_extra, metrics = loss_fn(params, extra, batch, rng)
+        return loss, new_extra, _fetches.merge_into_metrics(metrics, fd)
+
+    return wrapped
+
+
 class Trainable:
-    """The unit strategies are built for and lowering consumes."""
+    """The unit strategies are built for and lowering consumes.
+    ``eval_loss`` (same signature as ``loss``) is the inference-mode
+    loss of ``runner.eval_step``; the train loss when not given."""
 
     def __init__(self, loss: Callable, params: Any, optimizer: Any, *,
-                 extra: Any = None, sparse_params: Sequence[str] = ()):
-        self.loss = loss
+                 extra: Any = None, eval_loss: Callable | None = None,
+                 sparse_params: Sequence[str] = ()):
+        self.loss = _with_fetches(loss)
+        self.eval_loss = (_with_fetches(eval_loss)
+                          if eval_loss is not None else self.loss)
         self.params = params
         self.optimizer = optimizer
         self.extra = extra

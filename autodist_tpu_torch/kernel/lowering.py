@@ -195,10 +195,22 @@ def sync_state_init(plan: Plan) -> dict:
     return rows
 
 
+def _flat_all_reduce(tensors: list, reduce, dtype) -> list:
+    """``tensors`` (any shapes) through one all-reduce ``reduce`` of
+    their flattened concatenation in ``dtype``; each comes back at its
+    shape, in ``dtype``."""
+    flat = reduce(torch.cat([t.reshape(-1).to(dtype) for t in tensors]))
+    out, offset = [], 0
+    for t in tensors:
+        out.append(flat[offset:offset + t.numel()].view(t.shape))
+        offset += t.numel()
+    return out
+
+
 def reduce_metrics(metrics: dict, mesh, axis=None) -> dict:
-    """Metrics across replicas (``axis``, by default the data axis):
-    floats averaged, integer counts summed, flags OR-ed, each kind in
-    one all-reduce."""
+    """Metrics across replicas (``axis``, by default the data axis),
+    leaf by leaf at any shape (a fetched tensor too): floats averaged,
+    integer counts summed, flags OR-ed, each kind in one all-reduce."""
     metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
     axis = mesh.axis(const.DATA_AXIS) if axis is None else axis
     if axis.size == 1 or not metrics:
@@ -207,16 +219,16 @@ def reduce_metrics(metrics: dict, mesh, axis=None) -> dict:
     counts = [k for k in metrics if k not in floats]
     out = dict(metrics)
     if floats:
-        stacked = axis.pmean(torch.stack([metrics[k].float()
-                                          for k in floats]))
-        out.update({k: stacked[i].to(metrics[k].dtype)
-                    for i, k in enumerate(floats)})
+        means = _flat_all_reduce([metrics[k] for k in floats], axis.pmean,
+                                 torch.float32)
+        out.update({k: m.to(metrics[k].dtype)
+                    for k, m in zip(floats, means)})
     if counts:
-        summed = axis.psum(torch.stack([metrics[k].long()
-                                        for k in counts]))
-        out.update({k: summed[i] > 0 if metrics[k].dtype == torch.bool
-                    else summed[i].to(metrics[k].dtype)
-                    for i, k in enumerate(counts)})
+        sums = _flat_all_reduce([metrics[k] for k in counts], axis.psum,
+                                torch.int64)
+        out.update({k: m > 0 if metrics[k].dtype == torch.bool
+                    else m.to(metrics[k].dtype)
+                    for k, m in zip(counts, sums)})
     return out
 
 
@@ -244,6 +256,11 @@ class Lowered:
     (:meth:`placement_of`).
 
     The records of what the lowering did with the strategy's requests:
+    ``eval_fn`` (``(state, batch, rng) -> metrics``) runs the
+    trainable's ``eval_loss`` on the full parameters without an update
+    and reduces the metrics across replicas.
+
+    The records of what the lowering did with the strategy's requests:
     ``zero3_shapes`` the logical shape of each variable stored as a
     flat ZeRO-3 shard (``full_params_fn`` returns it at that shape);
     ``zero_degraded`` each ZeRO request that degraded to plain sync,
@@ -259,6 +276,7 @@ class Lowered:
     init_fn: Callable     # (params, extra) -> state
     step_fn: Callable     # (state, batch, rng) -> (state, metrics)
     full_params_fn: Optional[Callable] = None
+    eval_fn: Optional[Callable] = None
     batch_axis: Any = None
     placement: Optional[Callable] = None
     zero3_shapes: dict = dataclasses.field(default_factory=dict)
@@ -292,8 +310,13 @@ class Lowered:
         or NCCL groups).  Otherwise it runs the steps in a host loop."""
         return self.device.type == "cuda" and not self.host_staged
 
-    def init_state(self, trainable):
-        return self.init_fn(trainable.params, trainable.extra)
+    def init_state(self, trainable=None, *, params=None, extra=None):
+        """The state for ``trainable``'s parameters and extra state, or
+        for a logical ``params`` tree and ``extra`` (a portable
+        checkpoint's), laid out for this lowering."""
+        if trainable is not None:
+            params, extra = trainable.params, trainable.extra
+        return self.init_fn(params, extra)
 
     def full_params(self, params: dict) -> dict:
         return self.full_params_fn(params) if self.full_params_fn \
@@ -451,6 +474,14 @@ def lower(trainable, strategy, mesh, device=None) -> Lowered:
                      "sync_state": new_sync}
         return new_state, reduce_metrics(metrics, mesh)
 
+    def eval_fn(state, batch, rng):
+        with torch.no_grad():
+            _, _, metrics = trainable.eval_loss(
+                common.unflatten(full(state["params"], False)),
+                state["extra"], batch,
+                cuda_graph.fold_seed(rng, n, mesh.replica))
+        return reduce_metrics(metrics, mesh)
+
     # The JAX package's collective lowering reads no precision policy
     # (its compressors are AllReduce(compressor=...)): the slots train
     # the fp32 program and are recorded as unapplied.
@@ -460,4 +491,4 @@ def lower(trainable, strategy, mesh, device=None) -> Lowered:
     return Lowered(plan=plan, mesh=mesh, device=dev, init_fn=init_fn,
                    step_fn=step_fn,
                    full_params_fn=lambda stored: full(stored, False),
-                   unapplied=unapplied)
+                   eval_fn=eval_fn, unapplied=unapplied)

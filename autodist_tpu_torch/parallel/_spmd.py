@@ -400,6 +400,15 @@ def build_replicated_spmd(trainable, mesh, *, sync_axes: Sequence[str],
                      "sync_state": rows}
         return new_state, reduce_metrics(metrics, mesh, axis=sync)
 
+    def eval_fn(state, batch, rng):
+        """The eval loss on the full parameters, no update; the metrics
+        reduced over the joint sync axis."""
+        with torch.no_grad(), axis_scope(scope):
+            _, _, metrics = trainable.eval_loss(
+                unflatten(gather_full(state["params"])), state["extra"],
+                batch, cuda_graph.fold_seed(rng, sync.size, sync.index))
+        return reduce_metrics(metrics, mesh, axis=sync)
+
     def full_params(stored: dict) -> dict:
         """The logical tree: ZeRO-3 shards gathered and unpadded, the
         lowering's sharded variables gathered."""
@@ -415,7 +424,7 @@ def build_replicated_spmd(trainable, mesh, *, sync_axes: Sequence[str],
 
     return Lowered(plan=plan, mesh=mesh, device=dev, init_fn=init_fn,
                    step_fn=step_fn, full_params_fn=full_params,
-                   batch_axis=sync, placement=batch_spec_fn,
+                   eval_fn=eval_fn, batch_axis=sync, placement=batch_spec_fn,
                    zero3_shapes=zero3_shapes,
                    zero_degraded=dict(zero_degraded or {}),
                    unapplied=unapplied)

@@ -66,8 +66,12 @@ process of the job runs the step on its (data, pipe, model) coordinate:
    all-reduce.  The functional optimizer updates each update-space
    shard, and ZeRO-1 and 2 all-gather the updated values.  A vocab
    shard's gradient is summed within its model coordinate and never
-   over model: each model rank owns its rows.  The head's metrics are
-   broadcast from the last pipe rank, then averaged over data.
+   over model: each model rank owns its rows.  The head's metrics (its
+   ``fetch`` tags among them, at any shape) are broadcast from the last
+   pipe rank, then averaged over data; a tag inside a stage raises.
+
+The eval program (``Lowered.eval_fn``) is steps 2, 3 and 4 without a
+gradient: the forward ticks and the head, its metrics reduced alike.
 
 At one pipe device the same schedule runs every (microbatch, chunk) in
 order, what ``pipeline_apply`` computes there.  The strategy is checked
@@ -78,12 +82,14 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
+import math
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from autodist_tpu_torch import const, interop
+from autodist_tpu_torch import fetches as _fetches
 from autodist_tpu_torch.capture import PipelineTrainable
 from autodist_tpu_torch.device import resolve_device
 from autodist_tpu_torch.kernel import common
@@ -402,13 +408,28 @@ def lower_pipeline(trainable, strategy, mesh, device=None) -> Lowered:
     zero3_shapes = {nm: logical[nm] for nm in logical if nm in space.zero3}
 
     def stage_fn(chunk, x):
-        if not plan.remat:
-            return trainable.stage_fn(chunk, x, **tp_kwargs)
-        # The recompute runs inside the backward's precision and kernel
-        # scopes, and the pipelined trainables draw no randomness.
-        return torch.utils.checkpoint.checkpoint(
-            trainable.stage_fn, chunk, x, use_reentrant=False,
-            preserve_rng_state=False, **tp_kwargs)
+        # A fetch tag inside a stage raises, naming the tag.
+        with _fetches.refusing("a pipeline stage"):
+            if not plan.remat:
+                return trainable.stage_fn(chunk, x, **tp_kwargs)
+            # The recompute runs inside the backward's precision and
+            # kernel scopes, and the pipelined trainables draw no
+            # randomness.
+            return torch.utils.checkpoint.checkpoint(
+                trainable.stage_fn, chunk, x, use_reentrant=False,
+                preserve_rng_state=False, **tp_kwargs)
+
+    def head(outputs, batch, shared):
+        """The loss head on the last chunk's outputs: the loss and its
+        metrics, ``loss`` and the head's fetch tags among them."""
+        with _fetches.collecting() as fd:
+            loss, metrics = (trainable.loss_head(outputs, batch, shared,
+                                                 **vp_kwargs)
+                             if has_shared
+                             else trainable.loss_head(outputs, batch))
+        metrics = _fetches.merge_into_metrics(dict(metrics, loss=loss), fd)
+        return loss, {k: torch.as_tensor(v).detach()
+                      for k, v in metrics.items()}
 
     def store(nm, t):
         """A ZeRO-3 variable's storage: a stage leaf's ``V`` chunks as
@@ -514,23 +535,32 @@ def lower_pipeline(trainable, strategy, mesh, device=None) -> Lowered:
                 carry = g_x
         return grads, g_first
 
-    metric_layout = []        # [(name, dtype)] of the head's metrics
+    metric_layouts: dict = {}   # call site -> [(name, dtype, shape)]
 
-    def broadcast_metrics(metrics):
-        """The last pipe rank's metrics on every pipe rank (its names and
-        dtypes are sent once, at the first step)."""
+    def broadcast_metrics(metrics, site: str):
+        """The last pipe rank's metrics, at any shape, on every pipe
+        rank (their names, dtypes and shapes are sent once a call site,
+        at its first call)."""
         if n == 1:
             return metrics
-        if not metric_layout:
-            obj = [[(k, v.dtype) for k, v in metrics.items()] if last
-                   else None]
+        if site not in metric_layouts:
+            obj = [[(k, v.dtype, tuple(v.shape)) for k, v in
+                    metrics.items()] if last else None]
             dist.broadcast_object_list(obj, src=pipe.ranks[-1],
                                        group=pipe.group)
-            metric_layout.extend(obj[0])
-        vec = (torch.stack([metrics[k].float() for k, _ in metric_layout])
-               if last else torch.zeros(len(metric_layout), device=dev))
+            metric_layouts[site] = obj[0]
+        layout = metric_layouts[site]
+        size = sum(math.prod(shape) for _, _, shape in layout)
+        vec = (torch.cat([metrics[k].reshape(-1).float()
+                          for k, _, _ in layout])
+               if last else torch.zeros(size, device=dev))
         vec = pipe.psum(vec)
-        return {k: vec[i].to(dt) for i, (k, dt) in enumerate(metric_layout)}
+        out, offset = {}, 0
+        for k, dt, shape in layout:
+            numel = math.prod(shape)
+            out[k] = vec[offset:offset + numel].view(shape).to(dt)
+            offset += numel
+        return out
 
     def materialize(params):
         """The step's leaves: each ZeRO-3 shard gathered once, outside
@@ -579,13 +609,7 @@ def lower_pipeline(trainable, strategy, mesh, device=None) -> Lowered:
         head_grads, metrics = [None] * M, {}
         if last:
             ins = [outs[m].requires_grad_() for m in range(M)]
-            outputs = torch.cat(ins)
-            loss, metrics = (trainable.loss_head(outputs, batch, shared,
-                                                 **vp_kwargs)
-                             if has_shared
-                             else trainable.loss_head(outputs, batch))
-            metrics = {k: torch.as_tensor(v).detach()
-                       for k, v in dict(metrics, loss=loss).items()}
+            loss, metrics = head(torch.cat(ins), batch, shared)
             gs = torch.autograd.grad(loss, [*ins, *shared_leaves.values()],
                                      allow_unused=True)
             head_grads = [torch.zeros_like(i) if g is None else g
@@ -610,7 +634,7 @@ def lower_pipeline(trainable, strategy, mesh, device=None) -> Lowered:
             else:
                 g = shared_grads[nm]
                 out[nm] = torch.zeros_like(p) if g is None else g
-        return out, broadcast_metrics(metrics)
+        return out, broadcast_metrics(metrics, "step")
 
     def sync_grads(grads: dict, rows: dict):
         """Shared gradients summed over pipe (each pipe rank holds a
@@ -664,6 +688,24 @@ def lower_pipeline(trainable, strategy, mesh, device=None) -> Lowered:
                      "sync_state": rows}
         return new_state, reduce_metrics(metrics, mesh)
 
+    def eval_fn(state, batch, rng):
+        """The forward schedule and the loss head, no backward and no
+        update (no stage draws randomness: ``rng`` goes unused); the
+        head's metrics broadcast from the last pipe rank, then averaged
+        over data."""
+        with torch.no_grad(), precision_scope(plan.precision), \
+                kernel_scope(plan.kernel):
+            shared_leaves, chunk_leaves, _ = materialize(state["params"])
+            shared = tree(shared_leaves, "shared") if has_shared else None
+            _, mbs = first_input(shared, batch)
+            _, outs = forward_ticks(
+                [tree(leaves, "stages") for leaves in chunk_leaves], mbs)
+            metrics = {}
+            if last:
+                _, metrics = head(torch.cat([outs[m] for m in range(M)]),
+                                  batch, shared)
+            return reduce_metrics(broadcast_metrics(metrics, "eval"), mesh)
+
     def full_params(stored: dict) -> dict:
         """The logical tree: ZeRO-3 shards gathered and unpadded, model
         shards gathered (a vocab table's padding cut off), then the pipe
@@ -689,5 +731,6 @@ def lower_pipeline(trainable, strategy, mesh, device=None) -> Lowered:
 
     return Lowered(plan=plan, mesh=mesh, device=dev, init_fn=init_fn,
                    step_fn=step_fn, full_params_fn=full_params,
-                   zero3_shapes=zero3_shapes, zero_degraded=zero_degraded,
+                   eval_fn=eval_fn, zero3_shapes=zero3_shapes,
+                   zero_degraded=zero_degraded,
                    unapplied=unapplied)

@@ -29,17 +29,32 @@ CPU, or a gloo group on the card) :meth:`run_steps` is a host loop of
 steps.  :attr:`DistributedRunner.captures` and ``replays`` count the
 graph route's work.
 
-``eval_step``, ``evaluate`` and ``run`` (with its per-step timing
-records) are among ROADMAP Queue 1's slice 2 leftovers, and
-``AsyncPSRunner`` belongs to item 8.
+:meth:`~DistributedRunner.eval_step` runs the lowering's eval program
+(the eval loss on the full parameters, no update, the metrics reduced
+across replicas) and :meth:`~DistributedRunner.evaluate` averages it
+over batches.  :meth:`~DistributedRunner.run` drives steps from an
+iterable and waits for each step's metrics, so its per-step wall times
+(:meth:`~DistributedRunner.summary`, and one telemetry record a step)
+are the card's latency, at the price of host/device overlap;
+:meth:`step` and :meth:`run_steps` never wait.  :attr:`step_count` reads
+the device's step counter (a sync on the card), which is why
+:func:`~autodist_tpu_torch.train.fit` keeps a host mirror of the step.
+``AsyncPSRunner`` belongs to ROADMAP item 8.
 """
 from __future__ import annotations
+
+import logging
+import time
+from typing import Iterable, Optional
 
 import numpy as np
 import torch
 
-from autodist_tpu_torch import cuda_graph
+from autodist_tpu_torch import cuda_graph, telemetry
 from autodist_tpu_torch.kernel import common
+
+_DRIFT_ITEM = "ROADMAP Queue 1, item 11: telemetry and program lint"
+_log = logging.getLogger(__name__)
 
 
 class _Placed(dict):
@@ -76,6 +91,44 @@ def stack_steps(batches):
             for key in batches[0]}
 
 
+def cut_leaf(name, x, cuts, offset: int = 0):
+    """This rank's part of one batch leaf (a view where it can be): cut
+    along each ``(dim, axis)`` of ``cuts`` (dims shifted by ``offset``,
+    1 in a ``[k, ...]`` window), this rank keeping its contiguous slice;
+    a leaf without that dim goes whole."""
+    t = torch.as_tensor(x)
+    for dim, axis in cuts:
+        dim += offset
+        if t.dim() <= dim or axis.size == 1:
+            continue
+        size, n = t.shape[dim], axis.size
+        if size % n:
+            raise ValueError(
+                f"batch leaf {name!r}: dim {dim} of {size} does not "
+                f"divide by the {n}-way {axis.name!r} axis")
+        t = t.narrow(dim, axis.index * (size // n), size // n)
+    return t
+
+
+def batch_size(batch) -> int:
+    """The leading dim of a batch's first leaf that has one (0 if
+    none)."""
+    for leaf in _leaves(batch):
+        if np.ndim(leaf) > 0:
+            return int(np.shape(leaf)[0])
+    return 0
+
+
+def _leaves(tree) -> list:
+    """The leaves of a nest of dicts (in sorted-key order), lists and
+    tuples."""
+    if isinstance(tree, dict):
+        return [x for key in sorted(tree) for x in _leaves(tree[key])]
+    if isinstance(tree, (list, tuple)):
+        return [x for item in tree for x in _leaves(item)]
+    return [tree]
+
+
 class DistributedRunner:
     """Owns (mesh, lowered step, state); the training session."""
 
@@ -90,28 +143,20 @@ class DistributedRunner:
         # state they share.
         self._graphs: dict = {}
         self._state_buf = None
+        # run()'s timing sample and totals.
+        self._step_times: list = []
+        self._run_examples = 0
+        self._run_steps_seen = 0
+        self._run_seconds = 0.0
 
     def _next_rng(self) -> int:
         return int(self._seeds.randint(0, 2 ** 31 - 1))
 
     # ---------------- feed ---------------------------------------------- #
     def _place(self, name, x, cuts, offset: int):
-        """One leaf on this rank: cut along each ``(dim, axis)`` of
-        ``cuts`` (dims shifted by ``offset``, 1 in a ``[k, ...]``
-        window), this rank keeping its contiguous slice; a leaf without
-        that dim goes whole.  On the runner's device."""
-        t = torch.as_tensor(x)
-        for dim, axis in cuts:
-            dim += offset
-            if t.dim() <= dim or axis.size == 1:
-                continue
-            size, n = t.shape[dim], axis.size
-            if size % n:
-                raise ValueError(
-                    f"batch leaf {name!r}: dim {dim} of {size} does not "
-                    f"divide by the {n}-way {axis.name!r} axis")
-            t = t.narrow(dim, axis.index * (size // n), size // n)
-        return t.to(self.lowered.device)
+        """One leaf on this rank (:func:`cut_leaf`), on the runner's
+        device."""
+        return cut_leaf(name, x, cuts, offset).to(self.lowered.device)
 
     def _place_batch(self, batch, offset: int = 0):
         """The lowering says how each leaf splits
@@ -130,6 +175,7 @@ class DistributedRunner:
         batch = self._place_batch(batch)
         rng = self._next_rng() if rng is None else rng
         self.state, metrics = self.lowered.step_fn(self.state, batch, rng)
+        telemetry.counter("runner/steps").inc()
         return metrics
 
     def place_steps(self, batches):
@@ -153,6 +199,7 @@ class DistributedRunner:
                 f"{[tuple(t.shape) for t in batches.values()]}")
         k = ks.pop()
         rngs = [self._next_rng() for _ in range(k)] if rngs is None else rngs
+        telemetry.counter("runner/steps").inc(k)
         if self.lowered.capturable:
             return self._replay(batches, [int(rngs[i]) for i in range(k)])
         out = []
@@ -230,9 +277,103 @@ class DistributedRunner:
     def capture_seconds(self) -> float:
         return sum(graph.seconds for graph, _, _ in self._graphs.values())
 
+    # ---------------- the measured loop and eval ------------------------ #
+    # The retained per-step times are capped (summary percentiles come
+    # from this sample; the count keeps climbing), so a long run cannot
+    # grow the host with timing data.
+    MAX_STEP_TIMES = 100000
+
+    def _wait(self):
+        """Wait for the work queued so far on the runner's device."""
+        if self.lowered.device.type == "cuda":
+            torch.cuda.current_stream(self.lowered.device).synchronize()
+
+    def run(self, data: Iterable, num_steps: Optional[int] = None,
+            log_every: int = 0, drift_monitor=None):
+        """Drive ``num_steps`` steps (all, by default) from an iterable
+        of host batches; returns the last step's metrics.  Each step
+        waits for its own metrics; its wall time goes to
+        :meth:`summary` and to a telemetry step record.  Throughput
+        loops use :meth:`run_steps` / ``fit(steps_per_loop=k)``, which
+        never wait."""
+        if drift_monitor is not None:
+            raise NotImplementedError(
+                f"run(drift_monitor=) is not ported yet ({_DRIFT_ITEM})")
+        metrics = {}
+        it = iter(data)
+        i = 0
+        while num_steps is None or i < num_steps:
+            try:
+                batch = next(it)
+            except StopIteration:
+                break
+            t0 = time.perf_counter()
+            metrics = self.step(batch)
+            self._wait()
+            dt = time.perf_counter() - t0
+            if len(self._step_times) < self.MAX_STEP_TIMES:
+                self._step_times.append(dt)
+            self._run_steps_seen += 1
+            self._run_seconds += dt
+            bsz = batch_size(batch)
+            self._run_examples += bsz
+            telemetry.record_step(step=self._run_steps_seen - 1,
+                                  duration_s=dt, examples=bsz or None)
+            if log_every and (i + 1) % log_every == 0:
+                _log.info("step %d %s (%.1f ms/step)", self.step_count,
+                          {k: float(v) for k, v in metrics.items()},
+                          dt * 1e3)
+            i += 1
+        return metrics
+
+    def summary(self) -> dict:
+        """Step-time percentiles over every :meth:`run` step so far (from
+        the retained sample, capped at :attr:`MAX_STEP_TIMES`); ``steps``
+        and the rate cover every step."""
+        ts = np.asarray(self._step_times)
+        n = len(ts)
+        out = {
+            "steps": self._run_steps_seen,
+            "mean_ms": (self._run_seconds / self._run_steps_seen * 1e3
+                        if self._run_steps_seen else None),
+            "p50_ms": float(np.percentile(ts, 50) * 1e3) if n else None,
+            "p99_ms": float(np.percentile(ts, 99) * 1e3) if n else None,
+            "examples_per_sec": (self._run_examples / self._run_seconds
+                                 if self._run_seconds > 0
+                                 and self._run_examples else None),
+        }
+        if out["examples_per_sec"] is not None:
+            telemetry.gauge("runner/examples_per_sec").set(
+                out["examples_per_sec"])
+        return out
+
+    def eval_step(self, batch, *, rng=None):
+        """Metrics without updating the state (the lowering's eval
+        program); ``rng`` defaults to 0, as the JAX runner's to
+        ``PRNGKey(0)``."""
+        if self.lowered.eval_fn is None:
+            raise NotImplementedError("this lowering has no eval path")
+        batch = self._place_batch(batch)
+        return self.lowered.eval_fn(self.state, batch,
+                                    0 if rng is None else rng)
+
+    def evaluate(self, data: Iterable, num_batches: Optional[int] = None):
+        """Mean metrics over an eval dataset (host float64 arrays)."""
+        sums, count = {}, 0
+        for i, batch in enumerate(data):
+            if num_batches is not None and i >= num_batches:
+                break
+            for k, v in self.eval_step(batch).items():
+                v = torch.as_tensor(v).detach().to(torch.float64).cpu()
+                sums[k] = sums.get(k, 0.0) + v.numpy()
+            count += 1
+        return {k: v / max(count, 1) for k, v in sums.items()}
+
     # ---------------- fetches ------------------------------------------- #
     @property
     def step_count(self) -> int:
+        """The step counter of the state (a host read: on the card it
+        waits for the queued steps)."""
         return int(self.state["step"])
 
     def get_params(self):
@@ -242,6 +383,9 @@ class DistributedRunner:
         full = self.lowered.full_params(self.state["params"])
         return common.unflatten({nm: p.detach().clone()
                                  for nm, p in full.items()})
+
+    def get_extra(self):
+        return _clone(self.state["extra"])
 
     def close(self):
         """Release the state and the captured graphs (safe to call more

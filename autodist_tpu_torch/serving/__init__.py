@@ -25,10 +25,12 @@ At tensor parallel 2, every rank of a 2-rank ``torch.distributed`` job
 runs the same lines with ``serving.serve(cfg, params=params,
 tensor_parallel=2, vocab_parallel=True)``.  ``serving.serve(cfg,
 runner=runner, strategy=strategy)`` serves a trained runner with the
-strategy's serving knobs; ``temperature=0.9, top_k=40`` samples (the
-request's ``seed=`` keys its stream), ``prefix_caching=True`` shares
-prompt prefixes (paged), ``speculative=4, draft_cfg=..., draft_params=...``
-decodes with a draft.
+strategy's serving knobs, ``serving.serve(cfg, artifact=path)`` an
+:func:`~autodist_tpu_torch.checkpoint.export_model` artifact;
+``temperature=0.9, top_k=40`` samples (the request's ``seed=`` keys its
+stream), ``prefix_caching=True`` shares prompt prefixes (paged),
+``speculative=4, draft_cfg=..., draft_params=...`` decodes with a
+draft.
 """
 from autodist_tpu_torch.serving.batcher import (FINISH_REASONS, Completion,
                                                 ContinuousBatcher,
@@ -54,14 +56,14 @@ __all__ = [
 def serve(cfg, *, params=None, runner=None, artifact=None, strategy=None,
           **engine_kwargs) -> ServingEngine:
     """Build a :class:`ServingEngine` from whichever form the trained
-    model is in: a logical ``params`` tree, or a live ``runner`` (its
-    ``get_params()``, any training strategy).  A training ``strategy``
+    model is in: a logical ``params`` tree, a live ``runner`` (its
+    ``get_params()``, any training strategy), or an export ``artifact``
+    directory (its ``params/``).  A training ``strategy``
     seeds the serving knobs from its Strategy IR (``tensor_parallel``,
     ``vocab_parallel``, ``comm_overlap``, ``kv_layout`` and the ladder's
     ``prefill_chunk``, ``prefix_caching``, ``speculative``) unless given
     explicitly.  ``device`` (``None``: the card) and every other knob go
-    to the engine.  An export ``artifact`` is not ported yet (ROADMAP
-    Queue 1, item 8)."""
+    to the engine."""
     sources = [s for s in (params, runner, artifact) if s is not None]
     if len(sources) != 1:
         raise ValueError(

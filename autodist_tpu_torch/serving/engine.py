@@ -71,8 +71,9 @@ on every rank.  A group of NCCL ranks replays the graphs like one card;
 gloo ranks on the card stage every exchange through the host, so they
 run the host loop.
 
-``comm_overlap="rsag"`` and :meth:`ServingEngine.from_artifact` raise
-``NotImplementedError`` naming their ROADMAP items.
+``comm_overlap="rsag"`` raises ``NotImplementedError`` naming its
+ROADMAP item.  :meth:`ServingEngine.from_artifact` serves an export
+artifact's ``params/`` (:mod:`autodist_tpu_torch.checkpoint.export`).
 """
 from __future__ import annotations
 
@@ -111,8 +112,6 @@ from autodist_tpu_torch.strategy.ir import (normalize_kernel,
                                             normalize_prefix_caching,
                                             normalize_speculative)
 from autodist_tpu_torch import telemetry
-
-_EXPORT_ITEM = "ROADMAP Queue 1, item 8: checkpointing and export"
 
 
 def _not_ported(what: str, item: str):
@@ -482,8 +481,13 @@ class ServingEngine:
 
     @classmethod
     def from_artifact(cls, path: str, cfg, **kw):
-        _not_ported("ServingEngine.from_artifact (checkpoint/export)",
-                    _EXPORT_ITEM)
+        """Serve an export artifact's ``params/`` tree (logical names,
+        unpadded shapes; :func:`~autodist_tpu_torch.checkpoint.export
+        .export_model`)."""
+        from autodist_tpu_torch.checkpoint.export import \
+            load_exported_params
+
+        return cls(cfg, load_exported_params(path), **kw)
 
     # ------------------------------------------------------------------ #
     # the model math

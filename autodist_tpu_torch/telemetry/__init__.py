@@ -2,8 +2,10 @@
 
 A minimal copy of ``autodist_tpu/telemetry``'s surface — ``counter``,
 ``gauge`` and ``histogram`` (``.inc`` / ``.set`` / ``.observe``),
-``span``, ``get().record_event``, ``current_trace_id`` and
-``mint_trace_id`` — kept in process memory.  Sinks, flushing,
+``span``, ``record_step``, ``get().record_event``, ``current_trace_id``
+and ``mint_trace_id`` — kept in process memory.  Step records and events
+share one bounded list (``get().step_records()``), as in the JAX
+package.  Sinks, flushing,
 aggregation windows and drift monitoring are not ported yet (ROADMAP
 Queue 1: telemetry and program lint).
 """
@@ -67,7 +69,12 @@ class Telemetry:
         self.gauges: dict = {}
         self.histograms: dict = {}
         self.spans: deque = deque(maxlen=_EVENT_LIMIT)
-        self.events: deque = deque(maxlen=_EVENT_LIMIT)
+        self.records: deque = deque(maxlen=_EVENT_LIMIT)
+
+    @property
+    def events(self) -> list:
+        """The typed event records (every record but the steps')."""
+        return [r for r in self.records if r["kind"] != "step"]
 
     def counter(self, name: str) -> Counter:
         return self.counters.setdefault(name, Counter())
@@ -82,8 +89,32 @@ class Telemetry:
         return _Span(self.spans, name, args)
 
     def record_event(self, kind: str, **fields) -> bool:
-        self.events.append({"kind": kind, **fields})
+        if kind == "step":
+            raise ValueError("use record_step for step records")
+        self.records.append({"kind": kind, **fields})
         return True
+
+    def record_step(self, step: int, duration_s: float, *,
+                    examples: Optional[int] = None, steps: int = 1,
+                    **extra) -> bool:
+        """One training step's (or, with ``steps=k``, one fused
+        window's) record; the ``step/duration_s`` histogram gets the
+        per-step time."""
+        self.histogram("step/duration_s").observe(
+            float(duration_s) / max(steps, 1))
+        rec = {"kind": "step", "step": int(step),
+               "duration_ms": float(duration_s) * 1e3}
+        if steps != 1:
+            rec["steps"] = int(steps)
+        if examples is not None:
+            rec["examples"] = int(examples)
+        rec.update(extra)
+        self.records.append(rec)
+        return True
+
+    def step_records(self) -> list:
+        """The step records and events, in the order they came."""
+        return list(self.records)
 
 
 _telemetry = Telemetry()
@@ -118,6 +149,10 @@ def span(name: str, **args) -> _Span:
 
 def record_event(kind: str, **fields) -> bool:
     return get().record_event(kind, **fields)
+
+
+def record_step(step: int, duration_s: float, **kw) -> bool:
+    return get().record_step(step, duration_s, **kw)
 
 
 _trace_ids = itertools.count()

@@ -19,7 +19,8 @@ inside and the vocabulary sharded over the model axis), expert-parallel
 training of the MoE LM through ``ExpertParallel`` on an expert axis of
 2, serving at tensor parallel 2, and sequence-parallel training of the
 causal LM through ``SequenceParallel`` on a seq axis of 2 (ring
-attention over K1/K2a/K2b):
+attention over K1/K2a/K2b), and the training lifecycle around a runner
+(``fit``, eval, checkpoints and resume, export, ``serve(artifact=)``):
 
 1. each kernel against its plain PyTorch version, fp32 (atol = rtol =
    1e-5) and bf16 (atol = rtol = 1e-2), timed with CUDA events beside
@@ -242,7 +243,31 @@ attention over K1/K2a/K2b):
    run's launches equal to its calls (K1 8 a single-shot prefill, K7 8
    a chunk or verify window, K5/K6 8 a token step, the draft's 1) and
    its graphs' captures and replays to the shapes and calls;
-19. one ``{"kernels": [...]}`` line, the card's name and power limit, and
+19. the training lifecycle on BERT-base bf16 (phase 5's configuration,
+   the graph route): ``fit`` over 16 steps in windows of 4 with eval
+   every 8 (2 batches) and a ``Saver`` checkpoint every 8; a fresh
+   runner resumed from the step-8 checkpoint and run to 16, twice: some
+   resumed run bit-equal to some uninterrupted one unless runs of the
+   same inputs differ (three uninterrupted runs, the two resumed ones),
+   and then the closest pair within their spread (printed: the card's
+   atomics); fit's eval against
+   ``eval_step`` by hand; an async save followed at once by a window,
+   restored into a fresh runner equal to the state at save time; K1,
+   K2a and K2b held to the steps and eval batches, captures to one per
+   window size and replays to the windows; printed: fit's examples/s
+   beside a bare ``run_steps`` window's, a blocking save's seconds and
+   bytes, the async save's stall, restore seconds, eval ms a batch, and
+   the ``DataLoader``'s per-step loop beside ``step`` on placed batches;
+20. export and serve: the pipelined LM at the serve widths (bf16) fitted
+   4 steps through ``Pipeline`` at data 1 x pipe 1 x model 1 (graph
+   route), exported from the runner (``export_model``) and reloaded
+   (``load_exported`` on the card: logits within 1e-2 of the largest
+   live logit); ``serve(cfg, artifact=dir)``'s greedy streams equal,
+   token for token, to ``serve(cfg, runner=runner)``'s on the dense and
+   paged + chunked engines (16 requests of 64 tokens; K5, K6 and K7 held
+   to the calls); printed: export seconds, artifact bytes, tokens/s
+   from the artifact beside the runner's;
+21. one ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
 Phases 2, 4, 6 (at T = 1), 8 (the dense model) and 11 (one process)
@@ -284,7 +309,7 @@ import torch
 import torch.multiprocessing as mp
 
 import autodist_tpu_torch as port
-from autodist_tpu_torch import testing
+from autodist_tpu_torch import telemetry, testing
 from autodist_tpu_torch.kernel import a2a_ring as ar
 from autodist_tpu_torch.kernel import build
 from autodist_tpu_torch.kernel import collective_matmul as cm
@@ -4027,11 +4052,371 @@ def phase_ladder_serve():
     return counts
 
 
+# --------------------------------------------------------------------- #
+# phases 19 and 20: the training lifecycle (fit, eval, checkpoints,
+# resume, export) and serving the exported artifact
+# --------------------------------------------------------------------- #
+LIFE_STEPS, LIFE_LOOP, LIFE_EVAL, LIFE_SAVE = 16, 4, 8, 8
+LIFE_EVAL_BATCHES = 2
+
+
+def life_batch(step, seed0=0):
+    """Step ``step``'s BERT-base batch (phase 5's shapes, unpadded)."""
+    b = bert.synthetic_mlm_batch(seed0 + step, BERT_BATCH, BERT_SEQ,
+                                 BERT_MASKED, 30522)
+    b.pop("input_mask")
+    return b
+
+
+def life_eval(step):
+    return life_batch(step, seed0=10_000)
+
+
+def life_fit_kw(**kw):
+    return dict(dict(steps=LIFE_STEPS, steps_per_loop=LIFE_LOOP,
+                     log_every=LIFE_LOOP, eval_every=LIFE_EVAL,
+                     eval_source=life_eval, eval_batches=LIFE_EVAL_BATCHES),
+                **kw)
+
+
+def state_leaves(runner):
+    """The parameters and optimizer moments, on the host."""
+    return {n: t.detach().cpu() for n, t in flatten_with_names(
+        {"params": runner.state["params"], "opt": runner.state["opt_state"]})}
+
+
+def max_diff(a, b):
+    return max(float((a[n].float() - b[n].float()).abs().max()) for n in a)
+
+
+def differing(a, b):
+    """``{leaf: elements that differ}`` of two state snapshots."""
+    out = {n: int((a[n] != b[n]).sum()) for n in a}
+    return {n: k for n, k in out.items() if k}
+
+
+def held_to(resumed, runs, label):
+    """The ``resumed`` runs against the uninterrupted ``runs``: some pair
+    bit-equal, unless runs of the same inputs (two uninterrupted, or the
+    two resumed) differ; then the closest pair within their largest
+    difference (the card's atomics: a gather's backward accumulates
+    duplicate masked positions in a scheduling order, and Adam turns an
+    ulp of a near-zero gradient into a visible step).  Returns (the
+    closest pair's difference, the spread)."""
+    spread = max(max_diff(a, b) for group in (runs, resumed)
+                 for i, a in enumerate(group) for b in group[i + 1:])
+    d = min(max_diff(r, u) for r in resumed for u in runs)
+    check(d <= spread, f"{label}: the closest resumed and uninterrupted "
+          f"runs differ by {d} (leaves and elements "
+          f"{differing(resumed[0], runs[0])}), while runs of the same "
+          f"inputs differ by at most {spread}")
+    return d, spread
+
+
+def life_want(steps, evals):
+    """K1 a layer a step and a layer an eval batch (the eval forward);
+    K2a and K2b a layer a step."""
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(dict.fromkeys(TRAINING_KERNELS, 12 * steps))
+    want["flash_attention_fwd"] += 12 * evals * LIFE_EVAL_BATCHES
+    return want
+
+
+def phase_lifecycle():
+    """BERT-base bf16 (phase 5's configuration) through the lifecycle on
+    the graph route: ``fit`` with eval and checkpoints, a resume at step
+    8 from the saver against the uninterrupted run, eval against
+    ``eval_step`` by hand, blocking and async saves, restore, and the
+    loader's per-step loop.  Returns the uninterrupted fit's launches."""
+    import shutil
+
+    where = card()
+    cfg = bert.bert_base(dropout_rate=0.0, attention_dropout_rate=0.0,
+                         attention_fn=fa.make_attention_fn(False))
+    opt = port.optim.adamw(1e-4, weight_decay=0.01, mu_dtype=torch.bfloat16)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        # (a) the uninterrupted run, checkpoints at 8 and 16.
+        runner = bert_runner(cfg, opt)
+        saver = port.Saver(os.path.join(root, "a"))
+        reset_launches()
+        spans = telemetry.reset().spans
+        t0 = time.perf_counter()
+        hist = port.fit(runner, life_batch, saver=saver,
+                        save_every=LIFE_SAVE, **life_fit_kw())
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        span_s = {name: sum(sp["dur_s"] for sp in spans if sp["name"] == name)
+                  for name in ("train/eval", "train/checkpoint")}
+        got = launches()
+        want = life_want(LIFE_STEPS, LIFE_STEPS // LIFE_EVAL)
+        check(got == want, f"fit launches {got}, the calls {want}")
+        check((runner.captures, runner.replays)
+              == (1, LIFE_STEPS // LIFE_LOOP),
+              f"fit: {runner.captures} captures, {runner.replays} replays")
+        check(saver.all_steps() == [8, 16], f"saves {saver.all_steps()}")
+        capture_s = runner.capture_seconds
+        check([s for s, _ in hist["eval"]] == [8, 16]
+              and [s for s, _ in hist["loss"]] == [4, 8, 12, 16],
+              f"cadences: eval {hist['eval']}, loss {hist['loss']}")
+        check(all(math.isfinite(v) for _, v in hist["loss"]),
+              f"non-finite loss {hist['loss']}")
+        uninterrupted = state_leaves(runner)
+        # eval against eval_step by hand, at the same state (step 16)
+        t0 = time.perf_counter()
+        by_hand = [runner.eval_step(life_eval(i))
+                   for i in range(LIFE_EVAL_BATCHES)]
+        torch.cuda.synchronize()
+        eval_ms = (time.perf_counter() - t0) / LIFE_EVAL_BATCHES * 1e3
+        ev = hist["eval"][-1][1]
+        for k, v in ev.items():
+            mean = sum(float(m[k]) for m in by_hand) / LIFE_EVAL_BATCHES
+            check(abs(float(v) - mean) <= 1e-6 * max(1.0, abs(mean)),
+                  f"eval {k}: fit's {float(v)}, eval_step by hand {mean}")
+        # (b) two more uninterrupted runs (no eval, no saves: they change
+        # no state), for the spread; the second warm after its first
+        # window, for the steady fit rate.
+        third = bert_runner(cfg, opt)
+        port.fit(third, life_batch, steps=LIFE_STEPS,
+                 steps_per_loop=LIFE_LOOP, log_every=LIFE_LOOP)
+        runs = [uninterrupted, state_leaves(third)]
+        third.close()
+        del third
+        second = bert_runner(cfg, opt)
+        port.fit(second, life_batch, steps=LIFE_LOOP,
+                 steps_per_loop=LIFE_LOOP, log_every=LIFE_LOOP)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        port.fit(second, life_batch, steps=LIFE_STEPS,
+                 steps_per_loop=LIFE_LOOP, log_every=LIFE_LOOP)
+        torch.cuda.synchronize()
+        warm_fit_s = time.perf_counter() - t0
+        runs.append(state_leaves(second))
+        window = second.place_steps(port.stack_steps(
+            [life_batch(i) for i in range(LIFE_LOOP)]))
+        second.run_steps(window)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range((LIFE_STEPS - LIFE_LOOP) // LIFE_LOOP):
+            float(second.run_steps(window)["loss"][-1])
+        torch.cuda.synchronize()
+        bare_s = time.perf_counter() - t0
+        second.close()
+        del second
+        n_ex = (LIFE_STEPS - LIFE_LOOP) * BERT_BATCH
+        # (c) the resumed run, twice: a fresh runner and a saver holding
+        # step 8.
+        resumed_runs = []
+        for i, b in enumerate(("b", "b2")):
+            shutil.copytree(os.path.join(root, "a", "8"),
+                            os.path.join(root, b, "8"))
+            resumed = bert_runner(cfg, opt)
+            rsaver = port.Saver(os.path.join(root, b))
+            reset_launches()
+            hist_r = port.fit(resumed, life_batch, saver=rsaver,
+                              save_every=LIFE_SAVE, **life_fit_kw())
+            torch.cuda.synchronize()
+            got_r = launches()
+            want_r = life_want(LIFE_STEPS - 8, 1)
+            check(got_r == want_r,
+                  f"resumed launches {got_r}, the calls {want_r}")
+            check((resumed.captures, resumed.replays) == (1, 2),
+                  f"resumed: {resumed.captures} captures, "
+                  f"{resumed.replays} replays")
+            check(rsaver.all_steps() == [8, 16]
+                  and resumed.step_count == 16,
+                  f"resumed saves {rsaver.all_steps()}")
+            check([s for s, _ in hist_r["loss"]] == [12, 16],
+                  f"resumed logs {hist_r['loss']}")
+            resumed_runs.append(state_leaves(resumed))
+            resumed.close()
+            del resumed
+            shutil.rmtree(os.path.join(root, b))
+        resume_diff, spread = held_to(resumed_runs, runs,
+                                      "the resumed run")
+        run_spread = max(max_diff(a, b) for i, a in enumerate(runs)
+                         for b in runs[i + 1:])
+        resumed_spread = max_diff(*resumed_runs)
+        # (d) a blocking save, then an async one followed at once by a
+        # window, then a restore into a fresh runner.
+        bsaver = port.Saver(os.path.join(root, "c"))
+        t0 = time.perf_counter()
+        bsaver.save(runner, force=True)
+        block_s = time.perf_counter() - t0
+        save_bytes = bsaver.last_save_bytes
+        shutil.rmtree(os.path.join(root, "c"))
+        snapshot = state_leaves(runner)
+        asaver = port.Saver(os.path.join(root, "d"), async_save=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        asaver.save(runner)
+        stall_s = time.perf_counter() - t0
+        runner.run_steps(runner.place_steps(port.stack_steps(
+            [life_batch(100 + i) for i in range(LIFE_LOOP)])))
+        asaver.wait()
+        torch.cuda.synchronize()
+        fresh = bert_runner(cfg, opt)
+        t0 = time.perf_counter()
+        asaver.restore(fresh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        d = max_diff(state_leaves(fresh), snapshot)
+        check(d == 0.0 and fresh.step_count == LIFE_STEPS,
+              f"the async snapshot differs by {d} from the state at save "
+              f"time (step {fresh.step_count})")
+        check(max_diff(state_leaves(runner), snapshot) > 0,
+              "the window after the async save changed nothing")
+        fresh.close()
+        del fresh
+        shutil.rmtree(os.path.join(root, "d"))
+        # (e) the loader's per-step loop beside step on placed batches.
+        host = [life_batch(200 + i) for i in range(8)]
+        placed = [runner._place_batch(b) for b in host]
+        runner.step(placed[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in placed:
+            runner.step(b)
+        float(runner.step(placed[0])["loss"])
+        step_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for b in port.DataLoader(host, runner.mesh, lowered=runner.lowered,
+                                 global_batches=True):
+            runner.step(b)
+        float(runner.step(placed[0])["loss"])
+        loader_s = time.perf_counter() - t0
+        runner.close()
+        del runner
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 19 BERT-base bf16 fit [{where}]: {LIFE_STEPS} steps in "
+          f"windows of {LIFE_LOOP}, eval every {LIFE_EVAL} "
+          f"({LIFE_EVAL_BATCHES} batches), saves every {LIFE_SAVE}: "
+          f"{fit_s:.3f} s ({hist['examples_per_sec']:.2f} examples/s): the "
+          f"capture {capture_s:.3f} s, evals {span_s['train/eval']:.3f} s, "
+          f"saves {span_s['train/checkpoint']:.3f} s; warm, no eval or "
+          f"save: {n_ex / warm_fit_s:.2f} examples/s "
+          f"({warm_fit_s / (LIFE_STEPS - LIFE_LOOP) * 1e3:.2f} ms a step) "
+          f"against a bare run_steps window's {n_ex / bare_s:.2f} "
+          f"({bare_s / (LIFE_STEPS - LIFE_LOOP) * 1e3:.2f} ms); losses "
+          f"{[round(v, 4) for _, v in hist['loss']]}; launches "
+          f"{ {k: v for k, v in got.items() if v} }", flush=True)
+    print(f"phase 19 resume [{where}]: resumed at step 8, run to "
+          f"{LIFE_STEPS}, twice: the closest resumed and uninterrupted "
+          f"runs differ by {resume_diff}, held to {spread} (three "
+          f"uninterrupted runs differ by at most {run_spread}, two "
+          f"resumed runs by {resumed_spread}); launches "
+          f"{({k: v for k, v in got_r.items() if v})}", flush=True)
+    print(f"phase 19 checkpoints [{where}]: blocking save {block_s:.3f} s, "
+          f"{save_bytes} bytes ({save_bytes / block_s / 1e9:.3f} GB/s); "
+          f"async save stall {stall_s:.3f} s; restore {restore_s:.3f} s; "
+          f"eval {eval_ms:.2f} ms a batch; per-step loop over the "
+          f"DataLoader {loader_s / 9 * 1e3:.2f} ms a step against step() on "
+          f"placed batches {step_s / 9 * 1e3:.2f} ms", flush=True)
+    return {name: got[name] for name in TRAINING_KERNELS}
+
+
+EXPORT_STEPS, EXPORT_BATCH, EXPORT_SEQ = 4, 8, 128
+
+
+def phase_export_serve():
+    """The pipelined LM at the serve widths (bf16) fitted through
+    ``Pipeline`` at data 1 x pipe 1 x model 1, exported from the runner
+    and reloaded: ``serve(artifact=)``'s greedy streams against
+    ``serve(runner=)``'s on the dense and paged + chunked engines (K5,
+    K6, K7 held to the calls), the reloaded program's logits against the
+    live forward.  Returns the artifact engines' launches."""
+    import shutil
+
+    where = card()
+    cfg = cfg_of(torch.bfloat16)
+    trainable = make_pipeline_lm_trainable(
+        cfg, port.optim.sgd(1e-2),
+        torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    runner = port.AutoDist({"mesh": {"data": 1, "pipe": 1, "model": 1}},
+                           Pipeline(num_microbatches=2,
+                                    virtual_stages=LAYERS)).build(trainable)
+
+    def source(step):
+        x = np.random.RandomState(step).randint(
+            0, VOCAB, (EXPORT_BATCH, EXPORT_SEQ + 1))
+        return {"x": x[:, :-1].astype(np.int32),
+                "y": x[:, 1:].astype(np.int32)}
+
+    hist = port.fit(runner, source, steps=EXPORT_STEPS, steps_per_loop=2,
+                    log_every=2)
+    check(runner.captures == 1 and runner.replays == EXPORT_STEPS // 2
+          and all(math.isfinite(v) for _, v in hist["loss"]),
+          f"fit: {runner.captures} captures, {runner.replays} replays, "
+          f"losses {hist['loss']}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    counts = {}
+    try:
+        path = os.path.join(root, "lm")
+        t0 = time.perf_counter()
+        port.export_model(path, lambda p, t: sequential_logits(cfg, p, t),
+                          None, [np.zeros((1, 64), np.int64)], runner=runner)
+        export_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(d, f))
+                     for d, _, fs in os.walk(path) for f in fs)
+        served = port.load_exported(path, device="cuda")
+        toks = torch.as_tensor(np.random.RandomState(7).randint(
+            0, VOCAB, (1, 64)), device="cuda")
+        got = served(toks).float()
+        want = sequential_logits(cfg, runner.get_params(), toks).float()
+        err = float((got - want).abs().max())
+        bound = 1e-2 * max(1.0, float(want.abs().max()))
+        check(got.shape == want.shape and bool(torch.isfinite(got).all())
+              and err <= bound, f"the reloaded program's logits differ by "
+              f"{err} > {bound} from the live forward")
+        rng = np.random.RandomState(3)
+        requests = [(rng.randint(0, VOCAB, int(rng.randint(1, 65))).tolist(),
+                     64, 0) for _ in range(16)]
+        warm = [([1, 2, 3, 4], 16)]
+        lines = []
+        for layout in ("dense", "paged"):
+            rates, streams = {}, {}
+            for label, src in (("artifact", dict(artifact=path)),
+                               ("runner", dict(runner=runner))):
+                engine = port.serve(cfg, device="cuda", **src,
+                                    **ENGINES[layout])
+                wall, comps, calls, got_l, _ = timed_mix(engine, requests,
+                                                         warm)
+                rates[label] = mix_line(wall, comps)[0]
+                streams[label] = [c.tokens for c in comps]
+                if label == "artifact":
+                    for k, v in got_l.items():
+                        counts[k] = counts.get(k, 0) + v
+                engine.close()
+                del engine
+                torch.cuda.empty_cache()
+            check(streams["artifact"] == streams["runner"],
+                  f"{layout}: serve(artifact=) and serve(runner=) streams "
+                  "differ")
+            lines.append(f"{layout} {rates['artifact']:.1f} tokens/s from "
+                         f"the artifact, {rates['runner']:.1f} from the "
+                         f"runner")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    runner.close()
+    del runner
+    torch.cuda.empty_cache()
+    print(f"phase 20 export and serve bf16 [{where}]: fit {EXPORT_STEPS} "
+          f"steps of {EXPORT_BATCH} x {EXPORT_SEQ} (losses "
+          f"{[round(v, 4) for _, v in hist['loss']]}); export {export_s:.3f} "
+          f"s, {nbytes} bytes; reloaded logits within {err:.5f} of the live "
+          f"forward (bound {bound:.4f}); greedy streams equal token for "
+          f"token, 16 requests of 64 tokens: {'; '.join(lines)}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    return {k: counts.get(k, 0) for k in SERVING_KERNELS}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--phases",
-        default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18",
+        default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20",
         help="comma-separated phases to run (default: all); the kernels "
              "line needs them all")
     phases = {int(p) for p in parser.parse_args(argv).phases.split(",")}
@@ -4069,7 +4454,9 @@ def main(argv=None) -> int:
              (15, lambda: add(phase_zero_parity())),
              (16, lambda: add(phase_zero_window())),
              (17, phase_ladder_parity),
-             (18, lambda: add(phase_ladder_serve()))]
+             (18, lambda: add(phase_ladder_serve())),
+             (19, lambda: add(phase_lifecycle())),
+             (20, lambda: add(phase_export_serve()))]
     for phase, run in steps:
         if phase in phases:
             t1 = time.perf_counter()

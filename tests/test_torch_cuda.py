@@ -1298,3 +1298,99 @@ def test_cuda_prefill_replay_equals_eager(cuda, dtype, name):
     if "speculative" in kw:
         assert sum(r[3] for r in replayed) > 0
     engine.close()
+
+
+# --------------------------------------------------------------------------- #
+# The training lifecycle on the graph route: fit, restore, async save, loader
+# --------------------------------------------------------------------------- #
+def _source(step):
+    return _bert_steps(1, seed0=step)[0]
+
+
+def test_cuda_fit_on_the_graph_route_equals_the_step_loop(cuda):
+    """``fit(steps_per_loop=4)`` (a graph replay a window, eval and save
+    at step 4) against 8 ``step`` calls on the runner's own seed stream,
+    under the determinism rule; one capture for the one window size."""
+    eager = []
+    for _ in range(2):
+        runner = _bert_runner(cuda, torch.bfloat16, "flash", 0.0)
+        for i in range(8):
+            runner.step(_source(i))
+        eager.append(_leaves(runner, {}))
+        runner.close()
+    runner = _bert_runner(cuda, torch.bfloat16, "flash", 0.0)
+    before = [w.launches for w in ATTENTION]
+    hist = port.fit(runner, _source, steps=8, steps_per_loop=4,
+                    log_every=8, eval_source=_source, eval_every=4,
+                    eval_batches=1)
+    torch.cuda.synchronize()
+    assert (runner.captures, runner.replays) == (1, 2)
+    assert [s for s, _ in hist["eval"]] == [4, 8]
+    assert [s for s, _ in hist["loss"]] == [8]
+    _hold_to_eager(_leaves(runner, {}), *eager)
+    # 8 steps of 2 layers, and the forward of 2 eval batches
+    want = [8 * 2 + 2 * 2, 8 * 2, 8 * 2]
+    assert [w.launches - n for w, n in zip(ATTENTION, before)] == want
+    runner.close()
+
+
+def test_cuda_restore_then_replay_continues_from_the_restored_state(
+        cuda, tmp_path):
+    """A save after a replay, two more windows, a restore, then a window:
+    the graph's buffers take the restored state, so the last window
+    equals the window run straight after the save."""
+    runner = _bert_runner(cuda, torch.bfloat16, "flash", 0.0)
+    batches = _bert_steps(12)
+    runner.run_steps(port.stack_steps(batches[:4]))
+    saver = port.Saver(str(tmp_path))
+    saver.save(runner)
+    after_save = _leaves(runner, runner.run_steps(
+        port.stack_steps(batches[4:8])))
+    runner.run_steps(port.stack_steps(batches[8:12]))
+    saver.restore(runner, step=4)
+    assert runner.state is not runner._state_buf
+    again = _leaves(runner, runner.run_steps(port.stack_steps(batches[4:8])))
+    assert (runner.captures, runner.replays) == (1, 4)
+    for name, t in after_save.items():
+        assert torch.equal(again[name], t), name
+    runner.close()
+
+
+def test_cuda_async_save_on_the_graph_route_keeps_its_step(cuda, tmp_path):
+    """An async save after a replay, then at once another replay (which
+    overwrites the graph's state buffers in place): the checkpoint holds
+    the state at save time."""
+    runner = _bert_runner(cuda, torch.bfloat16, "flash", 0.0)
+    batches = _bert_steps(8)
+    runner.run_steps(port.stack_steps(batches[:4]))
+    assert runner.state is runner._state_buf
+    snapshot = runner.get_params()
+    saver = port.Saver(str(tmp_path), async_save=True)
+    assert saver.save(runner) == 4
+    runner.run_steps(port.stack_steps(batches[4:]))
+    fresh = _bert_runner(cuda, torch.bfloat16, "flash", 0.0)
+    saver.restore(fresh)
+    assert fresh.step_count == 4
+    for (name, a), (_, b) in zip(flatten_with_names(fresh.get_params()),
+                                 flatten_with_names(snapshot)):
+        assert torch.equal(a, b), name
+    runner.close()
+    fresh.close()
+
+
+def test_cuda_loader_side_stream_copies_equal_synchronous_ones(cuda):
+    """The loader's pinned, non-blocking side-stream copies hand the
+    consumer the bytes a synchronous copy gives, while the consumer's
+    stream is busy; every leaf is on the card, in the placed form."""
+    runner = _bert_runner(cuda, torch.bfloat16, "flash", 0.0)
+    batches = _bert_steps(6)
+    loader = port.DataLoader(batches, runner.mesh, lowered=runner.lowered,
+                             global_batches=True, buffer_size=2)
+    busy = torch.randn(2048, 2048, device=cuda)
+    for b, placed in zip(batches, loader):
+        for _ in range(4):
+            busy = busy @ busy / busy.norm()    # keep the stream busy
+        for k, x in b.items():
+            assert placed[k].is_cuda
+            assert torch.equal(placed[k].cpu(), torch.as_tensor(x)), k
+    runner.close()

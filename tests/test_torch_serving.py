@@ -300,16 +300,21 @@ def test_out_of_slice_options_raise(kw, tcfg, tparams):
         port.ServingEngine(cfg, tparams, device="cpu", **kw)
 
 
-def test_out_of_slice_constructors_raise(tcfg, tparams):
+def test_out_of_slice_constructors_raise(tcfg, tparams, tmp_path):
+    """A non-flash attention function is refused; the artifact
+    constructors are ported (``tests/test_torch_export.py``) and refuse
+    a directory that holds no export artifact."""
     import dataclasses
 
     with pytest.raises(NotImplementedError, match="flash-attention family"):
         port.ServingEngine(dataclasses.replace(
             tcfg, attention_fn=lambda *a: None), tparams, device="cpu")
-    for make in (lambda: port.ServingEngine.from_artifact("x", tcfg),
-                 lambda: port.serve(tcfg, artifact="x", device="cpu")):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1, item 8"):
+    for make in (lambda: port.ServingEngine.from_artifact(str(tmp_path),
+                                                          tcfg),
+                 lambda: port.serve(tcfg, artifact=str(tmp_path),
+                                    device="cpu")):
+        with pytest.raises(FileNotFoundError,
+                           match="not an export artifact"):
             make()
 
 
@@ -367,7 +372,11 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, autodist_tpu_torch, autodist_tpu_torch.serving, "
             "autodist_tpu_torch.ops, autodist_tpu_torch.models.bert, "
             "autodist_tpu_torch.optim, autodist_tpu_torch.kernel.lowering, "
-            "autodist_tpu_torch.runner, autodist_tpu_torch.autodist; "
+            "autodist_tpu_torch.runner, autodist_tpu_torch.autodist, "
+            "autodist_tpu_torch.train, autodist_tpu_torch.data, "
+            "autodist_tpu_torch.fetches, autodist_tpu_torch.checkpoint, "
+            "autodist_tpu_torch.runtime.retry, "
+            "autodist_tpu_torch.runtime.faults; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
