@@ -31,7 +31,11 @@ SequenceParallel()).build(make_lm_trainable(cfg, ...))``, the config's
 ``attention_fn`` a ring from :mod:`autodist_tpu_torch.parallel
 .ring_attention` and its ``position_fn``
 :func:`~autodist_tpu_torch.parallel.sequence.global_positions`) with
-the flash-attention kernels per ring chunk.  Around every runner, the
+the flash-attention kernels per ring chunk; and GSPMD-style sharding
+by rules (``AutoDist({"mesh": {"data": d, "model": t}},
+TensorParallel())``, ``Sharded(rules)``, ``FSDPSharded()``) on DTensor,
+the flash-attention kernels inside under ``local_map``.  Around every
+runner, the
 training lifecycle: ``fit(runner, source, steps=..., eval_source=...,
 saver=Saver(dir), steps_per_loop=k)`` over a prefetching
 :class:`~autodist_tpu_torch.data.DataLoader`, ``runner.eval_step`` /
@@ -62,9 +66,10 @@ from autodist_tpu_torch.runner import DistributedRunner, stack_steps
 from autodist_tpu_torch.serving import (ContinuousBatcher, ServingEngine,
                                         serve)
 from autodist_tpu_torch.strategy.builders import (
-    PS, AllReduce, ExpertParallel, GradAccumulation, Parallax, PartitionedAR,
-    PartitionedPS, Pipeline, PSLoadBalancing, RandomAxisPartitionAR,
-    SequenceParallel, UnevenPartitionedPS, ZeRO)
+    PS, AllReduce, ExpertParallel, FSDPSharded, GradAccumulation, Parallax,
+    PartitionedAR, PartitionedPS, Pipeline, PSLoadBalancing,
+    RandomAxisPartitionAR, SequenceParallel, Sharded, TensorParallel,
+    UnevenPartitionedPS, ZeRO)
 from autodist_tpu_torch.strategy.ir import Strategy
 from autodist_tpu_torch.train import fit
 
@@ -73,7 +78,8 @@ __all__ = ["AutoDist", "Trainable", "PipelineTrainable", "VarInfo",
            "AllReduce", "PS", "PSLoadBalancing", "PartitionedPS",
            "UnevenPartitionedPS", "PartitionedAR", "RandomAxisPartitionAR",
            "Parallax", "GradAccumulation", "ZeRO", "Pipeline",
-           "ExpertParallel", "SequenceParallel",
+           "ExpertParallel", "SequenceParallel", "Sharded",
+           "TensorParallel", "FSDPSharded",
            "optim", "serve",
            "ServingEngine", "ContinuousBatcher", "TransformerConfig",
            "init_pipeline_lm_params", "make_pipeline_lm_trainable",

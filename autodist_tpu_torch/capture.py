@@ -27,10 +27,13 @@ import dataclasses
 import re
 from typing import Any, Callable, Sequence
 
+import torch
+from torch.utils._pytree import tree_leaves
+
+from autodist_tpu_torch import cuda_graph
 from autodist_tpu_torch import fetches as _fetches
 from autodist_tpu_torch.kernel.common import flatten_with_names
-
-_STAGE_ITEM = "ROADMAP Queue 1, slice 3 leftovers, item 6"
+from autodist_tpu_torch.ops import threefry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,27 +122,31 @@ class PipelineTrainable(Trainable):
 
     * ``stage_fn(chunk_params, x) -> x``: one stage; every stage shares
       it, each with its slice of ``stacked_params`` (a tree whose leaves
-      carry a leading ``num_stages`` dim);
+      carry a leading ``num_stages`` dim).  ``x`` is a tensor or a dict
+      of tensors;
     * ``loss_head(outputs, batch) -> (loss, metrics)`` (or ``(outputs,
       batch, shared)`` with ``shared_params``);
     * ``prologue(shared, batch) -> x`` (optional): the first stage's
       input, from the replicated ``shared_params`` (an LM's embedding).
 
+    ``stage_aux=True``: ``stage_fn`` returns ``(x, aux)``, a scalar
+    auxiliary loss added to the loss (summed over stages; the pipelined
+    schedule averages it over microbatches, so use a mean-style aux) and
+    reported as the ``aux_loss`` metric.  ``stage_rng=True``: ``stage_fn``
+    takes ``(chunk_params, x, rng_c, rows)``, ``rng_c`` the threefry key
+    of global chunk ``c`` (:func:`stage_key`; ``None`` without a step
+    seed, as in eval) and ``rows`` the global sample indices of ``x``'s
+    rows, so draws keyed on ``(c, row)`` are the same for any
+    microbatching, interleaving or data sharding.
+
     The inherited ``loss`` is the sequential execution (stage 0 to S - 1
     on one device), the reference the ``Pipeline`` lowering is held to.
-    Per-stage auxiliary losses (``stage_aux``) and per-(stage, row)
-    random draws (``stage_rng``) are not ported yet (ROADMAP Queue 1,
-    slice 3 leftovers, item 6).
     """
 
     def __init__(self, stage_fn, stacked_params, loss_head, optimizer, *,
                  num_stages: int, batch_key: str = "x",
                  stage_aux: bool = False, shared_params=None,
                  prologue=None, stage_rng: bool = False, **kw):
-        if stage_aux or stage_rng:
-            raise NotImplementedError(
-                f"PipelineTrainable(stage_aux=, stage_rng=) is not ported "
-                f"yet ({_STAGE_ITEM})")
         sizes = {leaf.shape[0] if leaf.dim() else None
                  for _, leaf in flatten_with_names(stacked_params)}
         if sizes != {num_stages}:
@@ -152,6 +159,8 @@ class PipelineTrainable(Trainable):
         self.loss_head = loss_head
         self.num_stages = num_stages
         self.batch_key = batch_key
+        self.stage_aux = bool(stage_aux)
+        self.stage_rng = bool(stage_rng)
         self.shared_params = shared_params
         self.prologue = prologue
         self.has_shared = shared_params is not None
@@ -162,15 +171,44 @@ class PipelineTrainable(Trainable):
             shared = params.get("shared") if has_shared else None
             x = prologue(shared, batch) if prologue is not None \
                 else batch[batch_key]
+            lead = tree_leaves(x)[0]
+            rows = (torch.arange(lead.shape[0], device=lead.device)
+                    if stage_rng else None)
+            aux_total = 0.0
             for i in range(num_stages):
-                x = stage_fn(stage_slice(stages, i), x)
+                chunk = stage_slice(stages, i)
+                res = (stage_fn(chunk, x, stage_key(rng, i, lead.device),
+                                rows)
+                       if stage_rng else stage_fn(chunk, x))
+                if stage_aux:
+                    x, aux = res
+                    aux_total = aux_total + aux
+                else:
+                    x = res
             loss, metrics = (loss_head(x, batch, shared) if has_shared
                              else loss_head(x, batch))
+            if stage_aux:
+                loss = loss + aux_total
+                metrics = dict(metrics, aux_loss=aux_total)
             return loss, extra, dict(metrics, loss=loss)
 
         params = ({"stages": stacked_params, "shared": shared_params}
                   if has_shared else stacked_params)
         super().__init__(sequential_loss, params, optimizer, **kw)
+
+
+def stage_key(rng, chunk, device):
+    """The threefry key of global chunk ``chunk`` for a step seed: JAX's
+    ``fold_in(rng, chunk)`` on the key of ``rng`` (an integer, or a
+    captured window's :class:`~autodist_tpu_torch.cuda_graph.GraphSeed`,
+    whose seed a replay reads from its static buffer); ``None`` for
+    ``None``."""
+    seed = cuda_graph.seed_tensor(rng, device)
+    if seed is None:
+        return None
+    return threefry.fold_in(threefry.key(seed),
+                            torch.full((), chunk, dtype=torch.int64,
+                                       device=device))
 
 
 def stage_slice(stages, i: int):

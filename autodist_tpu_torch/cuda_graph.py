@@ -24,7 +24,9 @@ and :class:`~autodist_tpu_torch.serving.engine.ServingEngine`
 * :class:`GraphSeed` carries a step's dropout seed into a graph: a CUDA
   generator registered with the graph and seeded on the host before
   each replay, which draws the Philox stream that a fresh generator
-  seeded alike draws in an eager step.
+  seeded alike draws in an eager step, and a static device buffer
+  holding the same seed, which counter-based draws (the pipelined
+  LM's keyed dropout) read instead of any generator state.
 
 A capture that fails raises; nothing here falls back to eager launches.
 """
@@ -65,6 +67,7 @@ class GraphSeed:
 
     def __init__(self, device):
         self.generator = torch.Generator(device=device)
+        self.tensor = torch.zeros((), dtype=torch.int64, device=device)
         self._fold = (1, 0)
 
     def fold(self, n: int, index: int) -> "GraphSeed":
@@ -74,6 +77,7 @@ class GraphSeed:
     def set(self, seed: int) -> None:
         n, index = self._fold
         self.generator.manual_seed(int(seed) * n + index)
+        self.tensor.fill_(int(seed) * n + index)
 
 
 def fold_seed(rng, n: int, index: int):
@@ -98,6 +102,17 @@ def dropout_generator(rng, device):
     gen = torch.Generator(device=device)
     gen.manual_seed(int(rng))
     return gen
+
+
+def seed_tensor(rng, device):
+    """A step seed as a 0-d int64 tensor on ``device`` for keyed draws:
+    a :class:`GraphSeed`'s static buffer, a new tensor for an integer,
+    ``None`` for ``None``."""
+    if rng is None:
+        return None
+    if isinstance(rng, GraphSeed):
+        return rng.tensor
+    return torch.full((), int(rng), dtype=torch.int64, device=device)
 
 
 class Graph:

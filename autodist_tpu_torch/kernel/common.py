@@ -233,32 +233,42 @@ def _reduce_stacked(values: list):
     return m.sum(0)
 
 
+def _slice_leaves(tree, i: int, accum: int, name: str = ""):
+    """Slice ``i`` of ``accum`` of every leaf of a nest of dicts with a
+    leading dim (else ``ValueError``); a 0-d leaf goes whole."""
+    if isinstance(tree, dict):
+        return type(tree)({k: _slice_leaves(v, i, accum, f"{name}/{k}"
+                                            if name else k)
+                           for k, v in tree.items()})
+    if not tree.dim():
+        return tree
+    if tree.shape[0] % accum:
+        raise ValueError(
+            f"per-device batch {tree.shape[0]} (leaf {name!r}) not "
+            f"divisible by accum_steps={accum}")
+    size = tree.shape[0] // accum
+    return tree.narrow(0, i * size, size)
+
+
 def accumulate_microbatches(micro_fn, batch, rng, extra, accum: int):
     """``accum`` microbatches of this rank's ``batch`` in a Python loop
     over static slices (a CUDA graph captures it whole); returns
     ``(grads, new_extra, metrics)``.
 
     ``micro_fn(mb, rng, extra) -> (grads, new_extra, metrics)`` with
-    ``grads`` a ``{name: tensor}`` dict.  Each leaf with a leading dim
-    splits into ``accum`` equal slices (else ``ValueError``); a 0-d leaf
-    goes whole to every slice.  The gradients are averaged; metrics as
+    ``grads`` a ``{name: tensor}`` dict, called on the slices in order.
+    Each leaf (of a nest of dicts) with a leading dim splits into
+    ``accum`` equal slices (else ``ValueError``); a 0-d leaf goes whole
+    to every slice.  The gradients are averaged; metrics as
     :func:`_reduce_stacked` reduces them.  Slice ``i`` draws its dropout
     from the step seed folded with ``i`` (a captured window's
     :class:`~autodist_tpu_torch.cuda_graph.GraphSeed` goes whole: its
     one generator advances from slice to slice)."""
     from autodist_tpu_torch.cuda_graph import GraphSeed, fold_seed
 
-    for name, x in batch.items():
-        if x.dim() and x.shape[0] % accum:
-            raise ValueError(
-                f"per-device batch {x.shape[0]} (leaf {name!r}) not "
-                f"divisible by accum_steps={accum}")
+    slices = [_slice_leaves(batch, i, accum) for i in range(accum)]
     g_sum, metric_list = None, []
-    for i in range(accum):
-        mb = type(batch)({name: (x.narrow(0, i * (x.shape[0] // accum),
-                                          x.shape[0] // accum)
-                                 if x.dim() else x)
-                          for name, x in batch.items()})
+    for i, mb in enumerate(slices):
         r = rng if isinstance(rng, GraphSeed) else fold_seed(rng, accum, i)
         grads, extra, metrics = micro_fn(mb, r, extra)
         g_sum = grads if g_sum is None else {

@@ -37,12 +37,13 @@ integer counts summed, flags OR-ed) and the defensive mean of float
 ``extra`` leaves.  Compressor state lives in ``state["sync_state"]``,
 one row a rank and bucket.  The step updates nothing in place.
 
-The lowerings other than ``pipeline``, ``expert`` and ``sequence``
-(:mod:`autodist_tpu_torch.parallel.pipeline`,
-:mod:`autodist_tpu_torch.parallel.moe` and
-:mod:`autodist_tpu_torch.parallel.sequence`, to which :func:`lower`
-hands those strategies) and an asynchronous or stale-synchronous PS
-raise ``NotImplementedError`` naming their ROADMAP item.  A precision
+:func:`lower` hands the ``pipeline``, ``expert``, ``sequence`` and
+``gspmd`` lowerings to :mod:`autodist_tpu_torch.parallel.pipeline`,
+:mod:`autodist_tpu_torch.parallel.moe`,
+:mod:`autodist_tpu_torch.parallel.sequence` and
+:mod:`autodist_tpu_torch.kernel.gspmd`; an asynchronous or
+stale-synchronous PS raises ``NotImplementedError`` naming its ROADMAP
+item.  A precision
 policy trains the fp32 program, as in the JAX package, whose collective
 lowering reads none; its slots are recorded in ``Lowered.unapplied``.
 """
@@ -128,9 +129,8 @@ def make_plan(trainable, strategy, mesh) -> Plan:
         raise ValueError(f"strategy built for {gc.replicas} replicas; the "
                          f"mesh has {n}")
     if gc.lowering != "collective":
-        raise NotImplementedError(
-            f"the {gc.lowering!r} lowering is not ported yet (ROADMAP "
-            f"Queue 1, item 8)")
+        raise ValueError(f"make_plan resolves the collective lowering; "
+                         f"this strategy's is {gc.lowering!r}")
     if any(size > 1 for ax, size in mesh.shape.items()
            if ax != const.DATA_AXIS):
         raise ValueError(f"the collective lowering runs on a data-only "
@@ -255,10 +255,12 @@ class Lowered:
     ...)}``), where given, replaces that single batch axis per leaf
     (:meth:`placement_of`).
 
-    The records of what the lowering did with the strategy's requests:
     ``eval_fn`` (``(state, batch, rng) -> metrics``) runs the
     trainable's ``eval_loss`` on the full parameters without an update
-    and reduces the metrics across replicas.
+    and reduces the metrics across replicas; ``release``, where given,
+    frees what the lowering holds beyond its state (the ``gspmd``
+    lowering's one-rank process group), called by the runner's
+    ``close()``.
 
     The records of what the lowering did with the strategy's requests:
     ``zero3_shapes`` the logical shape of each variable stored as a
@@ -282,6 +284,7 @@ class Lowered:
     zero3_shapes: dict = dataclasses.field(default_factory=dict)
     zero_degraded: dict = dataclasses.field(default_factory=dict)
     unapplied: dict = dataclasses.field(default_factory=dict)
+    release: Optional[Callable] = None
 
     def __post_init__(self):
         if self.batch_axis is None:
@@ -328,7 +331,8 @@ def lower(trainable, strategy, mesh, device=None) -> Lowered:
     (``None``: the card): the data-parallel step here, the pipeline
     lowering for a ``Pipeline`` strategy, the expert lowering for an
     ``ExpertParallel`` one, the sequence lowering for a
-    ``SequenceParallel`` one."""
+    ``SequenceParallel`` one, the DTensor lowering
+    (:mod:`~autodist_tpu_torch.kernel.gspmd`) for a ``gspmd`` one."""
     if strategy.graph_config.lowering == "pipeline":
         from autodist_tpu_torch.parallel.pipeline import lower_pipeline
 
@@ -341,6 +345,10 @@ def lower(trainable, strategy, mesh, device=None) -> Lowered:
         from autodist_tpu_torch.parallel.sequence import lower_sequence_ir
 
         return lower_sequence_ir(trainable, strategy, mesh, device)
+    if strategy.graph_config.lowering == "gspmd":
+        from autodist_tpu_torch.kernel.gspmd import lower_gspmd
+
+        return lower_gspmd(trainable, strategy, mesh, device)
     from autodist_tpu_torch.ops.sparse import ShardedEmbedding
 
     plan = make_plan(trainable, strategy, mesh)

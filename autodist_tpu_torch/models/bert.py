@@ -77,17 +77,27 @@ class BertModel(nn.Module):
         table = self.token_embed.embedding.to(dtype)
         x = F.embedding(tokens, table) + self.pos_embed[None, :L].to(dtype)
         if segments is not None:
-            x = x + F.embedding(segments,
-                                self.segment_embed.embedding.to(dtype))
+            seg_table = self.segment_embed.embedding.to(dtype)
+            x = x + one_hot(segments, seg_table.shape[0], dtype) @ seg_table
         x = dropout(self.ln_embed(x), cfg.dropout_rate, generator)
         attn_mask = None if mask is None else (mask[:, None, None, :] > 0)
         x = self.encoder(x, attn_mask, generator)
         # MLM head: gather the masked positions, transform, decode
         # against the tied table.
-        pos = batch["masked_positions"].long()[..., None]
-        gathered = torch.gather(x, 1, pos.expand(-1, -1, x.shape[-1]))
+        pos = batch["masked_positions"].long()
+        gathered = one_hot(pos, L, x.dtype) @ x       # [B, P, H]
         h = self.mlm_ln(F.gelu(self.mlm_dense(gathered), approximate="tanh"))
         return (h.to(dtype) @ table.T).float() + self.mlm_bias
+
+
+def one_hot(ids, n: int, dtype):
+    """``ids``' one-hot rows over ``n`` classes.  A lookup written as a
+    product with them is exact, and its backward is a matmul that sums
+    repeated ids in a fixed order: on the card, ``torch.gather``'s and
+    ``F.embedding``'s backwards add a row picked many times (a position
+    masked twice, a two-row segment table) in no fixed order, so two
+    runs of one step would differ."""
+    return (ids[..., None] == torch.arange(n, device=ids.device)).to(dtype)
 
 
 def mlm_loss_head(logits, batch):

@@ -24,6 +24,14 @@ layer per stage) for the ``Pipeline`` strategy, whose lowering passes
 ``model_axis`` (and ``comm_overlap``) to the stages under
 ``tensor_parallel > 1``: the layer then runs on its Megatron shards with
 the boundaries of :mod:`autodist_tpu_torch.parallel.tensor`.
+
+With dropout the trainable is ``stage_rng``: each mask is drawn
+counter-based (:func:`keyed_dropout`), keyed on (global chunk, global
+row, site, element), so the pipelined schedule draws the sequential
+loss's masks for any microbatching and a captured window replays it
+with no generator state.  The masks are not flax's (flax folds module
+paths into its keys); the JAX package's contract, pipelined equals
+sequential, is what holds.
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ from autodist_tpu_torch.models.losses import cross_entropy_from_logits
 from autodist_tpu_torch.models.transformer import (TransformerConfig,
                                                    dot_product_attention,
                                                    lecun_normal)
+from autodist_tpu_torch.ops import threefry
 from autodist_tpu_torch.parallel.tensor import (
     column_parallel, row_parallel, vocab_parallel_cross_entropy,
     vocab_parallel_embedding)
@@ -63,9 +72,35 @@ def _flax_layer_norm(x, p, dtype, eps=1e-6):
     return (y * p["scale"] + p["bias"]).to(dtype)
 
 
+# The dropout sites of a layer, as flax's EncoderLayer applies them.
+SITE_PROBS, SITE_ATTENTION, SITE_MLP_HIDDEN, SITE_MLP = range(4)
+
+
+def keyed_dropout(x, rate: float, key, rows, site: int):
+    """flax ``nn.Dropout`` (keep with probability ``1 - rate``, kept
+    values scaled by ``1 / (1 - rate)``) with a counter-based mask: row
+    ``b`` of ``x`` keys on ``fold_in(key, rows[b])`` and its element
+    ``j`` draws ``threefry.bits_at(row key, site, j)``, kept iff the
+    uniform in ``[0, 1)`` its top 23 bits make is below ``1 - rate``.
+    No generator state: the mask is a function of ``(key, row, site,
+    j)``.  The identity at rate 0 or with no key (eval)."""
+    if rate == 0.0 or key is None:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    k0, k1 = threefry.fold_in(key, rows)                  # [rows]
+    j = torch.arange(x[0].numel(), dtype=torch.int64, device=x.device)
+    bits = threefry.bits_at((k0[:, None], k1[:, None]),
+                            torch.full((), site, dtype=torch.int64,
+                                       device=x.device), j[None, :])
+    u = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    keep = (u < 1.0 - rate).view(x.shape)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 def _tp_encoder_layer(cfg: TransformerConfig, chunk, x, mask,
                       model_axis=None, comm_overlap=None, return_kv=False,
-                      attend=None):
+                      attend=None, drop=None):
     """One encoder layer, the JAX package's ``_tp_encoder_layer``: qkv
     projection, attention, out projection, post-norm, tanh-GELU MLP,
     post-norm.  With ``model_axis`` (an :class:`~autodist_tpu_torch
@@ -81,28 +116,45 @@ def _tp_encoder_layer(cfg: TransformerConfig, chunk, x, mask,
     ``attend(q, k, v) -> out`` replaces the attention step (``mask`` is
     then unused): the serving engine's decode and chunk steps write the
     cache and attend over it there, so every serving path runs this one
-    definition of the layer."""
+    definition of the layer.
+
+    ``drop(site, t, rate) -> t`` applies dropout at flax's four sites
+    (the attention probabilities at ``attention_dropout_rate``, the
+    attention output, the MLP hidden and the MLP output at
+    ``dropout_rate``); ``None`` is the deterministic layer."""
     dtype = cfg.dtype
     att = chunk["attention"]
     x = x.to(dtype)
     tp = dict(model_axis=model_axis, comm_overlap=comm_overlap)
+
+    def dropped(site, t, rate):
+        return t if drop is None else drop(site, t, rate)
+
+    probs_drop = None
+    if drop is not None and cfg.attention_dropout_rate:
+        def probs_drop(p):
+            return drop(SITE_PROBS, p, cfg.attention_dropout_rate)
     qkv = column_parallel(x, att["qkv"]["kernel"].to(dtype),
                           att["qkv"]["bias"].to(dtype), **tp)
     q, k, v = qkv.unbind(-3)
     if attend is not None:
         out = attend(q, k, v)
     elif cfg.attention_fn is not None:
-        out = cfg.attention_fn(q, k, v, mask, None)
+        out = cfg.attention_fn(q, k, v, mask, probs_drop)
     else:
-        out = dot_product_attention(q, k, v, mask, dtype=dtype)
+        out = dot_product_attention(q, k, v, mask, dtype=dtype,
+                                    dropout_rng=probs_drop)
     a = row_parallel(out, att["out"]["kernel"].to(dtype),
                      att["out"]["bias"].to(dtype), axes=2, **tp)
+    a = dropped(SITE_ATTENTION, a, cfg.dropout_rate)
     x = _flax_layer_norm(x + a, chunk["ln_attention"], dtype)
     h = column_parallel(x, chunk["mlp"]["wi"]["kernel"].to(dtype),
                         chunk["mlp"]["wi"]["bias"].to(dtype), **tp)
-    h = F.gelu(h, approximate="tanh")
+    h = dropped(SITE_MLP_HIDDEN, F.gelu(h, approximate="tanh"),
+                cfg.dropout_rate)
     m = row_parallel(h, chunk["mlp"]["wo"]["kernel"].to(dtype),
                      chunk["mlp"]["wo"]["bias"].to(dtype), **tp)
+    m = dropped(SITE_MLP, m, cfg.dropout_rate)
     y = _flax_layer_norm(x + m, chunk["ln_mlp"], dtype)
     return (y, k, v) if return_kv else y
 
@@ -203,16 +255,14 @@ def make_pipeline_lm_trainable(cfg: TransformerConfig, optimizer, generator,
     trainable's tree.  Batches are ``{"x": [B, L] tokens, "y": [B, L]
     next tokens}``.
 
-    The model has no dropout here: with ``tensor_parallel > 1`` the JAX
-    package refuses it too, and at one shard its per-(stage, row) draws
-    are not ported (ROADMAP Queue 1, slice 3 leftovers, item 6)."""
+    With dropout the trainable is ``stage_rng`` and each stage draws
+    its masks keyed on (global chunk, global row)
+    (:func:`keyed_dropout`); with ``tensor_parallel > 1`` a stage with
+    dropout raises ``NotImplementedError``, as in the JAX package
+    (masks over model-sharded intermediates cannot reproduce the
+    sequential draw)."""
     num_stages = num_stages or cfg.num_layers
-    if cfg.dropout_rate or cfg.attention_dropout_rate:
-        raise NotImplementedError(
-            "dropout in the pipelined LM is not ported yet: tensor_parallel "
-            "> 1 requires dropout_rate == attention_dropout_rate == 0 (as "
-            "in the JAX package), and the per-(stage, row) draws at one "
-            "shard are ROADMAP Queue 1, slice 3 leftovers, item 6")
+    needs_rng = bool(cfg.dropout_rate or cfg.attention_dropout_rate)
     params = init_pipeline_lm_params(
         dataclasses.replace(cfg, num_layers=num_stages), generator,
         device=device)
@@ -229,12 +279,25 @@ def make_pipeline_lm_trainable(cfg: TransformerConfig, optimizer, generator,
             comm_overlap=comm_overlap).to(cfg.dtype)
         return x + shared["pos_embed"][None, :L].to(cfg.dtype)
 
-    def stage_fn(chunk, x, model_axis=None, comm_overlap=None):
+    def stage_fn(chunk, x, rng_c=None, rows=None, model_axis=None,
+                 comm_overlap=None):
         """One encoder layer, causal; with ``model_axis`` on the local
-        Megatron shards."""
+        Megatron shards.  With dropout, ``rng_c`` is the chunk's key
+        (``None`` in eval) and ``rows`` the global rows of ``x``."""
         mask = _pipeline_lm_mask(x.shape[1], x.device)
+        if model_axis is not None and needs_rng:
+            # Dropout masks over model-sharded intermediates have
+            # per-shard shapes; no keying reproduces the sequential
+            # full-tensor draw, so the parity contract cannot hold.
+            raise NotImplementedError(
+                "tensor_parallel > 1 requires dropout_rate == "
+                "attention_dropout_rate == 0 in the pipelined LM")
+        drop = None
+        if needs_rng and rng_c is not None:
+            def drop(site, t, rate):
+                return keyed_dropout(t, rate, rng_c, rows, site)
         return _tp_encoder_layer(cfg, chunk, x, mask, model_axis=model_axis,
-                                 comm_overlap=comm_overlap)
+                                 comm_overlap=comm_overlap, drop=drop)
 
     def loss_head(outputs, batch, shared, model_axis=None,
                   comm_overlap=None):
@@ -261,4 +324,4 @@ def make_pipeline_lm_trainable(cfg: TransformerConfig, optimizer, generator,
     return PipelineTrainable(stage_fn, params["stages"], loss_head,
                              optimizer, num_stages=num_stages,
                              shared_params=params["shared"],
-                             prologue=prologue, **kw)
+                             prologue=prologue, stage_rng=needs_rng, **kw)

@@ -121,7 +121,8 @@ def dot_product_attention(q, k, v, mask, *, dropout_rate=0.0,
     ``q``/``k``/``v``: ``[..., L, heads, head_dim]``; ``mask``
     broadcastable to ``[..., heads, Lq, Lk]`` (True = visible).  Masked
     scores take the finite float32 minimum, as in the JAX package;
-    ``dropout_rng`` is a ``torch.Generator`` (or ``None``).
+    ``dropout_rng`` is a ``torch.Generator`` (or ``None``), or a
+    callable ``probs -> probs`` that applies its own dropout.
     """
     depth = q.shape[-1]
     scores = torch.einsum("...qhd,...khd->...hqk", q, k) / math.sqrt(depth)
@@ -129,7 +130,8 @@ def dot_product_attention(q, k, v, mask, *, dropout_rate=0.0,
     if mask is not None:
         scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(dtype)
-    probs = dropout(probs, dropout_rate, dropout_rng)
+    probs = (dropout_rng(probs) if callable(dropout_rng)
+             else dropout(probs, dropout_rate, dropout_rng))
     return torch.einsum("...hqk,...khd->...qhd", probs, v.to(dtype))
 
 

@@ -324,11 +324,37 @@ def make_attention_fn(causal: bool):
                 "flash attention supports only causal or no masking; got a "
                 "mask with causal=False (padding masks need the default "
                 "attention)")
+        if _is_dtensor(q):
+            return _local_flash_attention(q, k, v, causal)
         return flash_attention(q, k, v, causal=causal)
 
     attention_fn._adt_flash = True
     attention_fn.causal = bool(causal)
     return attention_fn
+
+
+def _is_dtensor(x) -> bool:
+    return type(x).__name__ == "DTensor"
+
+
+def _local_flash_attention(q, k, v, causal: bool):
+    """Flash attention on DTensors (the ``gspmd`` lowering): the kernel
+    takes raw pointers, so it runs under ``local_map`` on each rank's
+    ``[B, L, H, D]`` piece.  Attention is independent over the batch
+    and the heads, so those splits (``Shard(0)``, ``Shard(2)``) stay;
+    any other placement of ``q`` is replicated first, and ``k`` and
+    ``v`` are brought to ``q``'s."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = tuple(p if p.is_replicate() or (p.is_shard() and p.dim in (0, 2))
+               else Replicate() for p in q.placements)
+    mesh = q.device_mesh
+    q, k, v = (t.redistribute(mesh, pl) for t in (q, k, v))
+    fn = local_map(functools.partial(flash_attention, causal=causal),
+                   out_placements=list(pl), in_placements=(pl, pl, pl),
+                   device_mesh=mesh)
+    return fn(q, k, v)
 
 
 def is_flash_attention_fn(fn) -> bool:

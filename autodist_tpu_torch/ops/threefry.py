@@ -54,10 +54,15 @@ def threefry2x32(k0, k1, x0, x1):
     return x0, x1
 
 
-def key(seed: int = 0, device=None):
-    """``jax.random.PRNGKey(seed)`` for a seed in ``[0, 2**32)``."""
-    word = torch.full((), int(seed) & _MASK, dtype=torch.int64,
-                      device=device)
+def key(seed=0, device=None):
+    """``jax.random.PRNGKey(seed)`` for a seed in ``[0, 2**32)``: an
+    integer, or an integer tensor (read on the device, so a captured
+    graph re-reads it at every replay)."""
+    if isinstance(seed, torch.Tensor):
+        word = seed.to(torch.int64) & _MASK
+    else:
+        word = torch.full((), int(seed) & _MASK, dtype=torch.int64,
+                          device=device)
     return torch.zeros_like(word), word
 
 
@@ -76,6 +81,16 @@ def random_bits32(key_pair):
     k0, k1 = key_pair
     zero = torch.zeros_like(k0)
     y0, y1 = threefry2x32(k0, k1, zero, zero)
+    return y0 ^ y1
+
+
+def bits_at(key_pair, hi, lo):
+    """One uint32 a counter ``(hi, lo)`` under a key (as int64): the two
+    words of ``threefry2x32(key, (hi, lo))`` xor-ed, which at ``(0, 0)``
+    is :func:`random_bits32`.  A stream of counters draws a tensor of
+    bits under one key with one hash an element."""
+    k0, k1 = key_pair
+    y0, y1 = threefry2x32(k0, k1, hi, lo)
     return y0 ^ y1
 
 

@@ -29,15 +29,20 @@ process of the job runs the step on its (data, pipe, model) coordinate:
    makes the tick valid: bubble ticks run nothing, so the model-axis
    collectives and the K3/K4 launches inside the stages do not grow
    with the bubble.  Global chunk 0 takes microbatch ``m`` of the
-   prologue's output (run on the data shard, whose rows split into
-   ``num_microbatches`` contiguous microbatches) instead of what
-   arrived.  Only pipe rank 0 runs the prologue; the others take its
-   output's shape and dtype from a run on meta tensors (no compute, no
-   collective).  Activations are ``[B/M, L, H]``, and the stage function
-   gets ``model_axis`` (and ``comm_overlap``) under ``tensor_parallel
-   > 1``; under ``remat`` each stage call is a non-reentrant
-   ``torch.utils.checkpoint``, recomputed (its model-axis rings
-   included) in the backward;
+   prologue's output (a tensor or a dict of tensors, run on the data
+   shard, whose rows split into ``num_microbatches`` contiguous
+   microbatches) instead of what arrived.  Under ``stage_rng`` the
+   chunk call gets the key of global chunk ``v·n + d`` and the
+   microbatch's global rows (:func:`~autodist_tpu_torch.capture
+   .stage_key`), so keyed draws do not depend on M, V or the data
+   sharding; under ``stage_aux`` each valid tick's aux scalar enters
+   the loss as ``aux / M``.  Only pipe rank 0 runs the prologue; the
+   others take its output's shape and dtype from a run on meta tensors
+   (no compute, no collective).  Activations are ``[B/M, L, H]``, and
+   the stage function gets ``model_axis`` (and ``comm_overlap``) under
+   ``tensor_parallel > 1``; under ``remat`` each stage call is a
+   non-reentrant ``torch.utils.checkpoint``, recomputed (its
+   model-axis rings included) in the backward;
 4. the loss head runs once, on the last pipe rank, on the last chunk's
    ``M`` outputs, and back-propagates to one output gradient a
    microbatch.  Under ``vocab_parallel`` the prologue and the head get
@@ -68,7 +73,9 @@ process of the job runs the step on its (data, pipe, model) coordinate:
    shard's gradient is summed within its model coordinate and never
    over model: each model rank owns its rows.  The head's metrics (its
    ``fetch`` tags among them, at any shape) are broadcast from the last
-   pipe rank, then averaged over data; a tag inside a stage raises.
+   pipe rank (the aux, summed over the pipe axis, added as
+   ``aux_loss``), then averaged over data; a tag inside a stage
+   raises.
 
 The eval program (``Lowered.eval_fn``) is steps 2, 3 and 4 without a
 gradient: the forward ticks and the head, its metrics reduced alike.
@@ -82,15 +89,17 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
+import itertools
 import math
 
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from autodist_tpu_torch import const, interop
 from autodist_tpu_torch import fetches as _fetches
-from autodist_tpu_torch.capture import PipelineTrainable
+from autodist_tpu_torch.capture import PipelineTrainable, stage_key
 from autodist_tpu_torch.device import resolve_device
 from autodist_tpu_torch.kernel import common
 from autodist_tpu_torch.kernel.common import flatten_with_names, unflatten
@@ -101,9 +110,7 @@ from autodist_tpu_torch.parallel.tensor import (kernel_scope,
                                                 precision_scope)
 from autodist_tpu_torch.strategy.ir import (AllReduceSynchronizer,
                                             normalize_kernel,
-                                            normalize_precision, not_ported)
-
-_LEFTOVERS = "ROADMAP Queue 1, slice 3 leftovers"
+                                            normalize_precision)
 
 
 # --------------------------------------------------------------------------- #
@@ -280,15 +287,6 @@ def make_pipeline_plan(trainable, strategy, mesh) -> PipelinePlan:
             "kernel 'collective_matmul' fuses the chunked ppermute "
             "ring; it requires comm_overlap='matmul' "
             f"(got {overlap!r})")
-    # What this slice does not run.
-    if overlap == "rsag":
-        not_ported("comm_overlap='rsag'", f"{_LEFTOVERS}, item 3")
-    if overlap and precision.get("tp_psum"):
-        not_ported("a narrowed tp_psum precision under comm_overlap",
-                   f"{_LEFTOVERS}, item 3")
-    if overlap and vocab_dims and precision.get("vocab_stats"):
-        not_ported("a narrowed vocab_stats precision under comm_overlap",
-                   f"{_LEFTOVERS}, item 3")
     return PipelinePlan(
         num_microbatches=int(par.get("num_microbatches", 1)),
         num_stages=trainable.num_stages, virtual_stages=V,
@@ -407,16 +405,16 @@ def lower_pipeline(trainable, strategy, mesh, device=None) -> Lowered:
 
     zero3_shapes = {nm: logical[nm] for nm in logical if nm in space.zero3}
 
-    def stage_fn(chunk, x):
-        # A fetch tag inside a stage raises, naming the tag.
+    def stage_fn(chunk, x, keyed):
+        # A fetch tag inside a stage raises, naming the tag.  ``keyed``
+        # is ``(rng_c, rows)`` under stage_rng, else empty.
         with _fetches.refusing("a pipeline stage"):
             if not plan.remat:
-                return trainable.stage_fn(chunk, x, **tp_kwargs)
+                return trainable.stage_fn(chunk, x, *keyed, **tp_kwargs)
             # The recompute runs inside the backward's precision and
-            # kernel scopes, and the pipelined trainables draw no
-            # randomness.
+            # kernel scopes; keyed draws redraw the same masks.
             return torch.utils.checkpoint.checkpoint(
-                trainable.stage_fn, chunk, x, use_reentrant=False,
+                trainable.stage_fn, chunk, x, *keyed, use_reentrant=False,
                 preserve_rng_state=False, **tp_kwargs)
 
     def head(outputs, batch, shared):
@@ -463,72 +461,105 @@ def lower_pipeline(trainable, strategy, mesh, device=None) -> Lowered:
         return unflatten(leaves)[part] if has_shared else unflatten(leaves)
 
     def first_input(shared, batch):
-        """The prologue's output (or the batch key), split into the M
-        microbatches.  Pipe rank 0 computes it; the other ranks need
-        only its shape and dtype, from the prologue on meta tensors."""
+        """The prologue's output (or the batch key), a tensor or a dict
+        of tensors: ``(its leaves, its spec, the M microbatches' leaves,
+        the microbatch size)``.  Pipe rank 0 computes it; the other
+        ranks need only its shapes and dtypes, from the prologue on
+        meta tensors."""
         if trainable.prologue is None:
             x = batch[trainable.batch_key]
         elif first:
             x = trainable.prologue(shared, batch, **vp_kwargs)
         else:
             meta = trainable.prologue(_on_meta(shared), _on_meta(batch))
-            x = torch.zeros(meta.shape, dtype=meta.dtype, device=dev)
-        if not x.is_floating_point():
-            raise TypeError(f"the pipeline's activations must be floating "
-                            f"point; chunk 0 gets {x.dtype}")
-        B = x.shape[0]
+            x = tree_map(lambda a: torch.zeros(a.shape, dtype=a.dtype,
+                                               device=dev), meta)
+        leaves, spec = tree_flatten(x)
+        for leaf in leaves:
+            if not leaf.is_floating_point():
+                raise TypeError(f"the pipeline's activations must be "
+                                f"floating point; chunk 0 gets {leaf.dtype}")
+        B = leaves[0].shape[0]
         if B % M:
             raise ValueError(f"batch {B} not divisible by microbatches {M}")
-        return x, x.detach().split(B // M)
+        split = [leaf.detach().split(B // M) for leaf in leaves]
+        return leaves, spec, [list(mb) for mb in zip(*split)], B // M
 
-    def forward_ticks(chunks, mbs):
-        """The forward schedule; each valid tick's (input leaf, output),
-        by tick, and the last chunk's outputs, by microbatch."""
-        zeros = torch.zeros_like(mbs[0])
-        carry, saved, outs = zeros, {}, {}
+    def keyed_args(rng, row_offset, m, v, mb):
+        """A chunk call's ``(rng_c, rows)`` under stage_rng: the key of
+        global chunk ``v·n + d`` and the microbatch's global rows."""
+        if not trainable.stage_rng:
+            return ()
+        rows = row_offset + m * mb + torch.arange(mb, device=dev)
+        return stage_key(rng, v * n + d, dev), rows
+
+    def forward_ticks(chunks, mbs, spec, mb, rng=None, row_offset=0):
+        """The forward schedule: each valid tick's (input leaves, output
+        leaves, aux), by tick; the last chunk's output leaves, by
+        microbatch; this rank's aux summed over its valid ticks."""
+        zeros = [torch.zeros_like(a) for a in mbs[0]]
+        carry, saved, outs, aux_sum = zeros, {}, {}, None
         for t in range(T):
-            recv = pipe.ppermute(carry, 1)
+            recv = [pipe.ppermute(a, 1) for a in carry]
             valid, m, v = _tick_assignment(t, d, n=n, V=V, M=M)
             if not valid:
                 carry = zeros
                 continue
             src = mbs[m] if first and v == 0 else recv
-            x = src.detach().requires_grad_()
-            out = stage_fn(chunks[v], x)
-            if out.shape != x.shape or out.dtype != x.dtype:
+            xs = [a.detach().requires_grad_() for a in src]
+            res = stage_fn(chunks[v], tree_unflatten(xs, spec),
+                           keyed_args(rng, row_offset, m, v, mb))
+            out, aux = res if trainable.stage_aux else (res, None)
+            out_leaves, out_spec = tree_flatten(out)
+            if out_spec != spec or [(o.shape, o.dtype) for o in out_leaves] \
+                    != [(a.shape, a.dtype) for a in xs]:
                 raise ValueError(
-                    f"stage activations must match the microbatch's shape "
-                    f"and dtype (chunk 0 consumes the batch): got "
-                    f"{tuple(out.shape)} {out.dtype} from "
-                    f"{tuple(x.shape)} {x.dtype}")
-            saved[t] = (x, out)
-            carry = out.detach()
+                    f"stage activations must match the microbatch's "
+                    f"structure, shapes and dtypes (chunk 0 consumes the "
+                    f"batch): got {out_spec} "
+                    f"{[(tuple(o.shape), o.dtype) for o in out_leaves]} "
+                    f"from {spec} "
+                    f"{[(tuple(a.shape), a.dtype) for a in xs]}")
+            if aux is not None:
+                aux = torch.as_tensor(aux, device=dev)
+                aux_sum = aux.detach() if aux_sum is None \
+                    else aux_sum + aux.detach()
+            saved[t] = (xs, out_leaves, aux)
+            carry = [o.detach() for o in out_leaves]
             if last and v == V - 1:
                 outs[m] = carry
-        return saved, outs
+        return saved, outs, aux_sum
 
     def backward_ticks(saved, head_grads, chunk_leaves, zeros):
         """The reverse schedule; the stage leaves' gradients by chunk,
-        and chunk 0's input gradients by microbatch."""
+        and chunk 0's input gradients by microbatch.  A stage's aux
+        enters the loss as ``aux / M``, on every rank."""
         grads = [dict.fromkeys(leaves) for leaves in chunk_leaves]
         g_first = [None] * M
         carry = zeros
         for t in reversed(range(T)):
-            recv = pipe.ppermute(carry, -1)
+            recv = [pipe.ppermute(a, -1) for a in carry]
             valid, m, v = _tick_assignment(t, d, n=n, V=V, M=M)
             if not valid:
                 carry = zeros
                 continue
-            x, out = saved.pop(t)
+            xs, out_leaves, aux = saved.pop(t)
             cot = head_grads[m] if last and v == V - 1 else recv
+            outputs = [(o, g) for o, g in zip(out_leaves, cot)
+                       if o.requires_grad]
+            if aux is not None and aux.requires_grad:
+                outputs.append((aux, torch.full_like(aux, 1.0 / M)))
             leaves = chunk_leaves[v]
-            gs = torch.autograd.grad(out, [x, *leaves.values()], cot,
-                                     allow_unused=True)
-            for nm, g in zip(leaves, gs[1:]):
+            gs = (torch.autograd.grad([o for o, _ in outputs],
+                                      [*xs, *leaves.values()],
+                                      [g for _, g in outputs],
+                                      allow_unused=True)
+                  if outputs else [None] * (len(xs) + len(leaves)))
+            for nm, g in zip(leaves, gs[len(xs):]):
                 if g is not None:
                     acc = grads[v][nm]
                     grads[v][nm] = g if acc is None else acc + g
-            g_x = zeros if gs[0] is None else gs[0]
+            g_x = [z if g is None else g for z, g in zip(zeros, gs)]
             if first and v == 0:
                 g_first[m], carry = g_x, zeros
             else:
@@ -597,29 +628,58 @@ def lower_pipeline(trainable, strategy, mesh, device=None) -> Lowered:
             grads[nm] = torch.autograd.grad(
                 full, src, torch.zeros_like(full) if g is None else g)[0]
 
-    def gradients(params, batch):
+    def with_aux(metrics, aux_sum):
+        """Under stage_aux: ``aux_loss`` is every pipe rank's aux over
+        its valid ticks, divided by M and summed over the pipe axis
+        (replacing a head metric of that name), and ``loss`` gains it;
+        without, the head's metrics as they are."""
+        if not trainable.stage_aux:
+            return metrics
+        local = (torch.zeros((), device=dev) if aux_sum is None
+                 else aux_sum.float() / M)
+        aux = pipe.psum(local)
+        return dict(metrics, aux_loss=aux, loss=metrics["loss"] + aux)
+
+    def gradients(params, batch, rng=None, slice_idx=0):
         """This rank's gradients of one whole schedule (in the update
         layout: a ZeRO-3 variable's shard) and the head's metrics."""
         shared_leaves, chunk_leaves, gathered = materialize(params)
         shared = tree(shared_leaves, "shared") if has_shared else None
         chunks = [tree(leaves, "stages") for leaves in chunk_leaves]
-        x, mbs = first_input(shared, batch)
-        saved, outs = forward_ticks(chunks, mbs)
+        x, spec, mbs, mb = first_input(shared, batch)
+        # The global index of this (data shard, accumulation slice)'s
+        # first row: shards split the batch before accumulation slices
+        # it.
+        b_local = mb * M
+        row_offset = b_local * (slice_idx + data.index * plan.accum)
+        saved, outs, aux_sum = forward_ticks(chunks, mbs, spec, mb, rng,
+                                             row_offset)
         shared_grads = dict.fromkeys(shared_leaves)
+        zeros = [torch.zeros_like(a) for a in mbs[0]]
         head_grads, metrics = [None] * M, {}
         if last:
-            ins = [outs[m].requires_grad_() for m in range(M)]
-            loss, metrics = head(torch.cat(ins), batch, shared)
-            gs = torch.autograd.grad(loss, [*ins, *shared_leaves.values()],
-                                     allow_unused=True)
-            head_grads = [torch.zeros_like(i) if g is None else g
-                          for i, g in zip(ins, gs[:M])]
-            shared_grads = dict(zip(shared_leaves, gs[M:]))
+            ins = [[a.requires_grad_() for a in outs[m]] for m in range(M)]
+            joined = tree_unflatten(
+                [torch.cat(parts) for parts in zip(*ins)], spec)
+            loss, metrics = head(joined, batch, shared)
+            flat_ins = [a for per_m in ins for a in per_m]
+            gs = torch.autograd.grad(
+                loss, [*flat_ins, *shared_leaves.values()],
+                allow_unused=True)
+            k = len(zeros)
+            head_grads = [[z if g is None else g
+                           for z, g in zip(zeros, gs[m * k:(m + 1) * k])]
+                          for m in range(M)]
+            shared_grads = dict(zip(shared_leaves, gs[M * k:]))
         grads, g_first = backward_ticks(saved, head_grads, chunk_leaves,
-                                        torch.zeros_like(mbs[0]))
-        if first and x.requires_grad:
-            gs = torch.autograd.grad(x, list(shared_leaves.values()),
-                                     torch.cat(g_first), allow_unused=True)
+                                        zeros)
+        x_out = [(a, torch.cat([g[i] for g in g_first]))
+                 for i, a in enumerate(x) if first and a.requires_grad]
+        if x_out:
+            gs = torch.autograd.grad([a for a, _ in x_out],
+                                     list(shared_leaves.values()),
+                                     [g for _, g in x_out],
+                                     allow_unused=True)
             for nm, g in zip(shared_leaves, gs):
                 if g is not None:
                     acc = shared_grads[nm]
@@ -634,7 +694,7 @@ def lower_pipeline(trainable, strategy, mesh, device=None) -> Lowered:
             else:
                 g = shared_grads[nm]
                 out[nm] = torch.zeros_like(p) if g is None else g
-        return out, broadcast_metrics(metrics, "step")
+        return out, with_aux(broadcast_metrics(metrics, "step"), aux_sum)
 
     def sync_grads(grads: dict, rows: dict):
         """Shared gradients summed over pipe (each pipe rank holds a
@@ -667,17 +727,20 @@ def lower_pipeline(trainable, strategy, mesh, device=None) -> Lowered:
     def step_fn(state, batch, rng):
         params = state["params"]
 
-        def micro(mb, r, extra):
-            # No stage draws randomness: the slice's seed goes unused.
-            grads, metrics = gradients(params, mb)
+        slices = itertools.count()
+
+        def micro(mb, _, extra):
+            # Each accumulation slice runs the whole schedule in turn;
+            # keyed draws take the step seed, their rows global (the
+            # slice's place in the batch), so no slice seed is used.
+            grads, metrics = gradients(params, mb, rng, next(slices))
             return grads, extra, metrics
 
         with torch.enable_grad(), precision_scope(plan.precision), \
                 kernel_scope(plan.kernel):
             if plan.accum == 1:
-                grads, metrics = gradients(params, batch)
+                grads, metrics = gradients(params, batch, rng)
             else:
-                # Each accumulation slice runs the whole schedule.
                 grads, _, metrics = common.accumulate_microbatches(
                     micro, batch, rng, None, plan.accum)
         synced, rows = sync_grads(grads, state["sync_state"])
@@ -690,21 +753,25 @@ def lower_pipeline(trainable, strategy, mesh, device=None) -> Lowered:
 
     def eval_fn(state, batch, rng):
         """The forward schedule and the loss head, no backward and no
-        update (no stage draws randomness: ``rng`` goes unused); the
-        head's metrics broadcast from the last pipe rank, then averaged
-        over data."""
+        update; deterministic (no seed reaches the stages: ``rng`` goes
+        unused).  The head's metrics broadcast from the last pipe rank,
+        the aux added as in training, then averaged over data."""
         with torch.no_grad(), precision_scope(plan.precision), \
                 kernel_scope(plan.kernel):
             shared_leaves, chunk_leaves, _ = materialize(state["params"])
             shared = tree(shared_leaves, "shared") if has_shared else None
-            _, mbs = first_input(shared, batch)
-            _, outs = forward_ticks(
-                [tree(leaves, "stages") for leaves in chunk_leaves], mbs)
+            _, spec, mbs, mb = first_input(shared, batch)
+            _, outs, aux_sum = forward_ticks(
+                [tree(leaves, "stages") for leaves in chunk_leaves], mbs,
+                spec, mb)
             metrics = {}
             if last:
-                _, metrics = head(torch.cat([outs[m] for m in range(M)]),
-                                  batch, shared)
-            return reduce_metrics(broadcast_metrics(metrics, "eval"), mesh)
+                joined = tree_unflatten(
+                    [torch.cat(parts) for parts in
+                     zip(*[outs[m] for m in range(M)])], spec)
+                _, metrics = head(joined, batch, shared)
+            return reduce_metrics(with_aux(
+                broadcast_metrics(metrics, "eval"), aux_sum), mesh)
 
     def full_params(stored: dict) -> dict:
         """The logical tree: ZeRO-3 shards gathered and unpadded, model

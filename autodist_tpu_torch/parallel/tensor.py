@@ -25,12 +25,15 @@ runs later, after the ``with`` block may have closed, so each boundary
 picks its reduction when its forward runs and keeps it on the autograd
 context; no backward reads a scope.
 
-``comm_overlap="matmul"`` turns the row boundary into the chunked
-collective-matmul ring (:mod:`autodist_tpu_torch.kernel
-.collective_matmul`; fused with the ``collective_matmul`` kernel) and
-the column boundary's backward sum into a reduce-scatter + all-gather
-pair at fp32.  ``"rsag"`` and narrowed precisions under overlap are not
-ported (ROADMAP Queue 1, slice 3 leftovers).
+``comm_overlap="rsag"`` turns every boundary's sum into a
+reduce-scatter + all-gather pair (:func:`psum_decomposed`);
+``"matmul"`` turns the row boundary into the chunked collective-matmul
+ring (:mod:`autodist_tpu_torch.kernel.collective_matmul`; fused with
+the ``collective_matmul`` kernel), at fp32, and the column boundary's
+backward sum into the pair.  The pair narrows to the active ``tp_psum``
+precision (the vocab epilogue's to ``vocab_stats``): the rs half sums
+int8 levels on an fp16 wire (bf16 on a bf16 wire), the ag half
+requantizes the fp32 shard onto an int8 wire.
 
 Vocab parallelism shards the tied embedding's rows over the model axis:
 :func:`vocab_parallel_embedding` is a masked shard lookup and a sum,
@@ -56,8 +59,6 @@ from autodist_tpu_torch.kernel.collective_matmul import (
 from autodist_tpu_torch.kernel.quant_ring import (ring_gather_grads,
                                                   ring_sum_partials)
 from autodist_tpu_torch.ops import threefry
-
-_OVERLAP_ITEM = "ROADMAP Queue 1, slice 3 leftovers, item 3"
 
 
 # --------------------------------------------------------------------------- #
@@ -182,9 +183,14 @@ def normalize_comm_overlap(mode):
         f"got {mode!r}")
 
 
-def psum_decomposed(x, axis):
-    """The fp32 sum over ``axis`` as a reduce-scatter + all-gather pair
-    over the flat payload, zero-padded to divide the axis size."""
+def psum_decomposed(x, axis, precision: str = "fp32"):
+    """The sum over ``axis`` as a reduce-scatter + all-gather pair over
+    the flat payload, zero-padded to divide the axis size.  Each half
+    narrows to ``precision`` on its own: the rs half sums int8 levels
+    on an fp16 wire (bf16: a bf16 wire), the ag half requantizes the
+    fp32 shard onto an int8 wire (a gather never sums); the result is
+    cast back to ``x.dtype``."""
+    precision = qz.check_precision(precision)
     n = axis.size
     if n == 1:
         return x
@@ -193,21 +199,35 @@ def psum_decomposed(x, axis):
     pad = (-size) % n
     if pad:
         flat = F.pad(flat, (0, pad))
-    full = axis.all_gather(axis.psum_scatter(flat))
+    if precision == "fp32":
+        full = axis.all_gather(axis.psum_scatter(flat))
+    else:
+        shard = qz.quantized_psum_scatter_flat(flat, axis, precision)
+        full = qz.quantized_all_gather_flat(shard, axis,
+                                            precision).to(x.dtype)
     return full[:size].view(x.shape)
 
 
 def gather_grads_decomposed(x, model_axis):
-    """Identity forward / decomposed (rs + ag) sum backward: the
-    ``comm_overlap`` form of :func:`gather_grads`."""
+    """Identity forward / decomposed (rs + ag) sum backward at the
+    active ``tp_psum`` precision: the ``comm_overlap`` form of
+    :func:`gather_grads`."""
     if model_axis is None:
         return x
-    if active_precision("tp_psum") != "fp32":
-        raise NotImplementedError(
-            f"a {active_precision('tp_psum')} collective precision under "
-            f"comm_overlap is not ported yet ({_OVERLAP_ITEM})")
-    return _GatherGrads.apply(x, functools.partial(psum_decomposed,
-                                                   axis=model_axis))
+    return _GatherGrads.apply(x, functools.partial(
+        psum_decomposed, axis=model_axis,
+        precision=active_precision("tp_psum")))
+
+
+def sum_partials_decomposed(x, model_axis):
+    """Decomposed (rs + ag) sum forward / identity backward at the
+    active ``tp_psum`` precision: the ``comm_overlap="rsag"`` form of
+    :func:`sum_partials`."""
+    if model_axis is None:
+        return x
+    return _SumPartials.apply(x, functools.partial(
+        psum_decomposed, axis=model_axis,
+        precision=active_precision("tp_psum")))
 
 
 def collective_matmul_row(x, kernel, model_axis, axes: int = 1):
@@ -225,13 +245,10 @@ def column_parallel(x, kernel, bias=None, *, model_axis=None, axes: int = 1,
     ``x`` and the front of ``kernel`` (tensordot semantics).  With
     ``model_axis``, ``kernel``/``bias`` are the local output shard and
     the input's backward cotangent sums over the group (decomposed under
-    ``comm_overlap``)."""
-    overlap = normalize_comm_overlap(comm_overlap)
-    if overlap == "rsag":
-        raise NotImplementedError(
-            f"comm_overlap='rsag' is not ported yet ({_OVERLAP_ITEM})")
+    any ``comm_overlap``)."""
     if model_axis is not None:
-        x = (gather_grads_decomposed(x, model_axis) if overlap
+        x = (gather_grads_decomposed(x, model_axis)
+             if normalize_comm_overlap(comm_overlap)
              else gather_grads(x, model_axis))
     y = torch.tensordot(x, kernel, dims=axes)
     return y + bias if bias is not None else y
@@ -240,21 +257,21 @@ def column_parallel(x, kernel, bias=None, *, model_axis=None, axes: int = 1,
 def row_parallel(x, kernel, bias=None, *, model_axis=None, axes: int = 1,
                  comm_overlap=None):
     """``x @ kernel (+ bias)`` with the kernel's input dims sharded: the
-    partial products sum over the model group (blocking, or the
-    collective-matmul ring under ``comm_overlap="matmul"``, fused with
-    the ``collective_matmul`` kernel elected), then the replicated bias
-    is added."""
+    partial products sum over the model group (blocking; the rs + ag
+    pair under ``comm_overlap="rsag"``; the collective-matmul ring under
+    ``"matmul"``, fused with the ``collective_matmul`` kernel elected),
+    then the replicated bias is added."""
     overlap = normalize_comm_overlap(comm_overlap)
-    if overlap == "rsag":
-        raise NotImplementedError(
-            f"comm_overlap='rsag' is not ported yet ({_OVERLAP_ITEM})")
     if model_axis is not None and overlap == "matmul":
         if active_kernel("collective_matmul") and kernel.dim() == axes + 1:
             y = collective_matmul_row_fused(x, kernel, model_axis, axes)
         else:
             y = collective_matmul_row(x, kernel, model_axis, axes)
     else:
-        y = sum_partials(torch.tensordot(x, kernel, dims=axes), model_axis)
+        y = torch.tensordot(x, kernel, dims=axes)
+        if model_axis is not None:
+            y = (sum_partials_decomposed(y, model_axis) if overlap
+                 else sum_partials(y, model_axis))
     return y + bias if bias is not None else y
 
 
@@ -277,23 +294,6 @@ def _in_shard(ids, rows: int, model_axis):
     and its local row clamped into the shard."""
     local = ids.long() - _shard_start(rows, model_axis)
     return (local >= 0) & (local < rows), local.clamp(0, rows - 1)
-
-
-def _check_overlap_precision(prec: str, slot: str):
-    if prec != "fp32":
-        raise NotImplementedError(
-            f"a {prec} {slot} precision under comm_overlap is not ported "
-            f"yet ({_OVERLAP_ITEM})")
-
-
-def sum_partials_decomposed(x, model_axis):
-    """Decomposed (rs + ag) sum forward / identity backward: the
-    ``comm_overlap`` form of :func:`sum_partials`, at fp32."""
-    if model_axis is None:
-        return x
-    _check_overlap_precision(active_precision("tp_psum"), "tp_psum")
-    return _SumPartials.apply(x, functools.partial(psum_decomposed,
-                                                   axis=model_axis))
 
 
 def vocab_parallel_embedding(tokens, embedding, *, model_axis=None,
@@ -442,15 +442,16 @@ def vocab_parallel_cross_entropy(x, embedding, targets, *, vocab_size: int,
     once.  Neither pass holds a ``[B, L, V/tp]`` buffer.  Padded rows sit
     at the fp32 minimum: they never win the argmax, add ``exp(-huge) =
     0`` to the sum and get no gradient.  ``comm_overlap`` (any mode)
-    takes the statistics and ``dx`` sums as the decomposed pair, at fp32
-    only.  ``model_axis=None`` runs the same math with no collective."""
+    takes the statistics and ``dx`` sums as the decomposed pair, at the
+    same precision.  ``model_axis=None`` runs the same math with no
+    collective."""
     prec = active_precision("vocab_stats")
     if model_axis is None:
         def psum(v):
             return v
     elif normalize_comm_overlap(comm_overlap):
-        _check_overlap_precision(prec, "vocab_stats")
-        psum = functools.partial(psum_decomposed, axis=model_axis)
+        psum = functools.partial(psum_decomposed, axis=model_axis,
+                                 precision=prec)
     else:
         psum = functools.partial(qz.quantized_psum, axis=model_axis,
                                  precision=prec)

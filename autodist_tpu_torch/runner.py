@@ -388,11 +388,13 @@ class DistributedRunner:
         return _clone(self.state["extra"])
 
     def close(self):
-        """Release the state and the captured graphs (safe to call more
-        than once)."""
+        """Release the state, the captured graphs and what the lowering
+        holds (safe to call more than once)."""
         for graph, _, _ in self._graphs.values():
             graph.close()
         self._graphs = {}
         self._state_buf = None
         self.state = None
+        if self.lowered is not None and self.lowered.release is not None:
+            self.lowered.release()
         self.lowered = None

@@ -62,7 +62,8 @@ them in step): each rank holds its Megatron shards, cut from the full
 tree by the pipeline builder's rule tables (:func:`serving_param_dims`,
 JAX ``serving_param_specs``), and a cache of ``num_heads / t`` heads;
 the layers sum their row-parallel outputs over the group
-(``comm_overlap="matmul"``: the collective-matmul ring).  Under
+(``comm_overlap="rsag"``: a reduce-scatter + all-gather pair;
+``"matmul"``: the collective-matmul ring).  Under
 ``vocab_parallel`` the tied table is sharded too, padded to divide, and
 the embedding and the epilogues take the vocab-parallel forms of
 :mod:`autodist_tpu_torch.parallel.tensor`; without it every rank holds
@@ -71,8 +72,7 @@ on every rank.  A group of NCCL ranks replays the graphs like one card;
 gloo ranks on the card stage every exchange through the host, so they
 run the host loop.
 
-``comm_overlap="rsag"`` raises ``NotImplementedError`` naming its
-ROADMAP item.  :meth:`ServingEngine.from_artifact` serves an export
+:meth:`ServingEngine.from_artifact` serves an export
 artifact's ``params/`` (:mod:`autodist_tpu_torch.checkpoint.export`).
 """
 from __future__ import annotations
@@ -112,10 +112,6 @@ from autodist_tpu_torch.strategy.ir import (normalize_kernel,
                                             normalize_prefix_caching,
                                             normalize_speculative)
 from autodist_tpu_torch import telemetry
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet ({item})")
 
 
 def serving_param_dims(params, tp: int, vocab_parallel: bool) -> dict:
@@ -238,7 +234,8 @@ class ServingEngine:
     default process group (every rank constructs it with the same
     arguments and ``params``, the full logical tree);
     ``vocab_parallel`` shards the tied table's vocabulary over them;
-    ``comm_overlap="matmul"`` sums the row-parallel outputs with the
+    ``comm_overlap="rsag"`` sums the row-parallel outputs with a
+    reduce-scatter + all-gather pair, ``"matmul"`` with the
     collective-matmul ring.  :attr:`model_axis` is the group's
     :class:`~autodist_tpu_torch.parallel.axis.Axis` (``None`` at one
     rank).
@@ -298,9 +295,6 @@ class ServingEngine:
         self.tensor_parallel = tp
         self.vocab_parallel = bool(vocab_parallel) and tp > 1
         self.comm_overlap = normalize_comm_overlap(comm_overlap)
-        if self.comm_overlap == "rsag":
-            _not_ported("comm_overlap='rsag'",
-                        "ROADMAP Queue 1, slice 3 leftovers, item 3")
         self.num_slots = int(num_slots)
         self.max_len = int(max_len or cfg.max_len)
         if self.max_len > cfg.max_len:

@@ -27,9 +27,10 @@ ZeRO                        stage 1 PS, 2 PartitionedAR, 3
 ==========================  ==========================================
 
 ``Pipeline``, ``ExpertParallel`` and ``SequenceParallel`` live in
-:mod:`~autodist_tpu_torch.strategy.parallel_builders`; the GSPMD
-builders and ``AutoStrategy`` raise ``NotImplementedError`` naming
-their ROADMAP item.
+:mod:`~autodist_tpu_torch.strategy.parallel_builders`, ``Sharded``,
+``TensorParallel`` and ``FSDPSharded`` in
+:mod:`~autodist_tpu_torch.strategy.gspmd_builders`; ``AutoStrategy``
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -39,14 +40,15 @@ from autodist_tpu_torch.strategy.base import StrategyBuilder, greedy_assign
 from autodist_tpu_torch.strategy.ir import (AllReduceSynchronizer, NodeConfig,
                                             PartitionerConfig, PSSynchronizer,
                                             Strategy)
+from autodist_tpu_torch.strategy.gspmd_builders import (FSDPSharded,
+                                                        Sharded,
+                                                        TensorParallel)
 from autodist_tpu_torch.strategy.parallel_builders import (ExpertParallel,
                                                            Pipeline,
                                                            SequenceParallel)
 
 # Builders of the JAX package and where the port brings them.
 NOT_PORTED = {
-    **{name: "ROADMAP Queue 1, item 8: the GSPMD builders"
-       for name in ("Sharded", "TensorParallel", "FSDPSharded")},
     "AutoStrategy": "ROADMAP Queue 1, item 10: simulator and plan lint",
 }
 
@@ -318,6 +320,9 @@ BUILDERS = {
     "Pipeline": Pipeline,
     "ExpertParallel": ExpertParallel,
     "SequenceParallel": SequenceParallel,
+    "Sharded": Sharded,
+    "TensorParallel": TensorParallel,
+    "FSDPSharded": FSDPSharded,
 }
 
 

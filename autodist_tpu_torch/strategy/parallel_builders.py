@@ -20,7 +20,6 @@ its per-variable synchronizers as the JAX builders do
 (:func:`_default_sync`: ZeRO at ``zero_stage``, a compressor, or the
 ``zero_min_bytes`` mix of both).  What the port does not run raises
 ``NotImplementedError`` here, after the JAX builder's own checks:
-``comm_overlap="rsag"``, a narrowed precision under overlap and
 ``expert_over_dcn``.
 """
 from __future__ import annotations
@@ -59,7 +58,6 @@ PIPELINE_VOCAB_RULES = (
     (r"(^|/)embedding$", [const.MODEL_AXIS, None]),
 )
 
-_LEFTOVERS = "ROADMAP Queue 1, slice 3 leftovers"
 
 
 class Pipeline(StrategyBuilder):
@@ -141,16 +139,6 @@ class Pipeline(StrategyBuilder):
         self.zero_stage = _resolve_zero_stage(zero_stage, zero1)
         self.make_sync = _default_sync(self.zero_stage, compressor,
                                        zero_min_bytes)
-        # What the port's pipeline lowering does not run yet.
-        if self.comm_overlap == "rsag":
-            not_ported("comm_overlap='rsag'", f"{_LEFTOVERS}, item 3")
-        if self.comm_overlap and self.precision.get("tp_psum"):
-            not_ported("a narrowed tp_psum precision under comm_overlap",
-                       f"{_LEFTOVERS}, item 3")
-        if self.comm_overlap and self.vocab_parallel \
-                and self.precision.get("vocab_stats"):
-            not_ported("a narrowed vocab_stats precision under "
-                       "comm_overlap", f"{_LEFTOVERS}, item 3")
 
     def _tp_spec_for(self, name: str, stage_shape: tuple, tp: int):
         """Per-stage model-axis spec of a stage variable, or None: the

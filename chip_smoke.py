@@ -122,7 +122,7 @@ attention over K1/K2a/K2b), and the training lifecycle around a runner
 9. the MoE window in bf16 (``bench.py moe`` on an accelerator: 2
    layers, max_len 512, capacity factor 2.0, 2 rows per rank,
    ``adam(1e-3)``, nothing cut) for the composed int8 and ``a2a_ring``
-   programs: a warm window of 20 steps, then a timed one; tokens/s,
+   programs: a warm window of 10 steps, then a timed one; tokens/s,
    step ms, peak memory per rank, the profiler's busy share and K8's
    device time per step, and K8 held to 16 launches a step (2 layers x dispatch and
    combine x forward and backward x 2 hops), none off the vector path,
@@ -144,7 +144,7 @@ attention over K1/K2a/K2b), and the training lifecycle around a runner
 12. the sequence-parallel window in bf16 (``bench.py:442-446``'s model,
    nothing cut: 4 layers, max_len 2048; batch 8 of 2048 tokens,
    ``adamw(3e-4)`` as ``examples/long_context.py`` trains it, the flash
-   ring on ``{"seq": 2}``): a warm window of 10 steps, then a timed
+   ring on ``{"seq": 2}``): a warm window of 5 steps, then a timed
    one; tokens/s (the slowest rank), step ms, peak memory per rank, each
    rank's busy share and K1/K2a/K2b device time a step, K1, K2a and K2b
    held to 4 x (index + 1) launches a rank and step (a causal ring skips
@@ -174,8 +174,8 @@ attention over K1/K2a/K2b), and the training lifecycle around a runner
    (``PSLoadBalancing``), ``PartitionedPS``, ``AllReduce(256)`` with
    ``bf16_ef``, ``int8_ring``, ``int8_ef`` and ``powersgd:2``,
    ``GradAccumulation(AllReduce(256), 2)`` and ``AllReduce(256)``, each a
-   warm and a timed 30-step window (one capture, two replays, K1/K2a/K2b
-   held to 12 x 30 launches, twice that under accumulation): examples/s,
+   warm and a timed 10-step window (one capture, two replays, K1/K2a/K2b
+   held to 12 x 10 launches, twice that under accumulation): examples/s,
    step ms, MFU, peak memory, stored bytes, capture seconds; then
    ``PS``, ``PartitionedPS`` and ``AllReduce`` at data 2 on 2 ranks over
    gloo (3 steps, host loop): per-rank peak memory and stored bytes;
@@ -246,11 +246,9 @@ attention over K1/K2a/K2b), and the training lifecycle around a runner
 19. the training lifecycle on BERT-base bf16 (phase 5's configuration,
    the graph route): ``fit`` over 16 steps in windows of 4 with eval
    every 8 (2 batches) and a ``Saver`` checkpoint every 8; a fresh
-   runner resumed from the step-8 checkpoint and run to 16, twice: some
-   resumed run bit-equal to some uninterrupted one unless runs of the
-   same inputs differ (three uninterrupted runs, the two resumed ones),
-   and then the closest pair within their spread (printed: the card's
-   atomics); fit's eval against
+   runner resumed from the step-8 checkpoint and run to 16, twice: the
+   two resumed runs and three uninterrupted ones all bit-equal (the
+   step is deterministic on the card); fit's eval against
    ``eval_step`` by hand; an async save followed at once by a window,
    restored into a fresh runner equal to the state at save time; K1,
    K2a and K2b held to the steps and eval batches, captures to one per
@@ -267,7 +265,33 @@ attention over K1/K2a/K2b), and the training lifecycle around a runner
    paged + chunked engines (16 requests of 64 tokens; K5, K6 and K7 held
    to the calls); printed: export seconds, artifact bytes, tokens/s
    from the artifact beside the runner's;
-21. one ``{"kernels": [...]}`` line, the card's name and power limit, and
+21. tensor and pipeline leftovers, ranks sharing card 0 over gloo: (a)
+   the fp32 parity at 2 layers, model 2, of ``comm_overlap="rsag"``,
+   ``"rsag"`` with ``tp_psum`` int8, ``"matmul"`` with ``tp_psum`` int8
+   and the fused ``collective_matmul`` kernel, and ``"rsag"`` with
+   ``vocab_stats`` bf16 against the blocking program (exact wires 1e-5
+   per tensor and loss, a narrowed wire's loss at step k within its unit
+   x (k + 1) relative), then ``bench.py quant``'s bf16 window under them
+   at model 2 and pipe 2 x model 2 (the slowest rank's step ms and
+   tokens/s beside phase 7's blocking fp32, peak memory per rank, K4
+   held to the calls); (b) the pipelined LM with dropout 0.1 (full width,
+   2 layers, fp32) at pipe 2, M = 2 and 4, against its sequential
+   program (1e-5), eval deterministic and apart from the train loss, and
+   at pipe 1 a captured window of 2 steps against a loop of ``step``
+   calls at the same seeds (the keyed masks read the seed from a static
+   buffer); (c) ``stage_aux`` on dict activations against the
+   sequential loss; (d) the tp-2 dense and paged + chunked engines under
+   ``"rsag"``: fp32 streams equal to the blocking engine's, the bf16
+   serve mix with K5-K7 held to the calls;
+22. the GSPMD builders on DTensor: BERT (phase 5's configuration, flash)
+   through ``TensorParallel()`` and ``FSDPSharded()`` in one process at
+   data 1 x model 1 (a gloo group of ranks sharing a card does not carry
+   DTensor's all-gathers): fp32 params after 3 SGD steps at 2 layers
+   against ``AllReduce`` (2e-5 / 2e-6), then the bf16 BERT-base window on
+   the graph route (captures and replays asserted), K1/K2a/K2b held to
+   12 x 10 launches, step ms and examples/s beside phase 5's, and the
+   collectives a step issued;
+23. one ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
 Phases 2, 4, 6 (at T = 1), 8 (the dense model) and 11 (one process)
@@ -316,7 +340,7 @@ from autodist_tpu_torch.kernel import collective_matmul as cm
 from autodist_tpu_torch.kernel import flash_decode as fd
 from autodist_tpu_torch.kernel import flash_prefill as fp
 from autodist_tpu_torch.kernel import quant_ring as qr
-from autodist_tpu_torch.kernel.common import flatten_with_names
+from autodist_tpu_torch.kernel.common import flatten_with_names, unflatten
 from autodist_tpu_torch.models import bert, moe_transformer
 from autodist_tpu_torch.models.pipeline_lm import (make_pipeline_lm_trainable,
                                                    sequential_logits)
@@ -389,13 +413,19 @@ PAIR = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 TP_KERNELS = ("quant_ring_hop", "collective_matmul_hop")
 MOE_KERNELS = ("a2a_ring_hop",)
 
+# Step ms and rate of phases 5 and 7's rows, for phases 21 and 22 to
+# print beside theirs: (kind or backend, label, route or program).
+WINDOW_TIMES: dict = {}
+
 # BERT-base (bench.py _bench on an accelerator).
 BERT_BATCH, BERT_SEQ, BERT_MASKED, BERT_STEPS = 16, 512, 76, 30
+# Phase 14's windows, shorter than phase 5's to keep the script's time.
+ZOO_STEPS = 10
 
 # The tensor-parallel window (bench.py quant on an accelerator): at one
 # pipe device, and on bench.py quant's 4-device mesh, pipe 2 x model 2
 # (V = 2 chunks a pipe rank).
-TP, TP_LAYERS, TP_SEQ, TP_BATCH, TP_MICRO, TP_STEPS = 2, 4, 512, 16, 2, 5
+TP, TP_LAYERS, TP_SEQ, TP_BATCH, TP_MICRO, TP_STEPS = 2, 4, 512, 16, 2, 3
 PIPE = 2
 TP_MESH = {"data": 1, "pipe": 1, "model": TP}
 QUANT_MESH = {"data": 1, "pipe": PIPE, "model": TP}
@@ -434,7 +464,7 @@ WINDOW_PROGRAMS = {
     "fp32 full head": {},
 }
 # The MoE window (bench.py moe on an accelerator) on an expert axis of 2.
-EXPERT, MOE_LAYERS, MOE_SEQ, MOE_ROWS, MOE_STEPS = 2, 2, 512, 2, 20
+EXPERT, MOE_LAYERS, MOE_SEQ, MOE_ROWS, MOE_STEPS = 2, 2, 512, 2, 10
 MOE_EXPERTS, MOE_HIDDEN = 8, 4096
 # K8's chunk there: each rank's [8, 512, 1024] dispatch and [4, 1024,
 # 1024] combine payloads split in two, [4, 512, 1024]; 512 is the
@@ -455,7 +485,7 @@ MOE_WANT = {"a2a_ring": {"a2a_ring_hop": EXPERT * 2 * 2 * MOE_LAYERS}}
 # (adamw(3e-4), batch 8), the flash ring causal on a seq axis of 2: a
 # ring chunk is [8, 1024, 16, 64].  The long-context rows: batch 1 of
 # 8192 tokens, the positional table grown to 8192 rows.
-SEQ, SEQ_LAYERS, SEQ_LEN, SEQ_BATCH, SEQ_STEPS = 2, 4, 2048, 8, 10
+SEQ, SEQ_LAYERS, SEQ_LEN, SEQ_BATCH, SEQ_STEPS = 2, 4, 2048, 8, 5
 LONG_LEN, LONG_STEPS = 8192, 3
 RING_CHUNK_SHAPE = (SEQ_BATCH, SEQ_LEN // SEQ, HEADS)
 RINGS = {"flash": ra.make_ring_flash_attention_fn,
@@ -1081,18 +1111,21 @@ def hop_cases(n, gen):
             "misaligned": (odd_q, s_in, odd_x, False)}
 
 
-def device_ops(fn, tries=3):
+def device_ops(fn, tries=8):
     """The names of the device operations (kernels, copies, memsets)
     one ``fn()`` ran, from ``torch.profiler``.  The profiler now and then
-    records no device event at all in a session (a run of the whole
-    script on an H100 saw it once among dozens of sessions, for a hop
-    whose launch was counted and whose bytes were checked): such an
-    empty record is taken again, up to ``tries`` sessions; the first
+    records no device event at all in a session (runs of the whole
+    script on an H100 saw it once among dozens of sessions, and once
+    three sessions in a row, for a one-element hop whose launch was
+    counted and whose bytes were checked): such an empty record is taken
+    again, up to ``tries`` sessions a few milliseconds apart; the first
     record with any device event is returned as it is."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(tries):
+    for attempt in range(tries):
+        if attempt:
+            time.sleep(0.05)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1731,6 +1764,7 @@ def train_route(cfg, opt, label, route):
           f"{label} {route}: {runner.captures} captures and "
           f"{runner.replays} replays, expected {graphs}")
     rate = BERT_STEPS * BERT_BATCH / dt
+    WINDOW_TIMES[("bert", label, route)] = (dt / BERT_STEPS * 1e3, rate)
     print(f"phase 5 {label} bf16 {route}: {BERT_STEPS} steps in {dt:.3f} s "
           f"= {rate:.2f} examples/s, step {dt / BERT_STEPS * 1e3:.2f} ms, "
           f"MFU {rate * flops / (chip.peak_bf16_tflops * 1e12):.4f}, peak "
@@ -1778,10 +1812,13 @@ def tp_runner(job, program, mesh):
     """AutoDist + Pipeline on the pipelined LM at full width, depth
     ``job["layers"]``, over ``mesh`` (``virtual_stages`` the layers a
     pipe rank holds, ``tensor_parallel`` the model axis) with a program
-    of phase 6 (``TP_PROGRAMS``) or of phase 7's window
-    (``WINDOW_PROGRAMS``); weights from seed 0 on the card (every rank
+    of phase 6 (``TP_PROGRAMS``), of phase 7's window
+    (``WINDOW_PROGRAMS``) or of phase 21's window
+    (``OVERLAP_PROGRAMS``); weights from seed 0 on the card (every rank
     draws the same tree and keeps its chunks' shard)."""
-    programs = WINDOW_PROGRAMS if job["kind"] == "window" else TP_PROGRAMS
+    programs = {"window": WINDOW_PROGRAMS,
+                "overlap_window": OVERLAP_PROGRAMS}.get(job["kind"],
+                                                        TP_PROGRAMS)
     cfg = port.TransformerConfig(
         vocab_size=VOCAB, hidden_size=HIDDEN, num_layers=job["layers"],
         num_heads=HEADS, mlp_dim=MLP, max_len=job["seq"], dtype=job["dtype"],
@@ -1867,7 +1904,7 @@ def tp_window_programs(job):
                      for k, n in tp_want(program, layers, pipe == 0).items()})
         check(got == want, f"{program} on {job['mesh']}: launches {got}, "
                            f"expected {want}")
-        prof = profile_steps(runner, window, k=2, watch="ring_hop_kernel")
+        prof = profile_steps(runner, window, k=1, watch="ring_hop_kernel")
         out[program] = {"seconds": dt, "launches": got, "peak_gb": peak_gb,
                         "pipe": pipe,
                         "loss": [float(losses[0]), float(losses[-1])],
@@ -1895,7 +1932,10 @@ def rank_worker(rank, world, backend, store, job, out_dir):
            "zero_pipe_parity": zero_pipe_parity,
            "zero_seq_parity": zero_seq_parity,
            "zero_moe_parity": zero_moe_parity,
-           "zero_window": zero_window_rows}
+           "zero_window": zero_window_rows,
+           "overlap_window": overlap_window_programs,
+           "dropout": pipeline_dropout, "serve_rsag": tp_serve_rsag,
+           "gspmd": gspmd_ranks}
     result = run[job["kind"]](job)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(result, f)
@@ -1916,10 +1956,11 @@ def spawn_ranks(job, world, backend="gloo"):
     return results
 
 
-def spawn_together(jobs):
+def spawn_together(jobs, meanwhile=None):
     """Run several ``(job, world)`` jobs at once over gloo, each in its
     own spawned ranks and process group; every job's ranks' results, in
-    order.  A failure in any rank stops every rank of every job and
+    order.  ``meanwhile()`` runs in this process once every rank is
+    started.  A failure in any rank stops every rank of every job and
     raises here."""
     with tempfile.TemporaryDirectory() as tmp:
         started = []
@@ -1931,6 +1972,8 @@ def spawn_together(jobs):
                     rank_worker, args=(world, "gloo",
                                        os.path.join(out, "store"), job, out),
                     nprocs=world, join=False), out, world))
+            if meanwhile is not None:
+                meanwhile()
             for ctx, _, _ in started:
                 while not ctx.join():
                     pass
@@ -2044,6 +2087,8 @@ def phase_tp_window():
                          f"({busy / prof_ms:.1%}), {n_launch:.0f} kernel "
                          f"launches per step; top per step: {top}")
             print(line, flush=True)
+            WINDOW_TIMES[(backend, mesh_label(mesh), program)] = (
+                dt / TP_STEPS * 1e3, tokens / dt)
             if backend == "gloo":
                 for name, n in r0["launches"].items():
                     counts[name] = counts.get(name, 0) + n
@@ -2307,7 +2352,7 @@ def moe_window_programs(job):
         want.update({k: n * MOE_STEPS
                      for k, n in MOE_WANT.get(program, {}).items()})
         check(got == want, f"{program}: launches {got}, expected {want}")
-        prof = profile_steps(runner, window, k=2, watch="ring_hop_kernel")
+        prof = profile_steps(runner, window, k=1, watch="ring_hop_kernel")
         out[program] = {"seconds": dt, "launches": got, "peak_gb": peak_gb,
                         "loss": [float(losses[0]), float(losses[-1])],
                         "profile": prof, "route": route}
@@ -2895,10 +2940,10 @@ def phase_zoo_window():
     job = dict(zoo_bf16_job(), backend="nccl")       # one card: graph
     counts = {}
     for label, spec in ZOO_ROWS:
-        row, _ = zoo_row(job, label, spec, BERT_STEPS, True)
+        row, _ = zoo_row(job, label, spec, ZOO_STEPS, True)
         if spec is None:
             counts = {k: row["launches"][k] for k in TRAINING_KERNELS}
-        print(zoo_line(label, row, BERT_STEPS, BERT_BATCH, flops, chip,
+        print(zoo_line(label, row, ZOO_STEPS, BERT_BATCH, flops, chip,
                        "one card, data 1, run_steps route graph"),
               flush=True)
     ranks = spawn_ranks(dict(zoo_bf16_job(2), steps=3,
@@ -2917,7 +2962,7 @@ def phase_zoo_window():
     cards = torch.cuda.device_count()
     if cards >= 2:
         with tempfile.TemporaryDirectory() as digest:
-            ranks = spawn_ranks(dict(zoo_bf16_job(cards), steps=BERT_STEPS,
+            ranks = spawn_ranks(dict(zoo_bf16_job(cards), steps=ZOO_STEPS,
                                      rows=[label for label, _ in ZOO_ROWS],
                                      digest=digest), cards, "nccl")
             init_runner, _ = zoo_runner(zoo_bf16_job(cards), None,
@@ -2929,7 +2974,7 @@ def phase_zoo_window():
                          batch=BERT_BATCH * cards, world=1)
             for label, spec in ZOO_ROWS:
                 rs = [r[label] for r in ranks]
-                _, params = zoo_row(job_n, label, spec, BERT_STEPS, True)
+                _, params = zoo_row(job_n, label, spec, ZOO_STEPS, True)
                 ref = {n: t.cpu() for n, t in flatten_with_names(params)}
                 del params
                 dist = update_distance(
@@ -2937,7 +2982,7 @@ def phase_zoo_window():
                     init)
                 check(dist <= 0.1, f"{label} over NCCL at data {cards}: "
                       f"parameters {dist:.3g} of one card's update away")
-                print(zoo_line(label, rs[0], BERT_STEPS,
+                print(zoo_line(label, rs[0], ZOO_STEPS,
                                BERT_BATCH * cards, flops, chip,
                                f"data {cards}, {cards} cards, NCCL, "
                                f"run_steps route graph, batch {BERT_BATCH} "
@@ -3273,6 +3318,36 @@ def held(label, res, plain, wire, fault=None):
     return faults
 
 
+def held_rows(where, r, programs):
+    """Phase 13's rule over one rank's rows of ``programs`` (phase 15's
+    table: the "plain", LINEAR and NO_UPDATE rows among them): each
+    exact row held to the plain program, each narrowed one to the SGD
+    reference (:func:`held`), and the no-update row rejected.  Returns
+    the faults."""
+    faults = []
+    for label, _, _, wire in programs:
+        res = r[label]
+        if wire == NO_UPDATE:
+            # Every bound must reject a run that never moves: its
+            # parameters a whole update away, beyond the exact rule, and
+            # its later losses apart from both references' (so that the
+            # narrowed rows' loss bound, a part of that gap, stands
+            # above fp32 noise).
+            if not (res["err"] > 1e-5 and all(
+                    abs(a - b) > 1e-4 * abs(b)
+                    for ref in ("plain", LINEAR) for a, b in zip(
+                        res["loss"][1:], r[ref]["loss"][1:]))):
+                faults.append(f"{where}: the no-update run is not "
+                              f"rejected ({res['err']:.3g}, losses "
+                              f"{res['loss']})")
+        elif wire != LINEAR:
+            faults += held(f"{where} {label}", res,
+                           r["plain"] if wire is None else r[LINEAR],
+                           None if wire == EXACT_SGD else wire,
+                           r[NO_UPDATE])
+    return faults
+
+
 def sharded_as_promised(label, res, plain, n):
     """The fraction ZeRO promises a rank, variable by variable: a ZeRO
     variable keeps about ``1/n`` of its optimizer state, at stage 3 of
@@ -3345,30 +3420,15 @@ def phase_zero_parity():
         got, plain = ranks[0], ranks[0]["plain"]
         where = f"{mesh_label(mesh)}" + (", vocab_parallel"
                                          if job["layout"] else "")
+        for r in ranks:
+            faults += held_rows(where, r, programs)
         for label, _, _, wire in programs:
             for r in ranks:
-                res = r[label]
-                if wire == NO_UPDATE:
-                    # Every bound must reject a run that never moves: its
-                    # parameters a whole update away, beyond the exact
-                    # rule, and its later losses apart from both
-                    # references' (so that the narrowed rows' loss bound,
-                    # a part of that gap, stands above fp32 noise).
-                    if not (res["err"] > 1e-5 and all(
-                            abs(a - b) > 1e-4 * abs(b)
-                            for ref in ("plain", LINEAR) for a, b in zip(
-                                res["loss"][1:], r[ref]["loss"][1:]))):
-                        faults.append(f"{where}: the no-update run is not "
-                                      f"rejected ({res['err']:.3g}, losses "
-                                      f"{res['loss']})")
-                    continue
-                ref = r["plain"] if wire is None else r[LINEAR]
-                if wire != LINEAR:
-                    faults += held(f"{where} {label}", res, ref,
-                                   None if wire == EXACT_SGD else wire,
-                                   r[NO_UPDATE])
-                faults += sharded_as_promised(f"{where} {label}", res, ref,
-                                              mesh["data"])
+                if wire != NO_UPDATE:
+                    faults += sharded_as_promised(
+                        f"{where} {label}", r[label],
+                        r["plain"] if wire is None else r[LINEAR],
+                        mesh["data"])
             if label == RING_REMAT[0]:
                 for r in ranks:
                     res = r[label]
@@ -4096,21 +4156,21 @@ def differing(a, b):
 
 
 def held_to(resumed, runs, label):
-    """The ``resumed`` runs against the uninterrupted ``runs``: some pair
-    bit-equal, unless runs of the same inputs (two uninterrupted, or the
-    two resumed) differ; then the closest pair within their largest
-    difference (the card's atomics: a gather's backward accumulates
-    duplicate masked positions in a scheduling order, and Adam turns an
-    ulp of a near-zero gradient into a visible step).  Returns (the
-    closest pair's difference, the spread)."""
+    """The ``resumed`` runs against the uninterrupted ``runs``: all bit-
+    equal.  BERT's step is deterministic on the card (its lookups of
+    repeated rows are one-hot products: the backwards of a gather and of
+    a two-row embedding add them in no fixed order), so runs of the same
+    inputs (two uninterrupted, or the two resumed) must agree too.
+    Returns the largest resumed-uninterrupted difference."""
     spread = max(max_diff(a, b) for group in (runs, resumed)
                  for i, a in enumerate(group) for b in group[i + 1:])
-    d = min(max_diff(r, u) for r in resumed for u in runs)
-    check(d <= spread, f"{label}: the closest resumed and uninterrupted "
-          f"runs differ by {d} (leaves and elements "
-          f"{differing(resumed[0], runs[0])}), while runs of the same "
-          f"inputs differ by at most {spread}")
-    return d, spread
+    d = max(max_diff(r, u) for r in resumed for u in runs)
+    check(spread == 0.0, f"{label}: runs of the same inputs differ by "
+          f"{spread}: the step is not deterministic")
+    check(d == 0.0, f"{label}: the resumed and uninterrupted runs differ "
+          f"by {d} (leaves and elements "
+          f"{differing(resumed[0], runs[0])})")
+    return d
 
 
 def life_want(steps, evals):
@@ -4174,8 +4234,8 @@ def phase_lifecycle():
             check(abs(float(v) - mean) <= 1e-6 * max(1.0, abs(mean)),
                   f"eval {k}: fit's {float(v)}, eval_step by hand {mean}")
         # (b) two more uninterrupted runs (no eval, no saves: they change
-        # no state), for the spread; the second warm after its first
-        # window, for the steady fit rate.
+        # no state), which must agree bit for bit; the second warm after
+        # its first window, for the steady fit rate.
         third = bert_runner(cfg, opt)
         port.fit(third, life_batch, steps=LIFE_STEPS,
                  steps_per_loop=LIFE_LOOP, log_every=LIFE_LOOP)
@@ -4232,8 +4292,7 @@ def phase_lifecycle():
             resumed.close()
             del resumed
             shutil.rmtree(os.path.join(root, b))
-        resume_diff, spread = held_to(resumed_runs, runs,
-                                      "the resumed run")
+        resume_diff = held_to(resumed_runs, runs, "the resumed run")
         run_spread = max(max_diff(a, b) for i, a in enumerate(runs)
                          for b in runs[i + 1:])
         resumed_spread = max_diff(*resumed_runs)
@@ -4303,8 +4362,8 @@ def phase_lifecycle():
           f"{[round(v, 4) for _, v in hist['loss']]}; launches "
           f"{ {k: v for k, v in got.items() if v} }", flush=True)
     print(f"phase 19 resume [{where}]: resumed at step 8, run to "
-          f"{LIFE_STEPS}, twice: the closest resumed and uninterrupted "
-          f"runs differ by {resume_diff}, held to {spread} (three "
+          f"{LIFE_STEPS}, twice: resumed and uninterrupted runs differ "
+          f"by {resume_diff}, held to 0 (three "
           f"uninterrupted runs differ by at most {run_spread}, two "
           f"resumed runs by {resumed_spread}); launches "
           f"{({k: v for k, v in got_r.items() if v})}", flush=True)
@@ -4412,11 +4471,581 @@ def phase_export_serve():
     return {k: counts.get(k, 0) for k in SERVING_KERNELS}
 
 
+# --------------------------------------------------------------------- #
+# phase 21: comm_overlap="rsag" and narrowed precisions under overlap,
+# keyed dropout and stage_aux in the pipeline, tp-2 serving under rsag
+# --------------------------------------------------------------------- #
+# (a) bench.py quant's window under overlap (phase 7's widths and mesh),
+# each program with vocab_parallel; "int8" the bare string of
+# bench.py:342, as in phase 7.
+OVERLAP_PROGRAMS = {
+    "rsag": dict(VOCAB_PARALLEL, comm_overlap="rsag"),
+    "rsag int8": dict(VOCAB_PARALLEL, comm_overlap="rsag",
+                      collective_precision="int8"),
+    "matmul int8": dict(VOCAB_PARALLEL, comm_overlap="matmul",
+                        collective_precision="int8",
+                        kernel=("collective_matmul",)),
+    "rsag vocab_stats bf16": dict(VOCAB_PARALLEL, comm_overlap="rsag",
+                                  collective_precision={
+                                      "vocab_stats": "bf16"}),
+}
+OVERLAP_QUANT = ("rsag", "matmul int8")
+OVERLAP_STEPS = 2
+# Their fp32 parity at 2 layers, model 2, by phase 15's rule
+# (:func:`held_rows`): the plain (blocking) program under Adam, and the
+# same under SGD and at a learning rate of 0; "rsag" held to the first
+# at 1e-5 per tensor and loss, the narrowed programs (SGD) to the
+# second within their wire's allowance a tensor, the no-update row
+# rejected by both rules.  A narrowed tp_psum or vocab_stats wire
+# rounds the forward on a model axis.
+OVERLAP_PARITY = [
+    ("plain", {}, 1, None),
+    (LINEAR, {}, 1, LINEAR),
+    (NO_UPDATE, {}, 1, NO_UPDATE),
+    ("rsag", dict(comm_overlap="rsag"), 1, None),
+    ("rsag int8", dict(comm_overlap="rsag",
+                       collective_precision={"tp_psum": "int8"}), 1,
+     INT8_FWD),
+    ("matmul int8", dict(comm_overlap="matmul",
+                         collective_precision={"tp_psum": "int8"},
+                         kernel=("collective_matmul",)), 1, INT8_FWD),
+    ("rsag vocab_stats bf16", dict(comm_overlap="rsag",
+                                   collective_precision={
+                                       "vocab_stats": "bf16"}), 1, BF16_FWD),
+]
+# (b) the pipelined LM with dropout 0.1 at full width cut to 2 layers,
+# fp32, seq 128, batch 8, 2 SGD steps at the seeds below.
+DROP_SEEDS, DROP_LR = (11, 12), 0.05
+
+
+def overlap_window_programs(job):
+    """Phase 21 (a)'s window in one rank: per program a warm step and a
+    timed window of OVERLAP_STEPS, K3 and K4 held to the calls."""
+    out = {}
+    layers = job["layers"] // job["mesh"].get("pipe", 1)
+    for program in job["programs"]:
+        torch.cuda.reset_peak_memory_stats()
+        runner = tp_runner(job, program, job["mesh"])
+        pipe = runner.lowered.mesh.axis("pipe").index
+        window = runner.place_steps(tp_window(job, OVERLAP_STEPS))
+        dt, metrics = timed_window(runner, window)
+        check_route(runner, job, program)
+        got = {name: launches()[name] for name in TP_KERNELS}
+        losses = metrics["loss"].float()
+        check(bool(torch.isfinite(losses).all()),
+              f"{program}: non-finite loss {losses}")
+        want = dict.fromkeys(TP_KERNELS, 0)
+        if program.startswith("matmul"):
+            want.update({k: n * OVERLAP_STEPS for k, n in tp_want(
+                "collective_matmul", layers, pipe == 0).items()})
+        check(got == want, f"{program} on {job['mesh']}: launches {got}, "
+                           f"expected {want}")
+        out[program] = {"seconds": dt, "launches": got, "pipe": pipe,
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                        "loss": [float(losses[0]), float(losses[-1])]}
+        runner.close()
+        del runner, window
+        torch.cuda.empty_cache()
+    return out
+
+
+def dropout_lm(seq):
+    """Phase 21 (b)'s model: the pipelined LM at full width, 2 layers,
+    dropout and attention dropout 0.1, fp32, SGD; weights from seed 0."""
+    cfg = port.TransformerConfig(
+        vocab_size=VOCAB, hidden_size=HIDDEN, num_layers=2, num_heads=HEADS,
+        mlp_dim=MLP, max_len=seq, dtype=torch.float32, dropout_rate=0.1,
+        attention_dropout_rate=0.1)
+    return make_pipeline_lm_trainable(
+        cfg, port.optim.sgd(DROP_LR),
+        torch.Generator(device="cuda").manual_seed(0))
+
+
+def dropout_sequential(job):
+    """The sequential program (``PipelineTrainable.loss``, both stages in
+    order in one process) over phase 21 (b)'s batches: SGD steps; the
+    final params."""
+    tr = dropout_lm(job["seq"])
+    params = dict(flatten_with_names(tr.params))
+    window = tp_window(job, len(DROP_SEEDS), seed0=200)
+    for i, seed in enumerate(DROP_SEEDS):
+        batch = {k: torch.as_tensor(v[i], device="cuda")
+                 for k, v in window.items()}
+        leaves = {n: p.detach().requires_grad_() for n, p in params.items()}
+        loss, _, _ = tr.loss(unflatten(leaves), None,
+                             batch, seed)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        params = {n: (p - DROP_LR * g).detach()
+                  for (n, p), g in zip(leaves.items(), grads)}
+    return params
+
+
+def pipeline_dropout(job):
+    """Phase 21 (b) in one rank of a pipe axis of 2: M = 2 and M = 4,
+    2 steps each at the same seeds; the params' distance from the
+    sequential program's (computed on rank 0) and between the two M;
+    the train loss and two evals under different seeds."""
+    window = tp_window(job, len(DROP_SEEDS), seed0=200)
+    out, got = {}, {}
+    for m in (2, 4):
+        runner = port.AutoDist({"mesh": job["mesh"]}, Pipeline(
+            num_microbatches=m, virtual_stages=1)).build(
+                dropout_lm(job["seq"]))
+        metrics = runner.run_steps(window, rngs=list(DROP_SEEDS))
+        got[m] = runner.get_params()
+        if m == 2:
+            first = {k: v[0] for k, v in window.items()}
+            out["train_loss"] = float(metrics["loss"][-1])
+            out["evals"] = [float(runner.eval_step(first, rng=s)["loss"])
+                            for s in (1, 2)]
+        runner.close()
+        del runner
+    if torch.distributed.get_rank() == 0:
+        ref = dropout_sequential(job)
+        out["err"] = {m: rel_err(got[m], ref) for m in got}
+        out["m2_m4"] = rel_err(got[4], got[2])
+    return out
+
+
+def tp_serve_rsag(job):
+    """Phase 21 (d) in one rank of the tensor-parallel group: the fp32
+    streams of phase 10's prompts on the dense and paged + chunked
+    engines, blocking and under ``comm_overlap="rsag"``, then the bf16
+    serve mix on the rsag engines (``tp_serve_mix``: K5-K7 held to the
+    calls)."""
+    out = {"streams": {}, "mix": {}}
+    for dtype, seed in ((torch.float32, 1), (torch.bfloat16, 0)):
+        cfg = cfg_of(dtype, job["layers"])
+        params = port.init_pipeline_lm_params(
+            cfg, torch.Generator(device="cuda").manual_seed(seed),
+            device="cuda")
+        for layout in ENGINES:
+            modes = (None, "rsag") if dtype == torch.float32 else ("rsag",)
+            for mode in modes:
+                torch.cuda.reset_peak_memory_stats()
+                engine = port.serve(cfg, params=params, device="cuda",
+                                    tensor_parallel=TP, vocab_parallel=True,
+                                    comm_overlap=mode, **ENGINES[layout])
+                if dtype == torch.float32:
+                    batcher = port.ContinuousBatcher(engine)
+                    rids = [batcher.submit(p, max_new_tokens=SERVE_TP_NEW)
+                            for p in job["prompts"][layout]]
+                    done = batcher.run()
+                    out["streams"][f"{layout} {mode}"] = [
+                        done[r].tokens for r in rids]
+                else:
+                    out["mix"][layout] = tp_serve_mix(
+                        engine, job["layers"], job["backend"],
+                        f"{layout} rsag on {job['backend']}")
+                engine.close()
+                del engine
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def stage_aux_check(label):
+    """Phase 21 (c): a stage with an aux loss on dict activations (4
+    stages of ``relu(h @ w)``, the aux the mean of h^2) through
+    ``Pipeline(num_microbatches=2)`` at pipe 1 (V = 4) on the card, one
+    SGD step against the sequential loss's gradient step (1e-5)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    hid = 256
+    w = torch.randn(4, hid, hid, generator=gen, device="cuda") / hid ** 0.5
+
+    def stage(p, act):
+        h = torch.relu(act["h"] @ p["w"])
+        return {"h": h, "scale": act["scale"]}, (h ** 2).mean()
+
+    def head(outputs, batch):
+        return ((outputs["h"] * outputs["scale"] - batch["y"]) ** 2).mean(), {}
+
+    batch = {"x": {"h": torch.randn(16, hid, generator=gen, device="cuda"),
+                   "scale": torch.ones(16, 1, device="cuda")},
+             "y": torch.randn(16, hid, generator=gen, device="cuda")}
+    tr = port.PipelineTrainable(stage, {"w": w}, head, port.optim.sgd(0.05),
+                                num_stages=4, stage_aux=True)
+    leaf = w.clone().requires_grad_()
+    loss, _, m = tr.loss({"w": leaf}, None, batch, None)
+    want = (w - 0.05 * torch.autograd.grad(loss, leaf)[0]).detach()
+    lowered = port.AutoDist({"mesh": {"pipe": 1}}, Pipeline(
+        num_microbatches=2, virtual_stages=4)).lower(tr)
+    state, metrics = lowered.step_fn(lowered.init_state(tr), batch, 0)
+    got = lowered.full_params(state["params"])["w"]
+    err = float((got - want).abs().max() / want.abs().max())
+    loss = loss.detach()
+    check(err <= 1e-5 and abs(float(metrics["loss"]) - float(loss))
+          <= 1e-5 * abs(float(loss)) and abs(float(metrics["aux_loss"])
+                                             - float(m["aux_loss"]))
+          <= 1e-5 * abs(float(m["aux_loss"])),
+          f"stage_aux: loss {float(metrics['loss'])} vs sequential "
+          f"{float(loss)}, aux {float(metrics['aux_loss'])} vs "
+          f"{float(m['aux_loss'])}, params {err:.3g} relative")
+    print(f"phase 21 (c) stage_aux on dict activations [{label}]: 4 stages "
+          f"of relu(h @ w) at hidden {hid}, M = 2, V = 4: loss "
+          f"{float(metrics['loss']):.6f} (sequential {float(loss):.6f}), "
+          f"aux {float(metrics['aux_loss']):.6f} (sequential "
+          f"{float(m['aux_loss']):.6f}), params after one SGD step "
+          f"{err:.3g} relative from the sequential step's", flush=True)
+
+
+def dropout_graph_route(label):
+    """Phase 21 (b) on the graph route: the dropout LM at pipe 1 (V = 2)
+    in one process, a ``run_steps`` window of 2 steps (one CUDA graph
+    whose keyed masks read each step's seed from its ``GraphSeed``'s
+    static buffer, no generator) against a loop of ``step`` calls at the
+    same seeds: the params within 1e-5."""
+    job = {"seq": 128, "batch": 8}
+    window = tp_window(job, 2, seed0=300)
+    got = []
+    for route in ("graph", "loop"):
+        runner = port.AutoDist({"mesh": {"pipe": 1}}, Pipeline(
+            num_microbatches=2, virtual_stages=2)).build(
+                dropout_lm(job["seq"]))
+        if route == "graph":
+            check(runner.lowered.capturable, "pipe 1 is not capturable")
+            runner.run_steps(window, rngs=[21, 22])
+            check(runner.captures == runner.replays == 1,
+                  f"dropout window: {runner.captures} captures, "
+                  f"{runner.replays} replays")
+        else:
+            for i, seed in enumerate((21, 22)):
+                runner.step({k: v[i] for k, v in window.items()}, rng=seed)
+        got.append(runner.get_params())
+        runner.close()
+        del runner
+    err = rel_err(got[0], got[1])
+    check(err <= 1e-5, f"dropout graph route: params {err:.3g} from the "
+                       f"step loop's")
+    print(f"phase 21 (b) keyed dropout on the graph route [{label}]: one "
+          f"capture, one replay of 2 steps at seeds 21, 22; params "
+          f"{err:.3g} relative from a loop of step calls", flush=True)
+    torch.cuda.empty_cache()
+
+
+def phase_overlap():
+    """Phase 21: (a) the overlap programs' fp32 parity at model 2 and
+    bench.py quant's bf16 window under them at model 2 and pipe 2 x
+    model 2; (b) the pipelined LM with keyed dropout at pipe 2 against
+    its sequential program, and on the graph route; (c) stage_aux;
+    (d) the tp-2 engines under rsag.  Ranks share card 0 over gloo."""
+    label = card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    parity = {"kind": "zero_pipe_parity", "layers": 2, "seq": 128,
+              "batch": 8, "dtype": torch.float32, "opt": (1e-3, 1e-4),
+              "mesh": TP_MESH, "layout": VOCAB_PARALLEL,
+              "programs": OVERLAP_PARITY}
+    drop = {"kind": "dropout", "seq": 128, "batch": 8,
+            "mesh": {"data": 1, "pipe": PIPE}}
+    serve = {"kind": "serve_rsag", "layers": SERVE_TP_LAYERS,
+             "prompts": tp_serve_prompts(np.random.RandomState(1))}
+    t0 = time.perf_counter()
+
+    def meanwhile():
+        # The graph route and stage_aux in this process, beside the
+        # spawned parity jobs (nothing here is timed).
+        dropout_graph_route(label)
+        stage_aux_check(label)
+
+    (par, dro, srv) = spawn_together([(parity, TP), (drop, PIPE),
+                                      (serve, TP)], meanwhile)
+    print(f"phase 21 parity, dropout, stage_aux and serve jobs took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    where = f"phase 21 (a) {mesh_label(TP_MESH)}, vocab_parallel"
+    faults = [f for r in par for f in held_rows(where, r, OVERLAP_PARITY)]
+    check(not faults, "; ".join(faults))
+    got = par[0]
+    plain, fault = got["plain"], got[NO_UPDATE]
+    for wire in (INT8_FWD, BF16_FWD):
+        # The narrowed rule itself, in this run, on a program that never
+        # moves.
+        check(held("no update", fault, got[LINEAR], wire, fault),
+              f"phase 21 (a): a run with no update passes the {wire} rule")
+
+    def reading(label, wire):
+        res = got[label]
+        if wire is None:
+            gap = max(abs(a - b) / abs(b)
+                      for a, b in zip(res["loss"], plain["loss"]))
+            return (f"{label} (Adam) losses {res['loss']}, {gap:.3g} of "
+                    f"blocking's, params {res['err']:.3g} ({res['worst']}); "
+                    f"bound 1e-5 each")
+        unit, forward = wire
+        bounds = [unit * k * abs(b - c) if k
+                  else (FWD_LOSS0 if forward else 1e-6) * abs(b)
+                  for k, (b, c) in enumerate(zip(got[LINEAR]["loss"],
+                                                 fault["loss"]))]
+        gaps = [abs(a - b) for a, b in zip(res["loss"],
+                                           got[LINEAR]["loss"])]
+        return (f"{label} (SGD) losses {res['loss']}, apart from the SGD "
+                f"reference's by " + ", ".join(
+                    f"{g:.3g} (bound {d:.3g})" for g, d in zip(gaps, bounds))
+                + f"; params {res['moved']:.3e} of the update "
+                f"({res['moved_worst']}), {res['over']:.3g} of the allowance "
+                f"({res['over_worst']}; bound 1)")
+
+    print(f"phase 21 (a) fp32 2-layer pipelined LM, seq 128, batch 8, "
+          f"vocab_parallel, model 2 (2 ranks on one card over gloo), "
+          f"{ZERO_PARITY_STEPS} steps (Adam lr 1e-3, eps 1e-4; the narrowed "
+          f"programs SGD at {LINEAR_LR}) [{label}]: blocking losses "
+          f"{plain['loss']}, SGD {got[LINEAR]['loss']}; " + "; ".join(
+              reading(lb, wire) for lb, _, _, wire in OVERLAP_PARITY
+              if lb not in ("plain", LINEAR, NO_UPDATE))
+          + f"; no update: losses {fault['loss']}, params "
+          f"{fault['err']:.3g} from blocking's, rejected by the exact and "
+          f"both narrowed rules", flush=True)
+    r0 = dro[0]
+    check(max(r0["err"].values()) <= 1e-5 and r0["m2_m4"] <= 1e-5,
+          f"pipelined dropout vs sequential {r0['err']}, M = 2 vs 4 "
+          f"{r0['m2_m4']}")
+    e1, e2 = r0["evals"]
+    check(e1 == e2 and abs(e1 - r0["train_loss"]) > 1e-4,
+          f"evals {e1}, {e2} under two seeds; train loss {r0['train_loss']}")
+    print(f"phase 21 (b) fp32 2-layer pipelined LM, dropout 0.1, pipe 2 "
+          f"(2 ranks over gloo), 2 SGD steps [{label}]: params against the "
+          f"sequential program {r0['err']} relative by M, M = 2 vs 4 "
+          f"{r0['m2_m4']:.3g}; train loss {r0['train_loss']:.6f}, eval "
+          f"{e1:.6f} under seeds 1 and 2 alike", flush=True)
+    counts = {}
+    s0 = srv[0]
+    for r in srv[1:]:
+        check(r["streams"] == s0["streams"], "rsag serve: ranks differ")
+    for layout in ENGINES:
+        check(s0["streams"][f"{layout} rsag"] == s0["streams"][
+            f"{layout} None"], f"{layout}: rsag streams differ from the "
+                               f"blocking engine's")
+        m = s0["mix"][layout]
+        for name, n in m["launches"].items():
+            counts[name] = counts.get(name, 0) + n
+        print(f"phase 21 (d) {layout} tp 2 rsag [{label}, 2 ranks on one "
+              f"card over gloo]: fp32 streams equal to the blocking "
+              f"engine's token for token; bf16 serve mix {m['tokens']} "
+              f"tokens in {m['wall']:.3f} s = {m['tokens'] / m['wall']:.1f} "
+              f"tokens/s, TTFT p50 {m['ttft_p50']:.2f} ms, launches "
+              f"{ {k: v for k, v in m['launches'].items() if v} }",
+              flush=True)
+    job = {"kind": "overlap_window", "layers": TP_LAYERS, "seq": TP_SEQ,
+           "batch": TP_BATCH, "dtype": torch.bfloat16}
+    tokens = OVERLAP_STEPS * TP_BATCH * TP_SEQ
+    for mesh, progs in ((TP_MESH, list(OVERLAP_PROGRAMS)),
+                        (QUANT_MESH, list(OVERLAP_QUANT))):
+        world = math.prod(mesh.values())
+        ranks = spawn_ranks(dict(job, mesh=mesh, programs=progs), world)
+        where = f"{mesh_label(mesh)}, {world} ranks on one card, gloo"
+        for program in progs:
+            dt = max(r[program]["seconds"] for r in ranks)
+            r0 = ranks[0][program]
+            blocking = WINDOW_TIMES.get(("gloo", mesh_label(mesh), "fp32"))
+            beside = ("phase 7's blocking fp32 not run" if blocking is None
+                      else f"phase 7's blocking fp32 {blocking[0]:.2f} ms, "
+                           f"{blocking[1]:.1f} tokens/s")
+            print(f"phase 21 (a) {program} bf16 [{where}, {label}]: "
+                  f"{OVERLAP_STEPS} steps in {dt:.3f} s (slowest rank) = "
+                  f"{tokens / dt:.1f} tokens/s, step "
+                  f"{dt / OVERLAP_STEPS * 1e3:.2f} ms ({beside}), peak "
+                  f"memory per rank " + ", ".join(
+                      f"{r[program]['peak_gb']:.2f}" for r in ranks)
+                  + f" GB, loss {r0['loss'][0]:.4f} -> {r0['loss'][1]:.4f}, "
+                  f"K4 launches per step and rank "
+                  f"{r0['launches']['collective_matmul_hop'] / OVERLAP_STEPS}",
+                  flush=True)
+            for name, n in r0["launches"].items():
+                counts[name] = counts.get(name, 0) + n
+    return counts
+
+
+# --------------------------------------------------------------------- #
+# phase 22: the GSPMD builders on DTensor
+# --------------------------------------------------------------------- #
+GSPMD_STEPS = 10
+GSPMD_BUILDERS = ("TensorParallel", "FSDPSharded")
+
+
+def gspmd_runner(cfg, opt, name, mesh):
+    """BERT MLM through ``AutoDist({"mesh": mesh}, <name>())`` on the
+    ``gspmd`` lowering; weights from seed 0 on the card (every rank
+    alike)."""
+    trainable = bert.make_mlm_trainable(
+        cfg, opt, torch.Generator(device="cuda").manual_seed(0),
+        with_input_mask=False)
+    return port.AutoDist({"mesh": mesh},
+                         getattr(port, name)()).build(trainable)
+
+
+def gspmd_parity_cfg():
+    return port.TransformerConfig(
+        num_layers=2, dtype=torch.float32, dropout_rate=0.0,
+        attention_dropout_rate=0.0, attention_fn=fa.make_attention_fn(False))
+
+
+def gspmd_parity(mesh):
+    """Phase 22's fp32 runs at ``mesh``: each builder's full params (on
+    the CPU) after 3 SGD steps at 2 layers."""
+    cfg = gspmd_parity_cfg()
+    window = bert_window(cfg, 3, seed0=500)
+    got = {}
+    for name in GSPMD_BUILDERS:
+        runner = gspmd_runner(cfg, port.optim.sgd(0.5), name, mesh)
+        runner.run_steps(window)
+        got[name] = {n: t.cpu() for n, t in
+                     flatten_with_names(runner.get_params())}
+        runner.close()
+        del runner
+    torch.cuda.empty_cache()
+    return got
+
+
+def gspmd_window(mesh, name):
+    """Phase 22's bf16 window in this rank: BERT-base through ``name``
+    at ``mesh``, GSPMD_STEPS timed steps; K1/K2a/K2b held to the layers'
+    calls, the graph route's captures and replays where the lowering is
+    capturable; then one ``step`` under ``CommDebugMode``.  Returns the
+    seconds, losses, launches, graphs, collectives and peak GB."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    opt = port.optim.adamw(1e-4, weight_decay=0.01, mu_dtype=torch.bfloat16)
+    cfg = bert.bert_base(dropout_rate=0.0, attention_dropout_rate=0.0,
+                         attention_fn=fa.make_attention_fn(False))
+    runner = gspmd_runner(cfg, opt, name, mesh)
+    window = runner.place_steps(bert_window(cfg, GSPMD_STEPS))
+    capturable = runner.lowered.capturable
+    dt, metrics = timed_window(runner, window)
+    got = launches()
+    losses = metrics["loss"].float()
+    where = f"gspmd {name} at {mesh}"
+    check(bool(torch.isfinite(losses).all()),
+          f"{where}: non-finite loss {losses}")
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(dict.fromkeys(TRAINING_KERNELS, cfg.num_layers * GSPMD_STEPS))
+    check(got == want, f"{where}: launches {got}, expected {want}")
+    graphs = (1, 2) if capturable else (0, 0)
+    check((runner.captures, runner.replays) == graphs,
+          f"{where}: {runner.captures} captures, {runner.replays} replays, "
+          f"expected {graphs}")
+    first = {k: v[0] for k, v in window.items()}
+    with CommDebugMode() as comm:
+        runner.step(type(window)(first))
+    torch.cuda.synchronize()
+    out = {"seconds": dt, "loss": [float(losses[0]), float(losses[-1])],
+           "launches": got, "graphs": [runner.captures, runner.replays],
+           "route": "graph" if capturable else "loop",
+           "collectives": {str(op).split(".")[-1]: n
+                           for op, n in comm.get_comm_counts().items()},
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    runner.close()
+    del runner, window
+    torch.cuda.empty_cache()
+    return out
+
+
+def gspmd_ranks(job):
+    """Phase 22 in one rank of an NCCL job, one card a rank: the fp32
+    runs (rank 0 saves the params to ``job["digest"]``), then each
+    builder's bf16 window."""
+    got = gspmd_parity(job["mesh"])
+    if torch.distributed.get_rank() == 0:
+        torch.save(got, os.path.join(job["digest"], "params.pt"))
+    del got
+    return {name: gspmd_window(job["mesh"], name) for name in GSPMD_BUILDERS}
+
+
+def gspmd_held(got, ref, where, label):
+    """Each builder's params against ``AllReduce``'s (2e-5 relative,
+    2e-6 absolute); prints the largest distance."""
+    for name in GSPMD_BUILDERS:
+        bad = [n for n, p in got[name].items()
+               if not torch.allclose(p, ref[n], rtol=2e-5, atol=2e-6)]
+        check(not bad, f"gspmd {name} at {where}: params {bad[:3]} off "
+                       f"AllReduce's")
+    worst = max(float(((p - ref[n]).abs() / (2e-6 + 2e-5 * ref[n].abs()))
+                      .max()) for g in got.values() for n, p in g.items())
+    print(f"phase 22 fp32 2-layer BERT, flash, 3 SGD steps, {where} "
+          f"[{label}]: TensorParallel and FSDPSharded params within 2e-5 / "
+          f"2e-6 of AllReduce's on one card (largest |a - b| "
+          f"{worst:.3g} of its allowance)", flush=True)
+
+
+def gspmd_line(name, mesh, recs, where):
+    """One bf16 window's line: the slowest rank's seconds."""
+    cfg = bert.bert_base()
+    flops = bert.mlm_model_flops_per_example(cfg, BERT_SEQ, BERT_MASKED)
+    dt = max(r["seconds"] for r in recs)
+    r0 = recs[0]
+    rate = GSPMD_STEPS * BERT_BATCH / dt
+    ref = WINDOW_TIMES.get(("bert", "flash", "graph"))
+    beside = ("phase 5's AllReduce(256) not run" if ref is None else
+              f"phase 5's AllReduce(256) {ref[0]:.2f} ms, "
+              f"{ref[1]:.2f} examples/s")
+    return (f"phase 22 {name} BERT-base bf16, gspmd on DTensor, "
+            f"{mesh_label(mesh) or 'data 1 x model 1'} [{where}, route "
+            f"{r0['route']}]: {GSPMD_STEPS} steps of {BERT_BATCH} in "
+            f"{dt:.3f} s (slowest rank) = {rate:.2f} examples/s, step "
+            f"{dt / GSPMD_STEPS * 1e3:.2f} ms ({beside}), MFU "
+            f"{rate * flops / (H100.peak_bf16_tflops * 1e12 * len(recs)):.4f}"
+            f", peak memory per rank "
+            + ", ".join(f"{r['peak_gb']:.2f}" for r in recs)
+            + f" GB, captures {r0['graphs'][0]} replays {r0['graphs'][1]}, "
+            f"loss {r0['loss'][0]:.4f} -> {r0['loss'][1]:.4f}, launches a "
+            f"rank { {k: v for k, v in r0['launches'].items() if v} }, "
+            f"collectives a step and rank {r0['collectives'] or 'none'}")
+
+
+def phase_gspmd():
+    """Phase 22: BERT-base MLM (phase 5's configuration, flash) through
+    ``TensorParallel()`` and ``FSDPSharded()`` on the ``gspmd`` lowering.
+    The route is chosen by the device count: on one card a gloo group of
+    several ranks does not carry DTensor's all-gathers (PERF.md), so the
+    card runs the lowering, DTensor's dispatch, ``local_map`` and K1/K2
+    in one process at data 1 x model 1; where there are 2 or more cards
+    the same runs again over NCCL, one rank a card, at data 2 x model 2
+    (4 cards or more) or model 2 (2 or 3).  Each mesh: fp32 parity at 2
+    layers against ``AllReduce`` on one card (params after 3 SGD steps,
+    2e-5 relative / 2e-6 absolute), then the bf16 window: step ms and
+    examples/s beside phase 5's, K1/K2a/K2b held to the calls, the graph
+    route's captures and replays, and the collectives a step issued
+    (DTensor's ``CommDebugMode``)."""
+    label = card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = gspmd_parity_cfg()
+    runner = bert_runner(cfg, port.optim.sgd(0.5))
+    runner.run_steps(bert_window(cfg, 3, seed0=500))
+    ref = {n: t.cpu() for n, t in flatten_with_names(runner.get_params())}
+    runner.close()
+    del runner
+    one = {"data": 1, "model": 1}
+    gspmd_held(gspmd_parity(one), ref, "data 1 x model 1, one process",
+               label)
+    counts = {}
+    for name in GSPMD_BUILDERS:
+        rec = gspmd_window(one, name)
+        for k, n in rec["launches"].items():
+            counts[k] = counts.get(k, 0) + n
+        print(gspmd_line(name, one, [rec], label), flush=True)
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        mesh = {"data": 2, "model": 2} if cards >= 4 else {"data": 1,
+                                                           "model": 2}
+        world = math.prod(mesh.values())
+        with tempfile.TemporaryDirectory() as digest:
+            ranks = spawn_ranks({"kind": "gspmd", "mesh": mesh,
+                                 "digest": digest}, world, "nccl")
+            got = torch.load(os.path.join(digest, "params.pt"))
+        where = f"{mesh_label(mesh)}, {world} cards, NCCL"
+        gspmd_held(got, ref, where, label)
+        for name in GSPMD_BUILDERS:
+            print(gspmd_line(name, mesh, [r[name] for r in ranks],
+                             f"{label}, {where}"), flush=True)
+    return counts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--phases",
-        default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20",
+        default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21,"
+                "22",
         help="comma-separated phases to run (default: all); the kernels "
              "line needs them all")
     phases = {int(p) for p in parser.parse_args(argv).phases.split(",")}
@@ -4456,7 +5085,9 @@ def main(argv=None) -> int:
              (17, phase_ladder_parity),
              (18, lambda: add(phase_ladder_serve())),
              (19, lambda: add(phase_lifecycle())),
-             (20, lambda: add(phase_export_serve()))]
+             (20, lambda: add(phase_export_serve())),
+             (21, lambda: add(phase_overlap())),
+             (22, lambda: add(phase_gspmd()))]
     for phase, run in steps:
         if phase in phases:
             t1 = time.perf_counter()

@@ -1394,3 +1394,79 @@ def test_cuda_loader_side_stream_copies_equal_synchronous_ones(cuda):
             assert placed[k].is_cuda
             assert torch.equal(placed[k].cpu(), torch.as_tensor(x)), k
     runner.close()
+
+
+def test_cuda_pipeline_keyed_dropout_replay_equals_step_calls(cuda):
+    """The pipelined LM with dropout (keyed masks, ``stage_rng``) at pipe
+    1 on the card: a ``run_steps`` window, one CUDA graph whose masks read
+    each step's seed from a static buffer, gives the params of a loop of
+    ``step`` calls at the same seeds."""
+    from autodist_tpu_torch.models.pipeline_lm import (
+        make_pipeline_lm_trainable)
+
+    cfg = port.TransformerConfig(
+        vocab_size=64, hidden_size=32, num_layers=2, num_heads=2, mlp_dim=64,
+        max_len=16, dtype=torch.float32, dropout_rate=0.1,
+        attention_dropout_rate=0.1)
+    r = np.random.RandomState(0)
+    xs = r.randint(0, 64, (2, 8, 16)).astype(np.int32)
+    window = {"x": xs, "y": np.roll(xs, -1, axis=2)}
+    got = []
+    for route in ("graph", "loop"):
+        tr = make_pipeline_lm_trainable(
+            cfg, port.optim.sgd(0.1),
+            torch.Generator(device=cuda).manual_seed(0))
+        runner = port.AutoDist({"mesh": {"pipe": 1}}, port.Pipeline(
+            num_microbatches=2, virtual_stages=2)).build(tr)
+        if route == "graph":
+            runner.run_steps(window, rngs=[5, 6])
+            assert (runner.captures, runner.replays) == (1, 1)
+        else:
+            for i, seed in enumerate((5, 6)):
+                runner.step({k: v[i] for k, v in window.items()}, rng=seed)
+        got.append(dict(flatten_with_names(runner.get_params())))
+        runner.close()
+    for name, p in got[0].items():
+        torch.testing.assert_close(p, got[1][name], rtol=1e-5, atol=1e-6)
+
+
+def test_cuda_gspmd_tensor_parallel_equals_all_reduce(cuda):
+    """``TensorParallel()`` on the ``gspmd`` lowering (DTensor, one rank
+    at data 1 x model 1) trains BERT with the flash kernels under
+    ``local_map`` on the graph route to ``AllReduce``'s params (3 SGD
+    steps, fp32); closing the runner takes the lowering's one-rank
+    process group with it."""
+    import torch.distributed as dist
+
+    cfg = port.TransformerConfig(
+        vocab_size=256, hidden_size=128, num_layers=2, num_heads=2,
+        mlp_dim=256, max_len=64, dtype=torch.float32, dropout_rate=0.0,
+        attention_dropout_rate=0.0, attention_fn=fa.make_attention_fn(False))
+    batches = []
+    for i in range(3):
+        b = bert.synthetic_mlm_batch(i, 4, 64, 8, 256)
+        b.pop("input_mask")
+        batches.append(b)
+    window = port.stack_steps(batches)
+    got = {}
+    for name, spec, builder in (
+            ("AllReduce", {}, port.AllReduce()),
+            ("TensorParallel", {"mesh": {"data": 1, "model": 1}},
+             port.TensorParallel())):
+        tr = bert.make_mlm_trainable(
+            cfg, port.optim.sgd(0.5),
+            torch.Generator(device=cuda).manual_seed(0),
+            with_input_mask=False)
+        runner = port.AutoDist(spec, builder).build(tr)
+        try:
+            before = fa.flash_attention_fwd.launches
+            runner.run_steps(window)
+            assert fa.flash_attention_fwd.launches - before == 2 * 3
+            assert runner.captures == 1
+            got[name] = dict(flatten_with_names(runner.get_params()))
+        finally:
+            runner.close()
+    assert not dist.is_initialized()
+    for name, p in got["TensorParallel"].items():
+        torch.testing.assert_close(p, got["AllReduce"][name], rtol=2e-5,
+                                   atol=2e-6)

@@ -483,10 +483,10 @@ def test_out_of_slice_options_raise(what, jparams):
     naming its ROADMAP item.  ZeRO, compressors, the ``grad`` slot and
     accumulation run now: the ZeRO cases hold the PS synchronizers the
     expert lowering still refuses (asynchronous, stale), the compressor
-    case a compressor beside ``expert_over_dcn``, the accumulation case
-    the pipelined LM's dropout; ``zero_min_bytes`` and the ``grad`` slot
-    build, and the ``Lowered`` records what they did (the expert tables'
-    degraded ZeRO, the unapplied slot)."""
+    case a compressor beside ``expert_over_dcn``; ``zero_min_bytes`` and
+    the ``grad`` slot build, and the ``Lowered`` records what they did
+    (the expert tables' degraded ZeRO, the unapplied slot), and the
+    accumulation case steps the pipelined LM with dropout."""
     tr = _port_trainable(jparams)
     ad = port.AutoDist({"mesh": {"expert": 1}}, ExpertParallel(**BUILD),
                        device="cpu")
@@ -502,6 +502,23 @@ def test_out_of_slice_options_raise(what, jparams):
             device="cpu").build(tr).lowered
         assert set(low.unapplied) == {"grad"}
         return
+    if what == "accum_json":
+        from autodist_tpu_torch.models.pipeline_lm import (
+            make_pipeline_lm_trainable)
+
+        cfg = port.TransformerConfig(
+            vocab_size=16, hidden_size=8, num_layers=1, num_heads=2,
+            mlp_dim=16, max_len=8, dtype=torch.float32,
+            dropout_rate=0.1, attention_dropout_rate=0.0)
+        runner = port.AutoDist(
+            {"mesh": {"data": 1, "pipe": 1, "model": 1}},
+            port.GradAccumulation(port.Pipeline(num_microbatches=1), 2),
+            device="cpu").build(make_pipeline_lm_trainable(
+                cfg, port.optim.sgd(0.1), torch.Generator(), device="cpu"))
+        x = np.random.RandomState(0).randint(0, 16, (4, 8))
+        assert np.isfinite(float(runner.step({"x": x, "y": x},
+                                             rng=3)["loss"]))
+        return
     d = json.loads(ad.build_or_load_strategy(tr).to_json())
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         if what in ("zero", "zero1"):
@@ -513,20 +530,6 @@ def test_out_of_slice_options_raise(what, jparams):
             ExpertParallel(compressor="bf16_ef", expert_over_dcn=True)
         elif what == "expert_over_dcn":
             ExpertParallel(expert_over_dcn=True)
-        elif what == "accum_json":
-            from autodist_tpu_torch.models.pipeline_lm import (
-                make_pipeline_lm_trainable)
-
-            cfg = port.TransformerConfig(
-                vocab_size=16, hidden_size=8, num_layers=1, num_heads=2,
-                mlp_dim=16, max_len=8, dtype=torch.float32,
-                dropout_rate=0.1, attention_dropout_rate=0.0)
-            port.AutoDist({"mesh": {"data": 1, "pipe": 1, "model": 1}},
-                          port.GradAccumulation(
-                              port.Pipeline(num_microbatches=1), 2),
-                          device="cpu").build(make_pipeline_lm_trainable(
-                              cfg, port.optim.sgd(0.1), torch.Generator(),
-                              device="cpu"))
         else:
             port.ResourceSpec({"mesh": {"dcn": 2}})
 

@@ -450,8 +450,9 @@ def test_builder_checks_match_jax(jparams):
 
 
 def _pipeline_accumulation_with_dropout():
-    """``GradAccumulation`` over a ``Pipeline`` runs; the pipelined LM
-    with dropout still raises (its per-row draws, ``stage_rng``)."""
+    """``GradAccumulation`` over a ``Pipeline`` of the pipelined LM with
+    dropout (its per-row draws, ``stage_rng``) builds and steps; returns
+    the step's loss."""
     from autodist_tpu_torch.models.pipeline_lm import (
         make_pipeline_lm_trainable)
 
@@ -460,9 +461,12 @@ def _pipeline_accumulation_with_dropout():
                                  dtype=torch.float32)
     tr = make_pipeline_lm_trainable(cfg, port.optim.sgd(LR),
                                     torch.Generator(), device="cpu")
-    port.AutoDist({"mesh": {"data": 1, "pipe": 1, "model": 1}},
-                  port.GradAccumulation(port.Pipeline(num_microbatches=1),
-                                        2), device="cpu").build(tr)
+    runner = port.AutoDist(
+        {"mesh": {"data": 1, "pipe": 1, "model": 1}},
+        port.GradAccumulation(port.Pipeline(num_microbatches=1), 2),
+        device="cpu").build(tr)
+    x = np.random.RandomState(0).randint(0, cfg.vocab_size, (4, 8))
+    return float(runner.step({"x": x, "y": x}, rng=3)["loss"])
 
 
 def _ps_json(d, **sync):
@@ -479,21 +483,24 @@ def _ps_json(d, **sync):
     ("compressor", None),
     ("grad_precision", None),
     ("compressor_json", None),
-    ("accum_json", "slice 3 leftovers"),
+    ("accum_json", None),
     ("dcn_axis", "item 9")])
 def test_out_of_slice_options_raise(what, item, jparams):
     """What this slice does not run raises ``NotImplementedError``
     naming its ROADMAP item; ZeRO, compressors, the precision slots and
     accumulation run now.  The ZeRO cases hold the PS synchronizers the
-    sequence lowering still refuses (asynchronous, stale); the
-    accumulation case the pipelined LM's dropout; the rest (item
-    ``None``) build: a ZeRO mix, and the slots this lowering has no
-    boundary for, which its ``Lowered`` records as unapplied."""
+    sequence lowering still refuses (asynchronous, stale); the rest
+    (item ``None``) build: a ZeRO mix, the slots this lowering has no
+    boundary for, which its ``Lowered`` records as unapplied, and
+    accumulation over the pipelined LM with dropout, which steps."""
     tr = _port_trainable(jparams)
     ad = port.AutoDist({"mesh": {"seq": 1}}, SequenceParallel(),
                        device="cpu")
     d = json.loads(ad.build_or_load_strategy(tr).to_json())
     if item is None:
+        if what == "accum_json":
+            assert np.isfinite(_pipeline_accumulation_with_dropout())
+            return
         if what == "zero_min_bytes":
             low = port.AutoDist({"mesh": {"seq": 1}}, SequenceParallel(
                 zero_min_bytes=1 << 10, compressor="bf16"),
@@ -523,8 +530,6 @@ def test_out_of_slice_options_raise(what, item, jparams):
             ad.lower(tr, _ps_json(d, sync=False))
         elif what == "zero1":
             ad.lower(tr, _ps_json(d, staleness=2))
-        elif what == "accum_json":
-            _pipeline_accumulation_with_dropout()
         else:
             port.ResourceSpec({"mesh": {"dcn": 2, "seq": 2}})
 

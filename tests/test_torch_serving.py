@@ -285,17 +285,21 @@ def _einsum_attention(tcfg, tparams):
     (dict(prefix_caching=True), ValueError, "requires kv_layout='paged'"),
     (dict(speculative=2), ValueError, "needs a draft model"),
     (_other_vocab_draft, ValueError, "must match the target's"),
-    (dict(comm_overlap="rsag"), NotImplementedError,
-     "ROADMAP Queue 1, slice 3 leftovers, item 3"),
+    (dict(comm_overlap="rsag"), None, "rsag"),
     (dict(temperature=-0.5), ValueError, "temperature must be >= 0"),
     (dict(top_k=-1), ValueError, "top_k must be >= 0"),
     (_einsum_attention, NotImplementedError, "flash-attention family")])
 def test_out_of_slice_options_raise(kw, tcfg, tparams):
     """What the engine refuses: the JAX engine's own validation errors,
-    with its messages, and ``comm_overlap="rsag"``, not ported yet."""
+    with its messages.  ``comm_overlap="rsag"`` (``exc`` None) builds,
+    and at one rank it is recorded and sums nothing."""
     make, exc, match = kw
     kw = make(tcfg, tparams) if callable(make) else dict(make)
     cfg = kw.pop("cfg", tcfg)
+    if exc is None:
+        engine = port.ServingEngine(cfg, tparams, device="cpu", **kw)
+        assert engine.comm_overlap == match and engine.model_axis is None
+        return
     with pytest.raises(exc, match=re.escape(match)):
         port.ServingEngine(cfg, tparams, device="cpu", **kw)
 
@@ -376,7 +380,9 @@ def test_importing_the_port_loads_no_jax():
             "autodist_tpu_torch.train, autodist_tpu_torch.data, "
             "autodist_tpu_torch.fetches, autodist_tpu_torch.checkpoint, "
             "autodist_tpu_torch.runtime.retry, "
-            "autodist_tpu_torch.runtime.faults; "
+            "autodist_tpu_torch.runtime.faults, "
+            "autodist_tpu_torch.kernel.gspmd, "
+            "autodist_tpu_torch.strategy.gspmd_builders; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

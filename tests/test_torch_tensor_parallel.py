@@ -404,83 +404,107 @@ def test_build_checks_the_mesh_and_the_trainable(jparams):
     "vocab_embedding"])
 def test_out_of_slice_options_raise(what, jparams):
     """What this slice does not run raises ``NotImplementedError``
-    naming its ROADMAP item.  ZeRO, compressors and remat run now: their
-    cases hold them beside what still raises (``rsag``, a narrowed
-    precision under overlap, an asynchronous or stale PS)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        if what == "pipe_axis":
-            # A pipe axis of 2 lowers, with ZeRO; rsag on it still raises.
-            tr = _port_trainable(jparams)
-            ad = port.AutoDist({"mesh": {"pipe": 1}}, Pipeline(**PIPE),
-                               device="cpu")
-            d = json.loads(ad.build_or_load_strategy(tr).to_json())
-            d["graph_config"]["mesh_axes"]["pipe"] = 2
-            d["graph_config"]["parallel"].update(virtual_stages=1,
-                                                 zero_stage=1,
-                                                 comm_overlap="rsag")
-            from autodist_tpu_torch.parallel.pipeline import lower_pipeline
-            from autodist_tpu_torch.resource import Mesh
+    naming its ROADMAP item (an asynchronous or stale PS, the ``dcn``
+    axis), and the pipelined LM's dropout at ``tensor_parallel > 1``
+    raises the JAX package's own error.  Everything else these cases
+    once refused runs now and is held to what it builds: ZeRO,
+    compressors and remat beside ``comm_overlap="rsag"`` and narrowed
+    precisions under overlap, keyed dropout at one shard,
+    ``stage_aux``."""
+    from autodist_tpu_torch.parallel import axis, tensor
 
-            lower_pipeline(tr, port.Strategy.from_json(json.dumps(d)),
-                           Mesh(shape={"data": 1, "pipe": 2}), device="cpu")
-        elif what == "seq_axis":
-            port.ResourceSpec({"mesh": {"dcn": 2}})
-        elif what == "zero":
-            # ZeRO runs; an asynchronous PS still raises.
-            tr = _port_trainable(jparams)
-            ad = port.AutoDist({"mesh": {"pipe": 1}}, Pipeline(
-                **PIPE, zero_stage=1), device="cpu")
-            d = json.loads(ad.build_or_load_strategy(tr).to_json())
-            d["node_configs"][0]["synchronizer"]["sync"] = False
-            ad.lower(tr, port.Strategy.from_json(json.dumps(d)))
-        elif what == "remat":
-            # remat runs; beside int8 under overlap it still raises.
-            Pipeline(remat=True, tensor_parallel=2, comm_overlap="matmul",
+    if what == "pipe_axis":
+        # A pipe axis of 2 resolves with ZeRO and rsag.
+        tr = _port_trainable(jparams)
+        ad = port.AutoDist({"mesh": {"pipe": 1}}, Pipeline(**PIPE),
+                           device="cpu")
+        d = json.loads(ad.build_or_load_strategy(tr).to_json())
+        d["graph_config"]["mesh_axes"]["pipe"] = 2
+        d["graph_config"]["parallel"].update(virtual_stages=1,
+                                             zero_stage=1,
+                                             comm_overlap="rsag")
+        from autodist_tpu_torch.parallel.pipeline import make_pipeline_plan
+        from autodist_tpu_torch.resource import Mesh
+
+        plan = make_pipeline_plan(tr, port.Strategy.from_json(json.dumps(d)),
+                                  Mesh(shape={"data": 1, "pipe": 2}))
+        assert (plan.comm_overlap, plan.virtual_stages) == ("rsag", 1)
+    elif what == "remat":
+        b = Pipeline(remat=True, tensor_parallel=2, comm_overlap="matmul",
                      collective_precision=INT8)
-        elif what == "vocab_parallel":
-            # vocab_parallel and ZeRO run; a narrowed vocab_stats under
-            # overlap still raises.
-            Pipeline(tensor_parallel=2, vocab_parallel=True, zero_stage=1,
+        assert (b.remat, b.comm_overlap, b.precision) == (
+            True, "matmul", INT8)
+    elif what == "vocab_parallel":
+        b = Pipeline(tensor_parallel=2, vocab_parallel=True, zero_stage=1,
                      comm_overlap="matmul",
                      collective_precision={"vocab_stats": "bf16"})
-        elif what == "rsag":
-            Pipeline(tensor_parallel=2, comm_overlap="rsag")
-        elif what == "int8_overlap":
-            Pipeline(tensor_parallel=2, comm_overlap="matmul",
-                     collective_precision=INT8)
-        elif what == "compressor":
-            # A compressor runs; beside rsag it still raises.
-            Pipeline(compressor="bf16_ef", tensor_parallel=2,
+        assert b.precision == {"vocab_stats": "bf16"} and b.vocab_parallel
+    elif what == "rsag":
+        assert Pipeline(tensor_parallel=2,
+                        comm_overlap="rsag").comm_overlap == "rsag"
+    elif what == "int8_overlap":
+        assert Pipeline(tensor_parallel=2, comm_overlap="matmul",
+                        collective_precision=INT8).precision == INT8
+    elif what == "compressor":
+        b = Pipeline(compressor="bf16_ef", tensor_parallel=2,
                      comm_overlap="rsag")
-        elif what == "dropout":
-            tlm.make_pipeline_lm_trainable(
-                port.TransformerConfig(**dict(SIZES, dropout_rate=0.1),
-                                       dtype=torch.float32),
-                port.optim.sgd(0.1), torch.Generator(), device="cpu")
-        elif what == "stage_aux":
-            port.capture.PipelineTrainable(
-                lambda c, x: x, {"w": torch.zeros(2)}, lambda o, b: (0, {}),
-                port.optim.sgd(0.1), num_stages=2, stage_aux=True)
-        elif what == "remat_json":
-            # remat read back from JSON runs; a stale PS still raises.
-            tr = _port_trainable(jparams)
-            ad = port.AutoDist({"mesh": {"pipe": 1}}, Pipeline(**PIPE),
-                               device="cpu")
-            d = json.loads(ad.build_or_load_strategy(tr).to_json())
-            d["graph_config"]["parallel"]["remat"] = True
-            d["node_configs"][0]["synchronizer"] = {"kind": "ps",
-                                                    "staleness": 2}
-            ad.lower(tr, port.Strategy.from_json(json.dumps(d)))
-        else:
-            # The sharded lookup runs; its decomposed sum at a narrowed
-            # tp_psum precision still raises.
-            from autodist_tpu_torch.parallel import axis, tensor
-
-            with tensor.precision_scope(INT8):
-                tensor.vocab_parallel_embedding(
-                    torch.zeros(2, dtype=torch.long), torch.zeros(4, 3),
-                    model_axis=axis.Axis("model", size=2),
-                    comm_overlap="matmul")
+        assert b.comm_overlap == "rsag"
+    elif what == "dropout":
+        # Keyed dropout at one shard; at a model axis of 2 a stage
+        # raises the JAX package's error.
+        tr = tlm.make_pipeline_lm_trainable(
+            port.TransformerConfig(**dict(SIZES, dropout_rate=0.1),
+                                   dtype=torch.float32),
+            port.optim.sgd(0.1), torch.Generator(), device="cpu")
+        assert tr.stage_rng
+        chunk = port.capture.stage_slice(tr.params["stages"], 0)
+        with pytest.raises(NotImplementedError,
+                           match="tensor_parallel > 1 requires dropout"):
+            tr.stage_fn(chunk, torch.zeros(2, 8, 16), None, None,
+                        model_axis=axis.Axis("model", size=2))
+    elif what == "stage_aux":
+        tr = port.capture.PipelineTrainable(
+            lambda c, x: (x * c["w"], (x ** 2).mean()),
+            {"w": torch.full((2,), 2.0)}, lambda o, b: (o.sum(), {}),
+            port.optim.sgd(0.1), num_stages=2, stage_aux=True)
+        loss, _, metrics = tr.loss(tr.params, None,
+                                   {"x": torch.ones(3)}, None)
+        # 4 * 3 from the head, 1 + 4 from the two stages' aux.
+        assert float(loss) == 17.0 and float(metrics["aux_loss"]) == 5.0
+    elif what == "vocab_embedding":
+        # The sharded lookup's decomposed sum at a narrowed tp_psum
+        # precision runs; at a one-rank model axis it is the table's
+        # rows.
+        table = torch.arange(12.0).view(4, 3)
+        ids = torch.tensor([3, 0, 2])
+        with tensor.precision_scope(INT8):
+            out = tensor.vocab_parallel_embedding(
+                ids, table, model_axis=axis.Axis("model"),
+                comm_overlap="matmul")
+        torch.testing.assert_close(out, table[ids])
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+            if what == "seq_axis":
+                port.ResourceSpec({"mesh": {"dcn": 2}})
+            elif what == "zero":
+                # ZeRO runs; an asynchronous PS still raises.
+                tr = _port_trainable(jparams)
+                ad = port.AutoDist({"mesh": {"pipe": 1}}, Pipeline(
+                    **PIPE, zero_stage=1), device="cpu")
+                d = json.loads(ad.build_or_load_strategy(tr).to_json())
+                d["node_configs"][0]["synchronizer"]["sync"] = False
+                ad.lower(tr, port.Strategy.from_json(json.dumps(d)))
+            else:
+                # remat read back from JSON runs; a stale PS still
+                # raises.
+                tr = _port_trainable(jparams)
+                ad = port.AutoDist({"mesh": {"pipe": 1}}, Pipeline(**PIPE),
+                                   device="cpu")
+                d = json.loads(ad.build_or_load_strategy(tr).to_json())
+                d["graph_config"]["parallel"]["remat"] = True
+                d["node_configs"][0]["synchronizer"] = {"kind": "ps",
+                                                        "staleness": 2}
+                ad.lower(tr, port.Strategy.from_json(json.dumps(d)))
 
 
 def test_entry_points_default_to_the_card():

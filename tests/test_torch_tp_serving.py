@@ -9,7 +9,8 @@ vocab-parallel table pads to 34 rows; hidden 16, 2 layers, 2 heads, mlp
 32, max_len 24, fp32), built by the JAX package and carried into the
 port with ``interop``.  Every engine (dense, paged, paged with chunked
 prefill; ``vocab_parallel`` on and off; ``comm_overlap`` None and
-``"matmul"``) decodes one prompt of 10 tokens for 11 tokens through the
+``"matmul"``, and ``"rsag"`` on the dense and the chunked vocab-parallel
+engines) decodes one prompt of 10 tokens for 11 tokens through the
 raw engine API, and the dense vocab-parallel engine also serves a ragged
 mix through ``ContinuousBatcher`` with a request that runs into
 ``max_len``.  One module-scoped job of 2 ranks runs every check,
@@ -44,6 +45,7 @@ LAYOUTS = {
                           prefill_chunk=4),
 }
 CONFIGS = list(itertools.product(LAYOUTS, (False, True), (None, "matmul")))
+CONFIGS += [("dense", True, "rsag"), ("paged_chunked", True, "rsag")]
 MIX = [(PROMPT, dict(max_new_tokens=7)),
        ([2, 7, 1], dict(max_new_tokens=9, eos_id=17)),
        ([8, 6, 7, 5, 3], dict(max_new_tokens=4)),

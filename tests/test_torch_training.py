@@ -470,7 +470,9 @@ def test_collective_precision_policy_trains_the_jax_fp32_program(
                                   "remat", "default_builder"])
 def test_out_of_slice_options_raise(what, jtrainable, jparams):
     """What this slice does not port raises ``NotImplementedError``
-    naming its ROADMAP item."""
+    naming its ROADMAP item.  The cases once refused that run now are
+    held to what they build: the pipeline's compressors and remat
+    beside ``comm_overlap="rsag"``, and the GSPMD builders by name."""
     jstrategy = JaxAllReduce().build(
         jtrainable,
         JaxResourceSpec({"topology": {"num_devices": 1}}))
@@ -486,15 +488,22 @@ def test_out_of_slice_options_raise(what, jtrainable, jparams):
             _port_trainable(port.optim.sgd(0.1), jparams), strategy)
         assert set(lowered.unapplied) == {"grad"}
         return
+    if what in ("compressor", "remat"):
+        b = port.Pipeline(compressor="bf16_ef", tensor_parallel=2,
+                          comm_overlap="rsag") if what == "compressor" \
+            else port.Pipeline(remat=True, tensor_parallel=2,
+                               comm_overlap="rsag")
+        assert b.comm_overlap == "rsag"
+        return
+    if what == "builder":
+        ad = port.AutoDist({}, "FSDPSharded", min_size=16)
+        assert isinstance(ad.strategy_builder, port.FSDPSharded)
+        strategy = ad.build_or_load_strategy(
+            _port_trainable(port.optim.sgd(0.1), jparams))
+        assert strategy.graph_config.lowering == "gspmd"
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        if what == "compressor":
-            # The pipeline lowering's compressors run; beside rsag they
-            # still raise.
-            port.Pipeline(compressor="bf16_ef", tensor_parallel=2,
-                          comm_overlap="rsag")
-        elif what == "builder":
-            port.AutoDist({}, "FSDPSharded")
-        elif what in ("ps_json", "partitioner_json"):
+        if what in ("ps_json", "partitioner_json"):
             # Asynchronous PS, and stale-synchronous PS: the JSON reads
             # back, the lowering refuses it.
             from autodist_tpu import PS as JaxPS
@@ -513,11 +522,6 @@ def test_out_of_slice_options_raise(what, jtrainable, jparams):
             port.ResourceSpec({"topology": {"generation": "v5e"}})
         elif what == "multihost":
             port.ResourceSpec({"multihost": {"num_processes": 2}})
-        elif what == "remat":
-            # The encoder's remat and the pipeline lowering's run; beside
-            # rsag the pipeline's still raises.
-            port.Pipeline(remat=True, tensor_parallel=2,
-                          comm_overlap="rsag")
         else:
             # The default builder runs; AutoStrategy does not yet.
             port.AutoDist({}, "AutoStrategy")
@@ -546,3 +550,44 @@ def test_entry_points_default_to_the_card():
                                          torch.Generator(), device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port.AutoDist({}, port.AllReduce()).build(trainable)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_one_hot_lookups_equal_the_gathers_they_replace(dtype):
+    """BERT's segment lookup and masked-position gather are one-hot
+    products (their backward sums repeated rows in a fixed order on the
+    card): bit-equal to ``F.embedding`` and ``torch.gather``, with rows
+    and positions picked many times; their gradients are the float64
+    sums within one rounding of the result (2^-8 relative in bf16, 2^-24
+    in fp32) and an fp32 sum's error, n 2^-24 times the sum of the
+    terms' magnitudes (n = 128, the rows looked up)."""
+    b = tbert.synthetic_mlm_batch(0, 4, 32, 12, 64)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(4, 32, 48, generator=gen).to(dtype)
+    table = torch.randn(2, 48, generator=gen).to(dtype)
+    seg = torch.as_tensor(b["segment_ids"]).long()
+    pos = torch.as_tensor(b["masked_positions"]).long()
+    assert (pos[:, 1:] == pos[:, :-1]).any()          # repeated positions
+
+    def lookups(table, x, one_hot):
+        if one_hot:
+            return (tbert.one_hot(seg, 2, table.dtype) @ table,
+                    tbert.one_hot(pos, 32, x.dtype) @ x)
+        return (torch.nn.functional.embedding(seg, table),
+                torch.gather(x, 1, pos[..., None].expand(-1, -1, 48)))
+
+    leaves = (table.requires_grad_(), x.requires_grad_())
+    got, want = lookups(*leaves, True), lookups(*leaves, False)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    dy = [torch.randn(t.shape, generator=gen).to(dtype) for t in got]
+    grads = torch.autograd.grad(got, leaves, dy)
+    wide = [t.detach().double().requires_grad_() for t in leaves]
+    exact = torch.autograd.grad(lookups(*wide, False), wide,
+                                [t.double() for t in dy])
+    magnitude = torch.autograd.grad(lookups(*wide, False), wide,
+                                    [t.double().abs() for t in dy])
+    unit = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -24
+    for g, e, m in zip(grads, exact, magnitude):
+        bound = unit * e.abs() + 128 * 2.0 ** -24 * m
+        assert ((g.double() - e).abs() <= bound).all()

@@ -515,7 +515,7 @@ def test_vocab_parallel_at_one_shard_is_recorded():
 @pytest.mark.parametrize("what", ["no_shared", "head", "overlap_stats"])
 def test_builder_checks(what):
     """The JAX builder's vocab checks, with its errors; a narrowed
-    ``vocab_stats`` under overlap is not ported."""
+    ``vocab_stats`` under overlap builds."""
     tr = tlm.make_pipeline_lm_trainable(
         port.TransformerConfig(**SIZES, dtype=torch.float32),
         port.optim.sgd(0.05), torch.Generator().manual_seed(0),
@@ -535,6 +535,8 @@ def test_builder_checks(what):
         with pytest.raises(ValueError, match="vocab-parallel-aware"):
             Pipeline(**kw).build(tr, rs)
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            Pipeline(**kw, comm_overlap="matmul",
-                     collective_precision={"vocab_stats": "bf16"})
+        strategy = Pipeline(**kw, comm_overlap="matmul",
+                            collective_precision={"vocab_stats": "bf16"}
+                            ).build(tr, rs)
+        assert strategy.graph_config.precision == {"vocab_stats": "bf16"}
+        assert strategy.graph_config.parallel["comm_overlap"] == "matmul"
