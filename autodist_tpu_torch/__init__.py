@@ -42,7 +42,11 @@ saver=Saver(dir), steps_per_loop=k)`` over a prefetching
 ``evaluate`` / ``run``, :func:`fetch` tags in a loss, the
 :class:`~autodist_tpu_torch.checkpoint.Saver` (exact resume, and
 portable restore under any strategy), ``export_model`` /
-``load_exported`` and ``serve(cfg, artifact=dir)``.  ROADMAP.md lists
+``load_exported`` and ``serve(cfg, artifact=dir)``.  Asynchronous PS
+(``AutoDist(spec, PS(sync=False)).build(trainable)`` ->
+:class:`AsyncPSRunner`) and the stale-synchronous gate
+(``PS(staleness=s)``) run over the coordination service
+(:mod:`autodist_tpu_torch.runtime.coordination`).  ROADMAP.md lists
 what comes next.
 """
 from autodist_tpu_torch import optim
@@ -62,7 +66,8 @@ from autodist_tpu_torch.models.transformer import (TransformerConfig,
                                                    lm_loss_head,
                                                    make_lm_trainable)
 from autodist_tpu_torch.resource import ResourceSpec
-from autodist_tpu_torch.runner import DistributedRunner, stack_steps
+from autodist_tpu_torch.runner import (AsyncPSRunner, DistributedRunner,
+                                      stack_steps)
 from autodist_tpu_torch.serving import (ContinuousBatcher, ServingEngine,
                                         serve)
 from autodist_tpu_torch.strategy.builders import (
@@ -74,7 +79,8 @@ from autodist_tpu_torch.strategy.ir import Strategy
 from autodist_tpu_torch.train import fit
 
 __all__ = ["AutoDist", "Trainable", "PipelineTrainable", "VarInfo",
-           "ResourceSpec", "DistributedRunner", "stack_steps", "Strategy",
+           "ResourceSpec", "DistributedRunner", "AsyncPSRunner",
+           "stack_steps", "Strategy",
            "AllReduce", "PS", "PSLoadBalancing", "PartitionedPS",
            "UnevenPartitionedPS", "PartitionedAR", "RandomAxisPartitionAR",
            "Parallax", "GradAccumulation", "ZeRO", "Pipeline",

@@ -4,18 +4,26 @@ Counterpart of ``autodist_tpu/autodist.py``: build the strategy, lower
 it against the resolved mesh, return the runner.  Every process of a
 ``torch.distributed`` job builds the same strategy from the same
 trainable (the builders are deterministic), so there is no chief/worker
-hand-off, no coordination service and no strategy directory;
-``strategy.to_json()`` is the JAX package's JSON, to keep as one likes.
+strategy hand-off and no strategy directory; ``strategy.to_json()`` is
+the JAX package's JSON, to keep as one likes.  A strategy with an
+asynchronous PS node (``PS(sync=False)``) builds an
+:class:`~autodist_tpu_torch.runner.AsyncPSRunner`, whose workers push
+gradients to a parameter server over the coordination service
+(:mod:`autodist_tpu_torch.runtime.coordination`); a stale-synchronous
+one (``PS(staleness=s)``) a
+:class:`~autodist_tpu_torch.runner.DistributedRunner` whose ``step``
+waits at the SSP gate.
 """
 from __future__ import annotations
 
 from typing import Optional
 
-from autodist_tpu_torch.kernel.lowering import Lowered, lower
+from autodist_tpu_torch.kernel.lowering import Lowered, Plan, lower
+from autodist_tpu_torch.parallel._spmd import ssp_staleness_from
 from autodist_tpu_torch.resource import ResourceSpec
-from autodist_tpu_torch.runner import DistributedRunner
+from autodist_tpu_torch.runner import AsyncPSRunner, DistributedRunner
 from autodist_tpu_torch.strategy import builders as _builders
-from autodist_tpu_torch.strategy.ir import Strategy
+from autodist_tpu_torch.strategy.ir import PSSynchronizer, Strategy
 
 
 class AutoDist:
@@ -51,14 +59,39 @@ class AutoDist:
 
     def lower(self, trainable, strategy: Optional[Strategy] = None) -> Lowered:
         strategy = strategy or self.build_or_load_strategy(trainable)
-        return lower(trainable, strategy, self.mesh, self.device)
+        lowered = lower(trainable, strategy, self.mesh, self.device)
+        # The SSP bound, stamped once here for every lowering: a
+        # lowering added later gets the host gate without having to
+        # remember it.
+        lowered.ssp_staleness = ssp_staleness_from(strategy)
+        if isinstance(lowered.plan, Plan):
+            lowered.plan.ssp_staleness = lowered.ssp_staleness
+        return lowered
 
     def build(self, trainable, strategy: Optional[Strategy] = None, *,
-              seed: int = 0) -> DistributedRunner:
+              seed: int = 0, **runner_kwargs):
         """Lower and instantiate the runner; ``seed`` seeds its stream
-        of per-step dropout seeds."""
+        of per-step dropout seeds, ``runner_kwargs`` go to the runner
+        (``ssp_worker=``, ``ssp_num_workers=``; the asynchronous
+        runner's ``is_chief=``, ``publish_max_lag=``, ...).
+
+        A strategy with any ``PS(sync=False)`` node builds an
+        :class:`~autodist_tpu_torch.runner.AsyncPSRunner` at the largest
+        staleness of those nodes (host-side push and pull: asynchrony
+        is not one synchronous program); every other strategy a
+        :class:`~autodist_tpu_torch.runner.DistributedRunner`."""
         strategy = strategy or self.build_or_load_strategy(trainable)
-        runner = DistributedRunner(trainable, self.lower(trainable, strategy),
-                                   seed=seed)
+        async_nodes = [nc for nc in strategy.node_configs
+                       if isinstance(nc.synchronizer, PSSynchronizer)
+                       and not nc.synchronizer.sync]
+        if async_nodes:
+            runner = AsyncPSRunner(
+                trainable, staleness=max(nc.synchronizer.staleness
+                                         for nc in async_nodes),
+                seed=seed, device=self.device, **runner_kwargs)
+        else:
+            runner = DistributedRunner(trainable,
+                                       self.lower(trainable, strategy),
+                                       seed=seed, **runner_kwargs)
         runner.strategy = strategy
         return runner

@@ -1,9 +1,13 @@
-"""Canonical mesh-axis names, copied from ``autodist_tpu/const.py``.
+"""Canonical mesh-axis names and the environment variables the port
+reads, copied from ``autodist_tpu/const.py``.
 
 The port keeps its own copy so that it never imports the JAX package.
-Only the names are copied: the environment-variable plane of the JAX
-package is not part of the serving slice.
+The variables keep the JAX package's names, so that one job configures
+both packages alike: :class:`ENV` holds the ones the coordination
+service, the SSP gate and the asynchronous PS read.
 """
+import enum
+import os
 
 DATA_AXIS = "data"       # data parallelism
 DCN_AXIS = "dcn"         # cross-slice data parallelism
@@ -14,3 +18,28 @@ EXPERT_AXIS = "expert"   # expert parallelism (MoE)
 
 ALL_AXES = (DATA_AXIS, DCN_AXIS, MODEL_AXIS, SEQ_AXIS, PIPE_AXIS,
             EXPERT_AXIS)
+
+
+class ENV(enum.Enum):
+    """Typed environment flags (JAX ``const.ENV``): each member's value
+    is a function from the raw string (``None`` when unset) to the typed
+    value."""
+
+    # Non-chief marker and worker name (empty on the chief).
+    AUTODIST_TPU_WORKER = (lambda v: v or "",)
+    # Processes of the job; the SSP gate's registration barrier waits
+    # for this many workers when it is above 1.
+    AUTODIST_TPU_NUM_PROCESSES = (lambda v: int(v) if v else 1,)
+    # host:port of the coordination service (runtime/coordination.py).
+    AUTODIST_TPU_COORD_SERVICE = (lambda v: v or "",)
+    # The shared secret every coordination connection presents
+    # (generated by the chief's CoordServer when unset, and exported to
+    # its environment for in-process clients and launched workers).
+    AUTODIST_TPU_COORD_TOKEN = (lambda v: v or "",)
+    # The interface the coordination server binds ("" = all).
+    AUTODIST_TPU_COORD_BIND = (lambda v: v or "",)
+
+    @property
+    def val(self):
+        """The typed value of this variable."""
+        return self.value[0](os.environ.get(self.name))

@@ -28,7 +28,10 @@ counterpart:
 * ``accum_steps`` slices the batch
   (:func:`~autodist_tpu_torch.kernel.common.accumulate_microbatches`);
   compressors and ``zero_stage > 1`` warn, as in JAX, and train the
-  plain program; ``PS(sync=False)`` and stale PS raise.
+  plain program; ``PS(sync=False)`` raises (it is the
+  :class:`~autodist_tpu_torch.runner.AsyncPSRunner`'s), and a stale PS
+  trains the synchronous program, its bound stamped by ``AutoDist`` for
+  the runner's SSP gate.
 
 Kernels that take raw pointers never see a DTensor: the flash-attention
 adapter runs its kernel under ``local_map`` on each rank's heads
@@ -70,8 +73,7 @@ from autodist_tpu_torch import const, optim
 from autodist_tpu_torch.device import resolve_device
 from autodist_tpu_torch.kernel import common
 from autodist_tpu_torch.kernel.lowering import Lowered
-from autodist_tpu_torch.strategy.ir import (ASYNC_PS_ITEM, PSSynchronizer,
-                                            not_ported)
+from autodist_tpu_torch.strategy.ir import PSSynchronizer
 
 _log = logging.getLogger(__name__)
 
@@ -312,13 +314,12 @@ def lower_gspmd(trainable, strategy, mesh, device=None) -> Lowered:
     dev, opt = resolve_device(device), trainable.optimizer
     nodes = {nc.var_name: nc for nc in strategy.node_configs}
     for nc in strategy.node_configs:
-        sync = nc.synchronizer
-        if isinstance(sync, PSSynchronizer) and not sync.sync:
-            not_ported(f"PS(sync=False) on {nc.var_name} (asynchronous "
-                       f"training)", ASYNC_PS_ITEM)
-        if isinstance(sync, PSSynchronizer) and sync.staleness > 0:
-            not_ported(f"PS(staleness={sync.staleness}) on {nc.var_name} "
-                       f"(stale-synchronous training)", ASYNC_PS_ITEM)
+        if isinstance(nc.synchronizer, PSSynchronizer) \
+                and not nc.synchronizer.sync:
+            raise NotImplementedError(
+                f"PS(sync=False) on {nc.var_name}: asynchronous "
+                "training does not lower to one SPMD program; build "
+                "through AutoDist (AsyncPSRunner) or use sync=True")
     ps_vars = {nc.var_name for nc in strategy.node_configs
                if isinstance(nc.synchronizer, PSSynchronizer)}
     ignored = sorted(nc.var_name for nc in strategy.node_configs

@@ -41,9 +41,14 @@ one row a rank and bucket.  The step updates nothing in place.
 ``gspmd`` lowerings to :mod:`autodist_tpu_torch.parallel.pipeline`,
 :mod:`autodist_tpu_torch.parallel.moe`,
 :mod:`autodist_tpu_torch.parallel.sequence` and
-:mod:`autodist_tpu_torch.kernel.gspmd`; an asynchronous or
-stale-synchronous PS raises ``NotImplementedError`` naming its ROADMAP
-item.  A precision
+:mod:`autodist_tpu_torch.kernel.gspmd`.  An asynchronous PS
+(``sync=False``) raises: it is not one synchronous program, and
+:class:`~autodist_tpu_torch.autodist.AutoDist` runs it on the
+:class:`~autodist_tpu_torch.runner.AsyncPSRunner`.  A stale-synchronous
+PS (``staleness > 0``) lowers to the synchronous step;
+:meth:`~autodist_tpu_torch.autodist.AutoDist.lower` records its bound in
+``Lowered.ssp_staleness`` (and the collective ``Plan.ssp_staleness``)
+for the runner's host-side SSP gate.  A precision
 policy trains the fp32 program, as in the JAX package, whose collective
 lowering reads none; its slots are recorded in ``Lowered.unapplied``.
 """
@@ -59,10 +64,9 @@ from autodist_tpu_torch import const, cuda_graph, optim
 from autodist_tpu_torch.device import resolve_device
 from autodist_tpu_torch.kernel import common
 from autodist_tpu_torch.kernel.compressor import Compressor
-from autodist_tpu_torch.strategy.ir import (ASYNC_PS_ITEM,
-                                            AllReduceSynchronizer,
+from autodist_tpu_torch.strategy.ir import (AllReduceSynchronizer,
                                             PSSynchronizer,
-                                            normalize_precision, not_ported)
+                                            normalize_precision)
 
 # Update spaces: where a variable's optimizer update runs.
 U_REPLICATED = "replicated"   # the full variable on every rank
@@ -117,6 +121,9 @@ class Plan:
     num_replicas: int
     buckets: dict                 # bucket key -> ordered variable names
     bucket_compressor: dict       # bucket key -> compressor name
+    ssp_staleness: int = 0        # max PSSynchronizer.staleness (the
+                                  # runner's host-side SSP gate), stamped
+                                  # by AutoDist.lower
 
 
 def make_plan(trainable, strategy, mesh) -> Plan:
@@ -146,12 +153,14 @@ def make_plan(trainable, strategy, mesh) -> Plan:
             split_axis = max(part.split_axis, 0)
         if isinstance(sync, PSSynchronizer):
             if not sync.sync:
-                not_ported(f"PS(sync=False) on {info.name} (asynchronous "
-                           f"training)", ASYNC_PS_ITEM)
-            if sync.staleness > 0:
-                not_ported(f"PS(staleness={sync.staleness}) on "
-                           f"{info.name} (stale-synchronous training)",
-                           ASYNC_PS_ITEM)
+                # Asynchronous PS is another execution mode (host-side
+                # push and pull, runner.AsyncPSRunner); training it
+                # synchronously would misreport what was asked for.
+                raise NotImplementedError(
+                    f"PS(sync=False) on {info.name}: asynchronous training "
+                    "does not lower to a synchronous SPMD program; build "
+                    "through AutoDist (which dispatches to AsyncPSRunner) "
+                    "or use sync=True")
             if split_axis >= 0 and info.shape:
                 plan = VarPlan(info.name, info.shape, info.dtype,
                                stored_sharded=True, split_axis=split_axis,
@@ -270,7 +279,11 @@ class Lowered:
     precision slot or compressor the lowering has no boundary for or
     leaves unapplied, with its reason, where the JAX package drops it
     (its expert lowering's ``grad`` slot, a compressor on a pipeline
-    without a data axis)."""
+    without a data axis).  ``ssp_staleness`` is the strategy's largest
+    PS ``staleness``, the bound of the runner's host-side SSP gate (0:
+    no gate), stamped by
+    :meth:`~autodist_tpu_torch.autodist.AutoDist.lower` on every
+    lowering."""
 
     plan: Any
     mesh: Any
@@ -285,6 +298,7 @@ class Lowered:
     zero_degraded: dict = dataclasses.field(default_factory=dict)
     unapplied: dict = dataclasses.field(default_factory=dict)
     release: Optional[Callable] = None
+    ssp_staleness: int = 0
 
     def __post_init__(self):
         if self.batch_axis is None:

@@ -50,10 +50,9 @@ from autodist_tpu_torch.kernel import common
 from autodist_tpu_torch.kernel.common import flatten_with_names, unflatten
 from autodist_tpu_torch.kernel.compressor import Compressor
 from autodist_tpu_torch.parallel.axis import axis_scope
-from autodist_tpu_torch.strategy.ir import (ASYNC_PS_ITEM,
-                                            AllReduceSynchronizer,
+from autodist_tpu_torch.strategy.ir import (AllReduceSynchronizer,
                                             PSSynchronizer,
-                                            normalize_precision, not_ported)
+                                            normalize_precision)
 
 # The grad slot's compressor for each narrowed precision.
 GRAD_SLOT_COMPRESSORS = {"bf16": "bf16_ef", "int8": "int8_ef"}
@@ -76,6 +75,16 @@ class VarPolicy:
     scale: float = 1.0
 
 
+def ssp_staleness_from(strategy) -> int:
+    """The largest ``staleness`` of the strategy's synchronous PS nodes:
+    the bound the runner's host-side SSP gate enforces.  The gate does
+    not depend on the lowering: inside one process group the step is
+    lockstep anyway; the gate bounds the skew between processes."""
+    return max((nc.synchronizer.staleness for nc in strategy.node_configs
+                if isinstance(nc.synchronizer, PSSynchronizer)
+                and nc.synchronizer.sync), default=0)
+
+
 def policies_from_node_configs(strategy, mesh, *, replicated_axes,
                                axes_for: Optional[Callable] = None,
                                scale_for: Optional[Callable] = None,
@@ -90,7 +99,8 @@ def policies_from_node_configs(strategy, mesh, *, replicated_axes,
     request on a variable in ``sharded_vars`` (stored sharded by the
     lowering: its optimizer state already shards with it) degrades to
     plain sync, its reason written into ``degraded``.  An asynchronous
-    or stale PS raises naming its item."""
+    PS (``sync=False``) raises; a stale one is a synchronous PS here,
+    its bound the runner's SSP gate's (:func:`ssp_staleness_from`)."""
     sharded_vars = set(sharded_vars)
     policies = {}
     for nc in strategy.node_configs:
@@ -98,9 +108,12 @@ def policies_from_node_configs(strategy, mesh, *, replicated_axes,
         axes = tuple(axes_for(name)) if axes_for else tuple(replicated_axes)
         scale = float(scale_for(name)) if scale_for else 1.0
         if isinstance(sync, PSSynchronizer):
-            if not sync.sync or sync.staleness:
-                not_ported(f"an asynchronous or stale PS on {name} "
-                           "(PS(sync=False), staleness > 0)", ASYNC_PS_ITEM)
+            if not sync.sync:
+                raise NotImplementedError(
+                    f"PS(sync=False) on {name}: asynchronous training does "
+                    "not lower to a synchronous SPMD program; build through "
+                    "AutoDist (which dispatches to AsyncPSRunner) or use "
+                    "sync=True")
             stage = int(sync.zero_stage or 1)
             if stage not in (1, 2, 3):
                 raise ValueError(

@@ -1,11 +1,16 @@
 """Build the host C++ sources in ``native/`` at first use.
 
-The port's counterpart of ``autodist_tpu/runtime/nativelib.py`` for the
-one library it needs, the data-IO reader (``native/dataio.cc``): the
-host compiler (``$CXX``, else ``g++``) builds it into ``runtime/_build/``
+The port's counterpart of ``autodist_tpu/runtime/nativelib.py`` for its
+two libraries, the data-IO reader (``native/dataio.cc``) and the
+coordination service (``native/coord.cc``): the host compiler
+(``$CXX``, else ``g++``) builds each into ``runtime/_build/``
 (git-ignored) under a name that carries a hash of the source and the
-flags, so an edited source rebuilds and an unchanged one is reused.  A
-missing compiler or a failed build raises with the compiler's output.
+flags, so an edited source rebuilds and an unchanged one is reused.
+Every library gets :data:`CXX_FLAGS`, and a library named in
+:data:`LIB_FLAGS` its own flags after them (``-pthread`` for the
+coordination service's threads, as the JAX package's Makefile gives
+it).  A missing compiler or a failed build raises with the compiler's
+output.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from pathlib import Path
 NATIVE_DIR = Path(__file__).resolve().parent / "native"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-shared")
+LIB_FLAGS = {"coord": ("-pthread",)}
 
 _lock = threading.Lock()
 _loaded: dict = {}
@@ -31,7 +37,7 @@ def find_cxx() -> str:
         or shutil.which("c++")
     if not cxx:
         raise RuntimeError("no host C++ compiler ($CXX, g++ or c++): the "
-                           "native data-IO library cannot be built")
+                           "native libraries cannot be built")
     return cxx
 
 
@@ -39,7 +45,8 @@ def build(name: str) -> Path:
     """``lib<name>_<hash>.so`` from ``native/<name>.cc``, compiled unless
     this exact build exists; returns its path."""
     src = NATIVE_DIR / f"{name}.cc"
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + src.read_bytes())
+    flags = (*CXX_FLAGS, *LIB_FLAGS.get(name, ()))
+    h = hashlib.sha256(" ".join(flags).encode() + src.read_bytes())
     lib = BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
     if lib.is_file():
         return lib
@@ -47,7 +54,7 @@ def build(name: str) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         staged = Path(tmp) / lib.name
-        out = subprocess.run([cxx, *CXX_FLAGS, "-o", str(staged), str(src)],
+        out = subprocess.run([cxx, *flags, "-o", str(staged), str(src)],
                              capture_output=True, text=True)
         if out.returncode != 0:
             raise RuntimeError(f"native build of {src.name} failed "

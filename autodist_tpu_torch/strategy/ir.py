@@ -16,8 +16,11 @@ Counterpart of ``autodist_tpu/strategy/ir.py``.  Ported:
   (same keys, same order, same ``indent=1``), so a strategy either
   package writes reads back in the other.
 
-A ``PSSynchronizer`` with ``sync=False`` or ``staleness > 0`` reads
-back; the lowering refuses it (:data:`ASYNC_PS_ITEM`).
+A ``PSSynchronizer`` with ``sync=False`` builds an
+:class:`~autodist_tpu_torch.runner.AsyncPSRunner` through
+:class:`~autodist_tpu_torch.autodist.AutoDist` (a lowering refuses it);
+``staleness > 0`` lowers to the synchronous step under the runner's SSP
+gate.
 """
 from __future__ import annotations
 
@@ -185,10 +188,6 @@ class AllReduceSynchronizer:
         return dataclasses.asdict(self)
 
 
-# Where asynchronous PS and the stale-synchronous gate come.
-ASYNC_PS_ITEM = "ROADMAP Queue 1, item 8: AsyncPSRunner and the SSP gate"
-
-
 @dataclasses.dataclass
 class PSSynchronizer:
     """Sharded-state synchronization, parameter-server semantics on the
@@ -198,8 +197,9 @@ class PSSynchronizer:
     itself is stored sharded (FSDP).  ``reduction_destination`` is the
     load balancer's shard tag (provenance only); ``local_replication``
     is a no-op (parameters are gathered every step); ``zero_stage`` the
-    cost model's record.  ``sync=False`` and ``staleness > 0`` read
-    back but do not lower (:data:`ASYNC_PS_ITEM`)."""
+    cost model's record.  ``sync=False`` is asynchronous training (the
+    ``AsyncPSRunner``); ``staleness`` bounds how many steps a process
+    may run ahead of the slowest (the SSP gate)."""
 
     kind: str = "ps"
     reduction_destination: str = ""

@@ -55,7 +55,9 @@ def fit(runner, source: Iterable | Callable[[int], Any], *,
       prefetch: the loader's depth (:class:`~autodist_tpu_torch.data
         .DataLoader`).
       steps_per_loop: up to this many steps a ``runner.run_steps``
-        window (one CUDA-graph replay on the card); a window never
+        window (one CUDA-graph replay on the card; a runner without
+        ``run_steps``, the ``AsyncPSRunner``, steps one at a time); a
+        window never
         crosses a log, eval or save boundary, so every cadence fires at
         the steps of the per-step loop, and a batch of another shape
         (a ragged last one) becomes a window of its own.  Each distinct
@@ -81,7 +83,9 @@ def fit(runner, source: Iterable | Callable[[int], Any], *,
         inner = source
         source = lambda i: inner(start + i)  # noqa: E731
 
-    fused = steps_per_loop > 1
+    # A runner without run_steps (the AsyncPSRunner) takes the per-step
+    # loop.
+    fused = steps_per_loop > 1 and hasattr(runner, "run_steps")
     cadences = [every for every, on in (
         (log_every, True), (eval_every, eval_source is not None),
         (save_every, saver is not None)) if every and on]
@@ -114,7 +118,8 @@ def fit(runner, source: Iterable | Callable[[int], Any], *,
     else:
         loader = iter(DataLoader(source, runner.mesh, buffer_size=prefetch,
                                  num_batches=remaining, global_batches=True,
-                                 lowered=runner.lowered))
+                                 lowered=getattr(runner, "lowered", None),
+                                 device=getattr(runner, "device", None)))
 
     t0 = time.perf_counter()
     examples = window_examples = 0

@@ -19,8 +19,10 @@ inside and the vocabulary sharded over the model axis), expert-parallel
 training of the MoE LM through ``ExpertParallel`` on an expert axis of
 2, serving at tensor parallel 2, and sequence-parallel training of the
 causal LM through ``SequenceParallel`` on a seq axis of 2 (ring
-attention over K1/K2a/K2b), and the training lifecycle around a runner
-(``fit``, eval, checkpoints and resume, export, ``serve(artifact=)``):
+attention over K1/K2a/K2b), the training lifecycle around a runner
+(``fit``, eval, checkpoints and resume, export, ``serve(artifact=)``),
+the GSPMD builders, and asynchronous PS and the stale-synchronous gate
+over the coordination service:
 
 1. each kernel against its plain PyTorch version, fp32 (atol = rtol =
    1e-5) and bf16 (atol = rtol = 1e-2), timed with CUDA events beside
@@ -144,7 +146,7 @@ attention over K1/K2a/K2b), and the training lifecycle around a runner
 12. the sequence-parallel window in bf16 (``bench.py:442-446``'s model,
    nothing cut: 4 layers, max_len 2048; batch 8 of 2048 tokens,
    ``adamw(3e-4)`` as ``examples/long_context.py`` trains it, the flash
-   ring on ``{"seq": 2}``): a warm window of 5 steps, then a timed
+   ring on ``{"seq": 2}``): a warm window of 3 steps, then a timed
    one; tokens/s (the slowest rank), step ms, peak memory per rank, each
    rank's busy share and K1/K2a/K2b device time a step, K1, K2a and K2b
    held to 4 x (index + 1) launches a rank and step (a causal ring skips
@@ -178,7 +180,7 @@ attention over K1/K2a/K2b), and the training lifecycle around a runner
    held to 12 x 10 launches, twice that under accumulation): examples/s,
    step ms, MFU, peak memory, stored bytes, capture seconds; then
    ``PS``, ``PartitionedPS`` and ``AllReduce`` at data 2 on 2 ranks over
-   gloo (3 steps, host loop): per-rank peak memory and stored bytes;
+   gloo (2 steps, host loop): per-rank peak memory and stored bytes;
    with 2 or more cards every row again over NCCL at data = the cards,
    each row's parameters within 0.1 of one card's update (L2 over the
    tree) on the same batches;
@@ -291,7 +293,30 @@ attention over K1/K2a/K2b), and the training lifecycle around a runner
    the graph route (captures and replays asserted), K1/K2a/K2b held to
    12 x 10 launches, step ms and examples/s beside phase 5's, and the
    collectives a step issued;
-23. one ``{"kernels": [...]}`` line, the card's name and power limit, and
+23. asynchronous PS and the SSP gate: (a) fp32, phase 22's 2-layer BERT
+   (flash, dropout 0, SGD), one ``AsyncPSRunner`` worker through
+   ``AutoDist({}, PS(sync=False))`` with ``wait_applied`` after each of
+   3 steps, its params within 1e-5 of each tensor's largest value
+   (floor 1e-3) of the synchronous ``PS()`` runner's on the same
+   batches; (b) phase 5's BERT-base bf16 configuration on the async
+   path: the chief (this process: the PS thread on its own CUDA stream
+   and one worker) and a spawned worker (``AUTODIST_TPU_WORKER``, the
+   chief's ``AUTODIST_TPU_COORD_SERVICE``) share card 0, 3 pushes each;
+   all 6 updates applied, losses finite, K1/K2a/K2b held to 12 x the
+   steps of both processes (the worker's counts come back through the
+   coordination KV); printed: seconds a step, the device's gradient ms,
+   the host's pull, pack and push seconds, a push's bytes, the PS's
+   apply ms and the push, pull, pull_skip, apply and publish counts;
+   (c) the SSP gate at staleness 1: two 2-layer bf16
+   ``DistributedRunner``s in two processes on card 0, this one and
+   (b)'s spawned worker (the gate asserted on), the slow one sleeping
+   0.3 s before each step, the fast one's
+   completions held to the reference's c9 rule (step 2 before 0.29 s,
+   3 after 0.29 s, 4 after 0.59 s) and the ``ssp/gate_wait_s`` waits
+   printed; then a gated ``run_steps`` window (dropout 0.1) equal to a
+   loop of ``step`` calls at the same seeds with no capture, and the
+   same strategy at staleness 0 capturing one graph;
+24. one ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
 Phases 2, 4, 6 (at T = 1), 8 (the dense model) and 11 (one process)
@@ -347,6 +372,7 @@ from autodist_tpu_torch.models.pipeline_lm import (make_pipeline_lm_trainable,
 from autodist_tpu_torch.parallel import ring_attention as ra
 from autodist_tpu_torch.parallel.sequence import global_positions
 from autodist_tpu_torch.parallel.tensor import sampled_scores
+from autodist_tpu_torch.runner import _pack_tree
 from autodist_tpu_torch.strategy.parallel_builders import Pipeline
 from autodist_tpu_torch.resource import H100
 from autodist_tpu_torch.serving import FINISH_REASONS, kv_cache
@@ -419,13 +445,14 @@ WINDOW_TIMES: dict = {}
 
 # BERT-base (bench.py _bench on an accelerator).
 BERT_BATCH, BERT_SEQ, BERT_MASKED, BERT_STEPS = 16, 512, 76, 30
-# Phase 14's windows, shorter than phase 5's to keep the script's time.
-ZOO_STEPS = 10
+# Phase 14's windows, shorter than phase 5's to keep the script's time:
+# on one card, and of the gloo rows (seconds a step each).
+ZOO_STEPS, ZOO_GLOO_STEPS = 10, 2
 
 # The tensor-parallel window (bench.py quant on an accelerator): at one
 # pipe device, and on bench.py quant's 4-device mesh, pipe 2 x model 2
 # (V = 2 chunks a pipe rank).
-TP, TP_LAYERS, TP_SEQ, TP_BATCH, TP_MICRO, TP_STEPS = 2, 4, 512, 16, 2, 3
+TP, TP_LAYERS, TP_SEQ, TP_BATCH, TP_MICRO, TP_STEPS = 2, 4, 512, 16, 2, 2
 PIPE = 2
 TP_MESH = {"data": 1, "pipe": 1, "model": TP}
 QUANT_MESH = {"data": 1, "pipe": PIPE, "model": TP}
@@ -485,8 +512,8 @@ MOE_WANT = {"a2a_ring": {"a2a_ring_hop": EXPERT * 2 * 2 * MOE_LAYERS}}
 # (adamw(3e-4), batch 8), the flash ring causal on a seq axis of 2: a
 # ring chunk is [8, 1024, 16, 64].  The long-context rows: batch 1 of
 # 8192 tokens, the positional table grown to 8192 rows.
-SEQ, SEQ_LAYERS, SEQ_LEN, SEQ_BATCH, SEQ_STEPS = 2, 4, 2048, 8, 5
-LONG_LEN, LONG_STEPS = 8192, 3
+SEQ, SEQ_LAYERS, SEQ_LEN, SEQ_BATCH, SEQ_STEPS = 2, 4, 2048, 8, 3
+LONG_LEN, LONG_STEPS = 8192, 2
 RING_CHUNK_SHAPE = (SEQ_BATCH, SEQ_LEN // SEQ, HEADS)
 RINGS = {"flash": ra.make_ring_flash_attention_fn,
          "einsum": ra.make_ring_attention_fn}
@@ -1935,7 +1962,7 @@ def rank_worker(rank, world, backend, store, job, out_dir):
            "zero_window": zero_window_rows,
            "overlap_window": overlap_window_programs,
            "dropout": pipeline_dropout, "serve_rsag": tp_serve_rsag,
-           "gspmd": gspmd_ranks}
+           "gspmd": gspmd_ranks, "async_worker": async_worker}
     result = run[job["kind"]](job)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(result, f)
@@ -2946,15 +2973,16 @@ def phase_zoo_window():
         print(zoo_line(label, row, ZOO_STEPS, BERT_BATCH, flops, chip,
                        "one card, data 1, run_steps route graph"),
               flush=True)
-    ranks = spawn_ranks(dict(zoo_bf16_job(2), steps=3,
+    ranks = spawn_ranks(dict(zoo_bf16_job(2), steps=ZOO_GLOO_STEPS,
                              rows=[label for label, _ in ZOO_GLOO]), 2)
     for label, _ in ZOO_GLOO:
         rs = [r[label] for r in ranks]
         dt = max(r["seconds"] for r in rs)
         print(f"phase 14 {label} bf16 [data 2, 2 ranks on one card, gloo, "
               f"transfers through host, run_steps route loop, batch "
-              f"{BERT_BATCH} a rank]: 3 steps in {dt:.3f} s, step "
-              f"{dt / 3 * 1e3:.2f} ms; per rank: peak memory "
+              f"{BERT_BATCH} a rank]: {ZOO_GLOO_STEPS} steps in "
+              f"{dt:.3f} s, step {dt / ZOO_GLOO_STEPS * 1e3:.2f} ms; per "
+              f"rank: peak memory "
               + ", ".join(f"{r['peak_gb']:.2f}" for r in rs)
               + " GB, stored bytes (params, optimizer state) "
               + ", ".join(f"{r['params_bytes']}, {r['opt_bytes']}"
@@ -5040,12 +5068,347 @@ def phase_gspmd():
     return counts
 
 
+# --------------------------------------------------------------------- #
+# phase 23: asynchronous PS and the SSP gate
+# --------------------------------------------------------------------- #
+ASYNC_STEPS = 3          # pushes a process in (a) and (b)
+SSP_STEPS = 5            # steps 0 (warm) to 4 of (c)
+SSP_SLEEP_S = 0.3        # the slow worker's sleep before each step
+ASYNC_SPANS = ("pull", "pack", "push", "apply", "publish")
+ASYNC_COUNTERS = ("push", "pull", "pull_skip", "apply", "publish")
+
+
+def async_bert(cfg, opt):
+    """Phase 23's BERT MLM trainable, weights from seed 0 on the card."""
+    return bert.make_mlm_trainable(
+        cfg, opt, torch.Generator(device="cuda").manual_seed(0),
+        with_input_mask=False)
+
+
+def async_bf16():
+    """(b)'s configuration: phase 5's, flash."""
+    return (bert.bert_base(dropout_rate=0.0, attention_dropout_rate=0.0,
+                           attention_fn=fa.make_attention_fn(False)),
+            port.optim.adamw(1e-4, weight_decay=0.01,
+                             mu_dtype=torch.bfloat16))
+
+
+def async_counters():
+    return {k: telemetry.counter(f"asyncps/{k}").value
+            for k in ASYNC_COUNTERS}
+
+
+def async_parity(label):
+    """(a): one ``AsyncPSRunner`` worker through ``AutoDist({},
+    PS(sync=False))``, ``wait_applied`` after each of 3 SGD steps,
+    against the synchronous ``PS()`` ``DistributedRunner`` on the same
+    weights and batches (fp32, 2 layers, flash, dropout 0)."""
+    cfg = gspmd_parity_cfg()
+    steps = window_steps(bert_window(cfg, ASYNC_STEPS, seed0=600))
+    sync = port.AutoDist({}, port.PS()).build(
+        async_bert(cfg, port.optim.sgd(0.5)))
+    for b in steps:
+        sync.step(b)
+    ref = {n: t.cpu() for n, t in flatten_with_names(sync.get_params())}
+    sync.close()
+    runner = port.AutoDist({}, port.PS(sync=False)).build(
+        async_bert(cfg, port.optim.sgd(0.5)))
+    check(isinstance(runner, port.AsyncPSRunner),
+          f"PS(sync=False) built a {type(runner).__name__}")
+    try:
+        for i, b in enumerate(steps):
+            runner.step(b)
+            runner.wait_applied(i + 1, timeout_s=120)
+        got = {n: t.cpu() for n, t in flatten_with_names(runner.get_params())}
+    finally:
+        runner.close()
+    worst = rel_err(got, ref)
+    check(worst <= 1e-5, f"phase 23 (a): async params {worst:.3g} of a "
+                         f"tensor's largest value off the synchronous PS's")
+    print(f"phase 23 (a) fp32 2-layer BERT, flash, {ASYNC_STEPS} SGD steps "
+          f"[{label}]: AsyncPSRunner (one worker, wait_applied after each "
+          f"step) params within 1e-5 of the synchronous PS() runner's "
+          f"(largest gap {worst:.3g} of each tensor's largest value, floor "
+          f"1e-3)", flush=True)
+    torch.cuda.empty_cache()
+
+
+def async_worker(job):
+    """Phase 23's second process: (b)'s worker (``AUTODIST_TPU_WORKER``
+    and the chief's service in its environment, ASYNC_STEPS pushes; its
+    launch counts, losses, step seconds and counters go back through
+    the coordination KV), then (c)'s slow SSP worker."""
+    from autodist_tpu_torch.runtime import coordination
+
+    os.environ.update(job["env"])
+    coordination.reset_service_client()
+    cfg, opt = async_bf16()
+    runner = port.AutoDist({}, port.PS(sync=False)).build(
+        async_bert(cfg, opt))
+    check(not runner.is_chief, "the spawned async worker thinks it is "
+                               "the chief")
+    steps = window_steps(bert_window(cfg, ASYNC_STEPS, seed0=800))
+    before = async_counters()
+    reset_launches()
+    losses, seconds = [], []
+    for b in steps:
+        t0 = time.perf_counter()
+        losses.append(float(runner.step(b)["loss"]))
+        seconds.append(time.perf_counter() - t0)
+    out = {"launches": launches(), "losses": losses, "step_s": seconds,
+           "counters": {k: v - before[k]
+                        for k, v in async_counters().items()}}
+    runner._client.put("phase23/worker", json.dumps(out).encode())
+    runner.close()
+    del runner, steps
+    torch.cuda.empty_cache()
+    return ssp_role(job["ssp_env"], "slow")
+
+
+def span_seconds(name, since):
+    """The durations of the spans ``name`` recorded after ``since``."""
+    return [s["dur_s"] for s in telemetry.get().spans
+            if s["name"] == name and s["start_s"] >= since]
+
+
+def ssp_cfg(dropout=0.0):
+    return port.TransformerConfig(
+        num_layers=2, dropout_rate=dropout, attention_dropout_rate=0.0,
+        attention_fn=fa.make_attention_fn(False))
+
+
+def ssp_role(env, name):
+    """(c) in one process: a 2-layer bf16 ``DistributedRunner`` under
+    ``PS(staleness=1)`` on the service in ``env``, gated (asserted),
+    step 0, then the processes' barrier, then steps 1-4 (the slow one
+    sleeping SSP_SLEEP_S before each); each step's completion after the
+    barrier, and the gate's waits."""
+    from autodist_tpu_torch.runtime import coordination
+
+    os.environ.update(env)
+    coordination.reset_service_client()
+    cfg = ssp_cfg()
+    runner = port.AutoDist({}, port.PS(staleness=1)).build(
+        async_bert(cfg, port.optim.sgd(0.1)), ssp_worker=name,
+        ssp_num_workers=2)
+    check(runner._ssp is not None, f"{name}: the SSP gate is off")
+    steps = window_steps(runner.place_steps(bert_window(cfg, SSP_STEPS)))
+    waits = len(telemetry.histogram("ssp/gate_wait_s").values)
+    runner.step(steps[0])       # the gate cannot block step 0
+    check(coordination.service_client().barrier("phase23/ready", 2, 120000),
+          "the SSP workers never met")
+    t0 = time.monotonic()
+    done = {}
+    for i in range(1, SSP_STEPS):
+        if name == "slow":
+            time.sleep(SSP_SLEEP_S)
+        runner.step(steps[i])
+        done[i] = time.monotonic() - t0
+    out = {"done": done, "captures": runner.captures,
+           "waits": list(telemetry.histogram("ssp/gate_wait_s")
+                         .values)[waits:]}
+    runner.close()
+    os.environ.pop("AUTODIST_TPU_COORD_SERVICE", None)
+    coordination.reset_service_client()
+    return out
+
+
+def async_window(label):
+    """(b) and (c)'s timing, with one spawned process.  (b): BERT-base
+    bf16 (phase 5's configuration) on the async path; the chief (this
+    process: the PS thread and one worker) and the spawned worker share
+    card 0, ASYNC_STEPS pushes each; all updates applied, losses
+    finite, K1/K2a/K2b held to 12 x the steps of both processes.  (c):
+    then this process is the fast SSP worker and the spawned one the
+    slow.  Returns (b)'s launches."""
+    from autodist_tpu_torch.runtime import coordination
+
+    ssp_server = coordination.CoordServer()
+    ssp_env = {"AUTODIST_TPU_COORD_SERVICE": f"127.0.0.1:{ssp_server.port}",
+               "AUTODIST_TPU_COORD_TOKEN": ssp_server.token}
+    cfg, opt = async_bf16()
+    runner = port.AutoDist({}, port.PS(sync=False)).build(
+        async_bert(cfg, opt))
+    try:
+        check(runner.is_chief and runner._own_server is not None,
+              "the async chief does not serve the coordination service")
+        steps = window_steps(bert_window(cfg, ASYNC_STEPS, seed0=700))
+        # The device's gradient time and a push's bytes, on the chief's
+        # first batch (warm, then timed; outside the counted window).
+        runner.local_grads(steps[0], 0)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        grads, _ = runner.local_grads(steps[0], 0)
+        end.record()
+        torch.cuda.synchronize()
+        grad_ms = start.elapsed_time(end)
+        t0 = time.perf_counter()
+        push_bytes = len(_pack_tree(0, grads))
+        pack_s = time.perf_counter() - t0
+        del grads
+        env = {k: os.environ[k] for k in ("AUTODIST_TPU_COORD_SERVICE",
+                                          "AUTODIST_TPU_COORD_TOKEN")}
+        env["AUTODIST_TPU_WORKER"] = "worker1"
+        chief = {"losses": [], "step_s": []}
+        before = async_counters()
+        since = time.perf_counter()
+
+        def chief_side():
+            reset_launches()
+            for b in steps:
+                t1 = time.perf_counter()
+                chief["losses"].append(float(runner.step(b)["loss"]))
+                chief["step_s"].append(time.perf_counter() - t1)
+            chief["launches"] = launches()
+            runner.wait_applied(2 * ASYNC_STEPS, timeout_s=600)
+            chief["wall"] = time.perf_counter() - t0
+            chief["worker"] = json.loads(runner._client.get(
+                "phase23/worker", timeout_ms=60000))
+            chief["moved"] = {k: v - before[k]
+                              for k, v in async_counters().items()}
+            chief["spans"] = {k: span_seconds(f"asyncps/{k}", since)
+                              for k in ASYNC_SPANS}
+            final = runner.get_params()
+            check(all(bool(torch.isfinite(t).all()) for _, t in
+                      flatten_with_names(final)), "non-finite async params")
+            del final
+            runner.close()
+            torch.cuda.empty_cache()
+            chief["fast"] = ssp_role(ssp_env, "fast")
+
+        t0 = time.perf_counter()
+        (slow,), = spawn_together([({"kind": "async_worker", "env": env,
+                                     "ssp_env": ssp_env}, 1)],
+                                  meanwhile=chief_side)
+    finally:
+        runner.close()
+        ssp_server.stop()
+    worker, moved, spans = chief["worker"], chief["moved"], chief["spans"]
+    losses = chief["losses"] + worker["losses"]
+    check(all(math.isfinite(x) for x in losses),
+          f"phase 23 (b): non-finite loss {losses}")
+    check(moved["apply"] == 2 * ASYNC_STEPS and moved["push"] == ASYNC_STEPS
+          and worker["counters"]["push"] == ASYNC_STEPS,
+          f"phase 23 (b): pushes {moved['push']} + "
+          f"{worker['counters']['push']}, applies {moved['apply']}")
+    got = {k: chief["launches"][k] + worker["launches"][k] for k in KERNELS}
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(dict.fromkeys(TRAINING_KERNELS,
+                              cfg.num_layers * 2 * ASYNC_STEPS))
+    check(got == want, f"phase 23 (b): launches {got}, expected {want} "
+                       f"(chief {chief['launches']}, worker "
+                       f"{worker['launches']})")
+
+    def mean(xs):
+        return sum(xs) / len(xs) if xs else float("nan")
+
+    step_s = chief["step_s"] + worker["step_s"]
+    print(f"phase 23 (b) BERT-base bf16 async PS [{label}], chief (PS "
+          f"thread + worker) and one spawned worker on card 0, "
+          f"{ASYNC_STEPS} pushes each: {2 * ASYNC_STEPS} updates applied "
+          f"in {chief['wall']:.2f} s from the worker's spawn; step "
+          f"{mean(step_s):.3f} s mean (chief "
+          f"{[round(s, 3) for s in chief['step_s']]}, worker "
+          f"{[round(s, 3) for s in worker['step_s']]}); the device's "
+          f"gradient {grad_ms:.2f} ms a step; host seconds mean pull "
+          f"{mean(spans['pull']):.3f} ({len(spans['pull'])}), pack "
+          f"{mean(spans['pack']):.3f}, push {mean(spans['push']):.3f}; a "
+          f"push {push_bytes} bytes (tree {runner.blob_bytes}; one pack "
+          f"{pack_s:.3f} s); PS apply {mean(spans['apply']) * 1e3:.1f} ms "
+          f"mean ({len(spans['apply'])}), publish "
+          f"{mean(spans['publish']):.3f} s ({len(spans['publish'])}); "
+          f"counts chief {moved}, worker {worker['counters']}; losses "
+          f"{[round(x, 4) for x in losses]}; launches {got}", flush=True)
+    fast = chief["fast"]
+    done = {int(k): v for k, v in fast["done"].items()}
+    # c9's rule at staleness 1: steps 1 and 2 at once; step 2 + k waits
+    # for the slow worker's step k.
+    check(done[2] < 0.29 and done[3] > 0.29 and done[4] > 0.59,
+          f"phase 23 (c): the fast worker's steps completed at {done}")
+    check(fast["captures"] == slow["captures"] == 0,
+          "phase 23 (c): a gated runner captured a graph")
+    waits = fast["waits"] + slow["waits"]
+    print(f"phase 23 (c) SSP gate at staleness 1 [{label}], two 2-layer "
+          f"bf16 DistributedRunners on card 0 (the fast one in this "
+          f"process, the slow one in the spawned one), the slow one "
+          f"sleeping {SSP_SLEEP_S} s before each step: the fast one's "
+          f"steps 1-4 completed at "
+          f"{[round(done[i], 3) for i in range(1, SSP_STEPS)]} s (rule: "
+          f"2 < 0.29, 3 > 0.29, 4 > 0.59); ssp/gate_wait_s over "
+          f"{len(waits)} waits: fast "
+          f"{[round(w, 3) for w in fast['waits']]}, slow "
+          f"{[round(w, 3) for w in slow['waits']]}", flush=True)
+    return got
+
+
+def ssp_window(label):
+    """(c)'s host loop: a gated ``run_steps`` window against a loop of
+    ``step`` calls, and the same strategy at staleness 0 captured."""
+    from autodist_tpu_torch.runtime import coordination
+
+    # A gated run_steps window is a loop of step calls at its seeds, and
+    # captures nothing; at staleness 0 the same window is one graph.
+    server = coordination.CoordServer()
+    os.environ.update({"AUTODIST_TPU_COORD_SERVICE":
+                       f"127.0.0.1:{server.port}",
+                       "AUTODIST_TPU_COORD_TOKEN": server.token})
+    coordination.reset_service_client()
+    try:
+        cfg = ssp_cfg(dropout=0.1)
+        window = bert_window(cfg, 3, seed0=900)
+        rngs = [5, 6, 7]
+        ad = port.AutoDist({}, port.PS(staleness=1))
+        seq = ad.build(async_bert(cfg, port.optim.sgd(0.1)), ssp_worker="a",
+                       ssp_num_workers=1)
+        check(seq._ssp is not None, "phase 23 (c): the gate is off")
+        for b, r in zip(window_steps(window), rngs):
+            seq.step(b, rng=r)
+        fused = ad.build(async_bert(cfg, port.optim.sgd(0.1)),
+                         ssp_worker="b", ssp_num_workers=1)
+        fused.run_steps(window, rngs=rngs)
+        gap = rel_err(fused.get_params(), seq.get_params())
+        check(gap == 0.0 and fused.captures == 0,
+              f"phase 23 (c): gated run_steps {gap:.3g} off the step loop, "
+              f"{fused.captures} captures")
+        plain = port.AutoDist({}, port.PS()).build(
+            async_bert(cfg, port.optim.sgd(0.1)))
+        plain.run_steps(window, rngs=rngs)
+        check(plain.captures == 1, f"phase 23 (c): staleness 0 captured "
+                                   f"{plain.captures} graphs")
+        print(f"phase 23 (c) gated run_steps (3 steps, dropout 0.1, seeds "
+              f"{rngs}) [{label}]: params equal to a loop of step calls "
+              f"(largest gap {gap:.3g}), captures {fused.captures}; the same "
+              f"strategy at staleness 0: captures {plain.captures}, replays "
+              f"{plain.replays}", flush=True)
+        for r in (seq, fused, plain):
+            r.close()
+    finally:
+        os.environ.pop("AUTODIST_TPU_COORD_SERVICE", None)
+        coordination.reset_service_client()
+        server.stop()
+    torch.cuda.empty_cache()
+
+
+def phase_async():
+    """Phase 23: asynchronous PS and the SSP gate on the card: (a) fp32
+    parity of one async worker with the synchronous PS, (b) BERT-base
+    bf16 through the chief's PS and a second worker process, (c) the
+    SSP gate's timing and its host loop.  Returns (b)'s launches."""
+    label = card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    async_parity(label)
+    counts = async_window(label)
+    ssp_window(label)
+    return counts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--phases",
         default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21,"
-                "22",
+                "22,23",
         help="comma-separated phases to run (default: all); the kernels "
              "line needs them all")
     phases = {int(p) for p in parser.parse_args(argv).phases.split(",")}
@@ -5087,7 +5450,8 @@ def main(argv=None) -> int:
              (19, lambda: add(phase_lifecycle())),
              (20, lambda: add(phase_export_serve())),
              (21, lambda: add(phase_overlap())),
-             (22, lambda: add(phase_gspmd()))]
+             (22, lambda: add(phase_gspmd())),
+             (23, lambda: add(phase_async()))]
     for phase, run in steps:
         if phase in phases:
             t1 = time.perf_counter()

@@ -1470,3 +1470,78 @@ def test_cuda_gspmd_tensor_parallel_equals_all_reduce(cuda):
     for name, p in got["TensorParallel"].items():
         torch.testing.assert_close(p, got["AllReduce"][name], rtol=2e-5,
                                    atol=2e-6)
+
+
+def _async_bert(dtype):
+    """A small BERT on the flash path, its weights on the CPU (an
+    ``AsyncPSRunner`` moves them to its device)."""
+    cfg = port.TransformerConfig(
+        vocab_size=256, hidden_size=128, num_layers=2, num_heads=2,
+        mlp_dim=256, max_len=64, dtype=dtype, dropout_rate=0.0,
+        attention_dropout_rate=0.0, attention_fn=fa.make_attention_fn(False))
+    return bert.make_mlm_trainable(cfg, port.optim.sgd(0.1),
+                                   torch.Generator().manual_seed(0),
+                                   with_input_mask=False, device="cpu")
+
+
+def test_cuda_async_worker_gradient_equals_the_cpu(cuda):
+    """The async worker's local gradient in bf16 on the card (K1, K2a,
+    K2b: one launch each a layer) equals its CPU run on the same
+    weights and batch: the loss within 1e-2 relative, every gradient
+    within atol = rtol = 2e-2."""
+    batch = bert.synthetic_mlm_batch(3, 4, 64, 8, 256)
+    batch.pop("input_mask")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        runner = port.AsyncPSRunner(_async_bert(torch.bfloat16), device=dev)
+        try:
+            before = [k.launches for k in ATTENTION]
+            grads, metrics = runner.local_grads(batch, 0)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                assert [k.launches - b for k, b in
+                        zip(ATTENTION, before)] == [2, 2, 2]
+            out[dev] = (metrics["loss"].float().cpu(),
+                        {n: g.float().cpu() for n, g in grads.items()})
+        finally:
+            runner.close()
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], atol=0,
+                               rtol=1e-2)
+    for name, g in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][name], g, atol=2e-2,
+                                   rtol=2e-2, msg=name)
+
+
+def test_cuda_async_ps_publishes_the_applied_params(cuda):
+    """The chief's PS thread applies on its own CUDA stream and copies a
+    blob to the host only once that stream is done: with a publish after
+    every apply, the last published blob (and the worker's pull) equals
+    8 SGD steps taken on the card by hand, bit for bit, on a 64 MB
+    variable whose apply the copy would otherwise overtake."""
+    from autodist_tpu_torch.runner import _pack_tree, _unpack_tree
+
+    g = torch.Generator().manual_seed(0)
+    params = {"w": torch.randn(4096, 4096, generator=g)}
+    tr = port.Trainable.from_loss_fn(lambda p, b: (p["w"] * b["x"]).sum(),
+                                     params, port.optim.sgd(0.1))
+    grads = [{"w": torch.randn(4096, 4096, generator=g)} for _ in range(8)]
+    runner = port.AsyncPSRunner(tr, device=cuda, publish_max_lag=1)
+    try:
+        for i, gi in enumerate(grads):
+            runner._client.queue_put(runner.GRADS_QUEUE, _pack_tree(i, gi))
+        runner.wait_applied(8, timeout_s=120)
+        version, blob = _unpack_tree(
+            runner._client.get(runner.PARAMS_KEY), params, "cpu")
+        pulled = runner.get_params()["w"].cpu()
+    finally:
+        runner.close()
+    opt = port.optim.sgd(0.1)
+    p = {"w": params["w"].to(cuda)}
+    state = opt.init(p)
+    for gi in grads:
+        u, state = opt.update({"w": gi["w"].to(cuda)}, state, p)
+        p = port.optim.apply_updates(p, u)
+    want = p["w"].cpu()
+    assert version == 8
+    assert torch.equal(blob["w"], want)
+    assert torch.equal(pulled, want)

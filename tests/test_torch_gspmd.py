@@ -452,8 +452,9 @@ def test_compressor_and_zero_stage_warn(ranks):
 
 
 def test_async_ps_raises():
-    """``PS(sync=False)`` under the gspmd lowering raises, naming the
-    ROADMAP item of asynchronous training (before any group is made)."""
+    """``PS(sync=False)`` under the gspmd lowering raises in the JAX
+    package's words, which name the ``AsyncPSRunner`` (before any group
+    is made); a stale PS lowers with its bound."""
     tr = _jax_linear(("sgd", 0.1))
     from autodist_tpu.resource import ResourceSpec
     from autodist_tpu.strategy.gspmd_builders import Sharded
@@ -464,9 +465,14 @@ def test_async_ps_raises():
                                       _torch_tree(tr.params),
                                       port.optim.sgd(0.1))
     with pytest.raises(NotImplementedError,
-                       match="item 8: AsyncPSRunner and the SSP gate"):
+                       match=r"sync=False.*\(AsyncPSRunner\)"):
         port.AutoDist({}, device="cpu").lower(
             ptr, port.Strategy.from_json(json.dumps(d)))
+    d["node_configs"][0]["synchronizer"] = {"kind": "ps", "staleness": 3}
+    lowered = port.AutoDist({}, device="cpu").lower(
+        ptr, port.Strategy.from_json(json.dumps(d)))
+    assert lowered.ssp_staleness == 3
+    lowered.release()
 
 
 def test_builder_checks_match_jax():

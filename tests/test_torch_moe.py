@@ -481,9 +481,10 @@ def test_one_rank_expert_axis_trains_as_the_dense_model(jparams, program):
 def test_out_of_slice_options_raise(what, jparams):
     """What this slice does not run raises ``NotImplementedError``
     naming its ROADMAP item.  ZeRO, compressors, the ``grad`` slot and
-    accumulation run now: the ZeRO cases hold the PS synchronizers the
-    expert lowering still refuses (asynchronous, stale), the compressor
-    case a compressor beside ``expert_over_dcn``; ``zero_min_bytes`` and
+    accumulation run now: the ZeRO cases hold the PS synchronizers
+    beyond plain ZeRO (an asynchronous one raises in the JAX package's
+    words, a stale one lowers with its bound), the compressor case a
+    compressor beside ``expert_over_dcn``; ``zero_min_bytes`` and
     the ``grad`` slot build, and the ``Lowered`` records what they did
     (the expert tables' degraded ZeRO, the unapplied slot), and the
     accumulation case steps the pipelined LM with dropout."""
@@ -520,13 +521,20 @@ def test_out_of_slice_options_raise(what, jparams):
                                              rng=3)["loss"]))
         return
     d = json.loads(ad.build_or_load_strategy(tr).to_json())
+    if what in ("zero", "zero1"):
+        for node in d["node_configs"]:
+            node["synchronizer"] = {"kind": "ps", "sync": what != "zero",
+                                    "staleness": int(what == "zero1")}
+        strategy = port.Strategy.from_json(json.dumps(d))
+        if what == "zero1":
+            assert ad.lower(tr, strategy).ssp_staleness == 1
+            return
+        with pytest.raises(NotImplementedError,
+                           match=r"sync=False.*AsyncPSRunner"):
+            ad.lower(tr, strategy)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        if what in ("zero", "zero1"):
-            for node in d["node_configs"]:
-                node["synchronizer"] = {"kind": "ps", "sync": what != "zero",
-                                        "staleness": int(what == "zero1")}
-            ad.lower(tr, port.Strategy.from_json(json.dumps(d)))
-        elif what == "compressor":
+        if what == "compressor":
             ExpertParallel(compressor="bf16_ef", expert_over_dcn=True)
         elif what == "expert_over_dcn":
             ExpertParallel(expert_over_dcn=True)

@@ -477,8 +477,10 @@ def _ps_json(d, **sync):
 
 
 @pytest.mark.parametrize("what,item", [
-    ("zero", "item 8: AsyncPSRunner"),
-    ("zero1", "item 8: AsyncPSRunner"),
+    # The ids keep the names these cases had while both PS kinds were
+    # refused.
+    pytest.param("zero", "sync", id="zero-item 8: AsyncPSRunner"),
+    pytest.param("zero1", "ssp", id="zero1-item 8: AsyncPSRunner"),
     ("zero_min_bytes", None),
     ("compressor", None),
     ("grad_precision", None),
@@ -488,11 +490,13 @@ def _ps_json(d, **sync):
 def test_out_of_slice_options_raise(what, item, jparams):
     """What this slice does not run raises ``NotImplementedError``
     naming its ROADMAP item; ZeRO, compressors, the precision slots and
-    accumulation run now.  The ZeRO cases hold the PS synchronizers the
-    sequence lowering still refuses (asynchronous, stale); the rest
-    (item ``None``) build: a ZeRO mix, the slots this lowering has no
-    boundary for, which its ``Lowered`` records as unapplied, and
-    accumulation over the pipelined LM with dropout, which steps."""
+    accumulation run now.  The ZeRO cases hold the PS synchronizers
+    beyond plain ZeRO: an asynchronous one raises in the JAX package's
+    words (it is the ``AsyncPSRunner``'s), a stale one lowers with its
+    bound on the lowered program; the rest (item ``None``) build: a ZeRO
+    mix, the slots this lowering has no boundary for, which its
+    ``Lowered`` records as unapplied, and accumulation over the
+    pipelined LM with dropout, which steps."""
     tr = _port_trainable(jparams)
     ad = port.AutoDist({"mesh": {"seq": 1}}, SequenceParallel(),
                        device="cpu")
@@ -525,13 +529,16 @@ def test_out_of_slice_options_raise(what, item, jparams):
                             device="cpu").build(tr).lowered
         assert set(low.unapplied) == slots
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, {item}"):
-        if what == "zero":
+    if item == "sync":
+        with pytest.raises(NotImplementedError,
+                           match=r"sync=False.*AsyncPSRunner"):
             ad.lower(tr, _ps_json(d, sync=False))
-        elif what == "zero1":
-            ad.lower(tr, _ps_json(d, staleness=2))
-        else:
-            port.ResourceSpec({"mesh": {"dcn": 2, "seq": 2}})
+        return
+    if item == "ssp":
+        assert ad.lower(tr, _ps_json(d, staleness=2)).ssp_staleness == 2
+        return
+    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, {item}"):
+        port.ResourceSpec({"mesh": {"dcn": 2, "seq": 2}})
 
 
 def test_entry_points_default_to_the_card(jparams):

@@ -404,12 +404,12 @@ def test_build_checks_the_mesh_and_the_trainable(jparams):
     "vocab_embedding"])
 def test_out_of_slice_options_raise(what, jparams):
     """What this slice does not run raises ``NotImplementedError``
-    naming its ROADMAP item (an asynchronous or stale PS, the ``dcn``
-    axis), and the pipelined LM's dropout at ``tensor_parallel > 1``
-    raises the JAX package's own error.  Everything else these cases
-    once refused runs now and is held to what it builds: ZeRO,
-    compressors and remat beside ``comm_overlap="rsag"`` and narrowed
-    precisions under overlap, keyed dropout at one shard,
+    naming its ROADMAP item (the ``dcn`` axis); an asynchronous PS and
+    the pipelined LM's dropout at ``tensor_parallel > 1`` raise the JAX
+    package's own errors.  Everything else these cases once refused runs
+    now and is held to what it builds: ZeRO, compressors and remat
+    beside ``comm_overlap="rsag"`` and narrowed precisions under
+    overlap, a stale PS with its bound, keyed dropout at one shard,
     ``stage_aux``."""
     from autodist_tpu_torch.parallel import axis, tensor
 
@@ -482,29 +482,32 @@ def test_out_of_slice_options_raise(what, jparams):
                 ids, table, model_axis=axis.Axis("model"),
                 comm_overlap="matmul")
         torch.testing.assert_close(out, table[ids])
+    elif what == "zero":
+        # ZeRO runs; an asynchronous PS raises in the JAX package's
+        # words (it is the AsyncPSRunner's, not a lowering's).
+        tr = _port_trainable(jparams)
+        ad = port.AutoDist({"mesh": {"pipe": 1}}, Pipeline(
+            **PIPE, zero_stage=1), device="cpu")
+        d = json.loads(ad.build_or_load_strategy(tr).to_json())
+        d["node_configs"][0]["synchronizer"]["sync"] = False
+        with pytest.raises(NotImplementedError,
+                           match=r"sync=False.*AsyncPSRunner"):
+            ad.lower(tr, port.Strategy.from_json(json.dumps(d)))
+    elif what == "remat_json":
+        # remat read back from JSON runs; a stale PS lowers with its
+        # bound on the lowered program (the runner's SSP gate).
+        tr = _port_trainable(jparams)
+        ad = port.AutoDist({"mesh": {"pipe": 1}}, Pipeline(**PIPE),
+                           device="cpu")
+        d = json.loads(ad.build_or_load_strategy(tr).to_json())
+        d["graph_config"]["parallel"]["remat"] = True
+        d["node_configs"][0]["synchronizer"] = {"kind": "ps",
+                                                "staleness": 2}
+        lowered = ad.lower(tr, port.Strategy.from_json(json.dumps(d)))
+        assert lowered.ssp_staleness == 2
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            if what == "seq_axis":
-                port.ResourceSpec({"mesh": {"dcn": 2}})
-            elif what == "zero":
-                # ZeRO runs; an asynchronous PS still raises.
-                tr = _port_trainable(jparams)
-                ad = port.AutoDist({"mesh": {"pipe": 1}}, Pipeline(
-                    **PIPE, zero_stage=1), device="cpu")
-                d = json.loads(ad.build_or_load_strategy(tr).to_json())
-                d["node_configs"][0]["synchronizer"]["sync"] = False
-                ad.lower(tr, port.Strategy.from_json(json.dumps(d)))
-            else:
-                # remat read back from JSON runs; a stale PS still
-                # raises.
-                tr = _port_trainable(jparams)
-                ad = port.AutoDist({"mesh": {"pipe": 1}}, Pipeline(**PIPE),
-                                   device="cpu")
-                d = json.loads(ad.build_or_load_strategy(tr).to_json())
-                d["graph_config"]["parallel"]["remat"] = True
-                d["node_configs"][0]["synchronizer"] = {"kind": "ps",
-                                                        "staleness": 2}
-                ad.lower(tr, port.Strategy.from_json(json.dumps(d)))
+            port.ResourceSpec({"mesh": {"dcn": 2}})
 
 
 def test_entry_points_default_to_the_card():

@@ -502,18 +502,32 @@ def test_out_of_slice_options_raise(what, jtrainable, jparams):
             _port_trainable(port.optim.sgd(0.1), jparams))
         assert strategy.graph_config.lowering == "gspmd"
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        if what in ("ps_json", "partitioner_json"):
-            # Asynchronous PS, and stale-synchronous PS: the JSON reads
-            # back, the lowering refuses it.
-            from autodist_tpu import PS as JaxPS
+    if what in ("ps_json", "partitioner_json"):
+        # Asynchronous PS, and stale-synchronous PS: the JSON reads
+        # back.  The lowering refuses sync=False in the JAX package's
+        # words and AutoDist.build runs it on the AsyncPSRunner; a stale
+        # PS lowers, its bound on the lowered program.
+        from autodist_tpu import PS as JaxPS
 
-            kw = {"sync": False} if what == "ps_json" else {"staleness": 2}
-            strategy = port.Strategy.from_json(
-                JaxPS(**kw).build(jtrainable, spec).to_json())
-            port.AutoDist({}, device="cpu").lower(
-                _port_trainable(port.optim.sgd(0.1), jparams), strategy)
-        elif what == "mesh_axis":
+        kw = {"sync": False} if what == "ps_json" else {"staleness": 2}
+        strategy = port.Strategy.from_json(
+            JaxPS(**kw).build(jtrainable, spec).to_json())
+        ad = port.AutoDist({}, device="cpu")
+        tr = _port_trainable(port.optim.sgd(0.1), jparams)
+        if what == "partitioner_json":
+            lowered = ad.lower(tr, strategy)
+            assert lowered.ssp_staleness == 2
+            assert lowered.plan.ssp_staleness == 2
+            return
+        with pytest.raises(NotImplementedError,
+                           match=r"sync=False.*AsyncPSRunner"):
+            ad.lower(tr, strategy)
+        runner = ad.build(tr, strategy)
+        assert isinstance(runner, port.AsyncPSRunner)
+        runner.close()
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        if what == "mesh_axis":
             port.ResourceSpec({"mesh": {"data": 1, "dcn": 2}})
         elif what == "topology_key":
             with pytest.raises(NotImplementedError,
