@@ -46,8 +46,12 @@ portable restore under any strategy), ``export_model`` /
 (``AutoDist(spec, PS(sync=False)).build(trainable)`` ->
 :class:`AsyncPSRunner`) and the stale-synchronous gate
 (``PS(staleness=s)``) run over the coordination service
-(:mod:`autodist_tpu_torch.runtime.coordination`).  ROADMAP.md lists
-what comes next.
+(:mod:`autodist_tpu_torch.runtime.coordination`).  The model zoo of
+the reference's examples and benchmarks (:mod:`autodist_tpu_torch
+.models`: ResNet, VGG, DenseNet, InceptionV3, the MNIST CNN, NeuMF, the
+lm1b LSTM) trains through the same entry points, its BatchNorm
+statistics averaged over the data axis the collective lowering binds.
+ROADMAP.md lists what comes next.
 """
 from autodist_tpu_torch import optim
 from autodist_tpu_torch.autodist import AutoDist

@@ -1,6 +1,6 @@
 """Convert parameter trees between the two packages.
 
-Four models so far, each with its own leaf list:
+Each model has its own leaf list:
 
 * the pipelined LM's logical tree (``make_pipeline_lm_trainable(...)
   .params`` or a ``checkpoint/export`` artifact's ``params/``; see
@@ -15,7 +15,23 @@ Four models so far, each with its own leaf list:
 * ``TransformerLM``'s flax tree (``make_lm_trainable(...).params``:
   ``token_embed/embedding``, ``pos_embed``, ``encoder/layer_i/...`` as
   BERT's, ``ln_final/{scale,bias}``; see
-  :mod:`autodist_tpu_torch.models.transformer`).
+  :mod:`autodist_tpu_torch.models.transformer`);
+* the model zoo's flax trees, each named by the port's definition of
+  the model (:func:`zoo_leaves`): ResNet18/34/50/101/152 (``conv_init``,
+  ``bn_init``, ``ResNetBlock_i`` or ``BottleneckBlock_i`` with
+  ``Conv_j/kernel [kh, kw, in, out]``, ``BatchNorm_j/{scale,bias}``,
+  ``conv_proj``, ``norm_proj``; ``head``), VGG11/13/16/19
+  (``conv{stage}_{i}``, ``fc0``, ``fc1``, ``head``),
+  DenseNet121/169/201 (``DenseLayer_i``, ``TransitionLayer_i``,
+  ``bn_final``), InceptionV3 (``ConvBN_i/{Conv_0,BatchNorm_0}`` in the
+  stem and in ``InceptionA_i`` ... ``InceptionE_i``) and ``MnistCNN``
+  (``Conv_i``, ``Dense_i``); the BatchNorm models' ``batch_stats``
+  trees (``.../mean``, ``.../var``), bare or under ``batch_stats/`` as
+  a trainable's extra state holds them; NeuMF (the four
+  ``*_embedding/embedding`` tables, ``mlp_i``, ``prediction``); the
+  lm1b trainable (``embedding/embedding``, ``lstm_i/{ii,if,ig,io}/
+  kernel``, ``lstm_i/{hi,hf,hg,ho}/{kernel,bias}``, ``proj``,
+  ``softmax_w``, ``softmax_b``); linear regression's ``w`` and ``b``.
 
 The JAX tree (numpy or JAX arrays) and the port's tree share names,
 nesting and layouts leaf for leaf, so the conversion moves bytes and
@@ -35,6 +51,9 @@ dim: :func:`expert_dims` names them for :func:`shard_params`, and the
 expert lowering gathers them back over the expert axis.
 """
 from __future__ import annotations
+
+import functools
+import re
 
 import numpy as np
 import torch
@@ -96,9 +115,75 @@ def moe_lm_leaves(num_layers: int) -> tuple:
                     for leaf in layer))
 
 
+@functools.lru_cache(maxsize=None)
+def zoo_leaves() -> dict:
+    """``{model: (params leaves, batch_stats leaves)}`` of each image
+    model of the zoo, read off the port's definitions (on ``meta``:
+    names do not depend on widths)."""
+    from autodist_tpu_torch.models import (cnn, densenet, inception, resnet,
+                                           vgg)
+
+    defs = {f"ResNet{d}": getattr(resnet, f"ResNet{d}")(num_filters=1)
+            for d in (18, 34, 50, 101, 152)}
+    defs.update({f"VGG{d}": vgg.VGG(d, hidden=1) for d in vgg._CFG})
+    defs.update({f"DenseNet{d}": densenet.DenseNet(d, growth_rate=1)
+                 for d in densenet._CFG})
+    defs["InceptionV3"] = inception.InceptionV3()
+    defs["MnistCNN"] = cnn.MnistCNN()
+    return {name: (frozenset(n.replace(".", "/")
+                             for n, _ in m.named_parameters()),
+                   frozenset(n.replace(".", "/")
+                             for n, _ in m.named_buffers()))
+            for name, m in defs.items()}
+
+
+def ncf_leaves(depth: int) -> tuple:
+    """Every leaf of NeuMF's flax tree with ``depth`` MLP layers."""
+    return (tuple(f"{t}_embedding/embedding" for t in
+                  ("mf_user", "mf_item", "mlp_user", "mlp_item"))
+            + tuple(f"mlp_{i}/{p}" for i in range(depth)
+                    for p in ("kernel", "bias"))
+            + ("prediction/kernel", "prediction/bias"))
+
+
+def lm1b_leaves(num_layers: int) -> tuple:
+    """Every leaf of the lm1b trainable's tree at ``num_layers``
+    LSTMs."""
+    cell = ([f"i{g}/kernel" for g in "ifgo"]
+            + [f"h{g}/{p}" for g in "ifgo" for p in ("kernel", "bias")])
+    return (("embedding/embedding", "proj/kernel", "proj/bias", "softmax_w",
+             "softmax_b")
+            + tuple(f"lstm_{i}/{leaf}" for i in range(num_layers)
+                    for leaf in cell))
+
+
+def _layers(names: set, prefix: str) -> int:
+    """How many ``{prefix}{i}`` subtrees ``names`` has."""
+    return len({n.split("/")[0] for n in names
+                if re.fullmatch(prefix + r"\d+", n.split("/")[0])})
+
+
+def _is_zoo_tree(names: set) -> bool:
+    """Whether ``names`` are one zoo model's params, or its
+    ``batch_stats`` (bare or under ``batch_stats/``)."""
+    if names == {"w", "b"} \
+            or names == set(ncf_leaves(_layers(names, "mlp_"))) \
+            or names == set(lm1b_leaves(_layers(names, "lstm_"))):
+        return True
+    prefix = "batch_stats/"
+    if any(n.startswith(prefix) for n in names):
+        stats = {n[len(prefix):] for n in names if n.startswith(prefix)}
+        return len(stats) == len(names) and any(
+            stats == s for _, s in zoo_leaves().values())
+    return bool(names) and any(names in (p, s)
+                               for p, s in zoo_leaves().values())
+
+
 def _check_leaves(flat):
     """The flat tree must be one model's tree exactly."""
     names = set(flat)
+    if _is_zoo_tree(names):
+        return
     layers = {n.split("/")[1] for n in names if n.startswith("encoder/")}
     moe_layers = {n.split("_")[1] for n in names if n.startswith("layer_")}
     want = set(bert_leaves(len(layers)) if "mlm_bias" in names
@@ -108,9 +193,9 @@ def _check_leaves(flat):
     if names == want:
         return
     raise ValueError(
-        f"not a pipelined-LM, BERT, TransformerLM or MoE-LM parameter "
-        f"tree: missing {sorted(want - names)}, unexpected "
-        f"{sorted(names - want)}")
+        f"not a parameter tree of the pipelined LM, BERT, TransformerLM, "
+        f"the MoE LM or the model zoo: missing {sorted(want - names)}, "
+        f"unexpected {sorted(names - want)}")
 
 
 def _to_torch(a) -> torch.Tensor:

@@ -25,7 +25,9 @@ update spaces, where its optimizer update runs:
   its gradient is reduce-scattered along the dimension.
 
 A step is, in order: the loss and its gradients on this replica's part
-of the batch (dropout seed folded with the replica index), over
+of the batch (dropout seed folded with the replica index; the data axis
+bound by name, forward and backward, so that model code may name it as
+flax's cross-replica BatchNorm does; the eval program binds none), over
 ``accum_steps`` microbatches where the strategy asks
 (:func:`~autodist_tpu_torch.kernel.common.accumulate_microbatches`);
 the buckets' compressed all-reduces (with one replica the no-op
@@ -64,6 +66,7 @@ from autodist_tpu_torch import const, cuda_graph, optim
 from autodist_tpu_torch.device import resolve_device
 from autodist_tpu_torch.kernel import common
 from autodist_tpu_torch.kernel.compressor import Compressor
+from autodist_tpu_torch.parallel.axis import axis_scope
 from autodist_tpu_torch.strategy.ir import (AllReduceSynchronizer,
                                             PSSynchronizer,
                                             normalize_precision)
@@ -416,7 +419,10 @@ def lower(trainable, strategy, mesh, device=None) -> Lowered:
     def micro_grads(params, batch, rng, extra):
         leaves = {nm: p.detach().requires_grad_(True)
                   for nm, p in params.items()}
-        with torch.enable_grad():
+        # The loss runs with the data axis bound, forward and backward,
+        # as the JAX program runs it inside shard_map over the data
+        # axis: a model may name it (cross-replica BatchNorm).
+        with torch.enable_grad(), axis_scope({const.DATA_AXIS: axis}):
             loss, new_extra, metrics = trainable.loss(
                 common.unflatten(full(leaves, True)), extra, batch, rng)
             grads = torch.autograd.grad(loss, list(leaves.values()),

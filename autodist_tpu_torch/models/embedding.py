@@ -21,15 +21,26 @@ from autodist_tpu_torch.ops.sparse import embedding_lookup
 class SparseEmbed(nn.Module):
     """Embedding lookup with touched-rows-only synchronization.  The
     table is cast to ``dtype`` (when given) before the lookup, so rows
-    move at compute precision."""
+    move at compute precision.  Without a ``generator`` the layer is a
+    definition on ``meta`` (:func:`~autodist_tpu_torch.models.layers
+    .init_params` draws it)."""
 
-    def __init__(self, num_embeddings: int, features: int, generator, *,
-                 dtype=None, param_dtype=torch.float32):
+    def __init__(self, num_embeddings: int, features: int, generator=None,
+                 *, dtype=None, param_dtype=torch.float32):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.param_dtype = dtype, param_dtype
+        self.embedding = nn.Parameter(torch.empty(
+            (num_embeddings, features), device="meta"))
+        if generator is not None:
+            self.reset_parameters(generator)
+
+    def reset_parameters(self, generator):
+        """Draw the table (flax ``nn.Embed``'s N(0, 1/features)) from
+        ``generator``, on its device."""
+        rows, features = self.embedding.shape
         self.embedding = nn.Parameter(normal(
-            (num_embeddings, features), 1.0 / features ** 0.5,
-            generator).to(param_dtype))
+            (rows, features), 1.0 / features ** 0.5,
+            generator).to(self.param_dtype))
 
     def forward(self, ids):
         table = self.embedding

@@ -15,7 +15,8 @@ hash, not a ``torch.Generator``: this module reproduces
   partitionable flag: the hash of counter ``(0, 0)``, its two words
   xor-ed;
 * :func:`uniform` — ``jax.random.uniform(key, (), float32, minval,
-  maxval)``: the top 23 bits as a mantissa under exponent 0 (a float in
+  maxval)`` (or of shape ``(num,)``, one hash a counter ``(0, i)``):
+  the top 23 bits as a mantissa under exponent 0 (a float in
   ``[1, 2)``), minus 1, scaled and shifted with one rounding (XLA's
   fused multiply-add), then ``max(minval, .)``.
 
@@ -94,10 +95,15 @@ def bits_at(key_pair, hi, lo):
     return y0 ^ y1
 
 
-def uniform(key_pair, minval: float, maxval: float):
+def uniform(key_pair, minval: float, maxval: float, num=None):
     """``jax.random.uniform(key, (), float32, minval, maxval)`` a key,
-    bit for bit (float32)."""
-    bits = random_bits32(key_pair)
+    bit for bit (float32); with ``num``, ``jax.random.uniform(key,
+    (num,), ...)`` of one key (counter ``(0, i)`` for element ``i``)."""
+    if num is None:
+        bits = random_bits32(key_pair)
+    else:
+        lo = torch.arange(num, dtype=torch.int64, device=key_pair[0].device)
+        bits = bits_at(key_pair, torch.zeros_like(lo), lo)
     mantissa = (bits >> 9) | 0x3F800000            # 1.0's exponent
     floats = mantissa.to(torch.int32).view(torch.float32) - 1.0
     dev = floats.device

@@ -1,4 +1,5 @@
-"""Optimizers with optax's update rules: ``sgd``, ``adam`` and ``adamw``.
+"""Optimizers with optax's update rules: ``sgd``, ``adam``, ``adamw`` and
+``adagrad``.
 
 The port's counterpart of the optax transforms the training path uses.
 The interface is optax's, functional: an optimizer is a
@@ -19,6 +20,11 @@ The arithmetic follows optax step for step, with each transform run as
   bias corrections ``1 - b^count`` in fp32, ``mu_hat / (sqrt(nu_hat) +
   eps)`` (optax's ``eps_root = 0``), then ``mu`` cast to ``mu_dtype``;
 * ``add_decayed_weights``: ``u + wd * p``;
+* ``trace`` (``sgd``'s momentum): ``t = g + m t``, the update ``t`` (or
+  ``g + m t`` with ``nesterov``);
+* ``scale_by_rss`` (``adagrad``): ``s = g^2 + s`` from
+  ``initial_accumulator_value``, the update ``rsqrt(s + eps) g`` where
+  ``s > 0``, else 0;
 * ``scale_by_learning_rate``: ``-lr * u``.
 """
 from __future__ import annotations
@@ -49,16 +55,52 @@ def _scale(updates: list, step_size: float) -> list:
     return torch._foreach_mul(updates, step_size)
 
 
-def sgd(learning_rate: float) -> GradientTransformation:
-    """optax ``sgd`` without momentum: ``updates = -lr * g``."""
+def sgd(learning_rate: float, momentum=None,
+        nesterov: bool = False) -> GradientTransformation:
+    """optax ``sgd``: ``updates = -lr * g`` without momentum (no state);
+    with ``momentum``, ``trace`` first (the state ``{"trace": {name:
+    t}}``, zeros at first)."""
 
     def init(params):
-        return {}
+        if momentum is None:
+            return {}
+        return {"trace": {n: torch.zeros_like(p) for n, p in params.items()}}
 
     def update(grads, state, params=None):
         names = list(grads)
-        return dict(zip(names, _scale([grads[n] for n in names],
-                                       -learning_rate))), state
+        g = [grads[n] for n in names]
+        if momentum is None:
+            return dict(zip(names, _scale(g, -learning_rate))), state
+        trace = torch._foreach_add(
+            g, _scale([state["trace"][n] for n in names], momentum))
+        u = (torch._foreach_add(g, _scale(trace, momentum)) if nesterov
+             else trace)
+        return (dict(zip(names, _scale(u, -learning_rate))),
+                {"trace": dict(zip(names, trace))})
+
+    return GradientTransformation(init, update)
+
+
+def adagrad(learning_rate: float, initial_accumulator_value: float = 0.1,
+            eps: float = 1e-7) -> GradientTransformation:
+    """optax ``adagrad``: scale_by_rss then scale_by_learning_rate; the
+    state ``{"sum_of_squares": {name: s}}``."""
+
+    def init(params):
+        return {"sum_of_squares": {
+            n: torch.full_like(p, initial_accumulator_value)
+            for n, p in params.items()}}
+
+    def update(grads, state, params=None):
+        names = list(grads)
+        g = [grads[n] for n in names]
+        sos = torch._foreach_add(torch._foreach_mul(g, g),
+                                 [state["sum_of_squares"][n] for n in names])
+        inv = torch._foreach_rsqrt(torch._foreach_add(sos, eps))
+        u = [torch.where(s > 0, i, 0.0) * gi
+             for s, i, gi in zip(sos, inv, g)]
+        return (dict(zip(names, _scale(u, -learning_rate))),
+                {"sum_of_squares": dict(zip(names, sos))})
 
     return GradientTransformation(init, update)
 

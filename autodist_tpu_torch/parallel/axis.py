@@ -26,7 +26,8 @@ and backward, and :func:`bound_axis` (``global_positions``, ring
 attention, the MoE layer) returns the axis bound to a name, or raises
 outside a scope, as an unbound axis name does in JAX.
 :func:`ring_shift` is the differentiable ``ppermute`` of one step
-around an axis.
+around an axis, and :func:`pmean` the differentiable mean over one
+(flax's cross-replica BatchNorm statistics).
 """
 from __future__ import annotations
 
@@ -248,3 +249,25 @@ def ring_shift(x, axis: Axis):
     """``x`` sent one rank along ``axis`` (``i -> i + 1``); the gradient
     travels back (``i -> i - 1``), JAX's transpose of ``ppermute``."""
     return _RingShift.apply(x, axis)
+
+
+class _PMean(torch.autograd.Function):
+    """``pmean(x)`` forward; its transpose, ``pmean(g)``, backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return axis.pmean(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.pmean(g.contiguous()), None
+
+
+def pmean(x, axis: Axis):
+    """``x`` averaged over ``axis``, differentiably: the gradient is
+    averaged over the axis too, as JAX transposes ``lax.pmean``.  A
+    backward that kept the cotangent local would give the right loss
+    and wrong gradients on more than one rank.  The identity on an
+    axis of one rank."""
+    return x if axis.size == 1 else _PMean.apply(x, axis)

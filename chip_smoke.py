@@ -21,8 +21,9 @@ training of the MoE LM through ``ExpertParallel`` on an expert axis of
 causal LM through ``SequenceParallel`` on a seq axis of 2 (ring
 attention over K1/K2a/K2b), the training lifecycle around a runner
 (``fit``, eval, checkpoints and resume, export, ``serve(artifact=)``),
-the GSPMD builders, and asynchronous PS and the stale-synchronous gate
-over the coordination service:
+the GSPMD builders, asynchronous PS and the stale-synchronous gate
+over the coordination service, and the model zoo (ResNet-50, VGG16,
+DenseNet121, InceptionV3, NCF and the lm1b LSTM):
 
 1. each kernel against its plain PyTorch version, fp32 (atol = rtol =
    1e-5) and bf16 (atol = rtol = 1e-2), timed with CUDA events beside
@@ -213,7 +214,7 @@ over the coordination service:
    plain, ZeRO-1, ZeRO-3, ``GradAccumulation 2`` and ``remat``, and
    phase 12's sequence window on seq 2 (cut to 2 layers) plain and
    under ZeRO-3 (K1/K2a/K2b held to the ring's calls), each a warm and
-   a timed window of 2 steps: step
+   a timed window of 1 step: step
    ms, peak memory and stored bytes a rank beside the plain row's, the
    ZeRO-3 rows' parameters at most 0.51 and ZeRO-1's optimizer state at
    most 0.51 of the plain row's (asserted); 4 and 2 ranks over gloo on
@@ -274,7 +275,7 @@ over the coordination service:
    ``vocab_stats`` bf16 against the blocking program (exact wires 1e-5
    per tensor and loss, a narrowed wire's loss at step k within its unit
    x (k + 1) relative), then ``bench.py quant``'s bf16 window under them
-   at model 2 and pipe 2 x model 2 (the slowest rank's step ms and
+   (a timed step after a warm one) at model 2 and pipe 2 x model 2 (the slowest rank's step ms and
    tokens/s beside phase 7's blocking fp32, peak memory per rank, K4
    held to the calls); (b) the pipelined LM with dropout 0.1 (full width,
    2 layers, fp32) at pipe 2, M = 2 and 4, against its sequential
@@ -316,7 +317,28 @@ over the coordination service:
    printed; then a gated ``run_steps`` window (dropout 0.1) equal to a
    loop of ``step`` calls at the same seeds with no capture, and the
    same strategy at staleness 0 capturing one graph;
-24. one ``{"kernels": [...]}`` line, the card's name and power limit, and
+24. the model zoo (``autodist_tpu_torch.models``), no kernel of the port
+   on its path (cuDNN's convolutions and LSTM, cuBLAS's GEMMs; the
+   launch counters held to 0): fp32 first, ResNet18 with BatchNorm (16
+   filters, 64 px) and lm1b (vocab 2000, widths 64) through ``AllReduce``
+   and ``Parallax``, a captured window of 3 steps against a loop of
+   ``step`` calls at the same seeds (params and ``batch_stats`` within
+   1e-5 of each tensor's largest value, floor 1e-3); then every model at
+   full width on the graph route, a warm and a timed window of 5 steps
+   each (one capture and two replays asserted, losses finite):
+   ResNet-50 (224 px, batch 128), VGG16 (224, 64), DenseNet121 (224, 64)
+   and InceptionV3 (299, 64) in bf16 through ``AllReduce`` with
+   ``examples/benchmark/imagenet.py``'s chunk sizes and ``sgd(0.1,
+   momentum=0.9)``; NCF at ``ncf.py``'s full preset (6040 users, 3706
+   items, batch 1024, ``adam(1e-3)``, ``AllReduce``) and lm1b at
+   ``LSTMWordLM``'s widths (vocab 800000, embed 512, hidden 1024, 2
+   layers; batch 32 x 20, 64 samples, ``Parallax``, ``adagrad(0.2)``),
+   both fp32 as the JAX models compute; printed: step ms, examples/s,
+   peak memory, capture seconds and, for the ImageNet models, the MFU at
+   989 TFLOP/s from imagenet.py's forward GFLOPs (x 3); then one more
+   replay under the profiler: device busy share and the top kernels a
+   step;
+25. one ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
 Phases 2, 4, 6 (at T = 1), 8 (the dense model) and 11 (one process)
@@ -3097,7 +3119,7 @@ ZERO_WINDOW_ROWS = [("plain", {}, 1), ("ZeRO-1", dict(zero_stage=1), 1),
                     ("ZeRO-3", dict(zero_stage=3), 1),
                     ("GradAccumulation 2", {}, 2),
                     ("remat", dict(remat=True), 1)]
-ZERO_WINDOW_STEPS = 2
+ZERO_WINDOW_STEPS = 1
 ZERO_PARITY_STEPS = 2
 
 
@@ -4518,7 +4540,7 @@ OVERLAP_PROGRAMS = {
                                       "vocab_stats": "bf16"}),
 }
 OVERLAP_QUANT = ("rsag", "matmul int8")
-OVERLAP_STEPS = 2
+OVERLAP_STEPS = 1
 # Their fp32 parity at 2 layers, model 2, by phase 15's rule
 # (:func:`held_rows`): the plain (blocking) program under Adam, and the
 # same under SGD and at a learning rate of 0; "rsag" held to the first
@@ -5403,12 +5425,203 @@ def phase_async():
     return counts
 
 
+# --------------------------------------------------------------------- #
+# phase 24: the model zoo
+# --------------------------------------------------------------------- #
+# Copies of examples/benchmark/imagenet.py's tables: forward GFLOPs an
+# image at the canonical size (training ~ 3x) and the AllReduce chunk.
+MODEL_FWD_GFLOPS = {"resnet50": 4.1, "vgg16": 15.5, "densenet121": 2.9,
+                  "inceptionv3": 5.7}
+MODEL_CHUNK_SIZES = {"vgg16": 25, "resnet101": 200, "inceptionv3": 30}
+MODEL_DEFAULT_CHUNK = 512
+# (name, model, input px, per-card batch)
+MODEL_IMAGE = (("resnet50", "ResNet50", 224, 128), ("vgg16", "VGG16", 224, 64),
+             ("densenet121", "DenseNet121", 224, 64),
+             ("inceptionv3", "InceptionV3", 299, 64))
+MODEL_STEPS = 5
+NCF_FULL = dict(num_users=6040, num_items=3706, mf_dim=64,
+                mlp_dims=(256, 128, 64))          # ncf.py --preset full
+NCF_BATCH = 1024
+LM1B_FULL = dict(vocab_size=800_000, embed_dim=512, hidden_dim=1024,
+                 num_layers=2, num_samples=64)   # LSTMWordLM's own widths
+LM1B_BATCH, LM1B_SEQ = 32, 20                    # lm1b_train.py
+MODEL_CHECK_STEPS = 3
+
+
+def model_gen(seed=0):
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def model_images(k, batch, size, classes, gen):
+    """A ``[k, ...]`` window of random images and labels, made on the
+    card."""
+    return {"x": torch.rand(k, batch, size, size, 3, device="cuda",
+                            generator=gen),
+            "y": torch.randint(0, classes, (k, batch), device="cuda",
+                               generator=gen, dtype=torch.int32)}
+
+
+def model_ids(k, shape, high, gen):
+    return torch.randint(0, high, (k,) + shape, device="cuda",
+                         generator=gen, dtype=torch.int32)
+
+
+def model_window(label, runner, window, examples, flops=None):
+    """A warm window (its capture) and a timed one on the graph route,
+    each one replay: losses finite, one capture and two replays, no
+    kernel of the port launched; prints step ms, examples/s, peak memory
+    (the capture's included), capture seconds and, with ``flops`` (a
+    step's training FLOPs an example), the MFU; then profiles one more
+    replay (device busy share, launches and the six kernels with the
+    most device time, a step)."""
+    chip = port.ResourceSpec({}).chip
+    check(runner.lowered.capturable,
+          f"phase 24 {label}: one card's lowering is not capturable")
+    window = runner.place_steps(window)
+    dt, metrics = timed_window(runner, window)
+    got, peak_gb = launches(), torch.cuda.max_memory_allocated() / 1e9
+    losses = metrics["loss"].float()
+    check(bool(torch.isfinite(losses).all()),
+          f"phase 24 {label}: non-finite loss: {losses}")
+    check(got == dict.fromkeys(KERNELS, 0),
+          f"phase 24 {label}: the zoo runs no kernel of the port, "
+          f"launched {got}")
+    check((runner.captures, runner.replays) == (1, 2),
+          f"phase 24 {label}: {runner.captures} captures and "
+          f"{runner.replays} replays, expected 1 and 2")
+    rate = MODEL_STEPS * examples / dt
+    mfu = (f", MFU {rate * flops / (chip.peak_bf16_tflops * 1e12):.4f}"
+           if flops else "")
+    print(f"phase 24 {label} graph: {MODEL_STEPS} steps in {dt:.3f} s, step "
+          f"{dt / MODEL_STEPS * 1e3:.2f} ms, {rate:.1f} examples/s{mfu}, peak "
+          f"memory {peak_gb:.2f} GB of {chip.hbm_gb:g}, capture "
+          f"{runner.capture_seconds:.2f} s, replays {runner.replays}, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}", flush=True)
+    prof = device_profile(lambda: runner.run_steps(window), MODEL_STEPS)
+    if prof is None:
+        print(f"phase 24 {label} step profile: device time not measured",
+              flush=True)
+    else:
+        prof_ms, busy, n_launch, _, top = prof
+        print(f"phase 24 {label} step profile (one more replay): device "
+              f"busy {busy:.2f} ms of {prof_ms:.2f} ({busy / prof_ms:.1%}), "
+              f"{n_launch:.0f} kernel launches a step; top per step: {top}",
+              flush=True)
+    runner.close()
+    torch.cuda.empty_cache()
+
+
+def model_graph_equals_loop(label, build, window, rngs):
+    """fp32: a captured ``run_steps`` window and a loop of ``step`` calls
+    at the same seeds, from the same initial state, end at the same
+    params and ``batch_stats``, each tensor within 1e-5 of its largest
+    value (floor 1e-3)."""
+    graph, loop = build(), build()
+    graph.run_steps(window, rngs=rngs)
+    for i, rng in enumerate(rngs):
+        loop.step({key: t[i] for key, t in window.items()}, rng=rng)
+    check((graph.captures, graph.replays) == (1, 1),
+          f"phase 24 {label}: {graph.captures} captures, {graph.replays} "
+          f"replays, expected 1 and 1")
+    worst = 0.0
+    for part, got, want in (("params", graph.get_params(),
+                             loop.get_params()),
+                            ("extra", graph.get_extra(), loop.get_extra())):
+        want = dict(flatten_with_names(want or {}))
+        for name, t in flatten_with_names(got or {}):
+            w = want[name]
+            err = float((t - w).abs().max())
+            scale = max(float(w.abs().max()), 1e-3)
+            worst = max(worst, err / scale)
+            check(err <= 1e-5 * scale,
+                  f"phase 24 {label} {part} {name}: the graph route parts "
+                  f"from the step loop by {err} (scale {scale})")
+    print(f"phase 24 {label} fp32 graph = loop over {len(rngs)} steps: "
+          f"worst {worst:.3e} of a tensor's largest value", flush=True)
+    graph.close()
+    loop.close()
+    torch.cuda.empty_cache()
+
+
+def phase_models():
+    """Phase 24: the model zoo on the card.  fp32 first: ResNet18 (with
+    BatchNorm) and lm1b at small widths, a captured window against a
+    loop of ``step`` calls; then each model at full width on the graph
+    route: the four ImageNet models in bf16 (``sgd(0.1, momentum=0.9)``,
+    imagenet.py's ``AllReduce`` chunk), NCF at ``ncf.py``'s full preset
+    and lm1b at ``LSTMWordLM``'s own widths through ``Parallax`` (both
+    fp32, as the models compute in the JAX package)."""
+    from autodist_tpu_torch import models as zoo
+
+    label = card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rngs = [11, 12, 13]
+
+    def small_resnet():
+        return port.AutoDist({}, port.AllReduce()).build(
+            zoo.make_image_trainable(
+                zoo.ResNet18(num_classes=10, num_filters=16,
+                             dtype=torch.float32),
+                port.optim.sgd(0.1, momentum=0.9), model_gen(), image_size=64))
+
+    model_graph_equals_loop("ResNet18 (16 filters, 64 px, batch 16)",
+                          small_resnet,
+                          model_images(MODEL_CHECK_STEPS, 16, 64, 10, model_gen(1)),
+                          rngs)
+    small_lm = dict(vocab_size=2000, embed_dim=64, hidden_dim=64,
+                    num_layers=2)
+
+    def small_lm1b():
+        return port.AutoDist({}, port.Parallax()).build(
+            zoo.make_lm1b_trainable(port.optim.adagrad(0.2), model_gen(),
+                                    **small_lm))
+
+    gen = model_gen(2)
+    model_graph_equals_loop("lm1b (vocab 2000, widths 64, batch 8 x 10)",
+                          small_lm1b,
+                          {"x": model_ids(MODEL_CHECK_STEPS, (8, 10), 2000, gen),
+                           "y": model_ids(MODEL_CHECK_STEPS, (8, 10), 2000, gen)},
+                          rngs)
+    for name, model, size, batch in MODEL_IMAGE:
+        trainable = zoo.make_image_trainable(
+            getattr(zoo, model)(num_classes=1000),
+            port.optim.sgd(0.1, momentum=0.9), model_gen(), image_size=size,
+            batch_size=batch)
+        runner = port.AutoDist({}, port.AllReduce(
+            chunk_size=MODEL_CHUNK_SIZES.get(name, MODEL_DEFAULT_CHUNK))).build(
+            trainable)
+        model_window(f"{model} bf16 {size} px, batch {batch} ({label})", runner,
+                   model_images(MODEL_STEPS, batch, size, 1000, model_gen(3)),
+                   batch, 3.0 * MODEL_FWD_GFLOPS[name] * 1e9)
+        del trainable, runner
+    gen = model_gen(4)
+    runner = port.AutoDist({}, port.AllReduce()).build(zoo.make_ncf_trainable(
+        port.optim.adam(1e-3), model_gen(), **NCF_FULL))
+    model_window(f"NCF fp32 full preset, batch {NCF_BATCH} ({label})", runner,
+               {"users": model_ids(MODEL_STEPS, (NCF_BATCH,), 6040, gen),
+                "items": model_ids(MODEL_STEPS, (NCF_BATCH,), 3706, gen),
+                "labels": model_ids(MODEL_STEPS, (NCF_BATCH,), 2, gen)},
+               NCF_BATCH)
+    del runner
+    runner = port.AutoDist({}, port.Parallax()).build(
+        zoo.make_lm1b_trainable(port.optim.adagrad(0.2), model_gen(),
+                                seq_len=LM1B_SEQ, batch_size=LM1B_BATCH,
+                                **LM1B_FULL))
+    model_window(f"lm1b fp32 vocab 800000, batch {LM1B_BATCH} x {LM1B_SEQ} "
+               f"({label})", runner,
+               {"x": model_ids(MODEL_STEPS, (LM1B_BATCH, LM1B_SEQ), 800_000, gen),
+                "y": model_ids(MODEL_STEPS, (LM1B_BATCH, LM1B_SEQ), 800_000,
+                             gen)},
+               LM1B_BATCH)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--phases",
         default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21,"
-                "22,23",
+                "22,23,24",
         help="comma-separated phases to run (default: all); the kernels "
              "line needs them all")
     phases = {int(p) for p in parser.parse_args(argv).phases.split(",")}
@@ -5451,7 +5664,8 @@ def main(argv=None) -> int:
              (20, lambda: add(phase_export_serve())),
              (21, lambda: add(phase_overlap())),
              (22, lambda: add(phase_gspmd())),
-             (23, lambda: add(phase_async()))]
+             (23, lambda: add(phase_async())),
+             (24, phase_models)]
     for phase, run in steps:
         if phase in phases:
             t1 = time.perf_counter()

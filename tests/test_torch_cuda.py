@@ -1545,3 +1545,117 @@ def test_cuda_async_ps_publishes_the_applied_params(cuda):
     assert version == 8
     assert torch.equal(blob["w"], want)
     assert torch.equal(pulled, want)
+
+
+# The model zoo: bf16 image models on the card against their fp32 CPU
+# forward (eval mode: the running statistics, so no batch statistics of
+# a small map), the fp32 models at fp32.
+ZOO_IMAGE_CASES = [("ResNet18", dict(num_filters=16), 64, 8),
+                   ("ResNet50", dict(num_filters=16), 64, 8),
+                   ("VGG11", dict(hidden=64, image_size=64), 64, 8),
+                   ("DenseNet121", dict(growth_rate=8), 64, 8),
+                   ("InceptionV3", {}, 75, 4)]
+
+
+@pytest.mark.parametrize("name,kw,size,batch", ZOO_IMAGE_CASES)
+def test_cuda_zoo_image_model_bf16_equals_its_cpu_fp32_forward(
+        cuda, name, kw, size, batch):
+    """cuDNN's bf16 channels-last convolutions, the pools and the
+    padding: logits within 5e-2 of the largest fp32 logit (bf16 against
+    fp32 on the CPU parts by at most 1.4e-2 at these sizes)."""
+    from autodist_tpu_torch import models as zoo
+    from autodist_tpu_torch.models import layers
+
+    g = torch.Generator().manual_seed(0)
+    ref = layers.init_params(getattr(zoo, name)(
+        num_classes=100, dtype=torch.float32, **kw), g, "cpu")
+    model = getattr(zoo, name)(num_classes=100, dtype=torch.bfloat16, **kw)
+    model.load_state_dict(ref.state_dict(), assign=True)
+    x = torch.rand(batch, size, size, 3, generator=g)
+    want = ref(x, train=False)[0]
+    got = model.to(cuda)(x.to(cuda), train=False)[0].cpu()
+    err = float((got - want).abs().max())
+    assert err <= 5e-2 * float(want.abs().max()), (name, err)
+
+
+def test_cuda_zoo_fp32_models_equal_their_cpu_forward(cuda):
+    """The MNIST CNN, NeuMF and the lm1b LSTM (cuDNN's LSTM, TF32 off)
+    at fp32: within 1e-4 of the largest CPU output."""
+    from autodist_tpu_torch import models as zoo
+    from autodist_tpu_torch.models import layers
+
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(1)
+    cases = [(zoo.MnistCNN(), (torch.rand(4, 28, 28, 1, generator=g),)),
+             (zoo.NeuMF(60, 40, 8, (32, 16, 8)),
+              (torch.randint(0, 60, (16,), generator=g),
+               torch.randint(0, 40, (16,), generator=g))),
+             (zoo.LSTMWordLM(500, 32, 64, 2),
+              (torch.randint(0, 500, (4, 7), generator=g),))]
+    for model, args in cases:
+        ref = layers.init_params(model, g, "cpu")
+        want = ref(*args)
+        want = want[0] if isinstance(want, tuple) else want
+        got = ref.to(cuda)(*[a.to(cuda) for a in args])
+        got = (got[0] if isinstance(got, tuple) else got).cpu()
+        err = float((got - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), (type(model), err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_asymmetric_same_padding_conv(cuda, dtype):
+    """A 3x3 stride-2 ``"SAME"`` conv on 56x56 pads 0 before and 1 after
+    (``lax.padtype_to_pads``), on the card as on the CPU; ``padding=1``
+    gives another tensor."""
+    import torch.nn.functional as F
+
+    from autodist_tpu_torch.models import layers
+
+    g = torch.Generator().manual_seed(2)
+    conv = layers.init_params(layers.Conv(8, 16, (3, 3), (2, 2),
+                                          use_bias=False, dtype=dtype),
+                              g, "cpu")
+    x = torch.randn(2, 8, 56, 56, generator=g)
+    w = conv.kernel.detach().permute(3, 2, 0, 1)
+    want = F.conv2d(F.pad(x, (0, 1, 0, 1)), w, stride=2)
+    got = conv.to(cuda)(x.to(cuda).to(memory_format=torch.channels_last))
+    assert got.shape == want.shape == (2, 16, 28, 28)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float().cpu(), want, atol=tol, rtol=tol)
+    sym = F.conv2d(x, w, stride=2, padding=1)
+    assert not torch.allclose(sym, want, atol=1e-2)
+
+
+def test_cuda_resnet18_window_replay_equals_step_calls(cuda):
+    """A captured 2-step window of ResNet18 with BatchNorm (fp32, TF32
+    off) ends at the params and ``batch_stats`` of 2 ``step`` calls,
+    each tensor within 1e-5 of its largest value (floor 1e-3)."""
+    from autodist_tpu_torch import models as zoo
+
+    torch.backends.cudnn.allow_tf32 = False
+
+    def build():
+        return port.AutoDist({}, port.AllReduce()).build(
+            zoo.make_image_trainable(
+                zoo.ResNet18(num_classes=10, num_filters=8,
+                             dtype=torch.float32),
+                port.optim.sgd(0.1, momentum=0.9),
+                torch.Generator(device=cuda).manual_seed(0), image_size=32))
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    window = {"x": torch.rand(2, 8, 32, 32, 3, device=cuda, generator=g),
+              "y": torch.randint(0, 10, (2, 8), device=cuda, generator=g,
+                                 dtype=torch.int32)}
+    graph, loop = build(), build()
+    graph.run_steps(window, rngs=[1, 2])
+    for i in range(2):
+        loop.step({k: v[i] for k, v in window.items()}, rng=i + 1)
+    assert (graph.captures, graph.replays) == (1, 1)
+    for got, want in ((graph.get_params(), loop.get_params()),
+                      (graph.get_extra(), loop.get_extra())):
+        want = dict(flatten_with_names(want))
+        for name, t in flatten_with_names(got):
+            scale = max(float(want[name].abs().max()), 1e-3)
+            assert float((t - want[name]).abs().max()) <= 1e-5 * scale, name
+    graph.close()
+    loop.close()
