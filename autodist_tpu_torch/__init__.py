@@ -51,6 +51,14 @@ the reference's examples and benchmarks (:mod:`autodist_tpu_torch
 .models`: ResNet, VGG, DenseNet, InceptionV3, the MNIST CNN, NeuMF, the
 lm1b LSTM) trains through the same entry points, its BatchNorm
 statistics averaged over the data axis the collective lowering binds.
+The runtime launches and supervises a job
+(:class:`~autodist_tpu_torch.runtime.cluster.Cluster`,
+:class:`~autodist_tpu_torch.runtime.cluster.LocalCluster`, a
+``multihost`` spec's ``bootstrap()``, fault plans in
+:mod:`autodist_tpu_torch.runtime.faults`), and the elastic layer
+(:mod:`autodist_tpu_torch.elastic`) moves training state between
+strategies and world sizes: ``Saver.restore_elastic``,
+``reshard_state`` and :class:`ElasticController`.
 ROADMAP.md lists what comes next.
 """
 from autodist_tpu_torch import optim
@@ -59,6 +67,7 @@ from autodist_tpu_torch.capture import PipelineTrainable, Trainable, VarInfo
 from autodist_tpu_torch.checkpoint import (Saver, export_model, load_exported,
                                            load_exported_params)
 from autodist_tpu_torch.data import DataLoader
+from autodist_tpu_torch.elastic import ElasticController, reshard_state
 from autodist_tpu_torch.fetches import fetch
 from autodist_tpu_torch.interop import from_jax_params, to_jax_params
 from autodist_tpu_torch.models.moe_transformer import (MoeConfig,
@@ -72,6 +81,10 @@ from autodist_tpu_torch.models.transformer import (TransformerConfig,
 from autodist_tpu_torch.resource import ResourceSpec
 from autodist_tpu_torch.runner import (AsyncPSRunner, DistributedRunner,
                                       stack_steps)
+from autodist_tpu_torch.runtime.cluster import (Cluster, Coordinator,
+                                               LocalCluster)
+from autodist_tpu_torch.runtime.faults import (FaultInjector, FaultPlan,
+                                              FaultSpec)
 from autodist_tpu_torch.serving import (ContinuousBatcher, ServingEngine,
                                         serve)
 from autodist_tpu_torch.strategy.builders import (
@@ -96,4 +109,7 @@ __all__ = ["AutoDist", "Trainable", "PipelineTrainable", "VarInfo",
            "MoeConfig", "make_moe_lm_trainable", "TransformerLM",
            "lm_loss_head", "make_lm_trainable", "from_jax_params",
            "to_jax_params", "fit", "fetch", "DataLoader", "Saver",
-           "export_model", "load_exported", "load_exported_params"]
+           "export_model", "load_exported", "load_exported_params",
+           "Cluster", "LocalCluster", "Coordinator", "FaultPlan",
+           "FaultSpec", "FaultInjector", "ElasticController",
+           "reshard_state"]

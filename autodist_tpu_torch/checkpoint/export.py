@@ -30,10 +30,12 @@ import logging
 import os
 from typing import Any, Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
 from autodist_tpu_torch.device import resolve_device
-from autodist_tpu_torch.kernel.common import flatten_with_names, unflatten
+from autodist_tpu_torch.kernel.common import (dtype_name, flatten_with_names,
+                                              unflatten)
 from autodist_tpu_torch.resource import _world
 
 _log = logging.getLogger(__name__)
@@ -43,18 +45,14 @@ _PARAMS_DIR = "params"
 _PARAMS_FILE = "params.pt"
 
 
-def dtype_name(dtype: torch.dtype) -> str:
-    """``torch.bfloat16`` -> ``"bfloat16"`` (numpy's and ml_dtypes'
-    spelling, which ``meta.json`` uses)."""
-    return str(dtype).removeprefix("torch.")
-
-
 def parse_dtype(name) -> torch.dtype:
-    """The ``torch.dtype`` a ``meta.json`` string names (``"float32"``,
-    ``"bfloat16"``, ``"torch.int32"``); an unknown name raises
-    ``ValueError`` naming it."""
+    """The ``torch.dtype`` a ``meta.json`` or sidecar string names
+    (``"float32"``, ``"bfloat16"``, ``"torch.int32"``, or a numpy
+    dtype); an unknown name raises ``ValueError`` naming it."""
     if isinstance(name, torch.dtype):
         return name
+    if isinstance(name, np.dtype):
+        name = name.name
     found = getattr(torch, str(name).removeprefix("torch."), None)
     if not isinstance(found, torch.dtype):
         raise ValueError(f"meta.json names dtype {name!r}, which torch "

@@ -35,8 +35,18 @@ step (an async one at the next join: ``save``, ``wait``,
 ``latest_step``, ``restore`` or ``close``), or with
 ``degrade_on_failure`` is counted and recorded as a ``kind="fault"``
 event while training goes on from the last good checkpoint.
-:meth:`Saver.restore_elastic` (re-laying a full checkpoint onto another
-mesh) is not ported yet.
+
+A full save also writes an **elastic sidecar**, ``elastic/<step>.json``
+(``kind: "elastic_meta"``: the Strategy JSON, the mesh and the writing
+lowering's state manifest), rank 0 writing it once every rank's files
+are there; it is pruned with its checkpoint, and a sidecar that cannot
+be written (the pipeline family has no manifest yet) only warns: the
+checkpoint then restores onto its own layout alone.
+:meth:`Saver.restore_elastic` restores a full checkpoint onto another
+strategy, mesh and world size through the reshard engine's staged route
+(:mod:`autodist_tpu_torch.elastic.reshard`), optimizer state included;
+a checkpoint written before sidecars existed needs the writer's
+``strategy=``.
 """
 from __future__ import annotations
 
@@ -45,6 +55,7 @@ import logging
 import os
 import shutil
 import threading
+import time
 from typing import Optional
 
 import torch
@@ -57,8 +68,8 @@ from autodist_tpu_torch.runtime.faults import fault_target
 from autodist_tpu_torch.runtime.retry import RetryPolicy
 
 _log = logging.getLogger(__name__)
-_ELASTIC_ITEM = "ROADMAP Queue 1, item 9: runtime and multi-host"
 _FORMAT = 1
+_SIDECAR_DIR = "elastic"
 MAX_TO_KEEP = 5        # complete checkpoints kept (the JAX package's)
 
 
@@ -207,10 +218,30 @@ class _Store:
 
     def prune(self):
         """Remove the complete steps older than the newest
-        :data:`MAX_TO_KEEP`."""
+        :data:`MAX_TO_KEEP`, and their sidecars."""
         steps = self.all_steps()
         for step in steps[:max(len(steps) - MAX_TO_KEEP, 0)]:
             shutil.rmtree(self.step_dir(step), ignore_errors=True)
+            self.remove_sidecar(step)
+
+    def sidecar_path(self, step: int) -> str:
+        return os.path.join(self.directory, _SIDECAR_DIR, f"{step}.json")
+
+    def write_sidecar(self, step: int, record: dict) -> int:
+        """The sidecar of ``step`` (written aside, then renamed); returns
+        its bytes."""
+        path = self.sidecar_path(step)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path + ".tmp", "w") as f:
+            json.dump(record, f)
+        os.replace(path + ".tmp", path)
+        return os.path.getsize(path)
+
+    def remove_sidecar(self, step: int):
+        try:
+            os.remove(self.sidecar_path(step))
+        except FileNotFoundError:
+            pass
 
 
 class Saver:
@@ -238,7 +269,9 @@ class Saver:
         self._inflight_step: Optional[int] = None
         self._store = _Store(self.directory)
         self._pinned: dict = {}
+        self._sidecar: Optional[dict] = None    # awaiting its step's files
         self.last_save_bytes = 0
+        self.last_sidecar_bytes = 0
 
     # ------------------------------------------------------------------ #
     def _fail(self, step, e, counter: str, what: str) -> None:
@@ -266,10 +299,45 @@ class Saver:
         try:
             self._store.join()
         except Exception as e:  # noqa: BLE001 — whatever the write raised
+            self._sidecar = None
             self._fail(step, e, "ckpt/async_save_failures",
                        "async checkpoint save")
         finally:
             _barrier()
+        self._write_sidecar()
+
+    def _sidecar_record(self, runner, step: int) -> Optional[dict]:
+        """The elastic sidecar of a full save at ``step``: the Strategy
+        JSON, the mesh and the state manifest (``None`` where the
+        lowering has no manifest: a warning, never a failed save)."""
+        try:
+            manifest = runner.lowered.state_manifest(runner.state)
+        except Exception as e:   # noqa: BLE001 — best effort, as in JAX
+            _log.warning("no elastic sidecar for step %d (%s: %s); this "
+                         "checkpoint restores onto its own layout only",
+                         step, type(e).__name__, e)
+            return None
+        strategy = getattr(runner, "strategy", None)
+        return {"kind": "elastic_meta", "step": int(step),
+                "strategy": (json.loads(strategy.to_json())
+                             if strategy is not None else None),
+                "mesh_axes": {a: int(n) for a, n in
+                              runner.mesh.shape.items()},
+                "manifest": manifest}
+
+    def _write_sidecar(self):
+        """Rank 0 writes the pending sidecar, once every rank's files of
+        its step are there (best effort)."""
+        record, self._sidecar = self._sidecar, None
+        if record is None:
+            return
+        try:
+            self.last_sidecar_bytes = self._store.write_sidecar(
+                record["step"], record)
+        except OSError as e:
+            _log.warning("could not write the elastic sidecar of step %d "
+                         "(%s); it restores onto its own layout only",
+                         record["step"], e)
 
     def _last_good_step(self) -> Optional[int]:
         steps = self._store.all_steps()
@@ -306,6 +374,10 @@ class Saver:
                   "kind": "portable" if portable else "full",
                   "mesh": mesh}
         writes = rank < writers
+        self._sidecar = None if portable or rank else self._sidecar_record(
+            runner, step)
+        if portable and rank == 0:
+            self._store.remove_sidecar(step)     # a replaced full save's
         if writes:
             payload = _host_snapshot(payload, self._pinned)
         block = (not self._async) if blocking is None else blocking
@@ -331,10 +403,12 @@ class Saver:
             if writes:
                 attempt()
         except Exception as e:  # noqa: BLE001 — whatever the write raised
+            self._sidecar = None
             self._fail(step, e, "ckpt/save_failures", "checkpoint save")
             return None
         finally:
             _barrier()
+        self._write_sidecar()
         _log.info("checkpoint step %d saved to %s (portable=%s)", step,
                   self.directory, portable)
         return step
@@ -381,9 +455,8 @@ class Saver:
             raise ValueError(
                 f"checkpoint step {step} was written by {marker['world']} "
                 f"rank(s) on mesh {marker['mesh']}; this job has {world} on "
-                f"{mesh}: restore_portable() restores a portable checkpoint "
-                f"under another layout (restore_elastic is not ported yet, "
-                f"{_ELASTIC_ITEM})")
+                f"{mesh}: restore_elastic() restores it under another "
+                f"layout")
         path = os.path.join(self._store.step_dir(step), f"rank{rank}.pt")
         payload = torch.load(path, map_location=runner.lowered.device,
                              weights_only=False)
@@ -400,10 +473,94 @@ class Saver:
         _log.info("restored checkpoint step %d", step)
         return runner
 
+    def read_sidecar(self, step: int) -> Optional[dict]:
+        """The elastic sidecar of ``step`` (``None`` for a checkpoint
+        without one)."""
+        path = self._store.sidecar_path(step)
+        if not os.path.exists(path):
+            return None
+        with open(path) as f:
+            return json.load(f)
+
     def restore_elastic(self, runner, step: Optional[int] = None, *,
                         strategy=None):
-        raise NotImplementedError(
-            f"Saver.restore_elastic is not ported yet ({_ELASTIC_ITEM})")
+        """Restore a full checkpoint (the latest by default), optimizer
+        state included, into a runner whose strategy, mesh and world
+        size may differ from the writers': the reshard engine's staged
+        route, leaf by leaf from the writers' rank files
+        (:func:`~autodist_tpu_torch.elastic.reshard.assemble_state`);
+        the dropout-seed stream and the host step come back too.  The
+        decode recipes come from the step's sidecar; a checkpoint
+        without one is layout-unknown and needs ``strategy=`` (the
+        Strategy its writers ran), whose source layout is rebuilt on the
+        recorded mesh.  Compatibility is linted before any data moves
+        (ADT070 raises :class:`~autodist_tpu_torch.elastic.reshard
+        .ReshardError`).  Every rank of the target job calls it; each
+        reads the parts it needs."""
+        from autodist_tpu_torch.elastic import reshard
+
+        t0 = time.perf_counter()
+        step, marker = self._resolve(step, "full")
+        sidecar = self.read_sidecar(step)
+        step_dir = self._store.step_dir(step)
+        if sidecar is not None:
+            src_m, mesh = sidecar["manifest"], sidecar["mesh_axes"]
+        elif strategy is not None:
+            mesh = marker["mesh"]
+            src_m = self._manifest_from_strategy(runner, strategy, step_dir,
+                                                 mesh)
+        else:
+            raise ValueError(
+                f"checkpoint step {step} in {self.directory} carries no "
+                "elastic sidecar (written before elastic resharding "
+                "existed): source layout-unknown — restoring under a "
+                "guessed layout would silently corrupt sharded state. "
+                "Pass strategy= (the Strategy IR the writer ran) to "
+                "rebuild the layout, restore with restore() on the "
+                "original strategy/mesh, or use restore_portable for a "
+                "params-only portable checkpoint.")
+        source = reshard.FileSource(step_dir, src_m, mesh)
+        bad = source.unreadable()      # before the runner's state goes
+        if bad:
+            raise ValueError(
+                f"checkpoint step {step} does not carry the training state "
+                f"its layout declares ("
+                + "; ".join(f"rank{r}.pt {what}" for r, what in bad)
+                + "): restore_elastic needs every writer's full save of "
+                "that layout")
+        plan = reshard.plan_reshard(
+            src_m, runner.lowered.state_manifest(runner.state)).require_ok()
+        template = reshard.meta_template(runner.state)
+        runner.state = None        # one target state on the device at once
+        runner.state = reshard.assemble_state(
+            runner.lowered, source, src_m, template, plan=plan, t0=t0)
+        runner._seeds.set_state(source.payload0["seeds"])
+        runner._host_step = step
+        _log.info("restored checkpoint step %d elastically onto mesh %s",
+                  step, dict(runner.mesh.shape))
+        return runner
+
+    def _manifest_from_strategy(self, runner, strategy, step_dir: str,
+                                mesh: dict) -> dict:
+        """A sidecar-less checkpoint's manifest: the writers' strategy
+        lowered on a group-less layout of their recorded mesh (the plan
+        reads sizes only), read against rank 0's stored shapes."""
+        from autodist_tpu_torch.elastic.reshard import spec_for_layout
+        from autodist_tpu_torch.kernel.lowering import lower
+        from autodist_tpu_torch.resource import layout_mesh
+
+        payload = torch.load(os.path.join(step_dir, "rank0.pt"),
+                             map_location="cpu", mmap=True,
+                             weights_only=False)
+        layout = layout_mesh(spec_for_layout(
+            mesh, strategy.graph_config.replicas))
+        try:
+            return lower(runner.trainable, strategy, layout,
+                         "cpu").state_manifest(payload["state"])
+        except (ValueError, RuntimeError, NotImplementedError) as e:
+            raise ValueError(
+                f"cannot rebuild the source layout of strategy "
+                f"{strategy.id} on mesh {mesh}: {e}") from e
 
     def restore_params(self, step: Optional[int] = None) -> dict:
         """A portable checkpoint as host tensors: ``{"params": logical

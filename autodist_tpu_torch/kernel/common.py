@@ -40,6 +40,57 @@ def flatten_with_names(tree, prefix: str = "") -> list:
     return out
 
 
+def dtype_name(dtype) -> str:
+    """``torch.bfloat16`` -> ``"bfloat16"``: numpy's and ml_dtypes'
+    spelling, which ``meta.json`` and the state manifests use."""
+    return dtype if isinstance(dtype, str) else str(dtype).removeprefix(
+        "torch.")
+
+
+def state_leaves(tree, prefix: str = "") -> list:
+    """``[(name, tensor), ...]`` of a training state: dicts in
+    sorted-key order, lists and tuples by position, ``None`` and other
+    non-tensors skipped (the names ``jax.tree_util`` paths give the JAX
+    package's state)."""
+    if isinstance(tree, torch.Tensor):
+        return [(prefix.rstrip("/"), tree)]
+    if isinstance(tree, dict):
+        return [x for key in sorted(tree)
+                for x in state_leaves(tree[key], f"{prefix}{key}/")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, item in enumerate(tree)
+                for x in state_leaves(item, f"{prefix}{i}/")]
+    return []
+
+
+def map_state(fn, tree, prefix: str = ""):
+    """``tree`` with every tensor leaf replaced by ``fn(name, leaf)``
+    (names as :func:`state_leaves` gives them), in its own order."""
+    if isinstance(tree, torch.Tensor):
+        return fn(prefix.rstrip("/"), tree)
+    if isinstance(tree, dict):
+        return {key: map_state(fn, value, f"{prefix}{key}/")
+                for key, value in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_state(fn, item, f"{prefix}{i}/")
+                          for i, item in enumerate(tree))
+    return tree
+
+
+def match_var_by_suffix(leaf_name: str, var_names, shape_ok=None):
+    """The variable an optimizer-state leaf belongs to: the longest
+    variable name that is a ``/``-suffix of ``leaf_name``, among those
+    ``shape_ok(name)`` admits (JAX ``match_var_by_suffix``); ``None``
+    when none is."""
+    candidates = sorted((v for v in var_names
+                         if leaf_name == v or leaf_name.endswith("/" + v)),
+                        key=len, reverse=True)
+    for cand in candidates:
+        if shape_ok is None or shape_ok(cand):
+            return cand
+    return None
+
+
 def unflatten(flat) -> dict:
     """The nested dict of a ``{name: leaf}`` mapping."""
     tree: dict = {}

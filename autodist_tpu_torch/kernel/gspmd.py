@@ -52,6 +52,11 @@ has that dim made whole first, a ``gather`` then running on each
 rank's pieces: DTensor's own gather masks a split dim's partial values
 as an embedding lookup's.
 
+Its state manifest is the JAX package's ``simple`` family's: every leaf
+stored at its logical shape (identity recipes), each leaf's ``split``
+read from its placements (and a PS variable's state from its extra
+split over the data axis).
+
 The job's default process group must hold the mesh's ranks; a process
 with none gets a one-rank group (gloo on the CPU, NCCL on the card),
 which the runners built on it share and the last one's ``close()``
@@ -72,7 +77,7 @@ import torch.nn.functional as F
 from autodist_tpu_torch import const, optim
 from autodist_tpu_torch.device import resolve_device
 from autodist_tpu_torch.kernel import common
-from autodist_tpu_torch.kernel.lowering import Lowered
+from autodist_tpu_torch.kernel.lowering import Lowered, leaf_record
 from autodist_tpu_torch.strategy.ir import PSSynchronizer
 
 _log = logging.getLogger(__name__)
@@ -501,9 +506,48 @@ def lower_gspmd(trainable, strategy, mesh, device=None) -> Lowered:
         return {nm: layout.lift(t.contiguous(), p_pl[nm], shapes[nm])
                 .full_tensor() for nm, t in stored.items()}
 
+    def splits(nm, update: bool):
+        """A variable's ``split`` records, outermost first: its
+        placements in mesh order (``GspmdLayout.local``), then, for its
+        optimizer state, the data split of :func:`state_dim`."""
+        out = [{"axis": layout.names[i], "dim": p.dim,
+                "ranks": layout.sizes[i]}
+               for i, p in enumerate(p_pl[nm])
+               if p.is_shard() and layout.sizes[i] > 1]
+        if update and state_dim(nm) is not None and n_repl > 1:
+            out.append({"axis": const.DATA_AXIS, "dim": state_dim(nm),
+                        "ranks": n_repl})
+        return out[0] if len(out) == 1 else (out or None)
+
+    def local_shape(nm, update: bool) -> tuple:
+        shape = list(shapes[nm])
+        for i, p in enumerate(p_pl[nm]):
+            if p.is_shard():
+                shape[p.dim] //= layout.sizes[i]
+        if update and state_dim(nm) is not None:
+            shape[state_dim(nm)] //= n_repl
+        return tuple(shape)
+
+    def state_manifest(state):
+        leaves = {}
+        for name, leaf in common.state_leaves(state):
+            shape, split = tuple(leaf.shape), None
+            if name.startswith("params/") and name[7:] in shapes:
+                shape, split = shapes[name[7:]], splits(name[7:], False)
+            elif name.startswith("opt_state/"):
+                local = shape
+                var = common.match_var_by_suffix(
+                    name, shapes,
+                    shape_ok=lambda v: local == local_shape(v, True))
+                if var is not None:
+                    shape, split = shapes[var], splits(var, True)
+            leaves[name] = leaf_record(shape, leaf.dtype, (), split)
+        return {"family": "simple", "leaves": leaves, "sync": {}}
+
     lowered = Lowered(plan=None, mesh=mesh, device=dev, init_fn=init_fn,
                       step_fn=step_fn, full_params_fn=full_params,
-                      eval_fn=eval_fn, release=layout.release)
+                      eval_fn=eval_fn, release=layout.release,
+                      state_manifest_fn=state_manifest)
     lowered.layout = layout
     lowered.param_specs, lowered.update_specs = p_specs, u_specs
     return lowered

@@ -53,6 +53,10 @@ PS (``staleness > 0``) lowers to the synchronous step;
 for the runner's host-side SSP gate.  A precision
 policy trains the fp32 program, as in the JAX package, whose collective
 lowering reads none; its slots are recorded in ``Lowered.unapplied``.
+
+``Lowered.state_manifest(state)`` is the elastic state codec (below):
+per leaf, the global stored shape, the recipe from it to the logical
+form, and where the ranks' parts of it lie.
 """
 from __future__ import annotations
 
@@ -256,6 +260,91 @@ def mean_float_leaves(tree, axis):
     return tree
 
 
+# --------------------------------------------------------------------------- #
+# The state codec: the declarative stored <-> logical record of each leaf.
+#
+# Every lowering stores training state in its own layout (padding, flat
+# ZeRO shards, one rank's slice).  A manifest leaf records, as the JAX
+# package's does, the *global* stored shape (padding included), its
+# dtype, the logical shape, and a recipe: a list of invertible ops from
+# the stored to the logical form (JAX ``kernel/lowering.py``), applied
+# by :mod:`autodist_tpu_torch.elastic.reshard` on the card or on the
+# host, inverted mechanically for a target layout, and serialized in a
+# checkpoint's sidecar.  Ops (forward = stored -> logical; each records
+# its input shape; padding the inverse re-inserts is zero, as storage
+# padding is):
+#
+# * ``reshape``    to ``shape``
+# * ``slice``      the leading ``[0:s]`` of each dim, to ``shape``
+# * ``index0``     ``arr[indices]`` along dim 0
+# * ``flat_slice`` ``arr.reshape(-1)[:size]``
+#
+# A port rank holds only its part of a stored leaf, so each record has
+# one field more than the JAX package's, ``split``: ``None`` where every
+# rank holds the whole leaf, else ``{"axis": name, "dim": d, "ranks":
+# n}``: the global stored leaf is the ranks' parts concatenated along
+# ``d`` in the axis's rank order (a part with one dim fewer is one
+# slice of ``d``: a compressor's state row), or a list of such records,
+# outermost first, where a leaf splits over several mesh axes (a
+# DTensor's placements).  An axis name joins mesh axes with ``+``
+# (``data+seq``: their joint axis, row-major in the mesh's order).
+# --------------------------------------------------------------------------- #
+def _op_reshape(in_shape, shape):
+    return {"op": "reshape", "in_shape": [int(d) for d in in_shape],
+            "shape": [int(d) for d in shape]}
+
+
+def _op_slice(in_shape, shape):
+    return {"op": "slice", "in_shape": [int(d) for d in in_shape],
+            "shape": [int(d) for d in shape]}
+
+
+def _op_index0(in_shape, indices):
+    return {"op": "index0", "in_shape": [int(d) for d in in_shape],
+            "indices": [int(i) for i in indices]}
+
+
+def _op_flat_slice(in_shape, size):
+    return {"op": "flat_slice", "in_shape": [int(d) for d in in_shape],
+            "size": int(size)}
+
+
+def split_record(axis, dim: int) -> Optional[dict]:
+    """The ``split`` of a leaf whose global form is the parts of
+    ``axis``'s ranks along ``dim`` (``None`` on a one-rank axis)."""
+    if axis.size == 1:
+        return None
+    return {"axis": axis.name, "dim": int(dim), "ranks": int(axis.size)}
+
+
+def leaf_record(shape, dtype, ops=(), split=None) -> dict:
+    """One manifest leaf: the global stored shape and dtype, the stored
+    to logical ops, and the ranks' ``split``; ``logical_shape`` comes
+    from replaying the ops on shapes."""
+    shape = [int(d) for d in shape]
+    logical = list(shape)
+    for op in ops:
+        if op["op"] in ("reshape", "slice"):
+            logical = list(op["shape"])
+        elif op["op"] == "index0":
+            logical = [len(op["indices"])] + logical[1:]
+        elif op["op"] == "flat_slice":
+            logical = [op["size"]]
+    return {"stored_shape": shape, "logical_shape": logical,
+            "dtype": common.dtype_name(dtype), "ops": list(ops),
+            "split": split}
+
+
+def flat_ops(global_shape, logical) -> list:
+    """The recipe of a flat (ZeRO) shard's global form: cut the padding,
+    then reshape to the logical shape (none where they agree)."""
+    logical = tuple(logical)
+    if tuple(global_shape) == logical:
+        return []
+    size = math.prod(logical) if logical else 1
+    return [_op_flat_slice(global_shape, size), _op_reshape((size,), logical)]
+
+
 @dataclasses.dataclass
 class Lowered:
     """The lowered step and the state layout.  ``full_params_fn`` maps
@@ -273,6 +362,12 @@ class Lowered:
     frees what the lowering holds beyond its state (the ``gspmd``
     lowering's one-rank process group), called by the runner's
     ``close()``.
+
+    ``state_manifest_fn`` (``state -> manifest``) is the lowering's
+    state codec (:meth:`state_manifest`); ``sync_init`` each stateful
+    compressor's first state row (host numpy), what a reshard re-seeds
+    rows from; ``split_axes`` the joint axes a manifest's ``split``
+    names (``{name: Axis}``), whose groups the reshard gathers over.
 
     The records of what the lowering did with the strategy's requests:
     ``zero3_shapes`` the logical shape of each variable stored as a
@@ -302,6 +397,9 @@ class Lowered:
     unapplied: dict = dataclasses.field(default_factory=dict)
     release: Optional[Callable] = None
     ssp_staleness: int = 0
+    state_manifest_fn: Optional[Callable] = None
+    sync_init: dict = dataclasses.field(default_factory=dict)
+    split_axes: dict = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
         if self.batch_axis is None:
@@ -341,6 +439,19 @@ class Lowered:
     def full_params(self, params: dict) -> dict:
         return self.full_params_fn(params) if self.full_params_fn \
             else params
+
+    def state_manifest(self, state) -> dict:
+        """The elastic state-codec manifest of ``state`` (the codec
+        comment above): ``{"family", "leaves": {name: record}, "sync":
+        {name: {"rows", "width", "compressor"}}}``; only shapes and
+        dtypes are read.  The pipeline family's raises."""
+        if self.state_manifest_fn is None:
+            raise NotImplementedError(
+                "this lowering's state manifest (the pipeline family's: "
+                "interleave permutations, vocab padding, ZeRO-3 rows) is "
+                "not ported yet (ROADMAP Queue 1, item 9: runtime and "
+                "multi-host)")
+        return self.state_manifest_fn(state)
 
 
 def lower(trainable, strategy, mesh, device=None) -> Lowered:
@@ -510,6 +621,47 @@ def lower(trainable, strategy, mesh, device=None) -> Lowered:
                 cuda_graph.fold_seed(rng, n, mesh.replica))
         return reduce_metrics(metrics, mesh)
 
+    def state_manifest(state):
+        """The collective family's manifest (JAX ``Lowered
+        .state_manifest``): a stored-sharded parameter is the padded
+        slice of the data axis, a U_FLAT variable's optimizer state its
+        flat chunk, a U_AXIS one's its padded slice, a compressor's
+        state one row a rank."""
+        leaves, sync = {}, {}
+        for name, leaf in common.state_leaves(state):
+            shape, ops, split = tuple(leaf.shape), [], None
+            if name.startswith("params/") and name[7:] in vps:
+                vp = vps[name[7:]]
+                if vp.stored_sharded:
+                    shape = vp.update_shape(n)
+                    if shape != vp.shape:
+                        ops = [_op_slice(shape, vp.shape)]
+                    split = split_record(axis, vp.split_axis)
+            elif name.startswith("opt_state/"):
+                local = shape
+                var = common.match_var_by_suffix(
+                    name, vps, shape_ok=lambda v: local
+                    == vps[v].local_update_shape(n))
+                vp = vps.get(var)
+                if vp is not None and vp.update == U_FLAT:
+                    shape = vp.update_shape(n)
+                    ops = flat_ops(shape, vp.shape)
+                    split = split_record(axis, 0)
+                elif vp is not None and vp.update == U_AXIS:
+                    shape = vp.update_shape(n)
+                    if shape != vp.shape:
+                        ops = [_op_slice(shape, vp.shape)]
+                    split = split_record(axis, vp.split_axis)
+            elif name.startswith("sync_state/"):
+                key = name[len("sync_state/"):]
+                shape = (n, int(leaf.numel()))
+                split = {"axis": axis.name, "dim": 0, "ranks": n}
+                sync[name] = {"rows": n, "width": int(leaf.numel()),
+                              "compressor": plan.bucket_compressor.get(
+                                  key, "none")}
+            leaves[name] = leaf_record(shape, leaf.dtype, ops, split)
+        return {"family": "collective", "leaves": leaves, "sync": sync}
+
     # The JAX package's collective lowering reads no precision policy
     # (its compressors are AllReduce(compressor=...)): the slots train
     # the fp32 program and are recorded as unapplied.
@@ -519,4 +671,5 @@ def lower(trainable, strategy, mesh, device=None) -> Lowered:
     return Lowered(plan=plan, mesh=mesh, device=dev, init_fn=init_fn,
                    step_fn=step_fn,
                    full_params_fn=lambda stored: full(stored, False),
-                   eval_fn=eval_fn, unapplied=unapplied)
+                   eval_fn=eval_fn, unapplied=unapplied,
+                   state_manifest_fn=state_manifest, sync_init=sync_init)

@@ -34,7 +34,11 @@ package traces one ``shard_map`` program:
 A ZeRO request on a variable the lowering already stores sharded
 degrades to plain sync and is recorded on the returned
 :class:`~autodist_tpu_torch.kernel.lowering.Lowered`
-(``zero_degraded``), as the JAX package records it.
+(``zero_degraded``), as the JAX package records it.  Its state manifest
+is the ``replicated_spmd`` family's (JAX ``_spmd`` ``_state_manifest``):
+a ZeRO-3 parameter and a ZeRO variable's optimizer state are flat
+shards of their ZeRO axis, a variable the lowering stores sharded is
+its axis's slice, a compressor's state one row a rank.
 """
 from __future__ import annotations
 
@@ -256,9 +260,11 @@ def build_replicated_spmd(trainable, mesh, *, sync_axes: Sequence[str],
         scaled rule, keeps its own sync and the slot is recorded in
         ``unapplied``, as the JAX package leaves it unapplied).
     """
-    from autodist_tpu_torch.kernel.lowering import (Lowered,
+    from autodist_tpu_torch.kernel.lowering import (Lowered, flat_ops,
+                                                    leaf_record,
                                                     mean_float_leaves,
-                                                    reduce_metrics)
+                                                    reduce_metrics,
+                                                    split_record)
 
     precision = normalize_precision(precision)
     zero3_precision = precision.get("zero3_gather", "fp32")
@@ -435,9 +441,67 @@ def build_replicated_spmd(trainable, mesh, *, sync_axes: Sequence[str],
             out[nm] = t
         return out
 
+    world = math.prod(mesh.shape.values())
+    everyone = "+".join(a for a, n in mesh.shape.items() if n > 1) or \
+        next(iter(mesh.shape), "data")
+
+    def u_local(nm) -> tuple:
+        """A variable's update-space shape on this rank."""
+        if nm in zaxes and zaxes[nm].size > 1:
+            return (common.padded_flat_size(math.prod(shapes[nm]),
+                                            zaxes[nm].size)
+                    // zaxes[nm].size,)
+        if nm in sharded:
+            dim, axis = sharded[nm]
+            return tuple(s // axis.size if d == dim else s
+                         for d, s in enumerate(shapes[nm]))
+        return shapes[nm]
+
+    def layout_of(nm):
+        """A variable's update-space leaf: its global shape, recipe and
+        split."""
+        if nm in zaxes and zaxes[nm].size > 1:
+            glob = (common.padded_flat_size(math.prod(shapes[nm]),
+                                            zaxes[nm].size),)
+            return glob, flat_ops(glob, shapes[nm]), split_record(zaxes[nm], 0)
+        if nm in sharded:
+            dim, axis = sharded[nm]
+            return shapes[nm], [], split_record(axis, dim)
+        return shapes[nm], [], None
+
+    def state_manifest(state):
+        leaves, sync_rec = {}, {}
+        for name, leaf in common.state_leaves(state):
+            shape, ops, split = tuple(leaf.shape), [], None
+            if name.startswith("params/") and name[7:] in shapes:
+                nm = name[7:]
+                if nm in space.zero3 or nm in sharded:
+                    shape, ops, split = layout_of(nm)
+            elif name.startswith("opt_state/"):
+                local = shape
+                var = common.match_var_by_suffix(
+                    name, shapes, shape_ok=lambda v: local == u_local(v))
+                if var is not None:
+                    shape, ops, split = layout_of(var)
+            elif name.startswith("sync_state/"):
+                key = name[len("sync_state/"):]
+                shape = (world, int(leaf.numel()))
+                split = {"axis": everyone, "dim": 0, "ranks": world}
+                pol = policies.get(key)
+                sync_rec[name] = {"rows": world, "width": int(leaf.numel()),
+                                  "compressor": pol.compressor if pol
+                                  else "none"}
+            leaves[name] = leaf_record(shape, leaf.dtype, ops, split)
+        return {"family": "replicated_spmd", "leaves": leaves,
+                "sync": sync_rec}
+
+    sync_init = {nm: comp.init_state_flat(math.prod(u_local(nm)))
+                 for nm, comp in comps.items() if comp.stateful}
     return Lowered(plan=plan, mesh=mesh, device=dev, init_fn=init_fn,
                    step_fn=step_fn, full_params_fn=full_params,
                    eval_fn=eval_fn, batch_axis=sync, placement=batch_spec_fn,
                    zero3_shapes=zero3_shapes,
                    zero_degraded=dict(zero_degraded or {}),
-                   unapplied=unapplied)
+                   unapplied=unapplied, state_manifest_fn=state_manifest,
+                   sync_init=sync_init,
+                   split_axes={a.name: a for a in (*groups.values(), sync)})

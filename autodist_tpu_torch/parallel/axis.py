@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 from typing import Any, Mapping
 
 import torch
@@ -197,32 +198,46 @@ class Axis:
 # --------------------------------------------------------------------------- #
 # Named axes in model code
 # --------------------------------------------------------------------------- #
-# The axes bound by the innermost open axis_scope, by name.  A module
-# global and not a context variable: the autograd engine runs a CUDA
-# backward (and the recompute of a checkpointed layer) on its own
-# thread, which must see the axes the step bound.
+# The live bindings of every name: a stack of (scope token, Axis), the
+# newest last.  A module global and not a context variable: the
+# autograd engine runs a CUDA backward (and the recompute of a
+# checkpointed layer) on its own thread, which must see the axes the
+# step bound.  A scope's exit removes its own entries only, so that two
+# threads whose scopes interleave (A enters, B enters, A exits, B
+# exits) leave nothing bound behind.
 _bound: dict = {}
+_bound_lock = threading.Lock()
 
 
 @contextlib.contextmanager
 def axis_scope(axes: Mapping[str, Axis]):
     """Bind ``{name: Axis}`` for the model code that runs inside the
     ``with`` body, forward and backward (the lowering's counterpart of
-    the mesh axis names ``shard_map`` binds).  Scopes nest; the inner
-    one's names win, and leaving it restores the outer ones."""
-    global _bound
-    prev = _bound
-    _bound = {**prev, **axes}
+    the mesh axis names ``shard_map`` binds).  Scopes nest; the newest
+    binding of a name wins, and leaving a scope removes its bindings
+    only."""
+    token = object()
+    with _bound_lock:
+        for name, axis in axes.items():
+            _bound.setdefault(name, []).append((token, axis))
     try:
         yield
     finally:
-        _bound = prev
+        with _bound_lock:
+            for name in axes:
+                live = [e for e in _bound.get(name, ()) if e[0] is not token]
+                if live:
+                    _bound[name] = live
+                else:
+                    _bound.pop(name, None)
 
 
 def bound_axis(name: str) -> Axis:
     """The axis :func:`axis_scope` bound to ``name``; raises outside
     one, as an unbound axis name does in JAX."""
-    axis = _bound.get(name)
+    with _bound_lock:
+        live = _bound.get(name)
+        axis = live[-1][1] if live else None
     if axis is None:
         raise NameError(
             f"unbound axis name: {name!r}; model code that names a mesh "

@@ -18,14 +18,38 @@ along), and :meth:`Mesh.joint_axis` one over several axes (``data x
 expert``).
 
 :attr:`ResourceSpec.chip` is the card's :class:`ChipSpec`; only the H100
-has one.  The ``dcn`` axis, other ``topology`` keys and ``multihost``
-blocks belong to later items and raise ``NotImplementedError``.
+has one.  ``topology.platform`` is ``"gpu"``, ``"cpu"`` or ``"auto"``;
+``topology.generation`` is ``"h100"`` or ``"auto"`` (the card's name
+decides; an unknown name warns and falls back to it, as the JAX
+package's ``_detect_generation`` does).
+
+A ``multihost`` block (``coordinator``, ``num_processes``,
+``process_id``, each defaulting to its ``AUTODIST_TPU_*`` variable, and
+``local_rank`` / ``local_processes``, defaulting to torchrun's
+``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE``; a
+:class:`~autodist_tpu_torch.runtime.cluster.Cluster` fills both in)
+makes the job span processes: :meth:`ResourceSpec.bootstrap` joins
+this process to the job's ``torch.distributed`` group at
+``tcp://<coordinator>``, over NCCL where every rank of this host has a
+card of its own, else over gloo (the CPU, or ranks sharing a card:
+NCCL refuses two ranks on one device).  The choice is made from the
+device count and the ranks on the host, never by catching a failure.
+Where the ranks on the host are not given, a job that fits this host's
+cards one rank a card is taken to be on this host; a larger one raises
+(it may span hosts, or share cards: the count decides the backend).
+Until it has bootstrapped, a multihost spec plans on its declared
+``topology.num_devices`` and raises without one, as the JAX package
+does.  The ``dcn`` axis and ``topology.num_slices`` belong to a later
+item and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
+import datetime
 import itertools
 import math
+import os
 from typing import Any, Mapping, Optional
 
 import numpy as np
@@ -34,6 +58,7 @@ import torch.distributed as dist
 
 from autodist_tpu_torch import const
 from autodist_tpu_torch.parallel.axis import Axis
+from autodist_tpu_torch.utils import logging
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,14 +75,15 @@ class ChipSpec:
 # H100 SXM: NVIDIA's data sheet (dense rates, 700 W).
 H100 = ChipSpec("h100", peak_bf16_tflops=989.0, peak_fp32_tflops=67.0,
                 hbm_gb=80, hbm_gbps=3350)
+CHIP_SPECS = {"h100": H100}
+PLATFORMS = ("auto", "gpu", "cpu")
+_MULTISLICE_ITEM = "ROADMAP Queue 1, item 9: runtime and multi-host"
 
 
 # Mesh axes the port lays out, and where the others come.
 _PORTED_AXES = (const.DATA_AXIS, const.PIPE_AXIS, const.MODEL_AXIS,
                 const.EXPERT_AXIS, const.SEQ_AXIS)
-_AXIS_ITEMS = {
-    const.DCN_AXIS: "ROADMAP Queue 1, item 9: runtime and multi-host",
-}
+_AXIS_ITEMS = {const.DCN_AXIS: _MULTISLICE_ITEM}
 
 
 @dataclasses.dataclass
@@ -69,6 +95,7 @@ class Mesh:
     shape: dict
     axes: dict = dataclasses.field(default_factory=dict)
     rank: int = 0
+    grouped: bool = True      # False: a layout without process groups
 
     def axis(self, name: str) -> Axis:
         """The named axis (a one-rank axis where the mesh has none)."""
@@ -100,7 +127,8 @@ class Mesh:
                 for d, c in zip(dims, np.unravel_index(j, sub)):
                     at[d] = int(c)
                 ranks.append(int(np.ravel_multi_index(at, sizes)))
-            group = (dist.group.WORLD if size == world
+            group = (None if not self.grouped
+                     else dist.group.WORLD if size == world
                      else dist.new_group(ranks))
             if self.rank in ranks:
                 mine = Axis("+".join(names), size=size, index=index,
@@ -122,6 +150,33 @@ class Mesh:
         return self.axis(const.DATA_AXIS).group
 
 
+def layout_mesh(shape: Mapping[str, int], rank: int = 0) -> Mesh:
+    """The mesh of ``shape`` as rank ``rank`` sees it, with no process
+    groups: the sizes and indices a lowering's plan and state manifest
+    read, for a job that is not this one (a checkpoint's writers)."""
+    shape = {a: int(n) for a, n in shape.items()}
+    sizes = list(shape.values())
+    coords = np.unravel_index(rank, sizes) if sizes else ()
+    axes = {}
+    for i, (name, size) in enumerate(shape.items()):
+        if size > 1:
+            ranks = []
+            for k in range(size):
+                at = [int(c) for c in coords]
+                at[i] = k
+                ranks.append(int(np.ravel_multi_index(at, sizes)))
+            axes[name] = Axis(name, size=size, index=int(coords[i]),
+                              ranks=tuple(ranks))
+    return Mesh(shape=shape, axes=axes, rank=rank, grouped=False)
+
+
+def rank_at(shape: Mapping[str, int], coords: Mapping[str, int]) -> int:
+    """The rank at mesh coordinates ``coords`` (an axis not named: 0)."""
+    sizes = [int(n) for n in shape.values()]
+    return int(np.ravel_multi_index(
+        [int(coords.get(a, 0)) for a in shape], sizes)) if sizes else 0
+
+
 def _world() -> tuple:
     if dist.is_available() and dist.is_initialized():
         return dist.get_world_size(), dist.get_rank()
@@ -133,17 +188,23 @@ class ResourceSpec:
 
     def __init__(self, spec: Optional[Mapping[str, Any]] = None):
         spec = dict(spec or {})
-        unknown = set(spec) - {"topology", "mesh"}
+        unknown = set(spec) - {"topology", "mesh", "multihost"}
         if unknown:
             raise NotImplementedError(
                 f"resource spec keys {sorted(unknown)} are not ported yet "
-                f"(ROADMAP Queue 1, item 9: runtime and multi-host)")
+                f"({_MULTISLICE_ITEM})")
         topo = dict(spec.get("topology") or {})
-        if set(topo) - {"num_devices"}:
+        extra = set(topo) - {"num_devices", "platform", "generation",
+                             "num_slices"}
+        if extra or int(topo.get("num_slices", 1)) != 1:
             raise NotImplementedError(
-                f"topology keys {sorted(set(topo) - {'num_devices'})} are "
-                f"not ported yet (ROADMAP Queue 1, item 9: runtime and "
-                f"multi-host)")
+                f"topology keys {sorted(extra or {'num_slices'})} are not "
+                f"ported yet ({_MULTISLICE_ITEM})")
+        self.platform: str = topo.get("platform", "auto")
+        if self.platform not in PLATFORMS:
+            raise ValueError(f"topology.platform {self.platform!r}; "
+                             f"expected one of {PLATFORMS}")
+        self.generation: str = str(topo.get("generation", "auto")).lower()
         self._requested_devices = topo.get("num_devices")
         self.mesh_shape: dict = dict(spec.get("mesh") or {})
         for ax in self.mesh_shape:
@@ -153,10 +214,42 @@ class ResourceSpec:
             if ax not in _PORTED_AXES:
                 raise NotImplementedError(
                     f"mesh axis {ax!r} is not ported yet ({_AXIS_ITEMS[ax]})")
+        mh = dict(spec.get("multihost") or {})
+        unknown = set(mh) - {"coordinator", "num_processes", "process_id",
+                             "local_rank", "local_processes"}
+        if unknown:
+            raise ValueError(f"unknown multihost keys {sorted(unknown)}")
+        self.coordinator: str = mh.get(
+            "coordinator", const.ENV.AUTODIST_TPU_COORDINATOR.val)
+        self.num_processes: int = int(mh.get(
+            "num_processes", const.ENV.AUTODIST_TPU_NUM_PROCESSES.val))
+        self.process_id: int = int(mh.get(
+            "process_id", const.ENV.AUTODIST_TPU_PROCESS_ID.val))
+        local_rank = mh.get("local_rank", os.environ.get("LOCAL_RANK"))
+        local = mh.get("local_processes", os.environ.get("LOCAL_WORLD_SIZE"))
+        self.local_rank: Optional[int] = (None if local_rank is None
+                                          else int(local_rank))
+        self.local_processes: Optional[int] = (None if local is None
+                                               else int(local))
+        if not 0 <= self.process_id < max(self.num_processes, 1):
+            raise ValueError(f"multihost process_id {self.process_id} is "
+                             f"not a rank of {self.num_processes}")
+        self._bootstrapped = False
+
+    @property
+    def is_multihost(self) -> bool:
+        return self.num_processes > 1
 
     @property
     def chip(self) -> ChipSpec:
-        """The card's constants; raises on any card but an H100."""
+        """The card's constants: the declared generation's, else the
+        card's own; raises on any card but an H100."""
+        if self.generation in CHIP_SPECS:
+            return CHIP_SPECS[self.generation]
+        if self.generation != "auto":
+            logging.warning(
+                "unrecognized chip generation %r (valid: %s); falling back "
+                "to the card's name", self.generation, sorted(CHIP_SPECS))
         name = (torch.cuda.get_device_name(0) if torch.cuda.is_available()
                 else "no CUDA device")
         if "H100" not in name:
@@ -166,7 +259,16 @@ class ResourceSpec:
 
     def num_devices(self) -> int:
         """The job's world size (one process per GPU); a declared
-        ``topology.num_devices`` must equal it."""
+        ``topology.num_devices`` must equal it.  A multihost spec that
+        has not bootstrapped plans on its declared count and raises
+        without one: counting the world would join the job mid-plan."""
+        if self.is_multihost and not self._bootstrapped:
+            if self._requested_devices is None:
+                raise ValueError(
+                    "multihost planning needs an explicit device inventory: "
+                    "declare topology.num_devices (the global count), or "
+                    "bootstrap() first")
+            return int(self._requested_devices)
         world, _ = _world()
         if self._requested_devices not in (None, world):
             raise ValueError(
@@ -184,10 +286,111 @@ class ResourceSpec:
                              f"devices")
         return shape
 
+    def with_mesh(self, mesh_shape: Mapping[str, int]) -> "ResourceSpec":
+        """A copy of this spec with another factorization of the same
+        job (platform, generation, devices and multihost state
+        shared)."""
+        for ax in mesh_shape:
+            if ax not in const.ALL_AXES:
+                raise ValueError(f"unknown mesh axis {ax!r}; valid axes: "
+                                 f"{const.ALL_AXES}")
+            if ax not in _PORTED_AXES:
+                raise NotImplementedError(
+                    f"mesh axis {ax!r} is not ported yet ({_AXIS_ITEMS[ax]})")
+        clone = copy.copy(self)
+        clone.mesh_shape = dict(mesh_shape)
+        return clone
+
+    def three_d(self) -> tuple:
+        """The resolved ``(dp, pp, tp)`` degrees; a mesh with another
+        axis of more than one rank is not such a factorization."""
+        shape = self.resolved_mesh_shape()
+        extra = {a: s for a, s in shape.items() if s > 1 and a not in (
+            const.DATA_AXIS, const.PIPE_AXIS, const.MODEL_AXIS)}
+        if extra:
+            raise ValueError(f"not a (data, pipe, model) factorization: "
+                             f"mesh also carries {extra}")
+        return (shape.get(const.DATA_AXIS, 1), shape.get(const.PIPE_AXIS, 1),
+                shape.get(const.MODEL_AXIS, 1))
+
+    @property
+    def card_index(self) -> int:
+        """This process's card under NCCL: ``local_rank``, else its rank
+        among ``local_processes`` a host, else ``process_id``."""
+        if self.local_rank is not None:
+            return self.local_rank
+        return self.process_id % (self.local_processes or self.num_processes)
+
+    def backend(self) -> str:
+        """The job's ``torch.distributed`` backend: NCCL where this
+        host's ranks each have a card of their own, gloo on the CPU or
+        where ranks share a card."""
+        if self.platform == "cpu" or not torch.cuda.is_available():
+            return "gloo"
+        cards, local = torch.cuda.device_count(), self.local_processes
+        if local is None:
+            if self.num_processes > cards:
+                raise ValueError(
+                    f"a job of {self.num_processes} processes on a host of "
+                    f"{cards} card(s): declare how many of its ranks run on "
+                    "this host (multihost.local_processes and local_rank, "
+                    "or LOCAL_WORLD_SIZE and LOCAL_RANK as torchrun sets "
+                    "them; a Cluster launch fills them in), which decides "
+                    "NCCL (one rank a card) or gloo (ranks sharing a card)")
+            local = self.num_processes
+        return "nccl" if cards >= local else "gloo"
+
+    def bootstrap(self):
+        """Join this process to the job's process group (a multihost
+        spec; nothing otherwise).  Idempotent, and latched only after
+        success, so that a coordinator not up yet can be retried.  Under
+        NCCL this process's card is ``cuda:<card_index>``."""
+        if self._bootstrapped:
+            return
+        if self.is_multihost:
+            if dist.is_initialized():
+                if (dist.get_world_size(), dist.get_rank()) != \
+                        (self.num_processes, self.process_id):
+                    raise ValueError(
+                        f"this process already belongs to a job of "
+                        f"{dist.get_world_size()} rank(s) as rank "
+                        f"{dist.get_rank()}; the spec says rank "
+                        f"{self.process_id} of {self.num_processes}")
+            else:
+                if not self.coordinator:
+                    raise ValueError(
+                        "a multihost spec needs multihost.coordinator (or "
+                        "AUTODIST_TPU_COORDINATOR): the host:port rank 0 "
+                        "serves the job's rendezvous on")
+                backend = self.backend()
+                if backend == "nccl":
+                    torch.cuda.set_device(self.card_index)
+                logging.info("init_process_group(%s, tcp://%s, rank %d of %d)",
+                             backend, self.coordinator, self.process_id,
+                             self.num_processes)
+                dist.init_process_group(
+                    backend, init_method=f"tcp://{self.coordinator}",
+                    rank=self.process_id, world_size=self.num_processes,
+                    timeout=datetime.timedelta(seconds=300))
+        self._bootstrapped = True
+
+    def to_dict(self) -> dict:
+        return {
+            "topology": {"platform": self.platform,
+                         "generation": self.generation,
+                         "num_devices": self._requested_devices},
+            "mesh": dict(self.mesh_shape),
+            "multihost": {"coordinator": self.coordinator,
+                          "num_processes": self.num_processes,
+                          "process_id": self.process_id},
+        }
+
     def make_mesh(self) -> Mesh:
-        """The mesh and its axis groups.  Every process of the job must
-        call it (``torch.distributed.new_group`` is collective), in the
-        same order as the others."""
+        """The mesh and its axis groups (a multihost spec bootstraps
+        first).  Every process of the job must call it
+        (``torch.distributed.new_group`` is collective), in the same
+        order as the others."""
+        self.bootstrap()
         world, rank = _world()
         shape = self.resolved_mesh_shape()
         names, sizes = list(shape), list(shape.values())

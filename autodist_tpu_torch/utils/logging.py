@@ -1,0 +1,70 @@
+"""The project logger: stderr plus a ``<pid>-<timestamp>.log`` file.
+
+The port's copy of ``autodist_tpu/utils/logging.py``.  The level comes
+from ``AUTODIST_TPU_MIN_LOG_LEVEL`` (default ``INFO``); the file goes
+under ``$AUTODIST_TPU_WORKING_DIR/logs`` (default: ``autodist_tpu_torch``
+in the temporary directory, which honours ``TMPDIR``), one file a
+process, so that workers on one host never interleave.  An unwritable
+directory leaves the logger on stderr alone.
+"""
+import logging as _logging
+import os
+import sys
+import time
+
+from autodist_tpu_torch import const
+
+_LOGGER_NAME = "autodist_tpu_torch"
+_logger = None
+
+
+def get_logger():
+    """The process's framework logger (stderr and file handlers)."""
+    global _logger
+    if _logger is not None:
+        return _logger
+    logger = _logging.getLogger(_LOGGER_NAME)
+    logger.propagate = False
+    level = const.ENV.AUTODIST_TPU_MIN_LOG_LEVEL.val.upper()
+    logger.setLevel(getattr(_logging, level, _logging.INFO))
+    fmt = _logging.Formatter(
+        "%(asctime)s %(levelname).1s %(process)d %(filename)s:%(lineno)d] "
+        "%(message)s")
+    sh = _logging.StreamHandler(sys.stderr)
+    sh.setFormatter(fmt)
+    logger.addHandler(sh)
+    log_dir = os.path.join(const.ENV.AUTODIST_TPU_WORKING_DIR.val, "logs")
+    try:
+        os.makedirs(log_dir, exist_ok=True)
+        fh = _logging.FileHandler(os.path.join(
+            log_dir, f"{os.getpid()}-{int(time.time())}.log"))
+        fh.setFormatter(fmt)
+        logger.addHandler(fh)
+    except OSError:       # a read-only disk: stderr alone
+        pass
+    _logger = logger
+    return logger
+
+
+def set_verbosity(level):
+    """The level on the logger and on its handlers."""
+    logger = get_logger()
+    logger.setLevel(level)
+    for handler in logger.handlers:
+        handler.setLevel(level)
+
+
+def debug(msg, *a):
+    get_logger().debug(msg, *a, stacklevel=2)
+
+
+def info(msg, *a):
+    get_logger().info(msg, *a, stacklevel=2)
+
+
+def warning(msg, *a):
+    get_logger().warning(msg, *a, stacklevel=2)
+
+
+def error(msg, *a):
+    get_logger().error(msg, *a, stacklevel=2)

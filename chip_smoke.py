@@ -22,8 +22,10 @@ causal LM through ``SequenceParallel`` on a seq axis of 2 (ring
 attention over K1/K2a/K2b), the training lifecycle around a runner
 (``fit``, eval, checkpoints and resume, export, ``serve(artifact=)``),
 the GSPMD builders, asynchronous PS and the stale-synchronous gate
-over the coordination service, and the model zoo (ResNet-50, VGG16,
-DenseNet121, InceptionV3, NCF and the lm1b LSTM):
+over the coordination service, the model zoo (ResNet-50, VGG16,
+DenseNet121, InceptionV3, NCF and the lm1b LSTM), and the runtime and
+elasticity layer (``Cluster``, fault plans, ``restore_elastic``, the
+``ElasticController``):
 
 1. each kernel against its plain PyTorch version, fp32 (atol = rtol =
    1e-5) and bf16 (atol = rtol = 1e-2), timed with CUDA events beside
@@ -338,7 +340,42 @@ DenseNet121, InceptionV3, NCF and the lm1b LSTM):
    989 TFLOP/s from imagenet.py's forward GFLOPs (x 3); then one more
    replay under the profiler: device busy share and the top kernels a
    step;
-25. one ``{"kernels": [...]}`` line, the card's name and power limit, and
+25. runtime and elasticity (``chip_smoke.py`` starts a chief process,
+   which launches each of two jobs through ``LocalCluster(1)``: one
+   worker process, this script again; both ranks ``bootstrap()`` from
+   the ``multihost`` env, over gloo sharing card 0, or NCCL one rank a
+   card where the machine has 2 or more, printed so): (a) fp32, phase
+   22's 2-layer BERT (flash, dropout 0, ``adam(1e-2, eps=1e-3)``: phase
+   13's rule, lr / eps bounds how far Adam scales a gradient's
+   rounding), the chief publishes ``PS()`` and the worker loads it (JSON
+   equal); a fault plan shipped in ``AUTODIST_TPU_FAULT_PLAN`` fires
+   ``preempt_signal`` on both ranks at step 2, both save (the sidecar
+   written), the worker departs and the chief's
+   ``ElasticController.resume(strategy=AllReduce(), spec={})`` restores
+   alone by the staged route (asserted, the whole state bit-equal to
+   the 2-rank job's at the save: every leaf at its logical shape,
+   Adam's ``mu``, ``nu`` and count included, the seed stream and the
+   host step; the gap to the one-rank run at step 2 printed) and
+   steps twice: params within 1e-5 of each tensor's largest value
+   (floor 1e-3) of an uninterrupted one-rank ``AllReduce`` run of the 4
+   steps; every injected fault record paired with its terminal one; (b)
+   before that, on the same 2 ranks at dropout 0.1, ``hot_swap`` from
+   ``AllReduce`` to ``PS`` after 2 steps by the fast route (asserted),
+   then 2 steps, within the same bound of the unswapped run at the same
+   seed streams; (c) phase 5's BERT-base bf16 configuration through
+   (a)'s flow at 2 ranks, then on the chief alone: the whole state back
+   bit-equal to the saved one as in (a), its ``mu`` bf16, a warm and a
+   timed graph-route
+   window of 2 steps (finite loss), and a hot swap onto ``PS`` (fast
+   route); K1/K2a/K2b held to 12 x the steps of both ranks.  Printed:
+   (a)'s job's seconds from ``launch_clients`` to the chief's first step
+   (job (c)'s worker starts meanwhile and waits at its rendezvous); step
+   ms before (gloo or NCCL) and after the shrink (one rank, graph
+   route); save seconds and bytes and the sidecar's bytes;
+   ``restore_elastic`` seconds, route and ``peak_host_bytes``;
+   ``hot_swap`` seconds and the device bytes it allocates above the two
+   states;
+26. one ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
 Phases 2, 4, 6 (at T = 1), 8 (the dense model) and 11 (one process)
@@ -370,6 +407,7 @@ import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -5616,18 +5654,473 @@ def phase_models():
                LM1B_BATCH)
 
 
+# --------------------------------------------------------------------- #
+# phase 25: runtime and elasticity
+# --------------------------------------------------------------------- #
+ELASTIC_STEPS = 4          # (a)'s and (b)'s steps: 2 before, 2 after
+ELASTIC_AT = 2             # the step both ranks take preempt_signal at
+ELASTIC_WINDOW = 2         # (c)'s graph-route windows after the shrink
+
+
+def elastic_plan():
+    """Both ranks preempted at one step: the chief, and the worker by its
+    host marker (``AUTODIST_TPU_WORKER``, the cluster's host name)."""
+    from autodist_tpu_torch.runtime.faults import FaultPlan, FaultSpec
+
+    return FaultPlan([FaultSpec("preempt_signal", target=t,
+                                at_step=ELASTIC_AT)
+                      for t in ("chief", "localhost")], seed=25)
+
+
+def elastic_parity_cfg(dropout=0.0):
+    """(a) and (b): phase 22's 2-layer BERT (fp32, flash)."""
+    return port.TransformerConfig(
+        num_layers=2, dtype=torch.float32, dropout_rate=dropout,
+        attention_dropout_rate=0.0, attention_fn=fa.make_attention_fn(False))
+
+
+def elastic_parity_opt():
+    # Adam at lr 1e-2 multiplies a gradient's rounding by up to lr / eps
+    # (phase 13's rule): at eps 1e-8 the k bias's exactly-zero gradient
+    # takes whole steps of either sign, and at eps 1e-4 the fp32
+    # rounding of 2 ranks' gradients against one's parts the runs by
+    # more than 1e-5 of a tensor's largest value before any restore.
+    # (a) prints that gap at the restore; the restore itself is held
+    # bit-exact, the whole state (``elastic_state``).
+    return port.optim.adam(1e-2, eps=1e-3)
+
+
+def elastic_state(runner):
+    """Every leaf of ``runner``'s training state at its logical shape,
+    on the host (gathered over the ranks: every rank calls it), with
+    its seed stream and host step: what a restore onto any layout gives
+    back bit for bit."""
+    from autodist_tpu_torch.elastic.reshard import LiveSource, apply_ops
+
+    m = runner.lowered.state_manifest(runner.state)
+    read = LiveSource(runner.lowered, runner.state, m)
+    leaves = {n: apply_ops(read(n), rec["ops"]).cpu()
+              for n, rec in m["leaves"].items() if n not in m.get("sync", {})}
+    return leaves, runner._seeds.get_state(), runner._host_step
+
+
+def elastic_same(a, b) -> bool:
+    """Whether two :func:`elastic_state` results are bit-equal: leaf
+    names, dtypes and values, the seed stream and the host step."""
+    (la, sa, ha), (lb, sb, hb) = a, b
+    return (la.keys() == lb.keys() and ha == hb
+            and all(la[n].dtype == lb[n].dtype and torch.equal(la[n], lb[n])
+                    for n in la)
+            and sa[0] == sb[0] and np.array_equal(sa[1], sb[1])
+            and tuple(sa[2:]) == tuple(sb[2:]))
+
+
+def elastic_faults():
+    """This process's fault records, and whether every injection has a
+    terminal record of the same fault and target."""
+    from autodist_tpu_torch.runtime.faults import TERMINAL_PHASES
+
+    recs = [{k: r.get(k) for k in ("fault", "target", "phase", "action")}
+            for r in telemetry.get().events if r["kind"] == "fault"]
+    done = {(r["fault"], r["target"]) for r in recs
+            if r["phase"] in TERMINAL_PHASES}
+    paired = all((r["fault"], r["target"]) in done for r in recs
+                 if r["phase"] == "injected")
+    return {"records": recs, "paired": paired and bool(recs)}
+
+
+def elastic_routes(since):
+    return [r["route"] for r in telemetry.get().events[since:]
+            if r["kind"] == "reshard"]
+
+
+def elastic_swap(spec):
+    """(b) in one rank: two ``AllReduce`` runners at dropout 0.1 step
+    twice from their seed streams; one is hot-swapped onto ``PS`` (the
+    fast route), then both step twice more.  Returns the largest gap,
+    the routes, the swap's seconds and the swapped update space."""
+    cfg = elastic_parity_cfg(dropout=0.1)
+    steps = window_steps(bert_window(cfg, ELASTIC_STEPS, seed0=2500))
+
+    def build():
+        return port.AutoDist(spec, port.AllReduce()).build(
+            async_bert(cfg, elastic_parity_opt()))
+
+    swapped, plain = build(), build()
+    first_done = None
+    for b in steps[:ELASTIC_AT]:
+        swapped.step(b)
+        plain.step(b)
+        torch.cuda.synchronize()
+        first_done = first_done or time.perf_counter()
+    seen = len(telemetry.get().events)
+    t0 = time.perf_counter()
+    swapped = port.ElasticController(swapped.trainable, None).hot_swap(
+        swapped, strategy=port.PS(), spec=spec)
+    torch.cuda.synchronize()
+    out = {"swap_s": time.perf_counter() - t0, "routes": elastic_routes(seen),
+           "first_done": first_done,
+           "updates": sorted({vp.update for vp in
+                              swapped.lowered.plan.var_plans.values()})}
+    for b in steps[ELASTIC_AT:]:
+        swapped.step(b)
+        plain.step(b)
+    out["gap"] = rel_err(swapped.get_params(), plain.get_params())
+    swapped.close()
+    plain.close()
+    torch.cuda.empty_cache()
+    return out
+
+
+def elastic_train(runner, ctl, steps):
+    """Step ``runner`` under the shipped fault plan until the preemption
+    (the injector fires at ``ELASTIC_AT``; the hook saves).  Returns the
+    steps taken, the save's seconds and each step's milliseconds
+    (synchronized)."""
+    from autodist_tpu_torch.runtime.faults import (FaultInjector,
+                                                   fault_target,
+                                                   load_fault_plan)
+
+    injector = FaultInjector(load_fault_plan(), fault_target())
+    step_ms = []
+    for i, b in enumerate(steps):
+        t0 = time.perf_counter()
+        injector.maybe_fire(i)
+        if ctl.preempted:
+            return i, time.perf_counter() - t0, step_ms
+        runner.step(b)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    raise AssertionError("the fault plan never preempted the run")
+
+
+def elastic_part_a(ad, strategy, trainable, out_dir, chief):
+    """(a) in one rank: ``PS`` on 2 ranks, the plan's preemption at step
+    2 (both ranks save), then the worker departs and the chief resumes
+    alone under ``AllReduce`` (staged), steps twice and runs the
+    uninterrupted one-rank reference."""
+    cfg = elastic_parity_cfg()
+    steps = window_steps(bert_window(cfg, ELASTIC_STEPS, seed0=2600))
+    runner = ad.build(trainable, strategy)
+    saver = port.Saver(os.path.join(out_dir, "ckpt_a"))
+    ctl = port.ElasticController(trainable, saver)
+    previous = ctl.install(runner)
+    try:
+        at, _, _ = elastic_train(runner, ctl, steps)
+        saved = elastic_state(runner)
+        out = {"preempted_at": at, "strategy": strategy.to_json(),
+               "backend": torch.distributed.get_backend()}
+        if not chief:
+            ctl.depart()
+            out["faults"] = elastic_faults()
+            return out
+        out["sidecar"] = saver.read_sidecar(at) is not None
+        seen = len(telemetry.get().events)
+        resumed = ctl.resume(strategy=port.AllReduce(), spec={})
+        out["routes"] = elastic_routes(seen)
+        out["resumed_step"] = resumed.step_count
+        out["leaves"] = len(saved[0])
+        out["restore_exact"] = elastic_same(elastic_state(resumed), saved)
+        ref = port.AutoDist({}, port.AllReduce()).build(
+            async_bert(cfg, elastic_parity_opt()))
+        for b in steps[:at]:
+            ref.step(b)
+        out["gap_at_restore"] = rel_err(resumed.get_params(),
+                                        ref.get_params())
+        for b in steps[at:]:
+            resumed.step(b)
+            ref.step(b)
+        out["gap"] = rel_err(resumed.get_params(), ref.get_params())
+        resumed.close()
+        ref.close()
+        out["faults"] = elastic_faults()
+        return out
+    finally:
+        for sig, prev in previous.items():
+            signal.signal(sig, prev)
+        torch.cuda.empty_cache()
+
+
+def elastic_part_c(ad, strategy, trainable, out_dir, chief):
+    """(c) in one rank: phase 5's BERT-base bf16 configuration through
+    (a)'s flow at 2 ranks; then on the chief alone the resumed runner's
+    graph-route windows, its bf16 ``mu`` held bit-equal to the saved
+    one, and a hot swap onto ``PS`` (the fast route) with its seconds
+    and the device bytes it allocates above the two states."""
+    cfg, _ = async_bf16()
+    steps = window_steps(bert_window(cfg, ELASTIC_AT + 1, seed0=2700))
+    runner = ad.build(trainable, strategy)
+    saver = port.Saver(os.path.join(out_dir, "ckpt_c"))
+    ctl = port.ElasticController(trainable, saver)
+    previous = ctl.install(runner)
+    reset_launches()
+    try:
+        at, save_s, step_ms = elastic_train(runner, ctl, steps)
+        saved = elastic_state(runner)
+        out = {"preempted_at": at, "save_s": save_s, "step_ms": step_ms,
+               "save_bytes": saver.last_save_bytes,
+               "backend": torch.distributed.get_backend()}
+        if not chief:
+            ctl.depart()
+            out["launches"] = launches()
+            out["steps"] = at
+            out["faults"] = elastic_faults()
+            return out
+        out["sidecar_bytes"] = saver.last_sidecar_bytes
+        seen = len(telemetry.get().events)
+        t0 = time.perf_counter()
+        resumed = ctl.resume(strategy=port.AllReduce(chunk_size=256), spec={})
+        torch.cuda.synchronize()
+        out["restore_s"] = time.perf_counter() - t0
+        (rec,) = [r for r in telemetry.get().events[seen:]
+                  if r["kind"] == "reshard"]
+        out["restore"] = {k: rec[k] for k in ("route", "peak_host_bytes",
+                                              "bytes_moved", "duration_ms")}
+        restored = elastic_state(resumed)
+        mu = [t for n, t in restored[0].items() if "/mu/" in f"/{n}/"]
+        out["mu_bf16"] = bool(mu) and all(t.dtype == torch.bfloat16
+                                          for t in mu)
+        out["leaves"] = len(saved[0])
+        out["restore_exact"] = elastic_same(restored, saved)
+        del saved, restored, mu
+        window = resumed.place_steps(bert_window(cfg, ELASTIC_WINDOW,
+                                                 seed0=2750))
+        resumed.run_steps(window)                      # the capture
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = resumed.run_steps(window)
+        torch.cuda.synchronize()
+        out["graph_step_ms"] = ((time.perf_counter() - t0) * 1e3
+                                / ELASTIC_WINDOW)
+        out["graph"] = [resumed.captures, resumed.replays]
+        out["loss_after"] = float(metrics["loss"][-1])
+        # the hot swap, on this rank alone
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        seen = len(telemetry.get().events)
+        t0 = time.perf_counter()
+        swapped = ctl.hot_swap(resumed, strategy=port.PS(), spec={})
+        torch.cuda.synchronize()
+        out["swap_s"] = time.perf_counter() - t0
+        out["swap_routes"] = elastic_routes(seen)
+        out["state_bytes"] = state_bytes(swapped.state)
+        out["swap_extra_bytes"] = (torch.cuda.max_memory_allocated()
+                                   - before - out["state_bytes"])
+        out["loss_swapped"] = float(swapped.step(steps[-1])["loss"])
+        swapped.close()
+        out["launches"] = launches()
+        out["steps"] = at + 2 * ELASTIC_WINDOW + 1
+        out["faults"] = elastic_faults()
+        return out
+    finally:
+        for sig, prev in previous.items():
+            signal.signal(sig, prev)
+        torch.cuda.empty_cache()
+
+
+def elastic_role(role, out_dir):
+    """One process of phase 25's two jobs.  The chief launches each job
+    through its own ``LocalCluster(1)`` (one worker, this script with
+    ``--elastic-role worker-a`` or ``worker-c``), publishing the
+    strategy and shipping the fault plan; both ranks ``bootstrap()``
+    from the ``multihost`` env (gloo where they share a card, NCCL one
+    rank a card).  Job (c)'s worker starts first and waits at its
+    rendezvous while job (a) runs, so that its start-up overlaps (a);
+    each cluster puts back the environment it exported.  Each process
+    writes its results as JSON into ``out_dir``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    script = os.path.abspath(__file__)
+    out = {}
+    if role == "chief":
+        os.environ.update(elastic_plan().ship())
+        jobs = {}
+        for part in ("c", "a"):
+            cluster = port.LocalCluster(1)
+            if part == "a":
+                trainable = async_bert(elastic_parity_cfg(),
+                                       elastic_parity_opt())
+                builder = port.PS()
+            else:
+                trainable = async_bert(*async_bf16())
+                builder = port.AllReduce(chunk_size=256)
+            ad = port.AutoDist(cluster.resource_spec, builder)
+            strategy = ad.build_or_load_strategy(trainable)
+            t_launch = time.perf_counter()
+            cluster.launch_clients(strategy, argv=[
+                sys.executable, script, "--elastic-role", f"worker-{part}",
+                "--elastic-dir", out_dir])
+            jobs[part] = (cluster, ad, strategy, trainable, t_launch)
+        try:
+            for part in ("a", "c"):
+                cluster, ad, strategy, trainable, t_launch = jobs.pop(part)
+                try:
+                    cluster.resource_spec.bootstrap()
+                    if part == "a":
+                        out["b"] = elastic_swap(cluster.resource_spec)
+                        out["b"]["first_step_s"] = (out["b"].pop("first_done")
+                                                    - t_launch)
+                        out["a"] = elastic_part_a(ad, strategy, trainable,
+                                                  out_dir, True)
+                    else:
+                        out["c"] = elastic_part_c(ad, strategy, trainable,
+                                                  out_dir, True)
+                    cluster.join(timeout=300)
+                finally:
+                    cluster.terminate()
+                del trainable
+                torch.cuda.empty_cache()
+        finally:
+            for cluster, *_ in jobs.values():
+                cluster.terminate()
+    else:
+        part = role[-1]
+        spec = port.ResourceSpec({})
+        spec.bootstrap()
+        trainable = (async_bert(elastic_parity_cfg(), elastic_parity_opt())
+                     if part == "a" else async_bert(*async_bf16()))
+        ad = port.AutoDist(spec)
+        # the chief's, taken once: (b)'s builds then build their own
+        strategy = ad.build_or_load_strategy(trainable)
+        if part == "a":
+            out["b"] = elastic_swap(spec)
+        run = elastic_part_a if part == "a" else elastic_part_c
+        out[part] = run(ad, strategy, trainable, out_dir, False)
+    with open(os.path.join(out_dir, f"{role}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_elastic():
+    """Phase 25: runtime and elasticity on card 0 (or one rank a card).
+    (a) fp32 parity of a preempted ``PS`` job resumed alone under
+    ``AllReduce`` against an uninterrupted one-rank run; (b) a hot swap
+    against no swap; (c) BERT-base bf16 through the same flow, with its
+    seconds and bytes.  Returns (c)'s launches (both ranks')."""
+    label = card()
+    build.build()          # one build for the job's three processes
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--elastic-role",
+             "chief", "--elastic-dir", tmp], timeout=600)
+        check(proc.returncode == 0,
+              f"phase 25: the chief exited with {proc.returncode}")
+        res = {}
+        for role in ("chief", "worker-a", "worker-c"):
+            with open(os.path.join(tmp, f"{role}.json")) as f:
+                res[role] = json.load(f)
+    chief, wa, wc = res["chief"], res["worker-a"], res["worker-c"]
+    a, b, c = chief["a"], chief["b"], chief["c"]
+    backend = a["backend"]
+    where = ("2 ranks over gloo sharing card 0" if backend == "gloo"
+             else "2 ranks over NCCL, one a card")
+    # (a)
+    check(wa["a"]["strategy"] == a["strategy"],
+          "phase 25 (a): the worker's strategy is not the chief's")
+    check(a["preempted_at"] == wa["a"]["preempted_at"] == ELASTIC_AT
+          and a["sidecar"], f"phase 25 (a): preempted at "
+          f"{a['preempted_at']} / {wa['a']['preempted_at']}, sidecar "
+          f"{a['sidecar']}")
+    check(a["routes"] == ["staged"] and a["resumed_step"] == ELASTIC_AT
+          and a["restore_exact"], f"phase 25 (a): restore routes "
+          f"{a['routes']} at step {a['resumed_step']}, the whole state "
+          f"bit-equal to the saved one {a['restore_exact']}")
+    check(a["gap"] <= 1e-5, f"phase 25 (a): the resumed run's params are "
+                            f"{a['gap']:.3g} of a tensor's largest value "
+                            f"off the uninterrupted run's")
+    for who, f in (("chief", a["faults"]), ("worker", wa["a"]["faults"]),
+                   ("chief", c["faults"]), ("worker", wc["c"]["faults"])):
+        check(f["paired"], f"phase 25: {who}'s fault records are not "
+                           f"paired: {f['records']}")
+    print(f"phase 25 (a) fp32 2-layer BERT [{label}], {where}: a chief "
+          f"published PS() through LocalCluster(1), the worker loaded it "
+          f"(JSON equal); preempt_signal on both ranks at step {ELASTIC_AT}"
+          f" (both saved, sidecar written), the worker departed, the chief "
+          f"resumed alone under AllReduce by the {a['routes'][0]} route "
+          f"(the whole state, {a['leaves']} leaves with Adam's mu, nu "
+          f"and count, the seed stream and the host step, bit-equal to "
+          f"the 2-rank job's at the save; "
+          f"{a['gap_at_restore']:.3g} of each tensor's largest value off the one-rank run at step "
+          f"{ELASTIC_AT}) and stepped twice: params within {a['gap']:.3g} "
+          f"(floor 1e-3; bound 1e-5) of an uninterrupted one-rank "
+          f"AllReduce run; fault records "
+          f"{[r['phase'] for r in a['faults']['records']]} (chief), "
+          f"{[r['phase'] for r in wa['a']['faults']['records']]} (worker)",
+          flush=True)
+    # (b)
+    for who, r in (("chief", b), ("worker", wa["b"])):
+        check(r["routes"] == ["fast"] and r["updates"] == ["flat"],
+              f"phase 25 (b) {who}: routes {r['routes']}, update spaces "
+              f"{r['updates']}")
+        check(r["gap"] <= 1e-5, f"phase 25 (b) {who}: the swapped run is "
+                                f"{r['gap']:.3g} off the unswapped one")
+    print(f"phase 25 (b) fp32 2-layer BERT, dropout 0.1 [{label}], {where}:"
+          f" from launch_clients to the chief's first step "
+          f"{b['first_step_s']:.2f} s; hot_swap AllReduce -> PS after "
+          f"{ELASTIC_AT} steps by the fast "
+          f"route in {b['swap_s']:.3f} s, then {ELASTIC_STEPS - ELASTIC_AT} "
+          f"steps: params within {max(b['gap'], wa['b']['gap']):.3g} of the "
+          f"unswapped run at the same seed streams (bound 1e-5)", flush=True)
+    # (c)
+    wcc = wc["c"]
+    check(c["preempted_at"] == wcc["preempted_at"] == ELASTIC_AT,
+          f"phase 25 (c): preempted at {c['preempted_at']} / "
+          f"{wcc['preempted_at']}")
+    check(c["restore"]["route"] == "staged" and c["mu_bf16"]
+          and c["restore_exact"], f"phase 25 (c): restore {c['restore']}, "
+          f"mu bf16 {c['mu_bf16']}, the whole state bit-equal "
+          f"{c['restore_exact']}")
+    check(math.isfinite(c["loss_after"]) and math.isfinite(
+        c["loss_swapped"]), f"phase 25 (c): losses {c['loss_after']}, "
+        f"{c['loss_swapped']}")
+    check(c["graph"] == [1, 2] and c["swap_routes"] == ["fast"],
+          f"phase 25 (c): captures/replays {c['graph']}, swap routes "
+          f"{c['swap_routes']}")
+    steps = c["steps"] + wcc["steps"]
+    got = {k: c["launches"][k] + wcc["launches"][k] for k in KERNELS}
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(dict.fromkeys(TRAINING_KERNELS, 12 * steps))
+    check(got == want, f"phase 25 (c): launches {got}, expected {want}")
+    gb = 1e9
+    print(f"phase 25 (c) BERT-base bf16 AllReduce(256) [{label}], {where} "
+          f"then one rank (its worker started during (a)): step ms before "
+          f"the shrink "
+          f"({backend}, host-staged where gloo) chief "
+          f"{[round(x, 1) for x in c['step_ms']]}, worker "
+          f"{[round(x, 1) for x in wcc['step_ms']]}; preemption save "
+          f"{c['save_s']:.2f} s (chief) / {wcc['save_s']:.2f} s (worker), "
+          f"{c['save_bytes'] / gb:.3f} + {wcc['save_bytes'] / gb:.3f} GB, "
+          f"sidecar {c['sidecar_bytes']} bytes; restore_elastic (the "
+          f"whole state, {c['leaves']} leaves, bf16 mu, bit-equal) "
+          f"{c['restore_s']:.2f} s ({c['restore']['duration_ms']:.0f} ms in "
+          f"the engine), route {c['restore']['route']}, peak_host_bytes "
+          f"{c['restore']['peak_host_bytes']}, logical bytes "
+          f"{c['restore']['bytes_moved']}; step ms after the shrink (one "
+          f"rank, graph route) {c['graph_step_ms']:.1f}, loss "
+          f"{c['loss_after']:.4f}; hot_swap AllReduce -> PS "
+          f"{c['swap_s']:.2f} s, {c['swap_extra_bytes'] / gb:.3f} GB above "
+          f"the two states ({c['state_bytes'] / gb:.3f} GB each); launches "
+          f"{got} over {steps} steps", flush=True)
+    return got
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--phases",
         default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21,"
-                "22,23,24",
+                "22,23,24,25",
         help="comma-separated phases to run (default: all); the kernels "
              "line needs them all")
-    phases = {int(p) for p in parser.parse_args(argv).phases.split(",")}
+    parser.add_argument("--elastic-role", help=argparse.SUPPRESS)
+    parser.add_argument("--elastic-dir", help=argparse.SUPPRESS)
+    args = parser.parse_args(argv)
+    phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.elastic_role:              # a process of phase 25's jobs
+        elastic_role(args.elastic_role, args.elastic_dir)
+        return 0
     t0 = time.perf_counter()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} "
@@ -5665,7 +6158,8 @@ def main(argv=None) -> int:
              (21, lambda: add(phase_overlap())),
              (22, lambda: add(phase_gspmd())),
              (23, lambda: add(phase_async())),
-             (24, phase_models)]
+             (24, phase_models),
+             (25, lambda: add(phase_elastic()))]
     for phase, run in steps:
         if phase in phases:
             t1 = time.perf_counter()

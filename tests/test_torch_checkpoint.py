@@ -20,7 +20,8 @@ weights and batches, Adam so that a resume must carry optimizer state):
   hook writes a checkpoint before the process dies; an injected write
   failure is retried, degrades (counter and ``kind="fault"`` event), or
   raises ``CheckpointSaveError`` with its step, an async one at the next
-  join; ``restore_elastic`` raises naming ROADMAP item 9.
+  join; ``restore_elastic`` with no checkpoint raises as ``restore``
+  does (``tests/test_torch_elastic.py`` holds the elastic restore).
 """
 import os
 import subprocess
@@ -134,8 +135,7 @@ def test_latest_step_and_missing(tmp_path):
     assert saver.latest_step() is None
     with pytest.raises(FileNotFoundError):
         saver.restore_params()
-    with pytest.raises(NotImplementedError,
-                       match="item 9: runtime and multi-host"):
+    with pytest.raises(FileNotFoundError):
         saver.restore_elastic(build(port.PS()))
 
 

@@ -1659,3 +1659,115 @@ def test_cuda_resnet18_window_replay_equals_step_calls(cuda):
             assert float((t - want[name]).abs().max()) <= 1e-5 * scale, name
     graph.close()
     loop.close()
+
+
+# --------------------------------------------------------------------- #
+# Runtime and elasticity on the card
+# --------------------------------------------------------------------- #
+_ELASTIC_DEFS = """
+import torch
+import autodist_tpu_torch as port
+from autodist_tpu_torch.models import bert
+from autodist_tpu_torch.ops.flash_attention import make_attention_fn
+
+
+def _elastic_bert(dropout=0.0):
+    # A small fp32 BERT on the flash path (K1, K2a, K2b), weights on the
+    # CPU from seed 0; Adam at eps 1e-3, chip_smoke phase 25's: lr / eps
+    # bounds how far Adam scales the rounding of 2 ranks' gradients.
+    cfg = port.TransformerConfig(
+        vocab_size=256, hidden_size=128, num_layers=2, num_heads=2,
+        mlp_dim=256, max_len=64, dtype=torch.float32, dropout_rate=dropout,
+        attention_dropout_rate=0.0, attention_fn=make_attention_fn(False))
+    return bert.make_mlm_trainable(cfg, port.optim.adam(1e-2, eps=1e-3),
+                                   torch.Generator().manual_seed(0),
+                                   with_input_mask=False, device="cpu")
+
+
+def _elastic_batches(k=4):
+    out = []
+    for s in range(k):
+        b = bert.synthetic_mlm_batch(40 + s, 8, 64, 8, 256)
+        b.pop("input_mask")
+        out.append(b)
+    return out
+"""
+exec(_ELASTIC_DEFS)     # the test and its ranks share one definition
+
+
+def _held(got, want):
+    """chip_smoke phase 25's bound: every tensor within 1e-5 of its
+    largest value (floor 1e-3)."""
+    w = dict(flatten_with_names(want))
+    for name, t in flatten_with_names(got):
+        scale = max(float(w[name].abs().max()), 1e-3)
+        assert float((t.float() - w[name].float()).abs().max()) <= \
+            1e-5 * scale, name
+
+
+_ELASTIC_WORKER = _ELASTIC_DEFS + """
+import sys
+from autodist_tpu_torch import testing
+
+rank, world, store, ckpt = sys.argv[1:5]
+rank, world = int(rank), int(world)
+torch.backends.cuda.matmul.allow_tf32 = False
+testing.init_rank(rank, world, store)
+runner = port.AutoDist({}, port.PS()).build(_elastic_bert())
+for b in _elastic_batches()[:2]:
+    runner.step(b)
+port.Saver(ckpt).save(runner)
+if rank == 0:
+    torch.save(runner.get_params(), ckpt + "/params.pt")
+testing.end_rank()
+"""
+
+
+def test_cuda_staged_shrink_two_ranks_to_one(cuda, tmp_path):
+    """PS on 2 gloo ranks sharing the card, 2 steps, saved; restored
+    alone under AllReduce on the card by the staged route and stepped
+    twice: within phase 25 (a)'s bound of an uninterrupted one-rank run."""
+    from autodist_tpu_torch import telemetry, testing
+
+    ckpt = tmp_path / "ckpt"
+    testing.launch(_ELASTIC_WORKER, 2, (ckpt,), tmp=tmp_path / "job",
+                   timeout=300)()
+    telemetry.reset()
+    resumed = port.AutoDist({}, port.AllReduce()).build(_elastic_bert())
+    port.Saver(str(ckpt)).restore_elastic(resumed)
+    (rec,) = [r for r in telemetry.get().events if r["kind"] == "reshard"]
+    assert rec["route"] == "staged" and resumed.step_count == 2
+    assert resumed.state["params"]["token_embed/embedding"].is_cuda
+    saved = dict(flatten_with_names(torch.load(ckpt / "params.pt")))
+    for name, t in flatten_with_names(resumed.get_params()):
+        assert torch.equal(t.cpu(), saved[name].cpu()), name
+    batches = _elastic_batches()
+    for b in batches[2:]:
+        resumed.step(b)
+    ref = port.AutoDist({}, port.AllReduce()).build(_elastic_bert())
+    for b in batches:
+        ref.step(b)
+    _held(resumed.get_params(), ref.get_params())
+
+
+def test_cuda_fast_hot_swap_continues_the_trajectory(cuda):
+    """hot_swap AllReduce -> PS on the card after 2 steps at dropout 0.1
+    (the fast route: no host copy), then 2 steps: within phase 25 (b)'s
+    bound of the unswapped run at the same seed stream."""
+    from autodist_tpu_torch import telemetry
+
+    telemetry.reset()
+    swapped = port.AutoDist({}, port.AllReduce()).build(_elastic_bert(0.1))
+    plain = port.AutoDist({}, port.AllReduce()).build(_elastic_bert(0.1))
+    batches = _elastic_batches()
+    for b in batches[:2]:
+        swapped.step(b)
+        plain.step(b)
+    swapped = port.ElasticController(swapped.trainable, None).hot_swap(
+        swapped, strategy=port.PS(), spec={})
+    (rec,) = [r for r in telemetry.get().events if r["kind"] == "reshard"]
+    assert rec["route"] == "fast" and rec["peak_host_bytes"] == 0
+    for b in batches[2:]:
+        swapped.step(b)
+        plain.step(b)
+    _held(swapped.get_params(), plain.get_params())

@@ -530,12 +530,21 @@ def test_out_of_slice_options_raise(what, jtrainable, jparams):
         if what == "mesh_axis":
             port.ResourceSpec({"mesh": {"data": 1, "dcn": 2}})
         elif what == "topology_key":
+            # platform and generation are ported; multi-slice is not.
+            port.ResourceSpec({"topology": {"platform": "gpu",
+                                            "generation": "h100"}})
             with pytest.raises(NotImplementedError,
                                match="item 9: runtime and multi-host"):
-                port.ResourceSpec({"topology": {"generation": "v5e"}})
-            port.ResourceSpec({"topology": {"generation": "v5e"}})
+                port.ResourceSpec({"topology": {"num_slices": 2}})
+            port.ResourceSpec({"topology": {"num_slices": 2}})
         elif what == "multihost":
-            port.ResourceSpec({"multihost": {"num_processes": 2}})
+            # The multihost block is ported (it plans on a declared
+            # device count until it bootstraps); a dcn axis is not.
+            spec = port.ResourceSpec({"topology": {"num_devices": 2},
+                                      "multihost": {"num_processes": 2}})
+            assert spec.is_multihost and spec.num_devices() == 2
+            port.ResourceSpec({"multihost": {"num_processes": 2},
+                               "mesh": {"dcn": 2}})
         else:
             # The default builder runs; AutoStrategy does not yet.
             port.AutoDist({}, "AutoStrategy")
