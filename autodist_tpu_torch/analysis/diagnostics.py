@@ -17,6 +17,11 @@ _SEVERITY_ORDER = {ERROR: 0, WARNING: 1, INFO: 2}
 
 # code -> (default severity, one-line summary), as in the JAX package.
 CODES: dict = {
+    "ADT060": (ERROR, "model/pipeline sharding rides the cross-slice "
+                      "dcn axis (DCN carries only data parallelism)"),
+    "ADT061": (WARNING, "expert axis sharded across the DCN slice "
+                        "boundary (every dispatch/combine all_to_all "
+                        "rides the slow inter-slice links)"),
     "ADT070": (ERROR, "reshard source/target state trees incompatible "
                       "(leaf set or logical shape/dtype mismatch)"),
     "ADT071": (WARNING, "compressor error-feedback state not "

@@ -1,16 +1,108 @@
-"""Plan rules: the reshard compatibility lint (ADT070, ADT071) and the
-supervision lint (ADT080 to ADT082).
+"""Plan rules: the hierarchical-topology rules (ADT060, ADT061), the
+reshard compatibility lint (ADT070, ADT071) and the supervision lint
+(ADT080 to ADT082).
 
 The port's copy of those rules of ``autodist_tpu/analysis/plan_rules.py``,
 with the same codes, messages and ``where`` fields.  A manifest leaf's
 port-only ``split`` field (where the ranks' parts lie) plays no part in
 compatibility: the lint compares logical shapes and dtypes.
+
+:func:`lint_plan` runs every rule registered in :data:`PLAN_RULES` over
+a (possibly hand-edited) strategy before it lowers; each rule is a
+generator over :class:`PlanContext` that reports and never raises.  The
+port registers the two rules of the ``dcn`` axis; the rest of the JAX
+package's plan rules come with the simulator.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
+from autodist_tpu_torch import const
 from autodist_tpu_torch.analysis.diagnostics import Diagnostic, LintReport
+
+
+@dataclasses.dataclass
+class PlanContext:
+    """Everything a plan rule may consult (JAX ``PlanContext``)."""
+
+    strategy: object
+
+    @property
+    def graph(self):
+        return self.strategy.graph_config
+
+    @property
+    def parallel(self) -> dict:
+        return self.strategy.graph_config.parallel or {}
+
+
+PLAN_RULES = []
+
+
+def plan_rule(fn):
+    PLAN_RULES.append(fn)
+    return fn
+
+
+@plan_rule
+def rule_dcn_axis_misuse(ctx: PlanContext):
+    """The dcn axis joins slices (nodes) over the slow network: it may
+    carry only data-parallel gradient sync.  A partitioner record that
+    shards a *variable* over ``dcn`` puts model or pipeline collectives
+    on the slow level, so a hand-edited one is almost certainly a
+    mistake."""
+    for nc in ctx.strategy.node_configs:
+        part = nc.partitioner
+        if part is None:
+            continue
+        spec_hits = False
+        for entry in (part.spec or []):
+            leaves = entry if isinstance(entry, (list, tuple)) else [entry]
+            if const.DCN_AXIS in [a for a in leaves if a]:
+                spec_hits = True
+                break
+        if not spec_hits and not (part.spec is None
+                                  and part.mesh_axis == const.DCN_AXIS
+                                  and part.num_shards > 1):
+            continue
+        yield Diagnostic(
+            "ADT060",
+            "partitioner shards this variable over the cross-slice "
+            "'dcn' axis; DCN carries only data-parallel sync — keep "
+            "tensor/pipeline sharding within a slice",
+            where=nc.var_name,
+            fix="shard over 'model'/'pipe' (ici axes) and leave 'dcn' "
+                "to the data-parallel replica set")
+
+
+@plan_rule
+def rule_expert_over_dcn(ctx: PlanContext):
+    """Expert sharding across the slice boundary is legal, but every
+    dispatch/combine ``all_to_all`` then rides the slow inter-slice
+    links, so it warns rather than errors."""
+    if ctx.graph.lowering != "expert":
+        return
+    if ctx.parallel.get("expert_over_dcn"):
+        yield Diagnostic(
+            "ADT061",
+            "expert axis spans the cross-slice DCN boundary: every "
+            "dispatch/combine all_to_all pays inter-slice bandwidth "
+            "and latency (the hierarchical cost model prices this; "
+            "elect it only when the numbers say so)",
+            where="parallel.expert_over_dcn",
+            fix="keep the expert axis within a slice unless the "
+                "priced across-DCN placement wins on this topology")
+
+
+def lint_plan(strategy) -> LintReport:
+    """Every rule of :data:`PLAN_RULES` over ``strategy`` (JAX
+    ``lint_plan``)."""
+    ctx = PlanContext(strategy=strategy)
+    report = LintReport()
+    for rule in PLAN_RULES:
+        report.extend(rule(ctx))
+    return report.sorted()
 
 
 def sync_rows_transferable(source: dict, target: dict) -> bool:

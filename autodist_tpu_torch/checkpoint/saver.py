@@ -39,14 +39,17 @@ event while training goes on from the last good checkpoint.
 A full save also writes an **elastic sidecar**, ``elastic/<step>.json``
 (``kind: "elastic_meta"``: the Strategy JSON, the mesh and the writing
 lowering's state manifest), rank 0 writing it once every rank's files
-are there; it is pruned with its checkpoint, and a sidecar that cannot
-be written (the pipeline family has no manifest yet) only warns: the
-checkpoint then restores onto its own layout alone.
-:meth:`Saver.restore_elastic` restores a full checkpoint onto another
-strategy, mesh and world size through the reshard engine's staged route
-(:mod:`autodist_tpu_torch.elastic.reshard`), optimizer state included;
-a checkpoint written before sidecars existed needs the writer's
-``strategy=``.
+are there; it is pruned with its checkpoint.  Every lowering family
+records a manifest (collective, ``replicated_spmd``, ``simple`` and
+``pipeline``: the interleave permutation, the padded vocab table, the
+ZeRO-3 rows), so a ``Pipeline`` job's save writes its sidecar like any
+other; a sidecar that still cannot be written only warns, as in the
+JAX package, and the checkpoint then restores onto its own layout
+alone.  :meth:`Saver.restore_elastic` restores a full checkpoint onto
+another strategy, mesh and world size through the reshard engine's
+staged route (:mod:`autodist_tpu_torch.elastic.reshard`), optimizer
+state included; a checkpoint written before sidecars existed needs the
+writer's ``strategy=``.
 """
 from __future__ import annotations
 
@@ -309,7 +312,7 @@ class Saver:
     def _sidecar_record(self, runner, step: int) -> Optional[dict]:
         """The elastic sidecar of a full save at ``step``: the Strategy
         JSON, the mesh and the state manifest (``None`` where the
-        lowering has no manifest: a warning, never a failed save)."""
+        manifest cannot be made: a warning, never a failed save)."""
         try:
             manifest = runner.lowered.state_manifest(runner.state)
         except Exception as e:   # noqa: BLE001 — best effort, as in JAX

@@ -43,7 +43,6 @@ from typing import Any, Callable, Iterable, Iterator, Optional
 import numpy as np
 import torch
 
-from autodist_tpu_torch import const
 from autodist_tpu_torch.device import resolve_device
 from autodist_tpu_torch.resource import _world
 from autodist_tpu_torch.runner import _Placed, batch_size, cut_leaf
@@ -102,7 +101,8 @@ class DataLoader:
     ``lowered`` (the runner's) says how each leaf is cut under
     ``global_batches`` (a pipe-, seq- or expert-axis mesh cuts other
     than dim 0 over data) and where batches go (``lowered.device``);
-    without it leaves cut dim 0 over the mesh's data axis and go to
+    without it leaves cut dim 0 over the mesh's replica group (``dcn x
+    data`` on a multi-slice mesh, JAX ``replica_axes``) and go to
     ``device`` (``None``: the card).  ``buffer_size`` batches are kept
     in flight."""
 
@@ -139,8 +139,9 @@ class DataLoader:
         if self.lowered is not None:
             cuts = self.lowered.placement_of(batch)
         else:
-            data = self.mesh.axis(const.DATA_AXIS)
-            cuts = {key: ((0, data),) for key in batch}
+            # The whole replica group: dcn x data on a multi-slice mesh.
+            repl = self.mesh.replica_axis()
+            cuts = {key: ((0, repl),) for key in batch}
         return {key: cut_leaf(key, x, cuts[key])
                 for key, x in batch.items()}
 

@@ -15,6 +15,13 @@ state one leaf at a time:
 3. this rank's part of that, cut along each ``split`` of the target's
    record.
 
+Every lowering family's manifest takes this path: the collective,
+``replicated_spmd`` and ``simple`` ones, and the ``pipeline`` one,
+whose leaves carry the interleave permutation (``index0``), the padded
+vocab table and ZeRO-3 rows (``slice``, ``flat_slice``) and split over
+pipe, then model or a ZeRO axis (a ZeRO-1/2 state's two splits on one
+dim nest: the ZeRO ranks' parts join first, then the pipe ranks').
+
 Two routes, as in the JAX package:
 
 * **fast** (source and target meshes are the same ranks: a live hot
@@ -218,14 +225,9 @@ def shard_budget(*lowered_state_pairs) -> int:
 # --------------------------------------------------------------------------- #
 def _axis(lowered, name: str):
     """The :class:`~autodist_tpu_torch.parallel.axis.Axis` a split names
-    on ``lowered``'s mesh (joint axes as the lowering made them)."""
-    if name in lowered.split_axes:
-        return lowered.split_axes[name]
-    if "+" not in name:
-        return lowered.mesh.axis(name)
-    axis = lowered.mesh.joint_axis(tuple(name.split("+")))
-    lowered.split_axes[name] = axis
-    return axis
+    on ``lowered``'s mesh (a joint axis as the lowering made it: the
+    mesh keeps each)."""
+    return lowered.mesh.joint_axis(tuple(name.split("+")))
 
 
 def _my_part(arr, record: dict, lowered):

@@ -24,10 +24,16 @@ update spaces, where its optimizer update runs:
   AllReduce synchronizer (PartitionedAR) the parameter stays whole and
   its gradient is reduce-scattered along the dimension.
 
+The replicas are the mesh's replica axes (:func:`replica_axes`):
+``data``, or ``dcn x data`` on a multi-slice mesh, one joint
+:class:`~autodist_tpu_torch.parallel.axis.Axis` whose ranks every
+bucket, flat shard and slice above spans (``Plan.repl_axes``).
+
 A step is, in order: the loss and its gradients on this replica's part
-of the batch (dropout seed folded with the replica index; the data axis
-bound by name, forward and backward, so that model code may name it as
-flax's cross-replica BatchNorm does; the eval program binds none), over
+of the batch (dropout seed folded with the replica index; the replica
+axes bound by name, forward and backward, so that model code may name
+``data`` as flax's cross-replica BatchNorm does; the eval program binds
+none), over
 ``accum_steps`` microbatches where the strategy asks
 (:func:`~autodist_tpu_torch.kernel.common.accumulate_microbatches`);
 the buckets' compressed all-reduces (with one replica the no-op
@@ -71,6 +77,7 @@ from autodist_tpu_torch.device import resolve_device
 from autodist_tpu_torch.kernel import common
 from autodist_tpu_torch.kernel.compressor import Compressor
 from autodist_tpu_torch.parallel.axis import axis_scope
+from autodist_tpu_torch.resource import REPLICA_AXES
 from autodist_tpu_torch.strategy.ir import (AllReduceSynchronizer,
                                             PSSynchronizer,
                                             normalize_precision)
@@ -131,13 +138,26 @@ class Plan:
     ssp_staleness: int = 0        # max PSSynchronizer.staleness (the
                                   # runner's host-side SSP gate), stamped
                                   # by AutoDist.lower
+    repl_axes: tuple = (const.DATA_AXIS,)   # ("dcn", "data") multi-slice
+
+
+def replica_axes(mesh) -> tuple:
+    """The data-parallel replica axes of a mesh: ``("dcn", "data")``
+    where a cross-slice axis exists, else ``("data",)``; raises without
+    a data axis (JAX ``replica_axes``)."""
+    axes = tuple(a for a in REPLICA_AXES if a in mesh.shape)
+    if const.DATA_AXIS not in axes:
+        raise ValueError(
+            f"mesh {dict(mesh.shape)} has no '{const.DATA_AXIS}' axis")
+    return axes
 
 
 def make_plan(trainable, strategy, mesh) -> Plan:
     """Resolve a Strategy against a mesh.  A partitioner's shard count
-    resolves to the data axis's size, whatever it says (the JAX
+    resolves to the replica group's size, whatever it says (the JAX
     package's mesh resolution)."""
-    n = mesh.num_replicas
+    repl = replica_axes(mesh)
+    n = math.prod(mesh.shape[a] for a in repl)
     gc = strategy.graph_config
     if gc.replicas not in (0, n):
         raise ValueError(f"strategy built for {gc.replicas} replicas; the "
@@ -145,10 +165,9 @@ def make_plan(trainable, strategy, mesh) -> Plan:
     if gc.lowering != "collective":
         raise ValueError(f"make_plan resolves the collective lowering; "
                          f"this strategy's is {gc.lowering!r}")
-    if any(size > 1 for ax, size in mesh.shape.items()
-           if ax != const.DATA_AXIS):
+    if any(size > 1 for ax, size in mesh.shape.items() if ax not in repl):
         raise ValueError(f"the collective lowering runs on a data-only "
-                         f"mesh; this one is {mesh.shape}")
+                         f"mesh (dcn x data); this one is {mesh.shape}")
     node_index = {nc.var_name: nc for nc in strategy.node_configs}
     var_plans, buckets, bucket_comp = {}, {}, {}
     for info in trainable.var_infos():
@@ -195,7 +214,7 @@ def make_plan(trainable, strategy, mesh) -> Plan:
                 bucket_comp[key] = sync.compressor
         var_plans[info.name] = plan
     return Plan(var_plans=var_plans, num_replicas=n, buckets=buckets,
-                bucket_compressor=bucket_comp)
+                bucket_compressor=bucket_comp, repl_axes=repl)
 
 
 def sync_state_init(plan: Plan) -> dict:
@@ -224,11 +243,11 @@ def _flat_all_reduce(tensors: list, reduce, dtype) -> list:
 
 
 def reduce_metrics(metrics: dict, mesh, axis=None) -> dict:
-    """Metrics across replicas (``axis``, by default the data axis),
+    """Metrics across replicas (``axis``, by default the replica group),
     leaf by leaf at any shape (a fetched tensor too): floats averaged,
     integer counts summed, flags OR-ed, each kind in one all-reduce."""
     metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
-    axis = mesh.axis(const.DATA_AXIS) if axis is None else axis
+    axis = mesh.replica_axis() if axis is None else axis
     if axis.size == 1 or not metrics:
         return metrics
     floats = [k for k, v in metrics.items() if v.is_floating_point()]
@@ -352,9 +371,9 @@ class Lowered:
     collective where variables are sharded; the identity otherwise);
     ``batch_axis`` is the :class:`~autodist_tpu_torch.parallel.axis
     .Axis` whose ranks each take a shard of the batch (``None``: the
-    data axis); ``placement`` (``batch -> {leaf name: ((dim, Axis),
-    ...)}``), where given, replaces that single batch axis per leaf
-    (:meth:`placement_of`).
+    replica group, ``dcn x data``); ``placement`` (``batch -> {leaf
+    name: ((dim, Axis), ...)}``), where given, replaces that single
+    batch axis per leaf (:meth:`placement_of`).
 
     ``eval_fn`` (``(state, batch, rng) -> metrics``) runs the
     trainable's ``eval_loss`` on the full parameters without an update
@@ -366,8 +385,8 @@ class Lowered:
     ``state_manifest_fn`` (``state -> manifest``) is the lowering's
     state codec (:meth:`state_manifest`); ``sync_init`` each stateful
     compressor's first state row (host numpy), what a reshard re-seeds
-    rows from; ``split_axes`` the joint axes a manifest's ``split``
-    names (``{name: Axis}``), whose groups the reshard gathers over.
+    rows from.  A manifest's ``split`` names an axis of the lowering's
+    mesh, or a joint one (``data+seq``), which the mesh keeps.
 
     The records of what the lowering did with the strategy's requests:
     ``zero3_shapes`` the logical shape of each variable stored as a
@@ -399,11 +418,10 @@ class Lowered:
     ssp_staleness: int = 0
     state_manifest_fn: Optional[Callable] = None
     sync_init: dict = dataclasses.field(default_factory=dict)
-    split_axes: dict = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
         if self.batch_axis is None:
-            self.batch_axis = self.mesh.axis(const.DATA_AXIS)
+            self.batch_axis = self.mesh.replica_axis()
 
     def placement_of(self, batch) -> dict:
         """``{leaf name: ((dim, Axis), ...)}``: each leaf of a step's
@@ -444,13 +462,9 @@ class Lowered:
         """The elastic state-codec manifest of ``state`` (the codec
         comment above): ``{"family", "leaves": {name: record}, "sync":
         {name: {"rows", "width", "compressor"}}}``; only shapes and
-        dtypes are read.  The pipeline family's raises."""
+        dtypes are read."""
         if self.state_manifest_fn is None:
-            raise NotImplementedError(
-                "this lowering's state manifest (the pipeline family's: "
-                "interleave permutations, vocab padding, ZeRO-3 rows) is "
-                "not ported yet (ROADMAP Queue 1, item 9: runtime and "
-                "multi-host)")
+            raise ValueError("this lowering records no state manifest")
         return self.state_manifest_fn(state)
 
 
@@ -481,7 +495,8 @@ def lower(trainable, strategy, mesh, device=None) -> Lowered:
 
     plan = make_plan(trainable, strategy, mesh)
     n, dev, opt = plan.num_replicas, resolve_device(device), trainable.optimizer
-    axis = mesh.axis(const.DATA_AXIS)
+    axis = mesh.replica_axis()
+    named = {a: mesh.axis(a) for a in plan.repl_axes}
     vps = plan.var_plans
     accum = max(strategy.graph_config.accum_steps, 1)
     comps = {key: Compressor.create(name)
@@ -530,10 +545,10 @@ def lower(trainable, strategy, mesh, device=None) -> Lowered:
     def micro_grads(params, batch, rng, extra):
         leaves = {nm: p.detach().requires_grad_(True)
                   for nm, p in params.items()}
-        # The loss runs with the data axis bound, forward and backward,
-        # as the JAX program runs it inside shard_map over the data
-        # axis: a model may name it (cross-replica BatchNorm).
-        with torch.enable_grad(), axis_scope({const.DATA_AXIS: axis}):
+        # The loss runs with the replica axes bound, forward and
+        # backward, as the JAX program runs it inside shard_map over
+        # them: a model may name one (cross-replica BatchNorm).
+        with torch.enable_grad(), axis_scope(named):
             loss, new_extra, metrics = trainable.loss(
                 common.unflatten(full(leaves, True)), extra, batch, rng)
             grads = torch.autograd.grad(loss, list(leaves.values()),
@@ -588,7 +603,7 @@ def lower(trainable, strategy, mesh, device=None) -> Lowered:
 
     def step_fn(state, batch, rng):
         params = state["params"]
-        local_rng = cuda_graph.fold_seed(rng, n, mesh.replica)
+        local_rng = cuda_graph.fold_seed(rng, n, axis.index)
 
         def micro(mb, r, extra):
             return micro_grads(params, mb, r, extra)
@@ -611,20 +626,20 @@ def lower(trainable, strategy, mesh, device=None) -> Lowered:
                      "opt_state": opt_state,
                      "extra": mean_float_leaves(new_extra, axis),
                      "sync_state": new_sync}
-        return new_state, reduce_metrics(metrics, mesh)
+        return new_state, reduce_metrics(metrics, mesh, axis)
 
     def eval_fn(state, batch, rng):
         with torch.no_grad():
             _, _, metrics = trainable.eval_loss(
                 common.unflatten(full(state["params"], False)),
                 state["extra"], batch,
-                cuda_graph.fold_seed(rng, n, mesh.replica))
-        return reduce_metrics(metrics, mesh)
+                cuda_graph.fold_seed(rng, n, axis.index))
+        return reduce_metrics(metrics, mesh, axis)
 
     def state_manifest(state):
         """The collective family's manifest (JAX ``Lowered
         .state_manifest``): a stored-sharded parameter is the padded
-        slice of the data axis, a U_FLAT variable's optimizer state its
+        slice of the replica group, a U_FLAT variable's optimizer state its
         flat chunk, a U_AXIS one's its padded slice, a compressor's
         state one row a rank."""
         leaves, sync = {}, {}

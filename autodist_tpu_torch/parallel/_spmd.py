@@ -143,16 +143,13 @@ def policies_from_node_configs(strategy, mesh, *, replicated_axes,
     return policies
 
 
-def axis_over(mesh, names, cache: dict):
+def axis_over(mesh, names):
     """The :class:`~autodist_tpu_torch.parallel.axis.Axis` over mesh
     axes ``names``, taken in the mesh's order so that its index is the
     rank's place in the group (what a flat shard's reduce-scatter and
-    gather agree on); one group per set of names (``cache``), made in
-    the order the caller asks, the same on every rank."""
-    key = tuple(sorted(names, key=list(mesh.shape).index))
-    if key not in cache:
-        cache[key] = mesh.joint_axis(key)
-    return cache[key]
+    gather agree on); the mesh keeps one group per set of names, made in
+    the order the callers ask, the same on every rank."""
+    return mesh.joint_axis(tuple(sorted(names, key=list(mesh.shape).index)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -272,10 +269,8 @@ def build_replicated_spmd(trainable, mesh, *, sync_axes: Sequence[str],
     dev, opt = resolve_device(device), trainable.optimizer
     # The joint sync axis indexes in the order given (the dropout fold,
     # JAX ``axis_index(sync_axes)``); it serves the policies too where
-    # that is the mesh's order.
+    # that is the mesh's order (the mesh keeps it).
     sync = mesh.joint_axis(tuple(sync_axes))
-    ordered = tuple(sorted(sync_axes, key=list(mesh.shape).index))
-    groups = {ordered: sync} if ordered == tuple(sync_axes) else {}
     scope = {name: mesh.axis(name) for name in mesh.shape}
     infos = {info.name: info for info in trainable.var_infos()}
     policies = dict(policies or {})
@@ -313,9 +308,9 @@ def build_replicated_spmd(trainable, mesh, *, sync_axes: Sequence[str],
                 raise ValueError(
                     f"{name}: ZeRO-{pol.zero_stage} requires a replicated "
                     "parameter; this lowering stores it sharded")
-            zaxes[name] = axis_over(mesh, pol.zero_axes, groups)
+            zaxes[name] = axis_over(mesh, pol.zero_axes)
         elif pol.sync_axes:
-            paxes[name] = axis_over(mesh, pol.sync_axes, groups)
+            paxes[name] = axis_over(mesh, pol.sync_axes)
         elif pol.sync_axes is None:
             paxes[name] = sync
 
@@ -503,5 +498,4 @@ def build_replicated_spmd(trainable, mesh, *, sync_axes: Sequence[str],
                    zero3_shapes=zero3_shapes,
                    zero_degraded=dict(zero_degraded or {}),
                    unapplied=unapplied, state_manifest_fn=state_manifest,
-                   sync_init=sync_init,
-                   split_axes={a.name: a for a in (*groups.values(), sync)})
+                   sync_init=sync_init)

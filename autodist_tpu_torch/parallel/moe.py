@@ -31,7 +31,7 @@ from autodist_tpu_torch import const, interop
 from autodist_tpu_torch.kernel import quantize as qz
 from autodist_tpu_torch.kernel.a2a_ring import ring_dispatch
 from autodist_tpu_torch.strategy.ir import (normalize_kernel,
-                                            normalize_precision, not_ported)
+                                            normalize_precision)
 
 
 def top2_gating(gate_logits, capacity: int):
@@ -205,16 +205,17 @@ class ExpertPlan:
 
 def make_expert_plan(trainable, strategy, mesh) -> ExpertPlan:
     """Resolve an ``ExpertParallel`` strategy against the mesh, with the
-    JAX lowering's checks; what this slice does not run raises
-    ``NotImplementedError``."""
+    JAX lowering's checks.  The replica axes include ``dcn`` on a
+    multi-slice mesh (a data-only sync would skip the cross-slice
+    exchange).  ``expert_over_dcn`` lowers as any expert strategy: its
+    mesh absorbs the slice dimension into the expert axis (no separate
+    ``dcn`` axis), so the all-to-all spans slices; the flag records that
+    placement (plan lint ADT061)."""
     cfg = strategy.graph_config
     if const.EXPERT_AXIS not in mesh.shape:
         raise ValueError(
             f"mesh {dict(mesh.shape)} has no {const.EXPERT_AXIS!r} axis")
-    par, precision = cfg.parallel, normalize_precision(cfg.precision)
-    if par.get("expert_over_dcn"):
-        not_ported("expert_over_dcn (an expert axis across hosts)",
-                   "ROADMAP Queue 1, slice 5 leftovers, item 3")
+    precision = normalize_precision(cfg.precision)
     E_shards = mesh.shape[const.EXPERT_AXIS]
     expert_vars = list(interop.expert_dims(strategy))
     infos = {v.name: v for v in trainable.var_infos()}
@@ -224,8 +225,8 @@ def make_expert_plan(trainable, strategy, mesh) -> ExpertPlan:
             raise ValueError(
                 f"expert variable {name} leading dim {shape} must divide "
                 f"the {E_shards}-way expert axis")
-    batch_axes = tuple(a for a in (const.DATA_AXIS,) if a in mesh.shape) \
-        + (const.EXPERT_AXIS,)
+    batch_axes = tuple(a for a in (const.DCN_AXIS, const.DATA_AXIS)
+                       if a in mesh.shape) + (const.EXPERT_AXIS,)
     return ExpertPlan(expert_vars=tuple(sorted(expert_vars)),
                       expert_shards=E_shards, batch_axes=batch_axes,
                       precision=precision.get("moe_a2a"),
@@ -241,14 +242,14 @@ def lower_expert_ir(trainable, strategy, mesh, device=None):
 
     * expert tables are stored as this rank's slice of their leading
       (expert) dim; every other variable is replicated;
-    * the batch shards over ``data x expert``, the dropout seed is
+    * the batch shards over ``dcn x data x expert``, the dropout seed is
       folded with the rank's index on those axes, and the loss finds
       the expert axis by name (the builder binds it);
     * expert gradients are scaled by ``1 / E_shards`` (the objective is
-      the mean over every token group) and averaged over ``data`` only;
-      every other gradient is averaged over ``data x expert``; each set
-      in one flat fp32 all-reduce;
-    * a node's PS synchronizer is ZeRO over ``data x expert`` on a
+      the mean over every token group) and averaged over ``dcn x data``
+      only; every other gradient is averaged over ``dcn x data x
+      expert``; each set in one flat fp32 all-reduce;
+    * a node's PS synchronizer is ZeRO over ``dcn x data x expert`` on a
       replicated variable (its optimizer state, and at stage 3 the
       parameter, stored as a flat shard); on an expert table, whose
       state already shards with it, it degrades to the plain sync
@@ -260,7 +261,7 @@ def lower_expert_ir(trainable, strategy, mesh, device=None):
     * the ``grad`` precision slot is not applied: the scaled rule above
       is the lowering's own sync, which the JAX lowering keeps over the
       slot's blanket compressor; ``Lowered.unapplied`` records it;
-    * metrics are averaged over ``data x expert``; ``accum_steps``
+    * metrics are averaged over ``dcn x data x expert``; ``accum_steps``
       microbatches a step.
     """
     from autodist_tpu_torch.parallel._spmd import (build_replicated_spmd,
@@ -279,15 +280,15 @@ def lower_expert_ir(trainable, strategy, mesh, device=None):
             f"trainable {getattr(trainable, 'name', type(trainable).__name__)!r}"
             " has no moe_a2a binding slot (see make_moe_lm_trainable)")
     expert = mesh.axis(const.EXPERT_AXIS)
-    data = mesh.axis(const.DATA_AXIS)
     sharded = set(plan.expert_vars)
     d_axes = plan.batch_axes[:-1]
+    data = mesh.joint_axis(d_axes)          # dcn x data
 
     def param_spec(name, leaf):
         return (0, expert) if name in sharded else None
 
     def grad_sync(name, g):
-        # None: the builder's joint data x expert axis.
+        # None: the builder's joint dcn x data x expert axis.
         return (g / plan.expert_shards, data) if name in sharded \
             else (g, None)
 

@@ -80,10 +80,25 @@ process of the job runs the step on its (data, pipe, model) coordinate:
 The eval program (``Lowered.eval_fn``) is steps 2, 3 and 4 without a
 gradient: the forward ticks and the head, its metrics reduced alike.
 
+"Data" above is the replica group: ``dcn x data`` on a multi-slice mesh
+(JAX ``pipeline.py``'s ``d_axes``), one joint axis that splits the batch
+and carries every data-parallel reduction, ZeRO shard and compressor.
+
+``Lowered.state_manifest`` is the ``pipeline`` family's (JAX
+``_build_pipeline`` ``_state_manifest``): a stage leaf's global stored
+form is the ``[C, ...]`` stack of its ``C = n·V`` chunks in storage
+order (the pipe ranks' parts along dim 0, the model ranks' along the
+model dim), whose recipe is the inverse chunk permutation (``index0``);
+a ZeRO-3 stage leaf is ``[C, padded_chunk]`` flat rows (the ZeRO ranks'
+parts along dim 1), cut, reshaped and permuted back; the vocab-sharded
+table is its padded ``[V_pad, H]`` storage, sliced to the vocabulary; a
+ZeRO-1/2 stage leaf's optimizer state is the pipe-major ``[n ·
+padded]`` flat update space, the vocab table's the model-major one; a
+compressor's rows are one a rank, with their compressor.
+
 At one pipe device the same schedule runs every (microbatch, chunk) in
 order, what ``pipeline_apply`` computes there.  The strategy is checked
-as ``lower_pipeline_ir`` checks it, with the same errors; what the port
-does not run raises ``NotImplementedError``.
+as ``lower_pipeline_ir`` checks it, with the same errors.
 """
 from __future__ import annotations
 
@@ -318,7 +333,10 @@ def pipeline_policies(trainable, strategy, mesh, plan: PipelinePlan):
                                                    VarPolicy,
                                                    policies_from_node_configs)
 
-    d_axes = (const.DATA_AXIS,) if const.DATA_AXIS in mesh.shape else ()
+    # The replica axes include dcn on a multi-slice mesh (a data-only
+    # sync would skip the cross-slice exchange).
+    d_axes = tuple(a for a in (const.DCN_AXIS, const.DATA_AXIS)
+                   if a in mesh.shape)
     shared_axes = (const.PIPE_AXIS, *d_axes)
 
     def is_stage(name):
@@ -365,10 +383,11 @@ def lower_pipeline(trainable, strategy, mesh, device=None) -> Lowered:
         trainable, strategy, mesh, plan)
     dev, opt = resolve_device(device), trainable.optimizer
     M, V = plan.num_microbatches, plan.virtual_stages
-    data = mesh.axis(const.DATA_AXIS)
+    data = mesh.replica_axis()              # dcn x data
     pipe = mesh.axis(const.PIPE_AXIS)
     model = mesh.axis(const.MODEL_AXIS)
-    has_data = const.DATA_AXIS in mesh.shape
+    has_data = any(a in mesh.shape for a in (const.DCN_AXIS,
+                                             const.DATA_AXIS))
     n, d, n_d = pipe.size, pipe.index, data.size
     T = num_ticks(M, n, V)
     first, last = d == 0, d == n - 1
@@ -391,8 +410,7 @@ def lower_pipeline(trainable, strategy, mesh, device=None) -> Lowered:
 
     # ZeRO's axes: a stage variable's the data axis, a shared one's
     # pipe x data (one group a model coordinate), made in name order.
-    groups: dict = {}
-    zaxes = {nm: axis_over(mesh, pol.zero_axes, groups)
+    zaxes = {nm: axis_over(mesh, pol.zero_axes)
              for nm, pol in sorted(policies.items()) if pol.zero_axes}
     comps = {nm: Compressor.create(pol.compressor)
              for nm, pol in sorted(policies.items())
@@ -796,8 +814,142 @@ def lower_pipeline(trainable, strategy, mesh, device=None) -> Lowered:
             out[nm] = t
         return out
 
+    # --- the elastic state codec (JAX ``_state_manifest``) ------------- #
+    from autodist_tpu_torch.kernel.lowering import (_op_flat_slice,
+                                                    _op_index0, _op_reshape,
+                                                    _op_slice, leaf_record,
+                                                    split_record)
+
+    C = n * V
+    inv = [int(i) for i in chunk_permutation_inv(n, V)]
+    flat_zero = {nm for nm in zaxes if nm not in space.zero3}
+
+    def numel(shape) -> int:
+        return max(int(np.prod(shape, dtype=np.int64)), 1)
+
+    def padded_table(nm) -> tuple:
+        """The vocab table's stored global shape: its vocabulary padded
+        to divide the model axis."""
+        rows = logical[nm][0]
+        return (common.padded_flat_size(rows, model.size),) + logical[nm][1:]
+
+    def splits(*records):
+        out = [r for r in records if r is not None]
+        return out or None
+
+    def param_layout(nm):
+        """A parameter's global stored shape, recipe and splits
+        (outermost first)."""
+        shape = logical[nm]
+        if is_stage(nm):
+            if nm in space.zero3:
+                elems = numel(shape[1:])
+                glob = (C, common.padded_flat_size(elems, zaxes[nm].size))
+                return glob, [_op_slice(glob, (C, elems)),
+                              _op_reshape((C, elems), shape),
+                              _op_index0(shape, inv)], splits(
+                    split_record(pipe, 0), split_record(zaxes[nm], 1))
+            md = plan.model_dims.get(nm)
+            return shape, [_op_index0(shape, inv)], splits(
+                split_record(pipe, 0),
+                None if md is None else split_record(model, md))
+        if nm in space.zero3:
+            size = numel(shape)
+            glob = (common.padded_flat_size(size, zaxes[nm].size),)
+            return glob, [_op_flat_slice(glob, size),
+                          _op_reshape((size,), shape)], splits(
+                split_record(zaxes[nm], 0))
+        if nm in plan.vocab_dims:
+            glob = padded_table(nm)
+            return glob, ([_op_slice(glob, shape)] if glob != shape
+                          else []), splits(split_record(model, 0))
+        return shape, [], None
+
+    def opt_layout(nm):
+        """An optimizer leaf's global update-space shape, recipe and
+        splits: the parameter's, except for a flat (ZeRO-1/2) shard."""
+        if nm not in flat_zero:
+            return param_layout(nm)
+        shape, nz = logical[nm], zaxes[nm].size
+        if is_stage(nm):
+            local = numel(shape) // n
+            padded = common.padded_flat_size(local, nz)
+            return (n * padded,), [
+                _op_reshape((n * padded,), (n, padded)),
+                _op_slice((n, padded), (n, local)),
+                _op_reshape((n, local), shape),
+                _op_index0(shape, inv)], splits(
+                split_record(pipe, 0), split_record(zaxes[nm], 0))
+        if nm in plan.vocab_dims:
+            table = padded_table(nm)
+            tp = model.size
+            local = numel(table) // tp
+            padded = common.padded_flat_size(local, nz)
+            ops = [_op_reshape((tp * padded,), (tp, padded)),
+                   _op_slice((tp, padded), (tp, local)),
+                   _op_reshape((tp, local), table)]
+            if table != shape:
+                ops.append(_op_slice(table, shape))
+            return (tp * padded,), ops, splits(split_record(model, 0),
+                                               split_record(zaxes[nm], 0))
+        size = numel(shape)
+        glob = (common.padded_flat_size(size, nz),)
+        return glob, [_op_flat_slice(glob, size),
+                      _op_reshape((size,), shape)], splits(
+            split_record(zaxes[nm], 0))
+
+    world = math.prod(mesh.shape.values())
+    everyone = "+".join(a for a, k in mesh.shape.items() if k > 1) or \
+        next(iter(mesh.shape), const.DATA_AXIS)
+
+    def state_manifest(state):
+        """The pipeline family's manifest (JAX ``_state_manifest``; the
+        module docstring): per leaf its global stored shape, the recipe
+        to the logical form and where the ranks' parts lie."""
+        stored = dict(state["params"])
+
+        def u_local(nm) -> tuple:
+            t = stored[nm]
+            if nm in flat_zero:
+                nz = zaxes[nm].size
+                return (common.padded_flat_size(t.numel(), nz) // nz,)
+            return tuple(t.shape)
+
+        leaves, sync = {}, {}
+        for name, leaf in common.state_leaves(state):
+            shape, ops, split = tuple(leaf.shape), [], None
+            if name.startswith("params/") and name[7:] in logical:
+                shape, ops, split = param_layout(name[7:])
+            elif name.startswith("opt_state/"):
+                local = shape
+                var = common.match_var_by_suffix(
+                    name, logical, shape_ok=lambda v: local == u_local(v))
+                if var is not None:
+                    shape, ops, split = opt_layout(var)
+            elif name.startswith("sync_state/"):
+                key = name[len("sync_state/"):]
+                shape = (world, int(leaf.numel()))
+                split = {"axis": everyone, "dim": 0, "ranks": world}
+                sync[name] = {"rows": world, "width": int(leaf.numel()),
+                              "compressor": policies[key].compressor}
+            leaves[name] = leaf_record(shape, leaf.dtype, ops, split)
+        return {"family": "pipeline", "leaves": leaves, "sync": sync}
+
+    def row_width(nm) -> int:
+        """A compressor row's width: the rank's stored variable."""
+        shape = logical[nm]
+        if is_stage(nm):
+            md = plan.model_dims.get(nm)
+            return numel(shape) // n // (model.size if md is not None else 1)
+        if nm in plan.vocab_dims:
+            return numel(padded_table(nm)) // model.size
+        return numel(shape)
+
+    sync_init = {nm: comp.init_state_flat(row_width(nm))
+                 for nm, comp in comps.items() if comp.stateful}
     return Lowered(plan=plan, mesh=mesh, device=dev, init_fn=init_fn,
                    step_fn=step_fn, full_params_fn=full_params,
                    eval_fn=eval_fn, zero3_shapes=zero3_shapes,
                    zero_degraded=zero_degraded,
-                   unapplied=unapplied)
+                   unapplied=unapplied, state_manifest_fn=state_manifest,
+                   sync_init=sync_init)

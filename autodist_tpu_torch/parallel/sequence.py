@@ -5,15 +5,17 @@ axis shards activations along the token dimension; ring attention
 (:mod:`autodist_tpu_torch.parallel.ring_attention`) rotates key/value
 blocks around the axis so every token still attends globally, the
 model positions its tokens with :func:`global_positions`, and gradients
-are averaged over ``data x seq``: each rank's gradient of its local
-token-mean loss averages to the whole sequence's objective when the
-chunks are equal.
+are averaged over ``dcn x data x seq``: each rank's gradient of its
+local token-mean loss averages to the whole sequence's objective when
+the chunks are equal.  On a multi-slice mesh the replica axes are
+``dcn x data`` (JAX ``sequence.py``): a mean over ``data`` alone would
+leave each slice with its own parameters.
 
 The step is the shared replicated-parameter one
 (:func:`~autodist_tpu_torch.parallel._spmd.build_replicated_spmd`):
 parameters replicate, token-dimension batch leaves split along dims 0
-and 1 over ``(data, seq)``, other leaves along dim 0 over ``data``,
-scalars go whole.  Long-context recipe::
+and 1 over ``(dcn x data, seq)``, other leaves along dim 0 over ``dcn x
+data``, scalars go whole.  Long-context recipe::
 
     cfg = TransformerConfig(
         attention_fn=make_ring_flash_attention_fn(causal=True),
@@ -63,9 +65,11 @@ def _build_sequence(trainable, mesh, *, seq_leaves: Sequence[str],
 
     if seq_axis not in mesh.shape:
         raise ValueError(f"mesh {dict(mesh.shape)} has no {seq_axis!r} axis")
-    has_data = data_axis in mesh.shape
-    seq, data = mesh.axis(seq_axis), mesh.axis(data_axis)
-    sync_axes = ((data_axis,) if has_data else ()) + (seq_axis,)
+    # The replica axes include the cross-slice dcn axis.
+    d_axes = tuple(a for a in (const.DCN_AXIS, data_axis)
+                   if a in mesh.shape)
+    seq, data = mesh.axis(seq_axis), mesh.joint_axis(d_axes)
+    sync_axes = (*d_axes, seq_axis)
 
     def batch_spec_fn(batch) -> dict:
         matched = [name for name in batch
@@ -95,7 +99,7 @@ def lower_sequence_parallel(trainable, mesh, *,
     keys with a ``[B, L, ...]`` token dimension (split over both axes);
     other leaves split over the data axis only (scalars go whole).
     Parameters and optimizer state replicate; gradients average over
-    ``data x seq``.  The model must attend globally through ring
+    ``dcn x data x seq``.  The model must attend globally through ring
     attention and position with :func:`global_positions`.  Returns the
     :class:`~autodist_tpu_torch.kernel.lowering.Lowered` step (for a
     runner: ``DistributedRunner(trainable, lowered)``)."""
@@ -108,8 +112,8 @@ def lower_sequence_ir(trainable, strategy, mesh, device=None):
     """The strategy entry: lower a ``lowering == "sequence"`` strategy
     (built by :class:`~autodist_tpu_torch.strategy.parallel_builders
     .SequenceParallel`), the form that flows through ``AutoDist.build``.
-    Every variable is replicated across ``data x seq``, so a node's PS
-    synchronizer is ZeRO over both axes (the largest sharding of its
+    Every variable is replicated across ``dcn x data x seq``, so a
+    node's PS synchronizer is ZeRO over all three (the largest sharding of its
     optimizer state, and at stage 3 of the parameter) and a compressor
     (or the ``grad`` slot's) averages over them; the ``zero3_gather``
     slot narrows the ZeRO-3 gathers.  The slots this lowering has no
@@ -120,7 +124,8 @@ def lower_sequence_ir(trainable, strategy, mesh, device=None):
 
     cfg = strategy.graph_config
     seq_axis = cfg.parallel.get("seq_axis", const.SEQ_AXIS)
-    d_axes = (const.DATA_AXIS,) if const.DATA_AXIS in mesh.shape else ()
+    d_axes = tuple(a for a in (const.DCN_AXIS, const.DATA_AXIS)
+                   if a in mesh.shape)
     precision = normalize_precision(cfg.precision)
     unapplied = {slot: "no such boundary in the sequence lowering"
                  for slot in precision

@@ -39,8 +39,23 @@ cards one rank a card is taken to be on this host; a larger one raises
 (it may span hosts, or share cards: the count decides the backend).
 Until it has bootstrapped, a multihost spec plans on its declared
 ``topology.num_devices`` and raises without one, as the JAX package
-does.  The ``dcn`` axis and ``topology.num_slices`` belong to a later
-item and raise ``NotImplementedError``.
+does.
+
+Multi-slice: ``dcn`` is the outermost replica axis, the JAX package's
+cross-slice axis.  On H100s a slice is one node's NVLink domain, and
+slices are joined over InfiniBand or Ethernet.  ``{"topology":
+{"num_slices": s}}`` without a ``mesh`` resolves to ``{"dcn": s,
+"data": n / s}``; ``{"mesh": {"dcn": d, "data": n, ...}}`` declares it.
+The replica group is ``dcn x data`` (:meth:`Mesh.replica_axis`): every
+lowering reduces its gradients, shards its ZeRO state and splits its
+batch over it.  Where an NCCL job spans hosts, :meth:`ResourceSpec
+.make_mesh` checks that each ``dcn`` coordinate's ranks are one host's
+(the counterpart of ``create_hybrid_device_mesh``; the ranks are
+node-major, as torchrun numbers them) and raises a ``ValueError``
+naming the hosts where the row-major layout does not do that.  Gloo
+ranks, and ranks that share one host, carry no slice topology: they
+keep the plain row-major layout, as the JAX package keeps the reshape
+for simulated devices.
 """
 from __future__ import annotations
 
@@ -50,6 +65,7 @@ import datetime
 import itertools
 import math
 import os
+import socket
 from typing import Any, Mapping, Optional
 
 import numpy as np
@@ -77,13 +93,15 @@ H100 = ChipSpec("h100", peak_bf16_tflops=989.0, peak_fp32_tflops=67.0,
                 hbm_gb=80, hbm_gbps=3350)
 CHIP_SPECS = {"h100": H100}
 PLATFORMS = ("auto", "gpu", "cpu")
-_MULTISLICE_ITEM = "ROADMAP Queue 1, item 9: runtime and multi-host"
+# The replica axes, outermost first (JAX ``replica_axes``).
+REPLICA_AXES = (const.DCN_AXIS, const.DATA_AXIS)
 
 
-# Mesh axes the port lays out, and where the others come.
-_PORTED_AXES = (const.DATA_AXIS, const.PIPE_AXIS, const.MODEL_AXIS,
-                const.EXPERT_AXIS, const.SEQ_AXIS)
-_AXIS_ITEMS = {const.DCN_AXIS: _MULTISLICE_ITEM}
+def _check_axes(mesh_shape: Mapping[str, int]):
+    for ax in mesh_shape:
+        if ax not in const.ALL_AXES:
+            raise ValueError(f"unknown mesh axis {ax!r}; valid axes: "
+                             f"{const.ALL_AXES}")
 
 
 @dataclasses.dataclass
@@ -96,6 +114,8 @@ class Mesh:
     axes: dict = dataclasses.field(default_factory=dict)
     rank: int = 0
     grouped: bool = True      # False: a layout without process groups
+    _joints: dict = dataclasses.field(default_factory=dict, repr=False,
+                                      compare=False)
 
     def axis(self, name: str) -> Axis:
         """The named axis (a one-rank axis where the mesh has none)."""
@@ -106,11 +126,18 @@ class Mesh:
         tuple): its index is this rank's coordinates on ``names``
         row-major, its group the ranks that differ only on them.  Every
         process of the job must call it, in the same order (a new group
-        is collective).  The group's collectives are reductions; its
-        rank order is the global one."""
+        is collective); the mesh keeps each joint axis, so a second call
+        makes no group.  The group's collectives are reductions; its
+        rank order is the global one (names in the mesh's order make
+        its gathers follow the index too)."""
         names = tuple(n for n in names if self.shape.get(n, 1) > 1)
         if len(names) <= 1:
             return self.axis(names[0]) if names else Axis("+".join(names))
+        if names not in self._joints:
+            self._joints[names] = self._make_joint(names)
+        return self._joints[names]
+
+    def _make_joint(self, names) -> Axis:
         order, sizes = list(self.shape), list(self.shape.values())
         dims = [order.index(n) for n in names]
         sub = [sizes[d] for d in dims]
@@ -135,19 +162,21 @@ class Mesh:
                             ranks=tuple(ranks), group=group)
         return mine
 
+    def replica_axis(self) -> Axis:
+        """The replica group, ``dcn x data``, as one axis (its ranks in
+        the mesh's order): what the data-parallel lowerings reduce
+        gradients, shard ZeRO state and split the batch over.  The data
+        axis itself where there is no ``dcn`` axis of more than one
+        rank."""
+        if self.num_replicas == 1:
+            return self.axis(const.DATA_AXIS)
+        order = list(self.shape)
+        return self.joint_axis(tuple(sorted(
+            (a for a in REPLICA_AXES if a in self.shape), key=order.index)))
+
     @property
     def num_replicas(self) -> int:
-        return self.shape.get(const.DATA_AXIS, 1)
-
-    @property
-    def replica(self) -> int:
-        """This process's index on the data axis."""
-        return self.axis(const.DATA_AXIS).index
-
-    @property
-    def group(self) -> Any:
-        """The data axis's process group (``None`` at one replica)."""
-        return self.axis(const.DATA_AXIS).group
+        return math.prod(self.shape.get(a, 1) for a in REPLICA_AXES)
 
 
 def layout_mesh(shape: Mapping[str, int], rank: int = 0) -> Mesh:
@@ -190,16 +219,18 @@ class ResourceSpec:
         spec = dict(spec or {})
         unknown = set(spec) - {"topology", "mesh", "multihost"}
         if unknown:
-            raise NotImplementedError(
-                f"resource spec keys {sorted(unknown)} are not ported yet "
-                f"({_MULTISLICE_ITEM})")
+            raise ValueError(f"unknown resource spec keys {sorted(unknown)}")
         topo = dict(spec.get("topology") or {})
         extra = set(topo) - {"num_devices", "platform", "generation",
                              "num_slices"}
-        if extra or int(topo.get("num_slices", 1)) != 1:
-            raise NotImplementedError(
-                f"topology keys {sorted(extra or {'num_slices'})} are not "
-                f"ported yet ({_MULTISLICE_ITEM})")
+        if extra:
+            raise ValueError(f"unknown topology keys {sorted(extra)}")
+        # Multi-slice: the outer replica axis rides the network between
+        # nodes (a slice is one node's NVLink domain).
+        self.num_slices: int = int(topo.get("num_slices", 1))
+        if self.num_slices < 1:
+            raise ValueError(f"topology.num_slices must be >= 1, got "
+                             f"{self.num_slices}")
         self.platform: str = topo.get("platform", "auto")
         if self.platform not in PLATFORMS:
             raise ValueError(f"topology.platform {self.platform!r}; "
@@ -207,13 +238,7 @@ class ResourceSpec:
         self.generation: str = str(topo.get("generation", "auto")).lower()
         self._requested_devices = topo.get("num_devices")
         self.mesh_shape: dict = dict(spec.get("mesh") or {})
-        for ax in self.mesh_shape:
-            if ax not in const.ALL_AXES:
-                raise ValueError(f"unknown mesh axis {ax!r}; valid axes: "
-                                 f"{const.ALL_AXES}")
-            if ax not in _PORTED_AXES:
-                raise NotImplementedError(
-                    f"mesh axis {ax!r} is not ported yet ({_AXIS_ITEMS[ax]})")
+        _check_axes(self.mesh_shape)
         mh = dict(spec.get("multihost") or {})
         unknown = set(mh) - {"coordinator", "num_processes", "process_id",
                              "local_rank", "local_processes"}
@@ -261,13 +286,19 @@ class ResourceSpec:
         """The job's world size (one process per GPU); a declared
         ``topology.num_devices`` must equal it.  A multihost spec that
         has not bootstrapped plans on its declared count and raises
-        without one: counting the world would join the job mid-plan."""
+        without one: counting the world would join the job mid-plan.  A
+        process with no process group plans on a declared count too (a
+        chief planning before its workers start, as the JAX package
+        does); :meth:`make_mesh` then needs the world to match."""
         if self.is_multihost and not self._bootstrapped:
             if self._requested_devices is None:
                 raise ValueError(
                     "multihost planning needs an explicit device inventory: "
                     "declare topology.num_devices (the global count), or "
                     "bootstrap() first")
+            return int(self._requested_devices)
+        if self._requested_devices is not None and not (
+                dist.is_available() and dist.is_initialized()):
             return int(self._requested_devices)
         world, _ = _world()
         if self._requested_devices not in (None, world):
@@ -277,10 +308,18 @@ class ResourceSpec:
         return world
 
     def resolved_mesh_shape(self) -> dict:
-        """The mesh shape; ``{}`` means one data axis over the world.
-        The sizes must multiply to the world."""
+        """The mesh shape; ``{}`` means one data axis over the world,
+        split as ``dcn x data`` where the topology declares slices.  The
+        sizes must multiply to the world."""
         n = self.num_devices()
-        shape = dict(self.mesh_shape) or {const.DATA_AXIS: n}
+        shape = dict(self.mesh_shape)
+        if not shape and self.num_slices > 1:
+            if n % self.num_slices:
+                raise ValueError(f"{n} devices do not divide into "
+                                 f"{self.num_slices} slices")
+            shape = {const.DCN_AXIS: self.num_slices,
+                     const.DATA_AXIS: n // self.num_slices}
+        shape = shape or {const.DATA_AXIS: n}
         if math.prod(shape.values()) != n:
             raise ValueError(f"mesh shape {shape} does not match {n} "
                              f"devices")
@@ -288,30 +327,26 @@ class ResourceSpec:
 
     def with_mesh(self, mesh_shape: Mapping[str, int]) -> "ResourceSpec":
         """A copy of this spec with another factorization of the same
-        job (platform, generation, devices and multihost state
-        shared)."""
-        for ax in mesh_shape:
-            if ax not in const.ALL_AXES:
-                raise ValueError(f"unknown mesh axis {ax!r}; valid axes: "
-                                 f"{const.ALL_AXES}")
-            if ax not in _PORTED_AXES:
-                raise NotImplementedError(
-                    f"mesh axis {ax!r} is not ported yet ({_AXIS_ITEMS[ax]})")
+        job (platform, generation, devices, slice count and multihost
+        state shared)."""
+        _check_axes(mesh_shape)
         clone = copy.copy(self)
         clone.mesh_shape = dict(mesh_shape)
         return clone
 
     def three_d(self) -> tuple:
-        """The resolved ``(dp, pp, tp)`` degrees; a mesh with another
+        """The resolved ``(dp, pp, tp)`` degrees, ``dp`` folding the
+        ``dcn`` axis in (both are data parallelism); a mesh with another
         axis of more than one rank is not such a factorization."""
         shape = self.resolved_mesh_shape()
         extra = {a: s for a, s in shape.items() if s > 1 and a not in (
-            const.DATA_AXIS, const.PIPE_AXIS, const.MODEL_AXIS)}
+            const.DATA_AXIS, const.DCN_AXIS, const.PIPE_AXIS,
+            const.MODEL_AXIS)}
         if extra:
             raise ValueError(f"not a (data, pipe, model) factorization: "
                              f"mesh also carries {extra}")
-        return (shape.get(const.DATA_AXIS, 1), shape.get(const.PIPE_AXIS, 1),
-                shape.get(const.MODEL_AXIS, 1))
+        return (shape.get(const.DATA_AXIS, 1) * shape.get(const.DCN_AXIS, 1),
+                shape.get(const.PIPE_AXIS, 1), shape.get(const.MODEL_AXIS, 1))
 
     @property
     def card_index(self) -> int:
@@ -393,6 +428,13 @@ class ResourceSpec:
         self.bootstrap()
         world, rank = _world()
         shape = self.resolved_mesh_shape()
+        if math.prod(shape.values()) != world:
+            raise ValueError(
+                f"mesh {shape} needs {math.prod(shape.values())} ranks; the "
+                f"process group has {world} (one process per GPU)")
+        if shape.get(const.DCN_AXIS, 1) > 1 and world > 1 \
+                and dist.get_backend() == "nccl":
+            check_slice_layout(shape, _hosts_of_ranks())
         names, sizes = list(shape), list(shape.values())
         coords = np.unravel_index(rank, sizes) if sizes else ()
         axes = {}
@@ -413,5 +455,47 @@ class ResourceSpec:
                     axes[name] = Axis(name, size=sizes[i],
                                       index=int(coords[i]),
                                       ranks=tuple(ranks), group=group)
-        return Mesh(shape=shape, axes=axes, rank=rank)
+        mesh = Mesh(shape=shape, axes=axes, rank=rank)
+        mesh.replica_axis()       # the dcn x data group, made by every rank
+        return mesh
+
+
+def _hosts_of_ranks() -> list:
+    """Each rank's host name, in rank order (one ``all_gather_object``
+    over the default group)."""
+    hosts = [None] * dist.get_world_size()
+    dist.all_gather_object(hosts, socket.gethostname())
+    return hosts
+
+
+def check_slice_layout(shape: Mapping[str, int], hosts) -> None:
+    """Where the ranks span hosts (``hosts``: each rank's host, in rank
+    order), each ``dcn`` coordinate's ranks must be one host's and each
+    host one coordinate's: the row-major layout of ``shape`` must put
+    the cross-slice axis on the slice boundaries, or the data axis's
+    collectives would cross the slow links (JAX
+    ``create_hybrid_device_mesh``).  Ranks on one host carry no slice
+    topology and pass."""
+    hosts = list(hosts)
+    if len(set(hosts)) <= 1 or shape.get(const.DCN_AXIS, 1) <= 1:
+        return
+    sizes = [int(n) for n in shape.values()]
+    dcn_dim = list(shape).index(const.DCN_AXIS)
+    by_coord: dict = {}
+    for r, host in enumerate(hosts):
+        c = int(np.unravel_index(r, sizes)[dcn_dim])
+        by_coord.setdefault(c, set()).add(host)
+    owners: dict = {}
+    for c, held in by_coord.items():
+        for host in held:
+            owners.setdefault(host, set()).add(c)
+    if any(len(held) > 1 for held in by_coord.values()) or \
+            any(len(cs) > 1 for cs in owners.values()):
+        layout = "; ".join(f"dcn {c}: {', '.join(sorted(held))}"
+                           for c, held in sorted(by_coord.items()))
+        raise ValueError(
+            f"mesh {dict(shape)} does not put each dcn coordinate on one "
+            f"host ({layout}): declare dcn first with one coordinate a "
+            f"host ({len(set(hosts))} hosts: {', '.join(sorted(set(hosts)))})"
+            ", and launch the ranks node-major (torchrun's order)")
 

@@ -723,13 +723,14 @@ class LocalCluster(Cluster):
 
 def make_global_batch(batch, mesh, device=None):
     """This process's placed part of a global batch: each leaf's dim 0
-    cut over the mesh's data axis (a leaf without one whole), on
+    cut over the mesh's replica group, ``dcn x data`` (a leaf without
+    one whole), on
     ``device`` (``None``: the card).  With one process, the batch on the
     device."""
     from autodist_tpu_torch.device import resolve_device
     from autodist_tpu_torch.runner import cut_leaf
 
     dev = resolve_device(device)
-    cuts = ((0, mesh.axis(const.DATA_AXIS)),)
+    cuts = ((0, mesh.replica_axis()),)
     return {name: cut_leaf(name, x, cuts).to(dev)
             for name, x in batch.items()}

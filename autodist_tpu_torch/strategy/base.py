@@ -18,8 +18,10 @@ class StrategyBuilder(abc.ABC):
 
     @staticmethod
     def num_replicas(resource_spec) -> int:
-        """Data-parallel replica count: the data axis."""
-        return resource_spec.resolved_mesh_shape().get(const.DATA_AXIS, 1)
+        """Data-parallel replica count: the data axis times the ``dcn``
+        (cross-slice) axis on multi-slice topologies."""
+        shape = resource_spec.resolved_mesh_shape()
+        return shape.get(const.DATA_AXIS, 1) * shape.get(const.DCN_AXIS, 1)
 
     def _graph_config(self, resource_spec) -> GraphConfig:
         shape = resource_spec.resolved_mesh_shape()

@@ -170,11 +170,6 @@ def normalize_precision(policy) -> dict:
 # --------------------------------------------------------------------------- #
 # Synchronizer, partitioner, node, graph and strategy records
 # --------------------------------------------------------------------------- #
-def not_ported(what: str, where: str):
-    """Raise the ``NotImplementedError`` of what a later item brings."""
-    raise NotImplementedError(f"{what} is not ported yet ({where})")
-
-
 @dataclasses.dataclass
 class AllReduceSynchronizer:
     """Dense gradient all-reduce over the data axis; ``group`` is the

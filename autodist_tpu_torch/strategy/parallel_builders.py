@@ -18,9 +18,7 @@ schedules over any pipe axis, one process per pipe coordinate
 (:mod:`autodist_tpu_torch.parallel.pipeline`).  Every builder emits
 its per-variable synchronizers as the JAX builders do
 (:func:`_default_sync`: ZeRO at ``zero_stage``, a compressor, or the
-``zero_min_bytes`` mix of both).  What the port does not run raises
-``NotImplementedError`` here, after the JAX builder's own checks:
-``expert_over_dcn``.
+``zero_min_bytes`` mix of both).
 """
 from __future__ import annotations
 
@@ -35,7 +33,7 @@ from autodist_tpu_torch.strategy.base import StrategyBuilder
 from autodist_tpu_torch.strategy.ir import (AllReduceSynchronizer, NodeConfig,
                                             PartitionerConfig, PSSynchronizer,
                                             Strategy, normalize_kernel,
-                                            normalize_precision, not_ported)
+                                            normalize_precision)
 
 # Megatron rules for the stage variables, matched against the name with
 # its per-stage shape (the stacked leaf minus its leading stage dim):
@@ -278,7 +276,6 @@ class Pipeline(StrategyBuilder):
 
 
 _EXPERT_NAME_RE = re.compile(r"(expert|moe)", re.IGNORECASE)
-_MOE_LEFTOVERS = "ROADMAP Queue 1, slice 5 leftovers"
 
 
 def _check_grad_precision(precision: dict, compressor):
@@ -358,9 +355,15 @@ class ExpertParallel(StrategyBuilder):
     ``zero_stage`` (or ``zero1``), ``compressor=`` and
     ``zero_min_bytes`` name each variable's synchronizer
     (:func:`_default_sync`); ZeRO on an expert table degrades to plain
-    sync in the lowering, which records it.  The JAX builder's checks
-    run first, with its errors; ``expert_over_dcn`` raises
-    ``NotImplementedError`` after them.
+    sync in the lowering, which records it.
+
+    ``expert_over_dcn=True`` declares that the expert axis spans slices
+    (nodes): the mesh absorbs the slice dimension into the expert axis,
+    with no separate ``dcn`` axis, so the all-to-all crosses the network
+    between nodes every microbatch (plan lint ADT061 flags it).  It
+    needs a multi-slice spec (``topology.num_slices > 1`` or a ``dcn``
+    axis) and refuses the ``a2a_ring`` kernel, a ring within a node.
+    The JAX builder's checks run, with its errors.
     """
 
     def __init__(self, expert_params: Sequence[str] = (),
@@ -399,10 +402,6 @@ class ExpertParallel(StrategyBuilder):
                     "slices — drop expert_over_dcn or the kernel")
         self.make_sync = _default_sync(self.zero_stage, compressor,
                                        zero_min_bytes)
-        # What the port's expert lowering does not run yet.
-        if self.expert_over_dcn:
-            not_ported("expert_over_dcn (an expert axis across hosts)",
-                       f"{_MOE_LEFTOVERS}, item 3")
 
     def build(self, trainable, resource_spec):
         shape = resource_spec.resolved_mesh_shape()
@@ -416,6 +415,14 @@ class ExpertParallel(StrategyBuilder):
             raise ValueError(
                 f"num_experts={self.num_experts} must divide the "
                 f"{E}-way expert axis (each device holds E/axis experts)")
+        # expert_over_dcn's mesh absorbs the slice dimension into the
+        # expert axis: the check is against the topology's slice count.
+        n_slices = max(int(getattr(resource_spec, "num_slices", 1) or 1), 1)
+        if self.expert_over_dcn and n_slices <= 1 \
+                and shape.get(const.DCN_AXIS, 1) <= 1:
+            raise ValueError(
+                "expert_over_dcn declares the expert axis spans slices, "
+                f"but the spec resolves single-slice ({shape})")
         nodes, matched = [], set()
         for i in trainable.var_infos():
             named = bool(self.detect and _EXPERT_NAME_RE.search(i.name))

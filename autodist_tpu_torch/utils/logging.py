@@ -6,6 +6,13 @@ under ``$AUTODIST_TPU_WORKING_DIR/logs`` (default: ``autodist_tpu_torch``
 in the temporary directory, which honours ``TMPDIR``), one file a
 process, so that workers on one host never interleave.  An unwritable
 directory leaves the logger on stderr alone.
+
+The project logger ``autodist_tpu_torch`` is the parent of every module
+logger of the package (``logging.getLogger(__name__)``), so it keeps
+propagating: every record of the package reaches the root logger's
+handlers (a user's ``logging.basicConfig``, pytest's ``caplog``)
+whatever was called first.  Its stderr handler stays quiet while a root
+handler already writes to stderr, so that a record prints there once.
 """
 import logging as _logging
 import os
@@ -18,19 +25,29 @@ _LOGGER_NAME = "autodist_tpu_torch"
 _logger = None
 
 
+class _StderrHandler(_logging.StreamHandler):
+    """stderr, unless a root handler already writes there."""
+
+    def emit(self, record):
+        for handler in _logging.getLogger().handlers:
+            if getattr(handler, "stream", None) in (sys.stderr,
+                                                    sys.__stderr__):
+                return
+        super().emit(record)
+
+
 def get_logger():
     """The process's framework logger (stderr and file handlers)."""
     global _logger
     if _logger is not None:
         return _logger
     logger = _logging.getLogger(_LOGGER_NAME)
-    logger.propagate = False
     level = const.ENV.AUTODIST_TPU_MIN_LOG_LEVEL.val.upper()
     logger.setLevel(getattr(_logging, level, _logging.INFO))
     fmt = _logging.Formatter(
         "%(asctime)s %(levelname).1s %(process)d %(filename)s:%(lineno)d] "
         "%(message)s")
-    sh = _logging.StreamHandler(sys.stderr)
+    sh = _StderrHandler(sys.stderr)
     sh.setFormatter(fmt)
     logger.addHandler(sh)
     log_dir = os.path.join(const.ENV.AUTODIST_TPU_WORKING_DIR.val, "logs")

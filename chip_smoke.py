@@ -375,7 +375,29 @@ elasticity layer (``Cluster``, fault plans, ``restore_elastic``, the
    ``restore_elastic`` seconds, route and ``peak_host_bytes``;
    ``hot_swap`` seconds and the device bytes it allocates above the two
    states;
-26. one ``{"kernels": [...]}`` line, the card's name and power limit, and
+26. multi-slice (the ``dcn`` axis): 4 ranks, one a card over NCCL where
+   the machine has 4 cards, else over gloo on card 0 (chosen by the
+   device count).  (a) BERT-base (fp32 at 2 layers, seq 128, 3 AdamW
+   steps) through ``AllReduce`` on ``{"dcn": 2, "data": 2}``, its
+   params within 1e-4 of one rank's update on the same global batches
+   (phase 14's measure, over the tree), then the bf16 window at full
+   depth (a warm
+   step, a timed window, K1/K2a/K2b held to 12 x its steps a rank);
+   (b) the pipelined LM at the serve width cut to 4 layers, fp32,
+   ``Pipeline(virtual_stages=2)`` on ``{"data": 2, "pipe": 2}``: two
+   steps, a save (its sidecar), one step more; the checkpoint restored
+   by ``restore_elastic`` on one rank (``{"pipe": 1}``, V = 4): the
+   logical state bit-equal to the source's at the save, the next loss
+   within 1e-5 of the uninterrupted run's; the save's and the
+   restore's seconds and bytes; (c) the MoE LM of phase 8 at fp32 under
+   ``ExpertParallel(expert_over_dcn=True)`` on a 2-slice spec against
+   plain ``ExpertParallel`` on the same mesh, 3 steps: on one host the
+   flag moves no collective, so the two are held bit-equal, the flag
+   recorded and ADT061 on the first plan alone.  Two levels of
+   the network cannot be told apart on one host: ``dcn`` on these cards
+   is a program-correctness run, not a cross-node measurement, and
+   every line says so;
+27. one ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
 Phases 2, 4, 6 (at T = 1), 8 (the dense model) and 11 (one process)
@@ -419,6 +441,7 @@ import torch.multiprocessing as mp
 
 import autodist_tpu_torch as port
 from autodist_tpu_torch import telemetry, testing
+from autodist_tpu_torch.analysis import lint_plan
 from autodist_tpu_torch.kernel import a2a_ring as ar
 from autodist_tpu_torch.kernel import build
 from autodist_tpu_torch.kernel import collective_matmul as cm
@@ -2022,7 +2045,8 @@ def rank_worker(rank, world, backend, store, job, out_dir):
            "zero_window": zero_window_rows,
            "overlap_window": overlap_window_programs,
            "dropout": pipeline_dropout, "serve_rsag": tp_serve_rsag,
-           "gspmd": gspmd_ranks, "async_worker": async_worker}
+           "gspmd": gspmd_ranks, "async_worker": async_worker,
+           "multislice": multislice_rank}
     result = run[job["kind"]](job)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(result, f)
@@ -6103,12 +6127,283 @@ def phase_elastic():
     return got
 
 
+# --------------------------------------------------------------------- #
+# phase 26: multi-slice, the dcn axis
+# --------------------------------------------------------------------- #
+SLICE_MESH = {"dcn": 2, "data": 2}
+SLICE_STEPS = 2            # the bf16 window's timed steps
+SLICE_PIPE_LAYERS = 4      # the pipelined LM's depth, cut from 8
+SLICE_NOTE = ("dcn on one host's cards: a program-correctness run, not a "
+              "cross-node measurement")
+
+
+def slice_parity_job():
+    """(a)'s fp32 parity: phase 13's 2-layer BERT-base width."""
+    return {"layers": 2, "dtype": torch.float32, "seq": 128, "masked": 20,
+            "batch": 4, "opt": (1e-4, 0.01, None, 1e-4)}
+
+
+def slice_bert(job, spec):
+    cfg = port.TransformerConfig(
+        num_layers=job["layers"], dtype=job["dtype"], dropout_rate=0.0,
+        attention_dropout_rate=0.0, attention_fn=fa.make_attention_fn(False))
+    lr, wd, mu, eps = job["opt"]
+    trainable = bert.make_mlm_trainable(
+        cfg, port.optim.adamw(lr, eps=eps, weight_decay=wd, mu_dtype=mu),
+        torch.Generator(device="cuda").manual_seed(0),
+        with_input_mask=False)
+    return port.AutoDist(spec, port.AllReduce(chunk_size=256)).build(
+        trainable)
+
+
+def slice_pipe_runner(mesh, virtual_stages):
+    """(b)'s pipelined LM: the serve width, 4 layers, fp32, SGD with
+    momentum, 2 microbatches."""
+    torch.manual_seed(0)
+    trainable = make_pipeline_lm_trainable(
+        cfg_of(torch.float32, SLICE_PIPE_LAYERS),
+        port.optim.sgd(1e-2, momentum=0.9),
+        torch.Generator(device="cuda").manual_seed(0))
+    return port.AutoDist({"mesh": mesh}, port.Pipeline(
+        num_microbatches=2, virtual_stages=virtual_stages)).build(trainable)
+
+
+def slice_pipe_batch(step):
+    x = np.random.RandomState(600 + step).randint(
+        0, VOCAB, (8, TP_SEQ)).astype(np.int32)
+    return {"x": x, "y": np.roll(x, -1, axis=1)}
+
+
+def logical_digest(runner):
+    """Each state leaf at its logical form (the manifest's recipe over
+    the gathered stored leaf; collective on every rank), as a SHA-256 of
+    its bytes, with its dtype and shape."""
+    import hashlib
+
+    from autodist_tpu_torch.elastic.reshard import LiveSource, apply_ops
+
+    manifest = runner.lowered.state_manifest(runner.state)
+    read = LiveSource(runner.lowered, runner.state, manifest)
+    out = {}
+    for name, rec in manifest["leaves"].items():
+        t = apply_ops(read(name), rec["ops"]).contiguous().cpu()
+        out[name] = [str(t.dtype), list(t.shape), hashlib.sha256(
+            t.reshape(-1).view(torch.uint8).numpy().tobytes()).hexdigest()]
+    return manifest["family"], out
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def multislice_rank(job):
+    """Phase 26 in one rank of the 4-rank job: (a) fp32 parity and the
+    bf16 window on dcn x data, (b) the pipeline save, (c) the two MoE
+    programs."""
+    rank = torch.distributed.get_rank()
+    out = {}
+    # (a) fp32: 3 steps of the global batch of 4 ranks
+    pj = slice_parity_job()
+    runner = slice_bert(pj, {"mesh": SLICE_MESH})
+    check(runner.lowered.plan.repl_axes == ("dcn", "data")
+          and runner.lowered.batch_axis.size == 4,
+          f"(a): replica axes {runner.lowered.plan.repl_axes}")
+    runner.run_steps(zoo_window(pj, 3, pj["batch"] * 4, seed0=700))
+    if rank == 0:
+        torch.save({n: t.cpu() for n, t in
+                    flatten_with_names(runner.get_params())},
+                   os.path.join(job["dir"], "a_params.pt"))
+    else:
+        runner.get_params()
+    runner.close()
+    del runner
+    torch.cuda.empty_cache()
+    # (a) bf16 at full depth: a warm step, then the timed window
+    bj = dict(zoo_bf16_job(4), backend=job["backend"])
+    runner = slice_bert(bj, {"mesh": SLICE_MESH})
+    window = runner.place_steps(zoo_window(bj, SLICE_STEPS, BERT_BATCH * 4,
+                                           seed0=800))
+    dt, metrics = timed_window(runner, window)
+    got = launches()
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(dict.fromkeys(TRAINING_KERNELS, 12 * SLICE_STEPS))
+    check(got == want, f"(a) rank {rank}: launches {got}, expected {want}")
+    losses = metrics["loss"].float()
+    check(bool(torch.isfinite(losses).all()), f"(a): losses {losses}")
+    out["a"] = {"seconds": dt, "launches": got,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "route": "graph" if runner.lowered.capturable else "loop",
+                "loss": [float(losses[0]), float(losses[-1])]}
+    runner.close()
+    del runner, window
+    torch.cuda.empty_cache()
+    # (b) the pipeline job: two steps, a save, one more step
+    runner = slice_pipe_runner({"data": 2, "pipe": 2}, 2)
+    for i in range(2):
+        runner.step(slice_pipe_batch(i), rng=i)
+    saver = port.Saver(os.path.join(job["dir"], "pipe_ckpt"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    saver.save(runner)
+    saver.wait()
+    torch.distributed.barrier()
+    save_s = time.perf_counter() - t0
+    family, digest = logical_digest(runner)
+    loss3 = float(runner.step(slice_pipe_batch(2), rng=2)["loss"])
+    sidecar = saver.read_sidecar(2)
+    out["b"] = {"save_s": save_s, "family": family, "digest": digest,
+                "loss3": loss3,
+                "sidecar": None if sidecar is None
+                else sidecar["manifest"]["family"]}
+    runner.close()
+    del runner
+    torch.cuda.empty_cache()
+    # (c) MoE: expert_over_dcn on 2 slices, and without it
+    mj = {"layers": 1, "seq": 128, "batch": 16, "capacity": 4.0,
+          "dtype": torch.float32, "lr": 1e-4}
+    out["c"] = {}
+    for label, spec, kw in (
+            ("expert_over_dcn", {"topology": {"num_devices": 4,
+                                              "num_slices": 2},
+                                 "mesh": {"data": 2, "expert": 2}},
+             {"expert_over_dcn": True}),
+            ("plain", {"mesh": {"data": 2, "expert": 2}}, {})):
+        trainable = port.make_moe_lm_trainable(
+            moe_cfg(mj), port.optim.adam(mj["lr"]),
+            torch.Generator(device="cuda").manual_seed(0),
+            batch_size=mj["batch"], seq_len=mj["seq"])
+        runner = port.AutoDist(spec, port.ExpertParallel(
+            num_experts=MOE_EXPERTS, capacity_factor=mj["capacity"],
+            **kw)).build(trainable)
+        # a step loop: the expert lowering has not run under capture
+        # over NCCL (ROADMAP's standing list)
+        ms = [runner.step(b) for b in window_steps(
+            moe_window(mj, 3, seed0=900))]
+        out["c"][label] = {k: [float(m[k]) for m in ms]
+                           for k in ("nll", "loss")}
+        out["c"][label]["over_dcn"] = runner.strategy.graph_config.parallel[
+            "expert_over_dcn"]
+        out["c"][label]["lint"] = sorted(lint_plan(runner.strategy).codes())
+        runner.close()
+        del runner, trainable
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_multislice():
+    """Phase 26: the dcn axis (see the module docstring).  Returns (a)'s
+    bf16 window's launches, the four ranks'."""
+    label = card()
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= 4 else "gloo"
+    where = ("4 ranks over NCCL, one a card" if backend == "nccl"
+             else "4 ranks over gloo sharing card 0, transfers through "
+                  "host")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_ranks({"kind": "multislice", "dir": tmp}, 4, backend)
+        # (a) one rank on the same global batches
+        pj = slice_parity_job()
+        runner = slice_bert(pj, {})
+        init = {n: t.cpu() for n, t in
+                flatten_with_names(runner.get_params())}
+        runner.run_steps(zoo_window(pj, 3, pj["batch"] * 4, seed0=700))
+        ref = {n: t.cpu() for n, t in flatten_with_names(
+            runner.get_params())}
+        runner.close()
+        del runner
+        torch.cuda.empty_cache()
+        # Held over the tree (update_distance says why not a tensor);
+        # the largest tensor gap is printed beside it.
+        got_a = torch.load(os.path.join(tmp, "a_params.pt"))
+        dist_a, err_a = update_distance(got_a, ref, init), rel_err(got_a, ref)
+        check(dist_a <= 1e-4, f"phase 26 (a): dcn x data params "
+              f"{dist_a:.3g} of one rank's update away (bound 1e-4)")
+        # (b) the restore on one rank
+        src = ranks[0]["b"]
+        check(src["family"] == "pipeline" and src["sidecar"] == "pipeline",
+              f"phase 26 (b): manifest {src['family']}, sidecar "
+              f"{src['sidecar']}")
+        ckpt = os.path.join(tmp, "pipe_ckpt")
+        save_bytes = dir_bytes(ckpt)
+        runner = slice_pipe_runner({"pipe": 1}, 2 * 2)
+        telemetry.get().events.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        port.Saver(ckpt).restore_elastic(runner)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        event = [e for e in telemetry.get().events
+                 if e["kind"] == "reshard"][-1]
+        family, digest = logical_digest(runner)
+        check(digest == src["digest"], "phase 26 (b): the restored logical "
+              "state differs from the source's: " + ", ".join(
+                  n for n, d in src["digest"].items() if digest.get(n) != d))
+        loss3 = float(runner.step(slice_pipe_batch(2), rng=2)["loss"])
+        check(abs(loss3 - src["loss3"]) <= 1e-5 * abs(src["loss3"]),
+              f"phase 26 (b): next loss {loss3} vs uninterrupted "
+              f"{src['loss3']}")
+        runner.close()
+        del runner
+        torch.cuda.empty_cache()
+    # (c) the two MoE programs of each rank: on one host the flag moves
+    # no collective (the slices are the expert axis's ranks either way),
+    # so the run shows that it is recorded and linted, and that the
+    # program is the same, bit for bit
+    for r in ranks:
+        over, plain = r["c"]["expert_over_dcn"], r["c"]["plain"]
+        check(over["over_dcn"] and not plain["over_dcn"]
+              and over["lint"] == ["ADT061"] and plain["lint"] == [],
+              f"phase 26 (c): flag {over['over_dcn']}/{plain['over_dcn']}, "
+              f"lint {over['lint']}/{plain['lint']}")
+        check(all(math.isfinite(x) for x in over["loss"] + over["nll"])
+              and all(over[k] == plain[k] for k in ("nll", "loss")),
+              f"phase 26 (c): expert_over_dcn {over} vs plain {plain}")
+    a = [r["a"] for r in ranks]
+    dt = max(x["seconds"] for x in a)
+    got = {k: sum(x["launches"][k] for x in a) for k in KERNELS}
+    print(f"phase 26 (a) [{label}; {where}; {SLICE_NOTE}]: fp32 2-layer "
+          f"BERT-base width, seq 128, 3 AdamW steps, AllReduce on "
+          f"dcn 2 x data 2 (replica axes dcn, data): params {dist_a:.3e} "
+          f"of one rank's update on the same 16-row batches (bound 1e-4; "
+          f"largest tensor gap {err_a:.3e}, not held); "
+          f"bf16 BERT-base, batch {BERT_BATCH} a rank, run_steps route "
+          f"{a[0]['route']}: {SLICE_STEPS} steps in {dt:.3f} s, step "
+          f"{dt / SLICE_STEPS * 1e3:.1f} ms, "
+          f"{SLICE_STEPS * BERT_BATCH * 4 / dt:.2f} examples/s, peak memory "
+          f"per rank " + ", ".join(f"{x['peak_gb']:.2f}" for x in a)
+          + f" GB, loss {a[0]['loss'][0]:.4f} -> {a[0]['loss'][1]:.4f}, "
+          f"launches {got}", flush=True)
+    print(f"phase 26 (b) [{label}; {where}; {SLICE_NOTE}]: fp32 pipelined LM "
+          f"at the serve width, {SLICE_PIPE_LAYERS} layers, "
+          f"Pipeline(virtual_stages=2) on data 2 x pipe 2, saved at step 2 "
+          f"in {src['save_s']:.2f} s ({save_bytes} bytes, the sidecar's "
+          f"manifest family {src['sidecar']}); restore_elastic on one rank "
+          f"(pipe 1, V = 4) in {restore_s:.2f} s ({event['duration_ms']:.0f} "
+          f"ms in the engine, route {event['route']}, logical bytes "
+          f"{event['bytes_moved']}, peak host bytes "
+          f"{event['peak_host_bytes']}): the logical state "
+          f"({len(digest)} leaves) bit-equal to the source's; next loss "
+          f"{loss3:.6f} vs uninterrupted {src['loss3']:.6f}", flush=True)
+    c = ranks[0]["c"]
+    print(f"phase 26 (c) [{label}; {where}; {SLICE_NOTE}]: fp32 1-layer MoE "
+          f"LM, seq 128, batch 16, 3 Adam steps, ExpertParallel("
+          f"expert_over_dcn=True) on 2 slices (data 2 x expert 2) nll "
+          f"{c['expert_over_dcn']['nll']} vs plain ExpertParallel "
+          f"{c['plain']['nll']} (bit-equal: the flag moves no collective "
+          f"on one host), lint {c['expert_over_dcn']['lint']} vs "
+          f"{c['plain']['lint']}", flush=True)
+    return got
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--phases",
         default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21,"
-                "22,23,24,25",
+                "22,23,24,25,26",
         help="comma-separated phases to run (default: all); the kernels "
              "line needs them all")
     parser.add_argument("--elastic-role", help=argparse.SUPPRESS)
@@ -6159,7 +6454,8 @@ def main(argv=None) -> int:
              (22, lambda: add(phase_gspmd())),
              (23, lambda: add(phase_async())),
              (24, phase_models),
-             (25, lambda: add(phase_elastic()))]
+             (25, lambda: add(phase_elastic())),
+             (26, lambda: add(phase_multislice()))]
     for phase, run in steps:
         if phase in phases:
             t1 = time.perf_counter()

@@ -416,6 +416,30 @@ def test_cuda_training_step_goes_through_the_kernels(cuda):
                                    msg=name)
 
 
+def test_cuda_step_on_a_one_rank_dcn_mesh_goes_through_the_kernels(cuda):
+    """BERT's step on a one-rank ``{"dcn": 1, "data": 1}`` mesh: the
+    replica axes are ``("dcn", "data")``, and K1, K2a and K2b launch once
+    a layer."""
+    cfg = port.TransformerConfig(
+        vocab_size=97, hidden_size=128, num_layers=2, num_heads=2,
+        mlp_dim=256, max_len=32, dtype=torch.bfloat16, dropout_rate=0.0,
+        attention_dropout_rate=0.0, attention_fn=fa.make_attention_fn(False))
+    batch = bert.synthetic_mlm_batch(0, 4, 32, 4, 97)
+    batch.pop("input_mask")
+    trainable = bert.make_mlm_trainable(
+        cfg, port.optim.sgd(0.5), torch.Generator().manual_seed(0),
+        with_input_mask=False, device=cuda)
+    runner = port.AutoDist({"mesh": {"dcn": 1, "data": 1}},
+                           port.AllReduce(), device=cuda).build(trainable)
+    assert runner.lowered.plan.repl_axes == ("dcn", "data")
+    before = [w.launches for w in ATTENTION]
+    loss = float(runner.step(batch)["loss"])
+    torch.cuda.synchronize()
+    assert np.isfinite(loss)
+    assert [w.launches for w in ATTENTION] == [n + cfg.num_layers
+                                               for n in before]
+
+
 # --------------------------------------------------------------------------- #
 # K3 and K4: the tensor-parallel hop kernels
 # --------------------------------------------------------------------------- #

@@ -479,12 +479,14 @@ def test_one_rank_expert_axis_trains_as_the_dense_model(jparams, program):
                                   "expert_over_dcn", "accum_json",
                                   "seq_axis"])
 def test_out_of_slice_options_raise(what, jparams):
-    """What this slice does not run raises ``NotImplementedError``
-    naming its ROADMAP item.  ZeRO, compressors, the ``grad`` slot and
-    accumulation run now: the ZeRO cases hold the PS synchronizers
-    beyond plain ZeRO (an asynchronous one raises in the JAX package's
-    words, a stale one lowers with its bound), the compressor case a
-    compressor beside ``expert_over_dcn``; ``zero_min_bytes`` and
+    """Every case these tests once refused runs now.  ZeRO, compressors,
+    the ``grad`` slot and accumulation run: the ZeRO cases hold the PS
+    synchronizers beyond plain ZeRO (an asynchronous one raises in the
+    JAX package's words, a stale one lowers with its bound), the
+    compressor case a compressor beside ``expert_over_dcn`` (the JAX
+    builder's strategy), ``expert_over_dcn`` its slice checks, the
+    ``seq_axis`` case a ``dcn`` axis beside the expert axis;
+    ``zero_min_bytes`` and
     the ``grad`` slot build, and the ``Lowered`` records what they did
     (the expert tables' degraded ZeRO, the unapplied slot), and the
     accumulation case steps the pipelined LM with dropout."""
@@ -533,13 +535,43 @@ def test_out_of_slice_options_raise(what, jparams):
                            match=r"sync=False.*AsyncPSRunner"):
             ad.lower(tr, strategy)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        if what == "compressor":
-            ExpertParallel(compressor="bf16_ef", expert_over_dcn=True)
-        elif what == "expert_over_dcn":
-            ExpertParallel(expert_over_dcn=True)
-        else:
-            port.ResourceSpec({"mesh": {"dcn": 2}})
+    from autodist_tpu.resource import ResourceSpec as JResourceSpec
+    from autodist_tpu.strategy.parallel_builders import \
+        ExpertParallel as JExpertParallel
+
+    sliced = {"topology": {"num_devices": 2, "num_slices": 2},
+              "mesh": {"expert": 2}}
+    if what == "compressor":
+        # A compressor beside expert_over_dcn: the JAX builder's strategy.
+        kw = dict(BUILD, compressor="bf16_ef", expert_over_dcn=True)
+        mine = ExpertParallel(**kw).build(tr, port.ResourceSpec(sliced))
+        theirs = JExpertParallel(**kw).build(_jax_trainable(),
+                                             JResourceSpec(sliced))
+        assert json.loads(mine.to_json()) == {
+            **json.loads(theirs.to_json()), "id": mine.id}
+    elif what == "expert_over_dcn":
+        # It builds on two slices; a single-slice spec and the a2a_ring
+        # kernel raise the JAX package's errors.
+        assert ExpertParallel(**BUILD, expert_over_dcn=True).build(
+            tr, port.ResourceSpec(sliced)).graph_config.parallel[
+            "expert_over_dcn"]
+        single = {"topology": {"num_devices": 2}, "mesh": {"expert": 2}}
+        for build, spec in (((ExpertParallel, tr), port.ResourceSpec),
+                            ((JExpertParallel, _jax_trainable()),
+                             JResourceSpec)):
+            with pytest.raises(ValueError, match="spans slices, but the "
+                               "spec resolves single-slice"):
+                build[0](**BUILD, expert_over_dcn=True).build(
+                    build[1], spec(single))
+            with pytest.raises(ValueError, match="cannot span slices"):
+                build[0](expert_over_dcn=True, kernel=("a2a_ring",),
+                         collective_precision=INT8)
+    else:
+        # A dcn axis beside the expert axis: the replica count folds it.
+        mine = ExpertParallel(**BUILD).build(tr, port.ResourceSpec(
+            {"topology": {"num_devices": 4}, "mesh": {"dcn": 2,
+                                                      "expert": 2}}))
+        assert mine.graph_config.replicas == 2
 
 
 def test_entry_points_default_to_the_card(jparams):

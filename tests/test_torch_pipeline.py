@@ -298,8 +298,12 @@ def test_chunk_permutations_match_jax(n, V):
 
 
 def test_pipe_axis_builds():
-    """A spec with a pipe axis of 2 is accepted; the other axes of later
-    items keep raising under their item names."""
+    """A spec with a pipe axis of 2 is accepted, beside a ``dcn`` axis
+    too: the cross-slice replicas fold into the data degree, as the JAX
+    package folds them."""
+    from autodist_tpu.resource import ResourceSpec as JResourceSpec
+
     assert port.ResourceSpec({"mesh": {"pipe": 2}}).mesh_shape == {"pipe": 2}
-    with pytest.raises(NotImplementedError, match="item 9"):
-        port.ResourceSpec({"mesh": {"pipe": 2, "dcn": 2}})
+    sliced = {"topology": {"num_devices": 4}, "mesh": {"pipe": 2, "dcn": 2}}
+    assert port.ResourceSpec(sliced).three_d() == \
+        JResourceSpec(sliced).three_d() == (2, 2, 1)

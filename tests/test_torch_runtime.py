@@ -399,9 +399,15 @@ def test_resource_spec_multihost_and_topology_keys():
         port.ResourceSpec({"multihost": {"num_processes": 2}}).num_devices()
     with pytest.raises(ValueError, match="not a .data, pipe, model"):
         mine.with_mesh({"data": 2, "seq": 2}).three_d()
-    for bad in ({"topology": {"num_slices": 2}}, {"mesh": {"dcn": 2}}):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            port.ResourceSpec(bad)
+    # Multi-slice: the dcn axis and topology.num_slices are the JAX
+    # package's (to_dict as it writes them, dp folding dcn in).
+    for sliced in ({"topology": {"num_devices": 4, "num_slices": 2}},
+                   {"topology": {"num_devices": 4},
+                    "mesh": {"dcn": 2, "data": 1, "model": 2}}):
+        mine, theirs = port.ResourceSpec(sliced), JResourceSpec(sliced)
+        assert mine.to_dict() == theirs.to_dict()
+        assert mine.resolved_mesh_shape() == theirs.resolved_mesh_shape()
+        assert mine.three_d() == theirs.three_d()
 
 
 @pytest.mark.parametrize("mh,cards,want", [

@@ -486,17 +486,18 @@ def _ps_json(d, **sync):
     ("grad_precision", None),
     ("compressor_json", None),
     ("accum_json", None),
-    ("dcn_axis", "item 9")])
+    pytest.param("dcn_axis", "dcn", id="dcn_axis-item 9")])
 def test_out_of_slice_options_raise(what, item, jparams):
-    """What this slice does not run raises ``NotImplementedError``
-    naming its ROADMAP item; ZeRO, compressors, the precision slots and
-    accumulation run now.  The ZeRO cases hold the PS synchronizers
-    beyond plain ZeRO: an asynchronous one raises in the JAX package's
-    words (it is the ``AsyncPSRunner``'s), a stale one lowers with its
-    bound on the lowered program; the rest (item ``None``) build: a ZeRO
-    mix, the slots this lowering has no boundary for, which its
-    ``Lowered`` records as unapplied, and accumulation over the
-    pipelined LM with dropout, which steps."""
+    """Every case these tests once refused runs now: ZeRO, compressors,
+    the precision slots, accumulation and a ``dcn`` axis.  The ZeRO
+    cases hold the PS synchronizers beyond plain ZeRO: an asynchronous
+    one raises in the JAX package's words (it is the
+    ``AsyncPSRunner``'s), a stale one lowers with its bound on the
+    lowered program; the rest (item ``None``) build: a ZeRO mix, the
+    slots this lowering has no boundary for, which its ``Lowered``
+    records as unapplied, and accumulation over the pipelined LM with
+    dropout, which steps; the ``dcn`` case builds the JAX builder's
+    graph config."""
     tr = _port_trainable(jparams)
     ad = port.AutoDist({"mesh": {"seq": 1}}, SequenceParallel(),
                        device="cpu")
@@ -537,8 +538,20 @@ def test_out_of_slice_options_raise(what, item, jparams):
     if item == "ssp":
         assert ad.lower(tr, _ps_json(d, staleness=2)).ssp_staleness == 2
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, {item}"):
-        port.ResourceSpec({"mesh": {"dcn": 2, "seq": 2}})
+    # A dcn axis joins the replica axes: the strategy counts its
+    # replicas and records its mesh as the JAX builder does (the
+    # dcn x data x seq step is held to JAX in test_torch_multislice.py).
+    from autodist_tpu.resource import ResourceSpec as JResourceSpec
+    from autodist_tpu.strategy.parallel_builders import \
+        SequenceParallel as JSequenceParallel
+
+    sliced = {"topology": {"num_devices": 4}, "mesh": {"dcn": 2, "seq": 2}}
+    mine = SequenceParallel().build(tr, port.ResourceSpec(sliced))
+    theirs = JSequenceParallel().build(_jax_trainable(),
+                                       JResourceSpec(sliced))
+    assert mine.graph_config.replicas == 2
+    assert json.loads(mine.to_json())["graph_config"] == \
+        json.loads(theirs.to_json())["graph_config"]
 
 
 def test_entry_points_default_to_the_card(jparams):

@@ -403,11 +403,11 @@ def test_build_checks_the_mesh_and_the_trainable(jparams):
     "int8_overlap", "compressor", "dropout", "stage_aux", "remat_json",
     "vocab_embedding"])
 def test_out_of_slice_options_raise(what, jparams):
-    """What this slice does not run raises ``NotImplementedError``
-    naming its ROADMAP item (the ``dcn`` axis); an asynchronous PS and
-    the pipelined LM's dropout at ``tensor_parallel > 1`` raise the JAX
-    package's own errors.  Everything else these cases once refused runs
-    now and is held to what it builds: ZeRO, compressors and remat
+    """An asynchronous PS and the pipelined LM's dropout at
+    ``tensor_parallel > 1`` raise the JAX package's own errors.
+    Everything else these cases once refused runs now and is held to
+    what it builds: a ``dcn`` axis beside pipe and model (the JAX
+    builder's graph config), ZeRO, compressors and remat
     beside ``comm_overlap="rsag"`` and narrowed precisions under
     overlap, a stale PS with its bound, keyed dropout at one shard,
     ``stage_aux``."""
@@ -506,8 +506,21 @@ def test_out_of_slice_options_raise(what, jparams):
         lowered = ad.lower(tr, port.Strategy.from_json(json.dumps(d)))
         assert lowered.ssp_staleness == 2
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            port.ResourceSpec({"mesh": {"dcn": 2}})
+        # A dcn axis beside the pipe and model axes: the cross-slice
+        # replicas, counted and recorded as the JAX builder does.
+        from autodist_tpu.resource import ResourceSpec as JResourceSpec
+        from autodist_tpu.strategy.parallel_builders import \
+            Pipeline as JPipe
+
+        sliced = {"topology": {"num_devices": 4},
+                  "mesh": {"dcn": 2, "pipe": 1, "model": 2}}
+        kw = dict(PIPE, tensor_parallel=2)
+        mine = Pipeline(**kw).build(_port_trainable(jparams),
+                                    port.ResourceSpec(sliced))
+        theirs = JPipe(**kw).build(_jax_trainable(), JResourceSpec(sliced))
+        assert mine.graph_config.replicas == 2
+        assert json.loads(mine.to_json())["graph_config"] == \
+            json.loads(theirs.to_json())["graph_config"]
 
 
 def test_entry_points_default_to_the_card():

@@ -472,7 +472,9 @@ def test_out_of_slice_options_raise(what, jtrainable, jparams):
     """What this slice does not port raises ``NotImplementedError``
     naming its ROADMAP item.  The cases once refused that run now are
     held to what they build: the pipeline's compressors and remat
-    beside ``comm_overlap="rsag"``, and the GSPMD builders by name."""
+    beside ``comm_overlap="rsag"``, the GSPMD builders by name, and the
+    multi-slice spec (a ``dcn`` axis, ``topology.num_slices``) against
+    the JAX package's plan."""
     jstrategy = JaxAllReduce().build(
         jtrainable,
         JaxResourceSpec({"topology": {"num_devices": 1}}))
@@ -526,28 +528,46 @@ def test_out_of_slice_options_raise(what, jtrainable, jparams):
         assert isinstance(runner, port.AsyncPSRunner)
         runner.close()
         return
+    if what == "mesh_axis":
+        # A dcn axis is the outer replica axis: the AllReduce plan of a
+        # dcn x data layout (planned on the declared devices) is the
+        # JAX package's.
+        sliced = {"topology": {"num_devices": 2}, "mesh": {"data": 1,
+                                                          "dcn": 2}}
+        strategy = port.AllReduce().build(
+            _port_trainable(port.optim.sgd(0.1), jparams),
+            port.ResourceSpec(sliced))
+        jdoc = JaxAllReduce().build(jtrainable,
+                                    JaxResourceSpec(sliced)).to_json()
+        assert strategy.graph_config.replicas == 2
+        assert json.loads(strategy.to_json())["graph_config"] == \
+            json.loads(jdoc)["graph_config"]
+        return
+    if what == "topology_key":
+        # platform, generation and num_slices are ported; an unknown
+        # key is refused.
+        port.ResourceSpec({"topology": {"platform": "gpu",
+                                        "generation": "h100"}})
+        assert port.ResourceSpec({"topology": {
+            "num_devices": 4, "num_slices": 2}}).resolved_mesh_shape() \
+            == {"dcn": 2, "data": 2}
+        with pytest.raises(ValueError, match="unknown topology keys"):
+            port.ResourceSpec({"topology": {"num_pods": 2}})
+        return
+    if what == "multihost":
+        # The multihost block plans on a declared device count until it
+        # bootstraps, a dcn axis among its mesh axes.
+        spec = port.ResourceSpec({"topology": {"num_devices": 2},
+                                  "multihost": {"num_processes": 2}})
+        assert spec.is_multihost and spec.num_devices() == 2
+        sliced = port.ResourceSpec({"topology": {"num_devices": 2},
+                                    "multihost": {"num_processes": 2},
+                                    "mesh": {"dcn": 2, "data": 1}})
+        assert sliced.three_d() == (2, 1, 1)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        if what == "mesh_axis":
-            port.ResourceSpec({"mesh": {"data": 1, "dcn": 2}})
-        elif what == "topology_key":
-            # platform and generation are ported; multi-slice is not.
-            port.ResourceSpec({"topology": {"platform": "gpu",
-                                            "generation": "h100"}})
-            with pytest.raises(NotImplementedError,
-                               match="item 9: runtime and multi-host"):
-                port.ResourceSpec({"topology": {"num_slices": 2}})
-            port.ResourceSpec({"topology": {"num_slices": 2}})
-        elif what == "multihost":
-            # The multihost block is ported (it plans on a declared
-            # device count until it bootstraps); a dcn axis is not.
-            spec = port.ResourceSpec({"topology": {"num_devices": 2},
-                                      "multihost": {"num_processes": 2}})
-            assert spec.is_multihost and spec.num_devices() == 2
-            port.ResourceSpec({"multihost": {"num_processes": 2},
-                               "mesh": {"dcn": 2}})
-        else:
-            # The default builder runs; AutoStrategy does not yet.
-            port.AutoDist({}, "AutoStrategy")
+        # The default builder runs; AutoStrategy does not yet.
+        port.AutoDist({}, "AutoStrategy")
 
 
 def test_chip_spec_is_the_h100s_alone():
